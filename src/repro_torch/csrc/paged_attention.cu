@@ -1,0 +1,123 @@
+// Paged attention over a page table, f32, for Hopper (sm_90a).
+//
+// Replaces repro/kernels/paged_attention/kernel.py:paged_attention_pallas.
+// Computes what repro_torch/kernels/paged_attention/ref.py computes:
+//   q [m, Sq, hd], kv_pages [n_pages, pt, 2, hd] (K and V interleaved),
+//   ids [m, k] int32 -> out [m, Sq, hd]; row (i, s) attends over the
+//   pt*k tokens of pages ids[i, :].  id < 0 masks the page; a fully masked
+//   row gives 0 (acc / max(l, 1e-30)), never NaN; causal keeps key u iff
+//   u <= s + (Sk - Sq) with Sk = k*pt, masked pages counted.  The caller
+//   applies the softmax scale to q before the launch.
+//
+// Design: one block per (i, s) query row with hd threads (hd % 32 == 0,
+// hd <= 1024).  The block walks j = 0..k-1 and reads ids[i, j] itself (the
+// TPU kernel got it by scalar prefetch).  A masked page is skipped outright:
+// it adds nothing, so it is not even read (the TPU still moved a clamped
+// row because its schedule was static).  Per page, warp w computes the
+// scores of tokens w, w+n_warps, ... with a shuffle reduction over the
+// lanes' hd/32 slices of q.k; then every thread folds the page into an
+// fp32 online softmax (m, l, acc) for its own output column, as
+// _accumulate does in the TPU kernel.
+//
+// Bound: the bytes it must read, valid pages x pt x 2 x hd x 4, at the
+// card's memory rate; the arithmetic is ~4 flops per byte read.  This first
+// version does not approach that bound when few rows are valid: each row's
+// page walk is serial inside one block.  Making it fast — split-K over
+// pages with a second reduction pass, cp.async/TMA staging of the next
+// page, more than one query row per block — is later work.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kNegInf = -1e30f;
+constexpr int kMaxChunks = 32;  // hd / 32 <= 32, i.e. hd <= 1024
+
+__global__ void paged_attention_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ kv,
+    const int32_t* __restrict__ ids, float* __restrict__ out,
+    int Sq, int hd, int n_pages, int pt, int k, int causal) {
+  extern __shared__ float scores[];  // [pt] scores of the current page
+  const int row = blockIdx.x;        // i * Sq + s
+  const int i = row / Sq;
+  const int s = row - i * Sq;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int chunks = hd >> 5;
+
+  // this lane's slice of q for the warp dot products: q[c * 32 + lane]
+  const float* q_row = q + (size_t)row * hd;
+  float q_reg[kMaxChunks];
+#pragma unroll
+  for (int c = 0; c < kMaxChunks; ++c)
+    q_reg[c] = (c < chunks) ? q_row[c * 32 + lane] : 0.0f;
+
+  const int horizon = s + k * pt - Sq;  // causal: key u visible iff u <= horizon
+  const size_t page_elems = (size_t)pt * 2 * hd;
+  const size_t token_stride = (size_t)2 * hd;
+  const int32_t* id_row = ids + (size_t)i * k;
+
+  float m_run = kNegInf, l_run = 0.0f, acc = 0.0f;
+  for (int j = 0; j < k; ++j) {
+    int pid = id_row[j];  // the same for every thread: control flow is uniform
+    if (pid < 0) continue;                   // masked page: adds nothing
+    if (causal && j * pt > horizon) break;   // this and every later page masked
+    if (pid >= n_pages) pid = n_pages - 1;   // clamp, as the reference does
+    const float* page = kv + (size_t)pid * page_elems;
+    const int n_vis = causal ? min(pt, horizon - j * pt + 1) : pt;
+
+    // scores of the page's visible tokens: warp w takes w, w + n_warps, ...
+    for (int u = warp; u < n_vis; u += n_warps) {
+      const float* k_row = page + (size_t)u * token_stride;
+      float d = 0.0f;
+#pragma unroll
+      for (int c = 0; c < kMaxChunks; ++c)
+        if (c < chunks) d += q_reg[c] * k_row[c * 32 + lane];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        d += __shfl_xor_sync(0xffffffffu, d, off);
+      if (lane == 0) scores[u] = d;
+    }
+    __syncthreads();
+
+    // online softmax step for this thread's output column t
+    float m_pg = kNegInf;
+    for (int u = 0; u < n_vis; ++u) m_pg = fmaxf(m_pg, scores[u]);
+    const float m_new = fmaxf(m_run, m_pg);
+    const float corr = expf(m_run - m_new);
+    const float* v_col = page + hd + t;
+    float p_sum = 0.0f, pv = 0.0f;
+#pragma unroll 4
+    for (int u = 0; u < n_vis; ++u) {
+      const float p = expf(scores[u] - m_new);
+      p_sum += p;
+      pv += p * v_col[(size_t)u * token_stride];
+    }
+    l_run = l_run * corr + p_sum;
+    acc = acc * corr + pv;
+    m_run = m_new;
+    __syncthreads();  // scores[] is rewritten by the next page
+  }
+  out[(size_t)row * hd + t] = acc / fmaxf(l_run, 1e-30f);
+}
+
+}  // namespace
+
+// C entry: pointers and the stream as void*, sizes as int.  Returns
+// cudaGetLastError() after the launch (0 = launched).
+extern "C" int paged_attention_f32(const void* q, const void* kv_pages,
+                                   const void* ids, void* out, int m, int Sq,
+                                   int hd, int n_pages, int pt, int k,
+                                   int causal, void* stream) {
+  const int rows = m * Sq;
+  if (rows == 0) return (int)cudaSuccess;
+  const size_t smem = (size_t)pt * sizeof(float);
+  paged_attention_f32_kernel<<<rows, hd, smem, (cudaStream_t)stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(kv_pages),
+      static_cast<const int32_t*>(ids), static_cast<float*>(out), Sq, hd,
+      n_pages, pt, k, causal);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,89 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface.  On first use it is
+compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
+``build/kernels/`` at the repository root and loaded with `ctypes`; nothing
+includes PyTorch's headers, so a build takes seconds.  The library's file
+name carries a hash of the source and the flags, so an edited source is
+rebuilt and a stale library is never loaded.  Builds happen only when a
+kernel is first launched, never at import: the CPU tests import every
+module on machines without ``nvcc``.
+
+C entries take pointers and the stream as ``ctypes.c_void_p`` (a plain
+``int`` argument would be cut to 32 bits) and return ``cudaGetLastError()``;
+`check` raises on anything but 0, since a refused launch never runs and a
+later synchronise does not report it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+# nvcc's stderr per kernel (ptxas register / shared-memory / spill report)
+BUILD_LOG: dict[str, str] = {}
+
+
+class KernelBuildError(RuntimeError):
+    pass
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise KernelBuildError("nvcc not found (put the CUDA toolkit's bin on PATH)")
+
+
+def library_path(name: str) -> Path:
+    """Where `name`'s library goes: keyed by a hash of source + flags."""
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_LOG[name] = proc.stderr
+    if proc.returncode != 0:
+        raise KernelBuildError(
+            f"nvcc failed for {name} (rc={proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)        # atomic: a concurrent build never sees half a file
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = _LIBS[name] = ctypes.CDLL(str(build(name)))
+        return lib
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA launch of {name} failed: cudaError {rc}")

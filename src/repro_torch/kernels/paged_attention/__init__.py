@@ -1,0 +1,1 @@
+"""Fused paged attention: plain version (`ref`) and kernel wrapper (`ops`)."""

@@ -1,0 +1,209 @@
+"""Credit-based flow control for rmaq channels (the `repro.rmaq.flow`
+counterpart over the stacked rank axis).
+
+Each rank publishes ``granted[p, L]``: the cumulative ring slots it has
+granted producer r on lane l (a static partition of the capacity plus one
+credit per drained message).  A producer keeps ``sent`` and ``limit`` (the
+last-fetched grant) per (target, lane); its credit cache is ``limit -
+sent``.  A send spends from the cache and *defers* what it cannot cover —
+nothing is ever rejected at the ring, nothing is replayed.  The refresh of
+``limit`` rides the enqueue epoch's reservation gather as a rider (zero
+marginal wire transfers) and lands for the next epoch.  Conservation per
+target: ``sum granted - head == capacity`` at all times.
+
+Global view: every leaf ``[p, p, L]`` — row r is rank r's local ``[p, L]``.
+The counters are uint32 in the reference; here they are int64 holding
+uint32 values, masked with ``& 0xFFFFFFFF`` wherever the reference wraps.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core.plan import U32_MASK, u32_from_wire, u32_to_wire
+from ..mesh import Mesh
+from ..obs import trace as obs_trace
+from . import channel as rch
+from . import queue as rq
+
+
+class FlowError(RuntimeError):
+    pass
+
+
+class FlowState(NamedTuple):
+    """Credit state of every rank; each leaf [p, p, L] int64 (uint32 values).
+
+    `sent` / `limit` are origin-private (row r, column t = r's traffic
+    toward target t); `granted` is the published block (row t, column r =
+    what t granted producer r)."""
+
+    sent: torch.Tensor
+    limit: torch.Tensor
+    granted: torch.Tensor
+
+
+class FlowReceipt(NamedTuple):
+    accepted: torch.Tensor    # [p, k] bool — credit-admitted AND delivered
+    deferred: torch.Tensor    # [p, k] bool — valid but uncredited: never wired
+    n_sent: torch.Tensor      # [p]
+    n_deferred: torch.Tensor  # [p]
+    refreshed: torch.Tensor   # [p] bool — the cached credits ran dry
+    rejected: torch.Tensor    # [p] ring-admission rejections (must stay 0)
+
+
+# ------------------------------------------------------------------ creation
+def initial_grants(p: int, n_lanes: int, capacity: int,
+                   n_producers: Optional[int] = None) -> np.ndarray:
+    """[p, L] uint32 static partition of one ring among producer-lanes (the
+    first `n_producers` ranks; remainder to the lexicographically first
+    pairs), so grants sum to capacity."""
+    nprod = p if n_producers is None else n_producers
+    if not 0 < nprod <= p:
+        raise FlowError(f"need 0 < n_producers <= {p}, got {nprod}")
+    if capacity < nprod * n_lanes:
+        raise FlowError(
+            f"capacity {capacity} < n_producers*n_lanes = {nprod * n_lanes}: "
+            "every producer-lane needs at least one initial credit")
+    base, rem = divmod(capacity, nprod * n_lanes)
+    g = np.zeros((p, n_lanes), np.uint32)
+    for i in range(nprod * n_lanes):
+        r, lane = divmod(i, n_lanes)
+        g[r, lane] = base + (1 if i < rem else 0)
+    return g
+
+
+def flow_attach(mesh: Mesh, channel: rch.Channel,
+                n_producers: Optional[int] = None) -> FlowState:
+    """Allocate the credit state for an existing channel."""
+    p, L = mesh.p, len(channel.lanes)
+    g = torch.as_tensor(initial_grants(p, L, channel.desc.capacity, n_producers)
+                        .astype(np.int64), device=mesh.device)
+    granted = g[None].expand(p, p, L).clone()
+    limit = g[:, None, :].expand(p, p, L).clone()
+    sent = torch.zeros((p, p, L), dtype=torch.int64, device=mesh.device)
+    return FlowState(sent, limit, granted)
+
+
+def flow_allocate(mesh: Mesh, capacity: int, lanes: Sequence[rch.Lane],
+                  n_producers: Optional[int] = None):
+    """Channel + queue + credit state in one call."""
+    channel, qstate = rch.channel_allocate(mesh, capacity, lanes)
+    return channel, qstate, flow_attach(mesh, channel, n_producers)
+
+
+def credits(fstate: FlowState) -> torch.Tensor:
+    """[p, p, L] — every sender's local credit cache (limit - sent), as the
+    reference's uint32 difference read as int32."""
+    d = (fstate.limit - fstate.sent) & U32_MASK
+    return torch.where(d >= 1 << 31, d - (1 << 32), d)
+
+
+def _advance_limit(limit: torch.Tensor, fresh: torch.Tensor) -> torch.Tensor:
+    """Move the cached limit forward to `fresh` in wrap-safe modular order:
+    `fresh` is ahead iff the modular difference is < 2**31."""
+    delta = (fresh - limit) & U32_MASK
+    ahead = delta < (1 << 31)
+    return (limit + torch.where(ahead, delta, torch.zeros_like(delta))) & U32_MASK
+
+
+# ---------------------------------------------------------------- send / recv
+def send(channel: rch.Channel, qstate: rq.QueueState, fstate: FlowState,
+         name: str, payload: torch.Tensor, tag: torch.Tensor,
+         dest: torch.Tensor, lane: Optional[torch.Tensor] = None):
+    """Credit-gated channel send (collective).  payload [p, k, *lane.shape],
+    tag/dest [p, k]; `lane` ([p, k]) selects a runtime lane per message.
+    Returns (qstate, fstate, FlowReceipt)."""
+    desc = channel.desc
+    mesh = desc.mesh
+    p, L = mesh.p, len(channel.lanes)
+    k = dest.shape[1]
+    tr = obs_trace.TRACER
+    if tr.enabled:
+        tr.event("flow.send_epoch", axis=desc.axis, k=int(k), lane=name)
+    if lane is None:
+        lane = torch.full_like(dest, channel.lane_id(name))
+    lane = lane.to(torch.int64)
+    dest = dest.to(torch.int64)
+
+    valid = (dest >= 0) & (dest < p) & (lane >= 0) & (lane < L)
+    zero = torch.zeros_like(dest)
+    dest_safe = torch.where(valid, dest, zero)
+    lane_safe = torch.where(valid, lane, zero)
+    rows = mesh.axis_index()[:, None].expand_as(dest)
+
+    # ---- spend from the local cache: per-(target, lane) FIFO admission
+    avail = credits(fstate)                                    # [p, p, L]
+    pos = rq._fifo_pos(dest_safe * L + lane_safe, valid, p * L)
+    ok = valid & (pos < avail[rows, dest_safe, lane_safe])
+    dry = valid & ~ok
+    stage_dest = torch.where(ok, dest, torch.full_like(dest, -1))
+
+    # ---- the wire epoch: 2 fused transfers; the credit refresh rides the
+    # reservation gather as a kind-less rider
+    msgs = channel.packed(name, payload, tag, lane_id=lane)
+    qstate, receipt, (granted_all,) = rq.enqueue_epoch(
+        desc, qstate, msgs, stage_dest,
+        reserve_riders=(u32_to_wire(fstate.granted),))
+
+    # ---- debit the cache, apply the refresh (visible next epoch)
+    spent = torch.zeros_like(fstate.sent).index_put_(
+        (rows, dest_safe, lane_safe), ok.to(torch.int64), accumulate=True)
+    # what each owner t grants ME: granted_all[me][t, me, :]
+    fresh = u32_from_wire(mesh.replicated(granted_all)).transpose(0, 1)
+    fstate = FlowState(
+        sent=(fstate.sent + spent) & U32_MASK,
+        limit=_advance_limit(fstate.limit, fresh),
+        granted=fstate.granted,
+    )
+    flow_receipt = FlowReceipt(
+        accepted=receipt.accepted,
+        deferred=dry,
+        n_sent=receipt.n_sent,
+        n_deferred=dry.sum(dim=1),
+        refreshed=dry.any(dim=1),
+        rejected=(ok & ~receipt.accepted).sum(dim=1),
+    )
+    return qstate, fstate, flow_receipt
+
+
+def recv(channel: rch.Channel, qstate: rq.QueueState, fstate: FlowState,
+         max_n: int):
+    """Owner-local drain that returns credits: every drained message grants
+    one slot back to the (producer, lane) that sent it — head and grant move
+    in lockstep (the conservation invariant).  `granted` is bumped in place."""
+    L = len(channel.lanes)
+    qstate, batch = channel.recv(qstate, max_n)
+    ok = batch.valid & (batch.lane_id >= 0) & (batch.lane_id < L)
+    zero = torch.zeros_like(batch.src, dtype=torch.int64)
+    src_safe = torch.where(ok, batch.src.to(torch.int64), zero)
+    lane_safe = torch.where(ok, batch.lane_id.to(torch.int64), zero)
+    rows = channel.desc.mesh.axis_index()[:, None].expand_as(src_safe)
+    granted = fstate.granted
+    granted.index_put_((rows, src_safe, lane_safe), ok.to(torch.int64),
+                       accumulate=True)
+    granted &= U32_MASK
+    return qstate, fstate._replace(granted=granted), batch
+
+
+# ------------------------------------------------------------------ invariants
+def conservation(channel: rch.Channel, qstate: rq.QueueState,
+                 fstate: FlowState) -> dict:
+    """Global-view conservation check (host side).  For every target t:
+    sum_{r,l} granted[t,r,l] - head[t] == capacity and outstanding credits
+    + ring occupancy == capacity (exact until the counters wrap)."""
+    granted = fstate.granted.cpu().numpy().astype(np.int64)   # [t, r, L]
+    sent = fstate.sent.cpu().numpy().astype(np.int64)         # [r, t, L]
+    ctrs = qstate.ctrs.cpu().numpy().astype(np.int64)         # [t, 5]
+    head, tail = ctrs[:, rq.HEAD], ctrs[:, rq.TAIL]
+    outstanding = granted.sum(axis=(1, 2)) - sent.sum(axis=(0, 2))
+    occupancy = tail - head
+    return {
+        "granted_minus_head": granted.sum(axis=(1, 2)) - head,
+        "outstanding_plus_occupancy": outstanding + occupancy,
+        "occupancy": occupancy,
+        "capacity": channel.desc.capacity,
+    }

@@ -1,0 +1,265 @@
+"""MPSC ring-buffer message queues over RMA windows (the `repro.rmaq.queue`
+counterpart over the stacked rank axis).
+
+Every window rank owns one fixed-capacity multi-producer/single-consumer
+ring in an allocated window.  One enqueue epoch is the reference protocol:
+
+  1. **reserve** — every producer's per-target message counts and every
+     target's counter block ride ONE fused gather (the rank-ordered
+     fetch-and-add: producers in rank order, messages in program order);
+  2. **admit** — slots are granted up to the ring's free space; the rest is
+     rejected at the origin (the backpressure signal, never an overwrite);
+  3. **put + notify** — payloads, sequence numbers and notification flags
+     ride ONE fused all-to-all, and each owner scatters into disjoint slots
+     (``seq & (capacity-1)``) and publishes its tail.
+
+Global view: ``buf [p, capacity, item_w]``, ``ctrs [p, 5]``.  The counters
+are uint32 in the reference; here they are int64 holding uint32 values, and
+every place the reference wraps masks with ``& 0xFFFFFFFF``, so behaviour
+matches at wrap as well.  On the wire they travel as 32-bit words.
+
+The ring and counters are updated **in place** (the caller threads the
+returned state, as in the reference): a functional update would copy the
+whole ring every epoch.  Ring cells hold bitcast headers and payloads, so
+they only ever move by copy, index or `where`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..core import plan as plan_mod
+from ..core import window as window_mod
+from ..core.plan import U32_MASK, u32_from_wire, u32_to_wire
+from ..mesh import Mesh
+from ..obs import trace as obs_trace
+
+# counter-block columns (one uint32 row of 5 per rank)
+HEAD, TAIL, ENQ, DROP, NOTIF = range(5)
+N_CTRS = 5
+
+
+class QueueError(RuntimeError):
+    pass
+
+
+class QueueState(NamedTuple):
+    """Device state of every rank's queue: buf [p, capacity, item_w],
+    ctrs [p, 5] int64 (uint32 values)."""
+
+    buf: torch.Tensor
+    ctrs: torch.Tensor
+
+
+class EnqueueReceipt(NamedTuple):
+    accepted: torch.Tensor       # [p, k] bool — per input message: granted?
+    n_sent: torch.Tensor         # [p] int — messages accepted somewhere
+    n_dropped: torch.Tensor      # [p] int — valid messages rejected
+    incoming: torch.Tensor       # [p, p] — msgs admitted into MY ring, per producer
+    notifications: torch.Tensor  # [p] — notifications delivered to me
+
+
+@dataclasses.dataclass(frozen=True)
+class QueueDescriptor:
+    """O(1) metadata describing every rank's ring (the §2.2 property)."""
+
+    mesh: Mesh
+    capacity: int
+    item_shape: tuple
+    dtype: Any
+    window: window_mod.Window
+
+    @property
+    def axis(self) -> str:
+        return self.mesh.axis
+
+    @property
+    def item_width(self) -> int:
+        return int(np.prod(self.item_shape)) if self.item_shape else 1
+
+    @property
+    def mask(self) -> int:
+        return self.capacity - 1
+
+
+# ------------------------------------------------------------------ creation
+def queue_allocate(mesh: Mesh, capacity: int, item_shape: tuple = (),
+                   dtype: Any = torch.float32) -> tuple[QueueDescriptor, QueueState]:
+    """Allocate one ring per rank inside an allocated window."""
+    if capacity < 2 or capacity & (capacity - 1):
+        raise QueueError(f"capacity must be a power of two >= 2, got {capacity}")
+    item_w = int(np.prod(item_shape)) if item_shape else 1
+    win, buf = window_mod.win_allocate(mesh, (capacity, item_w), dtype)
+    desc = QueueDescriptor(mesh, capacity, tuple(item_shape), dtype, win)
+    ctrs = torch.zeros((mesh.p, N_CTRS), dtype=torch.int64, device=mesh.device)
+    return desc, QueueState(buf, ctrs)
+
+
+# ------------------------------------------------------------ admission plan
+def admission_plan(C: torch.Tensor, used: torch.Tensor, capacity: int):
+    """Rank-ordered slot admission.
+
+    C[r, t]: messages producer r wants to enqueue at target t; used[t]: tail
+    - head at target t.  Returns (grant[r, t], offset[r, t]): how many of r's
+    messages t admits, and r's slot offset past t's current tail — the value
+    a rank-order-serialized fetch-and-add would have fetched."""
+    cum = torch.cumsum(C, dim=0) - C                     # exclusive prefix
+    free = (capacity - used).to(C.dtype)
+    grant = torch.clamp(free[None, :] - cum, min=torch.zeros_like(C), max=C)
+    offset = torch.minimum(cum, free[None, :].expand_as(cum))
+    return grant, offset
+
+
+def _fifo_pos(key: torch.Tensor, valid: torch.Tensor, n_keys: int) -> torch.Tensor:
+    """Program-order index of each message within its group (`key` in
+    [0, n_keys)), batched over any leading dims: the per-message
+    fetch-and-add result.  Invalid messages sort last."""
+    k = key.shape[-1]
+    key = torch.where(valid, key, torch.full_like(key, n_keys))
+    s_key, order = torch.sort(key, dim=-1, stable=True)
+    first = torch.searchsorted(s_key.contiguous(), s_key.contiguous(), side="left")
+    pos_sorted = torch.arange(k, device=key.device) - first
+    return torch.zeros_like(pos_sorted).scatter_(-1, order, pos_sorted)
+
+
+# ------------------------------------------------------------------- enqueue
+def enqueue_epoch(desc: QueueDescriptor, state: QueueState, msgs: torch.Tensor,
+                  dest: torch.Tensor, reserve_riders: tuple = ()):
+    """Collective enqueue epoch (all ranks).
+
+    msgs [p, k, *item_shape]; dest [p, k] int target ranks, -1 = no message.
+    Returns (state, receipt, rider_out): `reserve_riders` are extra [p, ...]
+    tensors all-gathered on the reservation plan — they ride the SAME fused
+    wire transfer as the counter fetch and come back as [p(me), p, ...]
+    each.  Rejected messages (receipt.accepted False) stay with the caller.
+    """
+    mesh = desc.mesh
+    p, cap = mesh.p, desc.capacity
+    k = dest.shape[1]
+    dev = dest.device
+    me = mesh.axis_index()
+    tr = obs_trace.TRACER
+    if tr.enabled:
+        tr.event("queue.enqueue_epoch", axis=desc.axis, k=int(k), p=int(p),
+                 riders=len(reserve_riders))
+    flat = msgs.reshape(p, k, desc.item_width).to(desc.dtype)
+
+    # out-of-range dests are "no message" (never accepted)
+    dest = dest.to(torch.int64)
+    valid = (dest >= 0) & (dest < p)
+    dest_safe = torch.where(valid, dest, torch.zeros_like(dest))
+    counts = (F.one_hot(dest_safe, p) * valid[..., None]).sum(dim=1).to(torch.int32)
+
+    # ---- 1. reserve: the count fetch, the counter-window read and the
+    # riders share ONE fused gather
+    rplan = plan_mod.RmaPlan(mesh)
+    h_C = rplan.all_gather(counts, kind="gets")
+    h_ctrs = rplan.all_gather(u32_to_wire(state.ctrs), kind="accs")
+    h_riders = [rplan.all_gather(r, kind=None) for r in reserve_riders]
+    rplan.flush(aggregate=True)
+    C = mesh.replicated(h_C.result()).to(torch.int64)             # [p, p]
+    ctrs_all = u32_from_wire(mesh.replicated(h_ctrs.result()))    # [p, 5]
+    rider_out = tuple(h.result() for h in h_riders)
+    tails = ctrs_all[:, TAIL]
+    used = (tails - ctrs_all[:, HEAD]) & U32_MASK
+
+    # ---- 2. admit up to free space, producers served in rank order
+    grant, offset = admission_plan(C, used, cap)                  # [p, p]
+    base = (tails[None, :] + offset) & U32_MASK
+
+    rows = me[:, None]
+    pos = _fifo_pos(dest, valid, p)                               # [p, k]
+    accepted = valid & (pos < grant[rows, dest_safe])
+    seq = (base[rows, dest_safe] + pos) & U32_MASK
+
+    # ---- 3. put + notify: pack granted payloads per target; row p*k of
+    # the send buffers is the trash row for rejected messages
+    slot_idx = dest_safe * k + pos
+    put_idx = torch.where(accepted, slot_idx, torch.full_like(slot_idx, p * k))
+    send_buf = torch.zeros((p, p * k + 1, desc.item_width), dtype=desc.dtype,
+                           device=dev)
+    send_buf[rows, put_idx] = flat
+    send_seq = torch.zeros((p, p * k + 1), dtype=torch.int32, device=dev)
+    send_seq[rows, put_idx] = u32_to_wire(seq)
+    send_val = torch.zeros((p, p * k + 1), dtype=torch.bool, device=dev)
+    send_val[rows, put_idx] = accepted
+
+    # payload + sequence numbers + notification flags: ONE fused transfer
+    pplan = plan_mod.RmaPlan(mesh)
+    h_buf = pplan.put_all_to_all(
+        send_buf[:, : p * k].reshape(p, p, k, desc.item_width), kind="puts")
+    h_seq = pplan.put_all_to_all(send_seq[:, : p * k].reshape(p, p, k), kind=None)
+    h_val = pplan.put_all_to_all(send_val[:, : p * k].reshape(p, p, k), kind="accs")
+    pplan.flush(aggregate=True)
+    recv_buf = h_buf.result().reshape(p, p * k, desc.item_width)
+    recv_seq = u32_from_wire(h_seq.result()).reshape(p, p * k)
+    in_val = h_val.result().reshape(p, p * k)
+
+    # ---- owner side: scatter into disjoint ring slots, publish the tail
+    r_idx, j_idx = in_val.nonzero(as_tuple=True)
+    in_slot = recv_seq[r_idx, j_idx] & desc.mask
+    state.buf[r_idx, in_slot] = recv_buf[r_idx, j_idx]
+    n_in = in_val.sum(dim=1)
+    ctrs = state.ctrs
+    for col in (TAIL, ENQ, NOTIF):
+        ctrs[:, col] = (ctrs[:, col] + n_in) & U32_MASK
+    n_sent = accepted.sum(dim=1)
+    n_dropped = (valid & ~accepted).sum(dim=1)
+    ctrs[:, DROP] = (ctrs[:, DROP] + n_dropped) & U32_MASK
+
+    receipt = EnqueueReceipt(
+        accepted=accepted,
+        n_sent=n_sent,
+        n_dropped=n_dropped,
+        incoming=grant.t(),
+        notifications=n_in,
+    )
+    return state, receipt, rider_out
+
+
+def enqueue(desc: QueueDescriptor, state: QueueState, msgs: torch.Tensor,
+            dest: torch.Tensor) -> tuple[QueueState, EnqueueReceipt]:
+    """`enqueue_epoch` without riders (the plain two-transfer append)."""
+    state, receipt, _ = enqueue_epoch(desc, state, msgs, dest)
+    return state, receipt
+
+
+# ------------------------------------------------------------------- dequeue
+def available(state: QueueState) -> torch.Tensor:
+    return (state.ctrs[:, TAIL] - state.ctrs[:, HEAD]) & U32_MASK
+
+
+def dequeue(desc: QueueDescriptor, state: QueueState, max_n: int):
+    """Owner-local drain of up to `max_n` messages per rank in arrival order.
+
+    Returns (state, items [p, max_n, *item_shape], valid [p, max_n]).
+    Purely local: head is consumer-private."""
+    tr = obs_trace.TRACER
+    if tr.enabled:
+        tr.event("queue.dequeue", axis=desc.axis, max_n=int(max_n))
+    p = desc.mesh.p
+    n = torch.clamp(available(state), max=max_n)                  # [p]
+    offs = torch.arange(max_n, device=state.ctrs.device)
+    valid = offs[None, :] < n[:, None]
+    idx = (state.ctrs[:, HEAD:HEAD + 1] + offs[None, :]) & desc.mask
+    items = state.buf[desc.mesh.axis_index()[:, None], idx]      # [p, max_n, w]
+    items = torch.where(valid[..., None], items, torch.zeros_like(items))
+    state.ctrs[:, HEAD] = (state.ctrs[:, HEAD] + n) & U32_MASK
+    return state, items.reshape((p, max_n) + tuple(desc.item_shape)), valid
+
+
+def stats(state: QueueState) -> dict:
+    """Message-count instrumentation (uint32 values, like the reference)."""
+    c = state.ctrs
+    return {
+        "head": c[..., HEAD],
+        "tail": c[..., TAIL],
+        "enqueued": c[..., ENQ],
+        "dropped_by_me": c[..., DROP],
+        "notifications": c[..., NOTIF],
+    }
