@@ -25,8 +25,36 @@ no result line):
      the sums differs);
   5. timings with CUDA events at the main-path inputs: kernel, plain
      version, F.scaled_dot_product_attention over pre-gathered K/V (a
-     yardstick the port never calls) and the bound (bytes read at
-     3.35 TB/s or f32 flops at 67 TFLOP/s, whichever is larger).
+     yardstick the port never calls) and the bound (bytes read at the
+     H100 model's HBM rate, 3.35 TB/s, or f32 flops at 67 TFLOP/s,
+     whichever is larger);
+  6. the MILC halo stencil (`repro_torch.apps.milc`) at p=131,072 ranks of
+     the paper's weak-scaling local volume 8x4x4x4 sites x 6 f32 (a 1.5 GiB
+     lattice, 192 MiB halos each way): 5 steps as a user calls them, every
+     output equal to the plain whole-lattice stencil within 1e-5, 2
+     put_shift launches a step (the halo views are read in place), per step
+     OpCounter puts 2 / raw 2 / coalesced 2 and SyncStats post 2 /
+     complete 2; ms/step, beside the same step with the plans' groups sent
+     through the plain PyTorch put instead (for comparison only);
+  7. RMA all-reduce (`core.collectives.all_reduce`) of p=8 ranks x 25 MiB
+     f32 (PyTorch DDP's default bucket), as a user calls it: rel err <= 1e-5
+     against x.sum(0) and (p-1) + 2*ceil((p-1)/2) = 15 put_shift launches;
+  8. the `kernels.rma.ops` surface on the same data: a get-based halo pull,
+     an accumulate into the neighbour's boundary slice and the kernel
+     all-gather of the all-reduce's shards, each against the RMA schedule's
+     own result;
+  9. each rma kernel against its plain version at the halo and all-reduce
+     chunk shapes and at edge cases (shift 0, -1, >= p, p = 1, rows that
+     are not whole 16-byte vectors, a view whose rank block is not
+     contiguous): bit-equal;
+ 10. rma kernel timings with CUDA events at the main paths' inputs (the
+     halo views as the stencil passes them: kernel, plain, torch.roll /
+     index_add / expand yardsticks, Tensor.copy_ of the same bytes, and the
+     bytes bound at 3.35 TB/s), and the H100 model's measured constants:
+     the PyTorch op's launch latency, the event latency, the copy_ rate.
+
+Each path is driven with the kernel launch counts set to 0 just before it
+and read just after.
 
 The second-to-last line is one JSON object of per-kernel numbers; the last
 is ``{"ok": true, "device": {...}}``.
@@ -35,6 +63,7 @@ is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import subprocess
@@ -44,19 +73,30 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 TOL = 1e-4                      # kernel vs plain, f32, different sum order
+SOURCES = ("paged_attention", "rma")      # csrc/<name>.cu, one nvcc each
 KERNELS = {
     # name -> (route, source, TPU kernel it replaces)
     "paged_attention": ("cuda", "src/repro_torch/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention/kernel.py:99"),
+    "put_shift": ("cuda", "src/repro_torch/csrc/rma.cu",
+                  "src/repro/kernels/rma/kernel.py:48"),
+    "get_shift": ("cuda", "src/repro_torch/csrc/rma.cu",
+                  "src/repro/kernels/rma/kernel.py:80"),
+    "accumulate_shift": ("cuda", "src/repro_torch/csrc/rma.cu",
+                         "src/repro/kernels/rma/kernel.py:114"),
+    "ring_all_gather": ("cuda", "src/repro_torch/csrc/rma.cu",
+                        "src/repro/kernels/rma/kernel.py:168"),
 }
 FULL = dict(n_prefill=2, d_model=128, vocab=32000, page_tokens=16,
             block_tokens=2048, pool_pages=8192, queue_capacity=64,
             max_recv_per_step=16, n_lanes=2, novel_slots=128)
 N_FUSED, N_GATHER, N_INLINE = 256, 64, 64
 N_PREFIX_GROUPS = 4             # requests share one of 4 half-length prefixes
+MILC_P, MILC_LOCAL = 131072, (8, 4, 4, 4, 6)   # ranks; T_local, X, Y, Z, reals
+MILC_STEPS, MILC_TOL = 5, 1e-5  # the example's own tolerance
+AR_P, AR_MIB, AR_TOL = 8, 25, 1e-5
 
 
 def log(msg: str) -> None:
@@ -73,8 +113,8 @@ def card_line() -> str:
 def build_all(common) -> None:
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as ex:
-        for name, path in zip(KERNELS, ex.map(common.build, KERNELS)):
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as ex:
+        for name, path in zip(SOURCES, ex.map(common.build, SOURCES)):
             log(f"built {name}: {path.name}")
             for line in common.BUILD_LOG.get(name, "").splitlines():
                 if "registers" in line or "spill" in line:
@@ -188,6 +228,7 @@ def main() -> int:
         return 1
     import torch.nn.functional as F
 
+    from repro_torch.core.perfmodel import H100
     from repro_torch.kernels import common
     from repro_torch.kernels.paged_attention import ops, ref
     from repro_torch.serve import disagg
@@ -257,7 +298,7 @@ def main() -> int:
     del kv_rows, k_all, v_all
     nbytes = valid_pages * pt * 2 * hd * 4 + 2 * q.numel() * 4 + ids.numel() * 4
     flops = 4 * valid_pages * pt * hd
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bytes_ms = nbytes / H100.hbm_bandwidth * 1e3
     ops_ms = flops / F32_FLOPS_PER_S * 1e3
     bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
     log(f"paged_attention at the busiest step: q {tuple(q.shape)}, pool "
@@ -300,12 +341,314 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": library_ms,
     }]
+    torch.cuda.empty_cache()
+    kernels += rma_phases(torch)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 
+
+# ------------------------------------------------------- the one-sided layer
+def zero_rma_launches(rma_ops) -> None:
+    for k in rma_ops.launches:
+        rma_ops.launches[k] = 0
+
+
+@contextlib.contextmanager
+def plain_route(plan_mod):
+    """Sends every plan group through the plain PyTorch put (the mesh), for
+    a comparison timing only: the counted runs never use it."""
+    real = plan_mod._route
+    plan_mod._route = lambda sig, ops, pack, backend: "torch"
+    try:
+        yield
+    finally:
+        plan_mod._route = real
+
+
+def milc_phase(torch, plan_mod, epoch_mod, rma_ops, milc, Mesh, OpCounter) -> dict:
+    """The MILC halo stencil at p=131,072 as a user calls it, checked and
+    counted step by step; then timed, beside the plain put route."""
+    mesh = Mesh(MILC_P, "t", device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    lat = torch.randn((MILC_P,) + MILC_LOCAL, device="cuda", generator=g)
+    log(f"milc: lattice {tuple(lat.shape)} f32, {lat.numel() * 4 / 2**30:.2f} GiB, "
+        f"halo {lat[:, :1].numel() * 4 / 2**20:.0f} MiB each way")
+
+    zero_rma_launches(rma_ops)
+    v, err = lat, 0.0
+    for step in range(MILC_STEPS):
+        before = dict(rma_ops.launches)
+        with OpCounter() as c, opened_epochs(epoch_mod) as eps:
+            out = milc.stencil_step(v, mesh)
+        want = milc.stencil_reference(v)
+        e = float((out - want).abs().max())
+        if not torch.isfinite(out).all() or e > MILC_TOL:
+            raise AssertionError(f"milc step {step}: max abs err {e} > {MILC_TOL}")
+        err = max(err, e)
+        got = rma_ops.launches["put_shift"] - before["put_shift"]
+        counts = (c.puts, c.raw_msgs, c.coalesced_msgs)
+        sync = [(ep.stats.post_msgs, ep.stats.complete_msgs) for ep in eps]
+        if got != 2 or counts != (2, 2, 2) or sync != [(2, 2)]:
+            raise AssertionError(
+                f"milc step {step}: {got} put_shift launches, puts/raw/coalesced "
+                f"{counts}, PSCW post/complete {sync}; want 2, (2, 2, 2), [(2, 2)]")
+        del want
+        v = out * 0.0625                     # keep magnitudes O(1); exact in f32
+    milc_launches = dict(rma_ops.launches)
+    if milc_launches["put_shift"] != 2 * MILC_STEPS:
+        raise AssertionError(f"milc: {milc_launches} launches in {MILC_STEPS} steps")
+    log(f"milc: {MILC_STEPS} steps, max abs err {err:.3g} (tol {MILC_TOL}), "
+        f"put_shift launches {milc_launches['put_shift']} (want {2 * MILC_STEPS}), "
+        f"per step OpCounter puts/raw/coalesced 2/2/2 and SyncStats post/complete 2/2")
+
+    cuda_ms = time_steps(torch, milc, mesh, lat)
+    before = rma_ops.launches["put_shift"]
+    with plain_route(plan_mod):
+        torch_ms = time_steps(torch, milc, mesh, lat)
+    if rma_ops.launches["put_shift"] != before:
+        raise AssertionError("the plain put route launched the kernel")
+    log(f"milc ms/step: {cuda_ms:.3f} through the put kernel, {torch_ms:.3f} "
+        f"through the plain put")
+    return {"launches": milc_launches, "err": err, "lat": lat, "mesh": mesh}
+
+
+@contextlib.contextmanager
+def opened_epochs(epoch_mod):
+    """Collects the PSCW epochs the app opens inside the block, so their
+    SyncStats can be read after the step."""
+    seen = []
+    real = epoch_mod.PSCWEpoch.__init__
+
+    def tap(self, *a, **kw):
+        real(self, *a, **kw)
+        seen.append(self)
+
+    epoch_mod.PSCWEpoch.__init__ = tap
+    try:
+        yield seen
+    finally:
+        epoch_mod.PSCWEpoch.__init__ = real
+
+
+def time_steps(torch, milc, mesh, lat, n: int = MILC_STEPS) -> float:
+    milc.stencil_step(lat, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        milc.stencil_step(lat, mesh)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def all_reduce_phase(torch, plan_mod, rma_ops, collectives, Mesh) -> dict:
+    mesh = Mesh(AR_P, "dp", device="cuda")
+    n = AR_MIB * 2**20 // 4
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(AR_P, n, device="cuda", generator=g)
+    want = x.sum(0)
+    expected = (AR_P - 1) + 2 * -(-(AR_P - 1) // 2)
+    zero_rma_launches(rma_ops)
+    out = collectives.all_reduce(x, mesh)
+    torch.cuda.synchronize()
+    launches = dict(rma_ops.launches)
+    t0 = time.perf_counter()
+    collectives.all_reduce(x, mesh)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    rel = float((out - want).abs().max() / want.abs().max())
+    if not torch.isfinite(out).all() or rel > AR_TOL:
+        raise AssertionError(f"all_reduce: rel err {rel} > {AR_TOL}")
+    if launches["put_shift"] != expected:
+        raise AssertionError(f"all_reduce: {launches['put_shift']} put_shift launches, "
+                             f"want {expected}")
+    log(f"all_reduce p={AR_P} x {AR_MIB} MiB f32: rel err {rel:.3g} (tol {AR_TOL}), "
+        f"put_shift launches {launches['put_shift']} (expected (p-1) + 2*ceil((p-1)/2) "
+        f"= {expected}), {ms:.3f} ms")
+    return {"launches": launches, "x": x, "mesh": mesh}
+
+
+def ops_phase(torch, rma_ops, collectives, milc_run, ar_run) -> dict:
+    """The `kernels.rma.ops` surface on the main paths' data, each result
+    against the RMA schedule's own."""
+    mesh, lat = milc_run["mesh"], milc_run["lat"]
+    want = collectives.halo_exchange_1d(lat, 1, mesh, dim=0)
+    zero_rma_launches(rma_ops)
+    lo = rma_ops.get_shift(lat[:, :1], +1, mesh)       # the right neighbour's low slice
+    hi = rma_ops.get_shift(lat[:, -1:], -1, mesh)      # the left neighbour's high slice
+    acc = rma_ops.accumulate_shift(lat[:, -1:], lat[:, :1], +1, mesh)
+    armesh = ar_run["mesh"]
+    shard = ar_run["x"].reshape(AR_P, AR_P, -1)[:, 0].contiguous()
+    gathered = rma_ops.ring_all_gather(shard, armesh)
+    torch.cuda.synchronize()
+    launches = dict(rma_ops.launches)
+    if not (torch.equal(hi, want[:, :1]) and torch.equal(lo, want[:, -1:])):
+        raise AssertionError("get-based halo pull differs from the put-based exchange")
+    if not torch.equal(acc, lat[:, :1] + want[:, :1]):
+        raise AssertionError("accumulate_shift differs from the boundary sum")
+    if not torch.equal(gathered, collectives.ring_all_gather(shard, armesh)):
+        raise AssertionError("ring_all_gather kernel differs from the RMA schedule")
+    if min(launches[k] for k in ("get_shift", "accumulate_shift", "ring_all_gather")) == 0:
+        raise AssertionError(f"ops path: {launches}")
+    log(f"ops surface: get_shift {launches['get_shift']}, accumulate_shift "
+        f"{launches['accumulate_shift']}, ring_all_gather {launches['ring_all_gather']} "
+        f"launches; equal to the schedules' results")
+    return {"launches": launches}
+
+
+def check_rma(torch, rma_ops, ref, Mesh) -> dict:
+    """Every rma kernel against its plain version, which it must equal bit
+    for bit; returns each kernel's max abs error (0.0 when bit-equal)."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    halo = torch.randn((MILC_P,) + MILC_LOCAL, device="cuda", generator=g)[:, -1:]
+    chunk = torch.randn(AR_P, AR_MIB * 2**20 // 4 // AR_P, device="cuda", generator=g)
+    odd = torch.randn(5, 3, 7, device="cuda", generator=g)        # 21 words a rank
+    ints = torch.randint(-2**31, 2**31 - 1, (6, 8), device="cuda", generator=g,
+                         dtype=torch.int32)
+    one = torch.randn(1, 4, 3, device="cuda", generator=g)
+    errs = dict.fromkeys(rma_ops.launches, 0.0)
+
+    def compare(name, got, want, what):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} differs from its plain version at {what}")
+        errs[name] = max(errs[name], float((got.double() - want.double()).abs().max()))
+
+    inner = torch.randn(6, 4, 8, device="cuda", generator=g)[:, :, :3]   # copied
+    for x, shifts in ((halo, (1, -1)), (chunk, (1, -1, 0, AR_P + 3)),
+                      (odd, (0, 1, -1, 7, -12)), (ints, (2, -1)), (one, (0, 1, -1)),
+                      (inner, (1, -2))):
+        mesh = Mesh(x.shape[0], "x", device="cuda")
+        for s in shifts:
+            what = f"{tuple(x.shape)} {x.dtype} shift {s}"
+            compare("put_shift", rma_ops.put_shift(x, s, mesh), ref.put_shift_ref(x, s, mesh), what)
+            compare("get_shift", rma_ops.get_shift(x, s, mesh), ref.get_shift_ref(x, s, mesh), what)
+            if x.dtype == torch.float32:
+                acc = torch.randn(x.shape, device="cuda", generator=g)
+                compare("accumulate_shift", rma_ops.accumulate_shift(x, acc, s, mesh),
+                        ref.accumulate_shift_ref(x, acc, s, mesh), what)
+        if x.shape[0] * x.numel() <= 2**28:
+            compare("ring_all_gather", rma_ops.ring_all_gather(x, mesh),
+                    ref.ring_all_gather_ref(x, mesh), f"{tuple(x.shape)} {x.dtype}")
+    torch.cuda.synchronize()
+    log("rma kernels vs plain: bit-equal at the halo and all-reduce chunk shapes and "
+        f"at shifts 0, -1, >= p, p = 1, 21-word rows, int32, a non-contiguous rank "
+        f"block; max abs err {errs}")
+    return errs
+
+
+def model_constants(torch, rma_ops, Mesh) -> dict:
+    """The H100 model's measured constants (PERF.md cites them)."""
+    tiny = torch.zeros(1, device="cuda")
+    lat_torch = time_ms(lambda: tiny.add_(1.0), reps=2000, warmup=50) * 1e-3
+    m1 = Mesh(1, "x", device="cuda")
+    word = torch.zeros(1, 4, device="cuda")
+    lat_kernel = time_ms(lambda: rma_ops.put_shift(word, 1, m1), reps=2000, warmup=50) * 1e-3
+    ev = torch.cuda.Event()
+    stream = torch.cuda.current_stream()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        ev.record()
+        stream.wait_event(ev)
+    torch.cuda.synchronize()
+    event = (time.perf_counter() - t0) / 1000
+    src = torch.empty(2**28, device="cuda")              # 1 GiB
+    dst = torch.empty_like(src)
+    copy_ms = time_ms(lambda: dst.copy_(src), reps=20)
+    del src, dst
+    out = {"launch_latency": lat_torch, "event_latency": event,
+           "copy_bandwidth": 2 * 2**30 / (copy_ms * 1e-3)}
+    log("model constants measured: " + ", ".join(f"{k} {v:.6g}" for k, v in out.items())
+        + f"; a csrc kernel's ctypes launch {lat_kernel:.6g} s")
+    return out
+
+
+def time_rma(torch, rma_ops, ref, Mesh, launches: dict, errs: dict, hbm: float) -> list:
+    """Kernel, plain, yardsticks and bound at the main paths' inputs: the
+    halo views as the stencil passes them, the all-reduce's shards."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    mesh = Mesh(MILC_P, "t", device="cuda")
+    lat = torch.randn((MILC_P,) + MILC_LOCAL, device="cuda", generator=g)
+    halo, acc = lat[:, -1:], lat[:, :1]          # read in place at the rank stride
+    hbytes = halo.numel() * 4
+    dst = (torch.arange(MILC_P, device="cuda") + 1) % MILC_P
+    armesh = Mesh(AR_P, "dp", device="cuda")
+    shard = torch.randn(AR_P, AR_MIB * 2**20 // 4 // AR_P, device="cuda", generator=g)
+    sbytes = shard.numel() * 4
+
+    def copy_like(nbytes):
+        a = torch.empty(nbytes // 4, device="cuda")
+        b = torch.empty_like(a)
+        return time_ms(lambda: b.copy_(a))
+
+    # name -> (kernel, plain, library call, bytes read + written, output bytes)
+    rows = {
+        "put_shift": (lambda: rma_ops.put_shift(halo, 1, mesh),
+                      lambda: ref.put_shift_ref(halo, 1, mesh),
+                      lambda: torch.roll(halo, 1, 0), 2 * hbytes, hbytes),
+        "get_shift": (lambda: rma_ops.get_shift(halo, 1, mesh),
+                      lambda: ref.get_shift_ref(halo, 1, mesh),
+                      lambda: torch.roll(halo, -1, 0), 2 * hbytes, hbytes),
+        "accumulate_shift": (lambda: rma_ops.accumulate_shift(halo, acc, 1, mesh),
+                             lambda: ref.accumulate_shift_ref(halo, acc, 1, mesh),
+                             lambda: acc.index_add(0, dst, halo), 3 * hbytes, hbytes),
+        "ring_all_gather": (lambda: rma_ops.ring_all_gather(shard, armesh),
+                            lambda: ref.ring_all_gather_ref(shard, armesh),
+                            lambda: shard.unsqueeze(0).expand((AR_P,) + tuple(shard.shape)).contiguous(),
+                            sbytes + AR_P * sbytes, AR_P * sbytes),
+    }
+    copied_ms = time_ms(lambda: rma_ops.put_shift(halo.contiguous(), 1, mesh))
+    log(f"put_shift on a contiguous copy of the halo view (copy + kernel): "
+        f"{copied_ms * 1e3:.1f} us")
+    out = []
+    for name, (kern, plain, lib, nbytes, out_bytes) in rows.items():
+        k_ms, p_ms, l_ms = time_ms(kern), time_ms(plain), time_ms(lib)
+        c_ms = copy_like(out_bytes)
+        bound = nbytes / hbm * 1e3
+        log(f"{name}: kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, library "
+            f"{l_ms * 1e3:.1f} us, copy_ of the output bytes {c_ms * 1e3:.1f} us, bound "
+            f"{bound * 1e3:.1f} us (bytes {nbytes})")
+        out.append({"name": name, "route": KERNELS[name][0], "source": KERNELS[name][1],
+                    "replaces": KERNELS[name][2], "launches": launches[name],
+                    "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
+                    "bound_ms": bound, "bound_by": "bytes", "library_ms": l_ms})
+    return out
+
+
+def rma_phases(torch) -> list:
+    from repro_torch.apps import milc
+    from repro_torch.core import collectives
+    from repro_torch.core import epoch as epoch_mod
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.perfmodel import H100, HardwareSpec, PerfModel
+    from repro_torch.core.rma import OpCounter
+    from repro_torch.kernels.rma import ops as rma_ops
+    from repro_torch.kernels.rma import ref
+    from repro_torch.mesh import Mesh
+
+    milc_run = milc_phase(torch, plan_mod, epoch_mod, rma_ops, milc, Mesh, OpCounter)
+    ar_run = all_reduce_phase(torch, plan_mod, rma_ops, collectives, Mesh)
+    ops_run = ops_phase(torch, rma_ops, collectives, milc_run, ar_run)
+    # each path's counts were zeroed before it and read after it
+    launches = {k: sum(run["launches"][k] for run in (milc_run, ar_run, ops_run))
+                for k in rma_ops.launches}
+    del milc_run, ar_run
+    torch.cuda.empty_cache()
+
+    errs = check_rma(torch, rma_ops, ref, Mesh)
+    torch.cuda.empty_cache()
+    consts = model_constants(torch, rma_ops, Mesh)
+    rows = time_rma(torch, rma_ops, ref, Mesh, launches, errs, H100.hbm_bandwidth)
+    log("model constants, measured vs spec: " + ", ".join(
+        f"{k} {v:.4g}/{getattr(H100, k):.4g}" for k, v in consts.items()))
+    model = PerfModel(HardwareSpec(**consts))
+    log(f"model on these constants: aggregation crossover "
+        f"{model.aggregation_crossover_bytes():.0f} B (spec: "
+        f"{plan_mod.DEFAULT_MODEL.aggregation_crossover_bytes():.0f} B), "
+        f"choose_sync(2, {MILC_P}) {epoch_mod.choose_sync(2, MILC_P, model)}")
+    return rows
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,13 +1,24 @@
 """Deferred one-sided substrate: epoch-scoped plan recording (the
 `repro.core.plan` counterpart over the stacked rank axis).
 
-`RmaPlan` *records* collective one-sided ops instead of issuing them; each
-record returns an `RmaHandle` and nothing moves until `flush()`.  At flush,
-ops with an identical collective signature (same all-to-all or all-gather
-over the axis) are fused into ONE wire transfer: payloads are re-expressed
-as 32-bit words, concatenated, moved by a single collective, then split and
-decoded losslessly.  The one backend is ``"torch"``: `repro_torch.mesh`'s
-indexing collectives on the stacked ``[p, ...]`` view.
+`RmaPlan` *records* one-sided ops (put / get / accumulate / fetch_and_op /
+all-to-all / all-gather) instead of issuing them; each record returns an
+`RmaHandle` and nothing moves until `flush()`.  At flush, ops with an
+identical collective signature (the same permutation, or the same
+all-to-all or all-gather over the axis) may be fused into ONE wire
+transfer: payloads are re-expressed as 32-bit words, concatenated, moved by
+a single collective, then split and decoded losslessly.  Whether to pack is
+`PerfModel.select_aggregation`'s call unless the caller forces it.
+
+Each transfer runs on a backend: ``"torch"`` (`repro_torch.mesh`'s indexing
+collectives on the stacked ``[p, ...]`` view) or ``"cuda"`` (the
+hand-written put kernel of `repro_torch.kernels.rma`, which carries every
+unpacked uniform-shift group of 32-bit payloads on the card — `_route`).
+
+`AccessEpoch` ties a plan to one of the three synchronisation families
+(fence / PSCW / shared lock): `open()` performs the family's opening sync,
+record methods defer ops into the plan, and `close()` flushes the plan
+before the family's closing sync.
 
 Payloads are global views (leading rank dim p).  Byte counts are per rank,
 exactly as the reference counts them inside one rank's `shard_map` trace, so
@@ -23,13 +34,16 @@ still costs 4 bytes, as in the reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+import functools
+from typing import Any, Callable, Literal, Optional, Sequence
 
 import torch
 
+from ..kernels.rma import ops as rma_ops
 from ..mesh import Mesh
 from ..obs import trace as obs_trace
 from ..obs.metrics import snapshot_delta
+from .perfmodel import DEFAULT_MODEL, PerfModel
 from .rma import OpCounter
 
 U32_MASK = 0xFFFFFFFF
@@ -112,15 +126,32 @@ class RmaHandle:
         return self._result
 
 
+class _Perm(tuple):
+    """A permutation's ``(src, dst)`` pairs.  A plain tuple that computes its
+    hash once: a shift over 10^5 ranks is hashed at every flush."""
+
+    def __hash__(self) -> int:
+        h = self.__dict__.get("_hash")
+        if h is None:
+            h = self.__dict__["_hash"] = tuple.__hash__(self)
+        return h
+
+
+@functools.lru_cache(maxsize=64)
+def _shift_perm(p: int, shift: int) -> _Perm:
+    return _Perm((i, (i + shift) % p) for i in range(p))
+
+
 @dataclasses.dataclass
 class _RecordedOp:
     kind: Optional[str]     # puts | gets | accs | colls | None (protocol rider)
-    sig: tuple              # ("all_to_all",) | ("all_gather",)
+    sig: tuple              # ("ppermute", perm) | ("all_to_all",) | ("all_gather",) | ("local",)
     axis: str
     payload: Any            # global view [p, ...]
     handle: RmaHandle
     finalize: Callable      # delivered tensor -> handle result
     ranks: int = 1
+    shift: Optional[int] = None   # set when sig is a uniform-shift ppermute
     # target byte interval [lo, hi) on the destination window; None means
     # the op's own disjoint slot of the fused buffer
     at: Optional[tuple] = None
@@ -164,18 +195,58 @@ class PlanStats:
         return snapshot_delta(self.snapshot(), prev)
 
 
+# --------------------------------------------------------- backend selection
+Backend = Literal["torch", "cuda"]
+BACKENDS = ("torch", "cuda")
+
+
+def _cuda_eligible(x: torch.Tensor) -> bool:
+    """Whether the put kernel can carry `x`: a CUDA payload whose per-rank
+    block is whole 4-byte words, of any rank and layout (the wrapper reads a
+    rank-strided block in place and copies any other view)."""
+    return x.is_cuda and x.dtype.itemsize == 4 and not x.dtype.is_complex
+
+
+def _route(sig: tuple, ops: list, pack: bool, backend: str) -> Backend:
+    """The backend a group runs on.  Only a uniform-shift ppermute group can
+    take the kernel: under "auto" when it is unpacked and every payload is
+    the kernel's to carry (packed word buffers take "torch", as the
+    reference sends them to XLA), under a forced "cuda" always (on CPU
+    tensors the kernel's wrapper is its plain version).  Everything else
+    goes through the mesh: "torch"."""
+    shift_group = sig[0] == "ppermute" and all(op.shift is not None for op in ops)
+    if not shift_group or backend == "torch":
+        return "torch"
+    if backend == "cuda":
+        return "cuda"
+    if not pack and all(_cuda_eligible(op.payload) for op in ops):
+        return "cuda"
+    return "torch"
+
+
+def _issue_ppermute(mesh: Mesh, x: torch.Tensor, perm: tuple,
+                    shift: Optional[int], backend: str) -> torch.Tensor:
+    if backend == "cuda":
+        return rma_ops.put_shift(x, shift, mesh)
+    if shift is not None:
+        return mesh.shift(x, shift)
+    return mesh.ppermute(x, perm)
+
+
 # ----------------------------------------------------------------- the plan
 class RmaPlan:
     """Records one-sided ops for one window axis; coalesces at flush."""
 
-    def __init__(self, mesh: Mesh) -> None:
+    def __init__(self, mesh: Mesh, model: PerfModel = DEFAULT_MODEL) -> None:
         self.mesh = mesh
         self.axis = mesh.axis
+        self.model = model
         self.ops: list[_RecordedOp] = []
         self.flushed = False
         self.stats: Optional[PlanStats] = None
 
-    def _record(self, kind, sig, payload, finalize=None, at=None) -> RmaHandle:
+    def _record(self, kind, sig, payload, finalize=None, shift=None,
+                at=None) -> RmaHandle:
         if self.flushed:
             raise PlanError("plan already flushed")
         tr = obs_trace.TRACER
@@ -186,8 +257,51 @@ class RmaPlan:
         self.ops.append(
             _RecordedOp(kind, sig, self.axis, payload, h,
                         finalize or (lambda d: d), ranks=self.mesh.p,
+                        shift=shift,
                         at=None if at is None else (int(at[0]), int(at[1]))))
         return h
+
+    def put_shift(self, x: torch.Tensor, shift: int, kind: str = "puts",
+                  at: Optional[tuple] = None) -> RmaHandle:
+        """Record: put rank r's block of `x` to rank (r+shift) mod p;
+        resolves to what landed at each rank.  ``at=(lo, hi)`` declares the
+        target byte interval (default: the op's own disjoint slot)."""
+        return self._record(kind, ("ppermute", _shift_perm(self.mesh.p, int(shift))),
+                            x, shift=int(shift), at=at)
+
+    def put_perm(self, x: torch.Tensor, perm: Sequence[tuple[int, int]],
+                 kind: str = "puts", at: Optional[tuple] = None) -> RmaHandle:
+        """Record: put along an arbitrary (src, dst) permutation."""
+        return self._record(kind, ("ppermute", tuple(tuple(p) for p in perm)),
+                            x, at=at)
+
+    def get_shift(self, x: torch.Tensor, shift: int) -> RmaHandle:
+        """Record: get from rank (r+shift) mod p — the put by r+shift to r,
+        so it is recorded as a put with the shift negated."""
+        return self._record("gets", ("ppermute", _shift_perm(self.mesh.p, -int(shift))),
+                            x, shift=-int(shift))
+
+    def accumulate_shift(self, x: torch.Tensor, acc: torch.Tensor, shift: int,
+                         op: Callable = torch.add) -> RmaHandle:
+        """Record: slotted accumulate to rank r+shift.  The payload shares
+        the wire with same-permutation puts; the owner applies
+        ``op(acc, incoming)`` after delivery."""
+        return self._record("accs", ("ppermute", _shift_perm(self.mesh.p, int(shift))),
+                            x, finalize=lambda inc: op(acc, inc), shift=int(shift))
+
+    def accumulate_perm(self, x: torch.Tensor, acc: torch.Tensor,
+                        perm: Sequence[tuple[int, int]],
+                        op: Callable = torch.add) -> RmaHandle:
+        return self._record("accs", ("ppermute", tuple(tuple(p) for p in perm)),
+                            x, finalize=lambda inc: op(acc, inc))
+
+    def fetch_and_op(self, x: torch.Tensor, target: torch.Tensor,
+                     op: Callable = torch.add) -> RmaHandle:
+        """Record: fetch-and-op; resolves to (old, new).  Serialisation is the
+        epoch's, so there is no wire transfer, but it is one AMO message for
+        the accounting."""
+        return self._record("accs", ("local",), x,
+                            finalize=lambda _: (target, op(target, x)))
 
     def put_all_to_all(self, x: torch.Tensor,
                        kind: Optional[str] = "colls") -> RmaHandle:
@@ -201,54 +315,74 @@ class RmaPlan:
         return self._record(kind, ("all_gather",), x)
 
     # -------------------------------------------------------------- issuing
-    def _move(self, sig: tuple, x: torch.Tensor) -> torch.Tensor:
+    def _move(self, sig: tuple, x: torch.Tensor, shift: Optional[int],
+              backend: str) -> torch.Tensor:
+        if sig[0] == "ppermute":
+            return _issue_ppermute(self.mesh, x, sig[1], shift, backend)
         if sig[0] == "all_to_all":
             return self.mesh.all_to_all(x)
         return self.mesh.all_gather(x)
 
-    def _issue_group(self, sig: tuple, ops: list[_RecordedOp],
-                     pack: bool) -> tuple[int, int]:
+    def _issue_group(self, sig: tuple, ops: list[_RecordedOp], pack: bool,
+                     backend: str) -> tuple[int, int]:
         """Issue one signature group; returns (wire transfers, wire bytes
         per rank)."""
         p = self.mesh.p
+        if sig[0] == "local":
+            for op in ops:
+                op.handle._result = op.finalize(op.payload)
+            return len(ops), 0
+
         if not pack or len(ops) == 1:
             for op in ops:
-                op.handle._result = op.finalize(self._move(sig, op.payload))
+                op.handle._result = op.finalize(
+                    self._move(sig, op.payload, op.shift, backend))
             return len(ops), sum(op.nbytes for op in ops)
 
         # fused: encode each payload to words, move once, decode.  The
         # per-rank lead dims (1 for all_to_all's destination dim) sit
-        # behind the rank dim of the global view.
+        # behind the rank dim of the global view.  Every op of a ppermute
+        # group has the same permutation, so the first op's shift holds.
         lead = 2 if sig[0] == "all_to_all" else 1
         segs = [_encode(op.payload, lead) for op in ops]
         packed = torch.cat(segs, dim=lead)
-        moved = self._move(sig, packed)             # [p, p, W] either way
+        moved = self._move(sig, packed, ops[0].shift, backend)
         off = 0
         for op, seg in zip(ops, segs):
             w = seg.shape[-1]
             part = moved[..., off:off + w]
-            shape = (tuple(op.payload.shape) if sig[0] == "all_to_all"
-                     else (p,) + tuple(op.payload.shape))
+            shape = ((p,) + tuple(op.payload.shape) if sig[0] == "all_gather"
+                     else tuple(op.payload.shape))
             op.handle._result = op.finalize(
                 _decode(part, shape, op.payload.dtype))
             off += w
         return 1, packed.numel() // p * 4
 
-    def flush(self, aggregate: bool = True) -> PlanStats:
+    def flush(self, aggregate: Optional[bool] = None,
+              backend: str = "auto") -> PlanStats:
         """Issue every recorded op (MPI_Win_flush for the whole plan).
-        aggregate=True packs every fusable group into one transfer, False
-        issues one transfer per op."""
+
+        aggregate: True forces packing of every fusable group, False forces
+        per-op transfers, None consults `PerfModel.select_aggregation`.
+        backend: "auto" sends every unpacked uniform-shift group of 32-bit
+        CUDA payloads to the put kernel and the rest to the mesh; "torch" or
+        "cuda" force one for every group the kernel can carry (`_route`).
+        `PlanStats.backends` counts the backend each transfer ran on.
+        """
+        if backend != "auto" and backend not in BACKENDS:
+            raise PlanError(f"unknown backend {backend!r}; "
+                            f"expected 'auto' or one of {BACKENDS}")
         tr = obs_trace.TRACER
         if not tr.enabled:
-            return self._flush_impl(aggregate)
+            return self._flush_impl(aggregate, backend)
         with tr.span("plan.flush", axis=self.axis, pending=len(self.ops)) as sp:
-            stats = self._flush_impl(aggregate)
+            stats = self._flush_impl(aggregate, backend)
             sp.set(raw=stats.raw, coalesced=stats.coalesced,
                    groups=stats.groups, packed_groups=stats.packed_groups,
                    bytes_wire=stats.bytes_wire)
             return stats
 
-    def _flush_impl(self, aggregate: bool) -> PlanStats:
+    def _flush_impl(self, aggregate: Optional[bool], backend: str) -> PlanStats:
         if self.flushed:
             raise PlanError("plan already flushed")
         self.flushed = True
@@ -258,18 +392,27 @@ class RmaPlan:
             groups.setdefault((op.axis, op.sig), []).append(op)
 
         kinds: dict[tuple, int] = {}
+        p = self.mesh.p
         for (axis, sig), ops in groups.items():
             n = len(ops)
+            group_bytes = sum(op.nbytes for op in ops)
             stats.groups += 1
-            stats.bytes_logical += sum(op.nbytes for op in ops)
-            pack = bool(aggregate) and n > 1
-            wire, wire_bytes = self._issue_group(sig, ops, pack)
+            stats.bytes_logical += group_bytes
+
+            if aggregate is None:
+                pack = (n > 1 and sig[0] != "local"
+                        and self.model.select_aggregation(n, p * group_bytes / n) == "pack")
+            else:
+                pack = bool(aggregate) and n > 1 and sig[0] != "local"
+
+            be = _route(sig, ops, pack, backend)
+            wire, wire_bytes = self._issue_group(sig, ops, pack, be)
             stats.raw += n
             stats.coalesced += wire
             stats.bytes_wire += wire_bytes
             if pack:
                 stats.packed_groups += 1
-            stats.backends["torch"] = stats.backends.get("torch", 0) + wire
+            stats.backends[be] = stats.backends.get(be, 0) + wire
             for op in ops:
                 if op.kind is not None:
                     kinds[(op.kind, axis)] = kinds.get((op.kind, axis), 0) + 1
@@ -288,3 +431,96 @@ class RmaPlan:
         )
         self.stats = stats
         return stats
+
+
+# ------------------------------------------------------------- access epochs
+class AccessEpoch:
+    """An access epoch: one synchronisation family wrapped around one
+    `RmaPlan`.
+
+        ep = AccessEpoch(mesh, family="fence")
+        x = ep.open(x)
+        h1 = ep.put_shift(a, +1)          # recorded, not issued
+        h2 = ep.put_shift(b, +1)          # same signature as h1
+        x = ep.close(x)                   # flush + the family's closing sync
+        a2, b2 = h1.result(), h2.result()
+
+    `ep.sync.stats` counts raw and coalesced messages plus the family's own
+    synchronisation messages; `ep.plan_stats` keeps the aggregation detail.
+    """
+
+    def __init__(self, mesh: Mesh,
+                 family: Literal["fence", "pscw", "lock"] = "fence", *,
+                 group: Sequence[int] = (),
+                 model: PerfModel = DEFAULT_MODEL) -> None:
+        from . import epoch as epoch_mod  # late: epoch imports plan
+
+        self.mesh = mesh
+        self.axis = mesh.axis
+        self.family = family
+        if family == "fence":
+            self.sync = epoch_mod.FenceEpoch(mesh, model)
+        elif family == "pscw":
+            self.sync = epoch_mod.PSCWEpoch(mesh, list(group), model)
+        elif family == "lock":
+            self.sync = epoch_mod.SharedLockEpoch(mesh, model)
+        else:
+            raise PlanError(f"unknown epoch family {family!r}")
+        self.plan = RmaPlan(mesh, model=model)
+        self.plan_stats: Optional[PlanStats] = None
+
+    def open(self, tree: Any) -> Any:
+        if self.family == "fence":
+            return self.sync.open(tree)
+        if self.family == "pscw":
+            return self.sync.start(self.sync.post(tree))
+        return self.sync.lock(tree)
+
+    def close(self, tree: Any, *, aggregate: Optional[bool] = None,
+              backend: str = "auto") -> Any:
+        if not self.plan.flushed:
+            self.plan_stats = self.plan.flush(aggregate=aggregate, backend=backend)
+            self.sync.stats.raw_msgs += self.plan_stats.raw
+            self.sync.stats.coalesced_msgs += self.plan_stats.coalesced
+        if self.family == "fence":
+            return self.sync.close(tree)
+        if self.family == "pscw":
+            return self.sync.wait(self.sync.complete(tree))
+        return self.sync.unlock(tree)
+
+    def _rec(self) -> RmaPlan:
+        # the closing flush already issued this epoch's plan, so a late
+        # record would miss the epoch's sync
+        if self.plan.flushed:
+            raise PlanError(
+                f"{self.family} epoch on axis {self.axis!r} already closed "
+                "— op recorded after close() would never be synchronized "
+                "by this epoch")
+        return self.plan
+
+    def put_shift(self, x, shift, kind="puts", at=None):
+        return self._rec().put_shift(x, shift, kind=kind, at=at)
+
+    def put_perm(self, x, perm, kind="puts", at=None):
+        return self._rec().put_perm(x, perm, kind=kind, at=at)
+
+    def get_shift(self, x, shift):
+        return self._rec().get_shift(x, shift)
+
+    def accumulate_shift(self, x, acc, shift, op=torch.add):
+        return self._rec().accumulate_shift(x, acc, shift, op)
+
+    def accumulate_perm(self, x, acc, perm, op=torch.add):
+        return self._rec().accumulate_perm(x, acc, perm, op)
+
+    def fetch_and_op(self, x, target, op=torch.add):
+        return self._rec().fetch_and_op(x, target, op)
+
+    def put_all_to_all(self, x, kind="colls"):
+        return self._rec().put_all_to_all(x, kind=kind)
+
+    def all_gather(self, x, kind="gets"):
+        return self._rec().all_gather(x, kind=kind)
+
+    def predicted_cost(self) -> float:
+        return self.sync.predicted_cost()

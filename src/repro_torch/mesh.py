@@ -10,7 +10,10 @@ batched over that leading dimension, and the collectives become indexing:
   * ``all_gather(x[p, ...])``   -> ``[p, p, ...]``: every rank sees every
     rank's block (a broadcast view, no copy);
   * ``all_to_all(x[p_src, p_dst, ...])`` -> ``[p_dst, p_src, ...]``: block
-    (s, d) lands at rank d in slot s (a transpose view).
+    (s, d) lands at rank d in slot s (a transpose view);
+  * ``ppermute(x[p, ...], perm)`` -> ``out[dst] = x[src]`` per pair, zeros
+    where no pair lands, and its uniform-shift fast path ``shift`` (both
+    return a new tensor: a put never aliases its source).
 
 A result of `all_gather` is identical at every receiver, so code computing a
 rank-independent function of it may read it once (`replicated`).
@@ -63,6 +66,28 @@ class Mesh:
         if x.ndim < 2 or x.shape[1] != self.p:
             raise MeshError(f"all_to_all needs [p, p, ...], got {tuple(x.shape)}")
         return x.transpose(0, 1)
+
+    def ppermute(self, x: torch.Tensor, perm) -> torch.Tensor:
+        """x [p, ...] -> [p, ...] with ``out[dst] = x[src]`` for each
+        ``(src, dst)`` pair; ranks that no pair names as a destination get
+        zeros (their window is simply not written)."""
+        self._check(x)
+        out = torch.zeros_like(x, memory_format=torch.contiguous_format)
+        if len(perm):
+            src, dst = (torch.tensor(list(c), dtype=torch.int64, device=x.device)
+                        for c in zip(*perm))
+            out[dst] = x[src]
+        return out
+
+    def shift(self, x: torch.Tensor, shift: int) -> torch.Tensor:
+        """The uniform-shift ppermute: ``out[(r + shift) % p] = x[r]``, as
+        one concatenation of two row ranges (one copy kernel, no index
+        tensor).  Always a new contiguous tensor."""
+        self._check(x)
+        s = int(shift) % self.p
+        if s == 0:
+            return x.clone(memory_format=torch.contiguous_format)
+        return torch.cat((x[self.p - s:], x[:self.p - s]))
 
     @staticmethod
     def replicated(gathered: torch.Tensor) -> torch.Tensor:
