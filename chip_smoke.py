@@ -28,6 +28,27 @@ no result line):
      yardstick the port never calls) and the bound (bytes read at the
      H100 model's HBM rate, 3.35 TB/s, or f32 flops at 67 TFLOP/s,
      whichever is larger);
+  5a. rendezvous pull serving: the same 256 full-width requests with
+     transport="rendezvous" (prefill-owned pools, descriptors on the ring,
+     the decoder's fused pull); every token equal to `reference()` and to
+     the fused run's, no payload on the ring, 256 descriptors, every page
+     pulled and every pin dropped, pool and credit conservation, 4 wire
+     transfers a step; ms/step beside the fused run's.  Then what
+     transport="auto" picks at that block size (reuse 0 and 0.5) and that
+     an engine built so reports it; the interrupted pull of
+     `tests/subtests/rendezvous_sub.py:78-82` (one decoder, a drain of 1,
+     one lane, 24 requests): a request holding pins is cancelled, the rest
+     drain token-exact and every pool ends free;
+  5b. the cross-rank kernels through their ops surfaces on the rendezvous
+     run's own prefill-owned pools and busiest step's descriptors, counts
+     zeroed before and read after: for each (decode rank -> owner) shift,
+     `rmem.pages.gather_shift` (the paged-gather kernel) bit-equal to the
+     block `gather_pages` pulled, and `paged_attention_shift` with q = w_q,
+     scale 1.0 within 1e-4 of the readout's context; both against their
+     plain versions at the path's shapes and edge cases (shifts 0, -1,
+     >= p, p = 1, ids -1 and past the pool, a fully masked row, Sq = 4
+     causal, int32 pages); timings: kernel, plain, `index_select` / SDPA
+     over pre-gathered K/V, and the bound counted from this run's data;
   6. the MILC halo stencil (`repro_torch.apps.milc`) at p=131,072 ranks of
      the paper's weak-scaling local volume 8x4x4x4 sites x 6 f32 (a 1.5 GiB
      lattice, 192 MiB halos each way): 5 steps as a user calls them, every
@@ -75,7 +96,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 F32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 TOL = 1e-4                      # kernel vs plain, f32, different sum order
-SOURCES = ("paged_attention", "rma")      # csrc/<name>.cu, one nvcc each
+SOURCES = ("paged_attention", "rma", "paged_gather")   # csrc/<name>.cu, one nvcc each
 KERNELS = {
     # name -> (route, source, TPU kernel it replaces)
     "paged_attention": ("cuda", "src/repro_torch/csrc/paged_attention.cu",
@@ -88,11 +109,16 @@ KERNELS = {
                          "src/repro/kernels/rma/kernel.py:114"),
     "ring_all_gather": ("cuda", "src/repro_torch/csrc/rma.cu",
                         "src/repro/kernels/rma/kernel.py:168"),
+    "paged_attention_shift": ("cuda", "src/repro_torch/csrc/paged_attention.cu",
+                              "src/repro/kernels/paged_attention/kernel.py:219"),
+    "paged_gather": ("cuda", "src/repro_torch/csrc/paged_gather.cu",
+                     "src/repro/kernels/paged_gather/kernel.py:86"),
 }
 FULL = dict(n_prefill=2, d_model=128, vocab=32000, page_tokens=16,
             block_tokens=2048, pool_pages=8192, queue_capacity=64,
             max_recv_per_step=16, n_lanes=2, novel_slots=128)
 N_FUSED, N_GATHER, N_INLINE = 256, 64, 64
+N_CANCEL = 24                   # requests of the interrupted-pull run
 N_PREFIX_GROUPS = 4             # requests share one of 4 half-length prefixes
 MILC_P, MILC_LOCAL = 131072, (8, 4, 4, 4, 6)   # ranks; T_local, X, Y, Z, reals
 MILC_STEPS, MILC_TOL = 5, 1e-5  # the example's own tolerance
@@ -136,12 +162,15 @@ def prompts(rng, n: int, cfg) -> dict:
         for i in range(n)}
 
 
-def serve(disagg, cfg, n: int, seed: int) -> tuple:
-    """Run n requests to completion and check them; returns (engine, seconds)."""
+def serve(disagg, cfg, n: int, seed: int, setup=None) -> tuple:
+    """Run n requests to completion and check them; returns (engine, seconds).
+    `setup(engine)`, if given, runs before the first request."""
     import numpy as np
     import torch
 
     eng = disagg.DisaggEngine(4, cfg, seed=seed, device="cuda")
+    if setup is not None:
+        setup(eng)
     reqs = prompts(np.random.default_rng(seed), n, cfg)
     for rid, toks in reqs.items():
         eng.submit(rid, toks)
@@ -152,23 +181,23 @@ def serve(disagg, cfg, n: int, seed: int) -> tuple:
     dt = time.perf_counter() - t0
     bad = [rid for rid, toks in reqs.items() if res.get(rid) != eng.reference(toks)]
     if len(res) != n or bad:
-        raise AssertionError(f"{cfg.attend if cfg.paged else 'inline'}: "
-                             f"{len(res)}/{n} results, tokens differ for {bad[:8]}")
+        raise AssertionError(f"{eng.mode} {cfg.attend}: {len(res)}/{n} results, "
+                             f"tokens differ for {bad[:8]}")
     if eng.retries != 0:
         raise AssertionError(f"retries {eng.retries} != 0")
     if not eng.flow_stats()["conservation_ok"]:
         raise AssertionError("credit conservation violated")
     ms = eng.msg_stats
-    want = (8, 3) if cfg.paged else (6, 2)
+    want = {"inline": (6, 2), "paged": (8, 3), "rendezvous": (8, 4)}[eng.mode]
     got = (ms["raw_msgs_per_step"], ms["wire_msgs_per_step"])
     if got != want:
-        raise AssertionError(f"raw -> wire per step {got}, want {want}")
-    if cfg.paged:
+        raise AssertionError(f"{eng.mode}: raw -> wire per step {got}, want {want}")
+    if eng.mode == "paged":
         ps = eng.paged_stats()
         if not ps["pool_conservation_ok"] or ps["prefix_hits"] == 0:
             raise AssertionError(f"paged stats: {ps}")
-        if (eng.lane_sends[cfg.n_prefill:].sum(axis=1) == 0).any():
-            raise AssertionError(f"a decode rank got no work: {eng.lane_sends}")
+    if eng.mode != "inline" and (eng.lane_sends[cfg.n_prefill:].sum(axis=1) == 0).any():
+        raise AssertionError(f"a decode rank got no work: {eng.lane_sends}")
     return eng, dt
 
 
@@ -262,6 +291,8 @@ def main() -> int:
         raise AssertionError(f"fused run: {launches} kernel launches for "
                              f"{eng.steps_run} decode steps")
     fused = eng.serve_metrics()
+    fused_tokens = dict(eng.results)
+    fused_ms = dt / eng.steps_run * 1e3
     log(f"fused: {N_FUSED} requests, {eng.steps_run} steps, {dt:.3f} s, "
         f"{dt / eng.steps_run * 1e3:.3f} ms/step, attend_us p50 "
         f"{fused['attend_us']['p50']:.1f} p90 {fused['attend_us']['p90']:.1f}, "
@@ -342,12 +373,333 @@ def main() -> int:
         "library_ms": library_ms,
     }]
     torch.cuda.empty_cache()
+    kernels += rendezvous_phases(torch, F, disagg, fused_tokens, fused_ms, H100.hbm_bandwidth)
+    torch.cuda.empty_cache()
     kernels += rma_phases(torch)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# ---------------------------------------------------- rendezvous pull serving
+def rendezvous_serve(torch, disagg, fused_tokens: dict, fused_ms: float) -> dict:
+    """256 full-width requests in rendezvous mode, token-exact against
+    `reference()` and the fused run; keeps the busiest step's pull (its
+    descriptors, the pulled block, the readout's context, the pool)."""
+    from repro_torch.rmem import pages as rpg
+
+    cfg = disagg.DisaggConfig(transport="rendezvous", **FULL)
+    busiest = {"rows": -1}
+    real_gather = rpg.gather_pages
+
+    def setup(eng):
+        real_emit = eng._emit
+
+        def tap_gather(mesh, pool, entries, valid):
+            block = real_gather(mesh, pool, entries, valid)
+            rows = int(valid.sum())
+            if rows > busiest["rows"]:
+                busiest.update(rows=rows, entries=entries.clone(), valid=valid.clone(),
+                               block=block.clone(), pool=pool.clone(), fresh=True)
+            return block
+
+        def tap_emit(ctx, mask, tags):
+            if busiest.pop("fresh", False):
+                busiest["ctx"] = ctx.clone()
+            return real_emit(ctx, mask, tags)
+
+        eng._emit = tap_emit
+        rpg.gather_pages = tap_gather
+
+    try:
+        eng, dt = serve(disagg, cfg, N_FUSED, seed=0, setup=setup)
+    finally:
+        rpg.gather_pages = real_gather
+    diff = [rid for rid, tok in eng.results.items() if fused_tokens.get(rid) != tok]
+    if diff:
+        raise AssertionError(f"rendezvous tokens differ from the fused run's for {diff[:8]}")
+    rs = eng.rendezvous_stats()
+    want = {"ring_payload_appends": 0, "descriptor_appends": N_FUSED,
+            "descriptor_bytes": N_FUSED * cfg.table_nbytes,
+            "pulled_pages": N_FUSED * cfg.pages_per_block - rs["prefix_hits"],
+            "pins_outstanding": 0, "pool_conservation_ok": True,
+            "wire_msgs_per_step": 4, "transport_selected": "rendezvous"}
+    bad = {k: (rs[k], v) for k, v in want.items() if rs[k] != v}
+    if bad or eng.mode != "rendezvous":
+        raise AssertionError(f"rendezvous stats (got, want): {bad}, mode {eng.mode}")
+    if any(c["live"] for c in eng.kv.conservation()["per_owner"].values()):
+        raise AssertionError("rendezvous: pages still live after the drain")
+    ms = dt / eng.steps_run * 1e3
+    log(f"rendezvous: {N_FUSED} requests, {eng.steps_run} steps, {dt:.3f} s, "
+        f"{ms:.3f} ms/step (paged fused {fused_ms:.3f}), tokens == reference() "
+        f"== fused run; payload appends 0, {rs['descriptor_appends']} descriptors "
+        f"({rs['descriptor_bytes']} B), {rs['pulled_pages']} pages pulled "
+        f"({rs['pulled_bytes']} B), prefix hits {rs['prefix_hits']}, wire/step 4, "
+        f"busiest pull {busiest['rows']} requests")
+    busiest["params"] = eng.params
+    busiest["cfg"] = cfg
+    return busiest
+
+
+def auto_phase(torch, disagg) -> None:
+    """transport="auto" at FULL's block (2 MiB, 128 pages): what the H100
+    model picks, and that an engine built so reports it."""
+    from repro_torch.parallel.overlap import CollectiveStrategist
+
+    for reuse in (0.0, 0.5):
+        cfg = disagg.DisaggConfig(transport="auto", expected_reuse=reuse, **FULL)
+        plan = CollectiveStrategist().transfer_plan(
+            float(cfg.block_nbytes), cfg.pages_per_block, reuse)
+        eng = disagg.DisaggEngine(4, cfg, device="cuda")
+        mode = {"eager": "inline"}.get(plan["protocol"], plan["protocol"])
+        if (disagg.resolve_transport(cfg), eng.transport_selected, eng.mode) != \
+                (plan["protocol"], plan["protocol"], mode):
+            raise AssertionError(f"auto at reuse {reuse}: plan {plan}, engine "
+                                 f"{eng.transport_selected}/{eng.mode}")
+        log(f"auto at {cfg.block_nbytes} B, {cfg.pages_per_block} pages, reuse {reuse}: "
+            f"{plan['protocol']} (eager {plan['eager_s'] * 1e6:.2f} us, rendezvous "
+            f"{plan['rendezvous_s'] * 1e6:.2f} us, paged {plan['paged_s'] * 1e6:.2f} us, "
+            f"eager/rendezvous crossover {plan['crossover_bytes']:.0f} B); engine mode "
+            f"{eng.mode}")
+        del eng
+        torch.cuda.empty_cache()
+
+
+def cancel_phase(torch, disagg) -> None:
+    """The interrupted pull (`tests/subtests/rendezvous_sub.py:78-82`): one
+    decode rank, a drain of 1, one lane, so descriptors queue; cancel a
+    request that holds pins; the rest drain token-exact, every pool free."""
+    import numpy as np
+
+    cfg = disagg.DisaggConfig(**{**FULL, "transport": "rendezvous", "n_prefill": 3,
+                                 "max_recv_per_step": 1, "n_lanes": 1})
+    eng = disagg.DisaggEngine(4, cfg, seed=0, device="cuda")
+    reqs = prompts(np.random.default_rng(5), N_CANCEL, cfg)
+    for rid, toks in reqs.items():
+        eng.submit(rid, toks)
+    live = []
+    for _ in range(32):
+        eng.step()
+        live = sorted(rid for rid in eng._pins if rid not in eng.results)
+        if live:
+            break
+    if not live:
+        raise AssertionError("interrupted pull: no request ever held pins")
+    victim = live[0]
+    n_pins = len(eng._pins[victim])
+    if not eng.cancel(victim) or victim in eng._pins or not eng.kv.conservation()["ok"]:
+        raise AssertionError(f"cancel of {victim} did not roll back")
+    res = eng.run_until_drained(max_steps=8 * N_CANCEL)
+    bad = [rid for rid, toks in reqs.items()
+           if rid != victim and res.get(rid) != eng.reference(toks)]
+    live_pages = [c["live"] for c in eng.kv.conservation()["per_owner"].values()]
+    if victim in res or bad or len(res) != N_CANCEL - 1 or eng._pins or any(live_pages):
+        raise AssertionError(f"interrupted pull: victim in results {victim in res}, "
+                             f"tokens differ {bad[:8]}, pins {len(eng._pins)}, "
+                             f"live pages {live_pages}")
+    log(f"interrupted pull: cancelled rid {victim} holding {n_pins} pins; the other "
+        f"{len(res)} drained token-exact in {eng.steps_run} steps; every pool free")
+
+
+def pull_ops_phase(torch, pa_ops, pg_ops, rpg, Mesh, run: dict) -> dict:
+    """Kernels 2 and 3 through their ops surfaces on the rendezvous run's
+    own data: for each (decode rank -> owner) shift, `gather_shift` against
+    the block `gather_pages` pulled (bit-equal) and `paged_attention_shift`
+    with q = w_q, scale 1.0 against the readout's context (<= TOL)."""
+    cfg, pool, entries, valid = run["cfg"], run["pool"], run["entries"], run["valid"]
+    p, m, ppb = valid.shape[0], valid.shape[1], cfg.pages_per_block
+    mesh = Mesh(p, "serve", device="cuda")
+    owner = entries[..., 0].long()                       # [p, m, ppb]
+    page = entries[..., 1]
+    me = torch.arange(p, device="cuda")[:, None, None]
+    want = valid[..., None] & (page >= 0)
+    block = run["block"].reshape(p, m * ppb, -1)
+    q = run["params"]["w_q"].expand(p, 1, cfg.d_model).contiguous()
+    ctx = run["ctx"].reshape(p, m, cfg.d_model)
+    pg_ops.launches = pa_ops.shift_launches = 0
+    combined = torch.zeros_like(block)
+    err, shifts, att_ids = 0.0, [], {}
+    for s in range(1, p):
+        hit = want & (owner == (me + s) % p)             # [p, m, ppb]
+        if not bool(hit.any()):
+            continue
+        shifts.append(s)
+        ids = torch.where(hit, page, torch.full_like(page, -1)).reshape(p, m * ppb)
+        got = rpg.gather_shift(mesh, pool, ids.contiguous(), s).reshape(p, m * ppb, -1)
+        combined = torch.where(hit.reshape(p, m * ppb, 1), got, combined)
+        for i in range(m):
+            rows = hit[:, i].any(dim=1)                  # ranks whose request i lives at r + s
+            if not bool(rows.any()):
+                continue
+            ids_i = torch.where(hit[:, i], page[:, i], torch.full_like(page[:, i], -1))
+            att_ids[(s, i)] = ids_i.contiguous()
+            out = pa_ops.paged_attention_shift(q, pool, att_ids[(s, i)], s, mesh,
+                                               scale=1.0)[:, 0]
+            err = max(err, float((out[rows] - ctx[rows, i]).abs().max()))
+    torch.cuda.synchronize()
+    launches = {"paged_gather": pg_ops.launches,
+                "paged_attention_shift": pa_ops.shift_launches}
+    if not torch.equal(combined.view(torch.int32), block.view(torch.int32)):
+        raise AssertionError("gather_shift differs from the block gather_pages pulled")
+    if err > TOL or min(launches.values()) == 0:
+        raise AssertionError(f"paged_attention_shift vs the readout's context: max abs "
+                             f"err {err} (tol {TOL}); launches {launches}")
+    log(f"pull ops on the rendezvous data ({run['rows']} requests, shifts {shifts}): "
+        f"gather_shift bit-equal to the pulled block, paged_attention_shift vs the "
+        f"readout's context max abs err {err:.3g}; launches {launches}")
+    return {"launches": launches, "shifts": shifts, "att_ids": att_ids, "ctx_err": err}
+
+
+def check_pull_kernels(torch, pa_ops, pa_ref, pg_ops, pg_ref, Mesh, run, ops_run) -> dict:
+    """Kernels 2 and 3 against their plain versions on the card: at the
+    path's shapes (bit-equal gather, attention <= TOL) and at edge cases —
+    shifts 0, -1, >= p, p = 1; ids of -1 and past the pool; a fully masked
+    row; Sq = 4 causal; int32 pages."""
+    pool, p = run["pool"], run["pool"].shape[0]
+    mesh = Mesh(p, "serve", device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    errs = {"paged_gather": 0.0, "paged_attention_shift": 0.0}
+
+    def gather(x, ids, s, msh, what):
+        out = pg_ops.paged_gather(x, ids, s, msh)
+        if not torch.equal(out.view(torch.int32), pg_ref.paged_gather_ref(
+                x, ids, s, msh).view(torch.int32)):
+            raise AssertionError(f"paged_gather differs from its plain version at {what}")
+
+    def attend(q, kv, ids, s, msh, what, **kw):
+        out = pa_ops.paged_attention_shift(q, kv, ids, s, msh, **kw)
+        plain = pa_ref.paged_attention_shift_ref(q, kv, ids, s, msh, **kw)
+        e = float((out - plain).abs().max())
+        if not torch.isfinite(out).all() or e > TOL:
+            raise AssertionError(f"paged_attention_shift vs plain at {what}: {e}")
+        errs["paged_attention_shift"] = max(errs["paged_attention_shift"], e)
+        return out
+
+    k = run["entries"].shape[1] * run["entries"].shape[2]
+    ids = torch.randint(-1, pool.shape[1] + 3, (p, k), generator=g, device="cuda",
+                        dtype=torch.int32)
+    for s in (0, 1, -1, p + 2):
+        gather(pool, ids, s, mesh, f"the pool {tuple(pool.shape)}, ids {tuple(ids.shape)}, shift {s}")
+    ints = torch.randint(-2**31, 2**31 - 1, (3, 7, 5), generator=g, device="cuda",
+                         dtype=torch.int32)
+    small = torch.tensor([[0, -1, 9, 2], [6, 1, -3, 7], [3, 3, 0, 8]], device="cuda",
+                         dtype=torch.int32)
+    for s in (0, 1, -1, 4):
+        gather(ints, small, s, Mesh(3, "x", device="cuda"), f"int32 [3, 7, 5] shift {s}")
+    one = Mesh(1, "x", device="cuda")
+    gather(ints[:1], small[:1], 5, one, "p = 1")
+
+    q = run["params"]["w_q"].expand(p, 1, pool.shape[-1]).contiguous()
+    for (s, _), a_ids in ops_run["att_ids"].items():
+        attend(q, pool, a_ids, s, mesh, f"the path's shift {s}", scale=1.0)
+    kv = torch.randn(p, 40, 16, 2, 128, generator=g, device="cuda")
+    e_ids = torch.randint(0, 40, (p, 9), generator=g, device="cuda", dtype=torch.int32)
+    e_ids[0, 2] = e_ids[0, 5] = -1
+    e_ids[1, 0] = 40 + 3
+    e_ids[2] = -1
+    for Sq, causal in ((1, False), (4, False), (4, True)):
+        qe = torch.randn(p, Sq, 128, generator=g, device="cuda")
+        for s in (0, 1, -1, p + 1):
+            out = attend(qe, kv, e_ids, s, mesh, f"Sq {Sq} causal {causal} shift {s}",
+                         causal=causal)
+            if float(out[2].abs().max()) != 0.0:
+                raise AssertionError("a fully masked row did not give zeros")
+    attend(qe[:1], kv[:1], e_ids[:1], 3, one, "p = 1", causal=True)
+    torch.cuda.synchronize()
+    log("paged_gather vs plain: bit-equal at the rendezvous pool with path-sized ids "
+        "and at shifts 0, -1, >= p, p = 1, ids -1 and past the pool, int32 pages; "
+        f"paged_attention_shift vs plain: max abs err {errs['paged_attention_shift']:.3g} "
+        f"(tol {TOL}) at the path's ids and at masked pages, a fully masked row, Sq = 4 "
+        "causal, shifts 0, -1, >= p, p = 1")
+    return errs
+
+
+def time_pull_kernels(torch, F, pa_ops, pa_ref, pg_ops, pg_ref, Mesh, run, ops_run,
+                      errs: dict, hbm: float) -> list:
+    """Kernel, plain version, library yardstick and bytes bound at the
+    rendezvous path's inputs (the busiest shift's ids)."""
+    cfg, pool = run["cfg"], run["pool"]
+    p, n_pages = pool.shape[0], pool.shape[1]
+    mesh = Mesh(p, "serve", device="cuda")
+    w = pool[0, 0].numel()
+    # the gather: the shift with the most pulled pages on the busiest step
+    owner, page = run["entries"][..., 0].long(), run["entries"][..., 1]
+    me = torch.arange(p, device="cuda")[:, None, None]
+    want = run["valid"][..., None] & (page >= 0)
+    s = max(ops_run["shifts"], key=lambda t: int((want & (owner == (me + t) % p)).sum()))
+    hit = want & (owner == (me + s) % p)
+    ids = torch.where(hit, page, torch.full_like(page, -1)).reshape(p, -1).contiguous()
+    k = ids.shape[1]
+    flat = pool.view(p * n_pages, w)
+    src = ((torch.arange(p, device="cuda")[:, None] + s) % p) * n_pages
+    rows = (src + ids.clamp(0, n_pages - 1)).reshape(-1)
+    # this run's data: every output row written once, each distinct pool row
+    # read once (the holes all clamp to row 0 of their owner)
+    g_bytes = (p * k + rows.unique().numel()) * w * 4 + ids.numel() * 4
+    gather = (lambda: pg_ops.paged_gather(pool, ids, s, mesh),
+              lambda: pg_ref.paged_gather_ref(pool, ids, s, mesh),
+              lambda: flat.index_select(0, rows), (g_bytes, 0),
+              f"pool {tuple(pool.shape)}, ids {tuple(ids.shape)}, shift {s}, "
+              f"{int(hit.sum())} pulled pages")
+    # attention: the path's call with the most valid pages
+    (a_s, _), a_ids = max(ops_run["att_ids"].items(), key=lambda kv: int((kv[1] >= 0).sum()))
+    q = run["params"]["w_q"].expand(p, 1, cfg.d_model).contiguous()
+    pt, hd = cfg.page_tokens, cfg.d_model
+    valid_pages = int((a_ids >= 0).sum())
+    a_src = ((torch.arange(p, device="cuda")[:, None] + a_s) % p) * n_pages
+    kv_rows = pool.view(p * n_pages, pt, 2, hd)[(a_src + a_ids.clamp(min=0)).reshape(-1)]
+    kv_rows = kv_rows.reshape(p, -1, pt, 2, hd)
+    k_all = kv_rows[:, :, :, 0].reshape(p, 1, -1, hd)
+    v_all = kv_rows[:, :, :, 1].reshape(p, 1, -1, hd)
+    mask = (a_ids >= 0).repeat_interleave(pt, dim=1)[:, None, None, :]
+    q4 = q[:, None]
+    a_bytes = valid_pages * pt * 2 * hd * 4 + 2 * q.numel() * 4 + a_ids.numel() * 4
+    a_flops = 4 * valid_pages * pt * hd
+    attend = (lambda: pa_ops.paged_attention_shift(q, pool, a_ids, a_s, mesh, scale=1.0),
+              lambda: pa_ref.paged_attention_shift_ref(q, pool, a_ids, a_s, mesh, scale=1.0),
+              lambda: F.scaled_dot_product_attention(q4, k_all, v_all, attn_mask=mask,
+                                                     scale=1.0),
+              (a_bytes, a_flops), f"q {tuple(q.shape)}, pool {tuple(pool.shape)}, ids "
+              f"{tuple(a_ids.shape)}, shift {a_s}, {valid_pages} valid pages")
+    out = []
+    for name, (kern, plain, lib, (nbytes, flops), what) in (
+            ("paged_attention_shift", attend), ("paged_gather", gather)):
+        k_ms, p_ms, l_ms = time_ms(kern), time_ms(plain), time_ms(lib)
+        bound, bound_by = max((nbytes / hbm * 1e3, "bytes"),
+                              (flops / F32_FLOPS_PER_S * 1e3, "operations"))
+        log(f"{name} at {what}: kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, "
+            f"library {l_ms * 1e3:.1f} us, bound {bound * 1e3:.2f} us ({bound_by}: "
+            f"{nbytes} bytes, {flops} flops)")
+        out.append({"name": name, "route": KERNELS[name][0], "source": KERNELS[name][1],
+                    "replaces": KERNELS[name][2], "launches": ops_run["launches"][name],
+                    "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
+                    "bound_ms": bound, "bound_by": bound_by, "library_ms": l_ms})
+    return out
+
+
+def rendezvous_phases(torch, F, disagg, fused_tokens: dict, fused_ms: float,
+                      hbm: float) -> list:
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+    from repro_torch.kernels.paged_gather import ops as pg_ops
+    from repro_torch.kernels.paged_gather import ref as pg_ref
+    from repro_torch.mesh import Mesh
+    from repro_torch.rmem import pages as rpg
+
+    run = rendezvous_serve(torch, disagg, fused_tokens, fused_ms)
+    torch.cuda.empty_cache()
+    auto_phase(torch, disagg)
+    cancel_phase(torch, disagg)
+    torch.cuda.empty_cache()
+    ops_run = pull_ops_phase(torch, pa_ops, pg_ops, rpg, Mesh, run)
+    errs = check_pull_kernels(torch, pa_ops, pa_ref, pg_ops, pg_ref, Mesh, run, ops_run)
+    errs["paged_attention_shift"] = max(errs["paged_attention_shift"], ops_run["ctx_err"])
+    rows = time_pull_kernels(torch, F, pa_ops, pa_ref, pg_ops, pg_ref, Mesh, run,
+                             ops_run, errs, hbm)
+    del run
+    return rows
 
 
 # ------------------------------------------------------- the one-sided layer

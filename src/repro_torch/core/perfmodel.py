@@ -10,10 +10,24 @@ the epochs' decisions:
 
   * `select_aggregation` — pack a same-signature group into one transfer or
     issue its ops one by one;
-  * `select_sync_mode` — fence or PSCW for k neighbours out of p ranks.
+  * `select_sync_mode` — fence or PSCW for k neighbours out of p ranks;
+  * `select_transfer_protocol` — push a request's KV block through the
+    ring (eager), publish a descriptor for the decoder to pull
+    (rendezvous), or ship a page table (paged).
 
 All sizes are the bytes the card moves (every rank's block), all results
 seconds.
+
+The serving models keep the reference's terms, each priced for one card.
+The reference charges an ICI hop a link latency and a payload its link
+time; on one card there is no link, so a hop becomes one kernel launch
+(`launch_latency`) and a payload a copy read and written at `copy_bandwidth`
+— exactly `p_put`.  A remote semaphore signal (the notification doorbell)
+becomes one event handoff (`event_latency`), as every synchronisation
+message is priced below.  The reference's HBM terms (bounce copies, the
+owner's pack) stay at the data-sheet HBM rate.  The crossovers this gives
+differ from the TPU's: a launch costs ~10 µs here against a ~1 µs hop, so
+the per-message constants weigh far more against the bytes.
 """
 
 from __future__ import annotations
@@ -139,6 +153,140 @@ class PerfModel:
     def select_sync_mode(self, k: int, p: int) -> Literal["pscw", "fence"]:
         """Paper §6: PSCW iff P_post + P_complete + P_start + P_wait < P_fence."""
         return "pscw" if self.p_pscw(k) < self.p_fence(p) else "fence"
+
+    # -- notified rings and page pools -------------------------------------
+    def p_notified_put(self, nbytes: float) -> float:
+        """Put-with-notification: the payload put plus the doorbell, one
+        event handoff."""
+        return self.p_put(nbytes) + self.hw.event_latency
+
+    def p_queue_enqueue(self, nbytes: float) -> float:
+        """One message through the MPSC ring: the 8-byte fetch-and-add on
+        the tail plus the notified put of the payload into its slot."""
+        return self.p_message_rate(8.0) + self.p_notified_put(nbytes)
+
+    def p_queue_dequeue(self, nbytes: float) -> float:
+        """Owner-local drain of one message: one kernel copies the slot out
+        of the ring (read + write at the HBM rate); the head publish rides
+        it."""
+        return self.hw.launch_latency + 2.0 * nbytes / self.hw.hbm_bandwidth
+
+    def p_paged_gather(self, n_pages: int, page_bytes: float) -> float:
+        """Fused gather of n scattered pages into one block
+        (`kernels.paged_gather`): the id list, one packed reply, and the
+        owner's pack copy — not n row round trips."""
+        total = n_pages * page_bytes
+        pack = 2.0 * total / self.hw.hbm_bandwidth
+        return self.p_put(8.0 * n_pages) + self.p_put(total) + pack
+
+    # -- KV transport: inline, paged, eager push vs rendezvous pull ----------
+    def p_append_inline(self, block_bytes: float) -> float:
+        """Inline-payload KV append: the whole block through the ring."""
+        return self.p_queue_enqueue(block_bytes)
+
+    def p_append_paged(self, block_bytes: float, pages_per_block: int,
+                       reuse_fraction: float) -> float:
+        """Paged KV append at prefix-reuse fraction f: the page table
+        through the ring (8 bytes a page), plus one page put and one
+        free-list AMO (riding the table's epoch) for each of the (1 - f)
+        novel pages."""
+        f = min(max(reuse_fraction, 0.0), 1.0)
+        page_bytes = block_bytes / pages_per_block
+        novel = (1.0 - f) * pages_per_block
+        return (self.p_queue_enqueue(8.0 * pages_per_block)
+                + novel * (self.p_put(page_bytes) + self.p_message_rate(8.0)))
+
+    def select_kv_transport(self, block_bytes: float, pages_per_block: int,
+                            reuse_fraction: float) -> Literal["paged", "inline"]:
+        """Page-table indirection vs the inline payload at reuse f."""
+        paged = self.p_append_paged(block_bytes, pages_per_block, reuse_fraction)
+        inline = self.p_append_inline(block_bytes)
+        return "paged" if paged <= inline else "inline"
+
+    def paged_crossover_reuse(self, block_bytes: float, pages_per_block: int,
+                              tol: float = 1e-6) -> float:
+        """Smallest reuse fraction where paged beats inline: 0.0 when paged
+        always wins, 1.0 when inline always does.  The paged cost falls
+        linearly in f against a constant, so the flip is unique and
+        bisection lands within `tol` of it."""
+        if self.select_kv_transport(block_bytes, pages_per_block, 0.0) == "paged":
+            return 0.0
+        if self.select_kv_transport(block_bytes, pages_per_block, 1.0) == "inline":
+            return 1.0
+        lo, hi = 0.0, 1.0                     # lo side inline, hi side paged
+        while hi - lo > tol:
+            mid = 0.5 * (lo + hi)
+            if self.select_kv_transport(block_bytes, pages_per_block, mid) == "paged":
+                hi = mid
+            else:
+                lo = mid
+        return hi
+
+    def p_append_eager(self, block_bytes: float) -> float:
+        """Eager push end to end: the inline enqueue, the drain out of the
+        ring slot, and the copy into pool-resident KV before attending."""
+        return (self.p_append_inline(block_bytes)
+                + self.p_queue_dequeue(block_bytes)
+                + 2.0 * block_bytes / self.hw.hbm_bandwidth)
+
+    def p_append_rendezvous(self, block_bytes: float,
+                            pages_per_block: int) -> float:
+        """Rendezvous pull end to end: the descriptor (8 bytes a page)
+        through the ring and out, the decoder's fused gather of the pages,
+        and the pin's one AMO on the owner's refcount."""
+        table_bytes = 8.0 * pages_per_block
+        page_bytes = block_bytes / max(pages_per_block, 1)
+        return (self.p_queue_enqueue(table_bytes)
+                + self.p_queue_dequeue(table_bytes)
+                + self.p_paged_gather(pages_per_block, page_bytes)
+                + self.p_message_rate(8.0))
+
+    def p_append_paged_e2e(self, block_bytes: float, pages_per_block: int,
+                           reuse_fraction: float) -> float:
+        """Paged shipping end to end: the append (table + novel page puts
+        straight into the consumer's pool) plus draining the table."""
+        return (self.p_append_paged(block_bytes, pages_per_block, reuse_fraction)
+                + self.p_queue_dequeue(8.0 * pages_per_block))
+
+    def select_transfer_protocol(
+        self, block_bytes: float, pages_per_block: int,
+        reuse_fraction: float = 0.0,
+    ) -> Literal["eager", "rendezvous", "paged"]:
+        """The cheapest of eager, paged and rendezvous for one block; ties
+        prefer eager, then paged (the simpler paths)."""
+        best: Literal["eager", "rendezvous", "paged"] = "eager"
+        cost = self.p_append_eager(block_bytes)
+        paged = self.p_append_paged_e2e(block_bytes, pages_per_block,
+                                        reuse_fraction)
+        if paged < cost:
+            best, cost = "paged", paged
+        if self.p_append_rendezvous(block_bytes, pages_per_block) < cost:
+            best = "rendezvous"
+        return best
+
+    def rendezvous_crossover_bytes(self, pages_per_block: int,
+                                   tol: float = 1.0) -> float:
+        """Block size where eager vs rendezvous flips.  Both costs are
+        affine in the block bytes and rendezvous is the flatter (it skips
+        the two bounce passes), so the flip is unique; bisection lands
+        within `tol` bytes of it.  The lower bound if rendezvous already
+        wins there, the upper if it never does."""
+        def pull_wins(b: float) -> bool:
+            return (self.p_append_rendezvous(b, pages_per_block)
+                    <= self.p_append_eager(b))
+
+        lo, hi = 8.0, float(2**30)
+        if pull_wins(lo):
+            return lo
+        if not pull_wins(hi):
+            return hi
+        while hi - lo > tol:
+            mid = 0.5 * (lo + hi)
+            if pull_wins(mid):
+                hi = mid
+            else:
+                lo = mid
+        return hi
 
     # -- collective schedules (composed from the primitives) ----------------
     def ring_all_gather(self, shard_bytes: float, n: int,

@@ -10,12 +10,17 @@ Queries attend over the tokens of the pages named by an int32 page-id list:
     masked pages too.
 
 Pages carry K and V interleaved, ``[n_pages, page_tokens, 2, hd]``: the
-layout of the serving engine's decoder pools.
+layout of the serving engine's page pools.  `paged_attention_shift_ref`
+is the cross-rank form: each rank attends over pages of another rank's
+pool.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ...mesh import Mesh
+from ..paged_gather.ref import paged_gather_ref
 
 NEG_INF = -1e30
 
@@ -48,3 +53,20 @@ def paged_attention_ref(q: torch.Tensor, kv_pages: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True)  # noqa: E741
     out = torch.einsum("mst,mtd->msd", p, v_in) / torch.clamp(l, min=1e-30)
     return out.to(q.dtype)
+
+
+def paged_attention_shift_ref(q: torch.Tensor, kv_pages: torch.Tensor,
+                              ids: torch.Tensor, shift: int, mesh: Mesh,
+                              scale: float | None = None,
+                              causal: bool = False) -> torch.Tensor:
+    """Cross-rank oracle: rank r attends over pages ``ids[r]`` of rank
+    (r + shift)'s pool.  q [p, Sq, hd], kv_pages [p, n_pages, pt, 2, hd],
+    ids [p, k] -> [p, Sq, hd].  The pages are fetched by the plain paged
+    gather; the mask stays the requester's: the fetched rows become a dense
+    local pool and the sign of the original ids carries the mask."""
+    p, k = ids.shape
+    rows = paged_gather_ref(kv_pages, ids, shift, mesh)     # [p, k, pt, 2, hd]
+    local = torch.arange(p * k, device=ids.device).reshape(p, k)
+    local_ids = torch.where(ids >= 0, local, torch.full_like(local, -1))
+    return paged_attention_ref(q, rows.reshape((p * k,) + tuple(rows.shape[2:])),
+                               local_ids, scale=scale, causal=causal)

@@ -1,0 +1,47 @@
+"""Model-guided strategy selection: the `repro.parallel.overlap`
+`CollectiveStrategist`, for the decisions the one-card model can price.
+
+It asks `core.perfmodel.PerfModel` (H100 constants) which synchronisation
+family an epoch should use, whether a plan should pack a group, and which
+KV transfer protocol a serving block should take.  The reference's other
+choices wait for the slices that port their models: hierarchical
+all-reduce (a second mesh axis), the fused all-gather matmul, sparse
+dispatch, and the gradient-sync overlap.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+from ..core.perfmodel import DEFAULT_MODEL, PerfModel
+
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveStrategist:
+    model: PerfModel = DEFAULT_MODEL
+
+    def sync_plan(self, k_neighbors: int, p: int) -> Literal["pscw", "fence"]:
+        return self.model.select_sync_mode(k_neighbors, p)
+
+    def aggregation_plan(self, n_msgs: int, msg_bytes: float
+                         ) -> Literal["pack", "direct"]:
+        """Pack a same-signature group into one transfer, or not."""
+        return self.model.select_aggregation(n_msgs, msg_bytes)
+
+    def transfer_plan(self, block_bytes: float, pages_per_block: int,
+                      reuse_fraction: float = 0.0) -> dict:
+        """KV-block transfer protocol — eager push through the ring,
+        rendezvous descriptor + consumer pull, or the paged table — with
+        the modelled per-append times and the eager/rendezvous crossover,
+        so callers can log the decision."""
+        m = self.model
+        return {
+            "protocol": m.select_transfer_protocol(
+                block_bytes, pages_per_block, reuse_fraction),
+            "eager_s": m.p_append_eager(block_bytes),
+            "rendezvous_s": m.p_append_rendezvous(block_bytes, pages_per_block),
+            "paged_s": m.p_append_paged_e2e(
+                block_bytes, pages_per_block, reuse_fraction),
+            "crossover_bytes": m.rendezvous_crossover_bytes(pages_per_block),
+        }

@@ -12,7 +12,10 @@ pool-local.
 
 Host side: `PagedKVPool` over per-owner `HostPagePool`s.  Device side:
 `scatter_pages` writes novel pages into the owners' pools in ONE fused
-all-to-all; `gather_local` is the owner-local page-table read.
+all-to-all; `gather_pages` is the consumer's pull by descriptor (two fused
+gets, the rendezvous data path); `gather_local` is the owner-local
+page-table read; `gather_shift` reads rows of the pool of rank r + shift
+through the paged-gather kernel.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from ..core import plan as plan_mod
+from ..kernels.paged_gather import ops as pg_ops
 from ..mesh import Mesh
 from . import heap
 
@@ -209,3 +213,64 @@ def gather_local(pool: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     out = pool[torch.clamp(ids.to(torch.int64), 0, n_pages - 1)]
     mask = (ids >= 0).reshape(tuple(ids.shape) + (1,) * (out.ndim - ids.ndim))
     return torch.where(mask, out, torch.zeros_like(out))
+
+
+def gather_pages(mesh: Mesh, pool: torch.Tensor, entries: torch.Tensor,
+                 valid: torch.Tensor) -> torch.Tensor:
+    """Pull pages from their owners' pools by descriptor (collective): the
+    rendezvous data path.
+
+    pool [p, n_pages, *ps], entries [p, m, ppb, 2] int ((owner, page id)
+    rows, the published descriptors), valid [p, m] bool.  The consumer
+    initiates: one fused get carries the wanted-id lists to every owner,
+    the owners' packed replies come back on a second — two wire transfers,
+    batched over every (request, page) pair.  Returns [p, m, ppb, *ps] with
+    invalid requests zeroed.  Every rank takes part: ranks that want
+    nothing send empty id lists and still serve replies from their pool."""
+    p, n_pages = mesh.p, pool.shape[1]
+    m, ppb = entries.shape[1], entries.shape[2]
+    S = m * ppb                                          # flat pull slots
+    dev = pool.device
+    owner = entries[..., ENTRY_OWNER].reshape(p, S).to(torch.int64)
+    pid = entries[..., ENTRY_PAGE].reshape(p, S).to(torch.int64)
+    want = (valid.repeat_interleave(ppb, dim=1) & (owner >= 0) & (owner < p)
+            & (pid >= 0) & (pid < n_pages))
+    orow = torch.where(want, owner, torch.full_like(owner, p))   # p = trash row
+    me = mesh.axis_index()[:, None].expand_as(orow)
+    j = torch.arange(S, device=dev)[None, :].expand_as(orow)
+    # row d of rank r: the page ids r wants from owner d (-1 elsewhere)
+    send_ids = torch.full((p, p + 1, S), -1, dtype=torch.int32, device=dev)
+    send_ids[me, orow, j] = torch.where(want, pid, torch.full_like(pid, -1)).to(torch.int32)
+
+    plan = plan_mod.RmaPlan(mesh)
+    h_ids = plan.put_all_to_all(send_ids[:, :p], kind="gets")   # id lists out
+    plan.flush(aggregate=True)
+    recv_ids = h_ids.result()                            # [owner, requester, S]
+
+    # every owner serves every requester from its pool; -1 slots reply zeros
+    flat = pool.view(p, n_pages, -1)
+    safe = torch.clamp(recv_ids.to(torch.int64), 0, n_pages - 1)
+    reply = flat[mesh.axis_index()[:, None, None], safe]          # [owner, req, S, w]
+    reply.masked_fill_((recv_ids < 0)[..., None], 0)
+
+    plan = plan_mod.RmaPlan(mesh)
+    h_pay = plan.put_all_to_all(reply, kind="gets")      # packed replies back
+    plan.flush(aggregate=True)
+    recv_pay = h_pay.result()                            # [requester, owner, S, w]
+
+    out = recv_pay[me, torch.clamp(orow, 0, p - 1), j]   # [p, S, w]
+    out.masked_fill_(~want[..., None], 0)
+    return out.reshape((p, m, ppb) + tuple(pool.shape[2:]))
+
+
+def gather_shift(mesh: Mesh, pool: torch.Tensor, ids: torch.Tensor,
+                 shift: int) -> torch.Tensor:
+    """Cross-rank page read: rank r fetches rows ``ids[r]`` of rank
+    (r + shift)'s pool.  pool [p, n_pages, *ps], ids [p, k] int32 ->
+    [p, k, *ps], rows whose id is < 0 zeroed.  One paged-gather launch on
+    the card (its plain version on the CPU); the kernel clamps ids into the
+    pool and the mask here zeroes the holes, as the reference does after
+    its gather."""
+    out = pg_ops.paged_gather(pool, ids, shift, mesh)
+    hole = (ids < 0).reshape(tuple(ids.shape) + (1,) * (out.ndim - ids.ndim))
+    return out.masked_fill_(hole, 0)

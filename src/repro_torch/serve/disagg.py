@@ -17,7 +17,17 @@ readout to emit one token per request.  Modes:
     refcount bump.  The decoder attends over its pool by page table: with
     ``attend="fused"`` through the hand-written CUDA paged-attention kernel
     (one launch per decode step over every rank's rows), with
-    ``attend="gather"`` by materialising the block first (the A/B baseline).
+    ``attend="gather"`` by materialising the block first (the A/B baseline);
+  * **rendezvous** (``transport="rendezvous"``) — the consumer pulls.  A
+    prefill rank writes a request's novel pages into its OWN pool (no wire
+    traffic), pins every page it names, and publishes the page table as a
+    descriptor on a descriptor-kind lane; the decoder, when it drains the
+    descriptor, pulls the pages with two fused one-sided gets
+    (`rmem.pages.gather_pages`) and attends over them in the same step.  No
+    KV payload ever takes a ring slot; the pins drop when the token lands
+    (or the request is cancelled).  ``transport="auto"`` asks the H100
+    model (`parallel.overlap.CollectiveStrategist.transfer_plan`) to pick
+    eager, rendezvous or paged for the configured block.
 
 All p ranks run on one device as the leading dimension of stacked tensors
 (`repro_torch.mesh`), with the same role masks the reference's SPMD step
@@ -41,6 +51,7 @@ from ..obs import causal as obs_causal
 from ..obs import flight as obs_flight
 from ..obs import trace as obs_trace
 from ..obs.metrics import MetricsRegistry
+from ..parallel.overlap import CollectiveStrategist
 from ..rmaq import channel as rch
 from ..rmaq import flow as rfl
 from ..rmaq import queue as rq
@@ -68,6 +79,30 @@ class DisaggConfig:
     # decode attention path in paged mode: "fused" walks the page table in
     # the paged-attention kernel; "gather" materialises the block first
     attend: str = "fused"
+    # KV transfer protocol: "eager" is the sender push (`paged` picks the
+    # payload or page-table wire format); "rendezvous" publishes a
+    # descriptor and the decoder pulls the pages with one-sided gets;
+    # "auto" asks the perf model, for this block size and `expected_reuse`
+    transport: str = "eager"
+    expected_reuse: float = 0.0
+
+    def __post_init__(self) -> None:
+        # combinations with no meaning fail here, not at the first engine
+        if self.transport not in ("eager", "rendezvous", "auto"):
+            raise ValueError(f"transport must be 'eager', 'rendezvous' or "
+                             f"'auto', got {self.transport!r}")
+        if not 0.0 <= self.expected_reuse <= 1.0:
+            raise ValueError(
+                f"expected_reuse must be in [0, 1], got {self.expected_reuse}")
+        if self.transport != "eager":
+            if self.paged:
+                raise ValueError(
+                    "transport= and paged=True are exclusive: paged is the "
+                    "legacy eager-mode switch (use transport='auto' with "
+                    "expected_reuse to let the model pick paged shipping)")
+            if not self.flow:
+                raise ValueError(f"transport={self.transport!r} needs credit "
+                                 "flow control (flow=True)")
 
     @property
     def pages_per_block(self) -> int:
@@ -97,6 +132,19 @@ class DisaggConfig:
     @property
     def table_nbytes(self) -> int:
         return self.pages_per_block * rpg.ENTRY_WORDS * 4
+
+
+def resolve_transport(cfg: DisaggConfig, model=None) -> str:
+    """`cfg.transport` as a concrete protocol: "eager", "rendezvous" or
+    "paged".  "auto" asks the H100 model (`CollectiveStrategist
+    .transfer_plan`) for the configured block size, pages per block and
+    expected reuse.  A pure function of the config."""
+    if cfg.transport != "auto":
+        return cfg.transport
+    strat = CollectiveStrategist() if model is None else CollectiveStrategist(model=model)
+    plan = strat.transfer_plan(float(cfg.block_nbytes), cfg.pages_per_block,
+                               cfg.expected_reuse)
+    return str(plan["protocol"])
 
 
 def params_from_jax(np_params: dict, device=None) -> dict:
@@ -147,8 +195,16 @@ class DisaggEngine:
             raise ValueError(f"need 0 < n_prefill < {self.p}, got {cfg.n_prefill}")
         if cfg.n_lanes < 1:
             raise ValueError(f"need n_lanes >= 1, got {cfg.n_lanes}")
-        self.mode = "paged" if cfg.paged else "inline"
-        if self.mode == "paged":
+        # the configured transport as an engine mode: "inline" (eager
+        # payload push), "paged" (eager page-table shipping) or
+        # "rendezvous" (descriptor publish + consumer pull)
+        self.transport_selected = resolve_transport(cfg)
+        if cfg.transport == "eager":
+            self.mode = "paged" if cfg.paged else "inline"
+        else:
+            self.mode = {"eager": "inline", "paged": "paged",
+                         "rendezvous": "rendezvous"}[self.transport_selected]
+        if self.mode in ("paged", "rendezvous"):
             if not cfg.flow:
                 raise ValueError("paged mode needs credit flow control (flow=True)")
             if cfg.block_tokens % cfg.page_tokens:
@@ -161,7 +217,7 @@ class DisaggEngine:
                 raise ValueError(
                     f"pool_pages {cfg.pool_pages} < pages_per_block "
                     f"{cfg.pages_per_block}: no request could ever map")
-            if cfg.attend not in ("fused", "gather"):
+            if self.mode == "paged" and cfg.attend not in ("fused", "gather"):
                 raise ValueError(
                     f"attend must be 'fused' or 'gather', got {cfg.attend!r}")
         self.n_decode = self.p - cfg.n_prefill
@@ -180,21 +236,29 @@ class DisaggEngine:
 
         # n_lanes homogeneous kv lanes sharing one ring (separate credit
         # domains).  Inline mode ships the KV block [bt, 2, d]; paged mode
-        # ships the page table [pages_per_block, 2] int32 instead.
-        if self.mode == "paged":
+        # ships the page table [pages_per_block, 2] int32 instead, and
+        # rendezvous mode the same table on a DESCRIPTOR-kind lane: it names
+        # prefill-resident pages the decoder will pull.
+        if self.mode in ("paged", "rendezvous"):
             lane_shape, lane_dtype = (cfg.pages_per_block, rpg.ENTRY_WORDS), torch.int32
         else:
             lane_shape, lane_dtype = (cfg.block_tokens, 2, cfg.d_model), torch.float32
-        lanes = [rch.Lane(f"kv{i}", lane_shape, lane_dtype, "payload")
+        lane_kind = "descriptor" if self.mode == "rendezvous" else "payload"
+        lanes = [rch.Lane(f"kv{i}", lane_shape, lane_dtype, lane_kind)
                  for i in range(cfg.n_lanes)]
-        if self.mode == "paged":
-            # decoder-owned page pools: device payload storage + the host
-            # allocator mirror (free lists, refcounts, prefix index)
+        if self.mode in ("paged", "rendezvous"):
+            # page pools: device payload storage + the host allocator mirror
+            # (free lists, refcounts, prefix index).  Paged mode's pools are
+            # DECODER-owned (prefill scatters novel pages into them);
+            # rendezvous pools are PREFILL-owned: pages stay at the rank that
+            # computed them until the decoder pulls.
             self.pool = torch.zeros((self.p, cfg.pool_pages, cfg.page_tokens, 2,
                                      cfg.d_model), dtype=torch.float32,
                                     device=self.device)
+            owners = (range(cfg.n_prefill) if self.mode == "rendezvous"
+                      else range(cfg.n_prefill, self.p))
             self.kv = rpg.PagedKVPool(
-                owners=list(range(cfg.n_prefill, self.p)),
+                owners=list(owners),
                 n_pages=cfg.pool_pages,
                 page_words=cfg.page_tokens * 2 * cfg.d_model,
             )
@@ -228,6 +292,13 @@ class DisaggEngine:
         self.pool_stalls = 0       # requests deferred: pool had no free page
         self.novel_pages_shipped = 0
         self.appends = 0           # channel appends (admitted requests)
+        self.ring_payload_appends = 0   # appends on payload-kind lanes
+        self.descriptor_appends = 0     # appends on descriptor-kind lanes
+        self.pulled_pages = 0      # pages pulled to completion (rendezvous)
+        # rendezvous pull pins: rid -> [(owner, page_id, tag)], taken when
+        # the descriptor is published, dropped when the token lands (or the
+        # request is cancelled)
+        self._pins: dict[int, list[tuple[int, int, int]]] = {}
         self.steps_run = 0
         # request-lifecycle latency ledgers: TTFT = submit -> result landing;
         # TBT = engine-wide gap between consecutive result landings
@@ -353,6 +424,41 @@ class DisaggEngine:
             out_req, out_tok = self._emit(ctx, msk, tg)
         return out_req.reshape(p, m), out_tok.reshape(p, m)
 
+    def _ship_rdv(self, qstate, fstate, pool, ptab, req_id, dest, lane,
+                  novel_toks, novel_slot):
+        """Rendezvous step: prefill ranks write novel KV pages into their
+        OWN pool slices (owner-local, zero wire), publish descriptors (page
+        tables) on the descriptor lane, and the decode ranks — gated by
+        their drain width — pull the pages with one fused gather and attend
+        in the same step.  No KV payload takes a ring slot."""
+        cfg, p = self.cfg, self.p
+        # 1. novel pages land in the staging rank's own pool, in place;
+        # slots outside the pool are dropped
+        n_pages = pool.shape[1]
+        slot = novel_slot.to(torch.int64)
+        r_idx, s_idx = ((slot >= 0) & (slot < n_pages)).nonzero(as_tuple=True)
+        flat = pool.view(p, n_pages, -1)
+        flat[r_idx, slot[r_idx, s_idx]] = self._compute_kv(
+            novel_toks[r_idx, s_idx]).reshape(r_idx.numel(), flat.shape[2])
+        # 2. descriptor append: the only thing that rides the ring
+        is_prefill, dest_eff = self._staged_dest(req_id, dest)
+        qstate, fstate, receipt = rfl.send(
+            self.channel, qstate, fstate, "kv0",
+            ptab[:, None], req_id[:, None], dest_eff[:, None], lane)
+        # 3. drain descriptors: the decoder's readiness gate
+        qstate, fstate, batch = rfl.recv(self.channel, qstate, fstate,
+                                         cfg.max_recv_per_step)
+        entries, mask = self.channel.payload_all(batch)        # [p, m, ppb, 2]
+        # 4. pull the pages from their owners, then attend over the block
+        kv_in = rpg.gather_pages(self.mesh, pool, entries, mask)
+        m = mask.shape[1]
+        out_req, out_tok = self._readout(
+            kv_in.reshape(p * m, cfg.block_tokens, 2, cfg.d_model),
+            mask.reshape(-1), batch.tag.reshape(-1))
+        sent_ok = receipt.accepted[:, 0] & is_prefill
+        return (qstate, fstate, pool, out_req.reshape(p, m),
+                out_tok.reshape(p, m), sent_ok, receipt.rejected)
+
     def _step_inputs(self, **arrays) -> dict:
         return {k: torch.as_tensor(v, device=self.device) for k, v in arrays.items()}
 
@@ -367,16 +473,20 @@ class DisaggEngine:
                                  dest=np.full((p,), -1, np.int32),
                                  lane=np.zeros((p, 1), np.int32))
         with OpCounter() as c:
-            if self.mode == "paged":
+            if self.mode in ("paged", "rendezvous"):
                 S = cfg.novel_slots
                 ins = self._step_inputs(
                     ptab=np.full((p, cfg.pages_per_block, rpg.ENTRY_WORDS), -1, np.int32),
                     novel_toks=np.full((p, S, cfg.page_tokens), -1, np.int32),
                     novel_slot=np.full((p, S), -1, np.int32),
                     novel_dest=np.full((p, S), -1, np.int32))
-                self._ship(qstate, fstate, self.pool.clone(), ins["ptab"],
-                           idle["req_id"], idle["dest"], idle["lane"],
-                           ins["novel_toks"], ins["novel_slot"], ins["novel_dest"])
+                args = (qstate, fstate, self.pool.clone(), ins["ptab"],
+                        idle["req_id"], idle["dest"], idle["lane"],
+                        ins["novel_toks"], ins["novel_slot"])
+                if self.mode == "paged":
+                    self._ship(*args, ins["novel_dest"])
+                else:
+                    self._ship_rdv(*args)
             else:
                 tokens = torch.full((p, cfg.block_tokens), -1, dtype=torch.int32,
                                     device=self.device)
@@ -421,13 +531,14 @@ class DisaggEngine:
             ttft_us = (now - t0) * 1e6
             self.metrics.histogram("serve.ttft_us").observe(ttft_us, exemplar=rid)
             t_staged = self._t_staged.pop(rid, None)
+            wire_seg = "kv_pull" if self.mode == "rendezvous" else "kv_wire"
             if t_staged is not None:
-                self.metrics.histogram("seg.kv_wire_us").observe(
+                self.metrics.histogram(f"seg.{wire_seg}_us").observe(
                     (now - t_staged) * 1e6)
             tr = obs_trace.TRACER
             if tr.enabled:
                 tr.event("serve.request.decode", rid=rid, rank=rank,
-                         cause=obs_causal.edge(rid, "kv"), seg="kv_wire")
+                         cause=obs_causal.edge(rid, "kv"), seg=wire_seg)
                 tr.event("serve.request.first_token", rid=rid, rank=rank,
                          seg="attend", ttft_us=int(ttft_us))
         if self._t_last_result is not None:
@@ -467,12 +578,15 @@ class DisaggEngine:
         return best
 
     # ------------------------------------------------------- paged host side
-    def _map_request(self, rid: int, toks: np.ndarray):
-        """Acquire (or share) every page of the request at its routed
-        decoder.  None when the pool is dry (every acquisition rolled back)."""
+    def _map_request(self, rid: int, toks: np.ndarray, owner: int | None = None):
+        """Acquire (or share) every page of the request in `owner`'s pool:
+        the staging prefill rank's in rendezvous mode (the pages never move
+        at publish time), the routed decoder's (prefix affinity) when None.
+        None when the pool is dry (every acquisition rolled back; the
+        request waits for releases)."""
         cfg = self.cfg
         pages_toks = rpg.split_pages(toks, cfg.page_tokens)
-        dest = self.kv.route(rpg.page_key(pages_toks[0]))
+        dest = self.kv.route(rpg.page_key(pages_toks[0])) if owner is None else owner
         entries, novel = [], []
         hits0, miss0 = self.kv.hits, self.kv.misses
         for ptoks in pages_toks:
@@ -492,6 +606,36 @@ class DisaggEngine:
         return {"rid": rid, "dest": dest, "entries": entries,
                 "novel": novel, "next": 0}
 
+    def _take_job(self, r: int, owner: int | None) -> bool:
+        """Map the next pending request for idle prefill rank r (pages in
+        `owner`'s pool, see `_map_request`).  False when the pool is dry:
+        the request goes back to the head of the queue and waits."""
+        rid, toks = self._pending.pop(0)
+        job = self._map_request(rid, toks, owner)
+        if job is None:
+            self._pending.insert(0, (rid, toks))
+            self._stalled[int(rid)] = "pool"
+            tr = obs_trace.TRACER
+            if tr.enabled:
+                tr.event("serve.request.pool_stall", rank=r, rid=int(rid),
+                         seg="queue_wait")
+            return False
+        self._jobs[rid] = job
+        self._rank_job[r] = rid
+        now = time.perf_counter()
+        self._t_staged[int(rid)] = now
+        self.metrics.histogram("seg.queue_wait_us").observe(
+            (now - self._t_submit.get(int(rid), now)) * 1e6)
+        tr = obs_trace.TRACER
+        if tr.enabled:
+            # time since submit was queue wait, unless the request sat out a
+            # dry pool: then it waited on page releases
+            tr.event("serve.request.page_alloc", rank=r, rid=int(rid),
+                     pages=len(job["entries"]),
+                     seg=("page_alloc" if self._stalled.get(int(rid)) == "pool"
+                          else "queue_wait"))
+        return True
+
     def _paged_step(self) -> int:
         """Ship novel pages, append page tables of requests whose pages are
         all resident, drain + decode, release finished requests' pages."""
@@ -510,30 +654,7 @@ class DisaggEngine:
         pool_dry = False       # one dry probe per step, not one per idle rank
         for r in range(cfg.n_prefill):
             if self._rank_job[r] is None and self._pending and not pool_dry:
-                rid, toks = self._pending.pop(0)
-                job = self._map_request(rid, toks)
-                if job is None:
-                    self._pending.insert(0, (rid, toks))   # pool dry: wait
-                    self._stalled[int(rid)] = "pool"
-                    tr = obs_trace.TRACER
-                    if tr.enabled:
-                        tr.event("serve.request.pool_stall", rank=r,
-                                 rid=int(rid), seg="queue_wait")
-                    pool_dry = True
-                    continue
-                self._jobs[rid] = job
-                self._rank_job[r] = rid
-                now = time.perf_counter()
-                self._t_staged[int(rid)] = now
-                self.metrics.histogram("seg.queue_wait_us").observe(
-                    (now - self._t_submit.get(int(rid), now)) * 1e6)
-                tr = obs_trace.TRACER
-                if tr.enabled:
-                    tr.event("serve.request.page_alloc", rank=r,
-                             rid=int(rid), pages=len(job["entries"]),
-                             seg=("page_alloc"
-                                  if self._stalled.get(int(rid)) == "pool"
-                                  else "queue_wait"))
+                pool_dry = not self._take_job(r, None)
             if self._rank_job[r] is None:
                 continue
             job = self._jobs[self._rank_job[r]]
@@ -578,6 +699,7 @@ class DisaggEngine:
             budget[r, t, ln] -= 1
             self.lane_sends[t, ln] += 1
             self.appends += 1
+            self.ring_payload_appends += 1
             appended[r] = job["rid"]
             tr = obs_trace.TRACER
             if tr.enabled:
@@ -627,10 +749,160 @@ class DisaggEngine:
                     emitted += 1
         return emitted
 
+    # -------------------------------------------------- rendezvous host side
+    def _rendezvous_step(self) -> int:
+        """Stage novel pages into the prefill ranks' own pools, publish
+        descriptors for requests whose pages are all resident (pinning every
+        named page so it stays live for the pull), run the device step —
+        descriptor ring + fused pull + readout — and drop the pins when
+        tokens land."""
+        cfg, p = self.cfg, self.p
+        S, ppb = cfg.novel_slots, cfg.pages_per_block
+        ptab = np.full((p, ppb, rpg.ENTRY_WORDS), -1, np.int32)
+        req_id = np.full((p,), -1, np.int32)
+        dest = np.full((p,), -1, np.int32)
+        lane = np.zeros((p, 1), np.int32)
+        novel_toks = np.full((p, S, cfg.page_tokens), -1, np.int32)
+        novel_slot = np.full((p, S), -1, np.int32)
+
+        budget = self._host_credits()
+        appended: dict[int, int] = {}
+        pool_dry = False
+        for r in range(cfg.n_prefill):
+            if self._rank_job[r] is None and self._pending and not pool_dry:
+                pool_dry = not self._take_job(r, r)
+            if self._rank_job[r] is None:
+                continue
+            job = self._jobs[self._rank_job[r]]
+            # stage up to novel_slots of the job's unwritten novel pages into
+            # MY pool (owner-local device writes, zero wire traffic)
+            n_stage = min(S, len(job["novel"]) - job["next"])
+            for s in range(n_stage):
+                pid, ptoks = job["novel"][job["next"] + s]
+                novel_toks[r, s] = ptoks
+                novel_slot[r, s] = pid
+                self._page_ready.add((r, pid))
+            job["next"] += n_stage
+            self.novel_pages_shipped += n_stage
+            # publish once every page (own novels AND shared pages written by
+            # earlier jobs at this rank) is resident and a descriptor credit
+            # toward some decode rank is available
+            resident = all((ref.owner, ref.page_id) in self._page_ready
+                           for ref in job["entries"])
+            if job["next"] < len(job["novel"]) or not resident:
+                continue
+            sel = self._select_lane(budget, r)
+            if sel is None:
+                self.credit_stalls += 1
+                self._stalled[int(job["rid"])] = "credit"
+                tr = obs_trace.TRACER
+                if tr.enabled:
+                    tr.event("serve.request.credit_stall", rank=r,
+                             rid=int(job["rid"]), seg="host")
+                continue
+            t, ln = sel
+            # pin every named page before the descriptor goes out, so a
+            # concurrent release can free nothing the pull will read
+            rid_j = int(job["rid"])
+            self._pins[rid_j] = [
+                (ref.owner, ref.page_id,
+                 self.kv.pools[ref.owner].pin(ref.page_id, origin=t))
+                for ref in job["entries"]]
+            ptab[r] = self.kv.table_entries(rid_j)
+            req_id[r], dest[r], lane[r, 0] = rid_j, t, ln
+            budget[r, t, ln] -= 1
+            self.lane_sends[t, ln] += 1
+            self.appends += 1
+            self.descriptor_appends += 1
+            appended[r] = rid_j
+            tr = obs_trace.TRACER
+            if tr.enabled:
+                # the descriptor append carries the request's KV edge: it
+                # licenses the decoder's pull
+                tr.event("serve.request.publish", rank=r, rid=rid_j,
+                         dst=int(t), lane=int(ln), nbytes=cfg.table_nbytes,
+                         seg=("credit_stall"
+                              if self._stalled.get(rid_j) == "credit"
+                              else "host"),
+                         edge=obs_causal.edge(rid_j, "kv"))
+            self._stalled.pop(rid_j, None)
+
+        ins = self._step_inputs(ptab=ptab, req_id=req_id, dest=dest, lane=lane,
+                                novel_toks=novel_toks, novel_slot=novel_slot)
+        (self.qstate, self.fstate, self.pool, out_req, out_tok, sent_ok,
+         rejected) = self._ship_rdv(self.qstate, self.fstate, self.pool, **ins)
+        self.steps_run += 1
+        if int(rejected.sum()):
+            raise RuntimeError(
+                "credit conservation violated: a credited descriptor append "
+                "was rejected at the ring")
+        sent_ok = sent_ok.cpu().numpy()
+        for r, rid in appended.items():
+            if not bool(sent_ok[r]):
+                raise RuntimeError(f"credited descriptor append not delivered: {rid}")
+            self._rank_job[r] = None        # the prefill rank frees up
+            del self._jobs[rid]
+
+        out_req, out_tok = out_req.cpu().numpy(), out_tok.cpu().numpy()
+        emitted = 0
+        for rr in range(cfg.n_prefill, p):
+            for rid, tok in zip(out_req[rr], out_tok[rr]):
+                # a cancelled rid may still deliver a stale token: its pins
+                # and table are already rolled back, and it must not count
+                # toward the drain quota
+                if rid >= 0 and int(rid) in self._submitted_ids:
+                    self.results[int(rid)] = int(tok)
+                    self._observe_result(int(rid), rank=rr)
+                    # pull complete: drop the pull pins, then the table refs
+                    for owner, pid, tag in self._pins.pop(int(rid), []):
+                        self.kv.pools[owner].unpin(pid, tag, origin=rr)
+                        self.pulled_pages += 1
+                    if int(rid) in self.kv.page_tables:
+                        for ref in self.kv.table_release(int(rid)):
+                            self._page_ready.discard((ref.owner, ref.page_id))
+                    emitted += 1
+        return emitted
+
+    def cancel(self, rid: int) -> bool:
+        """Abort a request host-side — the puller that dies before its
+        flush.  Rolls back everything the request holds: pull pins (if its
+        descriptor was published), page-table refs, its place in the queue,
+        its ledger entries; the pages a dead pull named are reclaimable at
+        once (pool conservation holds).  True if the rid was known."""
+        rid = int(rid)
+        known = False
+        if self._jobs.pop(rid, None) is not None:
+            known = True
+            for r, j in enumerate(self._rank_job):
+                if j == rid:
+                    self._rank_job[r] = None
+        for owner, pid, tag in self._pins.pop(rid, []):
+            self.kv.pools[owner].unpin(pid, tag, origin=owner)
+            known = True
+        if self.kv is not None and rid in self.kv.page_tables:
+            for ref in self.kv.table_release(rid):
+                self._page_ready.discard((ref.owner, ref.page_id))
+            known = True
+        before = len(self._pending)
+        self._pending = [x for x in self._pending if int(x[0]) != rid]
+        known = known or len(self._pending) != before
+        if rid in self._submitted_ids and rid not in self.results:
+            self._submitted_ids.discard(rid)
+            self._n_submitted -= 1
+        self._t_submit.pop(rid, None)
+        self._t_staged.pop(rid, None)
+        self._stalled.pop(rid, None)
+        tr = obs_trace.TRACER
+        if tr.enabled:
+            tr.event("serve.request.cancel", rid=rid)
+        return known
+
     def step(self) -> int:
         """One engine step: assign pending requests to prefill ranks, run the
         device step, collect decode outputs.  Returns #tokens emitted."""
-        if self.cfg.paged:
+        if self.mode == "rendezvous":
+            return self._rendezvous_step()
+        if self.mode == "paged":
             return self._paged_step()
         cfg, p = self.cfg, self.p
         tokens = np.full((p, cfg.block_tokens), -1, np.int32)
@@ -673,6 +945,7 @@ class DisaggEngine:
                                   else "queue_wait"),
                              edge=obs_causal.edge(int(rid), "kv"))
                 self._stalled.pop(int(rid), None)
+                self.ring_payload_appends += 1
         else:
             # legacy: round-robin by request id, single implicit lane
             for r in range(cfg.n_prefill):
@@ -722,7 +995,11 @@ class DisaggEngine:
         while len(self.results) < self._n_submitted:
             if steps >= max_steps:
                 undrained = sorted(self._submitted_ids - set(self.results))
-                reasons = {rid: self._stalled.get(rid, "queue") for rid in undrained}
+                # why each is stuck: a published descriptor whose pull never
+                # completed, a recorded credit/pool stall, or queue residence
+                reasons = {rid: "pull" if rid in self._pins
+                           else self._stalled.get(rid, "queue")
+                           for rid in undrained}
                 self._stalled.clear()
                 err = DrainError(f"not drained after {max_steps} steps",
                                  tuple(undrained), reasons=reasons)
@@ -771,6 +1048,30 @@ class DisaggEngine:
                 + self.novel_pages_shipped * self.cfg.page_nbytes),
             "wire_bytes_total": self.steps_run * self.msg_stats["bytes_wire_per_step"],
             "pool_conservation_ok": self.kv.conservation()["ok"],
+        }
+
+    def rendezvous_stats(self) -> dict:
+        """Rendezvous-mode instrumentation: descriptor-lane traffic against
+        the pull path.  The headline invariant is ``ring_payload_appends ==
+        0``: the ring moves descriptors only, and every KV byte travels as
+        a one-sided get the decoder issues when it is ready to attend."""
+        if self.mode != "rendezvous":
+            return {}
+        ks = self.kv.stats()
+        return {
+            "transport_selected": self.transport_selected,
+            "descriptor_appends": self.descriptor_appends,
+            "ring_payload_appends": self.ring_payload_appends,
+            "descriptor_bytes": self.descriptor_appends * self.cfg.table_nbytes,
+            "pulled_pages": self.pulled_pages,
+            "pulled_bytes": self.pulled_pages * self.cfg.page_nbytes,
+            "pool_stalls": self.pool_stalls,
+            "prefix_hits": ks["hits"],
+            "prefix_hit_rate": ks["hit_rate"],
+            "pins_outstanding": sum(len(v) for v in self._pins.values()),
+            "pool_conservation_ok": self.kv.conservation()["ok"],
+            "wire_msgs_per_step": self.msg_stats["wire_msgs_per_step"],
+            "wire_bytes_per_step": self.msg_stats["bytes_wire_per_step"],
         }
 
     def flow_stats(self) -> dict:
