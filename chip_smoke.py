@@ -72,7 +72,25 @@ no result line):
      halo views as the stencil passes them: kernel, plain, torch.roll /
      index_add / expand yardsticks, Tensor.copy_ of the same bytes, and the
      bytes bound at 3.35 TB/s), and the H100 model's measured constants:
-     the PyTorch op's launch latency, the event latency, the copy_ rate.
+     the PyTorch op's launch latency, the event latency, the copy_ rate;
+ 11. dynamic sparse data exchange (`repro_torch.core.dsde`) at p=4096 ranks
+     in the paper's Fig. 7b setting (`benchmarks/bench_dsde.py:14-20`): k=6
+     items of 2 f32 a rank to uniform random targets from a seeded numpy
+     generator, capacity_per_pair=24 (3 GiB of per-pair slots; a 4 GiB
+     queue ring of 131,072 rows a rank).  All four protocols as a user
+     calls them, each held to a plain numpy exchange (every item at its
+     slot or in arrival order, per-pair or total counts, drops), their
+     OpCounter and plan ledgers logged, ms/call, the queue exchange's
+     split, and `dispatch_plan`'s choice beside the measured times;
+ 12. the rmaq kernels through their ops surfaces on that run's data:
+     `notified_put` of the receive blocks with the received counts,
+     `notify_accumulate` of the send counts into the queue's NOTIF column,
+     and `queue_push` of each rank's items to rank r + 1 into the queue's
+     ring in a wrapping and a backpressured round — each bit-equal to its
+     plain version and to the protocol it stands for
+     (`notify.notified_put_shift`, `notify.accumulate_counts`,
+     `queue.enqueue_shift`), launches counted; then edge cases against the
+     plain versions and timings (kernel, plain, library call, bytes bound).
 
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after.
@@ -91,12 +109,13 @@ import subprocess
 import sys
 import time
 
+T0 = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 F32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 TOL = 1e-4                      # kernel vs plain, f32, different sum order
-SOURCES = ("paged_attention", "rma", "paged_gather")   # csrc/<name>.cu, one nvcc each
+SOURCES = ("paged_attention", "rma", "paged_gather", "rmaq")   # csrc/<name>.cu, one nvcc each
 KERNELS = {
     # name -> (route, source, TPU kernel it replaces)
     "paged_attention": ("cuda", "src/repro_torch/csrc/paged_attention.cu",
@@ -113,6 +132,12 @@ KERNELS = {
                               "src/repro/kernels/paged_attention/kernel.py:219"),
     "paged_gather": ("cuda", "src/repro_torch/csrc/paged_gather.cu",
                      "src/repro/kernels/paged_gather/kernel.py:86"),
+    "notified_put": ("cuda", "src/repro_torch/csrc/rmaq.cu",
+                     "src/repro/kernels/rmaq/kernel.py:85"),
+    "notify_accumulate": ("cuda", "src/repro_torch/csrc/rmaq.cu",
+                          "src/repro/kernels/rmaq/kernel.py:128"),
+    "queue_push": ("cuda", "src/repro_torch/csrc/rmaq.cu",
+                   "src/repro/kernels/rmaq/kernel.py:221"),
 }
 FULL = dict(n_prefill=2, d_model=128, vocab=32000, page_tokens=16,
             block_tokens=2048, pool_pages=8192, queue_capacity=64,
@@ -123,6 +148,11 @@ N_PREFIX_GROUPS = 4             # requests share one of 4 half-length prefixes
 MILC_P, MILC_LOCAL = 131072, (8, 4, 4, 4, 6)   # ranks; T_local, X, Y, Z, reals
 MILC_STEPS, MILC_TOL = 5, 1e-5  # the example's own tolerance
 AR_P, AR_MIB, AR_TOL = 8, 25, 1e-5
+# DSDE: the paper's Fig. 7b setting (benchmarks/bench_dsde.py:14-20): k = 6
+# items of 2 f32 a rank to uniform random targets, 4k slots a pair
+DSDE_P, DSDE_K, DSDE_D, DSDE_CAP, DSDE_SEED, DSDE_REPS = 4096, 6, 2, 24, 0, 3
+DSDE_PROTOCOLS = ("exchange_accumulate", "exchange_alltoall_baseline",
+                  "exchange_reduce_scatter_baseline", "exchange_queue")
 
 
 def log(msg: str) -> None:
@@ -376,6 +406,9 @@ def main() -> int:
     kernels += rendezvous_phases(torch, F, disagg, fused_tokens, fused_ms, H100.hbm_bandwidth)
     torch.cuda.empty_cache()
     kernels += rma_phases(torch)
+    torch.cuda.empty_cache()
+    kernels += dsde_phases(torch, H100.hbm_bandwidth)
+    log(f"smoke wall time: {time.perf_counter() - T0:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1001,6 +1034,338 @@ def rma_phases(torch) -> list:
         f"{plan_mod.DEFAULT_MODEL.aggregation_crossover_bytes():.0f} B), "
         f"choose_sync(2, {MILC_P}) {epoch_mod.choose_sync(2, MILC_P, model)}")
     return rows
+
+
+# ------------------------------------------- notified access and DSDE
+def plain_exchange(np, data, tg, cap_pair: int) -> dict:
+    """The DSDE exchange in plain numpy: item j of rank r goes to rank
+    tg[r, j]; its position among r's items for that target is its program
+    order.  Returns the per-pair counts [dst, src], the slotted layout's
+    (target, slot) of every kept item, the items in the queue's arrival
+    order (target, then producer rank, then program order) and the drops."""
+    p, k = tg.shape
+    src = np.repeat(np.arange(p), k)
+    dst = tg.reshape(-1).astype(np.int64)
+    items = data.reshape(p * k, -1)
+    pos = np.zeros(p * k, np.int64)
+    seen: dict = {}
+    for i, key in enumerate(zip(src.tolist(), dst.tolist())):
+        pos[i] = seen.get(key, 0)
+        seen[key] = pos[i] + 1
+    counts = np.zeros((p, p), np.int64)
+    np.add.at(counts, (dst, src), 1)
+    keep = pos < cap_pair
+    order = np.lexsort((np.arange(p * k), src, dst))        # dst, src, program
+    return {"counts": counts, "dst": dst[keep], "slot": (src * cap_pair + pos)[keep],
+            "items": items[keep], "dropped": np.bincount(src[~keep], minlength=p),
+            "arrival_dst": dst[order], "arrival_items": items[order]}
+
+
+def check_exchange(torch, np, name: str, res, want: dict, ring_cap: int) -> None:
+    """One protocol's result against the plain exchange: every item at its
+    slot (the slotted protocols) or in arrival order (the queue), the
+    per-pair or total counts, nothing dropped that should not be."""
+    p = want["counts"].shape[0]
+    valid = res.recv_valid
+    t_idx, s_idx = (a.cpu().numpy() for a in valid.nonzero(as_tuple=True))
+    got = res.recv_data[valid].cpu().numpy()
+    if name == "exchange_queue":
+        if not (want["counts"].sum(1) <= ring_cap).all():
+            raise AssertionError("the DSDE traffic overflows the queue's ring")
+        ok = (np.array_equal(t_idx, want["arrival_dst"])
+              and np.array_equal(got.view(np.uint32), want["arrival_items"].view(np.uint32))
+              and int(res.sent_dropped.sum()) == 0)
+    else:
+        order = np.lexsort((want["slot"], want["dst"]))
+        ok = (np.array_equal(t_idx, want["dst"][order])
+              and np.array_equal(s_idx, want["slot"][order])
+              and np.array_equal(got.view(np.uint32), want["items"][order].view(np.uint32))
+              and np.array_equal(res.sent_dropped.cpu().numpy(), want["dropped"]))
+    counts = res.recv_counts.cpu().numpy()
+    if name == "exchange_reduce_scatter_baseline":
+        ok = ok and np.array_equal(counts, np.repeat(want["counts"].sum(1)[:, None], p, 1))
+    else:
+        ok = ok and np.array_equal(counts, want["counts"])
+    if not ok:
+        raise AssertionError(f"{name}: differs from the plain numpy exchange")
+
+
+def dsde_phase(torch, np, dsde, overlap, rq, Mesh, OpCounter) -> dict:
+    """The four DSDE protocols at p = DSDE_P through `core.dsde`, each held
+    to the plain numpy exchange, with their ledgers, times and the model's
+    dispatch choice.  Keeps what the kernel phase runs on."""
+    p, k, d, cap_pair = DSDE_P, DSDE_K, DSDE_D, DSDE_CAP
+    mesh = Mesh(p, "x", device="cuda")
+    rng = np.random.default_rng(DSDE_SEED)
+    data_np = rng.standard_normal((p, k, d)).astype(np.float32)
+    tg_np = rng.integers(0, p, (p, k)).astype(np.int32)
+    data, tg = torch.from_numpy(data_np).cuda(), torch.from_numpy(tg_np).cuda()
+    want = plain_exchange(np, data_np, tg_np, cap_pair)
+    ring_cap = 1 << (p * cap_pair - 1).bit_length()
+    log(f"dsde: p={p}, k={k} items of {d} f32 a rank to uniform random targets, "
+        f"capacity_per_pair={cap_pair} (slots [p, p*{cap_pair}, {d}] = "
+        f"{p * p * cap_pair * d * 4 / 2**30:.2f} GiB), queue ring {ring_cap} rows a rank "
+        f"({p * ring_cap * d * 4 / 2**30:.2f} GiB), max items into one rank "
+        f"{int(want['counts'].sum(1).max())}")
+
+    keep: dict = {}
+    real_drain = rq.drain
+
+    def tap(desc, state):            # the queue's state after the enqueue
+        keep["queue"] = (desc, state.buf, state.ctrs.clone())
+        return real_drain(desc, state)
+
+    ms = {}
+    torch.cuda.reset_peak_memory_stats()
+    for name in DSDE_PROTOCOLS:
+        fn = getattr(dsde, name)
+        rq.drain = tap
+        try:
+            with OpCounter() as c:
+                res = fn(data, tg, mesh, cap_pair)
+                torch.cuda.synchronize()
+        finally:
+            rq.drain = real_drain
+        check_exchange(torch, np, name, res, want, ring_cap)
+        if name == "exchange_accumulate":
+            keep["recv"] = (res.recv_data, res.recv_counts)
+        del res
+        plans = [(pl["raw"], pl["coalesced"], pl["bytes_wire"]) for pl in c.plans]
+        log(f"dsde {name}: every item at its place, counts and drops equal to the plain "
+            f"exchange; OpCounter {c.snapshot()}; plans (raw, coalesced, bytes_wire) {plans}")
+        times = []
+        for _ in range(DSDE_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(data, tg, mesh, cap_pair)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = sorted(times)[len(times) // 2]
+        torch.cuda.empty_cache()
+    log("dsde ms/call (median of %d, CUDA-synchronised): " % DSDE_REPS
+        + ", ".join(f"{n} {t:.3f}" for n, t in ms.items())
+        + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # where the queue exchange's time goes: the ring, the enqueue epoch, the drain
+    split = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    desc, state = rq.queue_allocate(mesh, ring_cap, (d,), data.dtype)
+    torch.cuda.synchronize()
+    split["allocate"] = time.perf_counter() - t0
+    state, _ = rq.enqueue(desc, state, data, tg)
+    torch.cuda.synchronize()
+    split["enqueue"] = time.perf_counter() - t0 - split["allocate"]
+    rq.drain(desc, state)
+    torch.cuda.synchronize()
+    split["drain"] = time.perf_counter() - t0 - split["allocate"] - split["enqueue"]
+    del desc, state
+    log("dsde exchange_queue split (ms, one call): "
+        + ", ".join(f"{n} {t * 1e3:.3f}" for n, t in split.items()))
+
+    strat = overlap.CollectiveStrategist()
+    args = (k, 4.0 * d, p, cap_pair)
+    choice = strat.dispatch_plan(*args)
+    faster = ("queue" if ms["exchange_queue"] < ms["exchange_alltoall_baseline"]
+              else "alltoall")
+    log(f"dispatch_plan{args} -> {choice}; measured faster: {faster} (queue "
+        f"{ms['exchange_queue']:.3f} ms, alltoall {ms['exchange_alltoall_baseline']:.3f} ms); "
+        f"{'the model chose the faster' if choice == faster else 'the model chose the slower'}"
+        f"; at the reference test's (4, 256.0, 64, 32) -> {strat.dispatch_plan(4, 256.0, 64, 32)}"
+        f", (2048, 256.0, 8, 4) -> {strat.dispatch_plan(2048, 256.0, 8, 4)}")
+    keep.update(mesh=mesh, data=data, counts=torch.from_numpy(want["counts"]).cuda())
+    return keep
+
+
+def queue_round(torch, rq, ops, ref, run: dict, ctrs, u32_to_wire) -> dict:
+    """One queue_push round of every rank's k DSDE items to rank r + 1 on
+    the DSDE ring with counters `ctrs`, through the kernel, its plain
+    version and `queue.enqueue_shift` on copies of the same state."""
+    desc, ring, _ = run["queue"]
+    mesh, msgs = run["mesh"], run["data"]
+    ctr = u32_to_wire(ctrs[:, [rq.HEAD, rq.TAIL]]).contiguous()
+    k_ring, k_ctr, n_sent, n_notif = ops.queue_push(ring.clone(), ctr.clone(), msgs, 1, mesh)
+    p_ring, p_ctr, p_sent, p_notif = ref.queue_push_ref(ring.clone(), ctr.clone(), msgs, 1,
+                                                        mesh, desc.capacity)
+    state, receipt = rq.enqueue_shift(desc, rq.QueueState(ring.clone(), ctrs.clone()), msgs, 1)
+    torch.cuda.synchronize()
+    notif = (state.ctrs[:, rq.NOTIF] - ctrs[:, rq.NOTIF]) & 0xFFFFFFFF
+    same = (torch.equal(k_ring, p_ring) and torch.equal(k_ctr, p_ctr)
+            and torch.equal(n_sent, p_sent) and torch.equal(n_notif, p_notif))
+    like_queue = (torch.equal(k_ring, state.buf)
+                  and torch.equal(k_ctr[:, 1], u32_to_wire(state.ctrs[:, rq.TAIL]))
+                  and torch.equal(n_sent.long(), receipt.n_sent)
+                  and torch.equal(n_notif.long(), notif))
+    return {"plain": same, "queue": like_queue, "n_sent": n_sent, "ctr": k_ctr}
+
+
+def rmaq_ops_phase(torch, rq, notify, ops, ref, run: dict, u32_to_wire) -> dict:
+    """The three kernels through their ops surfaces on the DSDE run's data,
+    counts zeroed before and read after; each result held to its plain
+    version and to the protocol it stands for."""
+    mesh, p, k = run["mesh"], DSDE_P, DSDE_K
+    recv, recv_counts = run["recv"]
+    _, ring, ctrs = run["queue"]
+    cap = ring.shape[1]
+    cnt = recv_counts.sum(1, dtype=torch.int32)            # items each rank received
+    send_counts = run["counts"].t().contiguous().to(torch.int32)   # [src, dst]
+    to_next = send_counts[torch.arange(p, device="cuda"), (torch.arange(p, device="cuda") + 1) % p]
+    local = u32_to_wire(ctrs[:, rq.NOTIF])
+    # the wrapping round: every tail rebased to 2**32 - 2 (= cap - 2 mod cap),
+    # occupancy kept, so k = 6 slots wrap the ring and the counter
+    wrap = ctrs.clone()
+    wrap[:, rq.HEAD] = (ctrs[:, rq.HEAD] + (2**32 - 2) - ctrs[:, rq.TAIL]) & 0xFFFFFFFF
+    wrap[:, rq.TAIL] = 2**32 - 2
+    # the backpressured round: every even rank's ring left 3 slots free
+    bp = ctrs.clone()
+    even = torch.arange(0, p, 2, device="cuda")
+    bp[even, rq.HEAD] = (ctrs[even, rq.TAIL] - (cap - 3)) & 0xFFFFFFFF
+
+    for key in ops.launches:
+        ops.launches[key] = 0
+    y, c = ops.notified_put(recv, cnt, 1, mesh)
+    acc = ops.notify_accumulate(to_next, local, 1, mesh)
+    rounds = {"wrap": queue_round(torch, rq, ops, ref, run, wrap, u32_to_wire),
+              "backpressure": queue_round(torch, rq, ops, ref, run, bp, u32_to_wire)}
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    want = {"notified_put": 1, "notify_accumulate": 1, "queue_push": 2}
+    if launches != want:
+        raise AssertionError(f"rmaq ops on the DSDE data: launches {launches}, want {want}")
+
+    py, pc = ref.notified_put_ref(recv, cnt, 1, mesh)
+    ny, _ = notify.notified_put_shift(recv, torch.zeros(p, dtype=torch.int64, device="cuda"),
+                                      1, mesh)
+    if not (torch.equal(y, py) and torch.equal(c, pc) and torch.equal(y, ny)):
+        raise AssertionError("notified_put differs from its plain version or from "
+                             "notify.notified_put_shift on the receive blocks")
+    del py, ny
+    landed = notify.accumulate_counts(send_counts, mesh)        # [dst, src]
+    back = (torch.arange(p, device="cuda") - 1) % p
+    doorbell = (local.long() + landed[torch.arange(p, device="cuda"), back]).to(torch.int32)
+    if not (torch.equal(acc, ref.notify_accumulate_ref(to_next, local, 1, mesh))
+            and torch.equal(acc, doorbell)):
+        raise AssertionError("notify_accumulate differs from its plain version or from "
+                             "accumulate_counts restricted to the shift")
+    for name, r in rounds.items():
+        if not (r["plain"] and r["queue"]):
+            raise AssertionError(f"queue_push {name} round: equal to plain {r['plain']}, "
+                                 f"to enqueue_shift {r['queue']}")
+    wrapped = int(((wrap[:, rq.TAIL] % cap) + rounds["wrap"]["n_sent"].long() > cap).sum())
+    held = int((rounds["backpressure"]["n_sent"] < k).sum())
+    if wrapped == 0 or held == 0:
+        raise AssertionError(f"queue_push rounds: {wrapped} rings wrapped, {held} held back")
+    log(f"rmaq ops on the DSDE data: notified_put of the receive blocks "
+        f"{tuple(recv.shape)} bit-equal to plain and to notify.notified_put_shift; "
+        f"notify_accumulate of the send counts into NOTIF bit-equal to plain and to "
+        f"accumulate_counts at shift 1; queue_push wrap round (tails from 2**32 - 2, "
+        f"{wrapped} rings wrapped) and backpressure round ({held} producers held below "
+        f"k={k}) bit-equal to plain and to queue.enqueue_shift; launches {launches}")
+    return {"launches": launches, "recv": recv, "cnt": cnt, "to_next": to_next,
+            "local": local}
+
+
+def check_rmaq(torch, ops, ref, Mesh) -> dict:
+    """Each rmaq kernel against its plain version at edge cases (shift 0,
+    -1, >= p, p = 1, rows that are not whole 16-byte vectors, counters past
+    2**31 and 2**32, a full ring): bit-equal; returns max abs errors."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    errs = dict.fromkeys(ops.launches, 0.0)
+
+    def compare(name, got, want, what):
+        for a, b in zip(got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name} differs from its plain version at {what}")
+            errs[name] = max(errs[name], float((a.double() - b.double()).abs().max())
+                             if a.numel() else 0.0)
+
+    for p, shape in ((5, (3, 7)), (1, (4, 3)), (64, (16,))):
+        mesh = Mesh(p, "x", device="cuda")
+        x = torch.randn((p,) + shape, device="cuda", generator=g)
+        cnt = torch.randint(-2**31, 2**31 - 1, (p,), device="cuda", generator=g,
+                            dtype=torch.int32)
+        for s in (0, 1, -1, p + 2):
+            what = f"p={p} {shape} shift {s}"
+            compare("notified_put", ops.notified_put(x, cnt, s, mesh),
+                    ref.notified_put_ref(x, cnt, s, mesh), what)
+            compare("notify_accumulate", (ops.notify_accumulate(cnt, cnt, s, mesh),),
+                    (ref.notify_accumulate_ref(cnt, cnt, s, mesh),), what)
+            for used, tail in ((0, 2**31 - 3), (5, 2**32 - 2), (8, 7)):
+                buf = torch.randn(p, 8, 3, device="cuda", generator=g)
+                t = torch.full((p,), tail, dtype=torch.int64, device="cuda")
+                ctr = torch.stack([(t - used) & 0xFFFFFFFF, t], 1).to(torch.int32)
+                msgs = torch.randn(p, 6, 3, device="cuda", generator=g)
+                compare("queue_push", ops.queue_push(buf.clone(), ctr.clone(), msgs, s, mesh),
+                        ref.queue_push_ref(buf.clone(), ctr.clone(), msgs, s, mesh, 8),
+                        f"{what} used {used} tail {tail}")
+    torch.cuda.synchronize()
+    log("rmaq kernels vs plain: bit-equal at shifts 0, 1, -1, >= p, p = 1, 7- and 3-word "
+        f"rows, tails past 2**31 and 2**32, a full ring; max abs err {errs}")
+    return errs
+
+
+def time_rmaq(torch, rq, ops, ref, run: dict, ops_run: dict, errs: dict, hbm: float,
+              u32_to_wire) -> list:
+    """Kernel, plain, library call and bound at the DSDE run's inputs."""
+    mesh, p = run["mesh"], DSDE_P
+    recv, cnt = ops_run["recv"], ops_run["cnt"]
+    to_next, local = ops_run["to_next"], ops_run["local"]
+    desc, ring, ctrs = run["queue"]
+    msgs = run["data"]
+    ctr = u32_to_wire(ctrs[:, [rq.HEAD, rq.TAIL]]).contiguous()
+    k_ring, k_ctr, p_ring, p_ctr = ring.clone(), ctr.clone(), ring.clone(), ctr.clone()
+    w4 = 4
+    push_bytes = (p * 8 + msgs.numel() * w4 + msgs.numel() * w4 + p * 4 + p * 8)
+    rows = {
+        "notified_put": (lambda: ops.notified_put(recv, cnt, 1, mesh),
+                         lambda: ref.notified_put_ref(recv, cnt, 1, mesh),
+                         lambda: (torch.roll(recv, 1, 0), torch.roll(cnt, 1, 0)),
+                         2 * recv.numel() * w4 + 2 * p * w4),
+        "notify_accumulate": (lambda: ops.notify_accumulate(to_next, local, 1, mesh),
+                              lambda: ref.notify_accumulate_ref(to_next, local, 1, mesh),
+                              lambda: local + to_next.roll(1),
+                              3 * p * w4),
+        # no one PyTorch call admits, places and publishes: no library time
+        "queue_push": (lambda: ops.queue_push(k_ring, k_ctr, msgs, 1, mesh),
+                       lambda: ref.queue_push_ref(p_ring, p_ctr, msgs, 1, mesh, desc.capacity),
+                       None, push_bytes),
+    }
+    out = []
+    for name, (kern, plain, lib, nbytes) in rows.items():
+        k_ms, p_ms = time_ms(kern), time_ms(plain)
+        l_ms = time_ms(lib) if lib is not None else None
+        bound = nbytes / hbm * 1e3
+        log(f"{name}: kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, library "
+            f"{'—' if l_ms is None else f'{l_ms * 1e3:.1f} us'}, bound {bound * 1e3:.3f} us "
+            f"(bytes {nbytes})")
+        out.append({"name": name, "route": KERNELS[name][0], "source": KERNELS[name][1],
+                    "replaces": KERNELS[name][2], "launches": ops_run["launches"][name],
+                    "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
+                    "bound_ms": bound, "bound_by": "bytes", "library_ms": l_ms})
+    return out
+
+
+def dsde_phases(torch, hbm: float) -> list:
+    import numpy as np
+
+    from repro_torch.core import dsde
+    from repro_torch.core.plan import u32_to_wire
+    from repro_torch.core.rma import OpCounter
+    from repro_torch.kernels.rmaq import ops, ref
+    from repro_torch.mesh import Mesh
+    from repro_torch.parallel import overlap
+    from repro_torch.rmaq import notify
+    from repro_torch.rmaq import queue as rq
+
+    run = dsde_phase(torch, np, dsde, overlap, rq, Mesh, OpCounter)
+    ops_run = rmaq_ops_phase(torch, rq, notify, ops, ref, run, u32_to_wire)
+    torch.cuda.empty_cache()
+    errs = check_rmaq(torch, ops, ref, Mesh)
+    rows = time_rmaq(torch, rq, ops, ref, run, ops_run, errs, hbm, u32_to_wire)
+    del run, ops_run
+    torch.cuda.empty_cache()
+    return rows
+
 
 if __name__ == "__main__":
     sys.exit(main())

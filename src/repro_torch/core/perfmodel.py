@@ -13,7 +13,9 @@ the epochs' decisions:
   * `select_sync_mode` — fence or PSCW for k neighbours out of p ranks;
   * `select_transfer_protocol` — push a request's KV block through the
     ring (eager), publish a descriptor for the decoder to pull
-    (rendezvous), or ship a page table (paged).
+    (rendezvous), or ship a page table (paged);
+  * `select_dispatch` — a sparse exchange through the notified queue or
+    one dense all-to-all.
 
 All sizes are the bytes the card moves (every rank's block), all results
 seconds.
@@ -160,6 +162,16 @@ class PerfModel:
         event handoff."""
         return self.p_put(nbytes) + self.hw.event_latency
 
+    def notification_latency(self) -> float:
+        """Doorbell alone: the receiver learns "a message arrived" — one
+        event handoff plus the one launch that stands in for the hop."""
+        return self.hw.event_latency + self.hw.launch_latency
+
+    def p_queue_reserve(self) -> float:
+        """Per-epoch reservation: one counter-window read (the 8-byte head /
+        tail fetch), shared by every message of the epoch."""
+        return self.p_get(8.0)
+
     def p_queue_enqueue(self, nbytes: float) -> float:
         """One message through the MPSC ring: the 8-byte fetch-and-add on
         the tail plus the notified put of the payload into its slot."""
@@ -170,6 +182,17 @@ class PerfModel:
         of the ring (read + write at the HBM rate); the head publish rides
         it."""
         return self.hw.launch_latency + 2.0 * nbytes / self.hw.hbm_bandwidth
+
+    def queue_msg_rate(self, nbytes: float = 8.0) -> float:
+        """Messages a second one producer can push: launch-bound for small
+        payloads, copy-bound for large (`p_message_rate` takes the max)."""
+        return 1.0 / self.p_message_rate(nbytes)
+
+    def p_credit_refresh(self, fused: bool = True) -> float:
+        """Marginal cost of refreshing a sender's credit limit: nothing when
+        it rides the enqueue epoch's reservation gather, else a standalone
+        get of the published credit word (`notify.fetch_credits`)."""
+        return 0.0 if fused else self.p_get(4.0)
 
     def p_paged_gather(self, n_pages: int, page_bytes: float) -> float:
         """Fused gather of n scattered pages into one block
@@ -304,6 +327,27 @@ class PerfModel:
         """Reduce-scatter then all-gather of `nbytes` a rank over n ranks."""
         shard = nbytes / n
         return self.ring_reduce_scatter(shard, n) + self.ring_all_gather(shard, n)
+
+    def all_to_all(self, nbytes_per_pair: float, n: int) -> float:
+        """Personalised exchange of `nbytes_per_pair` between every pair.
+        The reference charges a torus axis's bisection; with the rank axis
+        stacked on one card there is no link, so it is one launch plus a
+        read and a write of the n(n - 1) pair blocks that leave their rank."""
+        return self.hw.launch_latency + self._rw(nbytes_per_pair * n * (n - 1))
+
+    # -- model-guided strategy selection ------------------------------------
+    def select_dispatch(self, n_msgs: int, msg_bytes: float, p: int,
+                        capacity_per_pair: int) -> Literal["queue", "alltoall"]:
+        """Sparse exchange (DSDE, MoE dispatch): per-message notified puts
+        through the queue vs one dense capacity-padded all-to-all.  The
+        queue pays one reservation plus a launch-priced enqueue per actual
+        message; the all-to-all one launch plus every slot of the p x
+        `capacity_per_pair` matrix, occupied or not.  With a launch at
+        ~10 µs the queue wins only where the padded matrix is large: far
+        fewer messages than on a network."""
+        t_queue = self.p_queue_reserve() + n_msgs * self.p_queue_enqueue(msg_bytes)
+        t_alltoall = self.all_to_all(capacity_per_pair * msg_bytes, p)
+        return "queue" if t_queue < t_alltoall else "alltoall"
 
 
 DEFAULT_MODEL = PerfModel()

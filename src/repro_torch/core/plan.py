@@ -343,18 +343,23 @@ class RmaPlan:
         # per-rank lead dims (1 for all_to_all's destination dim) sit
         # behind the rank dim of the global view.  Every op of a ppermute
         # group has the same permutation, so the first op's shift holds.
+        # An all-gather's p copies are one broadcast view: decode the one
+        # copy every receiver holds and broadcast it again, so the decode
+        # never materialises p copies.
         lead = 2 if sig[0] == "all_to_all" else 1
+        gathered = sig[0] == "all_gather"
         segs = [_encode(op.payload, lead) for op in ops]
         packed = torch.cat(segs, dim=lead)
         moved = self._move(sig, packed, ops[0].shift, backend)
+        if gathered:
+            moved = self.mesh.replicated(moved)
         off = 0
         for op, seg in zip(ops, segs):
             w = seg.shape[-1]
-            part = moved[..., off:off + w]
-            shape = ((p,) + tuple(op.payload.shape) if sig[0] == "all_gather"
-                     else tuple(op.payload.shape))
+            out = _decode(moved[..., off:off + w], tuple(op.payload.shape),
+                          op.payload.dtype)
             op.handle._result = op.finalize(
-                _decode(part, shape, op.payload.dtype))
+                self.mesh.all_gather(out) if gathered else out)
             off += w
         return 1, packed.numel() // p * 4
 

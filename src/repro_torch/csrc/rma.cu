@@ -29,65 +29,11 @@
 // otherwise; 16-byte vector accesses when rows and strides are whole 16-byte
 // vectors and the pointers are 16-byte aligned, 4-byte words otherwise.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "rotate.cuh"
 
 #include <type_traits>
 
 namespace {
-
-// One thread per element, so every element's load is in flight at once: a
-// grid capped at 16 blocks an SM, each thread looping over ~20 elements, ran
-// 4-5 % slower on an H100 (141.6 vs 135.2 us at the MILC halo, where
-// Tensor.copy_ of the same bytes took 135.3 us).  The grid-stride loops only
-// matter past 2^31 - 1 blocks.
-constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 2147483647LL;
-// 32-bit indices while i + the grid's stride cannot pass 2^32
-constexpr long long kMax32 = (1LL << 31) - 2 * kThreads;
-
-inline int blocks_for(long long n) {
-  long long b = (n + kThreads - 1) / kThreads;
-  return (int)(b < kMaxBlocks ? b : kMaxBlocks);
-}
-
-inline bool aligned16(const void* ptr) {
-  return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
-}
-
-// The last word a [p, row] input at rank stride `stride` reaches, plus one.
-inline long long extent(long long p, long long row, long long stride) {
-  const long long last = (p - 1) * stride + row;
-  return last > p * row ? last : p * row;
-}
-
-// Calls f(V(), I()) with V the access type (uint4 when `vec`, else one
-// word) and I the index type (32-bit when `words` fits, else 64-bit).
-template <typename F>
-void dispatch(bool vec, long long words, F f) {
-  const bool small = (vec ? words / 4 : words) < kMax32;
-  if (vec) {
-    if (small) f(uint4(), uint32_t());
-    else f(uint4(), uint64_t());
-  } else {
-    if (small) f(uint32_t(), uint32_t());
-    else f(uint32_t(), uint64_t());
-  }
-}
-
-// out row r = x row (r + off) mod p; sizes in V units, 0 <= off < p
-template <typename V, typename I>
-__global__ void rotate_kernel(const V* __restrict__ x, V* __restrict__ out,
-                              I p, I row, I stride, I off) {
-  const I n = p * row;
-  const I step = (I)gridDim.x * blockDim.x;
-  for (I i = (I)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += step) {
-    const I r = i / row;
-    I src = r + off;
-    if (src >= p) src -= p;
-    out[i] = x[src * stride + (i - r * row)];
-  }
-}
 
 __device__ __forceinline__ float add4(float a, float b) { return a + b; }
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
@@ -124,8 +70,6 @@ __global__ void broadcast_kernel(const V* __restrict__ x, V* __restrict__ out,
     for (I a = 0; a < p; ++a) out[a * n + j] = v;
   }
 }
-
-long long mod(long long a, long long p) { return ((a % p) + p) % p; }
 
 // out row r = x row (r + off) mod p, 0 <= off < p
 int rotate(const void* x, void* out, long long p, long long row,

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface.  On first use it is
+Each ``csrc/<name>.cu`` exposes a plain C interface (device code that
+several sources share sits in ``csrc/*.cuh``).  On first use it is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/kernels/`` at the repository root and loaded with `ctypes`; nothing
 includes PyTorch's headers, so a build takes seconds.  The library's file
@@ -52,9 +53,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where `name`'s library goes: keyed by a hash of source + flags."""
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where `name`'s library goes: keyed by a hash of the source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

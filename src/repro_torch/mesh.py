@@ -13,7 +13,9 @@ batched over that leading dimension, and the collectives become indexing:
     (s, d) lands at rank d in slot s (a transpose view);
   * ``ppermute(x[p, ...], perm)`` -> ``out[dst] = x[src]`` per pair, zeros
     where no pair lands, and its uniform-shift fast path ``shift`` (both
-    return a new tensor: a put never aliases its source).
+    return a new tensor: a put never aliases its source);
+  * ``psum_scatter(x[p, p*m, ...])`` -> ``[p, m, ...]``: rank r gets chunk
+    r of the sum over ranks (the tiled reduce-scatter).
 
 A result of `all_gather` is identical at every receiver, so code computing a
 rank-independent function of it may read it once (`replicated`).
@@ -88,6 +90,14 @@ class Mesh:
         if s == 0:
             return x.clone(memory_format=torch.contiguous_format)
         return torch.cat((x[self.p - s:], x[:self.p - s]))
+
+    def psum_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """The tiled reduce-scatter: x [p, p*m, ...] -> [p, m, ...], rank r
+        holding chunk r of ``x.sum(0)``."""
+        self._check(x)
+        if x.ndim < 2 or x.shape[1] % self.p:
+            raise MeshError(f"psum_scatter needs [p, p*m, ...], got {tuple(x.shape)}")
+        return x.sum(0, dtype=x.dtype).reshape((self.p, x.shape[1] // self.p) + tuple(x.shape[2:]))
 
     @staticmethod
     def replicated(gathered: torch.Tensor) -> torch.Tensor:

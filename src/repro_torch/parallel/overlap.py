@@ -2,11 +2,12 @@
 `CollectiveStrategist`, for the decisions the one-card model can price.
 
 It asks `core.perfmodel.PerfModel` (H100 constants) which synchronisation
-family an epoch should use, whether a plan should pack a group, and which
-KV transfer protocol a serving block should take.  The reference's other
+family an epoch should use, whether a plan should pack a group, which KV
+transfer protocol a serving block should take, and whether a sparse
+exchange goes through the queue or one all-to-all.  The reference's other
 choices wait for the slices that port their models: hierarchical
-all-reduce (a second mesh axis), the fused all-gather matmul, sparse
-dispatch, and the gradient-sync overlap.
+all-reduce (a second mesh axis), the fused all-gather matmul, and the
+gradient-sync overlap.
 """
 
 from __future__ import annotations
@@ -23,6 +24,12 @@ class CollectiveStrategist:
 
     def sync_plan(self, k_neighbors: int, p: int) -> Literal["pscw", "fence"]:
         return self.model.select_sync_mode(k_neighbors, p)
+
+    def dispatch_plan(self, n_msgs: int, msg_bytes: float, p: int,
+                      capacity_per_pair: int) -> Literal["queue", "alltoall"]:
+        """Sparse-exchange dispatch (DSDE, MoE): per-message notified puts
+        through an rmaq queue vs the dense capacity-padded all-to-all."""
+        return self.model.select_dispatch(n_msgs, msg_bytes, p, capacity_per_pair)
 
     def aggregation_plan(self, n_msgs: int, msg_bytes: float
                          ) -> Literal["pack", "direct"]:

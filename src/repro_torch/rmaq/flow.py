@@ -27,6 +27,7 @@ from ..core.plan import U32_MASK, u32_from_wire, u32_to_wire
 from ..mesh import Mesh
 from ..obs import trace as obs_trace
 from . import channel as rch
+from . import notify
 from . import queue as rq
 
 
@@ -187,6 +188,17 @@ def recv(channel: rch.Channel, qstate: rq.QueueState, fstate: FlowState,
                        accumulate=True)
     granted &= U32_MASK
     return qstate, fstate._replace(granted=granted), batch
+
+
+def refresh(channel: rch.Channel, fstate: FlowState) -> FlowState:
+    """Standalone credit refresh for an idle sender (no enqueue to ride):
+    one one-sided gather of the published grant blocks
+    (`PerfModel.p_credit_refresh(fused=False)`)."""
+    mesh = channel.desc.mesh
+    granted_all = notify.fetch_credits(u32_to_wire(fstate.granted), mesh)
+    # what each owner t grants ME: granted_all[me][t, me, :]
+    fresh = u32_from_wire(mesh.replicated(granted_all)).transpose(0, 1)
+    return fstate._replace(limit=_advance_limit(fstate.limit, fresh))
 
 
 # ------------------------------------------------------------------ invariants

@@ -229,6 +229,16 @@ def enqueue(desc: QueueDescriptor, state: QueueState, msgs: torch.Tensor,
     return state, receipt
 
 
+def enqueue_shift(desc: QueueDescriptor, state: QueueState, msgs: torch.Tensor,
+                  shift: int) -> tuple[QueueState, EnqueueReceipt]:
+    """All k messages of rank r to rank (r + shift) mod p — the ring special
+    case the `queue_push` kernel implements (`kernels.rmaq`)."""
+    mesh = desc.mesh
+    k = msgs.shape[1]
+    dest = ((mesh.axis_index() + shift) % mesh.p)[:, None].expand(mesh.p, k)
+    return enqueue(desc, state, msgs, dest)
+
+
 # ------------------------------------------------------------------- dequeue
 def available(state: QueueState) -> torch.Tensor:
     return (state.ctrs[:, TAIL] - state.ctrs[:, HEAD]) & U32_MASK
@@ -251,6 +261,11 @@ def dequeue(desc: QueueDescriptor, state: QueueState, max_n: int):
     items = torch.where(valid[..., None], items, torch.zeros_like(items))
     state.ctrs[:, HEAD] = (state.ctrs[:, HEAD] + n) & U32_MASK
     return state, items.reshape((p, max_n) + tuple(desc.item_shape)), valid
+
+
+def drain(desc: QueueDescriptor, state: QueueState):
+    """Dequeue everything currently in each ring (up to capacity)."""
+    return dequeue(desc, state, desc.capacity)
 
 
 def stats(state: QueueState) -> dict:
