@@ -90,7 +90,31 @@ no result line):
      plain version and to the protocol it stands for
      (`notify.notified_put_shift`, `notify.accumulate_counts`,
      `queue.enqueue_shift`), launches counted; then edge cases against the
-     plain versions and timings (kernel, plain, library call, bytes bound).
+     plain versions and timings (kernel, plain, library call, bytes bound);
+ 13. the continuous-batching engine (`repro_torch.serve.engine`) on
+     SmolLM-360M at its published widths (32 layers, d_model 960, 15/5
+     heads of 64, vocab 49152; random bf16 weights from a seed), 8 slots,
+     max_seq 1024: 32 requests of seeded prompt lengths 16-512 (so lanes sit
+     at different positions), 32 new tokens each.  Every request is served
+     in full and the lock window's words read 0 after the drain; 8 of the
+     requests are re-run alone at batch 1, teacher-forced with the
+     engine's tokens: logits within ENGINE_BOUND of the engine's, and the
+     argmax equal to the engine's token wherever the solo top-2 margin
+     exceeds it (near-ties are counted).  TTFT, prefill, decode ms/step,
+     tokens/s and a decode step's ATen calls are printed;
+ 14. `Model.forward_logits` on [4, 2048] tokens under
+     `set_attention_backend("cuda")`: exactly 32 flash-attention launches
+     (one a layer; the count is set to 0 just before), logits within
+     FWD_BOUND of backend "torch" on the same weights and tokens, argmax
+     agreement >= 99 % where the "torch" top-2 margin exceeds the bound
+     (the raw agreement is printed: random-weight bf16 logits tie);
+ 15. the flash kernel against its plain version at layer 0's inputs of
+     that forward, chatglm3-6b's head shape (hd 128, 16 query heads a KV
+     head) and f32 edge cases (Sq < Sk, one row, non-causal S = 1000 with
+     g = 1 and B = 3, a ragged tile, rows that see no key): bf16 within
+     2e-2, f32 within 1e-4; timings with CUDA events of the kernel, the
+     plain version and F.scaled_dot_product_attention, and the bound
+     (causal flops 2·B·Hq·Sq·Sk·hd at 989 TFLOP/s, or bytes at 3.35 TB/s).
 
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after.
@@ -115,7 +139,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 F32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 TOL = 1e-4                      # kernel vs plain, f32, different sum order
-SOURCES = ("paged_attention", "rma", "paged_gather", "rmaq")   # csrc/<name>.cu, one nvcc each
+SOURCES = ("paged_attention", "rma", "paged_gather", "rmaq",    # csrc/<name>.cu, one nvcc each
+           "flash_attention")
 KERNELS = {
     # name -> (route, source, TPU kernel it replaces)
     "paged_attention": ("cuda", "src/repro_torch/csrc/paged_attention.cu",
@@ -138,6 +163,8 @@ KERNELS = {
                           "src/repro/kernels/rmaq/kernel.py:128"),
     "queue_push": ("cuda", "src/repro_torch/csrc/rmaq.cu",
                    "src/repro/kernels/rmaq/kernel.py:221"),
+    "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:75"),
 }
 FULL = dict(n_prefill=2, d_model=128, vocab=32000, page_tokens=16,
             block_tokens=2048, pool_pages=8192, queue_capacity=64,
@@ -153,6 +180,16 @@ AR_P, AR_MIB, AR_TOL = 8, 25, 1e-5
 DSDE_P, DSDE_K, DSDE_D, DSDE_CAP, DSDE_SEED, DSDE_REPS = 4096, 6, 2, 24, 0, 3
 DSDE_PROTOCOLS = ("exchange_accumulate", "exchange_alltoall_baseline",
                   "exchange_reduce_scatter_baseline", "exchange_queue")
+# the model-serving engine: SmolLM-360M at its published widths
+# (src/repro/configs/smollm_360m.py), random bf16 weights from a seed
+MODEL_ARCH, MODEL_SEED = "smollm-360m", 0
+ENGINE_SLOTS, ENGINE_MAX_SEQ, ENGINE_REQUESTS, ENGINE_NEW = 8, 1024, 32, 32
+ENGINE_PLEN, ENGINE_SEED, ENGINE_CHECKED = (16, 512), 3, 8
+ENGINE_BOUND = 0.125            # logits: engine vs solo batch-1 run, and the tie margin
+FWD_TOKENS, FWD_SEED = (4, 2048), 4
+FWD_BOUND, FWD_AGREE = 0.25, 0.99   # logits: backend "cuda" vs "torch"; argmax share
+BF16_TOL, F32_TOL = 2e-2, 1e-4  # flash kernel vs plain: one bf16 ulp at |x| 2-4; f32 sums
+BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
 
 
 def log(msg: str) -> None:
@@ -408,6 +445,8 @@ def main() -> int:
     kernels += rma_phases(torch)
     torch.cuda.empty_cache()
     kernels += dsde_phases(torch, H100.hbm_bandwidth)
+    torch.cuda.empty_cache()
+    kernels += model_serve_phases(torch, H100.hbm_bandwidth)
     log(f"smoke wall time: {time.perf_counter() - T0:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -1365,6 +1404,288 @@ def dsde_phases(torch, hbm: float) -> list:
     del run, ops_run
     torch.cuda.empty_cache()
     return rows
+
+
+# ------------------------------------------------- the model-serving engine
+class LogitTap:
+    """Stands in for the model inside the engine: every call goes through to
+    the model unchanged; it keeps the logits the engine got for the requests
+    of `prompts` (prefill by prompt, decode by lane) and each decode call's
+    host time (the call ends in a synchronise)."""
+
+    def __init__(self, model, prompts: dict):
+        self.model = model
+        self.rid_of = {tuple(p): rid for rid, p in prompts.items()}
+        self.logits = {rid: [] for rid in prompts}
+        self.engine = None
+        self.decode_s = []
+
+    def init_cache(self, *args, **kw):
+        return self.model.init_cache(*args, **kw)
+
+    def prefill(self, params, tokens, cache, extra):
+        logits, cache = self.model.prefill(params, tokens, cache, extra)
+        rid = self.rid_of.get(tuple(tokens[0].tolist()))
+        if rid is not None:
+            self.logits[rid].append(logits[0].clone())
+        return logits, cache
+
+    def decode_step(self, params, tokens, cache):
+        import torch
+
+        t0 = time.perf_counter()
+        logits, cache = self.model.decode_step(params, tokens, cache)
+        torch.cuda.synchronize()
+        self.decode_s.append(time.perf_counter() - t0)
+        eng = self.engine
+        for i, req in enumerate(eng.slot_req):
+            if req is not None and eng.slot_ready[i] and req.rid in self.logits:
+                self.logits[req.rid].append(logits[i].clone())
+        return logits, cache
+
+
+def aten_counter():
+    """A dispatch mode that counts the ATen calls made inside it."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    return Count()
+
+
+def margins(torch, logits):
+    """Top-1 minus top-2 logit a row, in f32."""
+    top = logits.float().topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def engine_phase(torch, np, model, params, engine_mod) -> dict:
+    """32 requests of seeded lengths 16-512 through 8 lanes of the
+    continuous-batching engine at full width; 8 of them re-run solo."""
+    cfg = model.cfg
+    rng = np.random.default_rng(ENGINE_SEED)
+    prompts = {i: rng.integers(0, cfg.vocab_size,
+                               int(rng.integers(ENGINE_PLEN[0], ENGINE_PLEN[1] + 1))).tolist()
+               for i in range(ENGINE_REQUESTS)}
+    checked = list(range(0, ENGINE_REQUESTS, ENGINE_REQUESTS // ENGINE_CHECKED))
+    tap = LogitTap(model, {rid: prompts[rid] for rid in checked})
+    eng = engine_mod.ServeEngine(tap, params, n_slots=ENGINE_SLOTS,
+                                 max_seq=ENGINE_MAX_SEQ, device="cuda")
+    tap.engine = eng
+    reqs = [engine_mod.Request(rid=i, prompt=p, max_new=ENGINE_NEW) for i, p in prompts.items()]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = eng.run_until_drained(max_steps=4 * ENGINE_REQUESTS * ENGINE_NEW)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    short = [r.rid for r in reqs if not r.done.is_set() or len(r.output) != ENGINE_NEW]
+    words = [eng.lock_win.master.v] + [w.v for w in eng.lock_win.local]
+    if short or any(words):
+        raise AssertionError(f"engine: requests not served in full {short}, lock words {words}")
+
+    # each checked request, alone at batch 1 and teacher-forced with the
+    # engine's tokens, against the logits the engine got; the first solo
+    # decode step's ATen calls are counted (the engine's step runs the same code)
+    err, near_ties, raw_agree, n_pos = 0.0, 0, 0, 0
+    aten_calls = aten_counter()
+    for rid in checked:
+        toks = reqs[rid].output
+        eng_logits = torch.stack(tap.logits[rid]).float()
+        if eng_logits.shape[0] != ENGINE_NEW or \
+                eng_logits.argmax(-1).tolist() != toks:
+            raise AssertionError(f"engine: request {rid}'s tapped logits do not give its tokens")
+        cache = model.init_cache(1, ENGINE_MAX_SEQ, device="cuda")
+        logits, cache = model.prefill(params, torch.tensor([prompts[rid]], device="cuda"), cache)
+        solo = [logits[0]]
+        for j, tok in enumerate(toks[:-1]):
+            with (aten_calls if j == 0 and rid == checked[0] else contextlib.nullcontext()):
+                logits, cache = model.decode_step(params, torch.tensor([tok], device="cuda"),
+                                                  cache)
+            solo.append(logits[0])
+        solo = torch.stack(solo).float()
+        err = max(err, float((solo - eng_logits).abs().max()))
+        sure = margins(torch, solo) > ENGINE_BOUND
+        agree = solo.argmax(-1) == torch.tensor(toks, device="cuda")
+        if not bool(agree[sure].all()):
+            raise AssertionError(f"engine: request {rid} differs from its solo run where "
+                                 f"the margin exceeds {ENGINE_BOUND}")
+        near_ties += int((~sure).sum())
+        raw_agree += int(agree.sum())
+        n_pos += len(toks)
+    if err > ENGINE_BOUND:
+        raise AssertionError(f"engine vs solo runs: logits max abs err {err} > {ENGINE_BOUND}")
+    sm = eng.serve_metrics()
+    tokens = sum(len(r.output) for r in reqs)
+    decode_ms = float(np.median(tap.decode_s)) * 1e3
+    log(f"engine ({MODEL_ARCH}, {ENGINE_SLOTS} slots, max_seq {ENGINE_MAX_SEQ}): "
+        f"{ENGINE_REQUESTS} requests of {ENGINE_PLEN[0]}-{ENGINE_PLEN[1]} prompt tokens, "
+        f"{ENGINE_NEW} new each, {steps} ticks, {len(tap.decode_s)} decode steps, "
+        f"{dt:.3f} s, {tokens / dt:.1f} tokens/s; TTFT p50 {sm['ttft_us']['p50'] / 1e3:.2f} "
+        f"ms p99 {sm['ttft_us']['p99'] / 1e3:.2f} ms; prefill p50 "
+        f"{sm['seg.prefill_us']['p50'] / 1e3:.2f} ms p99 {sm['seg.prefill_us']['p99'] / 1e3:.2f} "
+        f"ms; decode {decode_ms:.3f} ms/step (median); TBT p50 "
+        f"{sm['tbt_us']['p50'] / 1e3:.2f} ms; lock AMOs {eng.lock_win.total_amos}, words 0; "
+        f"a decode step makes {aten_calls.n} ATen calls ({aten_calls.n / cfg.n_layers:.0f} a "
+        f"layer, views included)")
+    log(f"engine vs solo batch-1 runs ({len(checked)} requests, teacher-forced): logits "
+        f"max abs err {err:.4g} (bound {ENGINE_BOUND}); argmax == engine token at "
+        f"{raw_agree}/{n_pos} positions, at every one of the {n_pos - near_ties} whose "
+        f"solo top-2 margin exceeds the bound; near-ties {near_ties}")
+    return {"tokens_per_s": tokens / dt, "decode_ms": decode_ms}
+
+
+def forward_phase(torch, model, params, L, fops) -> dict:
+    """`Model.forward_logits` on [4, 2048] tokens under backend "cuda" (the
+    flash kernel, counts zeroed just before) against backend "torch"."""
+    cfg = model.cfg
+    g = torch.Generator(device="cuda").manual_seed(FWD_SEED)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, FWD_TOKENS, generator=g, device="cuda")}
+    first = {}
+    real = fops.flash_attention
+
+    def tap(q, k, v, causal=True):       # keeps layer 0's inputs; launches via the wrapper
+        if not first:
+            first.update(q=q.clone(), k=k.clone(), v=v.clone(), causal=causal)
+        return real(q, k, v, causal=causal)
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = model.forward_logits(params, batch).logits
+        torch.cuda.synchronize()
+        torch_s = time.perf_counter() - t0
+        L.set_attention_backend("cuda")
+        fops.flash_attention = tap
+        fops.launches = 0
+        try:
+            t0 = time.perf_counter()
+            got = model.forward_logits(params, batch).logits
+            torch.cuda.synchronize()
+            cuda_s = time.perf_counter() - t0
+        finally:
+            fops.flash_attention = real
+            L.set_attention_backend("torch")
+        launches = fops.launches
+    if launches != cfg.n_layers:
+        raise AssertionError(f"forward: {launches} flash launches, want {cfg.n_layers}")
+    err, sure_n, sure_agree, raw_agree = 0.0, 0, 0, 0
+    for b in range(FWD_TOKENS[0]):
+        a, w = got[b].float(), want[b].float()
+        err = max(err, float((a - w).abs().max()))
+        agree = a.argmax(-1) == w.argmax(-1)
+        sure = margins(torch, w) > FWD_BOUND
+        raw_agree += int(agree.sum())
+        sure_n += int(sure.sum())
+        sure_agree += int(agree[sure].sum())
+    n = FWD_TOKENS[0] * FWD_TOKENS[1]
+    if not torch.isfinite(got).all() or err > FWD_BOUND or sure_agree < FWD_AGREE * sure_n:
+        raise AssertionError(f"forward: logits max abs err {err} (bound {FWD_BOUND}), argmax "
+                             f"agreement {sure_agree}/{sure_n} beyond the bound")
+    log(f"forward_logits {list(FWD_TOKENS)} at full width: {launches} flash launches "
+        f"({cfg.n_layers} layers); backend cuda {cuda_s * 1e3:.1f} ms, torch "
+        f"{torch_s * 1e3:.1f} ms (one call each); logits max abs err {err:.4g} (bound "
+        f"{FWD_BOUND}); argmax agrees at {raw_agree}/{n} positions "
+        f"({raw_agree / n:.4f}), at {sure_agree}/{sure_n} whose top-2 margin exceeds the "
+        f"bound; near-ties {n - sure_n}")
+    del got, want
+    return {"launches": launches, "first": first}
+
+
+def check_flash(torch, fops, fref, first: dict) -> float:
+    """The kernel against its plain version: layer 0's inputs of the forward,
+    chatglm3-6b's head shape, and f32 edge cases."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+
+    def qkv(B, Hq, Hkv, Sq, Sk, hd, dtype):
+        return (torch.randn(B, Hq, Sq, hd, generator=g, device="cuda").to(dtype),
+                torch.randn(B, Hkv, Sk, hd, generator=g, device="cuda").to(dtype),
+                torch.randn(B, Hkv, Sk, hd, generator=g, device="cuda").to(dtype))
+
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [("forward layer 0", (first["q"], first["k"], first["v"]), first["causal"]),
+             ("chatglm3-6b heads", qkv(1, 32, 2, 4096, 4096, 128, bf), True),
+             ("Sq < Sk", qkv(2, 4, 2, 40, 300, 64, f32), True),
+             ("one row", qkv(1, 6, 3, 1, 77, 128, f32), True),
+             ("non-causal, S 1000, g 1, B 3", qkv(3, 4, 4, 1000, 1000, 64, f32), False),
+             ("ragged, hd 128", qkv(1, 8, 2, 130, 130, 128, f32), True),
+             ("Sq > Sk", qkv(1, 4, 2, 90, 60, 64, f32), True)]
+    errs = {}
+    for name, (q, k, v), causal in cases:
+        out = fops.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = fref.attention_ref(q, k, v, causal=causal)
+        err = float((out.float() - want.float()).abs().max())
+        tol = BF16_TOL if q.dtype == bf else F32_TOL
+        if not torch.isfinite(out).all() or err > tol:
+            raise AssertionError(f"flash_attention vs plain ({name}): max abs err {err} > {tol}")
+        errs[name] = err
+    if out[:, :, :30].any():
+        raise AssertionError("flash_attention: rows that see no key are not zero")
+    log("flash_attention vs plain: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (bf16 tol {BF16_TOL}, f32 tol {F32_TOL})")
+    return errs
+
+
+def time_flash(torch, F, fops, fref, q, k, v, hbm: float) -> dict:
+    """Kernel, plain version and SDPA (the library yardstick the port never
+    calls) with CUDA events over 50 calls, and the bound."""
+    B, Hq, Sq, hd = q.shape
+    Sk = k.shape[2]
+    k_ms = time_ms(lambda: fops.flash_attention(q, k, v))
+    p_ms = time_ms(lambda: fref.attention_ref(q, k, v))
+    l_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                          enable_gqa=True))
+    flops = 2 * B * Hq * Sq * Sk * hd          # causal: two products over the visible half
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bound_ms, bound_by = max((flops / BF16_FLOPS_PER_S * 1e3, "operations"),
+                             (nbytes / hbm * 1e3, "bytes"))
+    log(f"flash_attention q {tuple(q.shape)} kv {tuple(k.shape)} {q.dtype}: kernel "
+        f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, sdpa {l_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}; {flops / k_ms / 1e9:.1f} TFLOP/s achieved)")
+    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def model_serve_phases(torch, hbm: float) -> list:
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.serve import engine as engine_mod
+
+    model = build_model(get_config(MODEL_ARCH))
+    params = model.init(MODEL_SEED, device="cuda")
+    log(f"{MODEL_ARCH}: {model.param_count()} parameters (bf16, seed {MODEL_SEED})")
+    with torch.no_grad():
+        engine_phase(torch, np, model, params, engine_mod)
+    torch.cuda.empty_cache()
+    fwd = forward_phase(torch, model, params, L, fops)
+    del params
+    torch.cuda.empty_cache()
+    first = fwd["first"]
+    errs = check_flash(torch, fops, fref, first)
+    times = time_flash(torch, F, fops, fref, first["q"], first["k"], first["v"], hbm)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    glm = [torch.randn(1, h, 4096, 128, generator=g, device="cuda").to(torch.bfloat16)
+           for h in (32, 2, 2)]
+    time_flash(torch, F, fops, fref, *glm, hbm)
+    del glm, first
+    torch.cuda.empty_cache()
+    return [{"name": "flash_attention", "route": KERNELS["flash_attention"][0],
+             "source": KERNELS["flash_attention"][1],
+             "replaces": KERNELS["flash_attention"][2], "launches": fwd["launches"],
+             "max_abs_err": errs["forward layer 0"], **times}]
 
 
 if __name__ == "__main__":

@@ -1,0 +1,96 @@
+"""Model facade: init / forward / loss / prefill / decode (the counterpart
+of `repro.models.registry`), plus `params_from_jax`, which turns the
+reference's param pytree (as numpy) into the port's."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..configs.base import ArchConfig
+from . import transformer as T
+
+
+def _device(device) -> torch.device:
+    return torch.device("cuda" if device is None else device)
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ArchConfig
+
+    # ----------------------------------------------------------- params
+    def init(self, seed: int = 0, device=None) -> dict:
+        """Random bf16 weights from a seeded `torch.Generator` on the
+        device (CUDA unless `device` says otherwise)."""
+        dev = _device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return T.init_lm(self.cfg, gen, dev)
+
+    def param_count(self) -> int:
+        params = T.init_lm(self.cfg, None, "meta")
+        return sum(leaf.numel() for leaf in _leaves(params))
+
+    # ------------------------------------------------------------ train
+    def forward_logits(self, params: dict, batch: dict) -> T.ForwardOut:
+        """The cache-free forward: logits for a train or prefill batch.  Its
+        attention runs on the backend `layers.set_attention_backend` names."""
+        cfg = self.cfg
+        prefix = batch.get("patches")
+        out = T.forward(params, cfg, batch["tokens"], prefix_embeds=prefix)
+        logits = out.logits
+        if cfg.family == "vlm" and prefix is not None:
+            logits = logits[:, prefix.shape[1]:]
+        return out._replace(logits=logits)
+
+    def loss(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
+        labels = batch["labels"]
+        out = self.forward_logits(params, batch)
+        logp = torch.log_softmax(out.logits.float(), dim=-1)
+        nll = -logp.gather(-1, labels.long()[..., None])[..., 0]
+        loss = nll.mean()
+        total = loss + 0.01 * out.aux_loss + 0.001 * out.z_loss
+        return total, {"nll": loss, "aux": out.aux_loss, "z": out.z_loss}
+
+    # ------------------------------------------------------------ serve
+    def init_cache(self, batch: int, max_seq: int, device=None) -> dict:
+        return T.init_cache(self.cfg, batch, max_seq, _device(device))
+
+    def prefill(self, params: dict, tokens: torch.Tensor, cache: dict,
+                extra: Optional[dict] = None) -> tuple[torch.Tensor, dict]:
+        prefix = extra.get("patches") if (extra and self.cfg.family == "vlm") else None
+        out = T.forward(params, self.cfg, tokens, cache=cache, prefix_embeds=prefix)
+        return out.logits[:, -1], out.cache
+
+    def decode_step(self, params: dict, token: torch.Tensor,
+                    cache: dict) -> tuple[torch.Tensor, dict]:
+        """token [B] -> (logits [B, V], cache)."""
+        out = T.forward(params, self.cfg, token[:, None], cache=cache)
+        return out.logits[:, 0], out.cache
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def build_model(cfg: ArchConfig) -> Model:
+    T.check_family(cfg)
+    return Model(cfg)
+
+
+def params_from_jax(np_params: dict, device=None, dtype=torch.bfloat16) -> dict:
+    """The reference's param pytree, its leaves as numpy, as the port's
+    params on `device` in `dtype` (the dtype the reference ran them in:
+    bf16 as it makes them, or f32 where a test casts them).  The structure
+    and the leaf shapes are the same in both packages."""
+    dev = _device(device)
+    return {k: (params_from_jax(v, device, dtype) if isinstance(v, dict)
+                else torch.tensor(np.asarray(v)).to(device=dev, dtype=dtype))
+            for k, v in np_params.items()}

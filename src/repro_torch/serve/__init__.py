@@ -1,1 +1,2 @@
-"""repro_torch.serve — disaggregated prefill/decode serving (`disagg`)."""
+"""repro_torch.serve — disaggregated prefill/decode serving (`disagg`) and
+the continuous-batching engine (`engine`)."""
