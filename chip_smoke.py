@@ -98,7 +98,7 @@ no result line):
      at different positions), 32 new tokens each.  Every request is served
      in full and the lock window's words read 0 after the drain; 8 of the
      requests are re-run alone at batch 1, teacher-forced with the
-     engine's tokens: logits within ENGINE_BOUND of the engine's, and the
+     engine's tokens: logits within 0.125 of the engine's, and the
      argmax equal to the engine's token wherever the solo top-2 margin
      exceeds it (near-ties are counted).  TTFT, prefill, decode ms/step,
      tokens/s and a decode step's ATen calls are printed;
@@ -114,7 +114,30 @@ no result line):
      g = 1 and B = 3, a ragged tile, rows that see no key): bf16 within
      2e-2, f32 within 1e-4; timings with CUDA events of the kernel, the
      plain version and F.scaled_dot_product_attention, and the bound
-     (causal flops 2·B·Hq·Sq·Sk·hd at 989 TFLOP/s, or bytes at 3.35 TB/s).
+     (causal flops 2·B·Hq·Sq·Sk·hd at 989 TFLOP/s, or bytes at 3.35 TB/s);
+     also at the SMOKE configs' head dims 16 and 20 and the reference
+     test's 32, bf16 and f32 (zero-padded to the kernel's 16 / 32 instances);
+ 16. the moe and hybrid families: Jamba-v0.1-52b at its published widths
+     (d_model 4096, 32/8 heads of 128, Mamba d_inner 8192, state 16, conv
+     4, 16 experts top-2 of d_ff 14336, vocab 65536) cut to 16 of 32 layers
+     (2 of its 4 periods: 26.05 B parameters, 48.5 GiB in bf16; all 32 do
+     not fit the card), random bf16 weights from a seed (router, A_log and
+     D_skip f32), through the engine: 8 slots, max_seq 2048, 24 requests of
+     seeded prompt lengths 16-1024, 24 new tokens each, every one served in
+     full, lock words 0; the selective-scan kernel's launches = 14 Mamba
+     layers x the prefills (counted from 0 over the run); 4 requests re-run
+     solo, teacher-forced and dispatched to the engine's experts, logits
+     within 0.25, the argmax held where the margin exceeds it, and the
+     routing choices the solo routers would make otherwise counted;
+ 17. `ssm_scan` against its plain version at the longest prompt's first
+     Mamba layer's inputs, the reference test's shapes in bf16 and edge
+     cases (S = 1, S = 1000 with d = 200, h0, N = 8, h_last): f32 within
+     1e-4 x the output's scale, bf16 within 5e-2; timings of the kernel
+     and the plain version at the serving shape, and the bytes bound;
+ 18. qwen3-moe-30b-a3b at its published widths (d_model 2048, 128 experts
+     top-8 of d_ff 768) cut to 4 of 48 layers (3.11 B parameters), through
+     the engine (4 slots, 8 requests of 16-256 tokens, 16 new), held to its
+     solo runs as in 16.
 
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after.
@@ -125,8 +148,10 @@ is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -140,7 +165,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 F32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 TOL = 1e-4                      # kernel vs plain, f32, different sum order
 SOURCES = ("paged_attention", "rma", "paged_gather", "rmaq",    # csrc/<name>.cu, one nvcc each
-           "flash_attention")
+           "flash_attention", "ssm_scan")
 KERNELS = {
     # name -> (route, source, TPU kernel it replaces)
     "paged_attention": ("cuda", "src/repro_torch/csrc/paged_attention.cu",
@@ -165,6 +190,8 @@ KERNELS = {
                    "src/repro/kernels/rmaq/kernel.py:221"),
     "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:75"),
+    "ssm_scan": ("cuda", "src/repro_torch/csrc/ssm_scan.cu",
+                 "src/repro/kernels/ssm_scan/kernel.py:46"),
 }
 FULL = dict(n_prefill=2, d_model=128, vocab=32000, page_tokens=16,
             block_tokens=2048, pool_pages=8192, queue_capacity=64,
@@ -183,13 +210,26 @@ DSDE_PROTOCOLS = ("exchange_accumulate", "exchange_alltoall_baseline",
 # the model-serving engine: SmolLM-360M at its published widths
 # (src/repro/configs/smollm_360m.py), random bf16 weights from a seed
 MODEL_ARCH, MODEL_SEED = "smollm-360m", 0
-ENGINE_SLOTS, ENGINE_MAX_SEQ, ENGINE_REQUESTS, ENGINE_NEW = 8, 1024, 32, 32
-ENGINE_PLEN, ENGINE_SEED, ENGINE_CHECKED = (16, 512), 3, 8
-ENGINE_BOUND = 0.125            # logits: engine vs solo batch-1 run, and the tie margin
+# 8 slots, max_seq 1024, 32 requests of 16-512 prompt tokens, 32 new each, 8
+# of them re-run solo; bound: logits engine vs solo batch-1 run, and the tie margin
+SMOLLM_ENGINE = dict(slots=8, max_seq=1024, requests=32, plen=(16, 512), new=32, seed=3,
+                     checked=8, bound=0.125)
 FWD_TOKENS, FWD_SEED = (4, 2048), 4
 FWD_BOUND, FWD_AGREE = 0.25, 0.99   # logits: backend "cuda" vs "torch"; argmax share
 BF16_TOL, F32_TOL = 2e-2, 1e-4  # flash kernel vs plain: one bf16 ulp at |x| 2-4; f32 sums
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
+# the moe and hybrid families: Jamba-v0.1 at its published widths cut to 16
+# of 32 layers (2 of its 4 periods; src/repro/configs/jamba_v0_1_52b.py) and
+# qwen3-moe-30b-a3b cut to 4 of 48 layers, random bf16 weights from a seed
+HYBRID_ARCH, HYBRID_LAYERS, HYBRID_SEED = "jamba-v0.1-52b", 16, 0
+HYBRID_ENGINE = dict(slots=8, max_seq=2048, requests=24, plen=(16, 1024), new=24, seed=5,
+                     checked=4, bound=0.25)
+HYBRID_FWD_TOKENS = (2, 2048)   # Jamba's cache-free forward_logits: the flash kernel's path
+MOE_ARCH, MOE_LAYERS, MOE_SEED = "qwen3-moe-30b-a3b", 4, 1
+MOE_ENGINE = dict(slots=4, max_seq=512, requests=8, plen=(16, 256), new=16, seed=6,
+                  checked=4, bound=0.25)
+SSM_F32_REL, SSM_BF16_TOL = 1e-4, 5e-2   # ssm_scan vs plain: f32 sums; the reference test's bf16
+ROUTE_ULP = 1e-6                # f32 rounding of a probability gap (probabilities < 1)
 
 
 def log(msg: str) -> None:
@@ -447,6 +487,10 @@ def main() -> int:
     kernels += dsde_phases(torch, H100.hbm_bandwidth)
     torch.cuda.empty_cache()
     kernels += model_serve_phases(torch, H100.hbm_bandwidth)
+    torch.cuda.empty_cache()
+    kernels += hybrid_serve_phases(torch, H100.hbm_bandwidth)
+    if len(kernels) != len(KERNELS):
+        raise AssertionError(f"{len(kernels)} kernel rows, want {len(KERNELS)}")
     log(f"smoke wall time: {time.perf_counter() - T0:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -1212,6 +1256,8 @@ def dsde_phase(torch, np, dsde, overlap, rq, Mesh, OpCounter) -> dict:
         f"{'the model chose the faster' if choice == faster else 'the model chose the slower'}"
         f"; at the reference test's (4, 256.0, 64, 32) -> {strat.dispatch_plan(4, 256.0, 64, 32)}"
         f", (2048, 256.0, 8, 4) -> {strat.dispatch_plan(2048, 256.0, 8, 4)}")
+    if choice != faster:
+        raise AssertionError(f"dispatch_plan{args} picks {choice}, the slower exchange")
     keep.update(mesh=mesh, data=data, counts=torch.from_numpy(want["counts"]).cuda())
     return keep
 
@@ -1407,40 +1453,112 @@ def dsde_phases(torch, hbm: float) -> list:
 
 
 # ------------------------------------------------- the model-serving engine
+class Chosen(collections.namedtuple("Chosen", "idx logits probs")):
+    """A model call's routing: the experts each MoE layer's router picks
+    [L, T, k] (sorted over k) and its f32 logits and probabilities [L, T, E]."""
+
+    def rows(self, i: int) -> "Chosen":
+        return Chosen(*(t[:, i:i + 1] for t in self))
+
+    @staticmethod
+    def cat(torch, parts: list) -> "Chosen":
+        """Calls joined along T."""
+        return Chosen(*(torch.cat(ts, dim=1) for ts in zip(*parts)))
+
+
+class RouteTap:
+    """Keeps what `models.moe.route` computes while it is recording: each
+    MoE layer's chosen experts, logits and probabilities of each model
+    call.  Given the choices of another run (`force`), each MoE layer
+    dispatches to those experts instead, and the tap still keeps what the
+    router itself would pick."""
+
+    def __init__(self, moe_mod):
+        self.mod, self.real = moe_mod, moe_mod.route
+        self.calls, self.force = None, None
+
+    def __enter__(self):
+        self.mod.route = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.real
+
+    def _route(self, params, xt, top_k, capacity_factor=1.25):
+        r = self.real(params, xt, top_k, capacity_factor)
+        if self.calls is not None:
+            self.calls.append((r.expert_idx, r.logits, r.probs))
+        if self.force is not None:
+            r = self.mod.sort_dispatch(r.logits, r.probs, self.force[len(self.calls) - 1],
+                                       capacity_factor)
+        return r
+
+    def record(self, fn, force=None):
+        """fn()'s result, and its MoE layers' routing as a `Chosen`, or None
+        without MoE layers; `force` [L, T, k] overrides the choices."""
+        self.calls, self.force = [], force
+        try:
+            out = fn()
+        finally:
+            calls, self.calls, self.force = self.calls, None, None
+        if not calls:
+            return out, None
+        import torch
+
+        idx, logits, probs = (torch.stack(ts) for ts in zip(*calls))
+        return out, Chosen(idx.sort(dim=-1).values, logits, probs)
+
+
 class LogitTap:
     """Stands in for the model inside the engine: every call goes through to
     the model unchanged; it keeps the logits the engine got for the requests
-    of `prompts` (prefill by prompt, decode by lane) and each decode call's
-    host time (the call ends in a synchronise)."""
+    of `prompts` (prefill by prompt, decode by lane), their expert choices
+    when a RouteTap is given, each decode call's host time (the call ends
+    in a synchronise) and the number of prefills."""
 
-    def __init__(self, model, prompts: dict):
+    def __init__(self, model, prompts: dict, routes=None):
         self.model = model
         self.rid_of = {tuple(p): rid for rid, p in prompts.items()}
         self.logits = {rid: [] for rid in prompts}
+        self.choices = {rid: [] for rid in prompts}
+        self.routes = routes
         self.engine = None
         self.decode_s = []
+        self.prefills = 0
 
     def init_cache(self, *args, **kw):
         return self.model.init_cache(*args, **kw)
 
+    def _call(self, fn):
+        if self.routes is None:
+            return fn(), None
+        return self.routes.record(fn)
+
     def prefill(self, params, tokens, cache, extra):
-        logits, cache = self.model.prefill(params, tokens, cache, extra)
+        (logits, cache), chosen = self._call(
+            lambda: self.model.prefill(params, tokens, cache, extra))
+        self.prefills += 1
         rid = self.rid_of.get(tuple(tokens[0].tolist()))
         if rid is not None:
             self.logits[rid].append(logits[0].clone())
+            if chosen is not None:
+                self.choices[rid].append(chosen)                 # T = S
         return logits, cache
 
     def decode_step(self, params, tokens, cache):
         import torch
 
         t0 = time.perf_counter()
-        logits, cache = self.model.decode_step(params, tokens, cache)
+        (logits, cache), chosen = self._call(
+            lambda: self.model.decode_step(params, tokens, cache))
         torch.cuda.synchronize()
         self.decode_s.append(time.perf_counter() - t0)
         eng = self.engine
         for i, req in enumerate(eng.slot_req):
             if req is not None and eng.slot_ready[i] and req.rid in self.logits:
                 self.logits[req.rid].append(logits[i].clone())
+                if chosen is not None:
+                    self.choices[req.rid].append(chosen.rows(i))
         return logits, cache
 
 
@@ -1458,95 +1576,171 @@ def aten_counter():
     return Count()
 
 
+def route_check(torch, what: str, ref: "Chosen", own: "Chosen") -> dict:
+    """Routing of one run (`own`) that was dispatched to another's experts
+    (`ref`): the choices its routers would make otherwise, each of which
+    must be a near-tie of its router — the k-th probability exceeds the
+    least it gives `ref`'s experts by no more than twice the largest
+    ref-vs-own probability difference at that position (a correct top-k on
+    both sides gives no more) — and the largest router-logit difference."""
+    differ = (ref.idx != own.idx).any(-1)                     # [L, T]
+    gap = 0.0
+    if bool(differ.any()):
+        p_o, p_r = own.probs[differ], ref.probs[differ]       # [flips, E]
+        kth = p_o.topk(ref.idx.shape[-1], dim=-1).values[:, -1]
+        gaps = kth - p_o.gather(-1, ref.idx[differ]).min(-1).values
+        slack = 2 * (p_o - p_r).abs().max(-1).values + ROUTE_ULP
+        bad = gaps > slack
+        if bool(bad.any()):
+            raise AssertionError(f"{what}: routing differs where the router is no near-tie "
+                                 f"(probability gaps {gaps[bad].tolist()} beyond "
+                                 f"{slack[bad].tolist()})")
+        gap = float(gaps.max())
+    return {"flips": int(differ.sum()), "choices": differ.numel(), "gap": gap,
+            "err": float((own.logits - ref.logits).abs().max())}
+
+
 def margins(torch, logits):
     """Top-1 minus top-2 logit a row, in f32."""
     top = logits.float().topk(2, dim=-1).values
     return top[..., 0] - top[..., 1]
 
 
-def engine_phase(torch, np, model, params, engine_mod) -> dict:
-    """32 requests of seeded lengths 16-512 through 8 lanes of the
-    continuous-batching engine at full width; 8 of them re-run solo."""
+def engine_phase(torch, np, model, params, engine_mod, spec: dict, routes=None,
+                 around_run=contextlib.nullcontext) -> dict:
+    """spec["requests"] requests of seeded prompt lengths through
+    spec["slots"] lanes of the continuous-batching engine, every one served
+    in full; spec["checked"] of them re-run alone at batch 1, teacher-forced
+    with the engine's tokens: logits within spec["bound"] of the engine's
+    and the argmax equal to the engine's token wherever the solo top-2
+    margin exceeds it.  With `routes` (MoE models) the solo runs are also
+    forced to the engine's expert choices, and the choices their own
+    routers would make are counted where they differ: a batch rounds the
+    router's input otherwise than a solo run, a near-tie can flip, and one
+    flip sends a token through another expert (PERF.md §6).  The routers
+    are held too: their logits within spec["bound"] of the engine's, and
+    every differing choice a near-tie (`route_check`).
+    `around_run()` wraps the engine's run (the launch counts and input taps
+    of the caller)."""
     cfg = model.cfg
-    rng = np.random.default_rng(ENGINE_SEED)
+    name = cfg.name
+    n, new = spec["requests"], spec["new"]
+    bound = spec["bound"]
+    rng = np.random.default_rng(spec["seed"])
     prompts = {i: rng.integers(0, cfg.vocab_size,
-                               int(rng.integers(ENGINE_PLEN[0], ENGINE_PLEN[1] + 1))).tolist()
-               for i in range(ENGINE_REQUESTS)}
-    checked = list(range(0, ENGINE_REQUESTS, ENGINE_REQUESTS // ENGINE_CHECKED))
-    tap = LogitTap(model, {rid: prompts[rid] for rid in checked})
-    eng = engine_mod.ServeEngine(tap, params, n_slots=ENGINE_SLOTS,
-                                 max_seq=ENGINE_MAX_SEQ, device="cuda")
+                               int(rng.integers(spec["plen"][0], spec["plen"][1] + 1))).tolist()
+               for i in range(n)}
+    checked = list(range(0, n, n // spec["checked"]))
+    tap = LogitTap(model, {rid: prompts[rid] for rid in checked}, routes)
+    eng = engine_mod.ServeEngine(tap, params, n_slots=spec["slots"],
+                                 max_seq=spec["max_seq"], device="cuda")
     tap.engine = eng
-    reqs = [engine_mod.Request(rid=i, prompt=p, max_new=ENGINE_NEW) for i, p in prompts.items()]
+    reqs = [engine_mod.Request(rid=i, prompt=p, max_new=new) for i, p in prompts.items()]
     for r in reqs:
         eng.submit(r)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    steps = eng.run_until_drained(max_steps=4 * ENGINE_REQUESTS * ENGINE_NEW)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    short = [r.rid for r in reqs if not r.done.is_set() or len(r.output) != ENGINE_NEW]
+    with around_run():
+        t0 = time.perf_counter()
+        steps = eng.run_until_drained(max_steps=4 * n * new)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    short = [r.rid for r in reqs if not r.done.is_set() or len(r.output) != new]
     words = [eng.lock_win.master.v] + [w.v for w in eng.lock_win.local]
     if short or any(words):
-        raise AssertionError(f"engine: requests not served in full {short}, lock words {words}")
+        raise AssertionError(f"engine ({name}): requests not served in full {short}, "
+                             f"lock words {words}")
 
-    # each checked request, alone at batch 1 and teacher-forced with the
-    # engine's tokens, against the logits the engine got; the first solo
-    # decode step's ATen calls are counted (the engine's step runs the same code)
-    err, near_ties, raw_agree, n_pos = 0.0, 0, 0, 0
+    # each checked request alone at batch 1, teacher-forced with the
+    # engine's tokens; the first solo decode step's ATen calls are counted
+    # (the engine's step runs the same code)
+    err, near_ties, raw_agree, n_pos, flips, choices = 0.0, 0, 0, 0, 0, 0
+    route_err, tie_gap = 0.0, 0.0
     aten_calls = aten_counter()
     for rid in checked:
         toks = reqs[rid].output
         eng_logits = torch.stack(tap.logits[rid]).float()
-        if eng_logits.shape[0] != ENGINE_NEW or \
-                eng_logits.argmax(-1).tolist() != toks:
-            raise AssertionError(f"engine: request {rid}'s tapped logits do not give its tokens")
-        cache = model.init_cache(1, ENGINE_MAX_SEQ, device="cuda")
-        logits, cache = model.prefill(params, torch.tensor([prompts[rid]], device="cuda"), cache)
-        solo = [logits[0]]
+        if eng_logits.shape[0] != new or eng_logits.argmax(-1).tolist() != toks:
+            raise AssertionError(f"engine ({name}): request {rid}'s tapped logits do not "
+                                 "give its tokens")
+        forced = tap.choices[rid] if routes is not None else [None] * new
+
+        def call(fn, j):
+            return (fn(), None) if routes is None else routes.record(fn, forced[j].idx)
+
+        cache = model.init_cache(1, spec["max_seq"], device="cuda")
+        (logits, cache), chosen = call(lambda: model.prefill(
+            params, torch.tensor([prompts[rid]], device="cuda"), cache), 0)
+        solo, solo_choice = [logits[0]], [chosen]
         for j, tok in enumerate(toks[:-1]):
             with (aten_calls if j == 0 and rid == checked[0] else contextlib.nullcontext()):
-                logits, cache = model.decode_step(params, torch.tensor([tok], device="cuda"),
-                                                  cache)
+                (logits, cache), chosen = call(lambda: model.decode_step(
+                    params, torch.tensor([tok], device="cuda"), cache), j + 1)
             solo.append(logits[0])
+            solo_choice.append(chosen)
         solo = torch.stack(solo).float()
+        if routes is not None:
+            r = route_check(torch, f"engine ({name}) request {rid}",
+                            Chosen.cat(torch, forced), Chosen.cat(torch, solo_choice))
+            flips, choices = flips + r["flips"], choices + r["choices"]
+            route_err, tie_gap = max(route_err, r["err"]), max(tie_gap, r["gap"])
         err = max(err, float((solo - eng_logits).abs().max()))
-        sure = margins(torch, solo) > ENGINE_BOUND
+        sure = margins(torch, solo) > bound
         agree = solo.argmax(-1) == torch.tensor(toks, device="cuda")
         if not bool(agree[sure].all()):
-            raise AssertionError(f"engine: request {rid} differs from its solo run where "
-                                 f"the margin exceeds {ENGINE_BOUND}")
+            raise AssertionError(f"engine ({name}): request {rid} differs from its solo run "
+                                 f"where the margin exceeds {bound}")
         near_ties += int((~sure).sum())
         raw_agree += int(agree.sum())
         n_pos += len(toks)
-    if err > ENGINE_BOUND:
-        raise AssertionError(f"engine vs solo runs: logits max abs err {err} > {ENGINE_BOUND}")
+    if err > bound or route_err > bound:
+        raise AssertionError(f"engine ({name}) vs solo runs: logits max abs err {err}, router "
+                             f"logits {route_err} (bound {bound})")
     sm = eng.serve_metrics()
     tokens = sum(len(r.output) for r in reqs)
     decode_ms = float(np.median(tap.decode_s)) * 1e3
-    log(f"engine ({MODEL_ARCH}, {ENGINE_SLOTS} slots, max_seq {ENGINE_MAX_SEQ}): "
-        f"{ENGINE_REQUESTS} requests of {ENGINE_PLEN[0]}-{ENGINE_PLEN[1]} prompt tokens, "
-        f"{ENGINE_NEW} new each, {steps} ticks, {len(tap.decode_s)} decode steps, "
-        f"{dt:.3f} s, {tokens / dt:.1f} tokens/s; TTFT p50 {sm['ttft_us']['p50'] / 1e3:.2f} "
-        f"ms p99 {sm['ttft_us']['p99'] / 1e3:.2f} ms; prefill p50 "
-        f"{sm['seg.prefill_us']['p50'] / 1e3:.2f} ms p99 {sm['seg.prefill_us']['p99'] / 1e3:.2f} "
-        f"ms; decode {decode_ms:.3f} ms/step (median); TBT p50 "
-        f"{sm['tbt_us']['p50'] / 1e3:.2f} ms; lock AMOs {eng.lock_win.total_amos}, words 0; "
-        f"a decode step makes {aten_calls.n} ATen calls ({aten_calls.n / cfg.n_layers:.0f} a "
-        f"layer, views included)")
-    log(f"engine vs solo batch-1 runs ({len(checked)} requests, teacher-forced): logits "
-        f"max abs err {err:.4g} (bound {ENGINE_BOUND}); argmax == engine token at "
-        f"{raw_agree}/{n_pos} positions, at every one of the {n_pos - near_ties} whose "
-        f"solo top-2 margin exceeds the bound; near-ties {near_ties}")
-    return {"tokens_per_s": tokens / dt, "decode_ms": decode_ms}
+    card = card_line()
+    log(f"engine ({name}, {cfg.n_layers} layers, {spec['slots']} slots, max_seq "
+        f"{spec['max_seq']}; {card}): {n} requests of {spec['plen'][0]}-{spec['plen'][1]} "
+        f"prompt tokens, {new} new each, {steps} ticks, {tap.prefills} prefills, "
+        f"{len(tap.decode_s)} decode steps, {dt:.3f} s, {tokens / dt:.1f} tokens/s; "
+        f"TTFT p50 {sm['ttft_us']['p50'] / 1e3:.2f} ms p99 {sm['ttft_us']['p99'] / 1e3:.2f} ms; "
+        f"prefill p50 {sm['seg.prefill_us']['p50'] / 1e3:.2f} ms p99 "
+        f"{sm['seg.prefill_us']['p99'] / 1e3:.2f} ms; decode {decode_ms:.3f} ms/step "
+        f"(median); TBT p50 {sm['tbt_us']['p50'] / 1e3:.2f} ms; lock AMOs "
+        f"{eng.lock_win.total_amos}, words 0; a decode step makes {aten_calls.n} ATen calls "
+        f"({aten_calls.n / cfg.n_layers:.0f} a layer, views included)")
+    route_note = "" if routes is None else (
+        f"; the solo runs dispatch to the engine's experts, and their own routers would "
+        f"choose otherwise at {flips} of {choices} (position x MoE layer) choices, every "
+        f"one a near-tie (largest solo probability gap {tie_gap:.3g}); router logits max "
+        f"abs err {route_err:.4g} (bound {bound})")
+    log(f"engine ({name}) vs solo batch-1 runs ({len(checked)} requests, teacher-forced): "
+        f"logits max abs err {err:.4g} (bound {bound}); argmax == engine token at "
+        f"{raw_agree}/{n_pos} positions, at every one of the {n_pos - near_ties} whose solo "
+        f"top-2 margin exceeds the bound; near-ties {near_ties}{route_note}")
+    return {"tokens_per_s": tokens / dt, "decode_ms": decode_ms, "prefills": tap.prefills,
+            "routing_flips": flips}
 
 
-def forward_phase(torch, model, params, L, fops) -> dict:
-    """`Model.forward_logits` on [4, 2048] tokens under backend "cuda" (the
-    flash kernel, counts zeroed just before) against backend "torch"."""
+def forward_phase(torch, model, params, L, fops, shape=FWD_TOKENS, n_attn=None,
+                  routes=None) -> dict:
+    """`Model.forward_logits` on `shape` tokens under backend "cuda" (the
+    flash kernel, counts zeroed just before; one launch in each of the
+    `n_attn` attention layers, every layer by default) against backend
+    "torch".  With `routes` (MoE models) the cuda run dispatches to the
+    torch run's experts, and the choices its routers would make otherwise
+    must be near-ties (`route_check`)."""
     cfg = model.cfg
+    n_attn = cfg.n_layers if n_attn is None else n_attn
     g = torch.Generator(device="cuda").manual_seed(FWD_SEED)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, FWD_TOKENS, generator=g, device="cuda")}
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, shape, generator=g, device="cuda")}
+
+    def call(force=None):
+        if routes is None:
+            return model.forward_logits(params, batch).logits, None
+        out, chosen = routes.record(lambda: model.forward_logits(params, batch), force)
+        return out.logits, chosen
+
     first = {}
     real = fops.flash_attention
 
@@ -1558,7 +1752,7 @@ def forward_phase(torch, model, params, L, fops) -> dict:
     with torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        want = model.forward_logits(params, batch).logits
+        want, want_routes = call()
         torch.cuda.synchronize()
         torch_s = time.perf_counter() - t0
         L.set_attention_backend("cuda")
@@ -1566,17 +1760,27 @@ def forward_phase(torch, model, params, L, fops) -> dict:
         fops.launches = 0
         try:
             t0 = time.perf_counter()
-            got = model.forward_logits(params, batch).logits
+            got, got_routes = call(None if routes is None else want_routes.idx)
             torch.cuda.synchronize()
             cuda_s = time.perf_counter() - t0
         finally:
             fops.flash_attention = real
             L.set_attention_backend("torch")
         launches = fops.launches
-    if launches != cfg.n_layers:
-        raise AssertionError(f"forward: {launches} flash launches, want {cfg.n_layers}")
+    if launches != n_attn:
+        raise AssertionError(f"forward ({cfg.name}): {launches} flash launches, want {n_attn}")
+    route_note = ""
+    if routes is not None:
+        r = route_check(torch, f"forward ({cfg.name})", want_routes, got_routes)
+        if r["err"] > FWD_BOUND:
+            raise AssertionError(f"forward ({cfg.name}): router logits max abs err {r['err']} "
+                                 f"> {FWD_BOUND}")
+        route_note = (f"; the cuda run dispatches to the torch run's experts, and its own "
+                      f"routers would choose otherwise at {r['flips']} of {r['choices']} "
+                      f"choices, every one a near-tie (largest probability gap "
+                      f"{r['gap']:.3g}); router logits max abs err {r['err']:.4g}")
     err, sure_n, sure_agree, raw_agree = 0.0, 0, 0, 0
-    for b in range(FWD_TOKENS[0]):
+    for b in range(shape[0]):
         a, w = got[b].float(), want[b].float()
         err = max(err, float((a - w).abs().max()))
         agree = a.argmax(-1) == w.argmax(-1)
@@ -1584,16 +1788,17 @@ def forward_phase(torch, model, params, L, fops) -> dict:
         raw_agree += int(agree.sum())
         sure_n += int(sure.sum())
         sure_agree += int(agree[sure].sum())
-    n = FWD_TOKENS[0] * FWD_TOKENS[1]
+    n = shape[0] * shape[1]
     if not torch.isfinite(got).all() or err > FWD_BOUND or sure_agree < FWD_AGREE * sure_n:
-        raise AssertionError(f"forward: logits max abs err {err} (bound {FWD_BOUND}), argmax "
-                             f"agreement {sure_agree}/{sure_n} beyond the bound")
-    log(f"forward_logits {list(FWD_TOKENS)} at full width: {launches} flash launches "
-        f"({cfg.n_layers} layers); backend cuda {cuda_s * 1e3:.1f} ms, torch "
+        raise AssertionError(f"forward ({cfg.name}): logits max abs err {err} (bound "
+                             f"{FWD_BOUND}), argmax agreement {sure_agree}/{sure_n} beyond "
+                             "the bound")
+    log(f"forward_logits ({cfg.name}) {list(shape)} at full width: {launches} flash launches "
+        f"({n_attn} attention layers of {cfg.n_layers}); backend cuda {cuda_s * 1e3:.1f} ms, torch "
         f"{torch_s * 1e3:.1f} ms (one call each); logits max abs err {err:.4g} (bound "
         f"{FWD_BOUND}); argmax agrees at {raw_agree}/{n} positions "
         f"({raw_agree / n:.4f}), at {sure_agree}/{sure_n} whose top-2 margin exceeds the "
-        f"bound; near-ties {n - sure_n}")
+        f"bound; near-ties {n - sure_n}{route_note}")
     del got, want
     return {"launches": launches, "first": first}
 
@@ -1614,8 +1819,12 @@ def check_flash(torch, fops, fref, first: dict) -> float:
              ("Sq < Sk", qkv(2, 4, 2, 40, 300, 64, f32), True),
              ("one row", qkv(1, 6, 3, 1, 77, 128, f32), True),
              ("non-causal, S 1000, g 1, B 3", qkv(3, 4, 4, 1000, 1000, 64, f32), False),
-             ("ragged, hd 128", qkv(1, 8, 2, 130, 130, 128, f32), True),
-             ("Sq > Sk", qkv(1, 4, 2, 90, 60, 64, f32), True)]
+             ("ragged, hd 128", qkv(1, 8, 2, 130, 130, 128, f32), True)]
+    # the SMOKE configs' head dims (16, 20) and the reference test's 32,
+    # zero-padded to the 16 / 32 instances
+    cases += [(f"hd {hd} {'bf16' if dt == bf else 'f32'}", qkv(2, 4, 2, 300, 300, hd, dt), True)
+              for hd in (16, 20, 32) for dt in (bf, f32)]
+    cases.append(("Sq > Sk", qkv(1, 4, 2, 90, 60, 64, f32), True))
     errs = {}
     for name, (q, k, v), causal in cases:
         out = fops.flash_attention(q, k, v, causal=causal)
@@ -1668,7 +1877,7 @@ def model_serve_phases(torch, hbm: float) -> list:
     params = model.init(MODEL_SEED, device="cuda")
     log(f"{MODEL_ARCH}: {model.param_count()} parameters (bf16, seed {MODEL_SEED})")
     with torch.no_grad():
-        engine_phase(torch, np, model, params, engine_mod)
+        engine_phase(torch, np, model, params, engine_mod, SMOLLM_ENGINE)
     torch.cuda.empty_cache()
     fwd = forward_phase(torch, model, params, L, fops)
     del params
@@ -1686,6 +1895,177 @@ def model_serve_phases(torch, hbm: float) -> list:
              "source": KERNELS["flash_attention"][1],
              "replaces": KERNELS["flash_attention"][2], "launches": fwd["launches"],
              "max_abs_err": errs["forward layer 0"], **times}]
+
+
+# ------------------------------------------- the moe and hybrid families
+def check_ssm(torch, sops, sref, serving: tuple) -> dict:
+    """The selective-scan kernel against its plain version: the serving
+    run's inputs, the serving shape at unit scale, the reference test's
+    shapes in bf16, and edge cases (one step, S and d that no block
+    divides, a non-zero h0, N = 8); y and h_last.  f32 is held to
+    SSM_F32_REL of the output's largest magnitude (the serving run's y is
+    ~1e-5, so an absolute floor would pass a kernel that wrote zeros)."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def inputs(B, S, d, N, dtype, seeded):
+        decay = (0.5 + 0.5 * torch.rand(B, S, d, N, generator=g, device="cuda")).to(dtype)
+        drive = (0.1 * torch.randn(B, S, d, N, generator=g, device="cuda")).to(dtype)
+        c = torch.randn(B, S, N, generator=g, device="cuda")
+        return decay, drive, c, (torch.randn(B, d, N, generator=g, device="cuda")
+                                 if seeded else None)
+
+    def scale(t):
+        return max(float(t.float().abs().max()), 1e-30)
+
+    B, S, d, N = serving[0].shape
+    cases = [("serving", lambda: serving),
+             ("serving shape, unit scale", lambda: inputs(B, S, d, N, f32, True)),
+             ("reference 2x64x32x8 bf16", lambda: inputs(2, 64, 32, 8, bf, False)),
+             ("reference 1x128x64x16 bf16", lambda: inputs(1, 128, 64, 16, bf, False)),
+             ("reference 1x256x128x16 bf16", lambda: inputs(1, 256, 128, 16, bf, False)),
+             ("S 1, h0", lambda: inputs(3, 1, 8192, 16, f32, True)),
+             ("S 1000, d 200, h0", lambda: inputs(2, 1000, 200, 16, f32, True)),
+             ("N 8, h0", lambda: inputs(2, 77, 96, 8, f32, True))]
+    errs, rels = {}, {}
+    for name, make in cases:
+        args = make()
+        y, h = sops.selective_scan(*args)
+        torch.cuda.synchronize()
+        want_y, want_h = sref.ssm_scan_ref(*args)
+        err_y = float((y.float() - want_y.float()).abs().max())
+        err_h = float((h - want_h).abs().max())
+        tol_y = SSM_BF16_TOL if y.dtype == bf else SSM_F32_REL * scale(want_y)
+        tol_h = SSM_F32_REL * scale(want_h)
+        if not (torch.isfinite(y).all() and torch.isfinite(h).all()) or err_y > tol_y \
+                or err_h > tol_h:
+            raise AssertionError(f"ssm_scan vs plain ({name}): y err {err_y} (tol {tol_y}), "
+                                 f"h_last err {err_h} (tol {tol_h})")
+        errs[name], rels[name] = err_y, err_y / scale(want_y)
+        del args, y, h, want_y, want_h
+    log("ssm_scan vs plain (y, max abs err / max |y|): "
+        + ", ".join(f"{k} {errs[k]:.3g} / {rels[k]:.3g}" for k in errs)
+        + f" (f32 tol {SSM_F32_REL} x max |y|, bf16 tol {SSM_BF16_TOL} abs); h_last within "
+        f"{SSM_F32_REL} x max |h| everywhere")
+    return {"max_abs_err": errs["serving"],
+            "max_rel_err": max(v for k, v in rels.items() if "bf16" not in k)}
+
+
+def time_ssm(torch, sops, sref, args: tuple, hbm: float) -> dict:
+    """Kernel and plain version with CUDA events at the serving shape, and
+    the bound: every input read once, every output written once."""
+    decay, drive, c, h0 = args
+    B, S, d, N = decay.shape
+    k_ms = time_ms(lambda: sops.selective_scan(decay, drive, c, h0), reps=20)
+    p_ms = time_ms(lambda: sref.ssm_scan_ref(decay, drive, c, h0), reps=5, warmup=1)
+    es = decay.element_size()
+    nbytes = (2 * B * S * d * N * es + B * S * N * 4 + B * S * d * es
+              + (0 if h0 is None else B * d * N * 4) + B * d * N * 4)
+    flops = 4 * B * S * d * N       # the FMA of h, the product with c, the sum over N
+    bound_ms, bound_by = max((nbytes / hbm * 1e3, "bytes"),
+                             (flops / F32_FLOPS_PER_S * 1e3, "operations"))
+    log(f"ssm_scan decay/drive {tuple(decay.shape)} {decay.dtype} ({card_line()}): kernel "
+        f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, library none, bound {bound_ms:.4f} ms "
+        f"({bound_by}: {nbytes / 2**20:.1f} MiB at {hbm / 1e12:.2f} TB/s; "
+        f"{nbytes / k_ms / 1e6:.1f} GB/s achieved, {bound_ms / k_ms:.1%} of the bound)")
+    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def full_width(torch, build_model, get_config, arch: str, layers: int, seed: int):
+    """The arch at its published widths cut to `layers`, random bf16
+    weights (f32 router, A_log, D_skip) from a seeded generator on the card."""
+    import dataclasses
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed, device="cuda")
+    torch.cuda.synchronize()
+    log(f"{arch} at its published widths (d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.hd}, {cfg.moe_experts} experts top-{cfg.moe_top_k} "
+        f"of d_ff {cfg.moe_d_ff}, vocab {cfg.vocab_size}), cut to {layers} of "
+        f"{full.n_layers} layers: {model.param_count()} parameters, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card (seed {seed}, "
+        f"{time.perf_counter() - t0:.1f} s)")
+    return model, params
+
+
+def hybrid_serve_phases(torch, hbm: float) -> list:
+    """Jamba-v0.1 (16 layers at full width) through the continuous-batching
+    engine with the selective-scan kernel on every Mamba layer's prefill
+    (launches counted) and through the cache-free `forward_logits` with the
+    flash kernel in its attention layers (launches counted), the scan
+    against its plain version and its timings; then qwen3-moe-30b-a3b (4
+    layers at full width) through the engine."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.kernels.ssm_scan import ref as sref
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serve import engine as engine_mod
+
+    torch.cuda.reset_peak_memory_stats()
+    model, params = full_width(torch, build_model, get_config, HYBRID_ARCH, HYBRID_LAYERS,
+                               HYBRID_SEED)
+    cfg = model.cfg
+    n_mamba = cfg.n_layers // cfg.attn_period * (cfg.attn_period - 1)
+    first: dict = {}
+    real = sops.selective_scan
+
+    def tap(decay, drive, c, h0=None):   # the longest prompt's first Mamba layer's inputs
+        if decay.shape[1] > first.get("S", 0):
+            first.update(S=decay.shape[1], args=tuple(
+                None if t is None else t.clone() for t in (decay, drive, c, h0)))
+        return real(decay, drive, c, h0)
+
+    @contextlib.contextmanager
+    def around_run():
+        sops.selective_scan = tap
+        sops.launches = 0
+        try:
+            yield
+        finally:
+            sops.selective_scan = real
+            first["launches"] = sops.launches
+
+    with torch.no_grad(), RouteTap(moe_mod) as routes:
+        run = engine_phase(torch, np, model, params, engine_mod, HYBRID_ENGINE, routes,
+                           around_run)
+    launches = first["launches"]
+    if launches == 0 or launches != n_mamba * run["prefills"]:
+        raise AssertionError(f"ssm_scan: {launches} launches for {run['prefills']} prefills "
+                             f"of {n_mamba} Mamba layers")
+    log(f"ssm_scan: {launches} launches in the engine's run = {n_mamba} Mamba layers x "
+        f"{run['prefills']} prefills; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB")
+    gc.collect()                        # the engine and its tap refer to each other
+    torch.cuda.empty_cache()
+    with RouteTap(moe_mod) as routes:
+        forward_phase(torch, model, params, L, fops, HYBRID_FWD_TOKENS,
+                      cfg.n_layers // cfg.attn_period, routes)
+    del params, model
+    gc.collect()                        # the engine and its tap refer to each other
+    torch.cuda.empty_cache()
+    errs = check_ssm(torch, sops, sref, first["args"])
+    times = time_ssm(torch, sops, sref, first["args"], hbm)
+    del first
+    torch.cuda.empty_cache()
+
+    model, params = full_width(torch, build_model, get_config, MOE_ARCH, MOE_LAYERS, MOE_SEED)
+    with torch.no_grad(), RouteTap(moe_mod) as routes:
+        engine_phase(torch, np, model, params, engine_mod, MOE_ENGINE, routes)
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [{"name": "ssm_scan", "route": KERNELS["ssm_scan"][0],
+             "source": KERNELS["ssm_scan"][1], "replaces": KERNELS["ssm_scan"][2],
+             "launches": launches, **errs, **times}]
 
 
 if __name__ == "__main__":

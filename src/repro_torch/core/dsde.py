@@ -19,8 +19,9 @@ alltoall and reduce-scatter baselines, and the queue-backed exchange over
 chooses between the queue and the all-to-all.
 
 Every tensor is the global view: data [p, n, d], targets [p, n]; results
-carry a leading rank dim.  The reference's MoE dispatch and combine, which
-feed `models/moe`, come with the model-serving slice.
+carry a leading rank dim.  `moe_dispatch` and `moe_combine` are the same
+exchange with experts as targets (expert parallelism over the rank axis),
+the explicit form of `models.moe.moe_ffn`'s dispatch.
 """
 
 from __future__ import annotations
@@ -141,3 +142,103 @@ def exchange_queue(data: torch.Tensor, targets: torch.Tensor, mesh: Mesh,
         recv_counts=receipt.incoming,
         sent_dropped=receipt.n_dropped,
     )
+
+
+# -------------------------------------------------------------- MoE dispatch
+class MoEDispatch(NamedTuple):
+    expert_inputs: torch.Tensor   # [p, local_e, p*cap, d]
+    combine_idx: torch.Tensor     # [p, local_e, p*cap] flat source token (src_rank * n_tok + t)
+    combine_valid: torch.Tensor   # [p, local_e, p*cap] bool
+    gate_weights: torch.Tensor    # [p, local_e, p*cap]
+
+
+def moe_dispatch(tokens: torch.Tensor, expert_idx: torch.Tensor, gate_w: torch.Tensor,
+                 n_experts: int, mesh: Mesh, capacity_factor: float = 1.25) -> MoEDispatch:
+    """Expert-parallel token dispatch = DSDE with experts as targets.
+
+    tokens [p, n_tok, d], expert_idx and gate_w [p, n_tok, top_k] (global
+    expert ids); each rank owns n_experts / p experts.  Every rank packs
+    its (token, expert) items into [p, local_e, cap] slot ranges — a stable
+    sort by expert, an item's position in its expert's range from
+    `searchsorted`, items past `cap` dropped — and one plan's all-to-all
+    (tokens, gates, source indices, validity) moves each range to the rank
+    that owns its experts."""
+    p = mesh.p
+    _, n_tok, d = tokens.shape
+    top_k = expert_idx.shape[2]
+    local_e = n_experts // p
+    cap = int(capacity_factor * n_tok * top_k / n_experts) + 1
+    dev = tokens.device
+
+    flat_exp = expert_idx.reshape(p, n_tok * top_k).long()
+    flat_gate = gate_w.reshape(p, n_tok * top_k)
+    s_exp, order = torch.sort(flat_exp, dim=1, stable=True)
+    src = torch.arange(n_tok, device=dev).repeat_interleave(top_k)[order]   # [p, n*k]
+    s_tok = torch.gather(tokens, 1, src[..., None].expand(p, n_tok * top_k, d))
+    s_gate = torch.gather(flat_gate, 1, order)
+    pos = torch.arange(n_tok * top_k, device=dev) - torch.searchsorted(s_exp, s_exp,
+                                                                       side="left")
+    ok = pos < cap
+    n_slots = p * local_e * cap
+    # slot layout [p(target rank), local_e, cap]; over-capacity items go to
+    # the overflow column n_slots and never clobber a valid slot
+    slot = (s_exp // local_e) * (local_e * cap) + (s_exp % local_e) * cap + pos
+    slot = torch.where(ok, slot, torch.full_like(slot, n_slots))
+    rows = torch.arange(p, device=dev)[:, None]
+
+    def scatter(vals, shape, dtype):
+        buf = torch.zeros((p, n_slots + 1) + shape, dtype=dtype, device=dev)
+        buf[rows, slot] = vals.to(dtype)
+        return buf[:, :n_slots].reshape((p, p, local_e * cap) + shape)
+
+    dplan = plan_mod.RmaPlan(mesh)
+    h_t = dplan.put_all_to_all(scatter(s_tok, (d,), tokens.dtype), kind="puts")
+    h_g = dplan.put_all_to_all(scatter(s_gate, (), gate_w.dtype), kind=None)
+    h_s = dplan.put_all_to_all(scatter(src, (), torch.int32), kind=None)
+    h_v = dplan.put_all_to_all(scatter(ok, (), torch.bool), kind=None)
+    dplan.flush()
+
+    def regroup(a):     # [p, p_src, local_e*cap, ...] -> [p, local_e, p_src*cap, ...]
+        rest = tuple(a.shape[3:])
+        return (a.reshape((p, p, local_e, cap) + rest).transpose(1, 2)
+                .reshape((p, local_e, p * cap) + rest))
+
+    recv, recv_s = regroup(h_t.result()), regroup(h_s.result())
+    src_rank = torch.arange(p, device=dev).repeat_interleave(cap)
+    combine_idx = src_rank * n_tok + recv_s.long()
+    return MoEDispatch(recv, combine_idx, regroup(h_v.result()), regroup(h_g.result()))
+
+
+def moe_combine(expert_outputs: torch.Tensor, dispatch: MoEDispatch, n_tok: int,
+                mesh: Mesh) -> torch.Tensor:
+    """Return the experts' outputs [p, local_e, p*cap, d] to their source
+    ranks and combine: the same exchange reversed, then a gate-weighted
+    scatter-add into each rank's token buffer (the slotted accumulate).
+    Returns [p, n_tok, d]."""
+    p = mesh.p
+    _, local_e, slots, d = expert_outputs.shape
+    cap = slots // p
+    dev = expert_outputs.device
+    weighted = expert_outputs * dispatch.gate_weights[..., None]
+    weighted = torch.where(dispatch.combine_valid[..., None], weighted,
+                           torch.zeros_like(weighted))
+
+    def back(a):        # [p, local_e, p_dst*cap, ...] -> [p, p_dst, local_e*cap, ...]
+        rest = tuple(a.shape[3:])
+        return (a.reshape((p, local_e, p, cap) + rest).transpose(1, 2)
+                .reshape((p, p, local_e * cap) + rest))
+
+    cplan = plan_mod.RmaPlan(mesh)
+    h_b = cplan.put_all_to_all(back(weighted), kind="puts")
+    h_i = cplan.put_all_to_all(back(dispatch.combine_idx % n_tok), kind=None)
+    h_v = cplan.put_all_to_all(back(dispatch.combine_valid), kind=None)
+    cplan.flush()
+    flat = h_b.result().reshape(p, -1, d)
+    fidx = h_i.result().reshape(p, -1)
+    fval = h_v.result().reshape(p, -1)
+    out = torch.zeros(p, n_tok + 1, d, dtype=expert_outputs.dtype, device=dev)
+    rows = torch.arange(p, device=dev)[:, None].expand_as(fidx)
+    out.index_put_((rows, torch.where(fval, fidx, torch.full_like(fidx, n_tok))), flat,
+                   accumulate=True)
+    return out[:, :n_tok]
+

@@ -15,7 +15,8 @@ the epochs' decisions:
     ring (eager), publish a descriptor for the decoder to pull
     (rendezvous), or ship a page table (paged);
   * `select_dispatch` — a sparse exchange through the notified queue or
-    one dense all-to-all.
+    one dense all-to-all, the queue priced as the port runs it (O(p²)
+    buffers, one constant fitted to the card).
 
 All sizes are the bytes the card moves (every rank's block), all results
 seconds.
@@ -53,6 +54,15 @@ class HardwareSpec:
 
 
 H100 = HardwareSpec()
+
+# Passes over its dense buffers that the port's queue exchange makes
+# (`PerfModel.p_queue_exchange`), fitted to one card figure: at p = 4096,
+# k = 6 items of 8 B and 24 slots a pair, `chip_smoke.py` measured the
+# exchange at 39.860 ms on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md).
+# A one-point fit, not a count of what the exchange reads and writes: the
+# model gives that point by construction, and no other p, k or capacity
+# has been measured against it.
+QUEUE_EXCHANGE_PASSES = 11.4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -336,16 +346,30 @@ class PerfModel:
         return self.hw.launch_latency + self._rw(nbytes_per_pair * n * (n - 1))
 
     # -- model-guided strategy selection ------------------------------------
+    def p_queue_exchange(self, n_msgs: int, msg_bytes: float, p: int,
+                         capacity_per_pair: int) -> float:
+        """The queue-backed exchange as the port runs it
+        (`core.dsde.exchange_queue` over `rmaq.queue`): the reservation and
+        a launch-priced enqueue per message, plus its dense buffers — every
+        rank's p * n_msgs + 1 send rows (payload, a 4-byte sequence number
+        and a 1-byte flag) and the drain of every rank's whole ring of
+        p * `capacity_per_pair` rows rounded up to a power of two (payload,
+        an 8-byte slot index and a 1-byte flag), `QUEUE_EXCHANGE_PASSES`
+        times at the copy rate.  The buffers are O(p²) whoever sends what,
+        so the per-message terms never decide."""
+        ring = 1 << (max(2, p * capacity_per_pair) - 1).bit_length()
+        send = p * (p * n_msgs + 1) * (msg_bytes + 5)
+        drain = p * ring * (msg_bytes + 9)
+        return (self.p_queue_reserve() + n_msgs * self.p_queue_enqueue(msg_bytes)
+                + self._rw(send + drain, QUEUE_EXCHANGE_PASSES))
+
     def select_dispatch(self, n_msgs: int, msg_bytes: float, p: int,
                         capacity_per_pair: int) -> Literal["queue", "alltoall"]:
         """Sparse exchange (DSDE, MoE dispatch): per-message notified puts
-        through the queue vs one dense capacity-padded all-to-all.  The
-        queue pays one reservation plus a launch-priced enqueue per actual
-        message; the all-to-all one launch plus every slot of the p x
-        `capacity_per_pair` matrix, occupied or not.  With a launch at
-        ~10 µs the queue wins only where the padded matrix is large: far
-        fewer messages than on a network."""
-        t_queue = self.p_queue_reserve() + n_msgs * self.p_queue_enqueue(msg_bytes)
+        through the queue (`p_queue_exchange`) vs one dense capacity-padded
+        all-to-all, which pays one launch plus every slot of the p x
+        `capacity_per_pair` matrix, occupied or not."""
+        t_queue = self.p_queue_exchange(n_msgs, msg_bytes, p, capacity_per_pair)
         t_alltoall = self.all_to_all(capacity_per_pair * msg_bytes, p)
         return "queue" if t_queue < t_alltoall else "alltoall"
 

@@ -20,11 +20,16 @@
 // shared memory in the input dtype: scores S = Q K^T as a 4 x 4 micro-tile
 // a thread (f32 FMAs on the CUDA cores), an f32 online softmax (m, l) with
 // four threads a row, the rescale of the f32 accumulators and O += P V as a
-// 4 x (hd / 16) micro-tile a thread.  A tile wholly above the offset
+// 4 x (HD / 16) micro-tile a thread.  A tile wholly above the offset
 // diagonal (first key > last query + Sk - Sq) is never loaded: the walk
 // stops at the last live tile.  Masked scores are -inf, exp gives exact
 // zeros, and the output is acc / max(l, 1e-30), so a row that sees no key
 // (causal, Sq > Sk) gives 0.
+//
+// Head dims: template instances at 16, 32, 64 and 128 (HD); a head dim hd
+// below its instance is zero-padded up to HD while Q, K and V are staged
+// (the padded columns add zeros to every score and are never written), so
+// every hd <= 128 runs, the reference's tested 16, 20 and 32 included.
 //
 // Bound: causal work 2 * B * Hq * Sq * Sk * hd flops (two products over the
 // visible half) against bytes read once (q, k, v) and written once (out);
@@ -72,7 +77,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     long long qsb, long long qsh, long long qss,
     long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss,
-    float sqrt_hd, int causal) {
+    int hd, float sqrt_hd, int causal) {
   using L = Smem<T, HD>;
   constexpr int kKP = L::kKP;
   constexpr int kCW = HD / 16;   // output columns a thread
@@ -94,11 +99,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const T* vb = v + b * vsb + hk * vsh;
   const int off = Sk - Sq;       // key t visible to query s iff t <= s + off
 
-  // stage Q / sqrt(hd) in f32; rows past Sq are zeros (computed, never written)
+  // stage Q / sqrt(hd) in f32; rows past Sq and columns past hd are zeros
+  // (computed, never written)
   for (int i = t; i < kBQ * HD; i += kThreads) {
     const int r = i / HD, d = i % HD;
     const int s = q0 + r;
-    q_s[i] = s < Sq ? to_f(qb[(long long)s * qss + d]) / sqrt_hd : 0.0f;
+    q_s[i] = s < Sq && d < hd ? to_f(qb[(long long)s * qss + d]) / sqrt_hd : 0.0f;
   }
 
   // live key tiles: every tile when not causal; else up to the one holding
@@ -124,7 +130,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     for (int i = t; i < kBK * HD; i += kThreads) {
       const int r = i / HD, d = i % HD;
       const int key = k0 + r;
-      const bool in = key < Sk;
+      const bool in = key < Sk && d < hd;
       k_s[r * kKP + d] = in ? kb[(long long)key * kss + d] : from_f<T>(0.0f);
       v_s[r * HD + d] = in ? vb[(long long)key * vss + d] : from_f<T>(0.0f);
     }
@@ -212,16 +218,17 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const int s = q0 + r;
     if (s >= Sq) continue;
     const float inv = 1.0f / fmaxf(l_s[r], 1e-30f);
-    T* o = out + (((long long)b * Hq + h) * Sq + s) * HD;
+    T* o = out + (((long long)b * Hq + h) * Sq + s) * hd;
 #pragma unroll
-    for (int j = 0; j < kCW; ++j) o[tx + 16 * j] = from_f<T>(acc[i][j] * inv);
+    for (int j = 0; j < kCW; ++j)
+      if (tx + 16 * j < hd) o[tx + 16 * j] = from_f<T>(acc[i][j] * inv);
   }
 }
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int Hq,
-           int Hkv, int Sq, int Sk, const long long (&st)[9], float sqrt_hd, int causal,
-           cudaStream_t stream) {
+           int Hkv, int Sq, int Sk, const long long (&st)[9], int hd, float sqrt_hd,
+           int causal, cudaStream_t stream) {
   const size_t smem = Smem<T, HD>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -230,13 +237,23 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Hq
   flash_fwd_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), Hq, Hkv, Sq, Sk, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], sqrt_hd, causal);
+      st[6], st[7], st[8], hd, sqrt_hd, causal);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, void* out, int B, int Hq, int Hkv,
+             int Sq, int Sk, const long long (&st)[9], int hd, float sqrt_hd, int causal,
+             cudaStream_t s) {
+  if (hd <= 16) return launch<T, 16>(q, k, v, out, B, Hq, Hkv, Sq, Sk, st, hd, sqrt_hd, causal, s);
+  if (hd <= 32) return launch<T, 32>(q, k, v, out, B, Hq, Hkv, Sq, Sk, st, hd, sqrt_hd, causal, s);
+  if (hd <= 64) return launch<T, 64>(q, k, v, out, B, Hq, Hkv, Sq, Sk, st, hd, sqrt_hd, causal, s);
+  return launch<T, 128>(q, k, v, out, B, Hq, Hkv, Sq, Sk, st, hd, sqrt_hd, causal, s);
 }
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16; hd 64 or 128 (the wrapper refuses anything else).
+// dtype: 0 = f32, 1 = bf16; 1 <= hd <= 128 (the wrapper refuses anything else).
 // (qsb, qsh, qss) etc.: the batch, head and row strides of q, k and v in
 // elements; the head dim is contiguous.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
@@ -247,14 +264,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    float sqrt_hd, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long st[9] = {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss};
-  if (B <= 0 || Sq <= 0 || Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && hd == 64)
-    return launch<float, 64>(q, k, v, out, B, Hq, Hkv, Sq, Sk, st, sqrt_hd, causal, s);
-  if (dtype == 0 && hd == 128)
-    return launch<float, 128>(q, k, v, out, B, Hq, Hkv, Sq, Sk, st, sqrt_hd, causal, s);
-  if (dtype == 1 && hd == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, out, B, Hq, Hkv, Sq, Sk, st, sqrt_hd, causal, s);
-  if (dtype == 1 && hd == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, out, B, Hq, Hkv, Sq, Sk, st, sqrt_hd, causal, s);
+  if (B <= 0 || Sq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || hd <= 0 || hd > 128)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return dispatch<float>(q, k, v, out, B, Hq, Hkv, Sq, Sk, st, hd, sqrt_hd, causal, s);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, Sq, Sk, st, hd, sqrt_hd, causal, s);
   return (int)cudaErrorInvalidValue;
 }

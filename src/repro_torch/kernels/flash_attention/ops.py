@@ -21,7 +21,8 @@ from .. import common
 from .ref import attention_ref
 
 _NAME = "flash_attention"
-HEAD_DIMS = (64, 128)                       # the kernel's template instances
+HEAD_DIMS = (16, 32, 64, 128)               # the kernel's template instances
+MAX_HEAD_DIM = HEAD_DIMS[-1]                # a smaller hd is zero-padded to its instance
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0                                # kernel launches by `flash_attention`
@@ -64,8 +65,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     B, Hq, Sq, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"the flash_attention kernel takes head dims {HEAD_DIMS}, got {hd}")
+    if not 0 < hd <= MAX_HEAD_DIM:
+        raise ValueError(f"the flash_attention kernel takes head dims 1-{MAX_HEAD_DIM} "
+                         f"(padded to one of {HEAD_DIMS}), got {hd}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention needs a contiguous head dim in q, k and v")
     out = torch.empty(B, Hq, Sq, hd, dtype=q.dtype, device=q.device)

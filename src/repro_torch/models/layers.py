@@ -36,10 +36,23 @@ def set_attention_backend(name: str) -> None:
     _ATTN_BACKEND[0] = name
 
 
+_CHUNK = 1 << 26                # f32 normals drawn at a time (256 MiB)
+
+
 def _normal(gen: Optional[torch.Generator], shape, std: float, dtype,
             device) -> torch.Tensor:
-    x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    return (x * std).to(dtype)
+    """N(0, std²) in `dtype`, drawn in f32 chunks so that a stacked leaf of
+    many layers needs no f32 copy of itself (``device="meta"`` allocates
+    nothing)."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    if out.device.type == "meta":
+        return out
+    flat = out.view(-1)
+    for i in range(0, flat.numel(), _CHUNK):
+        n = min(_CHUNK, flat.numel() - i)
+        flat[i:i + n] = torch.randn(n, generator=gen, device=device,
+                                    dtype=torch.float32) * std
+    return out
 
 
 # ------------------------------------------------------------------- norms
@@ -50,8 +63,8 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Te
     return x * inv * scale
 
 
-def init_rmsnorm(d: int, dtype=torch.bfloat16, device=None) -> dict:
-    return {"scale": torch.ones(d, dtype=dtype, device=device)}
+def init_rmsnorm(d: int, dtype=torch.bfloat16, device=None, lead=()) -> dict:
+    return {"scale": torch.ones(*lead, d, dtype=dtype, device=device)}
 
 
 # -------------------------------------------------------------------- RoPE
@@ -82,18 +95,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, style: str = "full",
 
 # --------------------------------------------------------------- attention
 def init_attention(gen, d_model: int, n_heads: int, n_kv: int, head_dim: int,
-                   bias: bool = False, dtype=torch.bfloat16, device=None) -> dict:
+                   bias: bool = False, dtype=torch.bfloat16, device=None,
+                   lead=()) -> dict:
+    """`lead` prepends stacked-layer axes to every leaf."""
     s = 1.0 / math.sqrt(d_model)
+    lead = tuple(lead)
     p = {
-        "wq": _normal(gen, (d_model, n_heads, head_dim), s, dtype, device),
-        "wk": _normal(gen, (d_model, n_kv, head_dim), s, dtype, device),
-        "wv": _normal(gen, (d_model, n_kv, head_dim), s, dtype, device),
-        "wo": _normal(gen, (n_heads, head_dim, d_model), s, dtype, device),
+        "wq": _normal(gen, lead + (d_model, n_heads, head_dim), s, dtype, device),
+        "wk": _normal(gen, lead + (d_model, n_kv, head_dim), s, dtype, device),
+        "wv": _normal(gen, lead + (d_model, n_kv, head_dim), s, dtype, device),
+        "wo": _normal(gen, lead + (n_heads, head_dim, d_model), s, dtype, device),
     }
     if bias:
-        p["bq"] = torch.zeros(n_heads, head_dim, dtype=dtype, device=device)
-        p["bk"] = torch.zeros(n_kv, head_dim, dtype=dtype, device=device)
-        p["bv"] = torch.zeros(n_kv, head_dim, dtype=dtype, device=device)
+        p["bq"] = torch.zeros(*lead, n_heads, head_dim, dtype=dtype, device=device)
+        p["bk"] = torch.zeros(*lead, n_kv, head_dim, dtype=dtype, device=device)
+        p["bv"] = torch.zeros(*lead, n_kv, head_dim, dtype=dtype, device=device)
     return p
 
 
@@ -230,14 +246,15 @@ def make_cache(batch: int, max_seq: int, n_kv: int, head_dim: int,
 
 # --------------------------------------------------------------------- MLP
 def init_mlp(gen, d_model: int, d_ff: int, mlp_type: str = "swiglu",
-             dtype=torch.bfloat16, device=None) -> dict:
+             dtype=torch.bfloat16, device=None, lead=()) -> dict:
     s_in, s_out = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(d_ff)
+    lead = tuple(lead)
     p = {
-        "w_in": _normal(gen, (d_model, d_ff), s_in, dtype, device),
-        "w_out": _normal(gen, (d_ff, d_model), s_out, dtype, device),
+        "w_in": _normal(gen, lead + (d_model, d_ff), s_in, dtype, device),
+        "w_out": _normal(gen, lead + (d_ff, d_model), s_out, dtype, device),
     }
     if mlp_type == "swiglu":
-        p["w_gate"] = _normal(gen, (d_model, d_ff), s_in, dtype, device)
+        p["w_gate"] = _normal(gen, lead + (d_model, d_ff), s_in, dtype, device)
     return p
 
 

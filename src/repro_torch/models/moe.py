@@ -1,0 +1,164 @@
+"""Mixture-of-Experts FFN with sort-based, capacity-bounded dispatch (the
+counterpart of `repro.models.moe`).
+
+Expert parallelism is the paper's DSDE motif (§4.2): tokens are items,
+experts are targets.  Tokens are bucketed into per-expert slot ranges (the
+slotted one-sided accumulate), the experts run on their slot buffers, and a
+gate-weighted scatter-add brings the results back; `core.dsde.moe_dispatch`
+and `moe_combine` run the same exchange explicitly on the rank axis.
+
+The reference groups tokens into G dispatch groups, one a data shard, when
+a sharding policy is active.  The port has one card and no policy, so G = 1
+and every sharding call of the reference is an identity here.  Routing
+follows the reference exactly, since a different tie-break moves a token
+to another expert:
+
+  * top-k by a stable descending sort: ties go to the lower expert index,
+    as `lax.top_k` breaks them;
+  * the dispatch order is a stable sort by expert, and a token's position
+    in its expert's range is its index minus the first of its expert
+    (`searchsorted(side="left")`);
+  * capacity ``max(int(cf * T * k / E), 4, min(T, 16))`` over the T tokens
+    of the call; items past it go to an overflow row and are dropped (they
+    fall through on the residual path).
+
+The router, its softmax and the losses are f32; the experts run in the
+activations' dtype.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from . import layers as L
+
+
+class MoEMetrics(NamedTuple):
+    aux_loss: torch.Tensor        # load-balance loss (Switch-style)
+    router_z_loss: torch.Tensor
+    drop_fraction: torch.Tensor
+
+
+class Routing(NamedTuple):
+    """One call's routing, in the dispatch (expert-sorted) order."""
+
+    logits: torch.Tensor          # [T, E] f32 router logits
+    probs: torch.Tensor           # [T, E] f32
+    expert_idx: torch.Tensor      # [T, k] int64, the top-k experts of each token
+    gate: torch.Tensor            # [T, k] f32, renormalised over the top k
+    slot: torch.Tensor            # [T*k] int64, E*cap for a dropped item
+    src: torch.Tensor             # [T*k] int64, the token of each item
+    s_gate: torch.Tensor          # [T*k] f32, the gate of each item
+    ok: torch.Tensor              # [T*k] bool, within capacity
+    capacity: int
+
+
+def init_moe(gen, d_model: int, n_experts: int, d_ff: int, mlp_type: str = "swiglu",
+             shared_ff: int = 0, dtype=torch.bfloat16, device=None, lead=()) -> dict:
+    """The reference's leaves and scales; `lead` prepends stacked-layer
+    axes.  The router stays f32 whatever `dtype` is."""
+    lead = tuple(lead)
+    s_in, s_out = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(d_ff)
+    n = L._normal
+    p = {
+        "router": n(gen, lead + (d_model, n_experts), s_in, torch.float32, device),
+        "experts": {
+            "w_in": n(gen, lead + (n_experts, d_model, d_ff), s_in, dtype, device),
+            "w_out": n(gen, lead + (n_experts, d_ff, d_model), s_out, dtype, device),
+        },
+    }
+    if mlp_type == "swiglu":
+        p["experts"]["w_gate"] = n(gen, lead + (n_experts, d_model, d_ff), s_in, dtype,
+                                   device)
+    if shared_ff:
+        p["shared"] = L.init_mlp(gen, d_model, shared_ff, mlp_type, dtype, device, lead)
+    return p
+
+
+def capacity(n_tokens: int, top_k: int, n_experts: int,
+             capacity_factor: float = 1.25) -> int:
+    """Slots an expert; the floor of min(T, 16) keeps short calls dropless."""
+    return max(int(capacity_factor * n_tokens * top_k / n_experts), 4, min(n_tokens, 16))
+
+
+def select_top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """`lax.top_k`: the k largest along the last axis, ties to the lower index."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route(params: dict, xt: torch.Tensor, top_k: int,
+          capacity_factor: float = 1.25) -> Routing:
+    """Router, top-k and the sort dispatch of xt [T, D]."""
+    logits = xt.float() @ params["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    return sort_dispatch(logits, probs, select_top_k(probs, top_k)[1], capacity_factor)
+
+
+def sort_dispatch(logits: torch.Tensor, probs: torch.Tensor, expert_idx: torch.Tensor,
+                  capacity_factor: float = 1.25) -> Routing:
+    """The dispatch of the chosen experts [T, k]: their probabilities
+    renormalised over the k as gates, a stable sort by expert, each item's
+    position in its expert's range, and its slot (E * cap past capacity)."""
+    T, top_k = expert_idx.shape
+    E = probs.shape[1]
+    gate = probs.gather(-1, expert_idx)
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    cap = capacity(T, top_k, E, capacity_factor)
+    flat_e = expert_idx.reshape(-1)
+    flat_g = gate.reshape(-1)
+    flat_src = torch.arange(T, device=probs.device).repeat_interleave(top_k)
+    s_e, order = torch.sort(flat_e, stable=True)
+    pos = torch.arange(T * top_k, device=probs.device) - torch.searchsorted(s_e, s_e,
+                                                                            side="left")
+    ok = pos < cap
+    slot = torch.where(ok, s_e * cap + pos, torch.full_like(pos, E * cap))
+    return Routing(logits, probs, expert_idx, gate, slot, flat_src[order], flat_g[order],
+                   ok, cap)
+
+
+def moe_ffn(params: dict, x: torch.Tensor, top_k: int, capacity_factor: float = 1.25,
+            mlp_type: str = "swiglu") -> tuple[torch.Tensor, MoEMetrics]:
+    """x [B, S, D] -> (y [B, S, D], metrics), one dispatch group of B*S tokens."""
+    B, S, D = x.shape
+    E = params["router"].shape[1]
+    T = B * S
+    xt = x.reshape(T, D)
+    r = route(params, xt, top_k, capacity_factor)
+    cap, n_slots = r.capacity, E * r.capacity
+
+    # aux losses
+    me = r.probs.mean(0)
+    ce = torch.zeros(E, device=x.device).index_add_(
+        0, r.expert_idx.reshape(-1), torch.ones(T * top_k, device=x.device)) / (T * top_k)
+    aux = E * torch.sum(me * ce)
+    zloss = torch.mean(torch.logsumexp(r.logits, dim=-1) ** 2)
+    drop = 1.0 - r.ok.float().mean()
+
+    # dispatch: each item to its slot; row n_slots is the overflow row
+    disp = torch.zeros(n_slots + 1, D, dtype=x.dtype, device=x.device)
+    disp[r.slot] = xt[r.src]
+    disp = disp[:n_slots].reshape(E, cap, D)
+
+    # the experts on their slot buffers
+    ex = params["experts"]
+    h = torch.einsum("ecd,edf->ecf", disp, ex["w_in"])
+    if mlp_type == "swiglu":
+        h = F.silu(torch.einsum("ecd,edf->ecf", disp, ex["w_gate"])) * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    out = torch.einsum("ecf,efd->ecd", h, ex["w_out"]).reshape(n_slots, D)
+
+    # combine: the gate-weighted scatter-add back to the tokens (f32)
+    got = out[r.slot.clamp(max=n_slots - 1)].float() * r.s_gate[:, None]
+    got = torch.where(r.ok[:, None], got, torch.zeros_like(got))
+    dst = torch.where(r.ok, r.src, torch.full_like(r.src, T))
+    y = torch.zeros(T + 1, D, device=x.device).index_add_(0, dst, got)[:T]
+    y = y.to(x.dtype).reshape(B, S, D)
+    if "shared" in params:
+        y = y + L.mlp(params["shared"], x, mlp_type)
+    return y, MoEMetrics(aux, zloss, drop)

@@ -31,6 +31,8 @@ class Model:
         return T.init_lm(self.cfg, gen, dev)
 
     def param_count(self) -> int:
+        """The exact sum of the leaves' sizes (the reference's count wraps
+        at 2**31 on a leaf that large; ROADMAP §3)."""
         params = T.init_lm(self.cfg, None, "meta")
         return sum(leaf.numel() for leaf in _leaves(params))
 
@@ -85,12 +87,19 @@ def build_model(cfg: ArchConfig) -> Model:
     return Model(cfg)
 
 
+# leaves the reference keeps in f32 whatever the model's dtype: the MoE
+# router (`repro.models.moe`) and Mamba's A_log and D_skip (`repro.models.mamba`)
+F32_LEAVES = ("router", "A_log", "D_skip")
+
+
 def params_from_jax(np_params: dict, device=None, dtype=torch.bfloat16) -> dict:
     """The reference's param pytree, its leaves as numpy, as the port's
     params on `device` in `dtype` (the dtype the reference ran them in:
-    bf16 as it makes them, or f32 where a test casts them).  The structure
-    and the leaf shapes are the same in both packages."""
+    bf16 as it makes them, or f32 where a test casts them); the leaves of
+    `F32_LEAVES` stay f32, as the reference keeps them.  The structure and
+    the leaf shapes are the same in both packages."""
     dev = _device(device)
     return {k: (params_from_jax(v, device, dtype) if isinstance(v, dict)
-                else torch.tensor(np.asarray(v)).to(device=dev, dtype=dtype))
+                else torch.tensor(np.asarray(v)).to(
+                    device=dev, dtype=torch.float32 if k in F32_LEAVES else dtype))
             for k, v in np_params.items()}

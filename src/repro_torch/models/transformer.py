@@ -1,16 +1,28 @@
-"""The decoder LM for the dense and vlm families (the counterpart of
-`repro.models.transformer`).
+"""The decoder LM for the dense, vlm, moe and hybrid families (the
+counterpart of `repro.models.transformer`).
 
-Params keep the reference's pytree: ``tok``, ``final_norm`` and ``blocks``,
-whose leaves carry a leading [L, ...] layer axis; `forward` walks the layers
-in a plain Python loop where the reference scans.  ``forward(...,
-cache=None)`` is the cache-free forward (training, and the path of the
-flash-attention kernel); with a cache the same code does prefill (S tokens
-into the cache) and decode (S = 1), writing the cache in place.  The cache's
-``len`` is a scalar or one position a row ([B]).
+Params keep the reference's pytree, and `forward` walks the layers in a
+plain Python loop where the reference scans:
 
-The moe, hybrid (mamba), ssm (xlstm) and audio families are later slices of
-the port (ROADMAP queue 1 item 8): `check_family` raises for them.
+  dense / vlm / moe : ``blocks``, leaves [L, ...]: attention + MLP (dense,
+                      vlm) or attention + MoE FFN (moe) a layer;
+  hybrid (jamba)    : ``periods``, leaves [n_p, ...]: a period of
+                      `attn_period` layers, attention at ``period // 2`` and
+                      Mamba elsewhere ([n_p, n_mamba, ...]); the channel
+                      mixer is an MoE FFN where ``j % moe_every ==
+                      moe_every - 1`` ([n_p, n_moe, ...]), a dense MLP
+                      elsewhere ([n_p, n_mlp, ...]).
+
+``forward(..., cache=None)`` is the cache-free forward (training, and the
+path of the flash-attention kernel); with a cache the same code does
+prefill (S tokens into the cache; the Mamba layers through the
+selective-scan kernel) and decode (S = 1; Mamba's O(1) step), writing the
+cache in place: K/V rows and the Mamba state leaves [n_p, n_mamba, B, ...].
+The cache's ``len`` is a scalar or one position a row ([B]).  The MoE
+layers' aux and z losses are summed into `ForwardOut`.
+
+The ssm (xlstm) and audio families are later slices of the port (ROADMAP
+queue 1 item 8): `check_family` raises for them.
 """
 
 from __future__ import annotations
@@ -21,11 +33,11 @@ import torch
 
 from ..configs.base import ArchConfig
 from . import layers as L
+from . import mamba as M
+from . import moe as X
 
-FAMILIES = ("dense", "vlm")
+FAMILIES = ("dense", "vlm", "moe", "hybrid")
 _LATER = {
-    "moe": "models/moe with dsde.moe_dispatch / moe_combine",
-    "hybrid": "models/mamba",
     "ssm": "models/xlstm",
     "audio": "the whisper encoder-decoder",
 }
@@ -45,47 +57,87 @@ def check_family(cfg: ArchConfig) -> None:
             raise ValueError(f"unknown family {cfg.family}")
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet ({what}; ROADMAP "
-            "queue 1 item 8); repro_torch serves the dense and vlm families")
+            f"queue 1 item 8); repro_torch serves the {', '.join(FAMILIES)} families")
+    if cfg.family == "hybrid" and cfg.n_layers % cfg.attn_period:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not whole periods of "
+                         f"{cfg.attn_period}")
+
+
+def _hybrid_counts(cfg: ArchConfig) -> tuple[int, int, int, int]:
+    """(periods, Mamba layers, MoE FFNs, dense MLPs) of a hybrid period."""
+    period = cfg.attn_period
+    n_moe = sum(1 for j in range(period) if j % cfg.moe_every == cfg.moe_every - 1)
+    return cfg.n_layers // period, period - 1, n_moe, period - n_moe
 
 
 # ============================================================ init
-def _stack(layers: list[dict]) -> dict:
-    return {k: (_stack([lay[k] for lay in layers]) if isinstance(layers[0][k], dict)
-                else torch.stack([lay[k] for lay in layers]))
-            for k in layers[0]}
+def _attn_layer(cfg, gen, dtype, device, lead) -> dict:
+    return {
+        "ln1": L.init_rmsnorm(cfg.d_model, dtype, device, lead),
+        "attn": L.init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                                 cfg.qkv_bias, dtype, device, lead),
+    }
+
+
+def _ffn_layer(cfg, gen, is_moe: bool, dtype, device, lead) -> dict:
+    if is_moe:
+        return {"ln2": L.init_rmsnorm(cfg.d_model, dtype, device, lead),
+                "moe": X.init_moe(gen, cfg.d_model, cfg.moe_experts, cfg.moe_d_ff,
+                                  cfg.mlp_type, cfg.moe_shared_ff, dtype, device, lead)}
+    return {"ln2": L.init_rmsnorm(cfg.d_model, dtype, device, lead),
+            "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype, device, lead)}
 
 
 def init_lm(cfg: ArchConfig, gen: Optional[torch.Generator], device=None) -> dict:
-    """Random weights with the reference's shapes and scales (not its
-    numbers: the generators differ).  ``device="meta"`` allocates nothing."""
+    """Random weights with the reference's shapes, scales and leaf dtypes
+    (bf16; the router, ``A_log`` and ``D_skip`` f32), not its numbers: the
+    generators differ.  Stacked leaves are drawn in place, a chunk at a
+    time, so the peak is the weights themselves.  ``device="meta"``
+    allocates nothing."""
     check_family(cfg)
     dtype = torch.bfloat16
     params: dict = {"tok": L.init_embed(gen, cfg.vocab_size, cfg.d_model,
                                         cfg.tie_embeddings, dtype, device)}
     params["final_norm"] = L.init_rmsnorm(cfg.d_model, dtype, device)
-    layers = []
-    for _ in range(cfg.n_layers):
-        layers.append({
-            "ln1": L.init_rmsnorm(cfg.d_model, dtype, device),
-            "attn": L.init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                                     cfg.hd, cfg.qkv_bias, dtype, device),
-            "ln2": L.init_rmsnorm(cfg.d_model, dtype, device),
-            "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype, device),
-        })
-    params["blocks"] = _stack(layers)
+    if cfg.family == "hybrid":
+        n_p, n_m, n_moe, n_mlp = _hybrid_counts(cfg)
+        params["periods"] = {
+            "attn": _attn_layer(cfg, gen, dtype, device, (n_p,)),
+            "mamba": {
+                "ln1": L.init_rmsnorm(cfg.d_model, dtype, device, (n_p, n_m)),
+                "mix": M.init_mamba(gen, cfg.d_model, cfg.ssm_expand, cfg.ssm_state_dim,
+                                    cfg.ssm_conv_width, dtype, device, (n_p, n_m)),
+            },
+            "moe": _ffn_layer(cfg, gen, True, dtype, device, (n_p, n_moe)),
+            "mlp": _ffn_layer(cfg, gen, False, dtype, device, (n_p, n_mlp)),
+        }
+    else:
+        lead = (cfg.n_layers,)
+        params["blocks"] = {**_attn_layer(cfg, gen, dtype, device, lead),
+                            **_ffn_layer(cfg, gen, cfg.family == "moe", dtype, device, lead)}
     return params
 
 
 # ============================================================ caches
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None) -> dict:
-    """Decode cache: K/V [L, B, max_seq, Hkv, hd] in bf16 and a scalar len."""
+    """Decode cache: K/V [L or n_p, B, max_seq, Hkv, hd] in bf16, a scalar
+    len, and for the hybrid family the Mamba state, ``h`` [n_p, n_mamba, B,
+    di, N] f32 and ``conv`` [n_p, n_mamba, B, W-1, di] bf16."""
     check_family(cfg)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
-    return {
+    n_kv = cfg.n_layers
+    if cfg.family == "hybrid":
+        n_kv, n_m, _, _ = _hybrid_counts(cfg)
+    shape = (n_kv, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+    cache = {
         "kv": {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
                "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)},
         "len": torch.zeros((), dtype=torch.int32, device=device),
     }
+    if cfg.family == "hybrid":
+        cache["mamba"] = M.init_mamba_state(batch, cfg.d_model, cfg.ssm_expand,
+                                            cfg.ssm_state_dim, cfg.ssm_conv_width,
+                                            device=device, lead=(n_kv, n_m))
+    return cache
 
 
 # ============================================================ forward
@@ -103,9 +155,50 @@ def _attn_block(cfg, blk, h, positions, cache_kv, cache_len):
     return h + y
 
 
-def _ffn_block(cfg, blk, h):
+def _ffn_block(cfg, blk, h, losses: list):
+    """Channel mixer; an MoE layer adds its aux and z losses to `losses`."""
     xn = L.rmsnorm(h, blk["ln2"]["scale"], cfg.norm_eps)
+    if "moe" in blk:
+        y, met = X.moe_ffn(blk["moe"], xn, cfg.moe_top_k, mlp_type=cfg.mlp_type)
+        losses[0] = losses[0] + met.aux_loss
+        losses[1] = losses[1] + met.router_z_loss
+        return h + y
     return h + L.mlp(blk["mlp"], xn, cfg.mlp_type)
+
+
+def _mamba_block(cfg, mp, h, state: Optional[dict], decode: bool):
+    """One Mamba residual branch.  With a cache state (views of its leaves)
+    the new state is written into them in place."""
+    xn = L.rmsnorm(h, mp["ln1"]["scale"], cfg.norm_eps)
+    if state is None:
+        return h + M.mamba_forward(mp["mix"], xn)
+    step = M.mamba_decode if decode else M.mamba_prefill
+    y, new = step(mp["mix"], xn, state)
+    state["h"].copy_(new["h"])
+    state["conv"].copy_(new["conv"])
+    return h + y
+
+
+def _hybrid(cfg, params, h, positions, cache, start, S, losses: list):
+    """The hybrid family's periods."""
+    period, attn_pos = cfg.attn_period, cfg.attn_period // 2
+    decode = cache is not None and S == 1
+    for pi in range(cfg.n_layers // period):
+        per = _layer(params["periods"], pi)
+        kv = None if cache is None else {"k": cache["kv"]["k"][pi], "v": cache["kv"]["v"][pi]}
+        m_i, ffn_i = 0, {"moe": 0, "mlp": 0}
+        for j in range(period):
+            if j == attn_pos:
+                h = _attn_block(cfg, per["attn"], h, positions, kv, start)
+            else:
+                st = None if cache is None else {
+                    k: v[pi, m_i] for k, v in cache["mamba"].items()}
+                h = _mamba_block(cfg, _layer(per["mamba"], m_i), h, st, decode)
+                m_i += 1
+            key = "moe" if j % cfg.moe_every == cfg.moe_every - 1 else "mlp"
+            h = _ffn_block(cfg, _layer(per[key], ffn_i[key]), h, losses)
+            ffn_i[key] += 1
+    return h
 
 
 def forward(
@@ -127,14 +220,19 @@ def forward(
     positions = (torch.as_tensor(start, device=dev).to(torch.int64).reshape(-1, 1)
                  + torch.arange(S, device=dev)[None, :]).expand(B, S)
 
-    for i in range(cfg.n_layers):
-        blk = _layer(params["blocks"], i)
-        kv = None if cache is None else {"k": cache["kv"]["k"][i], "v": cache["kv"]["v"][i]}
-        h = _attn_block(cfg, blk, h, positions, kv, start)
-        h = _ffn_block(cfg, blk, h)
-    new_cache = None if cache is None else {"kv": cache["kv"], "len": start + S}
+    zero = torch.zeros((), device=dev)
+    losses = [zero, zero]                       # aux, z: summed over the MoE layers
+    if cfg.family == "hybrid":
+        h = _hybrid(cfg, params, h, positions, cache, start, S, losses)
+    else:
+        for i in range(cfg.n_layers):
+            blk = _layer(params["blocks"], i)
+            kv = None if cache is None else {"k": cache["kv"]["k"][i],
+                                             "v": cache["kv"]["v"][i]}
+            h = _attn_block(cfg, blk, h, positions, kv, start)
+            h = _ffn_block(cfg, blk, h, losses)
+    new_cache = None if cache is None else {**cache, "len": start + S}
 
     h = L.rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps)
     logits = L.unembed(params["tok"], h)
-    zero = torch.zeros((), device=dev)
-    return ForwardOut(logits, new_cache, zero, zero)
+    return ForwardOut(logits, new_cache, *losses)

@@ -17,7 +17,8 @@ Lock discipline — every section is classified by what it touches:
     physically disjoint, one Python dict of tensors is not.
 
 The device side runs two programs: a prefill of one request into its lane,
-written in place, and a decode step over all `n_slots` lanes (free ones
+zeroed and then written in place (the reference prefills into a fresh lane
+cache and copies it in), and a decode step over all `n_slots` lanes (free ones
 included: the shapes stay static, and a free lane's writes are overwritten
 by its next prefill).  Every lane decodes at its own position: the cache's
 ``len`` is the [n_slots] vector of lane positions, so each row gets its own
@@ -105,6 +106,14 @@ def _fresh(lane, full):
     return torch.zeros_like(lane, device=full.device)
 
 
+def _zero(tree: dict) -> None:
+    for v in tree.values():
+        if isinstance(v, dict):
+            _zero(v)
+        else:
+            v.zero_()
+
+
 class ServeEngine:
     def __init__(self, model, params, n_slots: int = 4, max_seq: int = 256,
                  device=None):
@@ -133,9 +142,13 @@ class ServeEngine:
 
     # --------------------------------------------------------- plumbing
     def _prefill(self, prompt: list[int], slot: int) -> torch.Tensor:
-        """Prefill one request into lane `slot` of the cache: the model
-        writes the lane's views in place."""
+        """Prefill one request into lane `slot` of the cache: the lane is
+        zeroed first — a recurrent state (Mamba's h and conv window) left by
+        the lane's last occupant, or drifted by decoding the free lane,
+        would seed the new request's scan — then the model writes the
+        lane's views in place."""
         views = _lane_views(self.cache, self._lane_shape, slot)
+        _zero(views)
         tokens = torch.tensor([prompt], dtype=torch.int64, device=self.device)
         logits, _ = self.model.prefill(self.params, tokens, views, None)
         return logits[0]

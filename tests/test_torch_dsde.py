@@ -355,9 +355,11 @@ def test_psum_scatter_is_the_tiled_reduce_scatter():
 
 
 def test_h100_dispatch_crossovers_come_from_the_port_constants():
-    """`select_dispatch` prices the queue at one launch-bound enqueue a
-    message and the all-to-all at one launch plus the padded matrix's
-    bytes: the crossovers are the card's, not the TPU's."""
+    """`select_dispatch` prices the queue as the port runs it — the
+    launch-bound reservation and enqueues plus `QUEUE_EXCHANGE_PASSES` over
+    its O(p²) send buffers and whole-ring drain — and the all-to-all at one
+    launch plus the padded matrix's bytes: the crossovers are the card's,
+    not the TPU's."""
     m = tperf.DEFAULT_MODEL
     hw = m.hw
     strat = CollectiveStrategist()
@@ -369,20 +371,27 @@ def test_h100_dispatch_crossovers_come_from_the_port_constants():
     assert m.p_credit_refresh(fused=True) == 0.0
     assert m.p_credit_refresh(fused=False) == m.p_get(4.0)
     for args in ((4, 256.0, 64, 32), (2048, 256.0, 8, 4), (6, 8.0, 4096, 24)):
-        t_queue = m.p_queue_reserve() + args[0] * m.p_queue_enqueue(args[1])
-        want = "queue" if t_queue < m.all_to_all(args[3] * args[1], args[2]) else "alltoall"
+        n, b, p, cap = args
+        ring = 1 << (p * cap - 1).bit_length()
+        dense = (p * (p * n + 1) * (b + 5) + p * ring * (b + 9)) / hw.copy_bandwidth
+        t_queue = (m.p_queue_reserve() + n * m.p_queue_enqueue(b)
+                   + tperf.QUEUE_EXCHANGE_PASSES * dense)
+        assert m.p_queue_exchange(*args) == pytest.approx(t_queue)
+        want = "queue" if t_queue < m.all_to_all(cap * b, p) else "alltoall"
         assert strat.dispatch_plan(*args) == m.select_dispatch(*args) == want
     # the reference's sparse case goes to the all-to-all on one card (the
-    # TPU picks the queue); its dense case stays there; the paper's DSDE
-    # setting at p = 4096 (k = 6, 8-byte items, 24 slots a pair) is sparse
-    # enough for the queue
+    # TPU picks the queue); its dense case stays there; and so does the
+    # paper's DSDE setting at p = 4096 (k = 6, 8-byte items, 24 slots a
+    # pair), where the card ran the all-to-all ~6x faster (PERF.md §5)
     assert strat.dispatch_plan(4, 256.0, 64, 32) == "alltoall"
     assert strat.dispatch_plan(2048, 256.0, 8, 4) == "alltoall"
-    assert strat.dispatch_plan(6, 8.0, 4096, 24) == "queue"
-    # the crossover in messages at the DSDE setting, from the constants
-    n_star = (m.all_to_all(24 * 8.0, 4096) - m.p_queue_reserve()) / m.p_queue_enqueue(8.0)
-    assert m.select_dispatch(int(n_star), 8.0, 4096, 24) == "queue"
-    assert m.select_dispatch(int(n_star) + 1, 8.0, 4096, 24) == "alltoall"
+    assert strat.dispatch_plan(6, 8.0, 4096, 24) == "alltoall"
+    # the fit: the model gives the card's 39.860 ms for that exchange
+    assert m.p_queue_exchange(6, 8.0, 4096, 24) == pytest.approx(39.860e-3, rel=0.01)
+    # the queue's dense buffers are O(p²) whatever is sent, so in the model
+    # even one message a rank does not reach the queue at that size (the
+    # model's claim: the card measured k = 6 only)
+    assert m.select_dispatch(1, 8.0, 4096, 24) == "alltoall"
 
 
 if __name__ == "__main__":

@@ -189,10 +189,11 @@ def test_wrapper_refuses_what_it_does_not_take():
 
 
 def test_kernel_wrapper_refuses_other_head_dims_and_dtypes():
-    """The CUDA path's checks run before anything is built or launched."""
-    k = torch.zeros(1, 2, 8, 32)
+    """The CUDA path's checks run before anything is built or launched: a
+    head dim past the largest template instance (128) is refused."""
+    k = torch.zeros(1, 2, 8, 192)
     with pytest.raises(ValueError, match="head dims"):
-        ops._launch(torch.zeros(1, 4, 8, 32), k, k, True)
+        ops._launch(torch.zeros(1, 4, 8, 192), k, k, True)
     k16 = torch.zeros(1, 2, 8, 64, dtype=torch.float16)
     with pytest.raises(TypeError, match="bf16 or f32"):
         ops._launch(torch.zeros(1, 4, 8, 64, dtype=torch.float16), k16, k16, True)

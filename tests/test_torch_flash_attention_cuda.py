@@ -26,6 +26,15 @@ CASES = [
     (3, 4, 4, 1000, 1000, 64, False, torch.float32),      # non-causal, g = 1, B = 3
     (1, 8, 2, 130, 130, 128, True, torch.float32),        # ragged last tile
     (2, 4, 1, 200, 200, 64, True, torch.bfloat16),        # MQA
+    # the SMOKE configs' head dims (16, 20) and the reference test's 32:
+    # zero-padded to the 16 / 32 instances
+    (2, 4, 2, 37, 37, 16, True, torch.bfloat16),
+    (2, 4, 2, 37, 37, 16, True, torch.float32),
+    (1, 4, 2, 130, 130, 20, True, torch.bfloat16),
+    (1, 4, 2, 130, 130, 20, True, torch.float32),
+    (2, 4, 4, 70, 100, 32, True, torch.bfloat16),
+    (2, 4, 4, 70, 100, 32, False, torch.float32),
+    (1, 2, 1, 65, 65, 96, True, torch.float32),           # padded to 128
 ]
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
@@ -83,9 +92,9 @@ def test_strided_views_as_the_model_passes_them(card):
 
 @pytest.mark.cuda
 def test_wrapper_raises_instead_of_falling_back(card):
-    k = torch.zeros(1, 2, 8, 32, device="cuda")
+    k = torch.zeros(1, 2, 8, 192, device="cuda")
     with pytest.raises(ValueError, match="head dims"):
-        ops.flash_attention(torch.zeros(1, 4, 8, 32, device="cuda"), k, k)
+        ops.flash_attention(torch.zeros(1, 4, 8, 192, device="cuda"), k, k)
     k16 = torch.zeros(1, 2, 8, 64, device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError, match="bf16 or f32"):
         ops.flash_attention(torch.zeros(1, 4, 8, 64, device="cuda", dtype=torch.float16),

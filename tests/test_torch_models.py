@@ -1,4 +1,5 @@
-"""The port's dense model stack against the JAX reference.
+"""The port's dense model stack against the JAX reference (the moe and
+hybrid families are held in `test_torch_hybrid.py`).
 
 `repro_torch.models.layers` (rmsnorm, RoPE in its three styles, blockwise
 attention with q_offset / kv_valid_len / GQA / padding, cached attention,
@@ -53,6 +54,7 @@ BLOCKWISE = {
 }
 ROPE = ("full", "2d", "none")
 FULL_CONFIGS = ("smollm-360m", "chatglm3-6b", "llava-next-mistral-7b")
+WRAPPING_CONFIGS = ("jamba-v0.1-52b", "qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b")
 
 
 def _rng(tag: str):
@@ -175,6 +177,12 @@ def _reference_child(d: pathlib.Path) -> None:
             out[f"{tag}/cache_len"] = cache["len"]
     for arch in FULL_CONFIGS:
         out[f"param_count/{arch}"] = np.int64(jbuild(jget(arch)).param_count())
+    for arch in WRAPPING_CONFIGS:
+        # the reference's own count wraps at 2**31 on these (ROADMAP §3):
+        # take the exact product of its leaves' shapes instead
+        leaves = jax.tree.leaves(jbuild(jget(arch)).init_shapes())
+        out[f"param_exact/{arch}"] = np.int64(sum(int(np.prod(l.shape, dtype=np.int64))
+                                                  for l in leaves))
     np.savez(d / "out.npz", **{k: np.asarray(jnp.asarray(v).astype(jnp.float32))
                                if jnp.asarray(v).dtype == jnp.bfloat16 else np.asarray(v)
                                for k, v in out.items()})
@@ -348,8 +356,14 @@ def test_param_count_matches_the_reference(reference, arch):
     assert build_model(get_config(arch)).param_count() == int(reference[f"param_count/{arch}"])
 
 
-@pytest.mark.parametrize("arch", ("qwen3-moe-30b-a3b", "jamba-v0.1-52b", "xlstm-1.3b",
-                                  "whisper-small"))
+@pytest.mark.parametrize("arch", WRAPPING_CONFIGS)
+def test_param_count_is_the_exact_product(reference, arch):
+    """The reference's `param_count` wraps on a leaf of >= 2**31 elements;
+    the port's is the exact sum of its leaves' shape products."""
+    assert build_model(get_config(arch)).param_count() == int(reference[f"param_exact/{arch}"])
+
+
+@pytest.mark.parametrize("arch", ("xlstm-1.3b", "whisper-small"))
 def test_later_families_raise_naming_their_roadmap_item(arch):
     cfg = get_config(arch, smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):

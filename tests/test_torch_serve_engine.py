@@ -18,6 +18,11 @@ its own solo runs, and to the solo runs everywhere, including the
 unequal-length cases (``[3, 1, 4, 1, 5]`` beside ``[9, 2]``, and a seeded
 mix of lengths 2-9 through three slots) that only the port gets right.
 
+The jamba (hybrid) and qwen3-moe (moe) SMOKE engines are held to their
+own solo runs, and a lane recycled from a long request to a short one to
+the short request's solo tokens (the engine zeroes a lane's recurrent state
+before its prefill).
+
 The lock discipline (`tests/test_training.py:191-260`) is held with a torch
 stub model: a recycle under the reader lock raises, threaded submitters
 against the scheduler finish every request exactly once with the window
@@ -222,6 +227,46 @@ def test_bf16_params_engine_equals_port_solo_runs():
     assert got == [_solo((model, params), p, 4, 32) for p in prompts]
 
 
+# ------------------------------------------- the moe and hybrid families
+NEW_FAMILIES = ("jamba-v0.1-52b", "qwen3-moe-30b-a3b")
+
+
+def _f32_port(arch, seed):
+    """The port's own weights cast to f32, so that a lane decoded beside
+    others and the same request alone agree to f32 rounding (the cache and
+    the Mamba conv window stay bf16)."""
+    def f32(tree):
+        return {k: f32(v) if isinstance(v, dict) else v.float() for k, v in tree.items()}
+
+    model = build_model(get_config(arch, smoke=True))
+    return model, f32(model.init(seed, device="cpu"))
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_moe_and_hybrid_engines_equal_their_solo_runs(arch):
+    """A seeded mix of prompt lengths 2-9 through three lanes: every
+    request equals its own solo run (Jamba: the Mamba state rides the lane;
+    qwen3-moe: the MoE routes the lanes' tokens as one dispatch group)."""
+    port = _f32_port(arch, 5)
+    prompts = _mix_prompts(get_config(arch, smoke=True).vocab_size)
+    got = _engine_run(port, prompts, MIX["max_new"], MIX["slots"], MIX["max_seq"])
+    assert got == [_solo(port, p, MIX["max_new"], MIX["max_seq"]) for p in prompts]
+
+
+def test_recycled_lane_starts_from_a_zero_state():
+    """One lane serves a long request, then a short one: the short one's
+    tokens are its solo run's, because the engine zeroes the lane's Mamba
+    state (h and the conv window) before the prefill; left as the long
+    request and the free lane's decode steps made it, the state would seed
+    the short request's scan."""
+    port = _f32_port("jamba-v0.1-52b", 6)
+    rng = np.random.default_rng(12)
+    long, short = rng.integers(0, 256, 24).tolist(), [5, 9, 2]
+    got = _engine_run(port, [long, short], 6, 1, 48)
+    assert got[0] == _solo(port, long, 6, 48)
+    assert got[1] == _solo(port, short, 6, 48)
+
+
 # ----------------------------------------------------------- lock discipline
 class _StubServeModel:
     """Token t always produces (t + 1) % vocab; its cache has the [B, ...]
@@ -352,6 +397,18 @@ def test_schedule_tick_counts():
 
 
 # --------------------------------------------------------------- the launcher
+def test_launch_serve_jamba_with_a_depth_cut_on_cpu():
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        launch_serve.main(["--arch", "jamba-v0.1-52b", "--smoke", "--device", "cpu",
+                           "--layers", "8", "--requests", "3", "--max-new", "3"])
+    text = buf.getvalue()
+    assert "3 requests, 9 tokens" in text and "device cpu" in text
+    with pytest.raises(SystemExit, match="whole periods"):
+        launch_serve.main(["--arch", "jamba-v0.1-52b", "--smoke", "--device", "cpu",
+                           "--layers", "4"])
+
+
 def test_launch_serve_smoke_on_cpu():
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -362,7 +419,7 @@ def test_launch_serve_smoke_on_cpu():
     assert text.count("req ") == 4
 
 
-@pytest.mark.parametrize("arch", ("qwen3-moe-30b-a3b", "xlstm-1.3b"))
+@pytest.mark.parametrize("arch", ("whisper-small", "xlstm-1.3b"))
 def test_launch_serve_refuses_families_not_ported(arch):
     with pytest.raises(SystemExit, match="ROADMAP queue 1 item 8"):
         launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
