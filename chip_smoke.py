@@ -138,6 +138,35 @@ no result line):
      top-8 of d_ff 768) cut to 4 of 48 layers (3.11 B parameters), through
      the engine (4 slots, 8 requests of 16-256 tokens, 16 new), held to its
      solo runs as in 16.
+ 19. training (T1): SmolLM-360M at its published widths, all 32 layers,
+     bf16 params from a seed, `make_train_step` with remat and AdamW (lr
+     3e-4, warmup 2) on the port's pipeline at [4, 2048], 20 steps under
+     `set_attention_backend("cuda")`: the mean loss of the last 5 steps
+     below the first 5's by 0.05, 64 flash launches every step (the forward
+     and the remat recomputation; counts zeroed before each step), no NaN;
+     at the state before the last step the loss and grads twice more,
+     bit-equal to each other and the loss to the step's, and once under
+     backend "torch": loss within 1e-2, every leaf's grad within 5 %
+     relative L2.  ms/step, tokens/s, peak memory and 6·N·tokens over the
+     bf16 peak are printed;
+ 20. the launcher and restarts (T2): `repro_torch.launch.train.main` at
+     --smoke on the card; the kill-and-resume contract of
+     tests/test_training.py:52-72 on the card (SMOKE config, the flash
+     backend): 10 steps uninterrupted, and stopped at 7 (checkpoints at 5
+     and 7) then resumed, all params and moments bit-equal at step 10; one
+     blocking checkpoint of layer 0's params and moments at full width,
+     restored bit-equal, its MB/s and what that rate means for the whole
+     state;
+ 21. kernel row 13 (T3): `kernels.ring_matmul.ops.ring_matmul` on T1's
+     last step's layer-0 MLP input (x_t [960, 8192]) and weights (up
+     [4, 240, 2560], down [4, 640, 960] for the hidden [2560, 8192]) at n = 4
+     ranks, bf16, with `allgather_matmul_plan`'s choice printed; 8 launches
+     (2 calls x 4 ring steps, counts zeroed before, read after); every
+     rank's copy within 1e-4 x max |Y| of the plain version, also at n = 1,
+     n = 8, f32, K/n = 37 and m = 16; timings with CUDA events of the
+     kernel, the plain version, the unfused `core.collectives.ring_all_gather`
+     + `torch.matmul` (the library yardstick) and the bound (all n
+     products at 989 TFLOP/s bf16, or the bytes at 3.35 TB/s).
 
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after.
@@ -165,7 +194,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 F32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 TOL = 1e-4                      # kernel vs plain, f32, different sum order
 SOURCES = ("paged_attention", "rma", "paged_gather", "rmaq",    # csrc/<name>.cu, one nvcc each
-           "flash_attention", "ssm_scan")
+           "flash_attention", "ssm_scan", "ring_matmul")
 KERNELS = {
     # name -> (route, source, TPU kernel it replaces)
     "paged_attention": ("cuda", "src/repro_torch/csrc/paged_attention.cu",
@@ -192,6 +221,8 @@ KERNELS = {
                         "src/repro/kernels/flash_attention/kernel.py:75"),
     "ssm_scan": ("cuda", "src/repro_torch/csrc/ssm_scan.cu",
                  "src/repro/kernels/ssm_scan/kernel.py:46"),
+    "ring_matmul": ("cuda", "src/repro_torch/csrc/ring_matmul.cu",
+                    "src/repro/kernels/ring_matmul/kernel.py:74"),
 }
 FULL = dict(n_prefill=2, d_model=128, vocab=32000, page_tokens=16,
             block_tokens=2048, pool_pages=8192, queue_capacity=64,
@@ -230,6 +261,16 @@ MOE_ENGINE = dict(slots=4, max_seq=512, requests=8, plen=(16, 256), new=16, seed
                   checked=4, bound=0.25)
 SSM_F32_REL, SSM_BF16_TOL = 1e-4, 5e-2   # ssm_scan vs plain: f32 sums; the reference test's bf16
 ROUTE_ULP = 1e-6                # f32 rounding of a probability gap (probabilities < 1)
+# training: SmolLM-360M at its published widths, all 32 layers, bf16 params
+# from a seed, AdamW with remat on the port's pipeline at [4, 2048]
+TRAIN_SEED, TRAIN_BATCH, TRAIN_STEPS = 0, (4, 2048), 20
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=20)
+TRAIN_DROP = 0.05               # mean loss, first 5 steps - last 5 (tests/test_training.py:43-50)
+TRAIN_LOSS_TOL, TRAIN_GRAD_REL = 1e-2, 0.05   # backend "cuda" vs "torch" at one state
+# the kill-and-resume contract of tests/test_training.py:52-72 (SMOKE config)
+RESUME_STEPS, RESUME_STOP, RESUME_EVERY = 10, 7, 5
+# kernel row 13 through its ops surface at the training run's FSDP contraction
+RING_N, RING_TOL = 4, 1e-4      # ranks; kernel vs plain, relative to max |Y| (f32 sums)
 
 
 def log(msg: str) -> None:
@@ -489,6 +530,8 @@ def main() -> int:
     kernels += model_serve_phases(torch, H100.hbm_bandwidth)
     torch.cuda.empty_cache()
     kernels += hybrid_serve_phases(torch, H100.hbm_bandwidth)
+    torch.cuda.empty_cache()
+    kernels += training_phases(torch, H100.hbm_bandwidth)
     if len(kernels) != len(KERNELS):
         raise AssertionError(f"{len(kernels)} kernel rows, want {len(KERNELS)}")
     log(f"smoke wall time: {time.perf_counter() - T0:.1f} s")
@@ -2066,6 +2109,367 @@ def hybrid_serve_phases(torch, hbm: float) -> list:
     return [{"name": "ssm_scan", "route": KERNELS["ssm_scan"][0],
              "source": KERNELS["ssm_scan"][1], "replaces": KERNELS["ssm_scan"][2],
              "launches": launches, **errs, **times}]
+
+
+# ------------------------------------------------------------ training
+def train_phase(torch, np, model, L, fops) -> dict:
+    """TRAIN_STEPS AdamW steps with remat on SmolLM-360M at full width, the
+    flash kernel in every layer (counts zeroed before each step, read
+    after); then, at the state before the last step: the loss and grads
+    twice more under backend "cuda" (bit-equal to each other, the loss to
+    the step's) and once under "torch" (loss and grads held)."""
+    from repro_torch.ckpt.checkpoint import flatten
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state, tree_leaves
+    from repro_torch.train.train_step import StepConfig, loss_and_grads, make_train_step
+
+    cfg = model.cfg
+    B, S = TRAIN_BATCH
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(TRAIN_SEED, device="cuda")
+    opt = init_opt_state(params)
+    pipe = SyntheticTokenPipeline(DataConfig(cfg.vocab_size, S, B), device="cuda")
+    step_fn = make_train_step(model, AdamWConfig(**TRAIN_OPT), StepConfig(remat=True))
+    real_mlp = L.mlp
+    taps: dict = {}
+
+    def tap(p, x, mlp_type="swiglu"):    # layer 0's MLP input and weights, last step
+        if not taps:
+            taps.update(x=x.detach().clone(), **{k: v.detach().clone() for k, v in p.items()})
+        return real_mlp(p, x, mlp_type)
+
+    losses, times, launches = [], [], []
+    L.set_attention_backend("cuda")
+    try:
+        for i in range(TRAIN_STEPS):
+            batch = pipe.batch_at(i)
+            if i == TRAIN_STEPS - 1:
+                prev, last_batch = (params, opt), batch   # the step is functional
+                L.mlp = tap
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fops.launches = 0
+            params, opt, met = step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            launches.append(fops.launches)
+            losses.append(float(met["loss"]))
+            L.mlp = real_mlp
+    finally:
+        L.mlp = real_mlp
+        L.set_attention_backend("torch")
+    peak = torch.cuda.max_memory_allocated()
+    want_launches = 2 * cfg.n_layers            # the forward and the remat recomputation
+    if any(n != want_launches for n in launches):
+        raise AssertionError(f"train: flash launches a step {launches}, want {want_launches}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train: losses {losses}")
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last5 < first5 - TRAIN_DROP:
+        raise AssertionError(f"train: mean loss {first5:.4f} over the first 5 steps, "
+                             f"{last5:.4f} over the last 5 (must fall by {TRAIN_DROP})")
+    if not all(torch.isfinite(t).all() for t in tree_leaves(params)):
+        raise AssertionError("train: non-finite params after the run")
+    n_params = model.param_count()
+    ms = float(np.median(times[1:])) * 1e3
+    tokens = B * S
+    log(f"train {cfg.name} at full width ({n_params} parameters, bf16, seed {TRAIN_SEED}), "
+        f"[{B}, {S}] tokens a step, AdamW {TRAIN_OPT}, remat on ({card_line()}): "
+        f"{TRAIN_STEPS} steps, flash launches {launches[0]} a step every step "
+        f"({cfg.n_layers} forward + {cfg.n_layers} recomputed); loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (mean of the first 5 {first5:.4f}, last 5 "
+        f"{last5:.4f}); {ms:.1f} ms/step (median of steps 2-{TRAIN_STEPS}; step 1 "
+        f"{times[0] * 1e3:.1f} ms), {tokens / ms * 1e3:.0f} tokens/s, peak memory "
+        f"{peak / 2**30:.2f} GiB; 6*N*tokens {6 * n_params * tokens / 1e12:.2f} TFLOP a "
+        f"step = {6 * n_params * tokens / (ms / 1e3) / BF16_FLOPS_PER_S:.2%} of the "
+        f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bf16 peak")
+    log("train losses: " + " ".join(f"{x:.4f}" for x in losses))
+
+    # the state before the last step: determinism and the plain attention
+    p0, _ = prev
+    L.set_attention_backend("cuda")
+    try:
+        l1, _, g1 = loss_and_grads(model, p0, last_batch, remat=True)
+        l2, _, g2 = loss_and_grads(model, p0, last_batch, remat=True)
+    finally:
+        L.set_attention_backend("torch")
+    same = torch.equal(l1, l2) and all(torch.equal(a, b) for a, b in
+                                       zip(tree_leaves(g1), tree_leaves(g2)))
+    if not same or float(l1) != losses[-1]:
+        raise AssertionError(f"train: the step is not deterministic on the card (loss "
+                             f"{float(l1)!r} / {float(l2)!r}, the step's {losses[-1]!r}; "
+                             f"grads equal {same})")
+    del g2
+    lt, _, gt = loss_and_grads(model, p0, last_batch, remat=True)
+    rel = {}
+    flat_c, flat_t = tree_leaves(g1), tree_leaves(gt)
+    for (key, _), a, b in zip(flatten(p0), flat_c, flat_t):
+        rel[key] = float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+    worst = max(rel, key=rel.get)
+    if abs(float(l1) - float(lt)) > TRAIN_LOSS_TOL or rel[worst] > TRAIN_GRAD_REL:
+        raise AssertionError(f"train: backend cuda vs torch at step {TRAIN_STEPS}: loss "
+                             f"{float(l1)} / {float(lt)}, grad rel L2 {worst} {rel[worst]}")
+    log(f"train at the state before step {TRAIN_STEPS}: backend cuda twice bit-equal "
+        f"(loss {float(l1):.6f} = the step's), backend torch loss {float(lt):.6f} "
+        f"(|diff| {abs(float(l1) - float(lt)):.3g}, bound {TRAIN_LOSS_TOL}); grads' relative "
+        f"L2 difference max {rel[worst]:.3g} at {worst} (bound {TRAIN_GRAD_REL}), median "
+        f"{float(np.median(list(rel.values()))):.3g}")
+    del g1, gt, prev, p0
+    profile_step(torch, step_fn, params, opt, pipe.batch_at(TRAIN_STEPS), L)
+    return {"params": params, "opt": opt, "taps": taps, "launches": launches[-1]}
+
+
+def profile_step(torch, step_fn, params, opt, batch, L, top: int = 8) -> None:
+    """One more step (its result dropped) under `torch.profiler`: the device
+    time by kernel and the device's busy share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    L.set_attention_backend("cuda")
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        L.set_attention_backend("torch")
+    # the kernels' own events (a CPU op's device time repeats its kernels')
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def self_us(e):
+        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+
+    busy = sum(self_us(e) for e in events)
+    if busy <= 0:
+        log("train profile: the profiler saw no device time (device idle share not measured)")
+        return
+    ranked = sorted(events, key=self_us, reverse=True)[:top]
+    log(f"train profile of one step ({card_line()}): wall {wall_us / 1e3:.1f} ms under the "
+        f"profiler, device busy {busy / 1e3:.1f} ms ({busy / wall_us:.1%}; idle "
+        f"{1 - busy / wall_us:.1%}); top device time: " + "; ".join(
+            f"{e.key[:60]} {self_us(e) / 1e3:.1f} ms x{e.count}" for e in ranked))
+
+
+def resume_phase(torch, np, state: dict) -> None:
+    """The launcher at --smoke on the card; the kill-and-resume contract of
+    tests/test_training.py on the card (bit-equal at the last step); one
+    blocking checkpoint of layer 0's params and moments at full width."""
+    import tempfile
+
+    from repro_torch.ckpt.checkpoint import CheckpointManager, codec_name, flatten
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.train.optimizer import AdamWConfig, OptState, tree_leaves, tree_map
+    from repro_torch.train.train_step import StepConfig, make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    scratch = os.path.join(ROOT, "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as d:
+        fops.launches = 0
+        hist = launch_train.main(["--smoke", "--steps", "6", "--seq", "128", "--ckpt-dir",
+                                  os.path.join(d, "launch"), "--ckpt-every", "3",
+                                  "--device", "cuda"])
+        got = CheckpointManager(os.path.join(d, "launch")).list_steps()
+        if len(hist) != 6 or not all(np.isfinite(r["loss"]) for r in hist) or got != [3, 6] \
+                or fops.launches == 0:
+            raise AssertionError(f"launch.train --smoke: history {hist}, checkpoints {got}, "
+                                 f"flash launches {fops.launches}")
+        log(f"launch.train --smoke --device cuda: 6 steps, loss {hist[0]['loss']:.4f} -> "
+            f"{hist[-1]['loss']:.4f}, checkpoints {got}, flash launches {fops.launches}")
+
+        cfg = get_config(MODEL_ARCH, smoke=True)
+        model = build_model(cfg)
+        params0 = model.init(0, device="cuda")
+        pipe = SyntheticTokenPipeline(DataConfig(cfg.vocab_size, 32, 4), device="cuda")
+        step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20),
+                               StepConfig())
+
+        def trainer(sub, steps):
+            path = os.path.join(d, sub)
+            return Trainer(step, tree_map(torch.clone, params0), pipe,
+                           TrainerConfig(total_steps=steps, ckpt_every=RESUME_EVERY,
+                                         log_every=1, ckpt_dir=path),
+                           ckpt=CheckpointManager(path))
+
+        L.set_attention_backend("cuda")
+        try:
+            t = trainer("a", RESUME_STEPS)
+            t.run()
+            t1 = trainer("b", RESUME_STOP)
+            t1.run()                                    # "crashes" after RESUME_STOP
+            saved = t1.ckpt.list_steps()
+            t2 = trainer("b", RESUME_STEPS)
+            if not t2.maybe_resume() or t2.step != RESUME_STOP:
+                raise AssertionError(f"resume: restarted at {t2.step}")
+            t2.run()
+        finally:
+            L.set_attention_backend("torch")
+        pairs = list(zip(tree_leaves(t.params) + tree_leaves(t.opt_state.mu)
+                         + tree_leaves(t.opt_state.nu),
+                         tree_leaves(t2.params) + tree_leaves(t2.opt_state.mu)
+                         + tree_leaves(t2.opt_state.nu)))
+        diff = [i for i, (a, b) in enumerate(pairs) if not torch.equal(a, b)]
+        if diff:
+            raise AssertionError(f"resume: {len(diff)} of {len(pairs)} leaves differ at step "
+                                 f"{RESUME_STEPS}")
+        log(f"resume on the card ({cfg.name}, [4, 32] tokens, flash backend): "
+            f"{RESUME_STEPS} steps uninterrupted vs stopped at {RESUME_STOP} (checkpoints "
+            f"{saved}) and resumed there: all {len(pairs)} params and "
+            f"moments bit-equal at step {RESUME_STEPS}")
+
+        # one checkpoint of layer 0 at full width
+        params, opt = state["params"], state["opt"]
+
+        def layer0(tree):
+            return tree_map(lambda x: x[0], tree["blocks"])
+
+        tree = (layer0(params), OptState(opt.step, layer0(opt.mu), layer0(opt.nu)))
+        nbytes = sum(leaf.numel() * leaf.element_size() for _, leaf in flatten(tree))
+        total = sum(leaf.numel() * leaf.element_size()
+                    for leaf in tree_leaves(params) + tree_leaves(opt.mu) + tree_leaves(opt.nu))
+        mgr = CheckpointManager(os.path.join(d, "layer0"))
+        t0 = time.perf_counter()
+        mgr.save(int(opt.step), tree, extra={"step": int(opt.step)}, blocking=True)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, _ = mgr.restore(tree)
+        restore_s = time.perf_counter() - t0
+        if not all(torch.equal(a, b) for (_, a), (_, b) in zip(flatten(back), flatten(tree))):
+            raise AssertionError("checkpoint: layer 0 does not restore bit-equal")
+        on_disk = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in
+                      os.walk(os.path.join(d, "layer0")) for f in fs)
+        rate = nbytes / save_s
+        log(f"checkpoint of layer 0 at full width ({nbytes / 1e6:.1f} MB: bf16 params, f32 "
+            f"moments; codec {codec_name()}, {on_disk / 1e6:.1f} MB on disk): save "
+            f"{save_s:.2f} s = {rate / 1e6:.1f} MB/s, restore {restore_s:.2f} s, bit-equal; "
+            f"the whole {total / 1e9:.2f} GB state would take {total / rate:.0f} s a save "
+            f"at that rate (host CPU of the {card_line()} machine)")
+
+
+def ring_phase(torch, taps: dict, hbm: float) -> dict:
+    """Kernel row 13 through `ops.ring_matmul` on the training run's own
+    layer-0 activations and weights, the MLP's up and down projections
+    sharded over RING_N ranks (counts zeroed before, read after); every
+    rank's copy against the plain version; edge cases; timings."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import collectives
+    from repro_torch.kernels.ring_matmul import ops as rops
+    from repro_torch.kernels.ring_matmul import ref as rref
+    from repro_torch.mesh import Mesh
+    from repro_torch.parallel.overlap import CollectiveStrategist
+
+    x = taps["x"].reshape(-1, taps["x"].shape[-1])              # [B*S, D] post-norm
+    hidden = F.silu(x @ taps["w_gate"]) * (x @ taps["w_in"])     # [B*S, F], as L.mlp
+    shard = lambda w, n: w.reshape(n, w.shape[0] // n, w.shape[1])  # noqa: E731
+    cases = {"up": (x.T.contiguous(), taps["w_in"]),
+             "down": (hidden.T.contiguous(), taps["w_out"])}
+    mesh = Mesh(RING_N, device="cuda")
+    strat = CollectiveStrategist()
+    plans = {name: strat.allgather_matmul_plan(xt.shape[1], xt.shape[0], w.shape[1], RING_N)
+             for name, (xt, w) in cases.items()}
+
+    kept: dict = {}
+    real = rops.ring_matmul_ranks
+
+    def keep(x_t, w, m):                # every rank's copy; launches via the wrapper
+        kept[len(kept)] = real(x_t, w, m)
+        return kept[len(kept) - 1]
+
+    rops.ring_matmul_ranks = keep
+    rops.launches = 0
+    try:
+        ys = {name: rops.ring_matmul(xt, shard(w, RING_N), mesh)
+              for name, (xt, w) in cases.items()}
+        torch.cuda.synchronize()
+    finally:
+        rops.ring_matmul_ranks = real
+    launches = rops.launches
+    if launches != len(cases) * RING_N:
+        raise AssertionError(f"ring_matmul: {launches} launches for {len(cases)} calls of "
+                             f"{RING_N} ring steps")
+
+    def check(name, x_t, w, ranks):
+        want = rref.ring_matmul_ref(x_t, w, Mesh(w.shape[0], device="cuda"))
+        scale = float(want.abs().max())
+        errs = [float((ranks[r] - want).abs().max()) for r in range(w.shape[0])]
+        if not torch.isfinite(ranks).all() or max(errs) > RING_TOL * scale:
+            raise AssertionError(f"ring_matmul vs plain ({name}): rank errors {errs}, "
+                                 f"tol {RING_TOL} x {scale}")
+        return max(errs), max(errs) / scale
+
+    errs = {}
+    for i, (name, (xt, w)) in enumerate(cases.items()):
+        if not torch.equal(ys[name], kept[i][0]):
+            raise AssertionError(f"ring_matmul ({name}): the returned Y is not rank 0's copy")
+        errs[name] = check(name, xt, shard(w, RING_N), kept[i])
+    xt, w = cases["up"]
+    edge = {"n = 1": (xt, shard(w, 1)), "n = 8": (xt, shard(w, 8)),
+            "f32": (cases["down"][0].float(), shard(cases["down"][1].float(), RING_N)),
+            "K/n = 37": (xt[:148].contiguous(), shard(w[:148], RING_N)),
+            "m = 16": (xt[:, :16].contiguous(), shard(w, RING_N))}
+    for name, (ex, ew) in edge.items():
+        errs[name] = check(name, ex, ew, rops.ring_matmul_ranks(ex, ew,
+                                                                Mesh(ew.shape[0], device="cuda")))
+    log("ring_matmul vs plain (every rank's copy; max abs err / max |Y|): "
+        + ", ".join(f"{k} {a:.3g} / {r:.3g}" for k, (a, r) in errs.items())
+        + f" (tol {RING_TOL} x max |Y|)")
+
+    times = {}
+    for name, (xt, w) in cases.items():
+        ws = shard(w, RING_N)
+        n, ks, N = ws.shape
+        K, m = xt.shape
+        k_ms = time_ms(lambda: rops.ring_matmul_ranks(xt, ws, mesh), reps=20)
+        p_ms = time_ms(lambda: rref.ring_matmul_ref(xt, ws, mesh), reps=5, warmup=1)
+        l_ms = time_ms(lambda: torch.matmul(
+            xt.T, collectives.ring_all_gather(ws, mesh).reshape(n, K, N)), reps=20)
+        flops = 2 * n * m * K * N
+        nbytes = xt.numel() * xt.element_size() + ws.numel() * ws.element_size() + n * m * N * 4
+        bound_ms, bound_by = max((flops / BF16_FLOPS_PER_S * 1e3, "operations"),
+                                 (nbytes / hbm * 1e3, "bytes"))
+        log(f"ring_matmul {name} projection of layer 0 ({card_line()}): x_t {tuple(xt.shape)}, "
+            f"w {tuple(ws.shape)} {xt.dtype}, n = {RING_N}: plan "
+            f"{plans[name]!r}; kernel {k_ms:.3f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s, "
+            f"{bound_ms / k_ms:.1%} of the bound), plain {p_ms:.3f} ms (one f32 copy), "
+            f"unfused ring_all_gather + torch.matmul {l_ms:.3f} ms (bf16 out), bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP for the {n} copies at "
+            f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s; {nbytes / 1e6:.1f} MB at "
+            f"{hbm / 1e12:.2f} TB/s)")
+        times[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by}
+    return {"launches": launches, "max_abs_err": errs["up"][0], **times["up"]}
+
+
+def training_phases(torch, hbm: float) -> list:
+    """SmolLM-360M trained at full width through the flash kernel (T1), the
+    launcher and the resume contract on the card and a checkpoint's rate
+    (T2), and kernel row 13 through its ops surface on T1's activations (T3)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+
+    model = build_model(get_config(MODEL_ARCH))
+    state = train_phase(torch, np, model, L, fops)
+    torch.cuda.empty_cache()
+    resume_phase(torch, np, state)
+    ring = ring_phase(torch, state["taps"], hbm)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [{"name": "ring_matmul", "route": KERNELS["ring_matmul"][0],
+             "source": KERNELS["ring_matmul"][1], "replaces": KERNELS["ring_matmul"][2],
+             **ring}]
 
 
 if __name__ == "__main__":

@@ -42,12 +42,13 @@ from typing import Literal
 
 @dataclasses.dataclass(frozen=True)
 class HardwareSpec:
-    """One NVIDIA H100 SXM.  The HBM rate is NVIDIA's H100 SXM data sheet
-    (`chip_smoke.py` takes its bytes bounds from it); the rest was measured
+    """One NVIDIA H100 SXM.  The HBM and bf16 rates are NVIDIA's H100 SXM
+    data sheet (`chip_smoke.py` takes its bounds from them); the rest was measured
     by ``chip_smoke.py`` on an NVIDIA H100 80GB HBM3 at a 700 W power limit,
     the median of three runs (PERF.md, "H100 model constants")."""
 
     hbm_bandwidth: float = 3.35e12          # B/s, HBM3 (data sheet)
+    peak_flops_bf16: float = 989e12         # FLOP/s, dense bf16 tensor cores (data sheet)
     launch_latency: float = 10.1e-6         # s per PyTorch op, back to back
     event_latency: float = 15.3e-6          # s: record an event + wait on it
     copy_bandwidth: float = 3.00e12         # B/s read + written by Tensor.copy_

@@ -15,7 +15,8 @@ position a row): RoPE positions, the cache write offset, ``q_offset`` and
 ``kv_valid_len`` then follow each row.  Cache writes are in place.
 
 The reference's ``shard(...)`` annotations are identities on one card and
-are dropped; ``grad_cast_bf16`` and ``set_remat`` wait for training.
+are dropped.  `grad_cast_bf16` rounds the cotangent entering `unembed` to
+bf16, as the reference's custom VJP does; remat is `transformer.set_remat`.
 """
 
 from __future__ import annotations
@@ -53,6 +54,29 @@ def _normal(gen: Optional[torch.Generator], shape, std: float, dtype,
         flat[i:i + n] = torch.randn(n, generator=gen, device=device,
                                     dtype=torch.float32) * std
     return out
+
+
+# ---------------------------------------------------------- gradient dtype
+class _GradCastBf16(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16)
+
+
+def grad_cast_bf16(x: torch.Tensor) -> torch.Tensor:
+    """Identity forward; the incoming cotangent is rounded to bf16.
+
+    For a bf16 x nothing changes.  For an f32 x the reference's VJP hands
+    back a bf16 cotangent, which `jax.grad` then cannot multiply into the
+    next f32 op (ROADMAP §3); here autograd casts the rounded cotangent back
+    to x's dtype, so an f32 model trains with the same rounded values."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GradCastBf16.apply(x)
+    return x
 
 
 # ------------------------------------------------------------------- norms
@@ -293,4 +317,5 @@ def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
     w = params.get("lm_head")
     if w is None:
         w = params["embed"].T
+    x = grad_cast_bf16(x)       # keep the backward residual stream in bf16
     return torch.einsum("bsd,dv->bsv", x, w)

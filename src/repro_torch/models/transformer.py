@@ -21,15 +21,25 @@ cache in place: K/V rows and the Mamba state leaves [n_p, n_mamba, B, ...].
 The cache's ``len`` is a scalar or one position a row ([B]).  The MoE
 layers' aux and z losses are summed into `ForwardOut`.
 
+`set_remat(True)` makes the cache-free forward rematerialise each layer
+body (dense, vlm, moe) and each period body (hybrid) in the backward, the
+reference's ``jax.checkpoint`` of its scan bodies: a body returns (h, aux,
+z), as the reference's scan carry does, so a recomputed body adds nothing
+to the losses twice.  The stacked leaves are cut into per-layer views by
+one `unbind` each, so a leaf's gradient is stacked once, not scattered
+into a zero tensor a layer.
+
 The ssm (xlstm) and audio families are later slices of the port (ROADMAP
 queue 1 item 8): `check_family` raises for them.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from ..configs.base import ArchConfig
 from . import layers as L
@@ -41,6 +51,23 @@ _LATER = {
     "ssm": "models/xlstm",
     "audio": "the whisper encoder-decoder",
 }
+
+
+# when True, the cache-free forward rematerialises each layer / period body
+_REMAT: list[bool] = [False]
+
+
+def set_remat(flag: bool) -> None:
+    _REMAT[0] = bool(flag)
+
+
+def _maybe_remat(body, cache):
+    """`body` checkpointed (non-reentrant) when remat is on and there is no
+    cache to write: only the cache-free forward is differentiated."""
+    if _REMAT[0] and cache is None:
+        return functools.partial(torch.utils.checkpoint.checkpoint, body,
+                                 use_reentrant=False)
+    return body
 
 
 class ForwardOut(NamedTuple):
@@ -145,6 +172,13 @@ def _layer(tree: dict, i: int) -> dict:
     return {k: (_layer(v, i) if isinstance(v, dict) else v[i]) for k, v in tree.items()}
 
 
+def _unstack(tree: dict, n: int) -> list[dict]:
+    """The stacked leaves [n, ...] of `tree` as n trees of per-layer views."""
+    parts = {k: (_unstack(v, n) if isinstance(v, dict) else v.unbind(0))
+             for k, v in tree.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
 def _attn_block(cfg, blk, h, positions, cache_kv, cache_len):
     """One attention residual branch; the cache rows are written in place."""
     cache = None
@@ -155,15 +189,19 @@ def _attn_block(cfg, blk, h, positions, cache_kv, cache_len):
     return h + y
 
 
-def _ffn_block(cfg, blk, h, losses: list):
-    """Channel mixer; an MoE layer adds its aux and z losses to `losses`."""
+def _ffn_block(cfg, blk, h):
+    """Channel mixer -> (h, aux, z); aux and z are None for a dense MLP."""
     xn = L.rmsnorm(h, blk["ln2"]["scale"], cfg.norm_eps)
     if "moe" in blk:
         y, met = X.moe_ffn(blk["moe"], xn, cfg.moe_top_k, mlp_type=cfg.mlp_type)
-        losses[0] = losses[0] + met.aux_loss
-        losses[1] = losses[1] + met.router_z_loss
-        return h + y
-    return h + L.mlp(blk["mlp"], xn, cfg.mlp_type)
+        return h + y, met.aux_loss, met.router_z_loss
+    return h + L.mlp(blk["mlp"], xn, cfg.mlp_type), None, None
+
+
+def _block(cfg, blk, h, positions, kv, start):
+    """One dense / vlm / moe layer -> (h, aux, z), as `_ffn_block`."""
+    h = _attn_block(cfg, blk, h, positions, kv, start)
+    return _ffn_block(cfg, blk, h)
 
 
 def _mamba_block(cfg, mp, h, state: Optional[dict], decode: bool):
@@ -179,26 +217,26 @@ def _mamba_block(cfg, mp, h, state: Optional[dict], decode: bool):
     return h + y
 
 
-def _hybrid(cfg, params, h, positions, cache, start, S, losses: list):
-    """The hybrid family's periods."""
+def _period(cfg, per, h, aux, zl, positions, cache, pi, start, decode):
+    """One hybrid period -> (h, aux, z): attention at ``period // 2``, Mamba
+    elsewhere, each followed by its channel mixer; the losses are carried
+    through it, in the reference's order of sums."""
     period, attn_pos = cfg.attn_period, cfg.attn_period // 2
-    decode = cache is not None and S == 1
-    for pi in range(cfg.n_layers // period):
-        per = _layer(params["periods"], pi)
-        kv = None if cache is None else {"k": cache["kv"]["k"][pi], "v": cache["kv"]["v"][pi]}
-        m_i, ffn_i = 0, {"moe": 0, "mlp": 0}
-        for j in range(period):
-            if j == attn_pos:
-                h = _attn_block(cfg, per["attn"], h, positions, kv, start)
-            else:
-                st = None if cache is None else {
-                    k: v[pi, m_i] for k, v in cache["mamba"].items()}
-                h = _mamba_block(cfg, _layer(per["mamba"], m_i), h, st, decode)
-                m_i += 1
-            key = "moe" if j % cfg.moe_every == cfg.moe_every - 1 else "mlp"
-            h = _ffn_block(cfg, _layer(per[key], ffn_i[key]), h, losses)
-            ffn_i[key] += 1
-    return h
+    kv = None if cache is None else {"k": cache["kv"]["k"][pi], "v": cache["kv"]["v"][pi]}
+    m_i, ffn_i = 0, {"moe": 0, "mlp": 0}
+    for j in range(period):
+        if j == attn_pos:
+            h = _attn_block(cfg, per["attn"], h, positions, kv, start)
+        else:
+            st = None if cache is None else {k: v[pi, m_i] for k, v in cache["mamba"].items()}
+            h = _mamba_block(cfg, _layer(per["mamba"], m_i), h, st, decode)
+            m_i += 1
+        key = "moe" if j % cfg.moe_every == cfg.moe_every - 1 else "mlp"
+        h, a, z = _ffn_block(cfg, _layer(per[key], ffn_i[key]), h)
+        if a is not None:
+            aux, zl = aux + a, zl + z
+        ffn_i[key] += 1
+    return h, aux, zl
 
 
 def forward(
@@ -220,19 +258,22 @@ def forward(
     positions = (torch.as_tensor(start, device=dev).to(torch.int64).reshape(-1, 1)
                  + torch.arange(S, device=dev)[None, :]).expand(B, S)
 
-    zero = torch.zeros((), device=dev)
-    losses = [zero, zero]                       # aux, z: summed over the MoE layers
+    aux = zl = torch.zeros((), device=dev)      # summed over the MoE layers
     if cfg.family == "hybrid":
-        h = _hybrid(cfg, params, h, positions, cache, start, S, losses)
+        decode = cache is not None and S == 1
+        body = _maybe_remat(_period, cache)
+        for pi, per in enumerate(_unstack(params["periods"], cfg.n_layers // cfg.attn_period)):
+            h, aux, zl = body(cfg, per, h, aux, zl, positions, cache, pi, start, decode)
     else:
-        for i in range(cfg.n_layers):
-            blk = _layer(params["blocks"], i)
+        body = _maybe_remat(_block, cache)
+        for i, blk in enumerate(_unstack(params["blocks"], cfg.n_layers)):
             kv = None if cache is None else {"k": cache["kv"]["k"][i],
                                              "v": cache["kv"]["v"][i]}
-            h = _attn_block(cfg, blk, h, positions, kv, start)
-            h = _ffn_block(cfg, blk, h, losses)
+            h, a, z = body(cfg, blk, h, positions, kv, start)
+            if a is not None:
+                aux, zl = aux + a, zl + z
     new_cache = None if cache is None else {**cache, "len": start + S}
 
     h = L.rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps)
     logits = L.unembed(params["tok"], h)
-    return ForwardOut(logits, new_cache, *losses)
+    return ForwardOut(logits, new_cache, aux, zl)

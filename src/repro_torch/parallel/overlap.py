@@ -3,11 +3,12 @@
 
 It asks `core.perfmodel.PerfModel` (H100 constants) which synchronisation
 family an epoch should use, whether a plan should pack a group, which KV
-transfer protocol a serving block should take, and whether a sparse
-exchange goes through the queue or one all-to-all.  The reference's other
-choices wait for the slices that port their models: hierarchical
-all-reduce (a second mesh axis), the fused all-gather matmul, and the
-gradient-sync overlap.
+transfer protocol a serving block should take, whether a sparse exchange
+goes through the queue or one all-to-all, and whether an FSDP contraction
+runs as the fused ring matmul (`kernels.ring_matmul`) or as an all-gather
+followed by a matmul.  The reference's other choices wait for a second
+rank axis (ROADMAP item 12): hierarchical all-reduce, the backend choice,
+and the bucketed gradient-sync overlap.
 """
 
 from __future__ import annotations
@@ -21,6 +22,16 @@ from ..core.perfmodel import DEFAULT_MODEL, PerfModel
 @dataclasses.dataclass(frozen=True)
 class CollectiveStrategist:
     model: PerfModel = DEFAULT_MODEL
+
+    def allgather_matmul_plan(self, m: int, k: int, n: int, shards: int,
+                              dtype_bytes: int = 2) -> Literal["unfused", "fused_ring"]:
+        """Fuse iff the per-step matmul hides the per-step put (overlap
+        §3.1.1): the step's product of x [m, k/shards] with a W shard
+        [k/shards, n] at the bf16 peak, against half the put of that shard."""
+        shard_bytes = k * n * dtype_bytes / shards
+        t_put = self.model.p_put(shard_bytes)
+        t_mm = 2.0 * m * (k / shards) * n / self.model.hw.peak_flops_bf16
+        return "fused_ring" if t_mm >= 0.5 * t_put else "unfused"
 
     def sync_plan(self, k_neighbors: int, p: int) -> Literal["pscw", "fence"]:
         return self.model.select_sync_mode(k_neighbors, p)
