@@ -104,19 +104,25 @@ no result line):
      tokens/s and a decode step's ATen calls are printed;
  14. `Model.forward_logits` on [4, 2048] tokens under
      `set_attention_backend("cuda")`: exactly 32 flash-attention launches
-     (one a layer; the count is set to 0 just before), logits within
+     (one a layer; the count is set to 0 just before), every one through
+     the kernel's wgmma variant (bf16, hd 64), logits within
      FWD_BOUND of backend "torch" on the same weights and tokens, argmax
      agreement >= 99 % where the "torch" top-2 margin exceeds the bound
      (the raw agreement is printed: random-weight bf16 logits tie);
  15. the flash kernel against its plain version at layer 0's inputs of
      that forward, chatglm3-6b's head shape (hd 128, 16 query heads a KV
-     head) and f32 edge cases (Sq < Sk, one row, non-causal S = 1000 with
-     g = 1 and B = 3, a ragged tile, rows that see no key): bf16 within
-     2e-2, f32 within 1e-4; timings with CUDA events of the kernel, the
-     plain version and F.scaled_dot_product_attention, and the bound
-     (causal flops 2·B·Hq·Sq·Sk·hd at 989 TFLOP/s, or bytes at 3.35 TB/s);
-     also at the SMOKE configs' head dims 16 and 20 and the reference
-     test's 32, bf16 and f32 (zero-padded to the kernel's 16 / 32 instances);
+     head), the wgmma variant's edge cases (bf16 at hd 64 and 128: ragged
+     tiles, GQA groups 1-16, Sq < Sk, Sq > Sk, non-causal, Sk - Sq = 64)
+     and the simt variant's (f32: Sq < Sk, one row, non-causal S = 1000
+     with g = 1 and B = 3, a ragged tile, rows that see no key; the SMOKE
+     configs' head dims 16 and 20 and the reference test's 32, bf16 and
+     f32, zero-padded to the 16 / 32 instances), each case launching the
+     variant `ops.variant` names: bf16 within 2e-2, f32 within 1e-4;
+     timings with CUDA events of the kernel, the plain version and
+     F.scaled_dot_product_attention, TFLOP/s and the bound (causal flops
+     2·B·Hq·Sq·Sk·hd at 989 TFLOP/s, or bytes at 3.35 TB/s) at layer 0's
+     shape, chatglm3-6b's [1, 32, 4096, 128] with 2 KV heads and Jamba's
+     attention layer [2, 32, 2048, 128] with 8;
  16. the moe and hybrid families: Jamba-v0.1-52b at its published widths
      (d_model 4096, 32/8 heads of 128, Mamba d_inner 8192, state 16, conv
      4, 16 experts top-2 of d_ff 14336, vocab 65536) cut to 16 of 32 layers
@@ -128,7 +134,10 @@ no result line):
      layers x the prefills (counted from 0 over the run); 4 requests re-run
      solo, teacher-forced and dispatched to the engine's experts, logits
      within 0.25, the argmax held where the margin exceeds it, and the
-     routing choices the solo routers would make otherwise counted;
+     routing choices the solo routers would make otherwise counted; then
+     Jamba's cache-free `forward_logits` on [2, 2048] through the flash
+     kernel, 2 launches (its attention layers), both through the wgmma
+     variant (hd 128), held to backend "torch" as in 14;
  17. `ssm_scan` against its plain version at the longest prompt's first
      Mamba layer's inputs, the reference test's shapes in bf16 and edge
      cases (S = 1, S = 1000 with d = 200, h0, N = 8, h_last): f32 within
@@ -143,7 +152,8 @@ no result line):
      3e-4, warmup 2) on the port's pipeline at [4, 2048], 20 steps under
      `set_attention_backend("cuda")`: the mean loss of the last 5 steps
      below the first 5's by 0.05, 64 flash launches every step (the forward
-     and the remat recomputation; counts zeroed before each step), no NaN;
+     and the remat recomputation; counts zeroed before each step), every
+     one through the wgmma variant, no NaN;
      at the state before the last step the loss and grads twice more,
      bit-equal to each other and the loss to the step's, and once under
      backend "torch": loss within 1e-2, every leaf's grad within 5 %
@@ -183,6 +193,7 @@ import contextlib
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -284,15 +295,35 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def short_entry(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled name, as
+    ptxas reports it: flash_fwd_wgmma<128,3>, flash_fwd_kernel<bf16,64>."""
+    found = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+    if not found:
+        return mangled[:48]
+    end = found.end() + int(found.group(1))
+    name, rest = mangled[found.end():end], mangled[end:]
+    close = rest.find("EEv")
+    if not rest.startswith("I") or close < 0:
+        return name
+    args = [t.group(1) or ("bf16" if t.group(0).startswith("13") else "f32")
+            for t in re.finditer(r"Li(\d+)E|13__nv_bfloat16|f", rest[1:close])]
+    return f"{name}<{','.join(args)}>"
+
+
 def build_all(common) -> None:
     """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as ex:
         for name, path in zip(SOURCES, ex.map(common.build, SOURCES)):
             log(f"built {name}: {path.name}")
+            entry = ""
             for line in common.BUILD_LOG.get(name, "").splitlines():
+                found = re.search(r"entry function '(\w+)'", line)
+                if found:
+                    entry = short_entry(found.group(1))
                 if "registers" in line or "spill" in line:
-                    log(f"  ptxas: {line.strip()}")
+                    log(f"  ptxas {entry}: {line.strip()}")
     log(f"build: {time.perf_counter() - t0:.1f} s")
 
 
@@ -1801,6 +1832,7 @@ def forward_phase(torch, model, params, L, fops, shape=FWD_TOKENS, n_attn=None,
         L.set_attention_backend("cuda")
         fops.flash_attention = tap
         fops.launches = 0
+        fops.launches_by_variant.update(wgmma=0, simt=0)
         try:
             t0 = time.perf_counter()
             got, got_routes = call(None if routes is None else want_routes.idx)
@@ -1809,9 +1841,10 @@ def forward_phase(torch, model, params, L, fops, shape=FWD_TOKENS, n_attn=None,
         finally:
             fops.flash_attention = real
             L.set_attention_backend("torch")
-        launches = fops.launches
-    if launches != n_attn:
-        raise AssertionError(f"forward ({cfg.name}): {launches} flash launches, want {n_attn}")
+        launches, by_variant = fops.launches, dict(fops.launches_by_variant)
+    if launches != n_attn or by_variant != {"wgmma": n_attn, "simt": 0}:
+        raise AssertionError(f"forward ({cfg.name}): {launches} flash launches {by_variant}, "
+                             f"want {n_attn}, every one through the wgmma variant")
     route_note = ""
     if routes is not None:
         r = route_check(torch, f"forward ({cfg.name})", want_routes, got_routes)
@@ -1837,7 +1870,8 @@ def forward_phase(torch, model, params, L, fops, shape=FWD_TOKENS, n_attn=None,
                              f"{FWD_BOUND}), argmax agreement {sure_agree}/{sure_n} beyond "
                              "the bound")
     log(f"forward_logits ({cfg.name}) {list(shape)} at full width: {launches} flash launches "
-        f"({n_attn} attention layers of {cfg.n_layers}); backend cuda {cuda_s * 1e3:.1f} ms, torch "
+        f"({n_attn} attention layers of {cfg.n_layers}), all {by_variant['wgmma']} through the "
+        f"wgmma variant; backend cuda {cuda_s * 1e3:.1f} ms, torch "
         f"{torch_s * 1e3:.1f} ms (one call each); logits max abs err {err:.4g} (bound "
         f"{FWD_BOUND}); argmax agrees at {raw_agree}/{n} positions "
         f"({raw_agree / n:.4f}), at {sure_agree}/{sure_n} whose top-2 margin exceeds the "
@@ -1848,7 +1882,9 @@ def forward_phase(torch, model, params, L, fops, shape=FWD_TOKENS, n_attn=None,
 
 def check_flash(torch, fops, fref, first: dict) -> float:
     """The kernel against its plain version: layer 0's inputs of the forward,
-    chatglm3-6b's head shape, and f32 edge cases."""
+    chatglm3-6b's head shape, the wgmma variant's edge cases (bf16 at hd 64
+    and 128) and the simt variant's (f32, the SMOKE head dims); each case
+    must launch the variant `fops.variant` names for it."""
     g = torch.Generator(device="cuda").manual_seed(6)
 
     def qkv(B, Hq, Hkv, Sq, Sk, hd, dtype):
@@ -1868,18 +1904,34 @@ def check_flash(torch, fops, fref, first: dict) -> float:
     cases += [(f"hd {hd} {'bf16' if dt == bf else 'f32'}", qkv(2, 4, 2, 300, 300, hd, dt), True)
               for hd in (16, 20, 32) for dt in (bf, f32)]
     cases.append(("Sq > Sk", qkv(1, 4, 2, 90, 60, 64, f32), True))
+    # the wgmma variant: ragged tiles, GQA groups 1-16, Sq != Sk, non-causal,
+    # and Sk - Sq = 64, where a block's first warpgroup walks a tile it
+    # cannot see
+    cases += [("wgmma hd 64, S 1000, g 4", qkv(2, 8, 2, 1000, 1000, 64, bf), True),
+              ("wgmma hd 128, S 2047, g 16", qkv(1, 16, 1, 2047, 2047, 128, bf), True),
+              ("wgmma hd 64, Sq < Sk", qkv(2, 6, 2, 100, 700, 64, bf), True),
+              ("wgmma hd 128, S 130, g 3", qkv(1, 6, 2, 130, 130, 128, bf), True),
+              ("wgmma hd 128, non-causal, B 3, g 1", qkv(3, 4, 4, 1000, 1000, 128, bf), False),
+              ("wgmma hd 64, Sk - Sq = 64", qkv(4, 16, 4, 1000, 1064, 64, bf), True),
+              ("wgmma hd 128, Sq > Sk", qkv(1, 4, 2, 300, 200, 128, bf), True)]
     errs = {}
     for name, (q, k, v), causal in cases:
+        kind = fops.variant(q.dtype, q.shape[-1])
+        before = fops.launches_by_variant[kind]
         out = fops.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        if fops.launches_by_variant[kind] != before + 1:
+            raise AssertionError(f"flash_attention ({name}): the {kind} variant did not run")
+        if name == "wgmma hd 128, Sq > Sk" and out[:, :, :100].any():
+            raise AssertionError("flash_attention (wgmma): rows that see no key are not zero")
         want = fref.attention_ref(q, k, v, causal=causal)
         err = float((out.float() - want.float()).abs().max())
         tol = BF16_TOL if q.dtype == bf else F32_TOL
         if not torch.isfinite(out).all() or err > tol:
             raise AssertionError(f"flash_attention vs plain ({name}): max abs err {err} > {tol}")
         errs[name] = err
-    if out[:, :, :30].any():
-        raise AssertionError("flash_attention: rows that see no key are not zero")
+        if name == "Sq > Sk" and out[:, :, :30].any():
+            raise AssertionError("flash_attention: rows that see no key are not zero")
     log("flash_attention vs plain: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
         + f" (bf16 tol {BF16_TOL}, f32 tol {F32_TOL})")
     return errs
@@ -1898,11 +1950,14 @@ def time_flash(torch, F, fops, fref, q, k, v, hbm: float) -> dict:
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     bound_ms, bound_by = max((flops / BF16_FLOPS_PER_S * 1e3, "operations"),
                              (nbytes / hbm * 1e3, "bytes"))
-    log(f"flash_attention q {tuple(q.shape)} kv {tuple(k.shape)} {q.dtype}: kernel "
-        f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, sdpa {l_ms:.3f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}; {flops / k_ms / 1e9:.1f} TFLOP/s achieved)")
+    kind = fops.variant(q.dtype, hd)
+    tflops = flops / k_ms / 1e9
+    log(f"flash_attention q {tuple(q.shape)} kv {tuple(k.shape)} {q.dtype} ({kind}; "
+        f"{card_line()}): kernel {k_ms * 1e3:.1f} us ({tflops:.1f} TFLOP/s), plain "
+        f"{p_ms * 1e3:.1f} us, sdpa {l_ms * 1e3:.1f} us ({flops / l_ms / 1e9:.1f} TFLOP/s), "
+        f"bound {bound_ms * 1e3:.1f} us ({bound_by})")
     return {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "variant": kind, "tflops": tflops}
 
 
 def model_serve_phases(torch, hbm: float) -> list:
@@ -1929,10 +1984,11 @@ def model_serve_phases(torch, hbm: float) -> list:
     errs = check_flash(torch, fops, fref, first)
     times = time_flash(torch, F, fops, fref, first["q"], first["k"], first["v"], hbm)
     g = torch.Generator(device="cuda").manual_seed(7)
-    glm = [torch.randn(1, h, 4096, 128, generator=g, device="cuda").to(torch.bfloat16)
-           for h in (32, 2, 2)]
-    time_flash(torch, F, fops, fref, *glm, hbm)
-    del glm, first
+    for B, Hq, Hkv, S in ((1, 32, 2, 4096), (2, 32, 8, 2048)):   # chatglm3-6b; Jamba
+        qkv = [torch.randn(B, h, S, 128, generator=g, device="cuda").to(torch.bfloat16)
+               for h in (Hq, Hkv, Hkv)]
+        time_flash(torch, F, fops, fref, *qkv, hbm)
+    del qkv, first
     torch.cuda.empty_cache()
     return [{"name": "flash_attention", "route": KERNELS["flash_attention"][0],
              "source": KERNELS["flash_attention"][1],
@@ -2138,7 +2194,7 @@ def train_phase(torch, np, model, L, fops) -> dict:
             taps.update(x=x.detach().clone(), **{k: v.detach().clone() for k, v in p.items()})
         return real_mlp(p, x, mlp_type)
 
-    losses, times, launches = [], [], []
+    losses, times, launches, wgmma = [], [], [], []
     L.set_attention_backend("cuda")
     try:
         for i in range(TRAIN_STEPS):
@@ -2149,10 +2205,12 @@ def train_phase(torch, np, model, L, fops) -> dict:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fops.launches = 0
+            fops.launches_by_variant.update(wgmma=0, simt=0)
             params, opt, met = step_fn(params, opt, batch)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             launches.append(fops.launches)
+            wgmma.append(fops.launches_by_variant["wgmma"])
             losses.append(float(met["loss"]))
             L.mlp = real_mlp
     finally:
@@ -2160,8 +2218,9 @@ def train_phase(torch, np, model, L, fops) -> dict:
         L.set_attention_backend("torch")
     peak = torch.cuda.max_memory_allocated()
     want_launches = 2 * cfg.n_layers            # the forward and the remat recomputation
-    if any(n != want_launches for n in launches):
-        raise AssertionError(f"train: flash launches a step {launches}, want {want_launches}")
+    if any(n != want_launches for n in launches) or wgmma != launches:
+        raise AssertionError(f"train: flash launches a step {launches} (wgmma {wgmma}), want "
+                             f"{want_launches}, every one through the wgmma variant")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"train: losses {losses}")
     first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
@@ -2175,8 +2234,8 @@ def train_phase(torch, np, model, L, fops) -> dict:
     tokens = B * S
     log(f"train {cfg.name} at full width ({n_params} parameters, bf16, seed {TRAIN_SEED}), "
         f"[{B}, {S}] tokens a step, AdamW {TRAIN_OPT}, remat on ({card_line()}): "
-        f"{TRAIN_STEPS} steps, flash launches {launches[0]} a step every step "
-        f"({cfg.n_layers} forward + {cfg.n_layers} recomputed); loss "
+        f"{TRAIN_STEPS} steps, flash launches {launches[0]} a step every step, all through "
+        f"the wgmma variant ({cfg.n_layers} forward + {cfg.n_layers} recomputed); loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f} (mean of the first 5 {first5:.4f}, last 5 "
         f"{last5:.4f}); {ms:.1f} ms/step (median of steps 2-{TRAIN_STEPS}; step 1 "
         f"{times[0] * 1e3:.1f} ms), {tokens / ms * 1e3:.0f} tokens/s, peak memory "
@@ -2246,9 +2305,12 @@ def profile_step(torch, step_fn, params, opt, batch, L, top: int = 8) -> None:
         log("train profile: the profiler saw no device time (device idle share not measured)")
         return
     ranked = sorted(events, key=self_us, reverse=True)[:top]
+    flash = [e for e in events if "flash_fwd" in e.key]
     log(f"train profile of one step ({card_line()}): wall {wall_us / 1e3:.1f} ms under the "
         f"profiler, device busy {busy / 1e3:.1f} ms ({busy / wall_us:.1%}; idle "
-        f"{1 - busy / wall_us:.1%}); top device time: " + "; ".join(
+        f"{1 - busy / wall_us:.1%}); the flash kernel {sum(map(self_us, flash)) / 1e3:.1f} ms "
+        f"x{sum(e.count for e in flash)} ({sum(map(self_us, flash)) / busy:.1%} of the busy "
+        f"time); top device time: " + "; ".join(
             f"{e.key[:60]} {self_us(e) / 1e3:.1f} ms x{e.count}" for e in ranked))
 
 

@@ -199,6 +199,50 @@ def test_kernel_wrapper_refuses_other_head_dims_and_dtypes():
         ops._launch(torch.zeros(1, 4, 8, 64, dtype=torch.float16), k16, k16, True)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
+@pytest.mark.parametrize("hd", [1, 16, 20, 32, 48, 63, 64, 65, 96, 127, 128, 192])
+def test_variant_rule(dtype, hd):
+    """"wgmma" iff bf16 at hd 64 or 128; everything else is "simt"."""
+    want = "wgmma" if dtype == torch.bfloat16 and hd in (64, 128) else "simt"
+    assert ops.variant(dtype, hd) == want
+
+
+# (shape, strides in elements, base offset in bytes, itemsize, expected problem)
+TMA_CASES = [
+    ((4, 15, 2048, 64), (15 * 2048 * 64, 2048 * 64, 64, 1), 0, 2, None),   # contiguous
+    ((4, 15, 2048, 64), (2048 * 15 * 64, 64, 15 * 64, 1), 256, 2, None),   # the model's view
+    ((2, 32, 2048, 128), (32 * 2048 * 128, 2048 * 128, 128, 1), 16, 2, None),
+    ((1, 1, 7, 64), (3, 5, 64, 1), 32, 2, None),            # length-1 dims: strides unread
+    ((1, 4, 64, 64), (4 * 64 * 72, 64 * 72, 72, 1), 2, 2, "16-byte aligned"),
+    ((1, 4, 64, 64), (4 * 64 * 72, 64 * 72, 72, 1), 8, 2, "16-byte aligned"),
+    ((1, 2, 64, 64), (2 * 64 * 68, 64 * 68, 68, 1), 0, 2, "dim 2"),   # rows 136 bytes apart
+    ((1, 2, 64, 64), (2 * 64 * 64 + 4, 64 * 64 + 4, 64, 1), 0, 2, "dim 1"),
+    ((3, 2, 64, 64), (2 * 64 * 64 + 4, 64 * 64, 64, 1), 0, 2, "dim 0"),
+    ((2, 4, 64, 64), (0, 64 * 64, 64, 1), 0, 2, "dim 0"),     # broadcast batch
+    ((1, 4, 64, 64), (4 * 64 * 64, 64 * 64, 64, 2), 0, 2, "not contiguous"),
+    ((1, 4, 64, 64), (4 * 64 * 64, 64 * 64, 64, 1), 0, 4, None),   # 256-byte f32 rows
+]
+
+
+@pytest.mark.parametrize("shape,strides,offset,itemsize,problem", TMA_CASES)
+def test_tma_preconditions(shape, strides, offset, itemsize, problem):
+    """The "wgmma" variant's TMA checker, fed shapes, strides and offsets: a
+    16-byte aligned base, a contiguous head dim, and every other stride of
+    a dim longer than 1 a positive multiple of 16 bytes."""
+    got = ops.tma_problem(shape, strides, 0x7F0000000000 + offset, itemsize)
+    if problem is None:
+        assert got is None
+    else:
+        assert got is not None and problem in got, got
+
+
+def test_tma_strides_of_length_one_dims_are_valid():
+    t = torch.zeros(1, 4, 1, 64)[:, 1:2]
+    assert ops._tma_strides(t) == (64, 64, 64)
+    t = torch.zeros(2, 300, 5, 64).transpose(1, 2)
+    assert ops._tma_strides(t) == (300 * 5 * 64, 64, 5 * 64)
+
+
 def test_effective_blocks_never_exceed_seq():
     assert ops.effective_blocks(1, 1) == (1, 1)
     assert ops.effective_blocks(4096, 64) == (512, 64)

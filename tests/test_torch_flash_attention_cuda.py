@@ -1,9 +1,11 @@
 """The flash-attention CUDA kernel against its plain PyTorch version on the
 card, at the shapes `chip_smoke.py`'s model phases give it and at edge
 cases: bf16 within 2e-2 (one bf16 ulp at outputs of magnitude 2-4), f32
-within 1e-4 (the order of the sums differs).  These tests carry the `cuda`
-marker and skip where no card is present; the file imports no JAX, so it
-runs on the GPU host as it is:
+within 1e-4 (the order of the sums differs).  Both variants are held: the
+"wgmma" one (bf16 at hd 64 and 128) and the "simt" one (the rest), and
+`ops.launches_by_variant` must show which ran.  These tests carry the
+`cuda` marker and skip where no card is present; the file imports no JAX,
+so it runs on the GPU host as it is:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_flash_attention_cuda.py
 """
@@ -38,6 +40,33 @@ CASES = [
 ]
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
+# the "wgmma" variant, bf16: (B, Hq, Hkv, Sq, Sk, hd, causal)
+WGMMA_CASES = [
+    (2, 4, 4, 64, 64, 64, True),          # g = 1, one tile
+    (1, 6, 2, 130, 130, 128, True),       # g = 3, ragged tiles
+    (2, 8, 2, 1000, 1000, 64, True),      # g = 4
+    (1, 16, 1, 2047, 2047, 128, True),    # g = 16 (MQA), one key short of 16 tiles
+    (2, 4, 1, 2047, 2047, 64, True),
+    (2, 32, 8, 2048, 2048, 128, True),    # Jamba's attention layer
+    (3, 4, 4, 1000, 1000, 128, False),    # non-causal, B = 3
+    (1, 4, 4, 64, 130, 64, False),        # non-causal, ragged keys
+    (2, 6, 2, 100, 700, 64, True),        # Sq < Sk
+    (2, 6, 2, 130, 300, 128, True),
+    (1, 8, 2, 1, 300, 128, True),         # one row at the end
+    (1, 4, 2, 300, 200, 64, True),        # Sq > Sk: the first 100 rows see no key
+    (1, 4, 2, 300, 200, 128, True),
+]
+
+# causal, Sk - Sq not a multiple of 128: a block's first warpgroup sees fewer
+# key tiles than its second (or none), and blocks take several query tiles
+# (work items) in turn
+SKIP_CASES = [
+    (4, 16, 4, 1000, 1064, 64),     # the first warpgroup skips the last tile
+    (4, 32, 8, 2048, 1000, 64),     # many rows see no key
+    (2, 32, 8, 700, 600, 128),
+    (3, 12, 4, 1500, 1600, 128),
+]
+
 
 @pytest.fixture
 def card():
@@ -68,6 +97,82 @@ def test_kernel_matches_plain(card, B, Hq, Hkv, Sq, Sk, hd, causal, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,hd,causal", WGMMA_CASES)
+def test_wgmma_variant_matches_plain(card, B, Hq, Hkv, Sq, Sk, hd, causal):
+    q, k, v = _qkv(B, Hq, Hkv, Sq, Sk, hd, torch.bfloat16, seed=Sq + Sk + hd)
+    before = dict(ops.launches_by_variant)
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.launches_by_variant == {"wgmma": before["wgmma"] + 1, "simt": before["simt"]}
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert torch.isfinite(out).all()
+    want = ref.attention_ref(q, k, v, causal=causal)
+    err = float((out.float() - want.float()).abs().max())
+    assert err <= TOL[torch.bfloat16], err
+    if causal and Sq > Sk:
+        assert not out[:, :, :Sq - Sk].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,hd", SKIP_CASES)
+def test_wgmma_variant_where_a_warpgroup_sees_fewer_tiles(card, B, Hq, Hkv, Sq, Sk, hd):
+    """Repeated launches agree bit for bit and with the plain version where
+    one warpgroup of a block walks tiles it cannot see (all -inf there):
+    the stage and Q releases stay in step across work items."""
+    q, k, v = _qkv(B, Hq, Hkv, Sq, Sk, hd, torch.bfloat16, seed=Sq + Sk)
+    want = ref.attention_ref(q, k, v, causal=True)
+    first = ops.flash_attention(q, k, v, causal=True)
+    for _ in range(4):
+        out = ops.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
+    assert float((first.float() - want.float()).abs().max()) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_launches_by_variant_shows_which_ran(card):
+    """bf16 at hd 64 and 128 runs "wgmma"; f32, and bf16 at other head
+    dims, run "simt"; `launches` counts both."""
+    runs = [(torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+            (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+            (torch.bfloat16, 32, "simt"), (torch.bfloat16, 96, "simt")]
+    for dtype, hd, kind in runs:
+        q, k, v = _qkv(1, 4, 2, 70, 70, hd, dtype, seed=hd)
+        before, total = dict(ops.launches_by_variant), ops.launches
+        ops.flash_attention(q, k, v)
+        want = dict(before, **{kind: before[kind] + 1})
+        assert ops.launches_by_variant == want and ops.launches == total + 1, (dtype, hd)
+
+
+@pytest.mark.cuda
+def test_wgmma_variant_raises_on_a_misaligned_view(card):
+    """A view whose base or row stride breaks the TMA's 16-byte rule raises
+    ValueError; it never gives way to the other variant."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    big = torch.randn(1, 4, 64, 72, generator=g, device="cuda").to(torch.bfloat16)
+    k = torch.randn(1, 2, 64, 64, generator=g, device="cuda").to(torch.bfloat16)
+    before = dict(ops.launches_by_variant)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.flash_attention(big[..., 1:65], k, k)        # base 2 bytes past the storage's
+    odd = torch.randn(1, 2, 64, 68, generator=g, device="cuda").to(torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        ops.flash_attention(big[..., :64], odd, odd)     # rows 136 bytes apart
+    assert ops.launches_by_variant == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 64), (torch.bfloat16, 128),
+                                      (torch.float32, 64)])
+def test_no_keys_give_zeros(card, dtype, hd):
+    """Sk = 0: both variants write zeros (no tile is loaded)."""
+    q, k, v = _qkv(2, 4, 2, 70, 0, hd, dtype, seed=11)
+    for causal in (True, False):
+        out = ops.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert out.shape == q.shape and not out.any()
+
+
+@pytest.mark.cuda
 def test_rows_that_see_no_key_are_zero(card):
     q, k, v = _qkv(1, 4, 2, 90, 60, 64, torch.float32, seed=5)
     out = ops.flash_attention(q, k, v, causal=True)
@@ -84,8 +189,10 @@ def test_strided_views_as_the_model_passes_them(card):
     k = torch.randn(2, 300, 5, 64, generator=g, device="cuda").to(torch.bfloat16)
     v = torch.randn(2, 300, 5, 64, generator=g, device="cuda").to(torch.bfloat16)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    before = ops.launches_by_variant["wgmma"]
     out = ops.flash_attention(qt, kt, vt)
     want = ops.flash_attention(qt.contiguous(), kt.contiguous(), vt.contiguous())
+    assert ops.launches_by_variant["wgmma"] == before + 2
     assert torch.equal(out, want)
     assert float((out.float() - ref.attention_ref(qt, kt, vt).float()).abs().max()) <= 2e-2
 
