@@ -170,13 +170,18 @@ no result line):
  21. kernel row 13 (T3): `kernels.ring_matmul.ops.ring_matmul` on T1's
      last step's layer-0 MLP input (x_t [960, 8192]) and weights (up
      [4, 240, 2560], down [4, 640, 960] for the hidden [2560, 8192]) at n = 4
-     ranks, bf16, with `allgather_matmul_plan`'s choice printed; 8 launches
-     (2 calls x 4 ring steps, counts zeroed before, read after); every
-     rank's copy within 1e-4 x max |Y| of the plain version, also at n = 1,
-     n = 8, f32, K/n = 37 and m = 16; timings with CUDA events of the
-     kernel, the plain version, the unfused `core.collectives.ring_all_gather`
-     + `torch.matmul` (the library yardstick) and the bound (all n
-     products at 989 TFLOP/s bf16, or the bytes at 3.35 TB/s).
+     ranks, bf16, with `allgather_matmul_plan`'s choice printed; 2 launches,
+     both "wgmma" (one clustered launch a call, counts zeroed before, read
+     after); every rank's copy within 1e-4 x max |Y| of the plain version,
+     also at n = 1, 3, 6 and 8, n = 7 with K/n = 37, K/n = 37 and m = 16
+     (each "wgmma") and f32 and
+     m = 300 (each "simt"), every case through the variant `ops.variant`
+     names; three calls of each projection bit-equal; timings with CUDA
+     events of the "wgmma" kernel, the same kernel at n = 1 (one copy,
+     no ring), the "simt" variant on the same inputs,
+     the plain version, the unfused `core.collectives.ring_all_gather` +
+     `torch.matmul` (the library yardstick) and the bound (all n products
+     at 989 TFLOP/s bf16, or the bytes at 3.35 TB/s).
 
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after.
@@ -2418,8 +2423,10 @@ def resume_phase(torch, np, state: dict) -> None:
 def ring_phase(torch, taps: dict, hbm: float) -> dict:
     """Kernel row 13 through `ops.ring_matmul` on the training run's own
     layer-0 activations and weights, the MLP's up and down projections
-    sharded over RING_N ranks (counts zeroed before, read after); every
-    rank's copy against the plain version; edge cases; timings."""
+    sharded over RING_N ranks (counts zeroed before, read after: one
+    "wgmma" launch a call); every rank's copy against the plain version;
+    edge cases, each through the variant `ops.variant` names; three calls
+    bit-equal; timings of both variants, the library and the plain version."""
     import torch.nn.functional as F
 
     from repro_torch.core import collectives
@@ -2441,22 +2448,23 @@ def ring_phase(torch, taps: dict, hbm: float) -> dict:
     kept: dict = {}
     real = rops.ring_matmul_ranks
 
-    def keep(x_t, w, m):                # every rank's copy; launches via the wrapper
-        kept[len(kept)] = real(x_t, w, m)
+    def keep(x_t, w, m, variant=None):  # every rank's copy; launches via the wrapper
+        kept[len(kept)] = real(x_t, w, m, variant)
         return kept[len(kept) - 1]
 
     rops.ring_matmul_ranks = keep
     rops.launches = 0
+    rops.launches_by_variant.update(wgmma=0, simt=0)
     try:
         ys = {name: rops.ring_matmul(xt, shard(w, RING_N), mesh)
               for name, (xt, w) in cases.items()}
         torch.cuda.synchronize()
     finally:
         rops.ring_matmul_ranks = real
-    launches = rops.launches
-    if launches != len(cases) * RING_N:
-        raise AssertionError(f"ring_matmul: {launches} launches for {len(cases)} calls of "
-                             f"{RING_N} ring steps")
+    launches, by_variant = rops.launches, dict(rops.launches_by_variant)
+    if launches != len(cases) or by_variant["wgmma"] != len(cases):
+        raise AssertionError(f"ring_matmul: {launches} launches ({by_variant}) for "
+                             f"{len(cases)} calls, want one \"wgmma\" launch a call")
 
     def check(name, x_t, w, ranks):
         want = rref.ring_matmul_ref(x_t, w, Mesh(w.shape[0], device="cuda"))
@@ -2473,16 +2481,32 @@ def ring_phase(torch, taps: dict, hbm: float) -> dict:
             raise AssertionError(f"ring_matmul ({name}): the returned Y is not rank 0's copy")
         errs[name] = check(name, xt, shard(w, RING_N), kept[i])
     xt, w = cases["up"]
-    edge = {"n = 1": (xt, shard(w, 1)), "n = 8": (xt, shard(w, 8)),
-            "f32": (cases["down"][0].float(), shard(cases["down"][1].float(), RING_N)),
-            "K/n = 37": (xt[:148].contiguous(), shard(w[:148], RING_N)),
-            "m = 16": (xt[:, :16].contiguous(), shard(w, RING_N))}
-    for name, (ex, ew) in edge.items():
-        errs[name] = check(name, ex, ew, rops.ring_matmul_ranks(ex, ew,
-                                                                Mesh(ew.shape[0], device="cuda")))
+    edge = {"n = 1": (xt, shard(w, 1), "wgmma"), "n = 8": (xt, shard(w, 8), "wgmma"),
+            "n = 3": (xt, shard(w, 3), "wgmma"), "n = 6": (xt, shard(w, 6), "wgmma"),
+            "n = 7, K/n = 37": (xt[:259].contiguous(), shard(w[:259], 7), "wgmma"),
+            "K/n = 37": (xt[:148].contiguous(), shard(w[:148], RING_N), "wgmma"),
+            "m = 16": (xt[:, :16].contiguous(), shard(w, RING_N), "wgmma"),
+            "f32": (cases["down"][0].float(), shard(cases["down"][1].float(), RING_N), "simt"),
+            "m = 300": (xt[:, :300].contiguous(), shard(w, RING_N), "simt")}
+    for name, (ex, ew, want_kind) in edge.items():
+        kind = rops.variant(ex.dtype, ew.shape[0], ex, ew)
+        if kind != want_kind:
+            raise AssertionError(f"ring_matmul ({name}): variant {kind!r}, want {want_kind!r}")
+        before = dict(rops.launches_by_variant)
+        ranks = rops.ring_matmul_ranks(ex, ew, Mesh(ew.shape[0], device="cuda"))
+        if rops.launches_by_variant[kind] - before[kind] != (1 if kind == "wgmma" else ew.shape[0]):
+            raise AssertionError(f"ring_matmul ({name}): launches {rops.launches_by_variant} "
+                                 f"(before {before}) for one {kind!r} call")
+        errs[f"{name} ({kind})"] = check(name, ex, ew, ranks)
     log("ring_matmul vs plain (every rank's copy; max abs err / max |Y|): "
         + ", ".join(f"{k} {a:.3g} / {r:.3g}" for k, (a, r) in errs.items())
         + f" (tol {RING_TOL} x max |Y|)")
+    for name, (xt, w) in cases.items():
+        first = rops.ring_matmul_ranks(xt, shard(w, RING_N), mesh)
+        if not all(torch.equal(rops.ring_matmul_ranks(xt, shard(w, RING_N), mesh), first)
+                   for _ in range(2)):
+            raise AssertionError(f"ring_matmul ({name}): three calls are not bit-equal")
+    log("ring_matmul: three calls of each projection bit-equal")
 
     times = {}
     for name, (xt, w) in cases.items():
@@ -2490,6 +2514,10 @@ def ring_phase(torch, taps: dict, hbm: float) -> dict:
         n, ks, N = ws.shape
         K, m = xt.shape
         k_ms = time_ms(lambda: rops.ring_matmul_ranks(xt, ws, mesh), reps=20)
+        w1, mesh1 = shard(w, 1), Mesh(1, device="cuda")      # one copy, no ring
+        one_ms = time_ms(lambda: rops.ring_matmul_ranks(xt, w1, mesh1), reps=20)
+        s_ms = time_ms(lambda: rops.ring_matmul_ranks(xt, ws, mesh, variant="simt"), reps=5,
+                       warmup=1)
         p_ms = time_ms(lambda: rref.ring_matmul_ref(xt, ws, mesh), reps=5, warmup=1)
         l_ms = time_ms(lambda: torch.matmul(
             xt.T, collectives.ring_all_gather(ws, mesh).reshape(n, K, N)), reps=20)
@@ -2497,17 +2525,23 @@ def ring_phase(torch, taps: dict, hbm: float) -> dict:
         nbytes = xt.numel() * xt.element_size() + ws.numel() * ws.element_size() + n * m * N * 4
         bound_ms, bound_by = max((flops / BF16_FLOPS_PER_S * 1e3, "operations"),
                                  (nbytes / hbm * 1e3, "bytes"))
+        rate = ", ".join(f"{what} {t:.3f} ms ({flops / t / 1e9:.1f} TFLOP/s, "
+                         f"{bound_ms / t:.1%} of the bound)"
+                         for what, t in (("wgmma", k_ms), ("simt", s_ms),
+                                         ("unfused ring_all_gather + torch.matmul", l_ms),
+                                         ("plain", p_ms)))
         log(f"ring_matmul {name} projection of layer 0 ({card_line()}): x_t {tuple(xt.shape)}, "
-            f"w {tuple(ws.shape)} {xt.dtype}, n = {RING_N}: plan "
-            f"{plans[name]!r}; kernel {k_ms:.3f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s, "
-            f"{bound_ms / k_ms:.1%} of the bound), plain {p_ms:.3f} ms (one f32 copy), "
-            f"unfused ring_all_gather + torch.matmul {l_ms:.3f} ms (bf16 out), bound "
-            f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP for the {n} copies at "
+            f"w {tuple(ws.shape)} {xt.dtype}, n = {RING_N}, {rops.plan(n, ks, N)}: "
+            f"allgather_matmul_plan {plans[name]!r}; {rate}; the same kernel at n = 1 (one "
+            f"copy, no ring, {rops.plan(1, K, N)}) {one_ms:.3f} ms, x {n} = "
+            f"{n * one_ms:.3f} ms; bound {bound_ms:.4f} ms "
+            f"({bound_by}: {flops / 1e9:.1f} GFLOP for the {n} copies at "
             f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s; {nbytes / 1e6:.1f} MB at "
             f"{hbm / 1e12:.2f} TB/s)")
-        times[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by}
-    return {"launches": launches, "max_abs_err": errs["up"][0], **times["up"]}
+        times[name] = {"ms": k_ms, "simt_ms": s_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by, "one_copy_ms": one_ms}
+    return {"variant": "wgmma", "launches": launches, "max_abs_err": errs["up"][0],
+            **times["up"]}
 
 
 def training_phases(torch, hbm: float) -> list:

@@ -124,6 +124,136 @@ def test_ops_checks_its_inputs():
         ops.ring_matmul(torch.zeros(8, 3, 1), torch.zeros(4, 2, 5), mesh)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [1, 2, 4, 8, 9, 16])
+@pytest.mark.parametrize("m", [16, 12])
+def test_variant_rule(dtype, n, m):
+    """"wgmma" iff bf16, 1 <= n <= 8 and both views pass the TMA's rules (m =
+    12: x_t's rows are 24 bytes apart); everything else is "simt"."""
+    x_t, w = torch.zeros(n * 4, m, dtype=dtype), torch.zeros(n, 4, 24, dtype=dtype)
+    want = "wgmma" if dtype == torch.bfloat16 and n <= 8 and m == 16 else "simt"
+    assert ops.variant(dtype, n, x_t, w) == want
+
+
+def test_variant_rule_reads_the_kernel_views():
+    """A non-contiguous x_t is judged as the contiguous copy the wrapper
+    hands over; an x_t whose data starts 8 bytes into its storage is not."""
+    x = torch.zeros(8, 64, dtype=torch.bfloat16).T         # [64, 8] with strides (1, 64)
+    w = torch.zeros(4, 16, 32, dtype=torch.bfloat16)
+    assert ops.variant(torch.bfloat16, 4, x, w) == "wgmma"
+    base = torch.zeros(64 * 16 + 4, dtype=torch.bfloat16)
+    assert ops.variant(torch.bfloat16, 4, base[:64 * 16].view(64, 16), w) == "wgmma"
+    assert ops.variant(torch.bfloat16, 4, base[4:].view(64, 16), w) == "simt"
+
+
+# (shape [shards, rows, cols], strides in elements, base offset in bytes, itemsize, problem)
+TMA_CASES = [
+    ((4, 240, 8192), (240 * 8192, 8192, 1), 0, 2, None),        # x_t, the up projection
+    ((4, 640, 960), (640 * 960, 960, 1), 32, 2, None),          # w, the down projection
+    ((4, 37, 8192), (37 * 8192, 8192, 1), 16, 2, None),         # K/n = 37
+    ((1, 1, 300), (7, 3, 1), 0, 2, None),                       # length-1 dims: strides unread
+    ((1, 37, 16), (5, 16, 1), 0, 2, None),
+    ((4, 1, 8), (8, 3, 1), 0, 2, None),
+    ((4, 240, 300), (240 * 300, 300, 1), 0, 2, "dim 1"),        # rows 600 bytes apart
+    ((4, 1, 300), (300, 300, 1), 0, 2, "dim 0"),                # shards 600 bytes apart
+    ((2, 64, 64), (64 * 64 + 4, 64, 1), 0, 2, "dim 0"),
+    ((2, 64, 64), (0, 64, 1), 0, 2, "dim 0"),                   # a broadcast shard dim
+    ((2, 64, 64), (64 * 64, 64, 1), 2, 2, "16-byte aligned"),
+    ((2, 64, 64), (64 * 64, 64, 1), 8, 2, "16-byte aligned"),
+    ((2, 64, 64), (64 * 64 * 2, 128, 2), 0, 2, "not contiguous"),
+    ((2, 64, 4), (256, 4, 1), 0, 4, None),                      # 16-byte f32 rows
+]
+
+
+@pytest.mark.parametrize("shape,strides,offset,itemsize,problem", TMA_CASES)
+def test_tma_preconditions(shape, strides, offset, itemsize, problem):
+    """The "wgmma" variant's TMA checker, fed shapes, strides and offsets: a
+    16-byte aligned base, contiguous columns, and every other stride of a
+    dim longer than 1 a positive multiple of 16 bytes."""
+    got = ops.tma_problem(shape, strides, 0x7F0000000000 + offset, itemsize)
+    if problem is None:
+        assert got is None
+    else:
+        assert got is not None and problem in got, got
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((4, 240, 8192), (240 * 8192, 8192)),
+    ((1, 37, 16), (37 * 16, 16)),
+    ((1, 1, 300), (304, 304)),          # neither stride is read: valid stand-ins
+    ((4, 1, 16), (16, 16)),
+    ((3, 1, 300), (300, 304)),          # the shard stride is read, the row stride not
+])
+def test_map_strides_of_length_one_dims_are_valid(shape, want):
+    got = ops.map_strides(shape)
+    assert got == want
+    assert all(st > 0 and st % 8 == 0 for st, n in zip(got, shape[:2]) if n == 1)
+
+
+@pytest.mark.parametrize("n,ks,N", [(4, 240, 2560), (4, 640, 960), (1, 960, 2560), (8, 120, 2560),
+                                    (4, 37, 2560), (8, 45, 136), (2, 1, 8), (1, 16, 64),
+                                    (4, 4096, 2560), (2, 3000, 128), (1, 100000, 512),
+                                    (3, 37, 200), (5, 53, 520), (6, 45, 2560), (7, 37, 264),
+                                    (6, 160, 960)])
+def test_plan_fits_and_keeps_the_ring_moving(n, ks, N):
+    """The shared-memory plan: within the block's budget, every shard row
+    covered, two slots of each ring, and (n > 1) a slot to spare beyond a
+    step's chunks, without which the ring of n blocks could not move."""
+    p = ops.plan(n, ks, N)
+    assert p.smem <= ops.SMEM_BYTES
+    assert p.bn in (128, 256) and (p.bn == 128 or N >= 512)
+    assert p.kc in ops.CHUNK_ROWS and p.stages >= 2 and p.slots >= 2
+    assert p.rounds * p.nkr * p.kc >= ks > (p.rounds - 1) * p.nkr * p.kc   # no empty round
+    if n > 1:
+        assert p.slots > p.nkr
+    if (n, ks) in ((4, 240), (4, 640)):           # the training run's projections: one round
+        assert p.rounds == 1 and p.nkr * p.kc == ks and p.slots >= p.nkr + 2
+        assert p.bn == (256 if ks == 240 else 128)   # the down projection's ring fills 128 wide
+
+
+@pytest.mark.parametrize("bn", [128, 256])
+@pytest.mark.parametrize("kc", ops.CHUNK_ROWS)
+@pytest.mark.parametrize("stages", [2, 4])
+def test_room_is_the_most_slots_that_fit(bn, kc, stages):
+    """`_room` is read off `Plan.smem`: its slots fit the budget, one more
+    does not."""
+    room = ops._room(bn, kc, stages)
+    assert ops.Plan(bn, kc, stages, room, 1, 1).smem <= ops.SMEM_BYTES
+    assert ops.Plan(bn, kc, stages, room + 1, 1, 1).smem > ops.SMEM_BYTES
+
+
+def test_main_entry_takes_no_variant_override():
+    """The override is for comparisons through `ring_matmul_ranks`; the
+    main path's entry always takes the variant the rule names."""
+    import inspect
+    assert list(inspect.signature(ops.ring_matmul).parameters) == ["x_t", "w", "mesh"]
+    x_t, w = _port_inputs(1)
+    with pytest.raises(TypeError):
+        ops.ring_matmul(x_t, w, Mesh(N_RANKS, device="cpu"), variant="simt")
+
+
+def test_cpu_tensors_never_reach_the_card_path(monkeypatch):
+    """On CPU tensors the wrapper computes the plain ring schedule without
+    consulting the variant rule, the plan or the kernel."""
+    def boom(*a, **k):
+        raise AssertionError("card-only path consulted for a CPU tensor")
+    for name in ("variant", "plan", "_fn", "_launch", "tma_problem"):
+        monkeypatch.setattr(ops, name, boom)
+    before, by_kind = ops.launches, dict(ops.launches_by_variant)
+    x_t, w = _port_inputs(2)
+    mesh = Mesh(N_RANKS, device="cpu")
+    for kind in (None, "wgmma", "simt"):
+        got = ops.ring_matmul_ranks(x_t, w, mesh, variant=kind)
+        assert torch.equal(got, ref.ring_schedule_ref(x_t, w, mesh))
+    assert ops.launches == before and ops.launches_by_variant == by_kind
+
+
+def test_variant_names_are_checked():
+    x_t, w = _port_inputs(1)
+    with pytest.raises(ValueError, match="variant"):
+        ops.ring_matmul_ranks(x_t, w, Mesh(N_RANKS, device="cpu"), variant="tensor")
+
+
 @pytest.mark.parametrize("m,k,n,shards,want", [
     (8192, 960, 2560, 4, "fused_ring"),          # SmolLM's MLP up projection, FSDP 4
     (8192, 2560, 960, 4, "fused_ring"),          # its down projection
