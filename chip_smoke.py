@@ -21,13 +21,17 @@ no result line):
      count is set to 0 just before the run and read just after);
   4. every kernel against its plain PyTorch version on the card, at the
      busiest decode step's inputs and at edge cases (masked pages, a fully
-     masked row, Sq=4 causal): max abs error <= 1e-4 (f32; the order of
-     the sums differs);
-  5. timings with CUDA events at the main-path inputs: kernel, plain
-     version, F.scaled_dot_product_attention over pre-gathered K/V (a
-     yardstick the port never calls) and the bound (bytes read at the
-     H100 model's HBM rate, 3.35 TB/s, or f32 flops at 67 TFLOP/s,
-     whichever is larger);
+     masked row, Sq=4 causal; and the split page walk at k = 128: the
+     decode path's q [64, 1, 128] with 2 valid rows, a ragged last split,
+     whole masked splits, causal horizons inside the last split at Sq 4
+     and 8, pt 16 and 4, three calls bit-equal): max abs error <= 1e-4
+     (f32; the order of the sums differs);
+  5. timings with CUDA events at the main-path inputs: kernel (host cost
+     included; and its device time alone, from `torch.profiler`'s kernel
+     events), plain version, F.scaled_dot_product_attention over
+     pre-gathered K/V (a yardstick the port never calls) and the bound
+     (bytes read at the H100 model's HBM rate, 3.35 TB/s, or f32 flops at
+     67 TFLOP/s, whichever is larger);
   5a. rendezvous pull serving: the same 256 full-width requests with
      transport="rendezvous" (prefill-owned pools, descriptors on the ring,
      the decoder's fused pull); every token equal to `reference()` and to
@@ -47,8 +51,10 @@ no result line):
      scale 1.0 within 1e-4 of the readout's context; both against their
      plain versions at the path's shapes and edge cases (shifts 0, -1,
      >= p, p = 1, ids -1 and past the pool, a fully masked row, Sq = 4
-     causal, int32 pages); timings: kernel, plain, `index_select` / SDPA
-     over pre-gathered K/V, and the bound counted from this run's data;
+     causal, int32 pages; k = 128 with one valid rank at shifts 0, 1, -1,
+     9); timings: kernel (and the attention kernel's device time), plain,
+     `index_select` / SDPA over pre-gathered K/V, and the bound counted
+     from this run's data;
   6. the MILC halo stencil (`repro_torch.apps.milc`) at p=131,072 ranks of
      the paper's weak-scaling local volume 8x4x4x4 sites x 6 f32 (a 1.5 GiB
      lattice, 192 MiB halos each way): 5 steps as a user calls them, every
@@ -400,6 +406,32 @@ def time_ms(fn, reps: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def self_us(e) -> float:
+    """A profiler event's device time in µs (the attribute's name differs
+    between torch versions)."""
+    return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+
+
+def device_ms(fn, key: str, reps: int = 50) -> float:
+    """Mean device time of one launch of the kernels whose name holds `key`
+    over `reps` calls of `fn`, from `torch.profiler`'s kernel events: the
+    host's cost of a launch left out, which `time_ms` includes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if key in e.key]
+    n = sum(e.count for e in events)
+    if n != reps:
+        raise AssertionError(f"the profiler saw {n} launches of {key}, want {reps}")
+    return sum(map(self_us, events)) / n / 1e3
+
+
 def check_kernel(ops, ref, q, kv, ids, causal=False, scale=None) -> float:
     import torch
 
@@ -414,7 +446,11 @@ def check_kernel(ops, ref, q, kv, ids, causal=False, scale=None) -> float:
 
 
 def edge_cases(ops, ref) -> float:
-    """Masked pages, a fully masked row, Sq=4 causal, at hd=128, pt=16."""
+    """Masked pages, a fully masked row, Sq=4 causal, at hd=128, pt=16;
+    then the split walk at k = 128: the decode path's q [64, 1, 128] with 2
+    valid rows, and k = 130 (a ragged last split) with entries 8-15 masked
+    (whole splits at pt 16) at Sq 1, 4 and 8, causal at 4 and 8 (the
+    horizon inside the last split), pt 16 and 4; three calls bit-equal."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -430,6 +466,31 @@ def edge_cases(ops, ref) -> float:
         out = ops.paged_attention(q, kv, ids, causal=causal)
         if float(out[2].abs().max()) != 0.0:
             raise AssertionError("a fully masked row did not give zeros")
+
+    def ids_for(m, k, n_pages, valid):
+        ids = torch.full((m, k), -1, device="cuda", dtype=torch.int32)
+        for i in valid:
+            ids[i] = torch.randint(0, n_pages, (k,), device="cuda", generator=g,
+                                   dtype=torch.int32)
+            ids[i, 8:16] = -1
+            ids[i, 3] = n_pages + 5
+        return ids
+
+    kv = torch.randn(2048, 16, 2, 128, device="cuda", generator=g)
+    q = torch.randn(64, 1, 128, device="cuda", generator=g)
+    ids = ids_for(64, 128, 2048, (33, 50))
+    err = max(err, check_kernel(ops, ref, q, kv, ids, scale=1.0))
+    outs = [ops.paged_attention(q, kv, ids, scale=1.0) for _ in range(3)]
+    if not all(torch.equal(outs[0], o) for o in outs[1:]):
+        raise AssertionError("three calls at k = 128 are not bit-equal")
+    if float(outs[0][[i for i in range(64) if i not in (33, 50)]].abs().max()) != 0.0:
+        raise AssertionError("a fully masked row at k = 128 did not give zeros")
+    for pt in (16, 4):
+        kv = torch.randn(600, pt, 2, 128, device="cuda", generator=g)
+        ids = ids_for(3, 130, 600, (0, 1))
+        for Sq, causal in ((1, False), (4, False), (4, True), (8, True)):
+            q = torch.randn(3, Sq, 128, device="cuda", generator=g)
+            err = max(err, check_kernel(ops, ref, q, kv, ids, causal=causal))
     return err
 
 
@@ -501,6 +562,18 @@ def main() -> int:
     # ---- timings at the main-path inputs
     pt, hd = cfg.page_tokens, cfg.d_model
     kernel_ms = time_ms(lambda: ops.paged_attention(q, pool, ids, scale=1.0))
+    kernel_dev_ms = device_ms(lambda: ops.paged_attention(q, pool, ids, scale=1.0),
+                              "paged_attention_split")
+    # a block serves `group` rows, `groups` apart, one after another: the
+    # same valid rows in one block group show what sharing a block costs
+    plan = ops.plan(m, 1, k, pt, hd)
+    valid_rows = [int(i) for i in (ids >= 0).any(dim=1).nonzero().flatten()]
+    shared = torch.full_like(ids, -1)
+    for j, r in enumerate(valid_rows):
+        shared[(j * plan.groups) % m] = ids[r]
+    err = max(err, check_kernel(ops, ref, q, pool, shared, scale=1.0))
+    shared_dev_ms = device_ms(lambda: ops.paged_attention(q, pool, shared, scale=1.0),
+                              "paged_attention_split")
     plain_ms = time_ms(lambda: ref.paged_attention_ref(q, pool, ids, scale=1.0))
     safe = ids.clamp(min=0).long()
     kv_rows = pool[safe]                                 # [m, k, pt, 2, hd]
@@ -518,7 +591,9 @@ def main() -> int:
     bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
     log(f"paged_attention at the busiest step: q {tuple(q.shape)}, pool "
         f"{tuple(pool.shape)}, ids {tuple(ids.shape)}, {rows} valid rows, "
-        f"{valid_pages} valid pages; kernel {kernel_ms * 1e3:.1f} us, plain "
+        f"{valid_pages} valid pages in rows {valid_rows}, plan {tuple(plan)}; kernel "
+        f"{kernel_ms * 1e3:.1f} us (device {kernel_dev_ms * 1e3:.2f} us; "
+        f"{shared_dev_ms * 1e3:.2f} us with those rows in one block group), plain "
         f"{plain_ms * 1e3:.1f} us, sdpa {library_ms * 1e3:.1f} us, bound "
         f"{bound_ms * 1e3:.2f} us ({bound_by})")
     del eng, pool
@@ -551,6 +626,7 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": err,
         "ms": kernel_ms,
+        "device_ms": kernel_dev_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -802,12 +878,27 @@ def check_pull_kernels(torch, pa_ops, pa_ref, pg_ops, pg_ref, Mesh, run, ops_run
             if float(out[2].abs().max()) != 0.0:
                 raise AssertionError("a fully masked row did not give zeros")
     attend(qe[:1], kv[:1], e_ids[:1], 3, one, "p = 1", causal=True)
+    # the split walk at k = 128: only rank 2 has pages (a masked split, an
+    # id past the pool)
+    kv = torch.randn(p, 256, 16, 2, 128, generator=g, device="cuda")
+    e_ids = torch.full((p, 128), -1, device="cuda", dtype=torch.int32)
+    e_ids[2] = torch.randint(0, 256, (128,), generator=g, device="cuda", dtype=torch.int32)
+    e_ids[2, 20:28] = -1
+    e_ids[2, 5] = 256 + 1
+    for Sq, causal in ((1, False), (4, True)):
+        qe = torch.randn(p, Sq, 128, generator=g, device="cuda")
+        for s in (0, 1, -1, 9):
+            out = attend(qe, kv, e_ids, s, mesh, f"k = 128 Sq {Sq} causal {causal} shift {s}",
+                         scale=1.0, causal=causal)
+            if float(out[[0, 1, 3]].abs().max()) != 0.0:
+                raise AssertionError("a rank with no pages did not give zeros at k = 128")
     torch.cuda.synchronize()
     log("paged_gather vs plain: bit-equal at the rendezvous pool with path-sized ids "
         "and at shifts 0, -1, >= p, p = 1, ids -1 and past the pool, int32 pages; "
         f"paged_attention_shift vs plain: max abs err {errs['paged_attention_shift']:.3g} "
         f"(tol {TOL}) at the path's ids and at masked pages, a fully masked row, Sq = 4 "
-        "causal, shifts 0, -1, >= p, p = 1")
+        "causal, shifts 0, -1, >= p, p = 1, and k = 128 with one valid rank at shifts "
+        "0, 1, -1, 9")
     return errs
 
 
@@ -862,14 +953,18 @@ def time_pull_kernels(torch, F, pa_ops, pa_ref, pg_ops, pg_ref, Mesh, run, ops_r
     for name, (kern, plain, lib, (nbytes, flops), what) in (
             ("paged_attention_shift", attend), ("paged_gather", gather)):
         k_ms, p_ms, l_ms = time_ms(kern), time_ms(plain), time_ms(lib)
+        row = {}
+        if name == "paged_attention_shift":
+            row["device_ms"] = device_ms(kern, "paged_attention_split")
         bound, bound_by = max((nbytes / hbm * 1e3, "bytes"),
                               (flops / F32_FLOPS_PER_S * 1e3, "operations"))
-        log(f"{name} at {what}: kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, "
+        dev = f" (device {row['device_ms'] * 1e3:.2f} us)" if row else ""
+        log(f"{name} at {what}: kernel {k_ms * 1e3:.1f} us{dev}, plain {p_ms * 1e3:.1f} us, "
             f"library {l_ms * 1e3:.1f} us, bound {bound * 1e3:.2f} us ({bound_by}: "
             f"{nbytes} bytes, {flops} flops)")
         out.append({"name": name, "route": KERNELS[name][0], "source": KERNELS[name][1],
                     "replaces": KERNELS[name][2], "launches": ops_run["launches"][name],
-                    "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
+                    "max_abs_err": errs[name], "ms": k_ms, **row, "plain_ms": p_ms,
                     "bound_ms": bound, "bound_by": bound_by, "library_ms": l_ms})
     return out
 
@@ -2301,9 +2396,6 @@ def profile_step(torch, step_fn, params, opt, batch, L, top: int = 8) -> None:
     # the kernels' own events (a CPU op's device time repeats its kernels')
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
-
-    def self_us(e):
-        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
 
     busy = sum(self_us(e) for e in events)
     if busy <= 0:

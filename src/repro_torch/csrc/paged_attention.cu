@@ -12,170 +12,434 @@
 //                                 attends over pages ids[r, :] of rank
 //                                 (r + shift) mod p's pool.
 //
-// In both, id < 0 masks the page (the requester's id decides); a fully
-// masked row gives 0 (acc / max(l, 1e-30)), never NaN; causal keeps key u
-// iff u <= s + (Sk - Sq) with Sk = k*pt, masked pages counted.  The caller
+// In both, id < 0 masks the page (the requester's id decides), an id at or
+// past n_pages reads the last page; a fully masked row gives 0
+// (acc / max(l, 1e-30)), never NaN; causal keeps key u iff
+// u <= s + (Sk - Sq) with Sk = k*pt, masked pages counted.  The caller
 // applies the softmax scale to q before the launch.
 //
-// Design: one block per query row with hd threads (hd % 32 == 0,
-// hd <= 1024); both kernels share the row's page walk (`attend_row`).  The
-// block walks j = 0..k-1 and reads its page id itself (the TPU kernel got
-// it by scalar prefetch).  A masked page is skipped outright: it adds
-// nothing, so it is not even read (the TPU still moved a clamped row because
-// its schedule was static).  Per page, warp w computes the scores of tokens
-// w, w+n_warps, ... with a shuffle reduction over the lanes' hd/32 slices of
-// q.k; then every thread folds the page into an fp32 online softmax (m, l,
-// acc) for its own output column, as _accumulate does in the TPU kernels.
-// The shift kernel resolves the owner's pool inside the kernel, (r + shift)
-// mod p: the TPU kernel's id swap and 2-slot stream of remote pages become
-// reads of another rank's slice of the same array.
+// What bounds it: the bytes of the visible pages, read once (~4 flops a
+// byte, f32: far below the card's balance).  At the decode path's shapes
+// that is a few MB, about a microsecond at 3.35 TB/s, so the kernel is
+// bound by latency: how many pages are in flight at once, on how many SMs.
+// The TPU kernels walk a row's pages in order, one grid step a page with a
+// two-page DMA window; one block walking a row so would keep 2 of 132 SMs
+// busy at the serving path's busiest step (2 valid rows of 64).
 //
-// Bound: the bytes it must read, valid pages x pt x 2 x hd x 4, at the
-// card's memory rate; the arithmetic is ~4 flops per byte read.  This first
-// version does not approach that bound when few rows are valid: each row's
-// page walk is serial inside one block.  Making it fast — split-K over
-// pages with a second reduction pass, cp.async/TMA staging of the next
-// page, more than one query row per block — is later work.
+// Design: split the page walk, merge in the same launch.
+//   * ops.plan (Python, from shapes alone) cuts each row's k entries into S
+//     splits of P <= 32 consecutive entries (~64 KiB of pages each) and
+//     deals the query rows (rows = m * Sq) to `groups` block groups: group
+//     g serves rows g, g + groups, g + 2 * groups, ..., G = ceil(rows /
+//     groups) of them, one after another, and the grid is groups x S
+//     blocks.  One valid row of k = 128 pages spreads over 32 blocks, and
+//     the fully masked rows of a decode step cost a block a handful of id
+//     reads.  `groups` is odd where G > 1, so rows a power of two apart
+//     (the same slot of two ranks, neighbouring rows, a row's Sq
+//     positions) run on different blocks.
+//   * A block reads its own ids: one warp ballot a row lists the visible
+//     pages of its split (masked pages and pages past the causal horizon
+//     are skipped, their ids and K/V never read).  A split with nothing
+//     visible records l = 0 and reads no K or V.
+//   * Each warp (8 a block) takes U tokens at a time of the row's listed
+//     pages and loads their K and V rows at once (2U independent loads a
+//     lane in flight; 16-byte vectors, neighbouring lanes on neighbouring
+//     addresses, where hd % 128 == 0 and the pointers are 16-byte
+//     aligned), reduces q.k with shuffles and folds the U scores into the
+//     warp's online softmax (m, l, acc) in registers.  The block combines
+//     its warps in order and writes the split's partial (m, l, acc[hd]) to
+//     a workspace.
+//   * Merge: every block bumps its group's ticket after a barrier and one
+//     __threadfence(); the block that draws the last ticket merges each
+//     row of the group,
+//     out = sum_j e^(m_j - M) acc_j / max(sum_j e^(m_j - M) l_j, 1e-30), in
+//     split order (warp w takes a fixed run of splits, the runs are summed
+//     in warp order), so repeated calls are bit-equal.  That block then
+//     resets the ticket to 0.  The wrapper keeps one zeroed ticket buffer
+//     per (device, stream): calls on one stream run in order and each finds
+//     every ticket at 0; calls on two streams never share a ticket.
+//
+// Both entries are one launch of the same kernel: the local form is the
+// shift form with p = 1.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kMaxChunks = 32;  // hd / 32 <= 32, i.e. hd <= 1024
+constexpr int kWarps = 8;                     // warps a block
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxPages = 32;                 // entries a split: one ballot
+constexpr int kMaxGroup = 32;                 // query rows a block
+constexpr int kRowsPerWarp = kMaxGroup / kWarps;
 
-// One query row s attends over the k pages ids_row[0..k) of `pool`
-// [n_pages, pt, 2, hd]; q_row and out_row are that row's hd floats.
-// `scores` holds pt floats of shared memory.  Every thread of the block
-// calls it; control flow is uniform across the block.
-__device__ __forceinline__ void attend_row(
-    const float* __restrict__ q_row, const float* __restrict__ pool,
-    const int32_t* __restrict__ id_row, float* __restrict__ out_row,
-    float* scores, int s, int Sq, int hd, int n_pages, int pt, int k,
-    int causal) {
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int chunks = hd >> 5;
+struct Args {
+  const float* q;          // [rows, hd], pre-scaled
+  const float* kv;         // [p, n_pages, pt, 2, hd]
+  const int32_t* ids;      // [m, k]
+  float* out;              // [rows, hd]
+  float* ws;               // (m, l) [rows * S][2], padded to 4 floats, then
+                           // acc [rows * S][hd]
+  int* tickets;            // [groups], 0 on entry, 0 on exit
+  size_t pool_stride;      // floats between two ranks' pools
+  int p, off;              // row i reads the pool of rank (i + off) % p
+  int Sq, hd, n_pages, pt, k, causal;
+  int P, S, groups, rows;  // entries a split, splits, block groups, m * Sq
+  int G;                   // rows a block: ceil(rows / groups), set by run()
+};
 
-  // this lane's slice of q for the warp dot products: q[c * 32 + lane]
-  float q_reg[kMaxChunks];
+template <int VEC> struct VecOf;
+template <> struct VecOf<4> { using T = float4; };
+template <> struct VecOf<1> { using T = float; };
+
+__device__ __forceinline__ void zero(float& a) { a = 0.0f; }
+__device__ __forceinline__ void zero(float4& a) { a = make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+__device__ __forceinline__ float dot(float a, float b) { return a * b; }
+__device__ __forceinline__ float dot(const float4& a, const float4& b) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, a.x * b.x)));
+}
+__device__ __forceinline__ void scale(float& a, float c) { a *= c; }
+__device__ __forceinline__ void scale(float4& a, float c) {
+  a.x *= c; a.y *= c; a.z *= c; a.w *= c;
+}
+__device__ __forceinline__ void axpy(float& a, float w, float v) { a = fmaf(w, v, a); }
+__device__ __forceinline__ void axpy(float4& a, float w, const float4& v) {
+  a.x = fmaf(w, v.x, a.x); a.y = fmaf(w, v.y, a.y);
+  a.z = fmaf(w, v.z, a.z); a.w = fmaf(w, v.w, a.w);
+}
+
+// One block: split `split` of query rows group + g * groups, g < G.  A lane
+// holds chunks c < ch of a row, VEC floats each, at (c * 32 + lane) * VEC.
+template <int VEC, int NC>
+__global__ void __launch_bounds__(kThreads) paged_attention_split(const Args a) {
+  using V = typename VecOf<VEC>::T;
+  constexpr int F = VEC * NC;                        // floats a lane holds
+  constexpr int U = F >= 32 ? 1 : (32 / F > 8 ? 8 : 32 / F);   // tokens a warp loads at once
+  extern __shared__ __align__(16) float s_acc[];     // [kWarps][hd]
+  __shared__ int s_pid[kMaxGroup][kMaxPages];        // visible pages of each row
+  __shared__ int s_nvis[kMaxGroup][kMaxPages];       // their visible tokens
+  __shared__ int s_n[kMaxGroup];
+  __shared__ float s_m[kWarps], s_l[kWarps];
+  __shared__ float s_M[kMaxGroup];
+  __shared__ int s_any[kMaxGroup];
+  __shared__ int s_last;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int group = blockIdx.x / a.S, split = blockIdx.x - group * a.S;
+  const int groups = a.groups;                     // rows a group apart share a block
+  const int ch = a.hd / (32 * VEC);
+  const int e0 = split * a.P;
+  const int n_e = min(a.P, a.k - e0);
+  const size_t page_elems = (size_t)a.pt * 2 * a.hd;
+  const size_t hv = (size_t)a.hd / VEC;              // a row of K or V, in V
+  float* const ml = a.ws;
+  float* const pacc = a.ws + ((size_t)2 * a.rows * a.S + 3) / 4 * 4;   // 16-byte aligned
+
+  // 1. the visible pages of this split, for each row: lane = entry.  All
+  //    the rows' ids are loaded before the first ballot.
+  int pid_r[kRowsPerWarp], nvis_r[kRowsPerWarp];
 #pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c)
-    q_reg[c] = (c < chunks) ? q_row[c * 32 + lane] : 0.0f;
-
-  const int horizon = s + k * pt - Sq;  // causal: key u visible iff u <= horizon
-  const size_t page_elems = (size_t)pt * 2 * hd;
-  const size_t token_stride = (size_t)2 * hd;
-
-  float m_run = kNegInf, l_run = 0.0f, acc = 0.0f;
-  for (int j = 0; j < k; ++j) {
-    int pid = id_row[j];  // the same for every thread: control flow is uniform
-    if (pid < 0) continue;                   // masked page: adds nothing
-    if (causal && j * pt > horizon) break;   // this and every later page masked
-    if (pid >= n_pages) pid = n_pages - 1;   // clamp, as the reference does
-    const float* page = pool + (size_t)pid * page_elems;
-    const int n_vis = causal ? min(pt, horizon - j * pt + 1) : pt;
-
-    // scores of the page's visible tokens: warp w takes w, w + n_warps, ...
-    for (int u = warp; u < n_vis; u += n_warps) {
-      const float* k_row = page + (size_t)u * token_stride;
-      float d = 0.0f;
+  for (int t = 0; t < kRowsPerWarp; ++t) {
+    const int g = warp + t * kWarps, r = group + g * groups;
+    int nvis = 0, pid = 0;
+    if (g < a.G && r < a.rows && lane < n_e) {
+      const int i = r / a.Sq, s = r - i * a.Sq, e = e0 + lane;
+      nvis = a.causal ? min(a.pt, s + (a.k - e) * a.pt - a.Sq + 1) : a.pt;
+      if (nvis > 0) pid = __ldg(a.ids + (size_t)i * a.k + e);
+    }
+    pid_r[t] = pid;
+    nvis_r[t] = nvis;
+  }
 #pragma unroll
-      for (int c = 0; c < kMaxChunks; ++c)
-        if (c < chunks) d += q_reg[c] * k_row[c * 32 + lane];
+  for (int t = 0; t < kRowsPerWarp; ++t) {
+    const int g = warp + t * kWarps;
+    if (g >= a.G) break;
+    int pid = pid_r[t], nvis = nvis_r[t];
+    if (pid < 0) nvis = 0;                          // masked page: never read
+    if (pid >= a.n_pages) pid = a.n_pages - 1;      // clamp, as the reference does
+    const unsigned live = __ballot_sync(0xffffffffu, nvis > 0);
+    if (nvis > 0) {
+      const int at = __popc(live & ((1u << lane) - 1u));
+      s_pid[g][at] = pid;
+      s_nvis[g][at] = nvis;
+    }
+    if (lane == 0) s_n[g] = __popc(live);
+  }
+  __syncthreads();
+
+  // 2. each row's partial over this split.  Warp w takes tokens
+  //    [w*U, w*U + U), then [(w + kWarps)*U, ...) of the listed pages.
+  for (int g = 0; g < a.G && group + g * groups < a.rows; ++g) {
+    const int r = group + g * groups;
+    const size_t slot = (size_t)r * a.S + split;
+    const int n_tok = s_n[g] * a.pt;
+    if (n_tok == 0) {                                // nothing visible: l = 0
+      if (tid == 0) { ml[2 * slot] = kNegInf; ml[2 * slot + 1] = 0.0f; }
+      continue;
+    }
+    const int i = r / a.Sq;
+    const float* pool = a.kv + (size_t)((i + a.off) % a.p) * a.pool_stride;
+    const V* qrow = reinterpret_cast<const V*>(a.q + (size_t)r * a.hd);
+    V qv[NC], acc[NC];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        d += __shfl_xor_sync(0xffffffffu, d, off);
-      if (lane == 0) scores[u] = d;
+    for (int c = 0; c < NC; ++c) {
+      zero(acc[c]);
+      if (c < ch) qv[c] = __ldg(qrow + c * 32 + lane); else zero(qv[c]);
+    }
+    float m_w = kNegInf, l_w = 0.0f;
+    for (int base = warp * U; base < n_tok; base += kWarps * U) {
+      V kr[U][NC], vr[U][NC];
+      bool ok[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int t = base + u;
+        const int pg = t < n_tok ? t / a.pt : 0;
+        const int tk = t - pg * a.pt;
+        ok[u] = t < n_tok && tk < s_nvis[g][pg];
+        const V* kp = reinterpret_cast<const V*>(
+            pool + (size_t)s_pid[g][pg] * page_elems + (size_t)tk * 2 * a.hd);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          if (ok[u] && c < ch) {
+            kr[u][c] = __ldg(kp + c * 32 + lane);
+            vr[u][c] = __ldg(kp + hv + c * 32 + lane);
+          } else {
+            zero(kr[u][c]);
+            zero(vr[u][c]);
+          }
+        }
+      }
+      float sc[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float d = 0.0f;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) d += dot(qv[c], kr[u][c]);
+        sc[u] = d;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int u = 0; u < U; ++u) sc[u] += __shfl_xor_sync(0xffffffffu, sc[u], o);
+      float mb = kNegInf;
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (ok[u]) mb = fmaxf(mb, sc[u]);
+      const float m_new = fmaxf(m_w, mb);
+      const float corr = expf(m_w - m_new);
+      l_w *= corr;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) scale(acc[c], corr);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (!ok[u]) continue;
+        const float pu = expf(sc[u] - m_new);
+        l_w += pu;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) axpy(acc[c], pu, vr[u][c]);
+      }
+      m_w = m_new;
+    }
+    // the warps' states, combined in warp order
+    if (lane == 0) { s_m[warp] = m_w; s_l[warp] = l_w; }
+    V* mine = reinterpret_cast<V*>(s_acc + warp * a.hd);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      if (c < ch) mine[c * 32 + lane] = acc[c];
+    __syncthreads();
+    float M = s_m[0];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) M = fmaxf(M, s_m[w]);
+    float wt[kWarps], L = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      wt[w] = expf(s_m[w] - M);
+      L = fmaf(wt[w], s_l[w], L);
+    }
+    for (int col = tid; col < a.hd; col += kThreads) {
+      float x = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) x = fmaf(wt[w], s_acc[w * a.hd + col], x);
+      pacc[slot * a.hd + col] = x;
+    }
+    if (tid == 0) { ml[2 * slot] = M; ml[2 * slot + 1] = L; }
+    __syncthreads();                                 // s_m, s_acc serve the next row
+  }
+
+  // 3. the ticket: the group's last block merges.  The barrier orders the
+  //    block's partials before thread 0's fence, which publishes them all
+  //    (fences are cumulative) before the ticket; the merging block fences
+  //    again before it reads the others' partials.
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    s_last = atomicAdd(a.tickets + group, 1) == a.S - 1;
+    if (s_last) __threadfence();
+  }
+  __syncthreads();
+  if (!s_last) return;
+
+  // 3a. a warp a row: M over the splits that saw a token.  The first 32
+  //     splits of all the warp's rows are loaded before the first reduction.
+  const float2* ml2 = reinterpret_cast<const float2*>(ml);
+  float2 first[kRowsPerWarp];
+#pragma unroll
+  for (int t = 0; t < kRowsPerWarp; ++t) {
+    const int g = warp + t * kWarps, r = group + g * groups;
+    first[t] = g < a.G && r < a.rows && lane < a.S ? __ldcg(ml2 + (size_t)r * a.S + lane)
+                                                   : make_float2(kNegInf, 0.0f);
+  }
+#pragma unroll
+  for (int t = 0; t < kRowsPerWarp; ++t) {
+    const int g = warp + t * kWarps, r = group + g * groups;
+    if (g >= a.G || r >= a.rows) break;
+    float M = first[t].y > 0.0f ? first[t].x : kNegInf;
+    bool any = first[t].y > 0.0f;
+    for (int j = lane + 32; j < a.S; j += 32) {
+      const float2 v = __ldcg(ml2 + (size_t)r * a.S + j);
+      if (v.y > 0.0f) { M = fmaxf(M, v.x); any = true; }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, o));
+    any = __any_sync(0xffffffffu, any);
+    if (lane == 0) { s_M[g] = M; s_any[g] = any; }
+  }
+  __syncthreads();
+
+  // 3b. each row: warp w sums the run of splits [w*per, w*per + per) in
+  //     order, the block sums the runs in warp order
+  const int per = (a.S + kWarps - 1) / kWarps;
+  const int j_lo = min(a.S, warp * per), j_hi = min(a.S, j_lo + per);
+  const V* pacc_v = reinterpret_cast<const V*>(pacc);
+  for (int g = 0; g < a.G && group + g * groups < a.rows; ++g) {
+    const int r = group + g * groups;
+    V* orow = reinterpret_cast<V*>(a.out + (size_t)r * a.hd);
+    if (!s_any[g]) {                                 // every split empty: zeros
+      V z;
+      zero(z);
+      for (int x = tid; x < (int)hv; x += kThreads) orow[x] = z;
+      continue;
+    }
+    const float M = s_M[g];
+    V acc[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) zero(acc[c]);
+    float L = 0.0f;
+    for (int j0 = j_lo; j0 < j_hi; j0 += U) {
+      float2 mv[U];
+      V av[U][NC];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u;
+        const bool in = j < j_hi;
+        mv[u] = in ? __ldcg(ml2 + (size_t)r * a.S + j) : make_float2(kNegInf, 0.0f);
+        const V* src = pacc_v + ((size_t)r * a.S + (in ? j : j_lo)) * hv;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          if (in && c < ch) av[u][c] = __ldcg(src + c * 32 + lane); else zero(av[u][c]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (!(mv[u].y > 0.0f)) continue;             // an empty split wrote no acc
+        const float w = expf(mv[u].x - M);
+        L = fmaf(w, mv[u].y, L);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) axpy(acc[c], w, av[u][c]);
+      }
+    }
+    if (lane == 0) s_l[warp] = L;
+    V* mine = reinterpret_cast<V*>(s_acc + warp * a.hd);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      if (c < ch) mine[c * 32 + lane] = acc[c];
+    __syncthreads();
+    float Lt = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) Lt += s_l[w];
+    const float denom = fmaxf(Lt, 1e-30f);
+    for (int col = tid; col < a.hd; col += kThreads) {
+      float x = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) x += s_acc[w * a.hd + col];
+      a.out[(size_t)r * a.hd + col] = x / denom;
     }
     __syncthreads();
-
-    // online softmax step for this thread's output column t
-    float m_pg = kNegInf;
-    for (int u = 0; u < n_vis; ++u) m_pg = fmaxf(m_pg, scores[u]);
-    const float m_new = fmaxf(m_run, m_pg);
-    const float corr = expf(m_run - m_new);
-    const float* v_col = page + hd + t;
-    float p_sum = 0.0f, pv = 0.0f;
-#pragma unroll 4
-    for (int u = 0; u < n_vis; ++u) {
-      const float p = expf(scores[u] - m_new);
-      p_sum += p;
-      pv += p * v_col[(size_t)u * token_stride];
-    }
-    l_run = l_run * corr + p_sum;
-    acc = acc * corr + pv;
-    m_run = m_new;
-    __syncthreads();  // scores[] is rewritten by the next page
   }
-  out_row[t] = acc / fmaxf(l_run, 1e-30f);
+  if (tid == 0) a.tickets[group] = 0;                // ready for the next call
 }
 
-// pool-local: row (i, s) over pages ids[i, :] of the one pool
-__global__ void paged_attention_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ kv,
-    const int32_t* __restrict__ ids, float* __restrict__ out,
-    int Sq, int hd, int n_pages, int pt, int k, int causal) {
-  extern __shared__ float scores[];  // [pt] scores of the current page
-  const int row = blockIdx.x;        // i * Sq + s
-  const int i = row / Sq;
-  attend_row(q + (size_t)row * hd, kv, ids + (size_t)i * k,
-             out + (size_t)row * hd, scores, row - i * Sq, Sq, hd, n_pages,
-             pt, k, causal);
+template <int VEC, int NC>
+int launch(const Args& a, int blocks, cudaStream_t stream) {
+  const size_t smem = (size_t)kWarps * a.hd * sizeof(float);
+  paged_attention_split<VEC, NC><<<blocks, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
-// cross-rank: row (r, s) over pages ids[r, :] of rank (r + off) mod p's
-// pool, 0 <= off < p
-__global__ void paged_attention_shift_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ kv,
-    const int32_t* __restrict__ ids, float* __restrict__ out, int p, int off,
-    int Sq, int hd, int n_pages, int pt, int k, int causal) {
-  extern __shared__ float scores[];
-  const int row = blockIdx.x;        // r * Sq + s
-  const int r = row / Sq;
-  int owner = r + off;
-  if (owner >= p) owner -= p;
-  const float* pool = kv + (size_t)owner * n_pages * pt * 2 * hd;
-  attend_row(q + (size_t)row * hd, pool, ids + (size_t)r * k,
-             out + (size_t)row * hd, scores, row - r * Sq, Sq, hd, n_pages,
-             pt, k, causal);
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+int run(Args a, cudaStream_t stream) {
+  if (a.rows == 0) return (int)cudaSuccess;
+  if (a.hd <= 0 || a.hd % 32 || a.hd > 1024 || a.k < 1 || a.pt < 1 ||
+      a.P < 1 || a.P > kMaxPages || a.S != (a.k + a.P - 1) / a.P ||
+      a.groups < 1 || (a.rows + a.groups - 1) / a.groups > kMaxGroup)
+    return (int)cudaErrorInvalidValue;            // the plan is ops.plan's
+  a.G = (a.rows + a.groups - 1) / a.groups;
+  const long long blocks = (long long)a.groups * a.S;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  const int n = (int)blocks;
+  if (a.hd % 128 == 0 && aligned16(a.q) && aligned16(a.kv) && aligned16(a.out) &&
+      aligned16(a.ws)) {
+    switch (a.hd / 128) {                          // float4 chunks a lane
+      case 1: return launch<4, 1>(a, n, stream);
+      case 2: return launch<4, 2>(a, n, stream);
+      case 3: case 4: return launch<4, 4>(a, n, stream);
+      default: return launch<4, 8>(a, n, stream);
+    }
+  }
+  const int ch = a.hd / 32;                        // floats a lane
+  if (ch == 1) return launch<1, 1>(a, n, stream);
+  if (ch == 2) return launch<1, 2>(a, n, stream);
+  if (ch <= 4) return launch<1, 4>(a, n, stream);
+  if (ch <= 8) return launch<1, 8>(a, n, stream);
+  if (ch <= 16) return launch<1, 16>(a, n, stream);
+  return launch<1, 32>(a, n, stream);
 }
 
 }  // namespace
 
-// C entry: pointers and the stream as void*, sizes as int.  Returns
-// cudaGetLastError() after the launch (0 = launched).
+// C entries: pointers and the stream as void*, sizes as int.  `ws` holds
+// ceil(2 * rows * S / 4) * 4 + rows * S * hd floats (ops.plan's
+// `workspace`), `tickets` at least `groups` ints, all 0.  Each returns
+// cudaGetLastError() after its one launch (0 = launched), or
+// cudaErrorInvalidValue for a plan it refuses.
 extern "C" int paged_attention_f32(const void* q, const void* kv_pages,
-                                   const void* ids, void* out, int m, int Sq,
-                                   int hd, int n_pages, int pt, int k,
-                                   int causal, void* stream) {
-  const int rows = m * Sq;
-  if (rows == 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)pt * sizeof(float);
-  paged_attention_f32_kernel<<<rows, hd, smem, (cudaStream_t)stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(kv_pages),
-      static_cast<const int32_t*>(ids), static_cast<float*>(out), Sq, hd,
-      n_pages, pt, k, causal);
-  return (int)cudaGetLastError();
+                                   const void* ids, void* out, void* ws,
+                                   void* tickets, int m, int Sq, int hd,
+                                   int n_pages, int pt, int k, int causal,
+                                   int P, int S, int groups, void* stream) {
+  const Args a{static_cast<const float*>(q), static_cast<const float*>(kv_pages),
+               static_cast<const int32_t*>(ids), static_cast<float*>(out),
+               static_cast<float*>(ws), static_cast<int*>(tickets), 0, 1, 0,
+               Sq, hd, n_pages, pt, k, causal, P, S, groups, m * Sq, 0};
+  return run(a, (cudaStream_t)stream);
 }
 
 // Cross-rank entry: rank r attends over pages ids[r] of pool
-// (r + shift) mod p.  Returns cudaGetLastError() after the launch.
+// (r + shift) mod p.
 extern "C" int paged_attention_shift_f32(const void* q, const void* kv_pages,
-                                         const void* ids, void* out, int p,
-                                         int shift, int Sq, int hd,
-                                         int n_pages, int pt, int k,
-                                         int causal, void* stream) {
-  const int rows = p * Sq;
-  if (rows == 0) return (int)cudaSuccess;
-  const int off = ((shift % p) + p) % p;
-  const size_t smem = (size_t)pt * sizeof(float);
-  paged_attention_shift_f32_kernel<<<rows, hd, smem, (cudaStream_t)stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(kv_pages),
-      static_cast<const int32_t*>(ids), static_cast<float*>(out), p, off, Sq,
-      hd, n_pages, pt, k, causal);
-  return (int)cudaGetLastError();
+                                         const void* ids, void* out, void* ws,
+                                         void* tickets, int p, int shift, int Sq,
+                                         int hd, int n_pages, int pt, int k,
+                                         int causal, int P, int S, int groups,
+                                         void* stream) {
+  if (p < 1) return (int)cudaErrorInvalidValue;
+  const Args a{static_cast<const float*>(q), static_cast<const float*>(kv_pages),
+               static_cast<const int32_t*>(ids), static_cast<float*>(out),
+               static_cast<float*>(ws), static_cast<int*>(tickets),
+               (size_t)n_pages * pt * 2 * hd, p, ((shift % p) + p) % p,
+               Sq, hd, n_pages, pt, k, causal, P, S, groups, p * Sq, 0};
+  return run(a, (cudaStream_t)stream);
 }

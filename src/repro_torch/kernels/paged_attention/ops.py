@@ -4,13 +4,24 @@ cross-rank `paged_attention_shift`.
 On CPU tensors each computes its plain PyTorch version (`ref`); on CUDA
 tensors it launches its hand-written kernel (``csrc/paged_attention.cu``)
 or raises — there is no fallback.  `launches` and `shift_launches` count
-the two kernels' launches (and nothing else), so a run can show that its
+the two entries' launches (and nothing else), so a run can show that its
 path went through them.
+
+Both entries launch the same kernel once a call: each row's page walk is
+cut into splits that run on many blocks, and the last block of a group of
+rows merges the splits' partial softmax states in the same launch.
+`plan` chooses the cut from the shapes alone (the ids are never read on
+the host).  The wrapper keeps, per (device, stream), a workspace for the
+partials (`torch.empty`) and a zeroed ticket buffer, which every launch
+leaves at zero again: launches on one stream run in order, and launches
+on two streams never share either.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -19,16 +30,61 @@ from .. import common
 from . import ref
 
 _NAME = "paged_attention"
-_MAX_SMEM = 48 * 1024   # static launch limit without an opt-in attribute
+_MAX_SMEM = 48 * 1024   # the surface's limit: page_tokens * 4 bytes at most
+
+MAX_PAGES = 32          # entries a split: one warp ballot (kMaxPages in the .cu)
+MAX_GROUP = 32          # query rows a block (kMaxGroup)
+SPLIT_BYTES = 64 * 1024     # pages a split walks, in bytes of K and V
+BLOCK_BUDGET = 2 * 132      # blocks a launch aims at: the 2 an SM holds at once
 
 launches = 0            # kernel launches by `paged_attention`
 shift_launches = 0      # kernel launches by `paged_attention_shift`
 
 _SIGNATURES = {
-    "paged_attention_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
-    "paged_attention_shift_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+    "paged_attention_f32": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
+    "paged_attention_shift_f32": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
     + [ctypes.c_void_p],
 }
+_BUFFERS: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+class Plan(NamedTuple):
+    pages: int          # P: consecutive entries of a row's ids a split walks
+    splits: int         # S = ceil(k / P)
+    group: int          # G = ceil(m * Sq / groups): rows a block serves
+    groups: int         # block groups, one ticket each; group g serves rows
+                        # g, g + groups, ...
+    blocks: int         # groups * S
+    workspace: int      # floats: (m, l) of every (row, split), padded to 16
+                        # bytes, then acc[hd] of each
+
+
+@functools.lru_cache(maxsize=256)
+def plan(m: int, Sq: int, k: int, pt: int, hd: int) -> Plan:
+    """The cut of a launch, from shapes alone: splits of about SPLIT_BYTES of
+    pages (at most MAX_PAGES entries), and the fewest rows a block that keep
+    the grid within BLOCK_BUDGET (at most MAX_GROUP), then one group more
+    where that makes the number of groups odd.  Block group g serves
+    rows g, g + groups, ... one after another; `groups` is odd where a
+    block serves more than one row, so that rows a power of two apart (a
+    rank's neighbouring slots, the same slot of two ranks, a row's Sq
+    positions) land in different groups.  At the decode path's shapes
+    (k = 128 pages of 16 tokens, hd 128) a row spreads over 32 blocks."""
+    if min(m, Sq) < 0 or min(k, pt, hd) < 1:
+        raise ValueError(f"plan of m={m}, Sq={Sq}, k={k}, pt={pt}, hd={hd}")
+    page_bytes = pt * 2 * hd * 4
+    pages = min(MAX_PAGES, k, max(1, SPLIT_BYTES // page_bytes))
+    splits = -(-k // pages)
+    rows = m * Sq
+    group = 1
+    while group < min(MAX_GROUP, rows) and -(-rows // group) * splits > BLOCK_BUDGET:
+        group *= 2
+    groups = -(-rows // group)
+    if group > 1 and groups % 2 == 0:
+        groups += 1
+        group = -(-rows // groups)
+    return Plan(pages, splits, group, groups, groups * splits,
+                -(-2 * rows * splits // 4) * 4 + rows * splits * hd)
 
 
 def _fn(name: str):
@@ -37,6 +93,42 @@ def _fn(name: str):
         fn.argtypes = _SIGNATURES[name]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _buffers(device: torch.device, stream: int, workspace: int,
+             groups: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The workspace and ticket counters of `stream`, kept between calls and
+    grown when a call needs more.  The tickets are zeroed once and reset to
+    zero by each launch's merging blocks, so the next launch on the stream
+    finds them at zero; a launch's partials are written and read inside it.
+    Launches on other streams get their own."""
+    key = (device.index, stream)
+    ws, tickets = _BUFFERS.get(key, (None, None))
+    if ws is None or ws.numel() < workspace:
+        ws = torch.empty(max(workspace, 1 << 16), dtype=torch.float32, device=device)
+    if tickets is None or tickets.numel() < groups:
+        tickets = torch.zeros(max(groups, 64), dtype=torch.int32, device=device)
+    _BUFFERS[key] = ws, tickets
+    return ws, tickets
+
+
+def _launch(entry: str, q: torch.Tensor, kv_pages: torch.Tensor, ids: torch.Tensor,
+            scale: float, causal: bool, n_pages: int, pt: int, lead: tuple) -> torch.Tensor:
+    """One launch of the split kernel; `lead` is the entry's leading ints
+    (m, or p and shift)."""
+    m, Sq, hd = q.shape
+    k = ids.shape[1]
+    pl = plan(m, Sq, k, pt, hd)
+    # scale in q's dtype, as the TPU kernel; a unit scale is exact, so skipped
+    qs = (q if scale == 1.0 else (q * scale).to(q.dtype)).contiguous()
+    out = torch.empty(qs.shape, dtype=qs.dtype, device=qs.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ws, tickets = _buffers(q.device, stream, pl.workspace, pl.groups)
+    rc = _fn(entry)(qs.data_ptr(), kv_pages.data_ptr(), ids.data_ptr(), out.data_ptr(),
+                    ws.data_ptr(), tickets.data_ptr(), *lead, Sq, hd, n_pages, pt, k,
+                    int(causal), pl.pages, pl.splits, pl.groups, stream)
+    common.check(rc, _NAME)
+    return out
 
 
 def _check_cuda_args(q: torch.Tensor, kv_pages: torch.Tensor,
@@ -78,14 +170,8 @@ def paged_attention(q: torch.Tensor, kv_pages: torch.Tensor, ids: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cpu or cuda, not {q.device}")
     _check_cuda_args(q, kv_pages, ids)
-    qs = (q * scale).to(q.dtype).contiguous()   # scale in q's dtype, as the TPU kernel
-    out = torch.empty_like(qs)
-    fn = _fn("paged_attention_f32")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = fn(qs.data_ptr(), kv_pages.data_ptr(), ids.data_ptr(), out.data_ptr(),
-            m, Sq, hd, kv_pages.shape[0], kv_pages.shape[1], ids.shape[1],
-            int(causal), stream)
-    common.check(rc, _NAME)
+    out = _launch("paged_attention_f32", q, kv_pages, ids, scale, causal,
+                  kv_pages.shape[0], kv_pages.shape[1], (m,))
     global launches
     launches += 1
     return out
@@ -121,14 +207,8 @@ def paged_attention_shift(q: torch.Tensor, kv_pages: torch.Tensor,
     _check_cuda_args(q, kv_pages[0], ids)
     if not kv_pages.is_contiguous():
         raise ValueError("kv_pages and ids must be contiguous")
-    qs = (q * scale).to(q.dtype).contiguous()   # scale in q's dtype, as the TPU kernel
-    out = torch.empty_like(qs)
-    n_pages, pt = kv_pages.shape[1], kv_pages.shape[2]
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _fn("paged_attention_shift_f32")(
-        qs.data_ptr(), kv_pages.data_ptr(), ids.data_ptr(), out.data_ptr(),
-        p, int(shift) % p, Sq, hd, n_pages, pt, ids.shape[1], int(causal), stream)
-    common.check(rc, _NAME)
+    out = _launch("paged_attention_shift_f32", q, kv_pages, ids, scale, causal,
+                  kv_pages.shape[1], kv_pages.shape[2], (p, int(shift) % p))
     global shift_launches
     shift_launches += 1
     return out
