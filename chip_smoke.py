@@ -52,9 +52,13 @@ no result line):
      plain versions at the path's shapes and edge cases (shifts 0, -1,
      >= p, p = 1, ids -1 and past the pool, a fully masked row, Sq = 4
      causal, int32 pages; k = 128 with one valid rank at shifts 0, 1, -1,
-     9); timings: kernel (and the attention kernel's device time), plain,
+     9); the paged gather's hole mode (`gather_shift`'s one launch) and
+     its clamp surface bit-equal to plain with every id a hole, no hole, ids past the pool,
+     shifts 0, 1, -1, >= p, p = 1, int32 pages and 3-, 5-, 7- and 8-word
+     rows; timings: kernel (and both kernels' device time), plain,
      `index_select` / SDPA over pre-gathered K/V, and the bound counted
-     from this run's data;
+     from this run's data; `gather_shift` (hole mode) by variant beside
+     `index_select` + `masked_fill_` and its own bound;
   6. the MILC halo stencil (`repro_torch.apps.milc`) at p=131,072 ranks of
      the paper's weak-scaling local volume 8x4x4x4 sites x 6 f32 (a 1.5 GiB
      lattice, 192 MiB halos each way): 5 steps as a user calls them, every
@@ -78,7 +82,10 @@ no result line):
      halo views as the stencil passes them: kernel, plain, torch.roll /
      index_add / expand yardsticks, Tensor.copy_ of the same bytes, and the
      bytes bound at 3.35 TB/s), and the H100 model's measured constants:
-     the PyTorch op's launch latency, the event latency, the copy_ rate;
+     the PyTorch op's launch latency, the event latency, the copy_ rate,
+     a csrc kernel's launch beside the torch op's, and that launch cut into
+     its parts on the host (checks, allocation, stream lookup, binding,
+     ctypes, cudaLaunchKernel) beside the parts of the path before it;
  11. dynamic sparse data exchange (`repro_torch.core.dsde`) at p=4096 ranks
      in the paper's Fig. 7b setting (`benchmarks/bench_dsde.py:14-20`): k=6
      items of 2 f32 a rank to uniform random targets from a seeded numpy
@@ -96,7 +103,11 @@ no result line):
      plain version and to the protocol it stands for
      (`notify.notified_put_shift`, `notify.accumulate_counts`,
      `queue.enqueue_shift`), launches counted; then edge cases against the
-     plain versions and timings (kernel, plain, library call, bytes bound);
+     plain versions (notify_accumulate also at p = 4096 and 4099, shift 4
+     and unaligned pointers) and timings (kernel, plain, library call,
+     bytes bound; notify_accumulate's device time a call, queued behind a
+     spin kernel: the profiler lost one of its 50 records in every window
+     of some runs);
  13. the continuous-batching engine (`repro_torch.serve.engine`) on
      SmolLM-360M at its published widths (32 layers, d_model 960, 15/5
      heads of 64, vocab 49152; random bf16 weights from a seed), 8 slots,
@@ -187,7 +198,15 @@ no result line):
      no ring), the "simt" variant on the same inputs,
      the plain version, the unfused `core.collectives.ring_all_gather` +
      `torch.matmul` (the library yardstick) and the bound (all n products
-     at 989 TFLOP/s bf16, or the bytes at 3.35 TB/s).
+     at 989 TFLOP/s bf16, or the bytes at 3.35 TB/s); `allgather_matmul_plan`'s
+     prices of both arms beside their measured times (its unfused arm is
+     kernel row 7's all-gather + `torch.matmul`, each also timed alone):
+     the run fails unless the plan's choice at each projection is the arm
+     measured faster, or within 5 % of it; both arms at m = 16 are logged.
+
+``python3 chip_smoke.py --gather-shift`` times only `rmem.pages.gather_shift`
+and `paged_gather` at the rendezvous pull's shape on the package beside the
+script (two trees in one call: copy the script into each).
 
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after.
@@ -415,21 +434,61 @@ def self_us(e) -> float:
 def device_ms(fn, key: str, reps: int = 50) -> float:
     """Mean device time of one launch of the kernels whose name holds `key`
     over `reps` calls of `fn`, from `torch.profiler`'s kernel events: the
-    host's cost of a launch left out, which `time_ms` includes."""
+    host's cost of a launch left out, which `time_ms` includes.  The
+    profiler must see exactly `reps` such launches.  It now and then drops
+    a short kernel's events (a window of a 2 µs kernel once saw 49 of 50),
+    so a window that saw fewer is profiled again, three windows at most,
+    each short one logged; a window that saw more fails at once."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if key in e.key]
-    n = sum(e.count for e in events)
-    if n != reps:
-        raise AssertionError(f"the profiler saw {n} launches of {key}, want {reps}")
-    return sum(map(self_us, events)) / n / 1e3
+    attempts = 3
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if key in e.key]
+        n = sum(e.count for e in events)
+        if n == reps:
+            return sum(map(self_us, events)) / n / 1e3
+        log(f"device_ms: the profiler saw {n} launches of {key}, want {reps} "
+            f"(window {attempt + 1} of {attempts})")
+        if n > reps:
+            break
+    raise AssertionError(f"the profiler saw {n} launches of {key}, want {reps}")
+
+
+def queued_ms(fn, reps: int = 50) -> float:
+    """Mean device time of one call of `fn` with the host's cost taken out,
+    without the profiler (whose kernel records of a 2 µs kernel came back
+    one short in some windows): a spin kernel (`torch.cuda._sleep`) holds
+    the stream while the host queues `reps` calls between two CUDA events,
+    so the device then runs them back to back, the gaps between launches
+    included.  Fails if the host had not queued them all before the spin
+    ended."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    torch.cuda._sleep(50_000_000)                    # ~25 ms at the card's clocks
+    ev[1].record()
+    t0 = time.perf_counter()
+    ev[2].record()
+    for _ in range(reps):
+        fn()
+    ev[3].record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    spin_ms = ev[0].elapsed_time(ev[1])
+    if host_ms > 0.8 * spin_ms:
+        raise AssertionError(f"queued_ms: the host took {host_ms:.3f} ms to queue {reps} "
+                             f"calls, the spin only {spin_ms:.3f} ms")
+    return ev[2].elapsed_time(ev[3]) / reps
 
 
 def check_kernel(ops, ref, q, kv, ids, causal=False, scale=None) -> float:
@@ -834,10 +893,14 @@ def check_pull_kernels(torch, pa_ops, pa_ref, pg_ops, pg_ref, Mesh, run, ops_run
     errs = {"paged_gather": 0.0, "paged_attention_shift": 0.0}
 
     def gather(x, ids, s, msh, what):
-        out = pg_ops.paged_gather(x, ids, s, msh)
-        if not torch.equal(out.view(torch.int32), pg_ref.paged_gather_ref(
-                x, ids, s, msh).view(torch.int32)):
-            raise AssertionError(f"paged_gather differs from its plain version at {what}")
+        """Both surfaces (clamp, hole mode), bit-equal to plain."""
+        for holes, plain in ((False, pg_ref.paged_gather_ref),
+                             (True, pg_ref.paged_gather_holes_ref)):
+            want = plain(x, ids, s, msh).view(torch.int32)
+            out = pg_ops.paged_gather(x, ids, s, msh, holes=holes)
+            if not torch.equal(out.view(torch.int32), want):
+                raise AssertionError(f"paged_gather (holes={holes}) differs from its plain "
+                                     f"version at {what}")
 
     def attend(q, kv, ids, s, msh, what, **kw):
         out = pa_ops.paged_attention_shift(q, kv, ids, s, msh, **kw)
@@ -851,16 +914,26 @@ def check_pull_kernels(torch, pa_ops, pa_ref, pg_ops, pg_ref, Mesh, run, ops_run
     k = run["entries"].shape[1] * run["entries"].shape[2]
     ids = torch.randint(-1, pool.shape[1] + 3, (p, k), generator=g, device="cuda",
                         dtype=torch.int32)
+    every = torch.full_like(ids, -1)                   # every id a hole
+    none = torch.randint(0, pool.shape[1], ids.shape, generator=g, device="cuda",
+                         dtype=torch.int32)             # no hole
     for s in (0, 1, -1, p + 2):
-        gather(pool, ids, s, mesh, f"the pool {tuple(pool.shape)}, ids {tuple(ids.shape)}, shift {s}")
+        for name, i in (("mixed", ids), ("every id a hole", every), ("no hole", none)):
+            gather(pool, i, s, mesh, f"the pool {tuple(pool.shape)}, ids {tuple(i.shape)} "
+                   f"({name}), shift {s}")
     ints = torch.randint(-2**31, 2**31 - 1, (3, 7, 5), generator=g, device="cuda",
                          dtype=torch.int32)
     small = torch.tensor([[0, -1, 9, 2], [6, 1, -3, 7], [3, 3, 0, 8]], device="cuda",
                          dtype=torch.int32)
+    m3 = Mesh(3, "x", device="cuda")
     for s in (0, 1, -1, 4):
-        gather(ints, small, s, Mesh(3, "x", device="cuda"), f"int32 [3, 7, 5] shift {s}")
+        gather(ints, small, s, m3, f"int32 [3, 7, 5] shift {s}")
+        for words in (3, 7, 8):
+            x = torch.randn(3, 9, words, generator=g, device="cuda")
+            gather(x, small, s, m3, f"[3, 9, {words}] shift {s}")
     one = Mesh(1, "x", device="cuda")
     gather(ints[:1], small[:1], 5, one, "p = 1")
+    gather(pool[:1], ids[:1], 3, one, "p = 1, a serving page")
 
     q = run["params"]["w_q"].expand(p, 1, pool.shape[-1]).contiguous()
     for (s, _), a_ids in ops_run["att_ids"].items():
@@ -893,8 +966,10 @@ def check_pull_kernels(torch, pa_ops, pa_ref, pg_ops, pg_ref, Mesh, run, ops_run
             if float(out[[0, 1, 3]].abs().max()) != 0.0:
                 raise AssertionError("a rank with no pages did not give zeros at k = 128")
     torch.cuda.synchronize()
-    log("paged_gather vs plain: bit-equal at the rendezvous pool with path-sized ids "
-        "and at shifts 0, -1, >= p, p = 1, ids -1 and past the pool, int32 pages; "
+    log("paged_gather vs plain (clamp surface and hole mode): "
+        "bit-equal at the rendezvous pool with path-sized ids (mixed, every id a hole, no "
+        "hole) and at shifts 0, 1, -1, >= p, p = 1, ids -1 and past the pool, int32 pages, "
+        "3-, 5-, 7- and 8-word rows; "
         f"paged_attention_shift vs plain: max abs err {errs['paged_attention_shift']:.3g} "
         f"(tol {TOL}) at the path's ids and at masked pages, a fully masked row, Sq = 4 "
         "causal, shifts 0, -1, >= p, p = 1, and k = 128 with one valid rank at shifts "
@@ -902,7 +977,7 @@ def check_pull_kernels(torch, pa_ops, pa_ref, pg_ops, pg_ref, Mesh, run, ops_run
     return errs
 
 
-def time_pull_kernels(torch, F, pa_ops, pa_ref, pg_ops, pg_ref, Mesh, run, ops_run,
+def time_pull_kernels(torch, F, pa_ops, pa_ref, pg_ops, pg_ref, rpg, Mesh, run, ops_run,
                       errs: dict, hbm: float) -> list:
     """Kernel, plain version, library yardstick and bytes bound at the
     rendezvous path's inputs (the busiest shift's ids)."""
@@ -956,6 +1031,9 @@ def time_pull_kernels(torch, F, pa_ops, pa_ref, pg_ops, pg_ref, Mesh, run, ops_r
         row = {}
         if name == "paged_attention_shift":
             row["device_ms"] = device_ms(kern, "paged_attention_split")
+        else:
+            row = time_gather_shift(torch, pg_ops, pg_ref, rpg, mesh, pool, ids, s, flat, rows,
+                                    hbm, k_ms)
         bound, bound_by = max((nbytes / hbm * 1e3, "bytes"),
                               (flops / F32_FLOPS_PER_S * 1e3, "operations"))
         dev = f" (device {row['device_ms'] * 1e3:.2f} us)" if row else ""
@@ -967,6 +1045,36 @@ def time_pull_kernels(torch, F, pa_ops, pa_ref, pg_ops, pg_ref, Mesh, run, ops_r
                     "max_abs_err": errs[name], "ms": k_ms, **row, "plain_ms": p_ms,
                     "bound_ms": bound, "bound_by": bound_by, "library_ms": l_ms})
     return out
+
+
+def time_gather_shift(torch, pg_ops, pg_ref, rpg, mesh, pool, ids, s, flat, rows,
+                      hbm: float, clamp_ms: float) -> dict:
+    """Row 3 beyond its clamp surface, at the pull's inputs: its device time,
+    and `rmem.pages.gather_shift`
+    (one launch in hole mode) against its library pair (`index_select`,
+    then `masked_fill_` of the holes) and its bound: every output row
+    written once, each distinct valid row read once, the ids.  Returns the
+    kernels line's extra keys."""
+    p, k, w = ids.shape[0], ids.shape[1], flat.shape[1]
+    hole = (ids < 0).reshape(-1, 1)
+    valid = int((~hole).sum())
+    gs_bytes = (p * k + rows[~hole[:, 0]].unique().numel()) * w * 4 + ids.numel() * 4
+    gs_bound = gs_bytes / hbm * 1e3
+    t = {"device_ms": device_ms(lambda: pg_ops.paged_gather(pool, ids, s, mesh), "gather_rows"),
+         "gather_shift_device_ms": device_ms(
+             lambda: pg_ops.paged_gather(pool, ids, s, mesh, holes=True), "gather_rows")}
+    before = pg_ops.launches
+    t["gather_shift_ms"] = time_ms(lambda: rpg.gather_shift(mesh, pool, ids, s))
+    if pg_ops.launches - before != 53:                   # 3 warm-up + 50 timed calls
+        raise AssertionError(f"gather_shift: {pg_ops.launches - before} launches in 53 calls")
+    t["gather_shift_library_ms"] = time_ms(lambda: flat.index_select(0, rows).masked_fill_(hole, 0))
+    t["gather_shift_bound_ms"] = gs_bound
+    log(f"paged_gather at the pull's inputs ({card_line()}): clamp surface {clamp_ms * 1e3:.1f} "
+        f"us (device {t['device_ms'] * 1e3:.2f} us); gather_shift (hole mode, one launch) "
+        f"{t['gather_shift_ms'] * 1e3:.1f} us (device {t['gather_shift_device_ms'] * 1e3:.2f} "
+        f"us); index_select + masked_fill_ {t['gather_shift_library_ms'] * 1e3:.1f} us; bound "
+        f"{gs_bound * 1e3:.2f} us ({gs_bytes} bytes: {p * k} rows written, {valid} valid)")
+    return t
 
 
 def rendezvous_phases(torch, F, disagg, fused_tokens: dict, fused_ms: float,
@@ -986,7 +1094,7 @@ def rendezvous_phases(torch, F, disagg, fused_tokens: dict, fused_ms: float,
     ops_run = pull_ops_phase(torch, pa_ops, pg_ops, rpg, Mesh, run)
     errs = check_pull_kernels(torch, pa_ops, pa_ref, pg_ops, pg_ref, Mesh, run, ops_run)
     errs["paged_attention_shift"] = max(errs["paged_attention_shift"], ops_run["ctx_err"])
-    rows = time_pull_kernels(torch, F, pa_ops, pa_ref, pg_ops, pg_ref, Mesh, run,
+    rows = time_pull_kernels(torch, F, pa_ops, pa_ref, pg_ops, pg_ref, rpg, Mesh, run,
                              ops_run, errs, hbm)
     del run
     return rows
@@ -1203,8 +1311,88 @@ def model_constants(torch, rma_ops, Mesh) -> dict:
     out = {"launch_latency": lat_torch, "event_latency": event,
            "copy_bandwidth": 2 * 2**30 / (copy_ms * 1e-3)}
     log("model constants measured: " + ", ".join(f"{k} {v:.6g}" for k, v in out.items())
-        + f"; a csrc kernel's ctypes launch {lat_kernel:.6g} s")
+        + f"; a csrc kernel's ctypes launch {lat_kernel:.6g} s "
+        f"({lat_kernel / lat_torch:.2f}x the torch op)")
     return out
+
+
+def launch_breakdown(torch, common, rma_ops, rmaq_ops, Mesh, n: int = 10_000) -> dict:
+    """One call of `rma.ops.put_shift` (a one-word put, p = 1, the launch
+    figure of `model_constants`) and of `rmaq.ops.notify_accumulate` (the
+    DSDE doorbell's p = 4096) cut into its parts, each timed alone on the
+    host over n calls with `time.perf_counter_ns`: the argument checks, the
+    rank-block test, the output's allocation, the stream lookup, the entry's
+    binding, the ctypes call without a launch (a zero-size call returns
+    before it) and cudaLaunchKernel (the call with a launch, less the call
+    without).  Beside each part of the lean path stands the part as the
+    path before it made it: ``x[0].is_contiguous()`` and ``x[0].numel()``,
+    ``torch.empty(shape, dtype=, device=)``, a ``torch.cuda.Stream`` built
+    to read ``.cuda_stream``, the build lock and the library's symbol
+    lookup.  Returns µs a call by part."""
+    def per_call(fn):
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(n):
+            fn()
+        t1 = time.perf_counter_ns()
+        torch.cuda.synchronize()
+        return (t1 - t0) / n / 1e3
+
+    word = torch.zeros(1, 4, device="cuda")
+    m1 = Mesh(1, "x", device="cuda")
+    p = DSDE_P
+    mp = Mesh(p, "x", device="cuda")
+    cnt = torch.zeros(p, dtype=torch.int32, device="cuda")
+    local = torch.zeros_like(cnt)
+    tiny = torch.zeros(1, device="cuda")
+    dev = word.get_device()
+    stream = common.current_stream(dev)
+    out1, outp = torch.empty_like(word), torch.empty_like(cnt)
+    put, acc = rma_ops._PUT, rmaq_ops._ACC
+    put(word.data_ptr(), out1.data_ptr(), 1, 4, 4, 1, stream)     # bound before timing
+    acc(cnt.data_ptr(), local.data_ptr(), outp.data_ptr(), p, 1, stream)
+    parts = {
+        "torch op (tiny.add_)": lambda: tiny.add_(1.0),
+        "put_shift: whole call": lambda: rma_ops.put_shift(word, 1, m1),
+        "put_shift: checks": lambda: (rma_ops._on_card("put_shift", m1, word),
+                                      word.dtype.itemsize, word.dtype.is_complex),
+        "put_shift: rank block from strides": lambda: rma_ops._rows(word),
+        "put_shift: rank block by x[0] views (before)": lambda: (
+            word[0].is_contiguous(), word[0].numel(), word.stride(0)),
+        "put_shift: output, empty_like": lambda: rma_ops._fresh(word),
+        "put_shift: output, torch.empty(shape, dtype, device) (before)": lambda: torch.empty(
+            word.shape, dtype=word.dtype, device=word.device),
+        "stream: raw handle": lambda: common.current_stream(word.get_device()),
+        "stream: torch.cuda.current_stream().cuda_stream (before)": lambda: (
+            torch.cuda.current_stream().cuda_stream),
+        "binding: the bound entry": lambda: put.fn,
+        "binding: lock, library and symbol lookup (before)": lambda: (
+            getattr(common.load("rma"), "rma_put_shift").argtypes is None),
+        "put_shift: ctypes call, no launch": lambda: put.fn(
+            word.data_ptr(), out1.data_ptr(), 1, 0, 0, 1, stream),
+        "put_shift: ctypes call with the launch": lambda: put.fn(
+            word.data_ptr(), out1.data_ptr(), 1, 4, 4, 1, stream),
+        "notify_accumulate: whole call": lambda: rmaq_ops.notify_accumulate(cnt, local, 1, mp),
+        "notify_accumulate: checks": lambda: (
+            cnt.shape != (p,) or local.shape != (p,),
+            rma_ops._on_card("notify_accumulate", mp, cnt, local),
+            cnt.dtype != torch.int32 or local.dtype != torch.int32,
+            cnt.contiguous(), local.contiguous()),
+        "notify_accumulate: output, empty_like": lambda: torch.empty_like(local),
+        "notify_accumulate: ctypes call, no launch": lambda: acc.fn(
+            cnt.data_ptr(), local.data_ptr(), outp.data_ptr(), 0, 1, stream),
+        "notify_accumulate: ctypes call with the launch": lambda: acc.fn(
+            cnt.data_ptr(), local.data_ptr(), outp.data_ptr(), p, 1, stream),
+    }
+    us = {name: per_call(fn) for name, fn in parts.items()}
+    for op in ("put_shift", "notify_accumulate"):
+        us[f"{op}: cudaLaunchKernel (with - without)"] = (
+            us[f"{op}: ctypes call with the launch"] - us[f"{op}: ctypes call, no launch"])
+    log(f"launch breakdown ({card_line()}; host µs a call, {n} calls each, "
+        "perf_counter_ns): " + "; ".join(f"{k} {v:.3f}" for k, v in us.items()))
+    return us
 
 
 def time_rma(torch, rma_ops, ref, Mesh, launches: dict, errs: dict, hbm: float) -> list:
@@ -1266,8 +1454,10 @@ def rma_phases(torch) -> list:
     from repro_torch.core import plan as plan_mod
     from repro_torch.core.perfmodel import H100, HardwareSpec, PerfModel
     from repro_torch.core.rma import OpCounter
+    from repro_torch.kernels import common
     from repro_torch.kernels.rma import ops as rma_ops
     from repro_torch.kernels.rma import ref
+    from repro_torch.kernels.rmaq import ops as rmaq_ops
     from repro_torch.mesh import Mesh
 
     milc_run = milc_phase(torch, plan_mod, epoch_mod, rma_ops, milc, Mesh, OpCounter)
@@ -1282,6 +1472,7 @@ def rma_phases(torch) -> list:
     errs = check_rma(torch, rma_ops, ref, Mesh)
     torch.cuda.empty_cache()
     consts = model_constants(torch, rma_ops, Mesh)
+    launch_breakdown(torch, common, rma_ops, rmaq_ops, Mesh)
     rows = time_rma(torch, rma_ops, ref, Mesh, launches, errs, H100.hbm_bandwidth)
     log("model constants, measured vs spec: " + ", ".join(
         f"{k} {v:.4g}/{getattr(H100, k):.4g}" for k, v in consts.items()))
@@ -1557,9 +1748,25 @@ def check_rmaq(torch, ops, ref, Mesh) -> dict:
                 compare("queue_push", ops.queue_push(buf.clone(), ctr.clone(), msgs, s, mesh),
                         ref.queue_push_ref(buf.clone(), ctr.clone(), msgs, s, mesh, 8),
                         f"{what} used {used} tail {tail}")
+    # notify_accumulate's two runs, its 16-byte vectors (local and out at an
+    # aligned pointer; cnt too where off and p are multiples of 4) and its
+    # single words (a pointer 1 or 3 words past a 16-byte boundary)
+    for p in (1, 5, 4096, 4099):
+        mesh = Mesh(p, "x", device="cuda")
+        for lead_c, lead_l in ((0, 0), (1, 0), (1, 3)):
+            cnt = torch.randint(-2**31, 2**31 - 1, (p + lead_c,), device="cuda", generator=g,
+                                dtype=torch.int32)[lead_c:]
+            local = torch.randint(-2**31, 2**31 - 1, (p + lead_l,), device="cuda", generator=g,
+                                  dtype=torch.int32)[lead_l:]
+            for s in (0, 1, -1, 4, p + 3):
+                compare("notify_accumulate", (ops.notify_accumulate(cnt, local, s, mesh),),
+                        (ref.notify_accumulate_ref(cnt, local, s, mesh),),
+                        f"p={p} shift {s} pointer offsets {lead_c}, {lead_l} words")
     torch.cuda.synchronize()
     log("rmaq kernels vs plain: bit-equal at shifts 0, 1, -1, >= p, p = 1, 7- and 3-word "
-        f"rows, tails past 2**31 and 2**32, a full ring; max abs err {errs}")
+        f"rows, tails past 2**31 and 2**32, a full ring; notify_accumulate at p = 1, 5, "
+        f"4096, 4099, shifts 0, 1, -1, 4, p + 3, int32 sums past 2**31, cnt and local at "
+        f"aligned and unaligned pointers; max abs err {errs}")
     return errs
 
 
@@ -1593,13 +1800,18 @@ def time_rmaq(torch, rq, ops, ref, run: dict, ops_run: dict, errs: dict, hbm: fl
     for name, (kern, plain, lib, nbytes) in rows.items():
         k_ms, p_ms = time_ms(kern), time_ms(plain)
         l_ms = time_ms(lib) if lib is not None else None
+        row = {}
+        if name == "notify_accumulate":     # device time a call, the gaps between launches in
+            row["queued_ms"] = queued_ms(kern)
         bound = nbytes / hbm * 1e3
-        log(f"{name}: kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, library "
+        dev = (f" (device {row['queued_ms'] * 1e3:.2f} us a call queued back to back behind a "
+               "spin kernel)") if row else ""
+        log(f"{name}: kernel {k_ms * 1e3:.1f} us{dev}, plain {p_ms * 1e3:.1f} us, library "
             f"{'—' if l_ms is None else f'{l_ms * 1e3:.1f} us'}, bound {bound * 1e3:.3f} us "
             f"(bytes {nbytes})")
         out.append({"name": name, "route": KERNELS[name][0], "source": KERNELS[name][1],
                     "replaces": KERNELS[name][2], "launches": ops_run["launches"][name],
-                    "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
+                    "max_abs_err": errs[name], "ms": k_ms, **row, "plain_ms": p_ms,
                     "bound_ms": bound, "bound_by": "bytes", "library_ms": l_ms})
     return out
 
@@ -2512,6 +2724,25 @@ def resume_phase(torch, np, state: dict) -> None:
             f"at that rate (host CPU of the {card_line()} machine)")
 
 
+def unfused_arm(torch, rma_ops, x_t, w, mesh):
+    """`allgather_matmul_plan`'s unfused arm: kernel row 7 gathers every
+    rank's copy of W [n, K/n, N] (bf16 pairs moved as 32-bit words), then
+    one torch.matmul of x_t.T against each: [n, m, N] bf16."""
+    n, ks, N = w.shape
+    gathered = rma_ops.ring_all_gather(w.view(torch.int32), mesh).view(w.dtype)
+    return torch.matmul(x_t.T, gathered.reshape(n, n * ks, N))
+
+
+def fwd_rate(m: int, K: int, N: int, n: int, ring_ms: float, one_ms: float) -> float:
+    """B/s the ring kernel's forward reached: W's chunks that cross the ring
+    (ceil(m / 128) tiles of m, (n - 1) K N bf16 words each) over the time the
+    n-rank call takes beyond n one-copy calls."""
+    from repro_torch.core.perfmodel import RING_TILE
+
+    forwarded = -(-m // RING_TILE) * (n - 1) * K * N * 2
+    return forwarded / max(ring_ms - n * one_ms, 1e-9) * 1e3
+
+
 def ring_phase(torch, taps: dict, hbm: float) -> dict:
     """Kernel row 13 through `ops.ring_matmul` on the training run's own
     layer-0 activations and weights, the MLP's up and down projections
@@ -2523,6 +2754,7 @@ def ring_phase(torch, taps: dict, hbm: float) -> dict:
 
     from repro_torch.core import collectives
     from repro_torch.kernels.ring_matmul import ops as rops
+    from repro_torch.kernels.rma import ops as rma_ops
     from repro_torch.kernels.ring_matmul import ref as rref
     from repro_torch.mesh import Mesh
     from repro_torch.parallel.overlap import CollectiveStrategist
@@ -2613,6 +2845,17 @@ def ring_phase(torch, taps: dict, hbm: float) -> dict:
         p_ms = time_ms(lambda: rref.ring_matmul_ref(xt, ws, mesh), reps=5, warmup=1)
         l_ms = time_ms(lambda: torch.matmul(
             xt.T, collectives.ring_all_gather(ws, mesh).reshape(n, K, N)), reps=20)
+        # the plan's unfused arm: kernel row 7 gathers W (its bf16 pairs as
+        # 32-bit words), then one torch.matmul; each part also alone
+        u_ms = time_ms(lambda: unfused_arm(torch, rma_ops, xt, ws, mesh), reps=20)
+        if not torch.equal(unfused_arm(torch, rma_ops, xt, ws, mesh), torch.matmul(
+                xt.T, collectives.ring_all_gather(ws, mesh).reshape(n, K, N))):
+            raise AssertionError(f"ring_matmul ({name}): the unfused arm's gather differs "
+                                 "from core.collectives.ring_all_gather's")
+        gathered = collectives.ring_all_gather(ws, mesh).reshape(n, K, N)
+        ag_ms = time_ms(lambda: rma_ops.ring_all_gather(ws.view(torch.int32), mesh), reps=20)
+        mm_ms = time_ms(lambda: torch.matmul(xt.T, gathered), reps=20)
+        del gathered
         flops = 2 * n * m * K * N
         nbytes = xt.numel() * xt.element_size() + ws.numel() * ws.element_size() + n * m * N * 4
         bound_ms, bound_by = max((flops / BF16_FLOPS_PER_S * 1e3, "operations"),
@@ -2630,8 +2873,38 @@ def ring_phase(torch, taps: dict, hbm: float) -> dict:
             f"({bound_by}: {flops / 1e9:.1f} GFLOP for the {n} copies at "
             f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s; {nbytes / 1e6:.1f} MB at "
             f"{hbm / 1e12:.2f} TB/s)")
+        # the plan's choice against the two arms as measured here
+        model = strat.model
+        price = {"fused_ring": model.p_ring_matmul(m, K, N, n),
+                 "unfused": model.p_allgather_matmul(m, K, N, n)}
+        measured = {"fused_ring": k_ms, "unfused": u_ms}
+        fastest = min(measured.values())
+        log(f"allgather_matmul_plan at the {name} projection: {plans[name]!r}; priced "
+            f"fused_ring {price['fused_ring'] * 1e3:.4f} / unfused {price['unfused'] * 1e3:.4f} "
+            f"ms; measured fused_ring {k_ms:.4f} / unfused {u_ms:.4f} ms (row 7's all-gather "
+            f"{ag_ms:.4f} ms, {(1 + n) * K * N * 2 / ag_ms / 1e9:.3f} TB/s; torch.matmul "
+            f"{mm_ms:.4f} ms, {flops / mm_ms / 1e9:.1f} TFLOP/s; the kernel's forward at "
+            f"{fwd_rate(m, K, N, n, k_ms, one_ms) / 1e12:.3f} TB/s, its one-copy products at "
+            f"{flops / n / one_ms / 1e9:.1f} TFLOP/s; core.collectives.ring_all_gather + "
+            f"torch.matmul {l_ms:.4f} ms)")
+        if measured[plans[name]] > 1.05 * fastest:
+            raise AssertionError(f"allgather_matmul_plan chose {plans[name]!r} at the {name} "
+                                 f"projection: {measured[plans[name]]:.4f} ms, more than 5 % "
+                                 f"above the faster arm's {fastest:.4f} ms")
         times[name] = {"ms": k_ms, "simt_ms": s_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                       "bound_ms": bound_ms, "bound_by": bound_by, "one_copy_ms": one_ms}
+                       "bound_ms": bound_ms, "bound_by": bound_by, "one_copy_ms": one_ms,
+                       "unfused_ms": u_ms, "all_gather_ms": ag_ms, "matmul_ms": mm_ms}
+    # a 16-token call: one tile of m, where the model prices one launch above
+    # the ring (recorded, not held: the plan's decision here is the model's)
+    xt, w = cases["up"]
+    x16, w16 = xt[:, :16].contiguous(), shard(w, RING_N)
+    k16 = time_ms(lambda: rops.ring_matmul_ranks(x16, w16, mesh), reps=20)
+    u16 = time_ms(lambda: unfused_arm(torch, rma_ops, x16, w16, mesh), reps=20)
+    log(f"allgather_matmul_plan at m = 16 (the up projection's first 16 tokens): "
+        f"{strat.allgather_matmul_plan(16, xt.shape[0], w.shape[1], RING_N)!r}; priced "
+        f"fused_ring {strat.model.p_ring_matmul(16, xt.shape[0], w.shape[1], RING_N) * 1e3:.4f}"
+        f" / unfused {strat.model.p_allgather_matmul(16, xt.shape[0], w.shape[1], RING_N) * 1e3:.4f}"
+        f" ms; measured fused_ring {k16:.4f} / unfused {u16:.4f} ms")
     return {"variant": "wgmma", "launches": launches, "max_abs_err": errs["up"][0],
             **times["up"]}
 
@@ -2660,5 +2933,42 @@ def training_phases(torch, hbm: float) -> list:
              **ring}]
 
 
+def gather_shift_only() -> int:
+    """``python3 chip_smoke.py --gather-shift``: `rmem.pages.gather_shift`
+    and `kernels.paged_gather.ops.paged_gather` (the surface every version
+    of the port has) at the rendezvous pull's shape, on the package beside
+    this file, so that two trees can be timed in one call: a pool of
+    FULL's 8192 pages [16, 2, 128] f32 a rank over 4 ranks, ids [4, 2048]
+    with one request's 128 pages valid (the busiest shift's pull), shift 1,
+    seeded.  Prints one JSON line with the card and the CUDA-event times."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels.paged_gather import ops
+    from repro_torch.mesh import Mesh
+    from repro_torch.rmem import pages
+
+    p, n_pages = 4, FULL["pool_pages"]
+    pt, hd = FULL["page_tokens"], FULL["d_model"]
+    k = 16 * FULL["block_tokens"] // pt
+    g = torch.Generator(device="cuda").manual_seed(0)
+    pool = torch.randn(p, n_pages, pt, 2, hd, generator=g, device="cuda")
+    ids = torch.full((p, k), -1, dtype=torch.int32, device="cuda")
+    ids[0, 256:384] = torch.randperm(n_pages, generator=g, device="cuda")[:128].to(torch.int32)
+    mesh = Mesh(p, "serve", device="cuda")
+    want = pool[1, ids[0, 256:384].long()]
+    got = pages.gather_shift(mesh, pool, ids, 1)
+    if not (torch.equal(got[0, 256:384], want) and not got[0, :256].any()
+            and not got[1:].any()):
+        raise AssertionError("gather_shift differs from the pages it names")
+    out = {"card": card_line(), "tree": ROOT,
+           "gather_shift_ms": time_ms(lambda: pages.gather_shift(mesh, pool, ids, 1)),
+           "paged_gather_ms": time_ms(lambda: ops.paged_gather(pool, ids, 1, mesh))}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(gather_shift_only() if sys.argv[1:] == ["--gather-shift"] else main())

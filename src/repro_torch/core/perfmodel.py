@@ -52,7 +52,25 @@ class HardwareSpec:
     launch_latency: float = 10.1e-6         # s per PyTorch op, back to back
     event_latency: float = 15.3e-6          # s: record an event + wait on it
     copy_bandwidth: float = 3.00e12         # B/s read + written by Tensor.copy_
-
+    # The FSDP contraction's two arms (`PerfModel.p_ring_matmul`,
+    # `p_allgather_matmul`), from chip_smoke.py's ring phase at the training
+    # run's layer-0 MLP projections: two runs in one call on an NVIDIA H100
+    # 80GB HBM3 at a 700 W power limit, each rate the combined one of both
+    # projections and both runs (PERF.md, "allgather_matmul_plan's prices"):
+    ring_call_latency: float = 69.2e-6      # s: one ring_matmul call at m = 16, host-bound
+    ring_product_flops: float = 388.5e12    # FLOP/s of the ring kernel's "wgmma" products at
+    #                                         n = 1 (one copy, no ring; x_t read again by
+    #                                         every tile column included)
+    ring_forward_bandwidth: float = 2.90e12  # B/s W's chunks cross the ring at: the n = 4
+    #                                          call less 4 one-copy calls, over the
+    #                                          forwarded bytes (up 5.66-5.80, down
+    #                                          1.93-1.96 alone)
+    ring_simt_flops: float = 45.1e12        # FLOP/s of the ring kernel's "simt" variant
+    unfused_call_latency: float = 72.3e-6   # s: kernel row 7 + torch.matmul at m = 16,
+    #                                         host-bound
+    gemm_flops_bf16: float = 744.5e12       # FLOP/s of torch.matmul, bf16 in and out
+    all_gather_bandwidth: float = 1.40e12   # B/s read + written by kernel row 7
+    #                                         (ring_all_gather) gathering W, its launch in
 
 H100 = HardwareSpec()
 
@@ -64,6 +82,13 @@ H100 = HardwareSpec()
 # model gives that point by construction, and no other p, k or capacity
 # has been measured against it.
 QUEUE_EXCHANGE_PASSES = 11.4
+
+# The ring kernel's "wgmma" variant (`kernels.ring_matmul.ops.variant`): one
+# block a rank in a cluster of at most RING_MAX_RANKS, output tiles of
+# RING_TILE rows of m; its TMA reads 16-byte rows of x_t [K, m] and w
+# [n, K/n, N], so m and N are multiples of 8 bf16 words.
+RING_MAX_RANKS, RING_TILE = 8, 128
+F32_FLOPS = 67e12       # FLOP/s, f32 outside the tensor cores (data sheet)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -363,6 +388,55 @@ class PerfModel:
         drain = p * ring * (msg_bytes + 9)
         return (self.p_queue_reserve() + n_msgs * self.p_queue_enqueue(msg_bytes)
                 + self._rw(send + drain, QUEUE_EXCHANGE_PASSES))
+
+    def ring_variant(self, m: int, n: int, shards: int,
+                     dtype_bytes: int = 2) -> Literal["wgmma", "simt"]:
+        """The ring kernel's variant for Y = x [m, k] @ W [k, n] over `shards`
+        ranks, from the shapes alone: "wgmma" (one clustered launch) iff bf16
+        at 1 <= shards <= RING_MAX_RANKS with m and n whole 16-byte rows,
+        else "simt".  `kernels.ring_matmul.ops.variant` is the rule the
+        kernel follows; on contiguous tensors the two agree (tested)."""
+        ok = (dtype_bytes == 2 and 1 <= shards <= RING_MAX_RANKS
+              and m % 8 == 0 and n % 8 == 0)
+        return "wgmma" if ok else "simt"
+
+    def p_ring_matmul(self, m: int, k: int, n: int, shards: int,
+                      dtype_bytes: int = 2) -> float:
+        """The fused arm, kernel row 13 computing every rank's copy of Y
+        (2 shards m k n flops), as the larger of its host time and its
+        device time (a stream of calls overlaps the two).  "wgmma": the
+        host's ring_matmul call; on the device, the products at the rate
+        the kernel reaches without a ring (x_t read again by every tile
+        column included) and W's shards forwarded round the ring once a
+        RING_TILE-row tile of m: (shards - 1) k n words for each.  "simt":
+        the same call with one launch a ring step (shards - 1 more), the
+        products on the CUDA cores.  One
+        forward rate serves every shape, so the two projections it was
+        fitted at get one price each way of it (PERF.md)."""
+        flops = 2.0 * shards * m * k * n
+        hw = self.hw
+        if self.ring_variant(m, n, shards, dtype_bytes) == "simt":
+            return max(hw.ring_call_latency + (shards - 1) * hw.launch_latency,
+                       flops / hw.ring_simt_flops)
+        forwarded = math.ceil(m / RING_TILE) * (shards - 1) * k * n * dtype_bytes
+        return max(hw.ring_call_latency,
+                   flops / hw.ring_product_flops + forwarded / hw.ring_forward_bandwidth)
+
+    def p_allgather_matmul(self, m: int, k: int, n: int, shards: int,
+                           dtype_bytes: int = 2) -> float:
+        """The unfused arm, as the larger of its host time and its device
+        time: kernel row 7 (`kernels.rma.ops.ring_all_gather`) gathers W's
+        shards (W read once and every rank's copy written, at row 7's rate),
+        then one library GEMM of x against every rank's W at the rate
+        torch.matmul reached (bf16; f32 at the CUDA cores' data-sheet peak),
+        or its bytes at the HBM rate where they take longer."""
+        hw = self.hw
+        gather = (1 + shards) * k * n * dtype_bytes / hw.all_gather_bandwidth
+        flops = 2.0 * shards * m * k * n
+        rate = hw.gemm_flops_bf16 if dtype_bytes == 2 else F32_FLOPS
+        mm_bytes = (m * k + shards * k * n + shards * m * n) * dtype_bytes
+        return max(hw.unfused_call_latency,
+                   gather + max(flops / rate, mm_bytes / hw.hbm_bandwidth))
 
     def select_dispatch(self, n_msgs: int, msg_bytes: float, p: int,
                         capacity_per_pair: int) -> Literal["queue", "alltoall"]:

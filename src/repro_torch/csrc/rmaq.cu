@@ -24,9 +24,16 @@
 // flattened payload, the same per-element rotation as rma.cu's put_shift
 // (rotate.cuh), with the p count words carried by the first p threads.
 //
-// notify_accumulate — bound: launch latency.  A doorbell is p words; one
-// thread per rank does one add, and the launch costs far more than the
-// bytes.
+// notify_accumulate — bound: launch latency.  A doorbell is p words: the
+// call reads 8p bytes and writes 4p (48 KiB at p = 4096), which the card
+// moves in well under a microsecond, so the launch is what costs, and the
+// device side is sized to the work: at most one wave of blocks (one block
+// an SM at most, 256 threads each taking a 16-byte vector of `local` and
+// `out` where the pointers allow, and of `cnt` too where the rotation keeps
+// its vectors whole: off and p multiples of 4), and the rotation done as two
+// contiguous runs, out[0, p - off) from cnt[off, p) and out[p - off, p) from
+// cnt[0, off), each a loop of its own, so no element asks which run it is
+// in.  Words are added as uint32 (int32 addition that wraps).
 //
 // queue_push — bound: launch latency at the queue's message sizes (k rows
 // of a few words a rank).  Under a uniform shift every target has exactly
@@ -64,18 +71,50 @@ __global__ void notified_put_kernel(const V* __restrict__ x, V* __restrict__ out
     rotate_one(cnt, cnt_out, i, p, (I)1, (I)1, off);
 }
 
-// out[r] = local[r] + cnt[(r + off) mod p], wrapping as int32 addition does
+// out[r] = local[r] + cnt[r + delta] for lo <= r < hi: 16-byte vectors of
+// local and out over the run's whole vectors when VEC (cnt's too when CVEC:
+// delta a multiple of 4), single words at the run's ragged ends (the whole
+// run without VEC)
+template <bool VEC, bool CVEC>
+__device__ __forceinline__ void add_run(const uint32_t* __restrict__ cnt,
+                                        const uint32_t* __restrict__ local,
+                                        uint32_t* __restrict__ out, long long lo,
+                                        long long hi, long long delta,
+                                        long long tid, long long nt) {
+  long long a = lo, b = lo;
+  if (VEC) {
+    a = (lo + 3) & ~3LL;
+    if (a > hi) a = hi;
+    b = hi & ~3LL;
+    if (b < a) b = a;
+    const uint4* l4 = reinterpret_cast<const uint4*>(local);
+    uint4* o4 = reinterpret_cast<uint4*>(out);
+    for (long long v = a / 4 + tid; v < b / 4; v += nt) {
+      const uint4 l = l4[v];
+      const long long c0 = 4 * v + delta;
+      uint4 c;
+      if (CVEC) {
+        c = reinterpret_cast<const uint4*>(cnt)[c0 / 4];
+      } else {
+        c = make_uint4(cnt[c0], cnt[c0 + 1], cnt[c0 + 2], cnt[c0 + 3]);
+      }
+      o4[v] = make_uint4(l.x + c.x, l.y + c.y, l.z + c.z, l.w + c.w);
+    }
+  }
+  for (long long r = lo + tid; r < a; r += nt) out[r] = local[r] + cnt[r + delta];
+  for (long long r = b + tid; r < hi; r += nt) out[r] = local[r] + cnt[r + delta];
+}
+
+// out[r] = local[r] + cnt[(r + off) mod p], 0 <= off < p: the two runs
+template <bool VEC, bool CVEC>
 __global__ void notify_accumulate_kernel(const uint32_t* __restrict__ cnt,
                                          const uint32_t* __restrict__ local,
                                          uint32_t* __restrict__ out,
                                          long long p, long long off) {
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < p;
-       r += step) {
-    long long src = r + off;
-    if (src >= p) src -= p;
-    out[r] = local[r] + cnt[src];
-  }
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long nt = (long long)gridDim.x * blockDim.x;
+  add_run<VEC, CVEC>(cnt, local, out, 0, p - off, off, tid, nt);
+  add_run<VEC, CVEC>(cnt, local, out, p - off, p, off - p, tid, nt);
 }
 
 // one block per producer r (grid-stride over producers); ring [p, cap, w],
@@ -155,9 +194,22 @@ extern "C" int rmaq_notify_accumulate(const void* cnt, const void* local,
                                       void* out, long long p, long long shift,
                                       void* stream) {
   if (p == 0) return (int)cudaSuccess;
-  notify_accumulate_kernel<<<blocks_for(p), kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const uint32_t*>(cnt), static_cast<const uint32_t*>(local),
-      static_cast<uint32_t*>(out), p, mod(-shift, p));
+  const long long off = mod(-shift, p);
+  const bool vec = aligned16(local) && aligned16(out);
+  const bool cvec = vec && aligned16(cnt) && off % 4 == 0 && p % 4 == 0;
+  const long long waves = sm_count();
+  const long long want = blocks_for(vec ? (p + 3) / 4 : p);
+  const int blocks = (int)(want < waves ? want : waves);
+  const uint32_t* c = static_cast<const uint32_t*>(cnt);
+  const uint32_t* l = static_cast<const uint32_t*>(local);
+  uint32_t* o = static_cast<uint32_t*>(out);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (cvec)
+    notify_accumulate_kernel<true, true><<<blocks, kThreads, 0, s>>>(c, l, o, p, off);
+  else if (vec)
+    notify_accumulate_kernel<true, false><<<blocks, kThreads, 0, s>>>(c, l, o, p, off);
+  else
+    notify_accumulate_kernel<false, false><<<blocks, kThreads, 0, s>>>(c, l, o, p, off);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
 // The row rotation shared by the one-sided kernels (rma.cu) and the
-// notified put (rmaq.cu): launch geometry, the access / index type
-// dispatch, and the per-element rotation of rank blocks.  Every rank lives
+// notified put (rmaq.cu): launch geometry (also the paged gather's,
+// paged_gather.cu), the access / index type dispatch, and the per-element
+// rotation of rank blocks.  Every rank lives
 // on this card as one row block of a stacked array.
 #pragma once
 
@@ -24,6 +25,21 @@ constexpr long long kMax32 = (1LL << 31) - 2 * kThreads;
 inline int blocks_for(long long n) {
   long long b = (n + kThreads - 1) / kThreads;
   return (int)(b < kMaxBlocks ? b : kMaxBlocks);
+}
+
+// The current device's SM count (a persistent grid's width), looked up once
+// a device.
+inline int sm_count() {
+  static int cached[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int n = dev >= 0 && dev < 64 ? cached[dev] : 0;
+  if (n <= 0) {
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 1;
+    if (dev >= 0 && dev < 64) cached[dev] = n;
+  }
+  return n;
 }
 
 inline bool aligned16(const void* ptr) {

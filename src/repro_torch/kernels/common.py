@@ -12,8 +12,19 @@ module on machines without ``nvcc``.
 
 C entries take pointers and the stream as ``ctypes.c_void_p`` (a plain
 ``int`` argument would be cut to 32 bits) and return ``cudaGetLastError()``;
-`check` raises on anything but 0, since a refused launch never runs and a
+a launch raises on anything but 0, since a refused launch never runs and a
 later synchronise does not report it.
+
+Every ``ops`` module binds its C entries through `Entry`: the symbol is
+looked up and its ``argtypes`` / ``restype`` set once, on the first launch,
+and kept in the module-level object; later launches take no lock and build
+no Python objects beyond ctypes' own conversion.  `current_stream(device)`
+gives the current stream's raw handle by PyTorch's cheapest call
+(``torch._C._cuda_getCurrentRawStream``, which builds no ``Stream``
+object); a CUDA build of PyTorch without it is refused at import, and a
+build without CUDA raises at the first launch.  `ENTRIES` lists every
+entry, so a test can hold each one's ``argtypes`` to its ``extern "C"``
+declaration.
 """
 
 from __future__ import annotations
@@ -25,6 +36,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -79,6 +92,20 @@ def build(name: str) -> Path:
     return out
 
 
+def _no_cuda(device: int) -> int:
+    raise RuntimeError(f"PyTorch {torch.__version__} has no CUDA: a kernel cannot be "
+                       f"launched on device {device}")
+
+
+if torch.version.cuda is None:
+    current_stream = _no_cuda
+else:
+    current_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if current_stream is None:
+        raise ImportError(f"PyTorch {torch.__version__} (CUDA {torch.version.cuda}) has no "
+                          "torch._C._cuda_getCurrentRawStream, the kernels' stream lookup")
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     with _LOCK:
@@ -88,6 +115,34 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def check(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"CUDA launch of {name} failed: cudaError {rc}")
+ENTRIES: dict[str, "Entry"] = {}    # C symbol -> its binding, over every ops module
+
+
+class Entry:
+    """One C entry of ``csrc/<source>.cu``: `argtypes` are its arguments
+    before the stream, which every entry takes last.  Calling it launches
+    (the library is built and the symbol bound on the first call) and
+    raises if the launch was refused."""
+
+    __slots__ = ("source", "symbol", "argtypes", "fn")
+
+    def __init__(self, source: str, symbol: str, argtypes) -> None:
+        if symbol in ENTRIES:
+            raise ValueError(f"C entry {symbol} is bound twice")
+        self.source, self.symbol = source, symbol
+        self.argtypes = (*argtypes, ctypes.c_void_p)
+        self.fn = None
+        ENTRIES[symbol] = self
+
+    def bind(self):
+        fn = getattr(load(self.source), self.symbol)
+        fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
+        self.fn = fn
+        return fn
+
+    def __call__(self, *args) -> None:
+        """Launch with `args`, the stream's raw handle last."""
+        rc = (self.fn or self.bind())(*args)
+        if rc:
+            raise RuntimeError(f"CUDA launch of {self.source}.{self.symbol} failed: "
+                               f"cudaError {rc}")

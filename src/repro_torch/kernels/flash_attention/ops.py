@@ -72,14 +72,9 @@ def _tma_strides(t: torch.Tensor) -> tuple[int, int, int]:
     return tuple(st if n > 1 else t.shape[3] for n, st in zip(t.shape[:3], t.stride()[:3]))
 
 
-def _fn():
-    fn = common.load(_NAME).flash_attention_fwd
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                       + [ctypes.c_longlong] * 9
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+_FWD = common.Entry(_NAME, "flash_attention_fwd",
+                    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9
+                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int])
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -117,11 +112,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty(B, Hq, Sq, hd, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-               _DTYPES[q.dtype], B, Hq, Hkv, Sq, Sk, hd, *strides[0], *strides[1],
-               *strides[2], float(hd ** 0.5), int(causal), _VARIANTS[kind], stream)
-    common.check(rc, _NAME)
+    _FWD(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+         _DTYPES[q.dtype], B, Hq, Hkv, Sq, Sk, hd, *strides[0], *strides[1],
+         *strides[2], float(hd ** 0.5), int(causal), _VARIANTS[kind],
+         common.current_stream(q.get_device()))
     global launches
     launches += 1
     launches_by_variant[kind] += 1

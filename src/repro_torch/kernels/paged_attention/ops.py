@@ -40,11 +40,9 @@ BLOCK_BUDGET = 2 * 132      # blocks a launch aims at: the 2 an SM holds at once
 launches = 0            # kernel launches by `paged_attention`
 shift_launches = 0      # kernel launches by `paged_attention_shift`
 
-_SIGNATURES = {
-    "paged_attention_f32": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
-    "paged_attention_shift_f32": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
-    + [ctypes.c_void_p],
-}
+_LOCAL = common.Entry(_NAME, "paged_attention_f32", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10)
+_SHIFT = common.Entry(_NAME, "paged_attention_shift_f32",
+                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11)
 _BUFFERS: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
 
@@ -87,32 +85,24 @@ def plan(m: int, Sq: int, k: int, pt: int, hd: int) -> Plan:
                 -(-2 * rows * splits // 4) * 4 + rows * splits * hd)
 
 
-def _fn(name: str):
-    fn = getattr(common.load(_NAME), name)
-    if fn.argtypes is None:
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _buffers(device: torch.device, stream: int, workspace: int,
+def _buffers(q: torch.Tensor, device: int, stream: int, workspace: int,
              groups: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The workspace and ticket counters of `stream`, kept between calls and
-    grown when a call needs more.  The tickets are zeroed once and reset to
-    zero by each launch's merging blocks, so the next launch on the stream
-    finds them at zero; a launch's partials are written and read inside it.
-    Launches on other streams get their own."""
-    key = (device.index, stream)
+    """The workspace and ticket counters of `stream` on `device` (q's),
+    kept between calls and grown when a call needs more.  The tickets are
+    zeroed once and reset to zero by each launch's merging blocks, so the
+    next launch on the stream finds them at zero; a launch's partials are
+    written and read inside it.  Launches on other streams get their own."""
+    key = (device, stream)
     ws, tickets = _BUFFERS.get(key, (None, None))
     if ws is None or ws.numel() < workspace:
-        ws = torch.empty(max(workspace, 1 << 16), dtype=torch.float32, device=device)
+        ws = torch.empty(max(workspace, 1 << 16), dtype=torch.float32, device=q.device)
     if tickets is None or tickets.numel() < groups:
-        tickets = torch.zeros(max(groups, 64), dtype=torch.int32, device=device)
+        tickets = torch.zeros(max(groups, 64), dtype=torch.int32, device=q.device)
     _BUFFERS[key] = ws, tickets
     return ws, tickets
 
 
-def _launch(entry: str, q: torch.Tensor, kv_pages: torch.Tensor, ids: torch.Tensor,
+def _launch(entry: common.Entry, q: torch.Tensor, kv_pages: torch.Tensor, ids: torch.Tensor,
             scale: float, causal: bool, n_pages: int, pt: int, lead: tuple) -> torch.Tensor:
     """One launch of the split kernel; `lead` is the entry's leading ints
     (m, or p and shift)."""
@@ -121,33 +111,36 @@ def _launch(entry: str, q: torch.Tensor, kv_pages: torch.Tensor, ids: torch.Tens
     pl = plan(m, Sq, k, pt, hd)
     # scale in q's dtype, as the TPU kernel; a unit scale is exact, so skipped
     qs = (q if scale == 1.0 else (q * scale).to(q.dtype)).contiguous()
-    out = torch.empty(qs.shape, dtype=qs.dtype, device=qs.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    ws, tickets = _buffers(q.device, stream, pl.workspace, pl.groups)
-    rc = _fn(entry)(qs.data_ptr(), kv_pages.data_ptr(), ids.data_ptr(), out.data_ptr(),
-                    ws.data_ptr(), tickets.data_ptr(), *lead, Sq, hd, n_pages, pt, k,
-                    int(causal), pl.pages, pl.splits, pl.groups, stream)
-    common.check(rc, _NAME)
+    out = torch.empty_like(qs)
+    device = q.get_device()
+    stream = common.current_stream(device)
+    ws, tickets = _buffers(q, device, stream, pl.workspace, pl.groups)
+    entry(qs.data_ptr(), kv_pages.data_ptr(), ids.data_ptr(), out.data_ptr(),
+          ws.data_ptr(), tickets.data_ptr(), *lead, Sq, hd, n_pages, pt, k,
+          int(causal), pl.pages, pl.splits, pl.groups, stream)
     return out
 
 
 def _check_cuda_args(q: torch.Tensor, kv_pages: torch.Tensor,
-                     ids: torch.Tensor) -> None:
+                     ids: torch.Tensor, ranks: int = 0) -> None:
+    """The kernel's checks; a pool of `ranks` leading rank dims (0 or 1) is
+    checked as one rank's [n_pages, pt, 2, hd], read from its shape alone."""
     if q.dtype != torch.float32 or kv_pages.dtype != torch.float32:
         raise TypeError(f"paged_attention kernel takes float32 q and pages, "
                         f"got {q.dtype} and {kv_pages.dtype}")
     if ids.dtype != torch.int32:
         raise TypeError(f"page ids must be int32, got {ids.dtype}")
     m, _, hd = q.shape
-    if kv_pages.ndim != 4 or kv_pages.shape[2] != 2 or kv_pages.shape[3] != hd:
-        raise ValueError(f"kv_pages must be [n_pages, pt, 2, {hd}], "
+    kv = kv_pages.shape[ranks:]
+    if len(kv) != 4 or kv[2] != 2 or kv[3] != hd:
+        raise ValueError(f"kv_pages must be [{'p, ' * ranks}n_pages, pt, 2, {hd}], "
                          f"got {tuple(kv_pages.shape)}")
     if ids.ndim != 2 or ids.shape[0] != m:
         raise ValueError(f"ids must be [{m}, k], got {tuple(ids.shape)}")
     if hd % 32 or not 0 < hd <= 1024:
         raise ValueError(f"head dim must be a multiple of 32 in (0, 1024], got {hd}")
-    if kv_pages.shape[1] * 4 > _MAX_SMEM:
-        raise ValueError(f"page_tokens {kv_pages.shape[1]} too large")
+    if kv[1] * 4 > _MAX_SMEM:
+        raise ValueError(f"page_tokens {kv[1]} too large")
     if not (kv_pages.is_contiguous() and ids.is_contiguous()):
         raise ValueError("kv_pages and ids must be contiguous")
 
@@ -170,7 +163,7 @@ def paged_attention(q: torch.Tensor, kv_pages: torch.Tensor, ids: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cpu or cuda, not {q.device}")
     _check_cuda_args(q, kv_pages, ids)
-    out = _launch("paged_attention_f32", q, kv_pages, ids, scale, causal,
+    out = _launch(_LOCAL, q, kv_pages, ids, scale, causal,
                   kv_pages.shape[0], kv_pages.shape[1], (m,))
     global launches
     launches += 1
@@ -201,13 +194,8 @@ def paged_attention_shift(q: torch.Tensor, kv_pages: torch.Tensor,
                                              scale=scale, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_shift runs on cpu or cuda, not {q.device}")
-    if kv_pages.ndim != 5:
-        raise ValueError(f"kv_pages must be [p, n_pages, pt, 2, hd], "
-                         f"got {tuple(kv_pages.shape)}")
-    _check_cuda_args(q, kv_pages[0], ids)
-    if not kv_pages.is_contiguous():
-        raise ValueError("kv_pages and ids must be contiguous")
-    out = _launch("paged_attention_shift_f32", q, kv_pages, ids, scale, causal,
+    _check_cuda_args(q, kv_pages, ids, ranks=1)
+    out = _launch(_SHIFT, q, kv_pages, ids, scale, causal,
                   kv_pages.shape[1], kv_pages.shape[2], (p, int(shift) % p))
     global shift_launches
     shift_launches += 1

@@ -4,11 +4,16 @@ On CPU tensors it computes the plain PyTorch version (`ref`); on CUDA
 tensors it launches the hand-written kernel (``csrc/paged_gather.cu``) or
 raises — there is no fallback.  `launches` counts kernel launches (and
 nothing else), so a run can show that its path went through the kernel.
+
+``holes=True`` is the kernel's hole mode, which `rmem.pages.gather_shift`
+takes: a row whose id is < 0 comes back as zero words and is never read
+(`ref.paged_gather_holes_ref`), in the same one launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -18,23 +23,18 @@ from . import ref
 
 _NAME = "paged_gather"
 _P, _I = ctypes.c_void_p, ctypes.c_longlong
+_GATHER = common.Entry(_NAME, "paged_gather_shift",
+                       [_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_int])
 
 launches = 0            # kernel launches by `paged_gather`
 
 
-def _fn():
-    fn = common.load(_NAME).paged_gather_shift
-    if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def paged_gather(pages: torch.Tensor, ids: torch.Tensor, shift: int,
-                 mesh: Mesh) -> torch.Tensor:
+def paged_gather(pages: torch.Tensor, ids: torch.Tensor, shift: int, mesh: Mesh,
+                 holes: bool = False) -> torch.Tensor:
     """pages [p, n_pages, *ps] of 32-bit words, ids [p, k] int32 ->
     [p, k, *ps]: rank r gathers rows ``ids[r]`` of rank (r + shift)'s pool
-    as one block.  Ids are clamped to ``[0, n_pages - 1]``; callers mask."""
+    as one block.  Ids are clamped to ``[0, n_pages - 1]``; with `holes`, a
+    row whose id is < 0 is zeros instead."""
     mesh._check(pages)
     mesh._check(ids)
     if ids.ndim != 2:
@@ -45,7 +45,8 @@ def paged_gather(pages: torch.Tensor, ids: torch.Tensor, shift: int,
         raise ValueError(f"paged_gather tensors on several devices: "
                          f"{pages.device}, {ids.device}")
     if pages.device.type == "cpu":
-        return ref.paged_gather_ref(pages, ids, shift, mesh)
+        plain = ref.paged_gather_holes_ref if holes else ref.paged_gather_ref
+        return plain(pages, ids, shift, mesh)
     if pages.device.type != "cuda":
         raise ValueError(f"paged_gather runs on cpu or cuda, not {pages.device}")
     if pages.dtype.itemsize != 4 or pages.dtype.is_complex:
@@ -59,13 +60,11 @@ def paged_gather(pages: torch.Tensor, ids: torch.Tensor, shift: int,
     if n_pages == 0 and k:
         raise ValueError("cannot gather from an empty pool")
     ids = ids.contiguous()
-    out = torch.empty((p, k) + tuple(pages.shape[2:]), dtype=pages.dtype,
-                      device=pages.device)
-    w = pages[0, 0].numel() if n_pages else 0
+    out = pages.new_empty((p, k) + tuple(pages.shape[2:]))
     if out.numel():
-        stream = torch.cuda.current_stream(pages.device).cuda_stream
-        common.check(_fn()(pages.data_ptr(), ids.data_ptr(), out.data_ptr(),
-                           p, n_pages, w, k, int(shift), stream), _NAME)
+        _GATHER(pages.data_ptr(), ids.data_ptr(), out.data_ptr(), p, n_pages,
+                math.prod(pages.shape[2:]), k, int(shift), int(holes),
+                common.current_stream(pages.get_device()))
         global launches
         launches += 1
     return out

@@ -4,7 +4,7 @@ oracle, on the stacked rank axis).
 The same two messages as the reference: the id list goes to the owner
 (a shift by +shift), the owner packs its pool rows, and the packed block
 comes back (a shift by -shift).  Ids are clamped to ``[0, n_pages - 1]``;
-callers mask.
+callers mask, as `paged_gather_holes_ref` does.
 """
 
 from __future__ import annotations
@@ -24,3 +24,13 @@ def paged_gather_ref(pages: torch.Tensor, ids: torch.Tensor, shift: int,
     owner = torch.arange(mesh.p, device=pages.device)[:, None]
     rows = pages[owner, safe]                 # each owner packs its rows
     return mesh.shift(rows, -shift)           # the reply to the requester
+
+
+def paged_gather_holes_ref(pages: torch.Tensor, ids: torch.Tensor, shift: int,
+                           mesh: Mesh) -> torch.Tensor:
+    """The kernel's hole mode: `paged_gather_ref`, then every row whose id is
+    < 0 zeroed (the reference's `rmem.pages.gather_shift`: its gather of the
+    clamped ids, then its mask)."""
+    out = paged_gather_ref(pages, ids, shift, mesh)
+    hole = (ids < 0).reshape(tuple(ids.shape) + (1,) * (out.ndim - ids.ndim))
+    return out.masked_fill_(hole, 0)

@@ -154,12 +154,7 @@ def variant(dtype: torch.dtype, n: int, x_t: torch.Tensor, w: torch.Tensor) -> s
     return "wgmma" if ok else "simt"
 
 
-def _fn():
-    fn = common.load(_NAME).ring_matmul
-    if fn.argtypes is None:
-        fn.argtypes = [_P] * 4 + [_I] + [_L] * 5 + [_I] + [_L] * 4 + [_I] * 6 + [_P]
-        fn.restype = ctypes.c_int
-    return fn
+_RING = common.Entry(_NAME, "ring_matmul", [_P] * 4 + [_I] + [_L] * 5 + [_I] + [_L] * 4 + [_I] * 6)
 
 
 def _check(x_t: torch.Tensor, w: torch.Tensor, mesh: Mesh) -> None:
@@ -195,25 +190,22 @@ def _launch(x_t: torch.Tensor, w: torch.Tensor, mesh: Mesh, force: str | None) -
         return out
     if ks == 0:
         return out.zero_()
-    stream = torch.cuda.current_stream(w.device).cuda_stream
-    fn = _fn()
+    stream = common.current_stream(w.get_device())
     global launches
     if kind == "wgmma":
         p = plan(n, ks, N)
-        rc = fn(x_t.data_ptr(), w.data_ptr(), None, out.data_ptr(), _DTYPES[w.dtype], n, ks, m,
-                N, 0, _VARIANTS[kind], *map_strides((n, ks, m)), *map_strides((n, ks, N)), *p,
-                stream)
-        common.check(rc, _NAME)
+        _RING(x_t.data_ptr(), w.data_ptr(), None, out.data_ptr(), _DTYPES[w.dtype], n, ks, m,
+              N, 0, _VARIANTS[kind], *map_strides((n, ks, m)), *map_strides((n, ks, N)), *p,
+              stream)
         launches += 1
         launches_by_variant[kind] += 1
         return out
     # the double-buffered slots; one rank forwards nothing
     buf = torch.empty(n, 2, ks, N, dtype=w.dtype, device=w.device) if n > 1 else None
     for step in range(n):
-        rc = fn(x_t.data_ptr(), w.data_ptr(), None if buf is None else buf.data_ptr(),
-                out.data_ptr(), _DTYPES[w.dtype], n, ks, m, N, step, _VARIANTS[kind],
-                0, 0, 0, 0, 0, 0, 0, 0, 0, 0, stream)
-        common.check(rc, _NAME)
+        _RING(x_t.data_ptr(), w.data_ptr(), None if buf is None else buf.data_ptr(),
+              out.data_ptr(), _DTYPES[w.dtype], n, ks, m, N, step, _VARIANTS[kind],
+              0, 0, 0, 0, 0, 0, 0, 0, 0, 0, stream)
         launches += 1
         launches_by_variant[kind] += 1
     return out

@@ -15,6 +15,7 @@ nothing else), so a run can show that its path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -24,38 +25,45 @@ from . import ref
 
 _NAME = "rma"
 _P, _I = ctypes.c_void_p, ctypes.c_longlong
-_SIGNATURES = {
-    "rma_put_shift": [_P, _P, _I, _I, _I, _I, _P],
-    "rma_get_shift": [_P, _P, _I, _I, _I, _I, _P],
-    "rma_accumulate_shift_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "rma_ring_all_gather": [_P, _P, _I, _I, _I, _P],
-}
+_PUT = common.Entry(_NAME, "rma_put_shift", [_P, _P, _I, _I, _I, _I])
+_GET = common.Entry(_NAME, "rma_get_shift", [_P, _P, _I, _I, _I, _I])
+_ACC = common.Entry(_NAME, "rma_accumulate_shift_f32", [_P, _P, _P, _I, _I, _I, _I, _I])
+_GATHER = common.Entry(_NAME, "rma_ring_all_gather", [_P, _P, _I, _I, _I])
 
 # kernel launches by op
 launches = {"put_shift": 0, "get_shift": 0, "accumulate_shift": 0,
             "ring_all_gather": 0}
 
 
-def _fn(name: str):
-    fn = getattr(common.load(_NAME), name)
-    if fn.argtypes is None:
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _on_card(op: str, mesh: Mesh, *tensors: torch.Tensor) -> bool:
     """True for CUDA tensors (launch), False for CPU ones (plain version)."""
     for t in tensors:
         mesh._check(t)
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"{op}: tensors on several devices: {devices}")
-    dev = devices.pop()
-    if dev.type == "cpu":
+    x = tensors[0]
+    if len(tensors) > 1:
+        dev = x.device
+        for t in tensors[1:]:
+            if t.device != dev:
+                raise ValueError(f"{op}: tensors on several devices: "
+                                 f"{[str(t.device) for t in tensors]}")
+    if x.is_cuda:
+        return True
+    if x.is_cpu:
         return False
-    if dev.type != "cuda":
-        raise ValueError(f"{op} runs on cpu or cuda, not {dev}")
+    raise ValueError(f"{op} runs on cpu or cuda, not {x.device}")
+
+
+def block_contiguous(shape, strides) -> bool:
+    """Whether a rank's block ``x[0]`` is contiguous, read from x's shape and
+    strides (``x[0].is_contiguous()`` without making the view): every dim
+    past the rank dim that is longer than 1 at the stride of a dense block."""
+    if 0 in shape[1:]:
+        return True
+    want = 1
+    for n, st in zip(reversed(shape[1:]), reversed(strides[1:])):
+        if n != 1 and st != want:
+            return False
+        want *= n
     return True
 
 
@@ -63,10 +71,15 @@ def _rows(x: torch.Tensor) -> tuple[torch.Tensor, int, int]:
     """x as p rank blocks of contiguous words at a fixed rank stride, the
     kernels' contract: (tensor, words a block, words between blocks).  Only
     a view whose block is not contiguous is copied."""
-    if not x[0].is_contiguous():
+    if x.is_contiguous():
+        row = x.numel() // x.shape[0]
+        return x, row, row
+    shape, strides = x.shape, x.stride()
+    if not block_contiguous(shape, strides):
         x = x.contiguous()
-    row = x[0].numel()
-    return x, row, x.stride(0) if x.shape[0] > 1 else row
+        strides = x.stride()
+    row = math.prod(shape[1:])
+    return x, row, strides[0] if shape[0] > 1 else row
 
 
 def _words(op: str, x: torch.Tensor) -> tuple[torch.Tensor, int, int]:
@@ -75,14 +88,13 @@ def _words(op: str, x: torch.Tensor) -> tuple[torch.Tensor, int, int]:
     return _rows(x)
 
 
-def _launch(op: str, entry: str, *args) -> None:
-    stream = torch.cuda.current_stream().cuda_stream
-    common.check(_fn(entry)(*args, stream), f"{_NAME}.{entry}")
+def _launch(op: str, entry: common.Entry, device: int, *args) -> None:
+    entry(*args, common.current_stream(device))
     launches[op] += 1
 
 
 def _fresh(x: torch.Tensor) -> torch.Tensor:
-    return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
 def put_shift(x: torch.Tensor, shift: int, mesh: Mesh) -> torch.Tensor:
@@ -92,7 +104,7 @@ def put_shift(x: torch.Tensor, shift: int, mesh: Mesh) -> torch.Tensor:
     xs, row, stride = _words("put_shift", x)
     out = _fresh(x)
     if out.numel():
-        _launch("put_shift", "rma_put_shift", xs.data_ptr(), out.data_ptr(),
+        _launch("put_shift", _PUT, x.get_device(), xs.data_ptr(), out.data_ptr(),
                 mesh.p, row, stride, int(shift))
     return out
 
@@ -104,7 +116,7 @@ def get_shift(x: torch.Tensor, src_shift: int, mesh: Mesh) -> torch.Tensor:
     xs, row, stride = _words("get_shift", x)
     out = _fresh(x)
     if out.numel():
-        _launch("get_shift", "rma_get_shift", xs.data_ptr(), out.data_ptr(),
+        _launch("get_shift", _GET, x.get_device(), xs.data_ptr(), out.data_ptr(),
                 mesh.p, row, stride, int(src_shift))
     return out
 
@@ -124,7 +136,7 @@ def accumulate_shift(x: torch.Tensor, acc: torch.Tensor, shift: int,
     (xs, row, x_stride), (acs, _, acc_stride) = _rows(x), _rows(acc)
     out = _fresh(acc)
     if out.numel():
-        _launch("accumulate_shift", "rma_accumulate_shift_f32", xs.data_ptr(),
+        _launch("accumulate_shift", _ACC, x.get_device(), xs.data_ptr(),
                 acs.data_ptr(), out.data_ptr(), mesh.p, row, x_stride,
                 acc_stride, int(shift))
     return out
@@ -138,6 +150,6 @@ def ring_all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     xs, row, stride = _words("ring_all_gather", x)
     out = torch.empty((mesh.p,) + tuple(x.shape), dtype=x.dtype, device=x.device)
     if out.numel():
-        _launch("ring_all_gather", "rma_ring_all_gather", xs.data_ptr(),
+        _launch("ring_all_gather", _GATHER, x.get_device(), xs.data_ptr(),
                 out.data_ptr(), mesh.p, row, stride)
     return out

@@ -25,27 +25,16 @@ from . import ref
 
 _NAME = "rmaq"
 _P, _I = ctypes.c_void_p, ctypes.c_longlong
-_SIGNATURES = {
-    "rmaq_notified_put": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "rmaq_notify_accumulate": [_P, _P, _P, _I, _I, _P],
-    "rmaq_queue_push": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-}
+_PUT = common.Entry(_NAME, "rmaq_notified_put", [_P, _P, _P, _P, _I, _I, _I, _I])
+_ACC = common.Entry(_NAME, "rmaq_notify_accumulate", [_P, _P, _P, _I, _I])
+_PUSH = common.Entry(_NAME, "rmaq_queue_push", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I])
 
 # kernel launches by op
 launches = {"notified_put": 0, "notify_accumulate": 0, "queue_push": 0}
 
 
-def _fn(name: str):
-    fn = getattr(common.load(_NAME), name)
-    if fn.argtypes is None:
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(op: str, entry: str, *args) -> None:
-    stream = torch.cuda.current_stream().cuda_stream
-    common.check(_fn(entry)(*args, stream), f"{_NAME}.{entry}")
+def _launch(op: str, entry: common.Entry, device: int, *args) -> None:
+    entry(*args, common.current_stream(device))
     launches[op] += 1
 
 
@@ -67,7 +56,7 @@ def notified_put(x: torch.Tensor, cnt: torch.Tensor, shift: int,
     _words("notified_put", "cnt", cnt)
     cnt = cnt.contiguous()
     out, cnt_out = rma_ops._fresh(x), torch.empty_like(cnt)
-    _launch("notified_put", "rmaq_notified_put", xs.data_ptr(), out.data_ptr(),
+    _launch("notified_put", _PUT, x.get_device(), xs.data_ptr(), out.data_ptr(),
             cnt.data_ptr(), cnt_out.data_ptr(), mesh.p, row, stride, int(shift))
     return out, cnt_out
 
@@ -76,10 +65,11 @@ def notify_accumulate(cnt: torch.Tensor, local: torch.Tensor, shift: int,
                       mesh: Mesh) -> torch.Tensor:
     """Counter-only notification, int32: ``local[r] + cnt[(r - shift) % p]``
     (the doorbell without a payload).  Returns a fresh [p] tensor."""
-    for name, t in (("cnt", cnt), ("local", local)):
-        if t.shape != (mesh.p,):
-            raise ValueError(f"notify_accumulate: {name} must be [{mesh.p}], "
-                             f"got {tuple(t.shape)}")
+    want = (mesh.p,)
+    if cnt.shape != want or local.shape != want:
+        name, t = ("cnt", cnt) if cnt.shape != want else ("local", local)
+        raise ValueError(f"notify_accumulate: {name} must be [{mesh.p}], "
+                         f"got {tuple(t.shape)}")
     if not rma_ops._on_card("notify_accumulate", mesh, cnt, local):
         return ref.notify_accumulate_ref(cnt, local, shift, mesh)
     if cnt.dtype != torch.int32 or local.dtype != torch.int32:
@@ -87,7 +77,7 @@ def notify_accumulate(cnt: torch.Tensor, local: torch.Tensor, shift: int,
                         f"{cnt.dtype} and {local.dtype}")
     cnt, local = cnt.contiguous(), local.contiguous()
     out = torch.empty_like(local)
-    _launch("notify_accumulate", "rmaq_notify_accumulate", cnt.data_ptr(),
+    _launch("notify_accumulate", _ACC, local.get_device(), cnt.data_ptr(),
             local.data_ptr(), out.data_ptr(), mesh.p, int(shift))
     return out
 
@@ -122,7 +112,7 @@ def queue_push(buf: torch.Tensor, ctr: torch.Tensor, msgs: torch.Tensor,
     msgs = msgs.contiguous()
     n_sent = torch.empty(mesh.p, dtype=torch.int32, device=buf.device)
     n_notif = torch.empty_like(n_sent)
-    _launch("queue_push", "rmaq_queue_push", buf.data_ptr(), ctr.data_ptr(),
+    _launch("queue_push", _PUSH, buf.get_device(), buf.data_ptr(), ctr.data_ptr(),
             msgs.data_ptr(), n_sent.data_ptr(), n_notif.data_ptr(), mesh.p, cap,
             msgs.shape[1], buf.shape[2], int(shift))
     return buf, ctr, n_sent, n_notif

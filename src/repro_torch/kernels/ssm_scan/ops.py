@@ -30,12 +30,7 @@ MAX_STATE = 32                  # N: one channel's states share a warp
 launches = 0                    # kernel launches by `selective_scan` / `ssm_scan`
 
 
-def _fn():
-    fn = common.load(_NAME).ssm_scan_fwd
-    if fn.argtypes is None:
-        fn.argtypes = [_P] * 6 + [ctypes.c_int, _L, _L, _L, ctypes.c_int, _P]
-        fn.restype = ctypes.c_int
-    return fn
+_SCAN = common.Entry(_NAME, "ssm_scan_fwd", [_P] * 6 + [ctypes.c_int, _L, _L, _L, ctypes.c_int])
 
 
 def _check(decay, drive, c, h0) -> None:
@@ -69,11 +64,9 @@ def _launch(decay, drive, c, h0):
     h0 = None if h0 is None else h0.float().contiguous()
     y = torch.empty(B, S, d, dtype=decay.dtype, device=decay.device)
     h_last = torch.empty(B, d, N, dtype=torch.float32, device=decay.device)
-    stream = torch.cuda.current_stream(decay.device).cuda_stream
-    rc = _fn()(decay.data_ptr(), drive.data_ptr(), c.data_ptr(),
-               None if h0 is None else h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),
-               _DTYPES[decay.dtype], B, S, d, N, stream)
-    common.check(rc, _NAME)
+    _SCAN(decay.data_ptr(), drive.data_ptr(), c.data_ptr(),
+          None if h0 is None else h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),
+          _DTYPES[decay.dtype], B, S, d, N, common.current_stream(decay.get_device()))
     global launches
     launches += 1
     return y, h_last

@@ -25,13 +25,18 @@ class CollectiveStrategist:
 
     def allgather_matmul_plan(self, m: int, k: int, n: int, shards: int,
                               dtype_bytes: int = 2) -> Literal["unfused", "fused_ring"]:
-        """Fuse iff the per-step matmul hides the per-step put (overlap
-        §3.1.1): the step's product of x [m, k/shards] with a W shard
-        [k/shards, n] at the bf16 peak, against half the put of that shard."""
-        shard_bytes = k * n * dtype_bytes / shards
-        t_put = self.model.p_put(shard_bytes)
-        t_mm = 2.0 * m * (k / shards) * n / self.model.hw.peak_flops_bf16
-        return "fused_ring" if t_mm >= 0.5 * t_put else "unfused"
+        """Y = x [m, k] @ W [k, n], W sharded on k over `shards` ranks: the
+        fused ring kernel (`PerfModel.p_ring_matmul`) iff its price is
+        below the all-gather then GEMM's (`p_allgather_matmul`), both
+        priced from what the card measured.  On one card the all-gather is
+        one short HBM copy while the ring forwards W once a 128-row tile of
+        m, so the fused arm wins only where W's copies outweigh its ring: a
+        few tokens against a large W.  No code path of the package acts on
+        the answer yet (the port runs no sharded contraction);
+        chip_smoke.py's ring phase holds it to both arms measured."""
+        fused = self.model.p_ring_matmul(m, k, n, shards, dtype_bytes)
+        unfused = self.model.p_allgather_matmul(m, k, n, shards, dtype_bytes)
+        return "fused_ring" if fused < unfused else "unfused"
 
     def sync_plan(self, k_neighbors: int, p: int) -> Literal["pscw", "fence"]:
         return self.model.select_sync_mode(k_neighbors, p)

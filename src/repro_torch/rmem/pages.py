@@ -267,10 +267,8 @@ def gather_shift(mesh: Mesh, pool: torch.Tensor, ids: torch.Tensor,
                  shift: int) -> torch.Tensor:
     """Cross-rank page read: rank r fetches rows ``ids[r]`` of rank
     (r + shift)'s pool.  pool [p, n_pages, *ps], ids [p, k] int32 ->
-    [p, k, *ps], rows whose id is < 0 zeroed.  One paged-gather launch on
-    the card (its plain version on the CPU); the kernel clamps ids into the
-    pool and the mask here zeroes the holes, as the reference does after
-    its gather."""
-    out = pg_ops.paged_gather(pool, ids, shift, mesh)
-    hole = (ids < 0).reshape(tuple(ids.shape) + (1,) * (out.ndim - ids.ndim))
-    return out.masked_fill_(hole, 0)
+    [p, k, *ps], rows whose id is < 0 zeroed.  One paged-gather launch in
+    hole mode on the card (its plain version on the CPU): the kernel clamps
+    ids past the pool and writes a hole as zero words without reading it,
+    which is the reference's gather of the clamped ids and its mask."""
+    return pg_ops.paged_gather(pool, ids, shift, mesh, holes=True)

@@ -53,7 +53,7 @@ def _inputs() -> dict:
     entries[1, 2, 0] = (P_RANKS, 1)             # owner past the mesh
     entries[2, 1, 3] = (1, N_PAGES)             # page past the pool
     entries[3, 0, 2] = (2, -1)                  # negative page
-    return {
+    out = {
         "float32": rng.standard_normal((P_RANKS, N_PAGES, W)).astype(np.float32),
         "int32": rng.integers(-2**31, 2**31 - 1, (P_RANKS, N_PAGES, W)).astype(np.int32),
         "ids": ids,
@@ -61,6 +61,18 @@ def _inputs() -> dict:
         "entries": entries,
         "valid": np.array([[1, 1, 0], [1, 0, 1], [1, 1, 1], [0, 0, 1]], bool),
     }
+    # gather_shift's hole mode at its edges: every id a hole, no hole, ids
+    # past the pool (clamped, never zeroed)
+    out["ids_all_holes"] = np.full((P_RANKS, K), -1, np.int32)
+    out["ids_no_holes"] = rng.integers(0, N_PAGES, (P_RANKS, K)).astype(np.int32)
+    past = rng.integers(0, N_PAGES, (P_RANKS, K)).astype(np.int32)
+    past[:, 0] = N_PAGES
+    past[2, 3] = N_PAGES + 100
+    out["ids_past"] = past
+    return out
+
+
+HOLE_CASES = ("ids_all_holes", "ids_no_holes", "ids_past")
 
 
 # ------------------------------------------------------- reference (child)
@@ -101,6 +113,10 @@ def _reference_child(d: pathlib.Path) -> None:
         out[f"gather_shift_{s}"] = spmd(
             lambda b, i, s=s: jpg.gather_shift(b[0], i[0], s, "x")[None],
             pool, ids, specs=(p5, p2))
+        for case in HOLE_CASES:
+            out[f"gather_shift_{case}_{s}"] = spmd(
+                lambda b, i, s=s: jpg.gather_shift(b[0], i[0], s, "x")[None],
+                pool, jnp.asarray(inp[case]), specs=(p5, p2))
     with JaxCounter() as c:
         out["gather_pages"] = np.asarray(jax.jit(shard_map(
             lambda b, e, v: jpg.gather_pages("x", b[0], e[0], v[0])[None],
@@ -153,6 +169,25 @@ def test_gather_shift_masks_holes_like_the_reference(reference, shift):
     np.testing.assert_array_equal(got, reference[f"gather_shift_{shift}"])
     assert not got[3].any() and not got[0, 1].any()      # holes are zeros
     assert got[2, 0].any()
+
+
+@pytest.mark.parametrize("shift", SHIFTS)
+@pytest.mark.parametrize("case", HOLE_CASES)
+def test_gather_shift_hole_mode_edges_match_the_reference(reference, case, shift):
+    """The plain hole mode (`gather_shift`, and `paged_gather(holes=True)`,
+    which it calls) equals the reference's gather_shift bit for bit when
+    every id is a hole, when none is, and when ids pass the pool."""
+    inp = _inputs()
+    pool, ids = torch.from_numpy(inp["pool"]), torch.from_numpy(inp[case])
+    before = ops.launches
+    got = tpg.gather_shift(MESH, pool, ids, shift)
+    assert ops.launches == before
+    np.testing.assert_array_equal(got.numpy(), reference[f"gather_shift_{case}_{shift}"])
+    assert torch.equal(got, ops.paged_gather(pool, ids, shift, MESH, holes=True))
+    if case == "ids_all_holes":
+        assert not got.any() and not torch.signbit(got).any()       # +0.0 words
+    else:
+        assert torch.equal(got, ref.paged_gather_ref(pool, ids, shift, MESH))
 
 
 def test_gather_pages_matches_reference(reference):

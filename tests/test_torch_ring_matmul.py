@@ -237,7 +237,7 @@ def test_cpu_tensors_never_reach_the_card_path(monkeypatch):
     consulting the variant rule, the plan or the kernel."""
     def boom(*a, **k):
         raise AssertionError("card-only path consulted for a CPU tensor")
-    for name in ("variant", "plan", "_fn", "_launch", "tma_problem"):
+    for name in ("variant", "plan", "_RING", "_launch", "tma_problem"):
         monkeypatch.setattr(ops, name, boom)
     before, by_kind = ops.launches, dict(ops.launches_by_variant)
     x_t, w = _port_inputs(2)
@@ -255,23 +255,99 @@ def test_variant_names_are_checked():
 
 
 @pytest.mark.parametrize("m,k,n,shards,want", [
-    (8192, 960, 2560, 4, "fused_ring"),          # SmolLM's MLP up projection, FSDP 4
-    (8192, 2560, 960, 4, "fused_ring"),          # its down projection
-    (16, 960, 2560, 4, "unfused"),               # a 16-token call: the put is not hidden
-    (1, 1024, 1024, 8, "unfused"),
+    (8192, 960, 2560, 4, "unfused"),             # SmolLM's MLP up projection, FSDP 4
+    (8192, 2560, 960, 4, "unfused"),             # its down projection
+    (16, 960, 2560, 4, "fused_ring"),            # a 16-token call: both arms host-bound
+    (1, 1024, 1024, 8, "unfused"),               # m = 1: the "simt" variant, a launch a step
 ])
 def test_allgather_matmul_plan_closed_form(m, k, n, shards, want):
-    """Fuse iff 2 m (k/shards) n / peak_bf16 >= (launch + 2 * shard bytes /
-    copy rate) / 2, with the H100 model's constants."""
-    shard_bytes = k * n * 2 / shards
-    t_put = H100.launch_latency + 2 * shard_bytes / H100.copy_bandwidth
-    t_mm = 2 * m * (k / shards) * n / 989e12
-    closed = "fused_ring" if t_mm >= 0.5 * t_put else "unfused"
+    """Fuse iff the ring kernel's price is below the all-gather + GEMM's,
+    both from the H100 model's measured constants, each arm the larger of
+    its host and its device time: "wgmma" = max(the call, 2 shards m k n /
+    product rate + ceil(m / 128) (shards - 1) k n 2 bytes / forward rate);
+    "simt" = max(the call + shards - 1 launches, flops / simt rate);
+    unfused = max(its calls, (1 + shards) k n 2 bytes / all-gather rate +
+    max(flops / GEMM rate, its bytes / HBM rate))."""
+    flops = 2 * shards * m * k * n
+    if m % 8 == 0 and n % 8 == 0 and shards <= 8:
+        fused = max(H100.ring_call_latency, flops / H100.ring_product_flops
+                    + -(-m // 128) * (shards - 1) * k * n * 2 / H100.ring_forward_bandwidth)
+    else:
+        fused = max(H100.ring_call_latency + (shards - 1) * H100.launch_latency,
+                    flops / H100.ring_simt_flops)
+    mm_bytes = (m * k + shards * k * n + shards * m * n) * 2
+    unfused = max(H100.unfused_call_latency,
+                  (1 + shards) * k * n * 2 / H100.all_gather_bandwidth
+                  + max(flops / H100.gemm_flops_bf16, mm_bytes / H100.hbm_bandwidth))
+    closed = "fused_ring" if fused < unfused else "unfused"
     assert closed == want
     assert CollectiveStrategist().allgather_matmul_plan(m, k, n, shards) == want
     assert CollectiveStrategist(DEFAULT_MODEL).allgather_matmul_plan(
         m, k, n, shards, dtype_bytes=2) == want
-    assert H100.peak_flops_bf16 == 989e12
+    assert DEFAULT_MODEL.p_ring_matmul(m, k, n, shards) == pytest.approx(fused, rel=1e-12)
+    assert DEFAULT_MODEL.p_allgather_matmul(m, k, n, shards) == pytest.approx(unfused, rel=1e-12)
+
+
+@pytest.mark.parametrize("m,k,n", [(8192, 960, 2560), (8192, 2560, 960)])
+def test_allgather_matmul_plan_prices_t1_from_the_card(m, k, n):
+    """At T1's projections (x_t [k, 8192] over 4 ranks) the fused arm is the
+    one-copy products plus the ring's forward, which the card measured
+    slower than the all-gather + library GEMM: the forward alone exceeds
+    the gather's copy by far, and both arms price the same products."""
+    model, shards = DEFAULT_MODEL, 4
+    flops = 2 * shards * m * k * n
+    forwarded = (m // 128) * (shards - 1) * k * n * 2     # 64 tiles of m, 3 hops each
+    gathered = (1 + shards) * k * n * 2                    # W read once, 4 copies written
+    assert model.ring_variant(m, n, shards) == "wgmma"
+    assert forwarded / gathered == pytest.approx(64 * 3 / 5)
+    assert forwarded / H100.ring_forward_bandwidth > 10 * gathered / H100.all_gather_bandwidth
+    fused, unfused = model.p_ring_matmul(m, k, n, shards), model.p_allgather_matmul(m, k, n, shards)
+    assert fused > unfused > flops / H100.gemm_flops_bf16
+    assert CollectiveStrategist().allgather_matmul_plan(m, k, n, shards) == "unfused"
+
+
+@pytest.mark.parametrize("m", [8, 16, 128])
+def test_allgather_matmul_plan_fuses_a_few_tokens_against_a_large_weight(m):
+    """x [m, 16384] against W [16384, 16384] (512 MB bf16) over 8 ranks: the
+    all-gather writes 8 copies of W, the ring forwards it 7 times for one
+    tile of m: the fused arm wins while m fits one tile, and 8 tiles of m
+    (1024 tokens) forward W 56 times."""
+    model, k, n, shards = DEFAULT_MODEL, 16384, 16384, 8
+    assert model.ring_variant(m, n, shards) == "wgmma"
+    assert CollectiveStrategist().allgather_matmul_plan(m, k, n, shards) == "fused_ring"
+    assert CollectiveStrategist().allgather_matmul_plan(1024, k, n, shards) == "unfused"
+
+
+@pytest.mark.parametrize("m,k,n,shards,dtype_bytes", [
+    (16, 960, 2560, 16, 2),          # more ranks than a cluster holds: "simt"
+    (4, 1024, 1024, 8, 2),           # a 4-token call: x_t's rows are not 16 bytes
+    (12, 960, 2560, 4, 2),           # m not whole 16-byte rows: "simt"
+])
+def test_small_calls_the_fused_kernel_cannot_take_in_one_launch_stay_unfused(
+        m, k, n, shards, dtype_bytes):
+    model = DEFAULT_MODEL
+    assert model.ring_variant(m, n, shards, dtype_bytes) == "simt"
+    assert model.p_ring_matmul(m, k, n, shards, dtype_bytes) >= (
+        H100.ring_call_latency + (shards - 1) * H100.launch_latency)
+    assert CollectiveStrategist().allgather_matmul_plan(m, k, n, shards, dtype_bytes) == "unfused"
+
+
+@pytest.mark.parametrize("m,K,N,shards,dtype", [
+    (16, 960, 2560, 4, torch.bfloat16), (8, 96, 64, 8, torch.bfloat16),
+    (12, 960, 2560, 4, torch.bfloat16), (16, 96, 36, 4, torch.bfloat16),
+    (16, 144, 64, 9, torch.bfloat16), (16, 96, 64, 4, torch.float32),
+    (1, 64, 64, 1, torch.bfloat16), (128, 64, 256, 1, torch.bfloat16),
+])
+def test_the_models_variant_rule_is_the_kernels(m, K, N, shards, dtype):
+    """`PerfModel.ring_variant` prices the variant `ops.variant` launches:
+    on contiguous tensors, from the shapes alone, the two agree."""
+    from repro_torch.core.perfmodel import RING_MAX_RANKS, RING_TILE
+
+    assert (RING_MAX_RANKS, RING_TILE) == (ops.MAX_RANKS, ops.TILE)
+    x_t = torch.zeros(K, m, dtype=dtype)
+    w = torch.zeros(shards, K // shards, N, dtype=dtype)
+    assert DEFAULT_MODEL.ring_variant(m, N, shards, dtype.itemsize) == ops.variant(
+        dtype, shards, x_t, w)
 
 
 if __name__ == "__main__":

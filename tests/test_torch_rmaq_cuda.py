@@ -156,3 +156,67 @@ def test_kernels_refuse_what_they_do_not_take(card):
     ring = torch.zeros(4, 2, 8, device="cuda").transpose(1, 2)
     with pytest.raises(ValueError, match="in place"):
         ops.queue_push(ring, ctr, torch.zeros(4, 1, 2, device="cuda"), 1, mesh)
+
+
+def _offset(t, words):
+    """t's values at a data pointer `words` 32-bit words past a 16-byte
+    boundary (words = 0: t itself)."""
+    if not words:
+        return t
+    buf = torch.empty(t.numel() + words, dtype=t.dtype, device=t.device)
+    out = buf[words:]
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["aligned", "cnt offset", "all offset"])
+@pytest.mark.parametrize("shift", [0, 1, -1, 4, -8, 4103])
+@pytest.mark.parametrize("p", [1, 4, 5, 4096, 4099])
+def test_notify_accumulate_runs_and_vectors_are_bit_equal(card, p, shift, layout):
+    """The two runs of the rotation with 16-byte vectors of local and out
+    (and of cnt where off and p are multiples of 4), single words where a
+    pointer is not 16-byte aligned; sums past 2**31 wrap."""
+    g = _gen(7 * p + shift)
+    mesh = Mesh(p, "x", device="cuda")
+    cnt = _offset(_ints((p,), g), 1 if layout != "aligned" else 0)
+    local = _offset(_ints((p,), g), 3 if layout == "all offset" else 0)
+    out = ops.notify_accumulate(cnt, local, shift, mesh)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref.notify_accumulate_ref(cnt, local, shift, mesh))
+
+
+@pytest.mark.cuda
+def test_notify_accumulate_three_calls_one_launch_each(card):
+    g = _gen(11)
+    mesh = Mesh(4096, "x", device="cuda")
+    cnt, local = _ints((4096,), g), _ints((4096,), g)
+    before = ops.launches["notify_accumulate"]
+    outs = [ops.notify_accumulate(cnt, local, 1, mesh) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert ops.launches["notify_accumulate"] == before + 3
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    assert torch.equal(outs[0], ref.notify_accumulate_ref(cnt, local, 1, mesh))
+
+
+@pytest.mark.cuda
+def test_notify_accumulate_launches_on_the_callers_stream(card):
+    """Launched on a side stream right after work queued there that makes
+    its input: the kernel must run on that stream, after the work."""
+    from repro_torch.kernels import common
+
+    g = _gen(12)
+    mesh = Mesh(4096, "x", device="cuda")
+    base, local = _ints((4096,), g, 0, 2**20), _ints((4096,), g, 0, 2**20)
+    a = torch.randn(4096, 4096, generator=g, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        assert common.current_stream(torch.cuda.current_device()) == side.cuda_stream
+        b = a
+        for _ in range(8):
+            b = b @ a * 1e-3                       # milliseconds of work on `side`
+        cnt = base + (b[0, 0] * 0).to(torch.int32)  # the input, made after it
+        out = ops.notify_accumulate(cnt, local, 1, mesh)
+    side.synchronize()
+    assert torch.equal(out, ref.notify_accumulate_ref(base, local, 1, mesh))
