@@ -105,9 +105,11 @@ no result line):
      `queue.enqueue_shift`), launches counted; then edge cases against the
      plain versions (notify_accumulate also at p = 4096 and 4099, shift 4
      and unaligned pointers) and timings (kernel, plain, library call,
-     bytes bound; notify_accumulate's device time a call, queued behind a
-     spin kernel: the profiler lost one of its 50 records in every window
-     of some runs);
+     bytes bound; notify_accumulate's and queue_push's device time a call,
+     queued behind a spin kernel: the profiler lost one of its 50 records
+     in every window of some runs; beside them the launch floor,
+     notify_accumulate at p = 1 queued the same way; every timed
+     queue_push admits all k messages of every rank);
  13. the continuous-batching engine (`repro_torch.serve.engine`) on
      SmolLM-360M at its published widths (32 layers, d_model 960, 15/5
      heads of 64, vocab 49152; random bf16 weights from a seed), 8 slots,
@@ -206,7 +208,9 @@ no result line):
 
 ``python3 chip_smoke.py --gather-shift`` times only `rmem.pages.gather_shift`
 and `paged_gather` at the rendezvous pull's shape on the package beside the
-script (two trees in one call: copy the script into each).
+script (two trees in one call: copy the script into each);
+``python3 chip_smoke.py --queue-push`` times only kernel rows 10 and 9 at the
+DSDE shapes and the launch floor, the same way.
 
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after.
@@ -1328,7 +1332,9 @@ def launch_breakdown(torch, common, rma_ops, rmaq_ops, Mesh, n: int = 10_000) ->
     path before it made it: ``x[0].is_contiguous()`` and ``x[0].numel()``,
     ``torch.empty(shape, dtype=, device=)``, a ``torch.cuda.Stream`` built
     to read ``.cuda_stream``, the build lock and the library's symbol
-    lookup.  Returns µs a call by part."""
+    lookup.  `rmaq.ops.queue_push` at the DSDE queue's p = 4096, k = 6 is
+    timed whole, with its one [2, p] output beside the two outputs it made
+    before.  Returns µs a call by part."""
     def per_call(fn):
         for _ in range(200):
             fn()
@@ -1350,6 +1356,9 @@ def launch_breakdown(torch, common, rma_ops, rmaq_ops, Mesh, n: int = 10_000) ->
     dev = word.get_device()
     stream = common.current_stream(dev)
     out1, outp = torch.empty_like(word), torch.empty_like(cnt)
+    ring = torch.zeros(p, 64, DSDE_D, device="cuda")       # fills: the host's part is the same
+    ctr = torch.zeros(p, 2, dtype=torch.int32, device="cuda")
+    msgs = torch.zeros(p, DSDE_K, DSDE_D, device="cuda")
     put, acc = rma_ops._PUT, rmaq_ops._ACC
     put(word.data_ptr(), out1.data_ptr(), 1, 4, 4, 1, stream)     # bound before timing
     acc(cnt.data_ptr(), local.data_ptr(), outp.data_ptr(), p, 1, stream)
@@ -1385,6 +1394,11 @@ def launch_breakdown(torch, common, rma_ops, rmaq_ops, Mesh, n: int = 10_000) ->
             cnt.data_ptr(), local.data_ptr(), outp.data_ptr(), 0, 1, stream),
         "notify_accumulate: ctypes call with the launch": lambda: acc.fn(
             cnt.data_ptr(), local.data_ptr(), outp.data_ptr(), p, 1, stream),
+        "queue_push: whole call": lambda: rmaq_ops.queue_push(ring, ctr, msgs, 1, mp),
+        "queue_push: output, one [2, p] new_empty and its rows": lambda: (
+            ctr.new_empty((2, p)).unbind()),
+        "queue_push: outputs, torch.empty + empty_like (before)": lambda: torch.empty_like(
+            torch.empty(p, dtype=torch.int32, device=ctr.device)),
     }
     us = {name: per_call(fn) for name, fn in parts.items()}
     for op in ("put_shift", "notify_accumulate"):
@@ -1770,9 +1784,19 @@ def check_rmaq(torch, ops, ref, Mesh) -> dict:
     return errs
 
 
+def launch_floor_ms(torch, ops, Mesh) -> float:
+    """The port's smallest launch: `notify_accumulate` at p = 1 (12 bytes),
+    its device time a call queued behind a spin kernel: the yardstick of a
+    launch-bound row."""
+    one = torch.zeros(1, dtype=torch.int32, device="cuda")
+    m1 = Mesh(1, "x", device="cuda")
+    return queued_ms(lambda: ops.notify_accumulate(one, one, 1, m1))
+
+
 def time_rmaq(torch, rq, ops, ref, run: dict, ops_run: dict, errs: dict, hbm: float,
-              u32_to_wire) -> list:
-    """Kernel, plain, library call and bound at the DSDE run's inputs."""
+              u32_to_wire, Mesh) -> list:
+    """Kernel, plain, library call and bound at the DSDE run's inputs; the
+    device time a call queued (rows 9 and 10) beside the launch floor."""
     mesh, p = run["mesh"], DSDE_P
     recv, cnt = ops_run["recv"], ops_run["cnt"]
     to_next, local = ops_run["to_next"], ops_run["local"]
@@ -1780,6 +1804,11 @@ def time_rmaq(torch, rq, ops, ref, run: dict, ops_run: dict, errs: dict, hbm: fl
     msgs = run["data"]
     ctr = u32_to_wire(ctrs[:, [rq.HEAD, rq.TAIL]]).contiguous()
     k_ring, k_ctr, p_ring, p_ctr = ring.clone(), ctr.clone(), ring.clone(), ctr.clone()
+    pushed = {}
+
+    def push():                     # keeps the last call's counts
+        pushed["out"] = ops.queue_push(k_ring, k_ctr, msgs, 1, mesh)
+
     w4 = 4
     push_bytes = (p * 8 + msgs.numel() * w4 + msgs.numel() * w4 + p * 4 + p * 8)
     rows = {
@@ -1792,20 +1821,30 @@ def time_rmaq(torch, rq, ops, ref, run: dict, ops_run: dict, errs: dict, hbm: fl
                               lambda: local + to_next.roll(1),
                               3 * p * w4),
         # no one PyTorch call admits, places and publishes: no library time
-        "queue_push": (lambda: ops.queue_push(k_ring, k_ctr, msgs, 1, mesh),
+        "queue_push": (push,
                        lambda: ref.queue_push_ref(p_ring, p_ctr, msgs, 1, mesh, desc.capacity),
                        None, push_bytes),
     }
+    floor = launch_floor_ms(torch, ops, Mesh)
     out = []
     for name, (kern, plain, lib, nbytes) in rows.items():
         k_ms, p_ms = time_ms(kern), time_ms(plain)
         l_ms = time_ms(lib) if lib is not None else None
         row = {}
-        if name == "notify_accumulate":     # device time a call, the gaps between launches in
-            row["queued_ms"] = queued_ms(kern)
+        if name in ("notify_accumulate", "queue_push"):   # launch-bound: device time a
+            row = {"queued_ms": queued_ms(kern),         # call, gaps between launches in
+                   "launch_floor_ms": floor}
+        if name == "queue_push":
+            # the ring only fills while it is timed, so if the last call
+            # admitted all k messages of every rank, every timed call did
+            sent = pushed["out"][2]
+            torch.cuda.synchronize()
+            if not bool((sent == DSDE_K).all()):
+                raise AssertionError(f"queue_push timing: the last call admitted "
+                                     f"{int(sent.min())}-{int(sent.max())} of {DSDE_K} messages")
         bound = nbytes / hbm * 1e3
         dev = (f" (device {row['queued_ms'] * 1e3:.2f} us a call queued back to back behind a "
-               "spin kernel)") if row else ""
+               f"spin kernel; launch floor {floor * 1e3:.2f} us)") if row else ""
         log(f"{name}: kernel {k_ms * 1e3:.1f} us{dev}, plain {p_ms * 1e3:.1f} us, library "
             f"{'—' if l_ms is None else f'{l_ms * 1e3:.1f} us'}, bound {bound * 1e3:.3f} us "
             f"(bytes {nbytes})")
@@ -1832,7 +1871,7 @@ def dsde_phases(torch, hbm: float) -> list:
     ops_run = rmaq_ops_phase(torch, rq, notify, ops, ref, run, u32_to_wire)
     torch.cuda.empty_cache()
     errs = check_rmaq(torch, ops, ref, Mesh)
-    rows = time_rmaq(torch, rq, ops, ref, run, ops_run, errs, hbm, u32_to_wire)
+    rows = time_rmaq(torch, rq, ops, ref, run, ops_run, errs, hbm, u32_to_wire, Mesh)
     del run, ops_run
     torch.cuda.empty_cache()
     return rows
@@ -2970,5 +3009,58 @@ def gather_shift_only() -> int:
     return 0
 
 
+def queue_push_only() -> int:
+    """``python3 chip_smoke.py --queue-push``: kernel rows 10 and 9 through
+    `kernels.rmaq.ops` (the surface every version of the port has) on the
+    package beside this file, so that two trees can be timed in one call:
+    `queue_push` at the DSDE queue's shape (p = 4096 ranks, a drained ring
+    of 131,072 slots of 2 f32 a rank, k = 6 seeded messages a rank, shift
+    1), `notify_accumulate` at the DSDE doorbell's p = 4096 and the launch
+    floor (`notify_accumulate` at p = 1).  The first push is held to the
+    plain version, and the last timed push must admit all k messages of
+    every rank.  Prints one JSON line with the card, the CUDA-event times
+    and the device times a call queued behind a spin kernel."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels.rmaq import ops, ref
+    from repro_torch.mesh import Mesh
+
+    p, k, w, cap = DSDE_P, DSDE_K, DSDE_D, 131072
+    g = torch.Generator(device="cuda").manual_seed(DSDE_SEED)
+    mesh = Mesh(p, "x", device="cuda")
+    ring = torch.zeros(p, cap, w, device="cuda")
+    ctr = torch.zeros(p, 2, dtype=torch.int32, device="cuda")
+    msgs = torch.randn(p, k, w, generator=g, device="cuda")
+    want = ref.queue_push_ref(ring.clone(), ctr.clone(), msgs, 1, mesh, cap)
+    got = ops.queue_push(ring, ctr, msgs, 1, mesh)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("queue_push differs from its plain version")
+    del want, got
+    pushed = {}
+
+    def push():
+        pushed["out"] = ops.queue_push(ring, ctr, msgs, 1, mesh)
+
+    cnt = torch.randint(0, 2**20, (p,), generator=g, device="cuda", dtype=torch.int32)
+    local = torch.randint(0, 2**20, (p,), generator=g, device="cuda", dtype=torch.int32)
+
+    def acc():
+        ops.notify_accumulate(cnt, local, 1, mesh)
+
+    out = {"card": card_line(), "tree": ROOT,
+           "queue_push_ms": time_ms(push), "queue_push_queued_ms": queued_ms(push),
+           "notify_accumulate_ms": time_ms(acc), "notify_accumulate_queued_ms": queued_ms(acc),
+           "launch_floor_ms": launch_floor_ms(torch, ops, Mesh)}
+    if not bool((pushed["out"][2] == k).all()):
+        raise AssertionError("the last timed queue_push did not admit all k messages")
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+MODES = {"--gather-shift": gather_shift_only, "--queue-push": queue_push_only}
+
 if __name__ == "__main__":
-    sys.exit(gather_shift_only() if sys.argv[1:] == ["--gather-shift"] else main())
+    sys.exit(MODES[sys.argv[1]]() if sys.argv[1:] else main())

@@ -36,22 +36,39 @@
 // in.  Words are added as uint32 (int32 addition that wraps).
 //
 // queue_push — bound: launch latency at the queue's message sizes (k rows
-// of a few words a rank).  Under a uniform shift every target has exactly
-// one producer (r -> (r + s) mod p is a bijection; at s = 0 each rank pushes
-// into its own ring), so one block per producer r owns its target t
-// outright: it is the only block that reads or writes t's counters and
-// ring.  Every counter fetch therefore precedes every tail publish without
-// a grid-wide barrier, and the whole enqueue is one ordinary launch: thread
-// 0 fetches (head, tail), the block copies the accepted rows, and after a
-// block barrier thread 0 publishes the tail, n_sent[r] and n_notif[t].  The
-// TPU kernel routes rejected rows to a trash row (its interpret mode needs
-// a static DMA schedule); a GPU thread can simply skip them, so a rejected
-// row is never written and no trash row exists.  The ring and counters are
-// updated in place.  Counters are int32 words standing for uint32 values:
-// all counter arithmetic is uint32 (signed overflow is undefined in C++),
-// and slots are masked with & (cap - 1), which matches the reference
-// oracle's uint32 view past tail = 2^31 (the Pallas kernel's signed rem
-// does not).
+// of a few words a rank: at the DSDE queue's p = 4096, k = 6, w = 2 the call
+// moves ~475 KB, 0.14 us at the memory rate).  Under a uniform shift every
+// target has exactly one producer (r -> (r + s) mod p is a bijection; at
+// s = 0 each rank pushes into its own ring), so one group of lanes per
+// producer r owns its target t outright: it is the only group that reads or
+// writes t's counters and ring.  Every counter fetch therefore precedes
+// every tail publish without a grid-wide barrier, and the whole enqueue is
+// one ordinary launch with no shared memory and no block barrier.  A group
+// is the power of two of lanes that holds the k rows' vectors, at most a
+// warp (8 lanes at the DSDE shape): what is left of the launch, past its
+// floor, grows with the warps an SM starts (at p = 4096 on an H100, a warp
+// a producer took 3.1 us queued, 8 lanes 2.8, against a 2.3 us floor).
+// The group's lane 0 fetches t's (head, tail) in one 8-byte load where ctr
+// is 8-byte aligned, admits accept = min(k, cap - (tail - head)) and
+// broadcasts accept and tail by shuffle, while every lane reads its first
+// vector ahead; the lanes copy the accepted rows, row j to slot
+// (tail + j) & (cap - 1), each lane a fixed (row in a pass, vector in a
+// row) pair worked out once, so no index is divided per word; vectors are
+// the widest that w and both bases allow (16 bytes where w % 4 == 0 and
+// ring and msgs are 16-byte aligned, 8 where w % 2 == 0 and 8-byte
+// aligned, else words); after __syncwarp the group's lane 0 publishes the
+// tail, n_sent[r] and n_notif[t].  Blocks of 8 warps, at most one wave of
+// resident blocks, producers past the grid's groups taken by a grid-stride
+// loop.  The TPU kernel routes rejected rows to a trash row (its interpret
+// mode needs a static DMA schedule); a lane simply skips them, so a
+// rejected row is never written and no trash row exists.  The ring and
+// counters are updated in place.  Counters are int32 words standing for
+// uint32 values: all counter arithmetic is uint32 (signed overflow is
+// undefined in C++), and slots are masked with & (cap - 1), which matches
+// the reference oracle's uint32 view past tail = 2^31 (the Pallas kernel's
+// signed rem does not) and wraps with the tail past 2^32.  An over-full
+// ring (tail - head > cap) admits accept <= 0 as the oracle does: nothing
+// is copied and tail + accept is published.
 
 #include "rotate.cuh"
 
@@ -117,40 +134,76 @@ __global__ void notify_accumulate_kernel(const uint32_t* __restrict__ cnt,
   add_run<VEC, CVEC>(cnt, local, out, p - off, p, off - p, tid, nt);
 }
 
-// one block per producer r (grid-stride over producers); ring [p, cap, w],
-// ctr [p, 2] (head, tail), msgs [p, k, w], all contiguous 32-bit words
-__global__ void queue_push_kernel(uint32_t* __restrict__ ring,
-                                  uint32_t* __restrict__ ctr,
-                                  const uint32_t* __restrict__ msgs,
-                                  int32_t* __restrict__ n_sent,
-                                  int32_t* __restrict__ n_notif, long long p,
-                                  long long cap, long long k, long long w,
-                                  long long off) {
-  __shared__ uint32_t s_tail;
-  __shared__ int32_t s_accept;
+// a group of `group` lanes per producer r (a power of two <= 32; groups
+// grid-stride over producers); ring [p, cap, w], ctr [p, 2] (head, tail),
+// msgs [p, k, w], all contiguous 32-bit words; V the copy's vector (wv of
+// them a row)
+constexpr int kPushWarps = 8;             // warps a block
+
+template <typename V>
+__global__ void __launch_bounds__(kPushWarps * 32)
+queue_push_kernel(uint32_t* __restrict__ ring, uint32_t* __restrict__ ctr,
+                  const uint32_t* __restrict__ msgs, int32_t* __restrict__ n_sent,
+                  int32_t* __restrict__ n_notif, long long p, long long cap,
+                  long long k, int wv, int group, long long off, bool ctr8) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int g = lane & (group - 1);       // this lane's place in its group
+  const int groups_a_warp = 32 / group;
+  // a pass copies `per` rows of `span` lanes each (a row of >= `group`
+  // vectors takes the whole group, vector by vector)
+  const int span = wv < 1 ? 1 : wv < group ? wv : group;
+  const int per = group / span;
+  const int sub = g / span, col = g - sub * span;
+  const bool mine = sub < per && sub < k && col < wv;   // a vector in the first pass
   const uint32_t mask = (uint32_t)cap - 1u;
-  for (long long r = blockIdx.x; r < p; r += gridDim.x) {
+  const long long row_words = (long long)wv * (long long)(sizeof(V) / 4);
+  const long long step = (long long)gridDim.x * kPushWarps * groups_a_warp;
+  // the loop runs alike in every lane of a warp (shuffles take all 32)
+  for (long long base = ((long long)blockIdx.x * kPushWarps + (threadIdx.x >> 5)) *
+                        groups_a_warp;
+       base < p; base += step) {
+    const long long r = base + lane / group;
+    const bool live = r < p;
     long long t = r + off;
     if (t >= p) t -= p;
-    if (threadIdx.x == 0) {               // fetch the target's counters, admit
-      const uint32_t head = ctr[2 * t], tail = ctr[2 * t + 1];
+    const V* src = reinterpret_cast<const V*>(msgs + r * k * row_words);
+    // the first pass's vector is read while the group's lane 0 fetches the
+    // counters (a rejected row is read, never written)
+    V first = V();
+    if (live && mine) first = src[sub * wv + col];
+    uint32_t tail = 0;
+    int32_t accept = 0;
+    if (live && g == 0) {                 // fetch the target's counters, admit
+      uint32_t head;
+      if (ctr8) {
+        const uint2 ht = reinterpret_cast<const uint2*>(ctr)[t];
+        head = ht.x;
+        tail = ht.y;
+      } else {
+        head = ctr[2 * t];
+        tail = ctr[2 * t + 1];
+      }
       const int32_t free_slots = (int32_t)((uint32_t)cap - (tail - head));
-      s_accept = free_slots < (int32_t)k ? free_slots : (int32_t)k;
-      s_tail = tail;
+      accept = free_slots < (int32_t)k ? free_slots : (int32_t)k;
     }
-    __syncthreads();
-    const int32_t accept = s_accept;
-    const uint32_t tail = s_tail;
-    const long long words = (accept > 0 ? (long long)accept : 0LL) * w;
-    uint32_t* dst = ring + t * cap * w;
-    const uint32_t* src = msgs + r * k * w;
-    for (long long i = threadIdx.x; i < words; i += blockDim.x) {
-      const long long j = i / w;
-      const uint32_t slot = (tail + (uint32_t)j) & mask;
-      dst[(long long)slot * w + (i - j * w)] = src[i];
+    accept = __shfl_sync(full, accept, 0, group);
+    tail = __shfl_sync(full, tail, 0, group);
+    if (live && sub < per) {
+      V* dst = reinterpret_cast<V*>(ring + t * cap * row_words);
+      for (int j = sub; j < accept; j += per) {
+        V* d = dst + (long long)((tail + (uint32_t)j) & mask) * wv;
+        const V* s = src + (long long)j * wv;
+        int c = col;
+        if (j == sub) {                   // the vector read ahead
+          if (c < wv) d[c] = first;
+          c += span;
+        }
+        for (; c < wv; c += span) d[c] = s[c];
+      }
     }
-    __syncthreads();                      // every row is in; s_* are free again
-    if (threadIdx.x == 0) {               // publish the tail, notify
+    __syncwarp();                         // every row is in
+    if (live && g == 0) {                 // publish the tail, notify
       ctr[2 * t + 1] = tail + (uint32_t)accept;
       n_sent[r] = accept;
       n_notif[t] = accept;
@@ -220,12 +273,37 @@ extern "C" int rmaq_queue_push(void* ring, void* ctr, const void* msgs,
                                long long cap, long long k, long long w,
                                long long shift, void* stream) {
   if (p == 0) return (int)cudaSuccess;
-  long long threads = (k * w + 31) / 32 * 32;
-  threads = threads < 32 ? 32 : threads > 256 ? 256 : threads;
-  const long long blocks = p < kMaxBlocks ? p : kMaxBlocks;
-  queue_push_kernel<<<(int)blocks, (int)threads, 0, (cudaStream_t)stream>>>(
-      static_cast<uint32_t*>(ring), static_cast<uint32_t*>(ctr),
-      static_cast<const uint32_t*>(msgs), static_cast<int32_t*>(n_sent),
-      static_cast<int32_t*>(n_notif), p, cap, k, w, mod(shift, p));
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(ring) |
+                          reinterpret_cast<uintptr_t>(msgs);
+  const int vw = w % 4 == 0 && (bases & 15u) == 0 ? 4
+                 : w % 2 == 0 && (bases & 7u) == 0 ? 2 : 1;
+  const bool ctr8 = (reinterpret_cast<uintptr_t>(ctr) & 7u) == 0;
+  const int wv = (int)(w / vw);
+  // lanes a producer: the power of two that holds the first pass's vectors
+  // (k rows of wv), at most a warp
+  const long long vecs = k * wv;
+  int group = 1;
+  while (group < 32 && group < vecs) group *= 2;
+  // one wave at most: 2048 threads an SM = 8 blocks of 8 warps
+  const long long wave = (long long)sm_count() * (2048 / (kPushWarps * 32));
+  const long long per_block = (long long)kPushWarps * (32 / group);
+  const long long want = (p + per_block - 1) / per_block;
+  const int blocks = (int)(want < wave ? want : wave);
+  cudaStream_t s = (cudaStream_t)stream;
+  uint32_t* rg = static_cast<uint32_t*>(ring);
+  uint32_t* c = static_cast<uint32_t*>(ctr);
+  const uint32_t* m = static_cast<const uint32_t*>(msgs);
+  int32_t* ns = static_cast<int32_t*>(n_sent);
+  int32_t* nn = static_cast<int32_t*>(n_notif);
+  const long long off = mod(shift, p);
+  if (vw == 4)
+    queue_push_kernel<uint4><<<blocks, kPushWarps * 32, 0, s>>>(rg, c, m, ns, nn, p, cap,
+                                                               k, wv, group, off, ctr8);
+  else if (vw == 2)
+    queue_push_kernel<uint2><<<blocks, kPushWarps * 32, 0, s>>>(rg, c, m, ns, nn, p, cap,
+                                                               k, wv, group, off, ctr8);
+  else
+    queue_push_kernel<uint32_t><<<blocks, kPushWarps * 32, 0, s>>>(rg, c, m, ns, nn, p,
+                                                                  cap, k, wv, group, off, ctr8);
   return (int)cudaGetLastError();
 }

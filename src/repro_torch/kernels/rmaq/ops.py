@@ -89,18 +89,19 @@ def queue_push(buf: torch.Tensor, ctr: torch.Tensor, msgs: torch.Tensor,
     buf [p, capacity, w] and ctr [p, 2] int32 (head, tail; uint32 values in
     int32 words) are updated in place; msgs [p, k, w] (k messages a rank),
     32-bit words like the ring.  Returns (buf, ctr, n_sent [p] int32 per
-    producer, n_notif [p] int32 per owner)."""
-    cap = buf.shape[1] if capacity is None else int(capacity)
-    if buf.ndim != 3 or msgs.ndim != 3 or ctr.shape != (mesh.p, 2):
+    producer, n_notif [p] int32 per owner); on the card n_sent and n_notif
+    are the two rows of one [2, p] tensor, the call's one allocation."""
+    bs, ms, p = buf.shape, msgs.shape, mesh.p     # each read once: the host path is the cost
+    cap = bs[1] if capacity is None else int(capacity)
+    if len(bs) != 3 or len(ms) != 3 or ctr.shape != (p, 2):
         raise ValueError(f"queue_push needs buf [p, cap, w], ctr [p, 2], msgs "
-                         f"[p, k, w]; got {tuple(buf.shape)}, {tuple(ctr.shape)}, "
-                         f"{tuple(msgs.shape)}")
-    if cap != buf.shape[1] or cap < 2 or cap & (cap - 1):
+                         f"[p, k, w]; got {tuple(bs)}, {tuple(ctr.shape)}, {tuple(ms)}")
+    if cap != bs[1] or cap < 2 or cap & (cap - 1):
         raise ValueError(f"queue_push: capacity {cap} must be the ring's "
-                         f"{buf.shape[1]} and a power of two >= 2")
-    if msgs.shape[2] != buf.shape[2] or msgs.dtype != buf.dtype:
-        raise ValueError(f"queue_push: messages {tuple(msgs.shape)} {msgs.dtype} do "
-                         f"not fit ring rows {tuple(buf.shape)} {buf.dtype}")
+                         f"{bs[1]} and a power of two >= 2")
+    if ms[2] != bs[2] or msgs.dtype != buf.dtype:
+        raise ValueError(f"queue_push: messages {tuple(ms)} {msgs.dtype} do "
+                         f"not fit ring rows {tuple(bs)} {buf.dtype}")
     if ctr.dtype != torch.int32:
         raise TypeError(f"queue_push counters must be int32, got {ctr.dtype}")
     if not rma_ops._on_card("queue_push", mesh, buf, ctr, msgs):
@@ -110,9 +111,9 @@ def queue_push(buf: torch.Tensor, ctr: torch.Tensor, msgs: torch.Tensor,
         raise ValueError("queue_push updates the ring and counters in place: "
                          "both must be contiguous")
     msgs = msgs.contiguous()
-    n_sent = torch.empty(mesh.p, dtype=torch.int32, device=buf.device)
-    n_notif = torch.empty_like(n_sent)
+    counts = ctr.new_empty((2, p))                      # int32, on ctr's card
+    ptr = counts.data_ptr()
     _launch("queue_push", _PUSH, buf.get_device(), buf.data_ptr(), ctr.data_ptr(),
-            msgs.data_ptr(), n_sent.data_ptr(), n_notif.data_ptr(), mesh.p, cap,
-            msgs.shape[1], buf.shape[2], int(shift))
+            msgs.data_ptr(), ptr, ptr + 4 * p, p, cap, ms[1], bs[2], int(shift))
+    n_sent, n_notif = counts.unbind()
     return buf, ctr, n_sent, n_notif

@@ -19,6 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
@@ -232,6 +233,86 @@ def test_a_cuda_tensor_without_nvcc_raises_at_the_build(monkeypatch):
         with pytest.raises(common.KernelBuildError, match="no nvcc"):
             rmaops.put_shift(x, 1, Mesh(4, "x", device="cpu"))
     assert entry.fn is None
+
+
+class _Ops(TorchDispatchMode):
+    """Records the ATen ops dispatched inside it."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.append(func.overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+_ALLOCS = {"empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided",
+           "zeros", "zeros_like", "new_zeros", "ones", "full", "clone", "_to_copy"}
+
+
+def test_queue_push_allocates_one_output(monkeypatch):
+    """On fake CUDA tensors `queue_push` makes one [2, p] int32 tensor, the
+    only allocation of the call; n_sent and n_notif are its two rows, and
+    the kernel gets their pointers 4p bytes apart.  One launch is counted."""
+    fn = _FakeFn()
+    monkeypatch.setattr(rmaqops._PUSH, "fn", fn)
+    monkeypatch.setattr(common, "current_stream", lambda device: 0)
+    monkeypatch.setattr(rmaqops.ref, "queue_push_ref", _boom)
+    p = 5
+    m5 = Mesh(p, "x", device="cpu")
+    before = rmaqops.launches["queue_push"]
+    with FakeTensorMode():
+        buf = torch.empty(p, 8, 3, device="cuda")
+        ctr = torch.empty(p, 2, dtype=torch.int32, device="cuda")
+        msgs = torch.empty(p, 2, 3, device="cuda")
+        with _Ops() as seen:
+            out_buf, out_ctr, n_sent, n_notif = rmaqops.queue_push(buf, ctr, msgs, 1, m5)
+    assert [n for n in seen.names if n in _ALLOCS] == ["new_empty"]
+    assert out_buf is buf and out_ctr is ctr
+    assert n_sent._base is n_notif._base and n_sent._base.shape == (2, p)
+    assert (n_sent.storage_offset(), n_notif.storage_offset()) == (0, p)
+    for t in (n_sent, n_notif):
+        assert t.shape == (p,) and t.dtype == torch.int32 and t.is_cuda and t.is_contiguous()
+    assert rmaqops.launches["queue_push"] == before + 1
+    (args,) = fn.calls
+    assert args[4] - args[3] == 4 * p
+    assert args[5:] == (p, 8, 2, 3, 1, 0)            # p, cap, k, w, shift; the stream
+
+
+def _on(dtype, *shape):
+    return torch.empty(*shape, dtype=dtype, device="cuda")
+
+
+F32, F64, I32, I64 = torch.float32, torch.float64, torch.int32, torch.int64
+QUEUE_PUSH_REFUSALS = {    # name -> (error, message, (ring, counters, messages))
+    "capacity not a power of two": (ValueError, "power of two", lambda: (
+        _on(F32, 4, 6, 2), _on(I32, 4, 2), _on(F32, 4, 1, 2))),
+    "int64 counters": (TypeError, "int32", lambda: (
+        _on(F32, 4, 8, 2), _on(I64, 4, 2), _on(F32, 4, 1, 2))),
+    "rows of another width": (ValueError, "do not fit", lambda: (
+        _on(F32, 4, 8, 2), _on(I32, 4, 2), _on(F32, 4, 1, 3))),
+    "64-bit words": (TypeError, "32-bit words", lambda: (
+        _on(F64, 4, 8, 2), _on(I32, 4, 2), _on(F64, 4, 1, 2))),
+    "a ring that is not contiguous": (ValueError, "in place", lambda: (
+        _on(F32, 4, 2, 8).transpose(1, 2), _on(I32, 4, 2), _on(F32, 4, 1, 2))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(QUEUE_PUSH_REFUSALS))
+def test_queue_push_refusals_allocate_and_launch_nothing(monkeypatch, case):
+    """Each refusal of `queue_push` on CUDA tensors raises before the output
+    is made and before the launch: nothing allocated, nothing counted."""
+    err, match, make = QUEUE_PUSH_REFUSALS[case]
+    monkeypatch.setattr(common, "current_stream", _boom)
+    m4 = Mesh(4, "x", device="cpu")
+    before = dict(rmaqops.launches)
+    with FakeTensorMode():
+        buf, ctr, msgs = make()
+        with _Ops() as seen, pytest.raises(err, match=match):
+            rmaqops.queue_push(buf, ctr, msgs, 1, m4)
+    assert not [n for n in seen.names if n in _ALLOCS]
+    assert rmaqops.launches == before
 
 
 VIEWS = {

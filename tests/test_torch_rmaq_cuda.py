@@ -114,6 +114,103 @@ def test_queue_push_is_bit_equal_to_plain(card, p, cap, w, k, used, tail, shift)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 1, -1, 17])
+@pytest.mark.parametrize("p,cap,w,k,used,tail", [
+    (6, 16, 1, 5, 0, 2**32 - 2),              # one word a row
+    (6, 16, 4, 5, 3, 7),                      # one 16-byte vector a row
+    (6, 16, 8, 5, 0, 14),                     # two vectors a row
+    (5, 8, 64, 3, 2, 2**31 - 1),              # 16 vectors a row, two rows a pass
+    (3, 8, 130, 4, 0, 6),                     # 65 8-byte vectors: three passes a row
+    (4, 8, 4, 0, 0, 0),                       # k = 0
+    (4, 64, 3, 40, 10, 2**32 - 20),           # more rows than lanes, all admitted
+    (4, 64, 2, 40, [30, 60, 64, 0], 5),       # more rows than lanes, backpressured
+    (4, 8, 4, 5, [11, 9, 2**31, 8], 3),       # over-full rings: accept <= 0
+    (4, 8, 4, 5, 2**32 - 1, 3),               # head one past tail: free 9, accept k
+    (6, 16, 2, 1, 0, 2**32 - 1),              # one lane a producer
+    (6, 16, 4, 3, [0, 14, 15, 16, 2, 7], 9),  # four lanes a producer
+    (4097, 16, 2, 6, 0, 0),                   # not a multiple of a block's producers
+    (9000, 8, 3, 12, 5, 2**31 + 3),           # more producers than one wave's warps
+])
+def test_queue_push_rows_and_vectors_are_bit_equal(card, p, cap, w, k, used, tail, shift):
+    """Word, 8- and 16-byte copies, rows over several passes, k = 0, more
+    rows than lanes, over-full rings (the reference's accept <= 0: nothing
+    written, tail + accept published), groups of 1 to 32 lanes a producer,
+    a ragged last block and a grid-stride loop."""
+    mesh = Mesh(p, "x", device="cuda")
+    buf, ctr, msgs = _push_case(p, cap, w, k, used, tail, seed=3 * p + w + k + shift)
+    _push_both(buf, ctr, msgs, shift, mesh)
+
+
+def _at(t, words):
+    """A contiguous copy of t whose data pointer is `words` 32-bit words past
+    a 16-byte boundary (a fresh buffer also at words = 0)."""
+    flat = torch.empty(t.numel() + words, dtype=t.dtype, device=t.device)[words:]
+    flat.copy_(t.flatten())
+    return flat.view(t.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [1, -1])
+@pytest.mark.parametrize("layout", ["msgs 1 word off", "msgs 2 words off", "ring 2 words off",
+                                    "ring and msgs 1 word off", "ctr 1 word off"])
+@pytest.mark.parametrize("w", [2, 4, 8])
+def test_queue_push_unaligned_views_are_bit_equal(card, w, layout, shift):
+    """Inputs at pointers that are not 16-byte aligned: the copy falls back
+    to 8-byte vectors or words, and a counter pair that is not 8-byte
+    aligned is read as two words."""
+    p, cap, k = 6, 16, 5
+    mesh = Mesh(p, "x", device="cuda")
+    buf, ctr, msgs = _push_case(p, cap, w, k, [0, 3, 12, 16, 1, 9], 2**32 - 2, seed=w + shift)
+    ring_off = {"ring 2 words off": 2, "ring and msgs 1 word off": 1}.get(layout, 0)
+    msgs_off = {"msgs 1 word off": 1, "msgs 2 words off": 2,
+                "ring and msgs 1 word off": 1}.get(layout, 0)
+    k_buf, k_ctr = _at(buf, ring_off), _at(ctr, 1 if layout == "ctr 1 word off" else 0)
+    k_msgs = _at(msgs, msgs_off)
+    assert k_buf.is_contiguous() and k_ctr.is_contiguous() and k_msgs.is_contiguous()
+    assert (k_buf.data_ptr() % 16, k_msgs.data_ptr() % 16) == (4 * ring_off, 4 * msgs_off)
+    before = ops.launches["queue_push"]
+    got = ops.queue_push(k_buf, k_ctr, k_msgs, shift, mesh)
+    torch.cuda.synchronize()
+    assert ops.launches["queue_push"] == before + 1
+    want = ref.queue_push_ref(buf.clone(), ctr.clone(), msgs, shift, mesh, cap)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_queue_push_twice_on_copies_is_bit_equal(card):
+    """The same push on two copies of one state: rings, counters and counts
+    bit-equal (each warp owns its target; no order between warps shows)."""
+    p, cap, w, k = 4096, 64, 2, 6
+    g = _gen(21)
+    mesh = Mesh(p, "x", device="cuda")
+    used = torch.randint(0, cap + 1, (p,), generator=g, device="cuda").tolist()
+    buf, ctr, msgs = _push_case(p, cap, w, k, used, 2**32 - 3, seed=22)
+    first = ops.queue_push(buf.clone(), ctr.clone(), msgs, 7, mesh)
+    second = ops.queue_push(buf.clone(), ctr.clone(), msgs, 7, mesh)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert bool((first[2] < k).any()) and bool((first[2] == k).any())
+
+
+@pytest.mark.cuda
+def test_queue_push_counts_are_two_rows_of_one_buffer(card):
+    """n_sent and n_notif are the rows of one [2, p] int32 tensor: distinct
+    storage offsets, each a contiguous [p] row, each holding its own counts."""
+    p, cap, w, k, shift = 8, 16, 2, 6, 3
+    mesh = Mesh(p, "x", device="cuda")
+    buf, ctr, msgs = _push_case(p, cap, w, k, [0, 11, 16, 12, 10, 14, 15, 13], 9, seed=5)
+    _, _, n_sent, n_notif = _push_both(buf, ctr, msgs, shift, mesh)
+    assert n_sent._base is not None and n_sent._base is n_notif._base
+    assert n_sent._base.shape == (2, p) and n_sent._base.dtype == torch.int32
+    assert n_notif.data_ptr() == n_sent.data_ptr() + 4 * p
+    assert n_sent.is_contiguous() and n_notif.is_contiguous()
+    src = (torch.arange(p, device="cuda") - shift) % p
+    assert torch.equal(n_notif, n_sent[src]) and not torch.equal(n_notif, n_sent)
+
+
+@pytest.mark.cuda
 def test_queue_push_never_writes_a_rejected_row(card):
     """The reference routes rejected rows to a trash row; here they are not
     written at all: a full ring stays bit-identical, its tail unmoved."""
