@@ -205,12 +205,37 @@ no result line):
      kernel row 7's all-gather + `torch.matmul`, each also timed alone):
      the run fails unless the plan's choice at each projection is the arm
      measured faster, or within 5 % of it; both arms at m = 16 are logged.
+ 22. the device page pool (`repro_torch.rmem.heap`) at the size of a
+     disaggregated deployment's decode-side KV pool for llava-next-mistral-7b
+     (8 KV heads of 128): p = 8 ranks of 4096 pages, a page one layer's K
+     and V for 16 tokens in f32, [16, 2, 8, 128] (128 KiB; 4 GiB of pages),
+     kmax 128 (one 2048-token request), following
+     tests/subtests/rmem_sub.py sections 1-7, every epoch's integer results
+     (ids, grants, freed counts, meta, free stack, head) bit-equal to the
+     same calls on a copy of the pool on the CPU, conservation and stack
+     consistency after every epoch: alloc epochs from all 8 origins until
+     targets run dry and their grants clamp; a share round and two
+     releases (pages free at zero, generations bumped on exactly the freed
+     pages); a stale tag invalid after free and realloc; 32 epochs of
+     seeded random alloc/free traffic, the host's census equal to the live
+     count, then drained; a piggybacked alloc (raw 4, one wire transfer);
+     seeded payloads scattered into the granted pages (raw 2, one wire
+     transfer) and read back by kernel row 3 (one launch, counted from 0;
+     bit-equal, and equal to its plain version); `pool_grow` by 1024 pages
+     and `pool_shrink` back, a `DescriptorCache` refusing the detached
+     regions and serving the new shapes, the shrink refused while a high
+     page is live; one injected double free raising through
+     `check_errors` with conservation kept.  Timings: an alloc epoch and a
+     release epoch (host and CUDA-event µs, medians of 20 with the range,
+     device µs queued, ATen calls) beside `p_page_alloc`; `pool_grow`; row
+     3 at the pool's pages (kernel, device, plain, `index_select`, bound).
 
 ``python3 chip_smoke.py --gather-shift`` times only `rmem.pages.gather_shift`
 and `paged_gather` at the rendezvous pull's shape on the package beside the
 script (two trees in one call: copy the script into each);
 ``python3 chip_smoke.py --queue-push`` times only kernel rows 10 and 9 at the
-DSDE shapes and the launch floor, the same way.
+DSDE shapes and the launch floor, the same way;
+``python3 chip_smoke.py --pool`` runs only phase 22, the device page pool.
 
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after.
@@ -316,6 +341,13 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_REL = 1e-2, 0.05   # backend "cuda" vs "torch" at one
 RESUME_STEPS, RESUME_STOP, RESUME_EVERY = 10, 7, 5
 # kernel row 13 through its ops surface at the training run's FSDP contraction
 RING_N, RING_TOL = 4, 1e-4      # ranks; kernel vs plain, relative to max |Y| (f32 sums)
+# the device page pool at a disaggregated deployment's decode-side KV pool
+# for llava-next-mistral-7b (src/repro/configs/llava_next_mistral_7b.py:7-8:
+# 8 KV heads of 128): a page is one layer's K and V for 16 tokens in f32, so
+# row 3 moves it as 32-bit words (128 KiB); 4096 pages a rank, 4 GiB in all
+POOL_P, POOL_PAGES, POOL_PAGE = 8, 4096, (16, 2, 8, 128)
+POOL_KMAX = FULL["block_tokens"] // FULL["page_tokens"]   # one 2048-token request: 128 pages
+POOL_RANDOM, POOL_GROW, POOL_SEED, POOL_REPS = 32, 1024, 7, 20
 
 
 def log(msg: str) -> None:
@@ -440,9 +472,13 @@ def device_ms(fn, key: str, reps: int = 50) -> float:
     over `reps` calls of `fn`, from `torch.profiler`'s kernel events: the
     host's cost of a launch left out, which `time_ms` includes.  The
     profiler must see exactly `reps` such launches.  It now and then drops
-    a short kernel's events (a window of a 2 µs kernel once saw 49 of 50),
-    so a window that saw fewer is profiled again, three windows at most,
-    each short one logged; a window that saw more fails at once."""
+    kernel events (a window of a 2 µs kernel once saw 49 of 50; a window
+    of the 97 µs gather at the device pool's pages saw 43), so a window
+    that saw fewer is profiled again, three windows at most, each short
+    one logged; a window that saw more fails at once.  After three short
+    windows the time is taken by `queued_ms` instead, without the
+    profiler, and the log says so: that time covers the whole call of
+    `fn`, the gaps between its launches included."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -461,8 +497,10 @@ def device_ms(fn, key: str, reps: int = 50) -> float:
         log(f"device_ms: the profiler saw {n} launches of {key}, want {reps} "
             f"(window {attempt + 1} of {attempts})")
         if n > reps:
-            break
-    raise AssertionError(f"the profiler saw {n} launches of {key}, want {reps}")
+            raise AssertionError(f"the profiler saw {n} launches of {key}, want {reps}")
+    log(f"device_ms: {key} timed by queued_ms, the profiler having come short "
+        f"{attempts} times")
+    return queued_ms(fn, reps)
 
 
 def queued_ms(fn, reps: int = 50) -> float:
@@ -707,6 +745,10 @@ def main() -> int:
     kernels += hybrid_serve_phases(torch, H100.hbm_bandwidth)
     torch.cuda.empty_cache()
     kernels += training_phases(torch, H100.hbm_bandwidth)
+    torch.cuda.empty_cache()
+    pool = pool_phase(torch, H100.hbm_bandwidth)
+    next(r for r in kernels if r["name"] == "paged_gather").update(pool.pop("row3"))
+    log(f"pool phase numbers: {json.dumps(pool)}")
     if len(kernels) != len(KERNELS):
         raise AssertionError(f"{len(kernels)} kernel rows, want {len(KERNELS)}")
     log(f"smoke wall time: {time.perf_counter() - T0:.1f} s")
@@ -2972,6 +3014,385 @@ def training_phases(torch, hbm: float) -> list:
              **ring}]
 
 
+# ------------------------------------------------------ the device page pool
+def pool_census(np, ids) -> list:
+    """(owner, page id) of every granted id in an alloc epoch's
+    [p(origin), p(target), kmax] ids."""
+    o, t, j = np.nonzero(ids >= 0)
+    return list(zip(t.tolist(), ids[o, t, j].tolist()))
+
+
+def pool_rows(np, p: int, refs: list) -> tuple:
+    """A refcount round's [p, k] ids and owners for `refs`, dealt to the
+    origins in turn (-1 = a no-op slot)."""
+    k = max(1, -(-len(refs) // p))
+    ids = np.full((p, k), -1, np.int32)
+    own = np.full((p, k), -1, np.int32)
+    if refs:
+        arr = np.asarray(refs, np.int32)
+        j = np.arange(len(refs))
+        ids[j % p, j // p] = arr[:, 1]
+        own[j % p, j // p] = arr[:, 0]
+    return ids, own
+
+
+class PoolTwin:
+    """The device pool and its copy on the CPU, driven by the same calls:
+    every integer result (meta, free stack, head, ids, grants, freed
+    counts) must be bit-equal, and conservation must hold on the card after
+    every epoch."""
+
+    def __init__(self, torch, np, heap, Mesh):
+        self.torch, self.np, self.heap = torch, np, heap
+        self.mesh = {k: Mesh(POOL_P, "kv", device=d)
+                     for k, d in (("card", "cuda"), ("host", "cpu"))}
+        self.desc, self.st = {}, {}
+        for d, mesh in self.mesh.items():
+            self.desc[d], self.st[d] = heap.pool_allocate(mesh, POOL_PAGES, POOL_PAGE)
+        self.epochs = 0
+
+    def same(self, what: str, outs: dict) -> None:
+        torch = self.torch
+        card, host = outs["card"], outs["host"]
+        for name in ("meta", "free_stack", "head"):
+            if not torch.equal(getattr(self.st["card"], name).cpu(), getattr(self.st["host"], name)):
+                raise AssertionError(f"pool {what}: the card's {name} differs from the CPU copy's")
+        for a, b in zip(card, host):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"pool {what}: a result differs from the CPU copy's")
+
+    def check(self, what: str, errors: int = 0) -> dict:
+        cons = self.heap.conservation(self.desc["card"], self.st["card"])
+        if not ((cons["free_plus_live"] == cons["capacity"]).all()
+                and cons["stack_consistent"].all()
+                and int(cons["protocol_errors"].sum()) == errors):
+            raise AssertionError(f"pool {what}: conservation broken: {cons}")
+        return cons
+
+    def call(self, what: str, fn, *arrays, check: bool = True):
+        """fn(desc, state, *tensors) on both; returns the card's results
+        after the state (as numpy)."""
+        outs = {}
+        for k, mesh in self.mesh.items():
+            res = fn(self.desc[k], self.st[k],
+                     *[self.torch.as_tensor(a).to(mesh.device) for a in arrays])
+            self.st[k], outs[k] = res[0], res[1:]
+        self.same(what, outs)
+        self.epochs += 1
+        if check:
+            self.check(what)
+        return [r.cpu().numpy() for r in outs["card"]]
+
+    def alloc(self, what: str, want, check: bool = True):
+        return self.call(what, lambda d, s, w: self.heap.alloc(d, s, w, POOL_KMAX), want,
+                         check=check)
+
+    def ref_update(self, what: str, refs: list, delta: int, check: bool = True):
+        ids, own = pool_rows(self.np, POOL_P, refs)
+        return self.call(what, self.heap.ref_update, ids, own,
+                         self.np.full(ids.shape, delta, self.np.int32), check=check)[0]
+
+    def resize(self, what: str, fn, n: int) -> tuple:
+        """`pool_grow` / `pool_shrink` on both; returns the card's call's
+        CUDA-event and host ms."""
+        torch = self.torch
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        t0 = time.perf_counter()
+        self.desc["card"], self.st["card"] = fn(self.mesh["card"], self.desc["card"],
+                                                self.st["card"], n)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[1].record()
+        torch.cuda.synchronize()
+        self.desc["host"], self.st["host"] = fn(self.mesh["host"], self.desc["host"],
+                                                self.st["host"], n)
+        self.same(what, {"card": (), "host": ()})
+        self.check(what)
+        return ev[0].elapsed_time(ev[1]), host_ms
+
+
+def epoch_times(torch, fn, reps: int = POOL_REPS) -> dict:
+    """One epoch call's host time (until the call returns) and CUDA-event
+    time, each the median of `reps` calls with their spread, the device
+    time a call queued behind a spin kernel (8 calls, so the host queues
+    them inside the spin), and the ATen calls a call makes."""
+    host, event = [], []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(reps):
+        ev[0].record()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e6)
+        ev[1].record()
+        torch.cuda.synchronize()
+        event.append(ev[0].elapsed_time(ev[1]) * 1e3)
+    counter = aten_counter()
+    with counter:
+        fn()
+    host.sort()
+    event.sort()
+    return {"host_us": host[reps // 2], "host_us_range": [host[0], host[-1]],
+            "event_us": event[reps // 2], "event_us_range": [event[0], event[-1]],
+            "queued_us": queued_ms(fn, 8) * 1e3, "aten_calls": counter.n}
+
+
+def pool_phase(torch, hbm: float) -> dict:
+    """The device page pool (`rmem.heap`) at the size of a disaggregated
+    deployment's decode-side KV pool, following `tests/subtests/rmem_sub.py`
+    sections 1-7, every integer result held to the same calls on a CPU
+    copy; row 3 reads the scattered pages back.  Returns the phase's
+    numbers and row 3's at this page shape."""
+    import numpy as np
+
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core import window as window_mod
+    from repro_torch.core.perfmodel import DEFAULT_MODEL
+    from repro_torch.core.rma import OpCounter
+    from repro_torch.kernels.paged_gather import ops as pg_ops
+    from repro_torch.kernels.paged_gather import ref as pg_ref
+    from repro_torch.mesh import Mesh
+    from repro_torch.rmem import heap, pages
+
+    t_start = time.perf_counter()
+    p, n, kmax = POOL_P, POOL_PAGES, POOL_KMAX
+    tw = PoolTwin(torch, np, heap, Mesh)
+    desc = tw.desc["card"]
+    rng = np.random.RandomState(POOL_SEED)
+    log(f"pool: p {p}, {n} pages of {POOL_PAGE} f32 ({desc.page_nbytes} bytes) a rank, "
+        f"{tw.st['card'].pages.numel() * 4 / 2**30:.2f} GiB of pages, kmax {kmax}, "
+        f"metadata {desc.metadata_nbytes()} bytes ({card_line()})")
+
+    # 1. alloc epochs from all 8 origins (a full request to each of half of
+    # the targets, 3/8 of one to the others) until grants clamp
+    want = np.broadcast_to(np.where(np.arange(p) < p // 2, kmax, 3 * kmax // 8),
+                           (p, p)).astype(np.int32)
+    held, first = [], None
+    while True:
+        ids, granted = tw.alloc(f"alloc epoch {tw.epochs}", want)
+        held += pool_census(np, ids)
+        first = ids if first is None else first
+        if (granted < want).any() or tw.epochs > 8:
+            break
+    free = tw.st["card"].head[:, heap.FREE_TOP].cpu().numpy()
+    dry = [int(t) for t in np.nonzero(free == 0)[0]]
+    if not dry or not (granted < want).any():
+        raise AssertionError(f"pool: no target ran dry after {tw.epochs} epochs ({free})")
+    log(f"pool alloc: {tw.epochs} epochs, targets {dry} dry and clamped, "
+        f"{len(held)} pages live")
+
+    # 2. share (+1), then two releases of the first epoch's pages
+    refs = pool_census(np, first)
+    gen0 = tw.st["card"].meta[..., heap.GEN].cpu().numpy()
+    freed = [int(tw.ref_update(f"{what} round", refs, d).sum())
+             for what, d in (("share", 1), ("release 1", -1), ("release 2", -1))]
+    gen1 = tw.st["card"].meta[..., heap.GEN].cpu().numpy()
+    mask = np.zeros((p, n), bool)
+    mask[tuple(np.asarray(refs).T)] = True
+    if freed != [0, 0, len(refs)] or not np.array_equal(gen1 != gen0, mask):
+        raise AssertionError(f"pool share/release: freed {freed} of {len(refs)}, "
+                             f"{int((gen1 != gen0).sum())} generations bumped")
+    gone = set(refs)
+    held = [r for r in held if r not in gone]
+
+    # 3. a tag taken at alloc is stale after free and realloc
+    t_pid, pid = refs[0]
+    ids, _ = tw.alloc("realloc", want)
+    held += pool_census(np, ids)
+    tag_ids = torch.full((p, 1), -1, dtype=torch.int32, device="cuda")
+    tag_ids[t_pid, 0] = pid
+    gens = torch.zeros((p, 1), dtype=torch.int64, device="cuda")
+    stale = heap.tag_valid(tw.st["card"], tag_ids, gens + int(gen0[t_pid, pid]))
+    fresh = heap.tag_valid(tw.st["card"], tag_ids,
+                           gens + tw.st["card"].meta[t_pid, pid, heap.GEN])
+    if bool(stale.any()) or not bool(fresh[t_pid, 0]):
+        raise AssertionError("pool ABA: a stale tag validated, or the fresh one did not")
+
+    # 4. seeded random alloc/free traffic; conservation after every epoch
+    for e in range(POOL_RANDOM):
+        ids, _ = tw.alloc(f"random alloc {e}", rng.randint(0, kmax + 1, (p, p)).astype(np.int32))
+        held += pool_census(np, ids)
+        rng.shuffle(held)
+        rel, held = held[:len(held) // 2], held[len(held) // 2:]
+        tw.ref_update(f"random release {e}", rel, -1)
+    live = int(tw.check("census")["live"].sum())
+    if live != len(held):
+        raise AssertionError(f"pool census: {live} live on the card, {len(held)} held")
+    tw.ref_update("drain", held, -1)
+    if int(tw.check("drained")["live"].sum()):
+        raise AssertionError("pool: pages live after the drain")
+    log(f"pool traffic: {POOL_RANDOM} random epochs, census {live} live pages, drained; "
+        f"{tw.epochs} epochs bit-equal to the CPU copy")
+
+    # timings at the drained pool: an alloc epoch (a full request from every
+    # origin to every target) and the release of what it granted
+    full = np.full((p, p), kmax, np.int32)
+    st0 = tw.st["card"]
+    want_d = torch.as_tensor(full, device="cuda")
+    st_a, ids_a, _ = heap.alloc(desc, st0, want_d, kmax)
+    rel_ids = ids_a.reshape(p, -1)
+    rel_own = torch.arange(p, device="cuda").repeat_interleave(kmax).expand(p, -1)
+    rel_own = torch.where(rel_ids >= 0, rel_own, torch.full_like(rel_own, -1))
+    times = {"alloc": epoch_times(torch, lambda: heap.alloc(desc, st0, want_d, kmax)),
+             "ref_update": epoch_times(torch, lambda: heap.release(desc, st_a, rel_ids, rel_own))}
+    model = {"p_page_alloc_fused_us": DEFAULT_MODEL.p_page_alloc(True) * 1e6,
+             "p_page_alloc_standalone_us": DEFAULT_MODEL.p_page_alloc(False) * 1e6}
+    for name, t in times.items():
+        log(f"pool {name} epoch at [{p}, {n}] ({p * p * kmax} pages asked): host "
+            f"{t['host_us']:.1f} us ({t['host_us_range'][0]:.1f}-{t['host_us_range'][1]:.1f}), "
+            f"event {t['event_us']:.1f} us ({t['event_us_range'][0]:.1f}-"
+            f"{t['event_us_range'][1]:.1f}), device {t['queued_us']:.1f} us queued, "
+            f"{t['aten_calls']} ATen calls (median of {POOL_REPS})")
+    log(f"pool model: p_page_alloc fused {model['p_page_alloc_fused_us']:.2f} us, standalone "
+        f"{model['p_page_alloc_standalone_us']:.2f} us")
+    del st0, want_d, st_a, ids_a, rel_ids, rel_own
+
+    # 5. a piggybacked alloc: a request from each origin to its neighbour
+    # rides another epoch's gather (raw 4, one wire transfer)
+    want_pg = np.zeros((p, p), np.int32)
+    want_pg[np.arange(p), (np.arange(p) + 1) % p] = kmax
+    other = torch.arange(p * 4, dtype=torch.int32, device="cuda").reshape(p, 4)
+
+    def piggyback(d, s, w, o):
+        pl = plan_mod.RmaPlan(d.mesh)
+        h = pl.all_gather(o, kind="gets")
+        handles = heap.alloc_record(pl, s, w)
+        pl.flush(aggregate=True)
+        return heap.alloc_apply(d, s, kmax, handles) + (h.result()[0],)
+
+    with OpCounter() as c:
+        ids_pg, granted_pg, rider = tw.call("piggyback", piggyback, want_pg, other)
+    if (c.raw_msgs, c.coalesced_msgs) != (8, 2) or not np.array_equal(rider, other.cpu()):
+        raise AssertionError(f"piggybacked alloc: raw {c.raw_msgs} wire {c.coalesced_msgs} "
+                             f"over both copies, want 4 and 1 each")
+    if not (granted_pg == want_pg).all():
+        raise AssertionError("piggybacked alloc: a request was not granted in full")
+
+    # 6. seeded payloads scattered into the granted pages, read back by row 3
+    st = tw.st["card"]
+    slot = torch.as_tensor(ids_pg[np.arange(p), (np.arange(p) + 1) % p], device="cuda")
+    dest = ((torch.arange(p, device="cuda") + 1) % p)[:, None].expand(p, kmax)
+    g = torch.Generator(device="cuda").manual_seed(POOL_SEED)
+    payload = torch.randn((p, kmax) + POOL_PAGE, generator=g, device="cuda")
+    with OpCounter() as c:
+        pages.scatter_pages(tw.mesh["card"], st.pages, payload, slot, dest)
+    if (c.raw_msgs, c.coalesced_msgs) != (2, 1):
+        raise AssertionError(f"scatter_pages: raw {c.raw_msgs} wire {c.coalesced_msgs}")
+    pg_ops.launches = 0
+    got = pg_ops.paged_gather(st.pages, slot, 1, tw.mesh["card"])
+    launches = pg_ops.launches
+    if launches != 1 or not torch.equal(got, payload):
+        raise AssertionError(f"pool read-back: {launches} row 3 launches, bit-equal "
+                             f"{torch.equal(got, payload)}")
+    if not torch.equal(got, pg_ref.paged_gather_ref(st.pages, slot, 1, tw.mesh["card"])):
+        raise AssertionError("row 3 differs from its plain version at the pool's pages")
+    flat = st.pages.view(p * n, -1)
+    rows = (((torch.arange(p, device="cuda") + 1) % p)[:, None] * n + slot).reshape(-1)
+    nbytes = 2 * p * kmax * desc.page_nbytes + slot.numel() * 4
+    mesh_d = tw.mesh["card"]
+    row3 = {"pool_launches": launches,
+            "pool_ms": time_ms(lambda: pg_ops.paged_gather(st.pages, slot, 1, mesh_d)),
+            "pool_device_ms": device_ms(lambda: pg_ops.paged_gather(st.pages, slot, 1, mesh_d),
+                                        "gather_rows"),
+            "pool_plain_ms": time_ms(lambda: pg_ref.paged_gather_ref(st.pages, slot, 1, mesh_d)),
+            "pool_library_ms": time_ms(lambda: flat.index_select(0, rows)),
+            "pool_bound_ms": nbytes / hbm * 1e3}
+    log(f"paged_gather at the pool's pages ({p} x {kmax} pages of {desc.page_nbytes} bytes, "
+        f"shift 1): kernel {row3['pool_ms'] * 1e3:.1f} us (device "
+        f"{row3['pool_device_ms'] * 1e3:.2f} us), plain {row3['pool_plain_ms'] * 1e3:.1f} us, "
+        f"index_select {row3['pool_library_ms'] * 1e3:.1f} us, bound "
+        f"{row3['pool_bound_ms'] * 1e3:.2f} us ({nbytes} bytes); read-back bit-equal, "
+        f"{launches} launch")
+    del got, payload, flat, rows
+
+    # 7. grow by POOL_GROW pages and shrink back through the dynamic window
+    cache = window_mod.DescriptorCache()
+    old = desc.regions
+    if cache.lookup(desc.window, old[0])[1] != (n,) + POOL_PAGE:
+        raise AssertionError("pool: the descriptor cache serves the wrong shape")
+    old_pages = st.pages
+    grow_ms, grow_host_ms = tw.resize("grow", heap.pool_grow, POOL_GROW)
+    st, desc = tw.st["card"], tw.desc["card"]
+    if not (torch.equal(st.pages[:, :n], old_pages) and not st.pages[:, n:].any()):
+        raise AssertionError("pool_grow: the kept pages changed or the new ones are not zero")
+    del old_pages
+    try:
+        cache.lookup(desc.window, old[0])
+        raise AssertionError("the descriptor cache served a detached region")
+    except window_mod.WindowError:
+        pass
+    if cache.lookup(desc.window, desc.regions[0])[1] != (n + POOL_GROW,) + POOL_PAGE:
+        raise AssertionError("pool: the cache did not serve the grown region")
+    hi = np.zeros((p, p), np.int32)
+    hi[0] = 1                                            # the top of every stack: a new page
+    ids_hi, _ = tw.alloc("alloc after grow", hi)
+    hi_refs = pool_census(np, ids_hi)
+    if min(i for _, i in hi_refs) < n:
+        raise AssertionError(f"pool: the alloc after grow took old pages {hi_refs}")
+    for k in tw.mesh:
+        try:
+            heap.pool_shrink(tw.mesh[k], tw.desc[k], tw.st[k], POOL_GROW)
+            raise AssertionError("pool_shrink took live high pages")
+        except heap.HeapError:
+            pass
+    tw.ref_update("release high pages", hi_refs, -1)
+    grown = desc.regions
+    shrink_ms, shrink_host_ms = tw.resize("shrink", heap.pool_shrink, POOL_GROW)
+    try:
+        cache.lookup(tw.desc["card"].window, grown[0])
+        raise AssertionError("the descriptor cache served a detached region")
+    except window_mod.WindowError:
+        pass
+    if cache.lookup(tw.desc["card"].window, tw.desc["card"].regions[0])[1] != (n,) + POOL_PAGE:
+        raise AssertionError("pool: the cache did not serve the shrunk region")
+    grow_bytes = (n * 2 + POOL_GROW) * p * desc.page_nbytes
+    shrink_bytes = 2 * n * p * desc.page_nbytes
+    log(f"pool_grow by {POOL_GROW} pages a rank: event {grow_ms:.3f} ms, host "
+        f"{grow_host_ms:.3f} ms, bound {grow_bytes / hbm * 1e3:.3f} ms ({grow_bytes} bytes); "
+        f"pool_shrink back: event {shrink_ms:.3f} ms, host {shrink_host_ms:.3f} ms, bound "
+        f"{shrink_bytes / hbm * 1e3:.3f} ms; attach_id {tw.desc['card'].window.attach_id}, "
+        f"cache remote ops {cache.remote_ops}")
+
+    # 8. one injected double free: dropped whole, surfaced by check_errors
+    victim = [pool_census(np, ids_pg)[0]]
+    tw.ref_update("free", victim, -1)
+    tw.ref_update("double free", victim, -1, check=False)
+    tw.check("after the double free", errors=1)
+    try:
+        heap.check_errors(tw.desc["card"], tw.st["card"])
+        raise AssertionError("check_errors let a double free pass")
+    except heap.HeapError as e:
+        log(f"pool double free: check_errors raised: {e}")
+    out = {"epochs": tw.epochs, **{f"{k}_epoch": v for k, v in times.items()}, **model,
+           "grow_ms": grow_ms, "grow_host_ms": grow_host_ms,
+           "grow_bound_ms": grow_bytes / hbm * 1e3, "shrink_ms": shrink_ms,
+           "shrink_host_ms": shrink_host_ms, "shrink_bound_ms": shrink_bytes / hbm * 1e3,
+           "row3": row3,
+           "seconds": time.perf_counter() - t_start}
+    del tw, st, desc
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"pool phase: {out['epochs']} epochs in {out['seconds']:.1f} s")
+    return out
+
+
+def pool_only() -> int:
+    """``python3 chip_smoke.py --pool``: the device page pool phase alone,
+    on the package beside this file.  Prints one JSON line of its numbers."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.core.perfmodel import H100
+
+    out = pool_phase(torch, H100.hbm_bandwidth)
+    print(json.dumps({"card": card_line(), "tree": ROOT, **out}), flush=True)
+    return 0
+
+
 def gather_shift_only() -> int:
     """``python3 chip_smoke.py --gather-shift``: `rmem.pages.gather_shift`
     and `kernels.paged_gather.ops.paged_gather` (the surface every version
@@ -3060,7 +3481,8 @@ def queue_push_only() -> int:
     return 0
 
 
-MODES = {"--gather-shift": gather_shift_only, "--queue-push": queue_push_only}
+MODES = {"--gather-shift": gather_shift_only, "--queue-push": queue_push_only,
+         "--pool": pool_only}
 
 if __name__ == "__main__":
     sys.exit(MODES[sys.argv[1]]() if sys.argv[1:] else main())

@@ -230,6 +230,15 @@ class PerfModel:
         get of the published credit word (`notify.fetch_credits`)."""
         return 0.0 if fused else self.p_get(4.0)
 
+    def p_page_alloc(self, fused: bool = True) -> float:
+        """Marginal cost of one remote page allocation: the fetch-and-op on
+        the owner's free-list head word (one 8-byte message) plus the
+        owner's stack pop.  Riding an existing epoch's fused gather
+        (`heap.alloc_record` on a shared plan) makes the wire share free;
+        standalone pays the head get as well."""
+        amo = self.p_message_rate(8.0)
+        return amo if fused else amo + self.p_get(8.0)
+
     def p_paged_gather(self, n_pages: int, page_bytes: float) -> float:
         """Fused gather of n scattered pages into one block
         (`kernels.paged_gather`): the id list, one packed reply, and the
@@ -280,6 +289,11 @@ class PerfModel:
             else:
                 lo = mid
         return hi
+
+    def prefix_hit_bytes_saved(self, block_bytes: float,
+                               reuse_fraction: float) -> float:
+        """Payload bytes one request keeps off the wire at reuse f."""
+        return block_bytes * min(max(reuse_fraction, 0.0), 1.0)
 
     def p_append_eager(self, block_bytes: float) -> float:
         """Eager push end to end: the inline enqueue, the drain out of the

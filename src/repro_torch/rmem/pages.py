@@ -10,7 +10,10 @@ owner's free list and ships the page once.  Requests are routed by
 rendezvous hash of their FIRST page key, so the decoder's page reads are
 pool-local.
 
-Host side: `PagedKVPool` over per-owner `HostPagePool`s.  Device side:
+Host side: `PagedKVPool` over per-owner `HostPagePool`s, with the elastic
+join (`add_owner`) and leave (`migrate_from`: live pages re-homed on
+survivors, refcounts kept, same-content pages merged) that `ft.elastic`
+wraps as policy.  Device side:
 `scatter_pages` writes novel pages into the owners' pools in ONE fused
 all-to-all; `gather_pages` is the consumer's pull by descriptor (two fused
 gets, the rendezvous data path); `gather_local` is the owner-local
@@ -163,6 +166,78 @@ class PagedKVPool:
             "hit_rate": self.hits / max(self.hits + self.misses, 1),
             "live_pages": {r: p.live_count() for r, p in self.pools.items()},
         }
+
+    # ------------------------------------------------------------- elastic
+    def add_owner(self, rank: int) -> None:
+        """Rank join: bring up an empty pool and add it to the routing set."""
+        if rank in self.pools:
+            raise heap.HeapError(f"rank {rank} already owns a pool")
+        self.pools[rank] = self._new_pool(rank)
+        self.owners.append(rank)
+
+    def migrate_from(self, leaving: int) -> dict:
+        """Rank leave: move every live page off `leaving` onto survivors.
+
+        Per live page: one get (the page and its refcount from the leaving
+        rank) and one put (into a survivor's freshly allocated page), the
+        refcount transferred verbatim.  If the survivor already indexes the
+        same key, the two pages are merged (refcounts added): migration is
+        also a dedup pass.  A full survivor spills to any survivor with
+        capacity.  Page tables, the prefix index and the reverse index are
+        rewritten; the leaving pool is dropped whole.  Returns
+        ``{"moved", "merged", "mapping"}``."""
+        if leaving not in self.pools:
+            raise heap.HeapError(f"rank {leaving} owns no pool")
+        if len(self.owners) < 2:
+            raise heap.HeapError("cannot migrate from the last owner")
+        src = self.pools.pop(leaving)
+        self.owners.remove(leaving)
+
+        mapping: dict[tuple[int, int], PageRef] = {}
+        moved = merged = 0
+        for pid in range(src.n_pages):
+            rc = int(src.ref[pid].v)
+            if rc <= 0:
+                continue
+            key = self.rev.pop((leaving, pid), None)
+            target = self.route(key) if key is not None else self.owners[0]
+            existing = self.index.get((target, key)) if key is not None else None
+            if existing is not None:
+                # the survivor holds this content already: merge refcounts
+                self.pools[target].ref[existing.page_id].fetch_add(rc)
+                mapping[(leaving, pid)] = existing
+                merged += 1
+                continue
+            npid = self.pools[target].alloc()
+            if npid is None:
+                # spill: indexed under the spill owner, so requests routed
+                # to the full owner store a second copy (capacity, not
+                # correctness)
+                for r in self.owners:
+                    npid = self.pools[r].alloc()
+                    if npid is not None:
+                        target = r
+                        break
+            if npid is None:
+                raise heap.HeapError(
+                    f"no survivor capacity for live page ({leaving}, {pid})")
+            self.pools[target].pages[npid] = src.pages[pid]      # the get + put
+            self.pools[target].ref[npid].v = rc
+            nref = PageRef(target, npid, self.pools[target].tag(npid))
+            if key is not None:
+                self.index[(target, key)] = nref
+                self.rev[(target, npid)] = key
+            mapping[(leaving, pid)] = nref
+            moved += 1
+
+        # the leaving rank's remaining index entries name dead pages
+        self.index = {k: v for k, v in self.index.items() if k[0] != leaving}
+        for rid, refs in self.page_tables.items():
+            self.page_tables[rid] = [
+                mapping[(ref.owner, ref.page_id)] if ref.owner == leaving else ref
+                for ref in refs
+            ]
+        return {"moved": moved, "merged": merged, "mapping": mapping}
 
 
 # =========================================================================
