@@ -229,13 +229,34 @@ no result line):
      release epoch (host and CUDA-event µs, medians of 20 with the range,
      device µs queued, ATen calls) beside `p_page_alloc`; `pool_grow`; row
      3 at the pool's pages (kernel, device, plain, `index_select`, bound).
+ 23. the paper's last two application studies, as a user calls them (no
+     kernel of the table runs here).  The distributed hashtable
+     (`repro_torch.core.hashtable`) at Fig. 7a's batch: p = 1024 ranks,
+     16,384 inserts a rank an epoch, 64 slots a pair, table and heap of
+     2**16 a rank (a 2.7 GB volume); 4 epochs of distinct keys (load 1.0),
+     a 5th re-inserting every 16th key with a new value (overwrites and
+     heap duplicates), then one lookup epoch of 16,384 present and 16,384
+     absent keys a rank at 128 slots a pair.  Checks: no item dropped;
+     every present key returns its newest value and every absent key
+     misses; epochs 1 and 5 of ranks 0 and p-1 bit-equal to
+     `owner_insert_plain` on the same received batch; raw and wire counts
+     by kind equal to the plans as the port's `select_aggregation` packs
+     them.  Inserts/s and lookups/s (Fig. 7a's metric), the insert split
+     into the DSDE exchange and the owner insert, ATen calls an epoch,
+     peak memory.  The 3-D FFT (`repro_torch.apps.fft`) at NAS FT class
+     C, a 512**3 complex64 grid over p = 64 ranks of 8 planes: `fft3d`
+     and `fft3d_slabs` each within 1e-4 of `fft3d_reference` relative to
+     its max abs; ms per transform for both schedules beside
+     `torch.fft.fftn`, GFLOP/s by `fft_flops`, the pencil's four steps
+     apart (the transposes' share) and the bytes bound at 3.35 TB/s.
 
 ``python3 chip_smoke.py --gather-shift`` times only `rmem.pages.gather_shift`
 and `paged_gather` at the rendezvous pull's shape on the package beside the
 script (two trees in one call: copy the script into each);
 ``python3 chip_smoke.py --queue-push`` times only kernel rows 10 and 9 at the
 DSDE shapes and the launch floor, the same way;
-``python3 chip_smoke.py --pool`` runs only phase 22, the device page pool.
+``python3 chip_smoke.py --pool`` runs only phase 22, the device page pool;
+``python3 chip_smoke.py --apps`` runs only phase 23, the hashtable and the FFT.
 
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after.
@@ -348,6 +369,22 @@ RING_N, RING_TOL = 4, 1e-4      # ranks; kernel vs plain, relative to max |Y| (f
 POOL_P, POOL_PAGES, POOL_PAGE = 8, 4096, (16, 2, 8, 128)
 POOL_KMAX = FULL["block_tokens"] // FULL["page_tokens"]   # one 2048-token request: 128 pages
 POOL_RANDOM, POOL_GROW, POOL_SEED, POOL_REPS = 32, 1024, 7, 20
+# the distributed hashtable at the paper's Fig. 7a batch
+# (benchmarks/bench_hashtable.py:1-2): 16,384 inserts a rank an epoch over
+# p = 1024 ranks, 64 slots a pair (a pair expects 16 items), table and heap
+# of 2**16 cells a rank (a 2.7 GB volume).  4 epochs of distinct keys fill
+# it to load 1.0, a 5th re-inserts every 16th of them with new values; the
+# lookup epoch's 16,384 present and 16,384 absent keys a rank take 128
+# slots a pair (a pair expects 32: at 64 the busiest of the 2**20 pairs
+# would overflow about once in five runs)
+HT_P, HT_BATCH, HT_CAP, HT_LOOKUP_CAP = 1024, 16384, 64, 128
+HT_TABLE = HT_HEAP = 1 << 16
+HT_EPOCHS, HT_REINSERT, HT_SEED, HT_REPS = 4, 16, 11, 3
+HT_MUL = 0x2545F491             # odd: key j = j * HT_MUL mod 2**31 is one-to-one
+# the 3-D FFT at NAS Parallel Benchmarks FT class C: a 512**3 grid of
+# complex64 (1 GiB) over p = 64 ranks of 8 x-planes; examples/fft3d.py:68-69's
+# criterion, relative to the spectrum's max abs
+FFT_N, FFT_P, FFT_TOL, FFT_SEED, FFT_REPS = 512, 64, 1e-4, 12, 5
 
 
 def log(msg: str) -> None:
@@ -749,6 +786,8 @@ def main() -> int:
     pool = pool_phase(torch, H100.hbm_bandwidth)
     next(r for r in kernels if r["name"] == "paged_gather").update(pool.pop("row3"))
     log(f"pool phase numbers: {json.dumps(pool)}")
+    torch.cuda.empty_cache()
+    log(f"apps phase numbers: {json.dumps(apps_phase(torch, H100.hbm_bandwidth))}")
     if len(kernels) != len(KERNELS):
         raise AssertionError(f"{len(kernels)} kernel rows, want {len(KERNELS)}")
     log(f"smoke wall time: {time.perf_counter() - T0:.1f} s")
@@ -3378,6 +3417,313 @@ def pool_phase(torch, hbm: float) -> dict:
     return out
 
 
+# ------------------------------------------ phase 23: hashtable and 3-D FFT
+def sync_ms(torch, fn, reps: int = HT_REPS) -> list:
+    """Host ms of `reps` calls of `fn`, each ended by a synchronise (the
+    epochs synchronise inside, so the host clock is the call's span)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def median(xs: list) -> float:
+    return sorted(xs)[len(xs) // 2]
+
+
+def ht_keys(j):
+    """Key number j: distinct for every j < 2**31."""
+    return (j * HT_MUL) & (2**31 - 1)
+
+
+def ht_ledger(c, model, plans: list, kinds: dict) -> None:
+    """An epoch's OpCounter against what it records: per plan (raw ops,
+    bytes a rank), wire transfers as the port's `select_aggregation` packs
+    them, and the counts by kind."""
+    want = [(raw, nb, 1 if model.select_aggregation(raw, HT_P * nb / raw) == "pack" else raw)
+            for raw, nb in plans]
+    got = [(pl["raw"], pl["bytes_logical"], pl["coalesced"]) for pl in c.plans]
+    snap = c.snapshot()
+    wire = sum(w[2] for w in want)
+    if (got != want or snap["coalesced_msgs"] != wire
+            or any(snap[k] != v for k, v in kinds.items())):
+        raise AssertionError(f"hashtable ledger {snap}, plans {got}; want plans {want}, "
+                             f"kinds {kinds}, wire {wire}")
+
+
+def profile_call(torch, what: str, fn, top: int = 6) -> dict:
+    """One call of `fn` under `torch.profiler`: its wall time, the device's
+    busy share of it, and the ATen ops that launched the most device time
+    (their kernels' time, self)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    busy = sum(self_us(e) for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    own = lambda e: (getattr(e, "self_device_time_total", None)  # noqa: E731
+                     or getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+    ranked = [(e.key, own(e), e.count) for e in sorted(ops, key=own, reverse=True)[:top]]
+    log(f"{what} under the profiler: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+        f"({busy / wall_ms:.1%}); most device time: "
+        + "; ".join(f"{k} {t:.3f} ms x{n}" for k, t, n in ranked))
+    return {"wall_ms": wall_ms, "busy_ms": busy, "top": ranked}
+
+
+def hashtable_phase(torch) -> dict:
+    """The distributed hashtable (`core.hashtable`) at Fig. 7a's batch, as a
+    user calls it: insert epochs to load 1.0 and past it, a lookup epoch,
+    every answer checked, two ranks' owner inserts held to the reference's
+    loop, ledgers held to the plans they record; then inserts/s and
+    lookups/s with the insert split into exchange and owner insert."""
+    from repro_torch.core import dsde, hashtable as ht
+    from repro_torch.core.perfmodel import DEFAULT_MODEL
+    from repro_torch.core.rma import OpCounter
+    from repro_torch.mesh import Mesh
+
+    p, b = HT_P, HT_BATCH
+    t_start = time.perf_counter()
+    mesh = Mesh(p, "x", device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(HT_SEED)
+    n_keys = HT_EPOCHS * p * b
+    newest = torch.randint(0, 2**62, (n_keys,), generator=g, device="cuda")  # by key number
+    torch.cuda.reset_peak_memory_stats()
+    vol = ht.make_volume(HT_TABLE, HT_HEAP, p, device="cuda")
+    vol_bytes = sum(a.numel() * a.element_size() for a in vol)
+    log(f"hashtable: p={p}, {b} inserts a rank an epoch, {HT_CAP} slots a pair, table and "
+        f"heap {HT_TABLE} a rank ({vol_bytes / 1e9:.2f} GB of volume), "
+        f"{HT_EPOCHS} epochs of distinct keys, a 5th re-inserting every {HT_REINSERT}th")
+
+    kept, real = {}, ht.owner_insert
+
+    def tap(v, k, val, ok):           # ranks 0 and p-1 of the epochs named in kept["now"]
+        out = real(v, k, val, ok)
+        if kept.get("now"):
+            rows = torch.tensor([0, p - 1], device=k.device)
+            kept[kept["now"]] = (ht.LocalVolume(*(a[rows].cpu() for a in v)),
+                                 ht.LocalVolume(*(a[rows].cpu() for a in out)),
+                                 k[rows].cpu(), val[rows].cpu(), ok[rows].cpu())
+        return out
+
+    insert_plans = lambda cap: [(3, 4 * p + p * cap * 2 * 8 + p * cap)]  # noqa: E731
+    epoch_ms, vol1 = [], None
+    ht.owner_insert = tap
+    try:
+        for e in range(HT_EPOCHS + 1):
+            if e < HT_EPOCHS:
+                j = torch.arange(e * p * b, (e + 1) * p * b, device="cuda").reshape(p, b)
+            else:
+                j = torch.arange(0, n_keys, HT_REINSERT, device="cuda").reshape(p, -1)
+                newest[j.reshape(-1)] = torch.randint(0, 2**62, (j.numel(),), generator=g,
+                                                      device="cuda")
+            busiest = int(dsde._send_counts(ht.hash_owner(ht_keys(j), p), p).max())
+            kept["now"] = f"epoch {e + 1}" if e in (0, HT_EPOCHS) else None
+            with OpCounter() as c:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                vol, dropped = ht.insert_epoch(vol, ht_keys(j), newest[j], mesh, HT_CAP)
+                torch.cuda.synchronize()
+                epoch_ms.append((time.perf_counter() - t0) * 1e3)
+            ht_ledger(c, DEFAULT_MODEL, insert_plans(HT_CAP), {"puts": 1, "accs": 1, "raw_msgs": 3})
+            if int(dropped.sum()):
+                raise AssertionError(f"insert epoch {e + 1} dropped {int(dropped.sum())} items")
+            if e == 0:
+                vol1 = vol
+            nf = vol.next_free
+            log(f"hashtable insert epoch {e + 1}: {j.shape[1]} keys a rank, busiest pair "
+                f"{busiest}, 0 dropped, {epoch_ms[-1]:.3f} ms; heap cells used a rank "
+                f"{int(nf.min())}-{int(nf.max())}; OpCounter {c.snapshot()}")
+    finally:
+        ht.owner_insert = real
+    kept.pop("now")
+    for label, (before, after, k, val, ok) in kept.items():
+        want = ht.owner_insert_plain(before, k, val, ok)
+        for f, a, w in zip(ht.LocalVolume._fields, after, want):
+            if not torch.equal(a, w):
+                raise AssertionError(f"{label}: {f} of ranks 0, {p - 1} differs from "
+                                     f"owner_insert_plain")
+        log(f"hashtable {label}: ranks 0 and {p - 1} bit-equal to owner_insert_plain "
+            f"over {int(ok.sum())} received items")
+    del kept
+
+    # one lookup epoch: b present keys a rank (any epoch's, the newest value
+    # wins) and b never inserted
+    jp = torch.randint(0, n_keys, (p, b), generator=g, device="cuda")
+    ja = torch.arange(n_keys, n_keys + p * b, device="cuda").reshape(p, b)
+    q = ht_keys(torch.cat((jp, ja), dim=1))
+    busiest = int(dsde._send_counts(ht.hash_owner(q, p), p).max())
+    if busiest > HT_LOOKUP_CAP:
+        raise AssertionError(f"a lookup pair holds {busiest} queries, over {HT_LOOKUP_CAP}")
+    with OpCounter() as c:
+        vals, found = ht.lookup_epoch(vol, q, mesh, HT_LOOKUP_CAP)
+    lc = HT_LOOKUP_CAP
+    ht_ledger(c, DEFAULT_MODEL, insert_plans(lc) + [(2, p * lc * 3 * 8 + p * lc)],
+              {"puts": 2, "accs": 1, "raw_msgs": 5})
+    if not (bool(found[:, :b].all()) and torch.equal(vals[:, :b], newest[jp])
+            and not bool(found[:, b:].any())):
+        raise AssertionError(
+            f"lookup: {int((~found[:, :b]).sum())} present keys missed, "
+            f"{int((vals[:, :b] != newest[jp]).sum())} stale values, "
+            f"{int(found[:, b:].sum())} absent keys found")
+    log(f"hashtable lookup: {2 * b} keys a rank (busiest pair {busiest}), every present key "
+        f"its newest value, every absent key missed; OpCounter {c.snapshot()}")
+    del vals, found
+
+    # timings: epoch 2 again from epoch 1's volume, split into its parts
+    j2 = torch.arange(p * b, 2 * p * b, device="cuda").reshape(p, b)
+    k2, v2 = ht_keys(j2), newest[j2]
+    items, owners = torch.stack((k2, v2), dim=2), ht.hash_owner(k2, p)
+    t_insert = sync_ms(torch, lambda: ht.insert_epoch(vol1, k2, v2, mesh, HT_CAP))
+    t_exchange = sync_ms(torch, lambda: dsde.exchange_accumulate(items, owners, mesh, HT_CAP))
+    res = dsde.exchange_accumulate(items, owners, mesh, HT_CAP)
+    t_owner = sync_ms(torch, lambda: ht.owner_insert(vol1, res.recv_data[..., 0],
+                                                     res.recv_data[..., 1], res.recv_valid))
+    del res
+    t_lookup = sync_ms(torch, lambda: ht.lookup_epoch(vol, q, mesh, HT_LOOKUP_CAP))
+    res = dsde.exchange_accumulate(items, owners, mesh, HT_CAP)
+    profiles = {
+        "exchange": profile_call(torch, "hashtable exchange", lambda: dsde.exchange_accumulate(
+            items, owners, mesh, HT_CAP)),
+        "owner_insert": profile_call(torch, "hashtable owner insert", lambda: ht.owner_insert(
+            vol1, res.recv_data[..., 0], res.recv_data[..., 1], res.recv_valid)),
+        "lookup": profile_call(torch, "hashtable lookup epoch", lambda: ht.lookup_epoch(
+            vol, q, mesh, HT_LOOKUP_CAP))}
+    del res
+    aten = {}
+    for name, fn in (("insert", lambda: ht.insert_epoch(vol1, k2, v2, mesh, HT_CAP)),
+                     ("lookup", lambda: ht.lookup_epoch(vol, q, mesh, HT_LOOKUP_CAP))):
+        with aten_counter() as cnt:
+            fn()
+        aten[name] = cnt.n
+    out = {"inserts_per_s": p * b / median(t_insert) * 1e3,
+           "lookups_per_s": 2 * p * b / median(t_lookup) * 1e3,
+           "insert_ms": t_insert, "exchange_ms": t_exchange, "owner_insert_ms": t_owner,
+           "lookup_ms": t_lookup, "epoch_ms": epoch_ms, "aten_calls": aten,
+           "profiles": profiles,
+           "volume_gb": vol_bytes / 1e9,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "seconds": time.perf_counter() - t_start}
+    log(f"hashtable: insert epoch {median(t_insert):.3f} ms ({out['inserts_per_s']:.4g} "
+        f"inserts/s; exchange {median(t_exchange):.3f} ms, owner insert "
+        f"{median(t_owner):.3f} ms), lookup epoch {median(t_lookup):.3f} ms "
+        f"({out['lookups_per_s']:.4g} lookups/s); ATen calls {aten}; peak "
+        f"{out['peak_gib']:.2f} GiB; {out['seconds']:.1f} s")
+    return out
+
+
+def fft_phase(torch, hbm: float) -> dict:
+    """The 3-D FFT (`apps.fft`) at NAS FT class C: both schedules held to the
+    global transform, then timed beside it with the pencil's four steps
+    apart, GFLOP/s by `fft_flops` and the bytes bound."""
+    from repro_torch.apps import fft
+    from repro_torch.core import collectives
+    from repro_torch.core.rma import OpCounter
+    from repro_torch.mesh import Mesh
+
+    n, p = FFT_N, FFT_P
+    s = n // p
+    t_start = time.perf_counter()
+    mesh = Mesh(p, "x", device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(FFT_SEED)
+    x = torch.randn((p, s, n, n), dtype=torch.complex64, generator=g, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    want = fft.fft3d_reference(x)
+    scale = float(want.abs().max())
+    errs = {}
+    for name in ("fft3d", "fft3d_slabs"):
+        with OpCounter() as c:
+            got = getattr(fft, name)(x, mesh)
+        errs[name] = float((got - want).abs().max()) / scale
+        if got.shape != x.shape or got.dtype != x.dtype or not errs[name] <= FFT_TOL:
+            raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype}, max abs err "
+                                 f"{errs[name]:.3g} of the max abs (tol {FFT_TOL})")
+        log(f"fft {name}: N={n} over p={p}, max abs err {errs[name]:.3g} of the max abs "
+            f"(tol {FFT_TOL}); OpCounter {c.snapshot()}")
+        del got
+    del want
+    ms = {name: time_ms(lambda f=getattr(fft, name): f(x, mesh), reps=FFT_REPS, warmup=1)
+          for name in ("fft3d", "fft3d_slabs")}
+    ms["reference"] = time_ms(lambda: fft.fft3d_reference(x), reps=FFT_REPS, warmup=1)
+    # the pencil's four steps (`fft3d`), each on its own input.  On one card
+    # an all-to-all is a view, and torch.fft keeps its input's layout, so a
+    # transpose may move no byte: `transpose_copy`, the forward transpose
+    # made contiguous (what separate memories would have to move), is a
+    # yardstick outside the share
+    v = torch.fft.fftn(x, dim=(2, 3))
+    blocks = v.reshape(p, s, p, n // p, n).transpose(1, 2)
+    xs = collectives.all_to_all(blocks, mesh).reshape(p, n, n // p, n)
+    xf = torch.fft.fft(xs, dim=1)
+    steps = {
+        "yz_fft": lambda: torch.fft.fftn(x, dim=(2, 3)),
+        "transpose": lambda: collectives.all_to_all(blocks, mesh).reshape(p, n, n // p, n),
+        "x_fft": lambda: torch.fft.fft(xs, dim=1),
+        "transpose_back": lambda: collectives.all_to_all(
+            xf.reshape(p, p, s, n // p, n), mesh).transpose(1, 2).reshape(p, s, n, n)}
+    step_ms = {k: time_ms(f, reps=FFT_REPS, warmup=1) for k, f in steps.items()}
+    copy_ms = time_ms(lambda: collectives.all_to_all(blocks, mesh).contiguous(),
+                      reps=FFT_REPS, warmup=1)
+    views = {"x_fft input": xs.is_contiguous(), "x_fft output": xf.is_contiguous()}
+    del v, blocks, xs, xf
+    prof = profile_call(torch, "fft3d", lambda: fft.fft3d(x, mesh))
+    flops = fft.fft_flops(n)
+    nbytes = 2 * x.numel() * x.element_size()         # the grid read once, the spectrum written once
+    bytes_ms, ops_ms = nbytes / hbm * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+    out = {"ms": ms, "gflops": {k: flops / t / 1e6 for k, t in ms.items()},
+           "steps_ms": step_ms, "transpose_copy_ms": copy_ms, "contiguous": views,
+           "profile": prof,
+           "transpose_share": (step_ms["transpose"] + step_ms["transpose_back"])
+           / sum(step_ms.values()),
+           "max_abs_err": errs, "bound_ms": bound_ms, "bound_by": bound_by,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "seconds": time.perf_counter() - t_start}
+    log(f"fft: fft3d {ms['fft3d']:.3f} ms, fft3d_slabs {ms['fft3d_slabs']:.3f} ms, "
+        f"torch.fft.fftn {ms['reference']:.3f} ms; GFLOP/s "
+        + ", ".join(f"{k} {v:.1f}" for k, v in out["gflops"].items())
+        + "; pencil steps (ms) " + ", ".join(f"{k} {v:.3f}" for k, v in step_ms.items())
+        + f", transposes {out['transpose_share']:.1%} (contiguous: {views}; the forward "
+        f"transpose as a copy {copy_ms:.3f} ms); bound {bound_ms:.3f} ms ({bound_by}); "
+        f"peak {out['peak_gib']:.2f} GiB")
+    del x
+    return out
+
+
+def apps_phase(torch, hbm: float) -> dict:
+    """Phase 23: the paper's §4.1 and §4.3 studies on the card."""
+    out = {"card": card_line(), "hashtable": hashtable_phase(torch)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["fft"] = fft_phase(torch, hbm)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def apps_only() -> int:
+    """``python3 chip_smoke.py --apps``: phase 23 alone, on the package
+    beside this file.  Prints one JSON line of its numbers."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.core.perfmodel import H100
+
+    print(json.dumps({"tree": ROOT, **apps_phase(torch, H100.hbm_bandwidth)}), flush=True)
+    return 0
+
+
 def pool_only() -> int:
     """``python3 chip_smoke.py --pool``: the device page pool phase alone,
     on the package beside this file.  Prints one JSON line of its numbers."""
@@ -3482,7 +3828,7 @@ def queue_push_only() -> int:
 
 
 MODES = {"--gather-shift": gather_shift_only, "--queue-push": queue_push_only,
-         "--pool": pool_only}
+         "--pool": pool_only, "--apps": apps_only}
 
 if __name__ == "__main__":
     sys.exit(MODES[sys.argv[1]]() if sys.argv[1:] else main())

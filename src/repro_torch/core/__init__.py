@@ -9,5 +9,35 @@
   * `fabric` / `locks_sim` — the in-process host transport (AMO banks and
     the payload-op ledger `DescriptorCache` charges), and the
     paper's lock protocol (`LockWindow`, `LockOrigin`) with the atomic word
-    the host page pool and the serving engine's admission control use.
+    the host page pool and the serving engine's admission control use;
+  * `dsde` — the dynamic sparse data exchange (paper §4.2) and the MoE
+    dispatch over it;
+  * `hashtable` — the distributed hashtable (paper §4.1): per-rank table
+    and overflow heap, insert and lookup epochs over `dsde`.
 """
+
+from . import (
+    collectives,
+    dsde,
+    epoch,
+    fabric,
+    hashtable,
+    locks_sim,
+    perfmodel,
+    plan,
+    rma,
+    window,
+)
+
+__all__ = [
+    "collectives",
+    "dsde",
+    "epoch",
+    "fabric",
+    "hashtable",
+    "locks_sim",
+    "perfmodel",
+    "plan",
+    "rma",
+    "window",
+]

@@ -29,7 +29,6 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
 from ..mesh import Mesh
 from ..rmaq import queue as rq
@@ -44,8 +43,13 @@ class DSDEResult(NamedTuple):
 
 
 def _send_counts(targets: torch.Tensor, p: int) -> torch.Tensor:
-    """[p(src), p(dst)] int32: how many items each rank sends each target."""
-    return F.one_hot(targets.long(), p).sum(dim=1, dtype=torch.int32)
+    """[p(src), p(dst)] int32: how many items each rank sends each target.
+    Counted by one scatter-add into the [p, p] result: a one-hot [p, n, p]
+    form would take p * n * p words (128 GiB at p = 1024, n = 16,384)."""
+    counts = torch.zeros((targets.shape[0], p), dtype=torch.int32, device=targets.device)
+    return counts.scatter_add_(1, targets.long(),
+                               torch.ones(targets.shape, dtype=torch.int32,
+                                          device=targets.device))
 
 
 # --------------------------------------------------------------- protocols
