@@ -249,6 +249,32 @@ no result line):
      its max abs; ms per transform for both schedules beside
      `torch.fft.fftn`, GFLOP/s by `fft_flops`, the pencil's four steps
      apart (the transposes' share) and the bytes bound at 3.35 TB/s.
+ 24. the rest of the model zoo at published widths, random bf16 weights
+     from a seed (it runs right after the training phases).  xLSTM-1.3B
+     (48 layers, 2.02 B params): the engine with 8 lanes, max_seq 1024,
+     24 requests of 16-512 prompt tokens, 32 new each, every request served
+     in full and the lock words 0; every prefill's lane equal to a fresh
+     `init_cache` (the sLSTM m at -1e30), 8 requests re-run in their own
+     lane of an idle 8-lane cache bit-equal to the engine.  With the
+     weights in f32: the engine over 8 requests against batch-1 solo runs
+     within 0.125 with the argmax held beyond that margin; a 512-token
+     prefill in two chunks against one and prefill(512) + decode against
+     `forward_logits` over 513 tokens (chunkwise vs recurrent), within
+     0.125; the same comparisons in f64 within 1e-6 (rounding shrinks with the
+     precision, a fault would not).  Decode ms/step, prefill ms,
+     tokens/s, peak memory and the ATen calls of a decode step and of a
+     512-token prefill.  whisper-small
+     (12 + 12 layers): 8 requests with seeded frames [1500, 768] and
+     prompts of 4-64 tokens, one `Model.prefill` of their common prefix
+     with the frames under backend "cuda" (kernel row 11 launched exactly
+     12 times, all wgmma, non-causal at [8, 12, 1500, 64]), then greedy
+     `decode_step`s to 32 outputs each, max_seq 448; the outputs held to a
+     teacher-forced `forward_logits` (backend "torch") within 0.125, the
+     encoder output, backend cuda vs torch, within 0.25; row 11 at the
+     encoder's inputs within 2e-2 x min(1, max |plain|) of its plain
+     version (the outputs are far below 1), and timed beside
+     SDPA and the bound (4 B Hq Sq Sk hd flops at 989 TFLOP/s); those
+     numbers go on row 11's entry of the kernels line.
 
 ``python3 chip_smoke.py --gather-shift`` times only `rmem.pages.gather_shift`
 and `paged_gather` at the rendezvous pull's shape on the package beside the
@@ -256,7 +282,8 @@ script (two trees in one call: copy the script into each);
 ``python3 chip_smoke.py --queue-push`` times only kernel rows 10 and 9 at the
 DSDE shapes and the launch floor, the same way;
 ``python3 chip_smoke.py --pool`` runs only phase 22, the device page pool;
-``python3 chip_smoke.py --apps`` runs only phase 23, the hashtable and the FFT.
+``python3 chip_smoke.py --apps`` runs only phase 23, the hashtable and the FFT;
+``python3 chip_smoke.py --zoo`` runs only phase 24, xLSTM and whisper.
 
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after.
@@ -272,6 +299,7 @@ import concurrent.futures
 import contextlib
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -339,6 +367,14 @@ SMOLLM_ENGINE = dict(slots=8, max_seq=1024, requests=32, plen=(16, 512), new=32,
 FWD_TOKENS, FWD_SEED = (4, 2048), 4
 FWD_BOUND, FWD_AGREE = 0.25, 0.99   # logits: backend "cuda" vs "torch"; argmax share
 BF16_TOL, F32_TOL = 2e-2, 1e-4  # flash kernel vs plain: one bf16 ulp at |x| 2-4; f32 sums
+
+
+def scaled_tol(want) -> float:
+    """BF16_TOL for outputs up to 1 and more, scaled down by max |want|
+    below that: non-causal attention over 1000+ random keys averages v to
+    outputs of a few hundredths, where a flat 2e-2 would pass a wrong
+    kernel."""
+    return BF16_TOL * min(1.0, float(want.float().abs().max()))
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
 # the moe and hybrid families: Jamba-v0.1 at its published widths cut to 16
 # of 32 layers (2 of its 4 periods; src/repro/configs/jamba_v0_1_52b.py) and
@@ -385,6 +421,38 @@ HT_MUL = 0x2545F491             # odd: key j = j * HT_MUL mod 2**31 is one-to-on
 # complex64 (1 GiB) over p = 64 ranks of 8 x-planes; examples/fft3d.py:68-69's
 # criterion, relative to the spectrum's max abs
 FFT_N, FFT_P, FFT_TOL, FFT_SEED, FFT_REPS = 512, 64, 1e-4, 12, 5
+# the rest of the model zoo at its published widths, random bf16 weights from
+# a seed.  xLSTM-1.3B (src/repro/configs/xlstm_1_3b.py: 48 layers, 6 periods
+# of 7 mLSTM + 1 sLSTM blocks, d_model 2048, 4 heads) through the engine as
+# SmolLM's, every lane held to a fresh cache at its prefill.  whisper-small
+# (src/repro/configs/whisper_small.py: 12 + 12 layers, d_model 768, 12 heads
+# of 64, 1500 frames) through Model.prefill with frames and decode_step, max
+# seq 448 (Whisper's decoder context); its encoder output, backend cuda vs
+# torch, takes the forward phases' bound for the same comparison.
+# xLSTM-1.3B with random weights carries a rounding difference on through
+# 48 layers and 512 recurrent steps to logits of its own size: bf16
+# prefill(512) is 4.06 from `forward_logits` at that position on the card,
+# f32 0.045, logits up to 3.54.  So the bf16 engine's requests are re-run in
+# their own lane of an idle 8-lane cache, where a lane's rows meet the same
+# kernels at the same shapes: bit-equal (bound 0).  In f32 (the weights
+# cast, every cache leaf f32, TF32 off) the engine runs again over 8
+# requests, held to batch-1 solo runs, and the S = 512 comparisons (two
+# chunks vs one, prefill + decode vs forward_logits), which take other
+# orders of sums, are made: all within the engine rule's 0.125, the argmax
+# held beyond it.  The same three comparisons run in f64 too: rounding
+# shrinks there by the precision ratio (2**-53 / 2**-24, about 2e-9; on
+# the CPU at d_model 256 and 512, 48 layers, the f64 gap is 1.4e-13 to
+# 2.3e-13 where f32's is up to 1.3e-4), while a fault in the chunking or
+# the recurrence would stay near f32's 0.04; so they are held to 1e-6
+XLSTM_ARCH, XLSTM_SEED, XLSTM_S = "xlstm-1.3b", 0, 512
+XLSTM_ENGINE = dict(slots=8, max_seq=1024, requests=24, plen=(16, 512), new=32, seed=9,
+                    checked=8, bound=0.0, same_lane=True)
+XLSTM_F32_ENGINE = dict(slots=8, max_seq=1024, requests=8, plen=(16, 512), new=32, seed=9,
+                        checked=8, bound=0.125)
+XLSTM_F32_BOUND, XLSTM_F64_BOUND = 0.125, 1e-6
+WHISPER_ARCH, WHISPER_SEED = "whisper-small", 0
+WHISPER_RUN = dict(requests=8, plen=(4, 64), new=32, max_seq=448, seed=10, bound=0.125)
+ENC_BOUND = FWD_BOUND
 
 
 def log(msg: str) -> None:
@@ -783,6 +851,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels += training_phases(torch, H100.hbm_bandwidth)
     torch.cuda.empty_cache()
+    zoo = zoo_phases(torch, H100.hbm_bandwidth)
+    next(r for r in kernels if r["name"] == "flash_attention").update(zoo.pop("row11"))
+    log(f"zoo phase numbers: {json.dumps(zoo)}")
     pool = pool_phase(torch, H100.hbm_bandwidth)
     next(r for r in kernels if r["name"] == "paged_gather").update(pool.pop("row3"))
     log(f"pool phase numbers: {json.dumps(pool)}")
@@ -2020,9 +2091,12 @@ class LogitTap:
     the model unchanged; it keeps the logits the engine got for the requests
     of `prompts` (prefill by prompt, decode by lane), their expert choices
     when a RouteTap is given, each decode call's host time (the call ends
-    in a synchronise) and the number of prefills."""
+    in a synchronise) and the number of prefills.  Every prefill first
+    holds each leaf of its lane to `fresh`'s (a batch-1 `init_cache`): the
+    engine's lane reset must give a recycled lane the values a new cache
+    starts from."""
 
-    def __init__(self, model, prompts: dict, routes=None):
+    def __init__(self, model, prompts: dict, routes, fresh: dict):
         self.model = model
         self.rid_of = {tuple(p): rid for rid, p in prompts.items()}
         self.logits = {rid: [] for rid in prompts}
@@ -2031,9 +2105,22 @@ class LogitTap:
         self.engine = None
         self.decode_s = []
         self.prefills = 0
+        self.fresh = flat_leaves(fresh)
+        self.lanes_checked = 0
+        self.slot = {}                  # the lane each tapped request was served in
 
     def init_cache(self, *args, **kw):
         return self.model.init_cache(*args, **kw)
+
+    def check_lane(self, cache):
+        import torch
+
+        lane = flat_leaves(cache)
+        bad = [k for k, v in lane.items() if not torch.equal(v, self.fresh[k])]
+        if list(lane) != list(self.fresh) or bad:
+            raise AssertionError(f"prefill {self.prefills}: lane leaves {bad} differ from "
+                                 "init_cache's")
+        self.lanes_checked += 1
 
     def _call(self, fn):
         if self.routes is None:
@@ -2041,11 +2128,14 @@ class LogitTap:
         return self.routes.record(fn)
 
     def prefill(self, params, tokens, cache, extra):
+        self.check_lane(cache)
         (logits, cache), chosen = self._call(
             lambda: self.model.prefill(params, tokens, cache, extra))
         self.prefills += 1
         rid = self.rid_of.get(tuple(tokens[0].tolist()))
         if rid is not None:
+            self.slot[rid] = next(i for i, r in enumerate(self.engine.slot_req)
+                                  if r is not None and r.rid == rid)
             self.logits[rid].append(logits[0].clone())
             if chosen is not None:
                 self.choices[rid].append(chosen)                 # T = S
@@ -2066,6 +2156,16 @@ class LogitTap:
                 if chosen is not None:
                     self.choices[req.rid].append(chosen.rows(i))
         return logits, cache
+
+
+def flat_leaves(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
 
 
 def aten_counter():
@@ -2127,7 +2227,10 @@ def engine_phase(torch, np, model, params, engine_mod, spec: dict, routes=None,
     are held too: their logits within spec["bound"] of the engine's, and
     every differing choice a near-tie (`route_check`).
     `around_run()` wraps the engine's run (the launch counts and input taps
-    of the caller)."""
+    of the caller).  Every prefill's lane is held to a fresh `init_cache`
+    first (`LogitTap.check_lane`): a recycled lane must start where a new
+    cache does.  With spec["same_lane"] a request is re-run in its own
+    lane of an idle n_slots cache (`same_lane_rerun`), not at batch 1."""
     cfg = model.cfg
     name = cfg.name
     n, new = spec["requests"], spec["new"]
@@ -2137,7 +2240,8 @@ def engine_phase(torch, np, model, params, engine_mod, spec: dict, routes=None,
                                int(rng.integers(spec["plen"][0], spec["plen"][1] + 1))).tolist()
                for i in range(n)}
     checked = list(range(0, n, n // spec["checked"]))
-    tap = LogitTap(model, {rid: prompts[rid] for rid in checked}, routes)
+    fresh = model.init_cache(1, spec["max_seq"], device="cuda")
+    tap = LogitTap(model, {rid: prompts[rid] for rid in checked}, routes, fresh)
     eng = engine_mod.ServeEngine(tap, params, n_slots=spec["slots"],
                                  max_seq=spec["max_seq"], device="cuda")
     tap.engine = eng
@@ -2155,6 +2259,9 @@ def engine_phase(torch, np, model, params, engine_mod, spec: dict, routes=None,
     if short or any(words):
         raise AssertionError(f"engine ({name}): requests not served in full {short}, "
                              f"lock words {words}")
+    if tap.lanes_checked != tap.prefills:
+        raise AssertionError(f"engine ({name}): {tap.lanes_checked} lanes checked for "
+                             f"{tap.prefills} prefills")
 
     # each checked request alone at batch 1, teacher-forced with the
     # engine's tokens; the first solo decode step's ATen calls are counted
@@ -2173,17 +2280,22 @@ def engine_phase(torch, np, model, params, engine_mod, spec: dict, routes=None,
         def call(fn, j):
             return (fn(), None) if routes is None else routes.record(fn, forced[j].idx)
 
-        cache = model.init_cache(1, spec["max_seq"], device="cuda")
-        (logits, cache), chosen = call(lambda: model.prefill(
-            params, torch.tensor([prompts[rid]], device="cuda"), cache), 0)
-        solo, solo_choice = [logits[0]], [chosen]
-        for j, tok in enumerate(toks[:-1]):
-            with (aten_calls if j == 0 and rid == checked[0] else contextlib.nullcontext()):
-                (logits, cache), chosen = call(lambda: model.decode_step(
-                    params, torch.tensor([tok], device="cuda"), cache), j + 1)
-            solo.append(logits[0])
-            solo_choice.append(chosen)
-        solo = torch.stack(solo).float()
+        if spec.get("same_lane"):
+            solo = same_lane_rerun(torch, np, model, params, engine_mod, spec, prompts[rid],
+                                   toks, tap.slot[rid])
+            solo_choice = None
+        else:
+            cache = model.init_cache(1, spec["max_seq"], device="cuda")
+            (logits, cache), chosen = call(lambda: model.prefill(
+                params, torch.tensor([prompts[rid]], device="cuda"), cache), 0)
+            solo, solo_choice = [logits[0]], [chosen]
+            for j, tok in enumerate(toks[:-1]):
+                with (aten_calls if j == 0 and rid == checked[0] else contextlib.nullcontext()):
+                    (logits, cache), chosen = call(lambda: model.decode_step(
+                        params, torch.tensor([tok], device="cuda"), cache), j + 1)
+                solo.append(logits[0])
+                solo_choice.append(chosen)
+            solo = torch.stack(solo).float()
         if routes is not None:
             r = route_check(torch, f"engine ({name}) request {rid}",
                             Chosen.cat(torch, forced), Chosen.cat(torch, solo_choice))
@@ -2208,24 +2320,53 @@ def engine_phase(torch, np, model, params, engine_mod, spec: dict, routes=None,
     log(f"engine ({name}, {cfg.n_layers} layers, {spec['slots']} slots, max_seq "
         f"{spec['max_seq']}; {card}): {n} requests of {spec['plen'][0]}-{spec['plen'][1]} "
         f"prompt tokens, {new} new each, {steps} ticks, {tap.prefills} prefills, "
-        f"{len(tap.decode_s)} decode steps, {dt:.3f} s, {tokens / dt:.1f} tokens/s; "
+        f"{len(tap.decode_s)} decode steps, {dt:.3f} s, {tokens / dt:.1f} tokens/s; every "
+        f"prefill's lane equal to a fresh init_cache ({max(0, tap.prefills - spec['slots'])} "
+        f"of them recycled); "
         f"TTFT p50 {sm['ttft_us']['p50'] / 1e3:.2f} ms p99 {sm['ttft_us']['p99'] / 1e3:.2f} ms; "
         f"prefill p50 {sm['seg.prefill_us']['p50'] / 1e3:.2f} ms p99 "
         f"{sm['seg.prefill_us']['p99'] / 1e3:.2f} ms; decode {decode_ms:.3f} ms/step "
         f"(median); TBT p50 {sm['tbt_us']['p50'] / 1e3:.2f} ms; lock AMOs "
-        f"{eng.lock_win.total_amos}, words 0; a decode step makes {aten_calls.n} ATen calls "
-        f"({aten_calls.n / cfg.n_layers:.0f} a layer, views included)")
+        f"{eng.lock_win.total_amos}, words 0"
+        + (f"; a decode step makes {aten_calls.n} ATen calls ({aten_calls.n / cfg.n_layers:.0f}"
+           " a layer, views included)" if aten_calls.n else ""))
     route_note = "" if routes is None else (
         f"; the solo runs dispatch to the engine's experts, and their own routers would "
         f"choose otherwise at {flips} of {choices} (position x MoE layer) choices, every "
         f"one a near-tie (largest solo probability gap {tie_gap:.3g}); router logits max "
         f"abs err {route_err:.4g} (bound {bound})")
-    log(f"engine ({name}) vs solo batch-1 runs ({len(checked)} requests, teacher-forced): "
+    solo_how = ("re-run alone in their own lanes" if spec.get("same_lane")
+                else "solo batch-1 runs")
+    log(f"engine ({name}) vs {solo_how} ({len(checked)} requests, teacher-forced): "
         f"logits max abs err {err:.4g} (bound {bound}); argmax == engine token at "
         f"{raw_agree}/{n_pos} positions, at every one of the {n_pos - near_ties} whose solo "
         f"top-2 margin exceeds the bound; near-ties {near_ties}{route_note}")
     return {"tokens_per_s": tokens / dt, "decode_ms": decode_ms, "prefills": tap.prefills,
-            "routing_flips": flips}
+            "routing_flips": flips, "prefill_p50_ms": sm["seg.prefill_us"]["p50"] / 1e3,
+            "logits_err": err, "positions": n_pos, "lanes_checked": tap.lanes_checked}
+
+
+def same_lane_rerun(torch, np, model, params, engine_mod, spec: dict, prompt: list,
+                    toks: list, slot: int):
+    """One request alone, teacher-forced with its engine tokens, in lane
+    `slot` of a fresh cache of the engine's spec["slots"] lanes, the other
+    lanes idle: its prefill at batch 1 into the lane's views and its decode
+    steps over every lane, as the engine ran it.  A lane's rows go through
+    the same kernels at the same shapes, so its logits must equal the
+    engine's bit for bit unless another lane reaches into it."""
+    n = spec["slots"]
+    full = model.init_cache(n, spec["max_seq"], device="cuda")
+    views = engine_mod._lane_views(full, model.init_cache(1, spec["max_seq"], device="meta"),
+                                   slot)
+    logits, _ = model.prefill(params, torch.tensor([prompt], device="cuda"), views, None)
+    solo, pos = [logits[0]], np.zeros(n, np.int64)
+    for j, tok in enumerate(toks[:-1]):
+        ids = np.zeros(n, np.int64)
+        ids[slot], pos[slot] = tok, len(prompt) + j
+        full = {**full, "len": torch.as_tensor(pos, device="cuda")}
+        logits, full = model.decode_step(params, torch.as_tensor(ids, device="cuda"), full)
+        solo.append(logits[slot])
+    return torch.stack(solo).float()
 
 
 def forward_phase(torch, model, params, L, fops, shape=FWD_TOKENS, n_attn=None,
@@ -2315,8 +2456,10 @@ def forward_phase(torch, model, params, L, fops, shape=FWD_TOKENS, n_attn=None,
 def check_flash(torch, fops, fref, first: dict) -> float:
     """The kernel against its plain version: layer 0's inputs of the forward,
     chatglm3-6b's head shape, the wgmma variant's edge cases (bf16 at hd 64
-    and 128) and the simt variant's (f32, the SMOKE head dims); each case
-    must launch the variant `fops.variant` names for it."""
+    and 128; non-causal at the whisper encoder's shape, ragged, and with
+    keys past Sk that only a mask keeps out) and the simt variant's (f32,
+    the SMOKE head dims); each case must launch the variant `fops.variant`
+    names for it."""
     g = torch.Generator(device="cuda").manual_seed(6)
 
     def qkv(B, Hq, Hkv, Sq, Sk, hd, dtype):
@@ -2346,7 +2489,20 @@ def check_flash(torch, fops, fref, first: dict) -> float:
               ("wgmma hd 128, non-causal, B 3, g 1", qkv(3, 4, 4, 1000, 1000, 128, bf), False),
               ("wgmma hd 64, Sk - Sq = 64", qkv(4, 16, 4, 1000, 1064, 64, bf), True),
               ("wgmma hd 128, Sq > Sk", qkv(1, 4, 2, 300, 200, 128, bf), True)]
-    errs = {}
+    # the whisper encoder's shape (1500 = 7 x 192 + 156 query rows, 11 x 128 +
+    # 92 keys), a ragged non-causal case with GQA, and keys past Sk that
+    # must be masked: every real score is -8, so a padded key scored 0
+    # would take nearly all of the softmax from them and the output (the
+    # mean of v, about 1) would collapse towards 0
+    tail_v = (1 + 0.1 * torch.randn(1, 4, 1111, 64, generator=g, device="cuda")).to(bf)
+    scaled = {"whisper encoder shape, non-causal", "wgmma hd 64, non-causal, ragged, g 2",
+              "wgmma hd 64, non-causal, keys past Sk masked"}
+    cases += [("whisper encoder shape, non-causal", qkv(8, 12, 12, 1500, 1500, 64, bf), False),
+              ("wgmma hd 64, non-causal, ragged, g 2", qkv(2, 8, 4, 333, 1111, 64, bf), False),
+              ("wgmma hd 64, non-causal, keys past Sk masked",
+               (torch.ones(1, 4, 200, 64, device="cuda", dtype=bf),
+                -torch.ones(1, 4, 1111, 64, device="cuda", dtype=bf), tail_v), False)]
+    errs, notes = {}, []
     for name, (q, k, v), causal in cases:
         kind = fops.variant(q.dtype, q.shape[-1])
         before = fops.launches_by_variant[kind]
@@ -2358,14 +2514,18 @@ def check_flash(torch, fops, fref, first: dict) -> float:
             raise AssertionError("flash_attention (wgmma): rows that see no key are not zero")
         want = fref.attention_ref(q, k, v, causal=causal)
         err = float((out.float() - want.float()).abs().max())
-        tol = BF16_TOL if q.dtype == bf else F32_TOL
+        tol = scaled_tol(want) if name in scaled else BF16_TOL if q.dtype == bf else F32_TOL
         if not torch.isfinite(out).all() or err > tol:
             raise AssertionError(f"flash_attention vs plain ({name}): max abs err {err} > {tol}")
         errs[name] = err
+        if name in scaled:
+            notes.append(f"{name}: tol {tol:.3g}, |plain| mean "
+                         f"{float(want.float().abs().mean()):.3g} max "
+                         f"{float(want.float().abs().max()):.3g}")
         if name == "Sq > Sk" and out[:, :, :30].any():
             raise AssertionError("flash_attention: rows that see no key are not zero")
     log("flash_attention vs plain: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-        + f" (bf16 tol {BF16_TOL}, f32 tol {F32_TOL})")
+        + f" (bf16 tol {BF16_TOL}, f32 tol {F32_TOL}; scaled: " + "; ".join(notes) + ")")
     return errs
 
 
@@ -2514,9 +2674,11 @@ def full_width(torch, build_model, get_config, arch: str, layers: int, seed: int
     t0 = time.perf_counter()
     params = model.init(seed, device="cuda")
     torch.cuda.synchronize()
+    experts = (f"{cfg.moe_experts} experts top-{cfg.moe_top_k} of d_ff {cfg.moe_d_ff}, "
+               if cfg.moe_experts else "")
+    cut = f"cut to {layers} of" if layers != full.n_layers else "all"
     log(f"{arch} at its published widths (d_model {cfg.d_model}, {cfg.n_heads}/"
-        f"{cfg.n_kv_heads} heads of {cfg.hd}, {cfg.moe_experts} experts top-{cfg.moe_top_k} "
-        f"of d_ff {cfg.moe_d_ff}, vocab {cfg.vocab_size}), cut to {layers} of "
+        f"{cfg.n_kv_heads} heads of {cfg.hd}, {experts}vocab {cfg.vocab_size}), {cut} "
         f"{full.n_layers} layers: {model.param_count()} parameters, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card (seed {seed}, "
         f"{time.perf_counter() - t0:.1f} s)")
@@ -3051,6 +3213,357 @@ def training_phases(torch, hbm: float) -> list:
     return [{"name": "ring_matmul", "route": KERNELS["ring_matmul"][0],
              "source": KERNELS["ring_matmul"][1], "replaces": KERNELS["ring_matmul"][2],
              **ring}]
+
+
+# ------------------------------------------ the rest of the model zoo
+def xlstm_checks(torch, model, params, toks, max_seq: int) -> dict:
+    """Over toks [1, S + 1]: the next-token logits of a prefill of S tokens
+    in two chunks against the one-shot prefill, and prefill(S) and
+    prefill(S) + decode against `forward_logits` over S + 1 tokens at S - 1
+    and S (chunkwise vs recurrent).  Returns (got, want) pairs, f32 (f64
+    in an f64 run: f32 would round its differences to f32 ulps)."""
+    S = toks.shape[1] - 1
+
+    def wide(t):
+        return t if t.dtype == torch.float64 else t.float()
+
+    def prefill(lo, hi, cache=None):
+        if cache is None:
+            cache = model.init_cache(1, max_seq, device="cuda")
+        return model.prefill(params, toks[:, lo:hi], cache)
+
+    one, cache = prefill(0, S)
+    _, half = prefill(0, S // 2)
+    two, _ = prefill(S // 2, S, half)
+    dec, _ = model.decode_step(params, toks[:, S], cache)
+    full = wide(model.forward_logits(params, {"tokens": toks}).logits[0])
+    return {"two-chunk prefill vs one-shot": (wide(two[0]), wide(one[0])),
+            "prefill(S) vs forward_logits at S-1": (wide(one[0]), full[S - 1]),
+            "prefill(S) + decode vs forward_logits at S": (wide(dec[0]), full[S])}
+
+
+def xlstm_phase(torch) -> dict:
+    """xLSTM-1.3B at its published widths: the continuous-batching engine
+    in bf16 (every lane held to a fresh cache before its prefill; 8
+    requests re-run in their own lane, bit-equal), a decode step's and a
+    512-token prefill's ATen calls and time; then, the weights cast to f32,
+    the engine over 8 requests held to batch-1 solo runs, a two-chunk
+    prefill against the one-shot one and prefill(S) + decode against
+    `forward_logits` over S + 1 tokens (chunkwise vs recurrent), with the
+    bf16 differences of the same comparisons logged beside; then the same
+    three comparisons in f64, the witness that tells rounding from a fault
+    (rounding falls with the precision, a fault in the chunking or the
+    recurrence does not), and each f32 result's distance from its f64
+    counterpart."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import engine as engine_mod
+
+    torch.cuda.reset_peak_memory_stats()
+    model, params = full_width(torch, build_model, get_config, XLSTM_ARCH,
+                               get_config(XLSTM_ARCH).n_layers, XLSTM_SEED)
+    cfg, spec, bound, S = model.cfg, XLSTM_ENGINE, XLSTM_F32_BOUND, XLSTM_S
+    g = torch.Generator(device="cuda").manual_seed(XLSTM_SEED + 1)
+    toks = torch.randint(0, cfg.vocab_size, (1, S + 1), generator=g, device="cuda")
+    with torch.no_grad():
+        run = engine_phase(torch, np, model, params, engine_mod, spec)
+        if run["prefills"] <= spec["slots"]:
+            raise AssertionError(f"xlstm engine: no lane recycled in {run['prefills']} "
+                                 "prefills")
+        engine_peak = torch.cuda.max_memory_allocated()
+        cache = model.init_cache(1, spec["max_seq"], device="cuda")
+        _, cache = model.prefill(params, toks[:, :16], cache)
+        decode_calls = aten_counter()
+        with decode_calls:
+            model.decode_step(params, toks[:, 16], cache)
+        times = []
+        for _ in range(2):
+            cache = model.init_cache(1, spec["max_seq"], device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.prefill(params, toks[:, :S], cache)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        calls = aten_counter()
+        with calls:
+            model.prefill(params, toks[:, :S], cache)
+        del cache
+        bf16_errs = {k: float((a - b).abs().max())
+                     for k, (a, b) in xlstm_checks(torch, model, params, toks,
+                                                   spec["max_seq"]).items()}
+        params = wide_tree(params, torch.float32)
+        gc.collect()
+        torch.cuda.empty_cache()
+        f32_model = WideState(model, torch.float32)
+        run32 = engine_phase(torch, np, f32_model, params, engine_mod, XLSTM_F32_ENGINE)
+        checks = xlstm_checks(torch, f32_model, params, toks, spec["max_seq"])
+        params = wide_tree(params, torch.float64)
+        gc.collect()
+        torch.cuda.empty_cache()
+        checks64 = xlstm_checks(torch, WideState(model, torch.float64), params, toks,
+                                spec["max_seq"])
+    errs, bad = {}, []
+    for what, (got, want) in checks.items():
+        errs[what] = float((got - want).abs().max())
+        sure = float(margins(torch, want)) > bound
+        if not torch.isfinite(got).all() or errs[what] > bound or (
+                sure and int(got.argmax()) != int(want.argmax())):
+            bad.append(f"{what}: argmax {int(got.argmax())} vs {int(want.argmax())}")
+    errs64 = {what: float((got - want).abs().max()) for what, (got, want) in checks64.items()}
+    bad += [f"{what} in f64: {e}" for what, e in errs64.items()
+            if not math.isfinite(e) or e > XLSTM_F64_BOUND]
+    # how far f32 rounding moved each side of each comparison
+    drift = {what: max(float((x.double() - y).abs().max())
+                       for x, y in zip(checks[what], checks64[what])) for what in checks}
+    scale = max(float(want.abs().max()) for _, want in checks.values())
+    log("xlstm logits max abs err in f64 / f32 (bf16): " + ", ".join(
+        f"{k} {errs64[k]:.3g} / {v:.4g} ({bf16_errs[k]:.4g})" for k, v in errs.items())
+        + f"; f64 bound {XLSTM_F64_BOUND}, f32 bound {bound}, logits up to {scale:.3g}; each "
+        "f32 run's largest distance from the f64 run of the same comparison: "
+        + ", ".join(f"{k} {v:.4g}" for k, v in drift.items()))
+    if bad:
+        raise AssertionError(f"xlstm beyond the bounds: {bad}")
+    peak = torch.cuda.max_memory_allocated()
+    prefill_ms = float(np.median(times)) * 1e3
+    n_sl = cfg.n_layers // cfg.slstm_period
+    log(f"xlstm ({cfg.name}, {cfg.n_layers} layers; {card_line()}): engine decode "
+        f"{run['decode_ms']:.3f} ms/step (median, {spec['slots']} lanes), prefill p50 "
+        f"{run['prefill_p50_ms']:.2f} ms, {run['tokens_per_s']:.1f} tokens/s; every one of the "
+        f"{run['lanes_checked']} prefills found its lane equal to a fresh cache (the sLSTM m "
+        f"at -1e30, {run['prefills'] - spec['slots']} of them on recycled lanes); "
+        f"{spec['checked']} requests re-run in their own lane bit-equal to the engine over "
+        f"{run['positions']} positions; in f32 the engine over {XLSTM_F32_ENGINE['requests']} "
+        f"requests within {run32['logits_err']:.4g} of batch-1 solo runs (bound "
+        f"{XLSTM_F32_ENGINE['bound']}); a batch-1 decode step makes {decode_calls.n} ATen "
+        f"calls; a {S}-token prefill {prefill_ms:.1f} ms (median of 2) and {calls.n} ATen "
+        f"calls ({n_sl} sLSTM loops of {S} steps); peak memory {engine_peak / 2**30:.2f} GiB "
+        f"in the engine run, {peak / 2**30:.2f} GiB in all (the f32 and f64 copies included)")
+    del params, model, checks, checks64
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"decode_ms": run["decode_ms"], "prefill_p50_ms": run["prefill_p50_ms"],
+            "tokens_per_s": run["tokens_per_s"], "decode_aten_calls": decode_calls.n,
+            "prefill_512_ms": prefill_ms, "prefill_512_aten_calls": calls.n,
+            "engine_peak_gib": engine_peak / 2**30, "peak_gib": peak / 2**30,
+            "engine_logits_err": run["logits_err"], "lanes_checked": run["lanes_checked"],
+            "f32_engine_logits_err": run32["logits_err"],
+            **{k: v for k, v in zip(("chunked_err", "prefill_err", "decode_err"),
+                                    errs.values())},
+            **{k: v for k, v in zip(("f64_chunked_err", "f64_prefill_err", "f64_decode_err"),
+                                    errs64.values())},
+            **{k: v for k, v in zip(("f32_chunked_drift", "f32_prefill_drift",
+                                     "f32_decode_drift"), drift.values())},
+            **{k: v for k, v in zip(("bf16_chunked_err", "bf16_prefill_err", "bf16_decode_err"),
+                                    bf16_errs.values())}}
+
+
+def wide_tree(tree: dict, dtype) -> dict:
+    return {k: wide_tree(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in tree.items()}
+
+
+class WideState:
+    """The model as it is, but every floating leaf of its caches in `dtype`
+    (f32: the sLSTM h, bf16 otherwise; f64: every state leaf).  With
+    weights in the same dtype the whole xLSTM then runs in it."""
+
+    def __init__(self, model, dtype):
+        self.model, self.dtype = model, dtype
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def init_cache(self, *args, **kw):
+        cache = self.model.init_cache(*args, **kw)
+        return {k: (wide_tree(v, self.dtype) if isinstance(v, dict)
+                    else v.to(self.dtype) if v.is_floating_point() else v)
+                for k, v in cache.items()}
+
+
+def whisper_decode(torch, model, params, prompts: list, frames, new: int, max_seq: int):
+    """The requests' common prompt prefix in one `Model.prefill` with their
+    frames, then `decode_step`s over all lanes: a lane feeds its next prompt
+    token until its prompt is spent, then its greedy token, until each has
+    `new` outputs.  Returns (outputs, the logits each output was taken
+    from, the cache, prefill seconds, each decode step's seconds)."""
+    n = len(prompts)
+    m0 = min(len(p) for p in prompts)
+    cache = model.init_cache(n, max_seq, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, torch.tensor([p[:m0] for p in prompts],
+                                                       device="cuda"),
+                                  cache, {"frames": frames})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    outs, kept, step_s, pos = [[] for _ in range(n)], [[] for _ in range(n)], [], m0
+    while True:
+        greedy = logits.argmax(-1).tolist()
+        nxt = []
+        for i, p in enumerate(prompts):
+            if pos < len(p):
+                nxt.append(p[pos])
+                continue
+            if len(outs[i]) < new:
+                outs[i].append(greedy[i])
+                kept[i].append(logits[i].float().clone())
+            nxt.append(greedy[i])
+        if all(len(o) == new for o in outs):
+            return outs, kept, cache, prefill_s, step_s
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, torch.tensor(nxt, device="cuda"), cache)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        pos += 1
+
+
+def whisper_phase(torch, hbm: float) -> dict:
+    """whisper-small at its published widths: 8 requests' frames encoded in
+    one `Model.prefill` under backend "cuda" (kernel row 11 launched once a
+    encoder layer, all "wgmma", counts zeroed just before and read after),
+    greedy `decode_step`s, the outputs held to a teacher-forced
+    `forward_logits` (backend "torch") over prompt + output, the encoder
+    output held to backend "torch", and row 11 at the encoder's shape
+    against its plain version, SDPA and the bound."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    torch.cuda.reset_peak_memory_stats()
+    model, params = full_width(torch, build_model, get_config, WHISPER_ARCH,
+                               get_config(WHISPER_ARCH).n_layers, WHISPER_SEED)
+    cfg, spec = model.cfg, WHISPER_RUN
+    n, new, bound = spec["requests"], spec["new"], spec["bound"]
+    rng = np.random.default_rng(spec["seed"])
+    prompts = [rng.integers(0, cfg.vocab_size,
+                            int(rng.integers(spec["plen"][0], spec["plen"][1] + 1))).tolist()
+               for _ in range(n)]
+    g = torch.Generator(device="cuda").manual_seed(spec["seed"])
+    frames = torch.randn(n, cfg.encoder_seq, cfg.d_model, generator=g, device="cuda")
+    first: dict = {}
+    real = fops.flash_attention
+
+    def tap(q, k, v, causal=True):      # keeps encoder layer 0's inputs; launches via the wrapper
+        if not first:
+            first.update(q=q.clone(), k=k.clone(), v=v.clone(), causal=causal)
+        return real(q, k, v, causal=causal)
+
+    with torch.no_grad():
+        L.set_attention_backend("cuda")
+        fops.flash_attention = tap
+        fops.launches = 0
+        fops.launches_by_variant.update(wgmma=0, simt=0)
+        try:
+            outs, kept, cache, prefill_s, step_s = whisper_decode(
+                torch, model, params, prompts, frames, new, spec["max_seq"])
+        finally:
+            fops.flash_attention = real
+            L.set_attention_backend("torch")
+        launches, by_variant = fops.launches, dict(fops.launches_by_variant)
+        want_launches = cfg.encoder_layers
+        if launches != want_launches or by_variant != {"wgmma": want_launches, "simt": 0} \
+                or first.get("causal") is not False:
+            raise AssertionError(f"whisper: {launches} flash launches {by_variant} for one "
+                                 f"prefill, want {want_launches}, all wgmma and non-causal")
+        enc_torch = T.encode(params, cfg, frames)
+        enc = cache["enc_out"]
+        enc_err = float((enc.float() - enc_torch.float()).abs().max())
+        enc_mean = float((enc.float() - enc_torch.float()).abs().mean())
+        if enc.dtype != torch.bfloat16 or not torch.isfinite(enc).all() or enc_err > ENC_BOUND:
+            raise AssertionError(f"whisper encoder: backend cuda vs torch max abs err {enc_err} "
+                                 f"(bound {ENC_BOUND}), dtype {enc.dtype}")
+        del enc_torch, cache
+        err, sure_n, agree_n = 0.0, 0, 0
+        for i, p in enumerate(prompts):
+            seq = torch.tensor([p + outs[i][:-1]], device="cuda")
+            ref = model.forward_logits(params, {"tokens": seq, "frames": frames[i:i + 1]})
+            ref = ref.logits[0, len(p) - 1:].float()
+            got = torch.stack(kept[i])
+            err = max(err, float((got - ref).abs().max()))
+            sure = margins(torch, ref) > bound
+            agree = ref.argmax(-1) == torch.tensor(outs[i], device="cuda")
+            if not bool(agree[sure].all()) or not torch.isfinite(got).all():
+                raise AssertionError(f"whisper request {i}: greedy tokens differ from the "
+                                     f"teacher-forced forward where the margin exceeds {bound}")
+            sure_n, agree_n = sure_n + int(sure.sum()), agree_n + int(agree.sum())
+        if err > bound:
+            raise AssertionError(f"whisper: decode logits vs teacher-forced forward_logits max "
+                                 f"abs err {err} > {bound}")
+    peak = torch.cuda.max_memory_allocated()
+    decode_ms = float(np.median(step_s)) * 1e3
+    B, Hq, Sq, hd = first["q"].shape
+    Sk = first["k"].shape[2]
+    xkv_flops = 2 * 2 * n * cfg.encoder_seq * cfg.d_model * cfg.n_kv_heads * cfg.hd * cfg.n_layers
+    log(f"whisper ({cfg.name}, {cfg.encoder_layers} + {cfg.n_layers} layers; {card_line()}): "
+        f"{n} requests of {min(map(len, prompts))}-{max(map(len, prompts))} prompt tokens, "
+        f"{new} new each; one prefill of the common prefix with frames {tuple(frames.shape)} "
+        f"{prefill_s * 1e3:.1f} ms with {launches} flash launches, all wgmma, non-causal at "
+        f"q {tuple(first['q'].shape)}; {len(step_s)} decode steps, {decode_ms:.3f} ms/step "
+        f"(median; each recomputes the cross K/V: {xkv_flops / 1e9:.1f} GFLOP a step), "
+        f"{n * new / (prefill_s + sum(step_s)):.1f} tokens/s; encoder output backend cuda vs "
+        f"torch max abs err {enc_err:.4g}, mean {enc_mean:.3g} (bound {ENC_BOUND}); decode "
+        f"logits vs teacher-forced forward_logits (backend torch) max abs err {err:.4g} "
+        f"(bound {bound}), argmax == token at {agree_n}/{n * new}, at every one of the "
+        f"{sure_n} whose top-2 margin exceeds the bound; peak memory {peak / 2**30:.2f} GiB")
+    del params, model, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    q, k, v = first["q"], first["k"], first["v"]
+    out = fops.flash_attention(q, k, v, causal=False)
+    want = fref.attention_ref(q, k, v, causal=False)
+    kerr = float((out.float() - want.float()).abs().max())
+    ktol = scaled_tol(want)
+    w_mean, w_max = float(want.float().abs().mean()), float(want.float().abs().max())
+    if not torch.isfinite(out).all() or kerr > ktol:
+        raise AssertionError(f"flash_attention vs plain (whisper encoder layer 0): max abs err "
+                             f"{kerr} > {ktol}")
+    del out, want
+    k_ms = time_ms(lambda: fops.flash_attention(q, k, v, causal=False))
+    p_ms = time_ms(lambda: fref.attention_ref(q, k, v, causal=False), reps=10, warmup=1)
+    l_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=False))
+    flops = 4 * B * Hq * Sq * Sk * hd           # non-causal: QK^T and PV over every key
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bound_ms, bound_by = max((flops / BF16_FLOPS_PER_S * 1e3, "operations"),
+                             (nbytes / hbm * 1e3, "bytes"))
+    log(f"flash_attention at the whisper encoder's shape q {tuple(q.shape)} kv "
+        f"{tuple(k.shape)} {q.dtype} non-causal (wgmma; {card_line()}): max abs err vs plain "
+        f"{kerr:.3g} (tol {ktol:.3g} = {BF16_TOL} x min(1, max |plain|); |plain| mean "
+        f"{w_mean:.3g}, max {w_max:.3g}); kernel {k_ms * 1e3:.1f} us ({flops / k_ms / 1e9:.1f} "
+        f"TFLOP/s), plain {p_ms * 1e3:.1f} us, sdpa {l_ms * 1e3:.1f} us "
+        f"({flops / l_ms / 1e9:.1f} TFLOP/s), bound {bound_ms * 1e3:.1f} us ({bound_by})")
+    del first, q, k, v
+    torch.cuda.empty_cache()
+    return {"prefill_ms": prefill_s * 1e3, "decode_ms": decode_ms, "decode_steps": len(step_s),
+            "enc_err": enc_err, "logits_err": err, "peak_gib": peak / 2**30,
+            "row11": {"encoder_launches": launches, "encoder_max_abs_err": kerr,
+                      "encoder_tol": ktol, "encoder_out_mean": w_mean, "encoder_out_max": w_max,
+                      "encoder_ms": k_ms, "encoder_plain_ms": p_ms, "encoder_library_ms": l_ms,
+                      "encoder_bound_ms": bound_ms, "encoder_bound_by": bound_by,
+                      "encoder_tflops": flops / k_ms / 1e9}}
+
+
+def zoo_phases(torch, hbm: float) -> dict:
+    """Phase 24: xLSTM-1.3B and whisper-small, each with its wall time."""
+    out = {"card": card_line()}
+    for name, fn in (("xlstm", lambda: xlstm_phase(torch)),
+                     ("whisper", lambda: whisper_phase(torch, hbm))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out[name]["wall_s"] = time.perf_counter() - t0
+        log(f"{name} phase: {out[name]['wall_s']:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["row11"] = out["whisper"].pop("row11")
+    return out
 
 
 # ------------------------------------------------------ the device page pool
@@ -3724,6 +4237,22 @@ def apps_only() -> int:
     return 0
 
 
+def zoo_only() -> int:
+    """``python3 chip_smoke.py --zoo``: phase 24 alone, on the package
+    beside this file (the flash kernel builds on first use).  Prints one
+    JSON line of its numbers, row 11's at the encoder shape included."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.core.perfmodel import H100
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products, as in main()
+    print(json.dumps({"tree": ROOT, **zoo_phases(torch, H100.hbm_bandwidth)}), flush=True)
+    return 0
+
+
 def pool_only() -> int:
     """``python3 chip_smoke.py --pool``: the device page pool phase alone,
     on the package beside this file.  Prints one JSON line of its numbers."""
@@ -3828,7 +4357,7 @@ def queue_push_only() -> int:
 
 
 MODES = {"--gather-shift": gather_shift_only, "--queue-push": queue_push_only,
-         "--pool": pool_only, "--apps": apps_only}
+         "--pool": pool_only, "--apps": apps_only, "--zoo": zoo_only}
 
 if __name__ == "__main__":
     sys.exit(MODES[sys.argv[1]]() if sys.argv[1:] else main())

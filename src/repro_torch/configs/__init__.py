@@ -1,5 +1,5 @@
 """Architecture configs: one module per assigned architecture (copies of
-`repro.configs`, data only; the port serves the dense and vlm families)."""
+`repro.configs`, data only; the port serves every family of them)."""
 
 from . import base
 from .base import SHAPES, ArchConfig, ShapeConfig, shape_applicable

@@ -5,13 +5,17 @@ counterpart of `repro.launch.serve`).
         --requests 8 --max-new 12 [--smoke] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
         --layers 16          # on the card: 2 of Jamba's 4 periods, 48.5 GiB
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b
 
 It runs on the card unless ``--device cpu`` is given; the weights are random,
 from a seeded `torch.Generator` on the device.  ``--layers`` cuts the depth
-(a whole number of periods for the hybrid family) and the cut is printed.
-It serves the dense, vlm, moe (qwen3-moe-30b-a3b, moonshot-v1-16b-a3b) and
-hybrid (jamba-v0.1-52b) families; the ones not ported yet (ssm, audio) exit
-with their NotImplementedError.
+(a whole number of periods for the hybrid and ssm families) and the cut is
+printed.  It serves the dense, vlm, moe (qwen3-moe-30b-a3b,
+moonshot-v1-16b-a3b), hybrid (jamba-v0.1-52b) and ssm (xlstm-1.3b)
+families.  The audio family (whisper-small) exits with the reference
+launcher's message: the engine prefills without frames, so an
+encoder-decoder is served through `Model.prefill(..., {"frames": ...})`
+and `decode_step` instead.
 """
 
 from __future__ import annotations
@@ -42,12 +46,14 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.family == "audio":
+        raise SystemExit("serve demo targets decoder-only archs; see examples/ for enc-dec")
     if args.layers is not None and args.layers != cfg.n_layers:
         print(f"{cfg.name}: depth cut to {args.layers} of {cfg.n_layers} layers")
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     try:
         model = build_model(cfg)
-    except (NotImplementedError, ValueError) as e:
+    except ValueError as e:
         raise SystemExit(str(e)) from None
     params = model.init(0, device=args.device)
     print(f"{cfg.name}: {model.param_count()} parameters")

@@ -9,7 +9,9 @@ It runs on the card unless ``--device cpu`` is given: the Trainer, the
 synthetic pipeline, AdamW with remat and the checkpoints, with random
 weights from a seeded `torch.Generator` on the device.  On the card the
 attention runs through the flash kernel.  ``--layers`` cuts the depth (a
-whole number of periods for the hybrid family) and the cut is printed.
+whole number of periods for the hybrid and ssm families) and the cut is
+printed.  The audio family is refused: its loss needs frames, which the
+synthetic token pipeline does not make.
 """
 
 from __future__ import annotations
@@ -48,12 +50,16 @@ def main(argv: list[str] | None = None) -> list[dict]:
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.family == "audio":
+        raise SystemExit(f"{cfg.name}: training needs frames [B, {cfg.encoder_seq}, "
+                         f"{cfg.d_model}] beside the tokens, and the data pipeline makes "
+                         "tokens only")
     if args.layers is not None and args.layers != cfg.n_layers:
         print(f"{cfg.name}: depth cut to {args.layers} of {cfg.n_layers} layers")
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     try:
         model = build_model(cfg)
-    except (NotImplementedError, ValueError) as e:
+    except ValueError as e:
         raise SystemExit(str(e)) from None
     params = model.init(0, device=device)
     print(f"arch={cfg.name} params={model.param_count() / 1e6:.2f}M device={device}")

@@ -1,5 +1,5 @@
-"""The model zoo's dense, vlm, moe and hybrid families (the counterpart of
-`repro.models`): `layers`, `moe`, `mamba`, `transformer`, `registry`."""
+"""The model zoo (the counterpart of `repro.models`): `layers`, `moe`,
+`mamba`, `xlstm`, `transformer`, `registry`."""
 
-from . import layers, mamba, moe, registry, transformer  # noqa: F401
+from . import layers, mamba, moe, registry, transformer, xlstm  # noqa: F401
 from .registry import Model, build_model, params_from_jax  # noqa: F401

@@ -80,9 +80,17 @@ def grad_cast_bf16(x: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------- norms
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """x in f32, or as it is where it is f64 (`.float()` would round an f64
+    run to f32).  `torch.promote_types` would add a dispatched call a use
+    on the host-bound decode path."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """f32 variance, elementwise math in x's dtype (the reference's order)."""
-    var = x.float().square().mean(-1, keepdim=True)
+    """f32 variance (f64 in an f64 run), elementwise math in x's dtype (the
+    reference's order)."""
+    var = at_least_f32(x).square().mean(-1, keepdim=True)
     inv = torch.rsqrt(var + eps).to(x.dtype)
     return x * inv * scale
 
@@ -216,16 +224,25 @@ def attention(
     rope_style: str = "full",
     causal: bool = True,
     cache: Optional[dict] = None,   # {"k": [B,Smax,Hkv,hd], "v": ..., "len": [] or [B]}
+    cross_kv: Optional[tuple] = None,   # precomputed (k, v) [B, Sk, Hkv, hd]
     block_size: int = DEFAULT_BLOCK,
 ) -> tuple[torch.Tensor, Optional[dict]]:
-    """GQA attention, optionally with a decode cache (the reference's
-    cross-attention KV waits for the audio family)."""
+    """GQA attention, optionally with a decode cache or cross-attention K/V.
+    Cross-attention projects q only, applies no RoPE, always runs blockwise
+    and non-causal (the reference never sends it to the kernel) and returns
+    the cache untouched."""
     B, S, D = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    if "bq" in params:
+        q = q + params["bq"]
+    if cross_kv is not None:
+        k, v = cross_kv
+        out = blockwise_attention(q, k, v, causal=False, block_size=block_size)
+        return torch.einsum("bshk,hkd->bsd", out, params["wo"]), cache
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
-    if "bq" in params:
-        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    if "bk" in params:
+        k, v = k + params["bk"], v + params["bv"]
     q = apply_rope(q, positions, rope_style)
     k = apply_rope(k, positions, rope_style)
     if cache is None:
@@ -292,12 +309,20 @@ def mlp(params: dict, x: torch.Tensor, mlp_type: str = "swiglu") -> torch.Tensor
 
 
 def sinusoidal_pos(positions: torch.Tensor, d_model: int) -> torch.Tensor:
-    """Classic sin/cos positional embedding for arbitrary positions [S]."""
+    """Classic sin/cos positional embedding for arbitrary positions of any
+    shape ([S], or [B, S] for one row a lane) -> [..., d_model]."""
     half = d_model // 2
     freqs = torch.exp(-torch.arange(half, dtype=torch.float32, device=positions.device)
                       * (math.log(10000.0) / max(half - 1, 1)))
-    ang = positions[:, None].float() * freqs[None]
+    ang = positions[..., None].float() * freqs
     return torch.cat([ang.sin(), ang.cos()], dim=-1)
+
+
+def einsum_promoted(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """einsum of two operands in their promoted dtype, as JAX promotes (a
+    bf16 cache leaf against f32 weights computes in f32)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
 
 
 # --------------------------------------------------------------- embedding

@@ -39,10 +39,21 @@ class Model:
     # ------------------------------------------------------------ train
     def forward_logits(self, params: dict, batch: dict) -> T.ForwardOut:
         """The cache-free forward: logits for a train or prefill batch.  Its
-        attention runs on the backend `layers.set_attention_backend` names."""
+        attention runs on the backend `layers.set_attention_backend` names.
+        The audio family encodes ``batch["frames"]`` and runs its decoder
+        over a fresh zero K/V cache of S rows, as the reference does."""
         cfg = self.cfg
+        tokens = batch["tokens"]
         prefix = batch.get("patches")
-        out = T.forward(params, cfg, batch["tokens"], prefix_embeds=prefix)
+        if cfg.family == "audio":
+            shape = (cfg.n_layers, tokens.shape[0], tokens.shape[1], cfg.n_kv_heads, cfg.hd)
+            cache = {"kv": {k: torch.zeros(shape, dtype=torch.bfloat16, device=tokens.device)
+                            for k in ("k", "v")},
+                     "enc_out": T.encode(params, cfg, _frames(cfg, batch)),
+                     "len": torch.zeros((), dtype=torch.int32, device=tokens.device)}
+            out = T.forward(params, cfg, tokens, cache=cache)
+        else:
+            out = T.forward(params, cfg, tokens, prefix_embeds=prefix)
         logits = out.logits
         if cfg.family == "vlm" and prefix is not None:
             logits = logits[:, prefix.shape[1]:]
@@ -63,8 +74,14 @@ class Model:
 
     def prefill(self, params: dict, tokens: torch.Tensor, cache: dict,
                 extra: Optional[dict] = None) -> tuple[torch.Tensor, dict]:
-        prefix = extra.get("patches") if (extra and self.cfg.family == "vlm") else None
-        out = T.forward(params, self.cfg, tokens, cache=cache, prefix_embeds=prefix)
+        """The audio family encodes ``extra["frames"]`` and puts the encoder
+        output into the returned cache in its own dtype (the leaf is
+        replaced, not written: an f32 model keeps an f32 ``enc_out``)."""
+        cfg = self.cfg
+        if cfg.family == "audio":
+            cache = {**cache, "enc_out": T.encode(params, cfg, _frames(cfg, extra))}
+        prefix = extra.get("patches") if (extra and cfg.family == "vlm") else None
+        out = T.forward(params, cfg, tokens, cache=cache, prefix_embeds=prefix)
         return out.logits[:, -1], out.cache
 
     def decode_step(self, params: dict, token: torch.Tensor,
@@ -72,6 +89,13 @@ class Model:
         """token [B] -> (logits [B, V], cache)."""
         out = T.forward(params, self.cfg, token[:, None], cache=cache)
         return out.logits[:, 0], out.cache
+
+
+def _frames(cfg: ArchConfig, inputs: Optional[dict]) -> torch.Tensor:
+    if not inputs or inputs.get("frames") is None:
+        raise ValueError(f"{cfg.name}: the audio family needs frames [B, "
+                         f"{cfg.encoder_seq}, {cfg.d_model}] (precomputed frame embeddings)")
+    return inputs["frames"]
 
 
 def _leaves(tree):

@@ -1,5 +1,5 @@
-"""The decoder LM for the dense, vlm, moe and hybrid families (the
-counterpart of `repro.models.transformer`).
+"""The unified LM for every family of the model zoo (the counterpart of
+`repro.models.transformer`).
 
 Params keep the reference's pytree, and `forward` walks the layers in a
 plain Python loop where the reference scans:
@@ -11,26 +11,43 @@ plain Python loop where the reference scans:
                       Mamba elsewhere ([n_p, n_mamba, ...]); the channel
                       mixer is an MoE FFN where ``j % moe_every ==
                       moe_every - 1`` ([n_p, n_moe, ...]), a dense MLP
-                      elsewhere ([n_p, n_mlp, ...]).
+                      elsewhere ([n_p, n_mlp, ...]);
+  ssm (xlstm)       : ``periods``, leaves [n_p, ...]: `slstm_period` - 1
+                      mLSTM blocks ([n_p, period - 1, ...]) and one sLSTM
+                      block, each a pre-norm residual branch;
+  audio (whisper)   : ``enc_blocks`` [encoder_layers, ...] (non-causal
+                      attention + MLP over the frames, `encode`), and the
+                      decoder ``blocks`` [L, ...]: causal self-attention,
+                      cross-attention to the encoder output (``ln_x``,
+                      ``xattn``) and the MLP.
 
 ``forward(..., cache=None)`` is the cache-free forward (training, and the
 path of the flash-attention kernel); with a cache the same code does
 prefill (S tokens into the cache; the Mamba layers through the
-selective-scan kernel) and decode (S = 1; Mamba's O(1) step), writing the
-cache in place: K/V rows and the Mamba state leaves [n_p, n_mamba, B, ...].
-The cache's ``len`` is a scalar or one position a row ([B]).  The MoE
-layers' aux and z losses are summed into `ForwardOut`.
+selective-scan kernel) and decode (S = 1; the O(1) recurrent steps),
+writing the cache in place: K/V rows and the recurrent state leaves
+(Mamba [n_p, n_mamba, B, ...], mLSTM [n_p, period - 1, B, ...], sLSTM
+[n_p, B, ...]).  The cache's ``len`` is a scalar or one position a row
+([B]).  The MoE layers' aux and z losses are summed into `ForwardOut`.
+The audio decoder always runs with a cache: it carries ``enc_out``, from
+which each layer recomputes its cross K/V at every step, as the reference
+does; its sinusoidal positions follow each row's ``len``.  `encode` runs
+the encoder; its attention is cache-free, so on backend "cuda" it goes
+through the flash kernel, non-causal.
 
 `set_remat(True)` makes the cache-free forward rematerialise each layer
-body (dense, vlm, moe) and each period body (hybrid) in the backward, the
-reference's ``jax.checkpoint`` of its scan bodies: a body returns (h, aux,
-z), as the reference's scan carry does, so a recomputed body adds nothing
-to the losses twice.  The stacked leaves are cut into per-layer views by
-one `unbind` each, so a leaf's gradient is stacked once, not scattered
-into a zero tensor a layer.
+body (dense, vlm, moe, the audio encoder) and each period body (hybrid)
+in the backward, the reference's ``jax.checkpoint`` of its scan bodies: a
+body returns (h, aux, z), as the reference's scan carry does, so a
+recomputed body adds nothing to the losses twice.  The mLSTM checkpoints
+each chunk instead (`xlstm.mlstm_prefill`), as the reference does; a body
+that writes a cache is never rematerialised.  The stacked leaves are cut
+into per-layer views by one `unbind` each, so a leaf's gradient is
+stacked once, not scattered into a zero tensor a layer.
 
-The ssm (xlstm) and audio families are later slices of the port (ROADMAP
-queue 1 item 8): `check_family` raises for them.
+`init_cache` gives every leaf its initial value: 0, and -1e30 for the
+sLSTM stabiliser ``m`` (`xlstm.SLSTM_INIT`); the serving engine's lane
+reset copies a batch-1 `init_cache` into the lane.
 """
 
 from __future__ import annotations
@@ -45,12 +62,9 @@ from ..configs.base import ArchConfig
 from . import layers as L
 from . import mamba as M
 from . import moe as X
+from . import xlstm as XL
 
-FAMILIES = ("dense", "vlm", "moe", "hybrid")
-_LATER = {
-    "ssm": "models/xlstm",
-    "audio": "the whisper encoder-decoder",
-}
+FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm", "audio")
 
 
 # when True, the cache-free forward rematerialises each layer / period body
@@ -79,15 +93,11 @@ class ForwardOut(NamedTuple):
 
 def check_family(cfg: ArchConfig) -> None:
     if cfg.family not in FAMILIES:
-        what = _LATER.get(cfg.family)
-        if what is None:
-            raise ValueError(f"unknown family {cfg.family}")
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet ({what}; ROADMAP "
-            f"queue 1 item 8); repro_torch serves the {', '.join(FAMILIES)} families")
-    if cfg.family == "hybrid" and cfg.n_layers % cfg.attn_period:
+        raise ValueError(f"unknown family {cfg.family}")
+    period = {"hybrid": cfg.attn_period, "ssm": cfg.slstm_period}.get(cfg.family)
+    if period is not None and cfg.n_layers % period:
         raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not whole periods of "
-                         f"{cfg.attn_period}")
+                         f"{period}")
 
 
 def _hybrid_counts(cfg: ArchConfig) -> tuple[int, int, int, int]:
@@ -138,6 +148,33 @@ def init_lm(cfg: ArchConfig, gen: Optional[torch.Generator], device=None) -> dic
             "moe": _ffn_layer(cfg, gen, True, dtype, device, (n_p, n_moe)),
             "mlp": _ffn_layer(cfg, gen, False, dtype, device, (n_p, n_mlp)),
         }
+    elif cfg.family == "ssm":
+        n_p, n_m = cfg.n_layers // cfg.slstm_period, cfg.slstm_period - 1
+        params["periods"] = {
+            "mlstm": {
+                "ln1": L.init_rmsnorm(cfg.d_model, dtype, device, (n_p, n_m)),
+                "mix": XL.init_mlstm(gen, cfg.d_model, cfg.n_heads, dtype, device, (n_p, n_m)),
+            },
+            "slstm": {
+                "ln1": L.init_rmsnorm(cfg.d_model, dtype, device, (n_p,)),
+                "mix": XL.init_slstm(gen, cfg.d_model, cfg.n_heads, dtype, device, (n_p,)),
+            },
+        }
+    elif cfg.family == "audio":
+        lead = (cfg.encoder_layers,)
+        params["enc_blocks"] = {**_attn_layer(cfg, gen, dtype, device, lead),
+                                **_ffn_layer(cfg, gen, False, dtype, device, lead)}
+        params["enc_norm"] = L.init_rmsnorm(cfg.d_model, dtype, device)
+        params["enc_pos"] = L._normal(gen, (cfg.encoder_seq, cfg.d_model), 0.01, dtype,
+                                      device)
+        lead = (cfg.n_layers,)
+        params["blocks"] = {
+            **_attn_layer(cfg, gen, dtype, device, lead),
+            "ln_x": L.init_rmsnorm(cfg.d_model, dtype, device, lead),
+            "xattn": L.init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                                      False, dtype, device, lead),
+            **_ffn_layer(cfg, gen, False, dtype, device, lead),
+        }
     else:
         lead = (cfg.n_layers,)
         params["blocks"] = {**_attn_layer(cfg, gen, dtype, device, lead),
@@ -147,23 +184,35 @@ def init_lm(cfg: ArchConfig, gen: Optional[torch.Generator], device=None) -> dic
 
 # ============================================================ caches
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None) -> dict:
-    """Decode cache: K/V [L or n_p, B, max_seq, Hkv, hd] in bf16, a scalar
-    len, and for the hybrid family the Mamba state, ``h`` [n_p, n_mamba, B,
-    di, N] f32 and ``conv`` [n_p, n_mamba, B, W-1, di] bf16."""
+    """Decode cache with a scalar len: K/V [L or n_p, B, max_seq, Hkv, hd]
+    in bf16 (not for ssm); for the hybrid family the Mamba state, ``h``
+    [n_p, n_mamba, B, di, N] f32 and ``conv`` [n_p, n_mamba, B, W-1, di]
+    bf16; for ssm the mLSTM state ``C, n, m`` [n_p, period-1, B, nh, ...]
+    f32 and the sLSTM state ``c, n, h, m`` [n_p, B, D] (h bf16, m -1e30);
+    for audio ``enc_out`` [B, encoder_seq, D] bf16 (a prefill replaces
+    it)."""
     check_family(cfg)
-    n_kv = cfg.n_layers
-    if cfg.family == "hybrid":
-        n_kv, n_m, _, _ = _hybrid_counts(cfg)
-    shape = (n_kv, batch, max_seq, cfg.n_kv_heads, cfg.hd)
-    cache = {
-        "kv": {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-               "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)},
-        "len": torch.zeros((), dtype=torch.int32, device=device),
-    }
+    cache: dict = {}
+    if cfg.family == "ssm":
+        n_p = cfg.n_layers // cfg.slstm_period
+        cache["mlstm"] = XL.init_mlstm_state(batch, cfg.d_model, cfg.n_heads, device,
+                                             (n_p, cfg.slstm_period - 1))
+        cache["slstm"] = XL.init_slstm_state(batch, cfg.d_model, device=device, lead=(n_p,))
+    else:
+        n_kv = cfg.n_layers
+        if cfg.family == "hybrid":
+            n_kv, n_m, _, _ = _hybrid_counts(cfg)
+        shape = (n_kv, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+        cache["kv"] = {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+                       "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
     if cfg.family == "hybrid":
         cache["mamba"] = M.init_mamba_state(batch, cfg.d_model, cfg.ssm_expand,
                                             cfg.ssm_state_dim, cfg.ssm_conv_width,
                                             device=device, lead=(n_kv, n_m))
+    if cfg.family == "audio":
+        cache["enc_out"] = torch.zeros(batch, cfg.encoder_seq, cfg.d_model,
+                                       dtype=torch.bfloat16, device=device)
+    cache["len"] = torch.zeros((), dtype=torch.int32, device=device)
     return cache
 
 
@@ -179,14 +228,20 @@ def _unstack(tree: dict, n: int) -> list[dict]:
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
-def _attn_block(cfg, blk, h, positions, cache_kv, cache_len):
-    """One attention residual branch; the cache rows are written in place."""
+def _attn_block(cfg, blk, h, positions, cache_kv, cache_len, cross_kv=None):
+    """One attention residual branch, and the cross-attention one when
+    `cross_kv` is given; the cache rows are written in place."""
     cache = None
     if cache_kv is not None:
         cache = {"k": cache_kv["k"], "v": cache_kv["v"], "len": cache_len}
     y, _ = L.attention(blk["attn"], L.rmsnorm(h, blk["ln1"]["scale"], cfg.norm_eps),
                        positions, cfg.rope_style, causal=True, cache=cache)
-    return h + y
+    h = h + y
+    if cross_kv is not None:
+        y, _ = L.attention(blk["xattn"], L.rmsnorm(h, blk["ln_x"]["scale"], cfg.norm_eps),
+                           positions, "none", causal=False, cross_kv=cross_kv)
+        h = h + y
+    return h
 
 
 def _ffn_block(cfg, blk, h):
@@ -204,6 +259,51 @@ def _block(cfg, blk, h, positions, kv, start):
     return _ffn_block(cfg, blk, h)
 
 
+def _dec_block(cfg, blk, h, positions, kv, start, enc_out):
+    """One audio decoder layer -> (h, aux, z): its cross K/V recomputed from
+    the encoder output, as the reference does at every step."""
+    xk = L.einsum_promoted("bsd,dhk->bshk", enc_out, blk["xattn"]["wk"])
+    xv = L.einsum_promoted("bsd,dhk->bshk", enc_out, blk["xattn"]["wv"])
+    h = _attn_block(cfg, blk, h, positions, kv, start, cross_kv=(xk, xv))
+    return _ffn_block(cfg, blk, h)
+
+
+def _enc_block(cfg, blk, h, positions):
+    """One encoder layer: cache-free non-causal attention, then the MLP."""
+    y, _ = L.attention(blk["attn"], L.rmsnorm(h, blk["ln1"]["scale"], cfg.norm_eps),
+                       positions, "none", causal=False)
+    return _ffn_block(cfg, blk, h + y)[0]
+
+
+def _write(state: dict, new: dict) -> None:
+    for k, v in state.items():
+        v.copy_(new[k])
+
+
+def _xlstm_period(cfg, per, h, cache, pi, decode):
+    """One xLSTM period: period - 1 mLSTM blocks, then one sLSTM block.  With
+    a cache, each block's state (views of its leaves) is written in place."""
+    for j, mp in enumerate(_unstack(per["mlstm"], cfg.slstm_period - 1)):
+        xn = L.rmsnorm(h, mp["ln1"]["scale"], cfg.norm_eps)
+        if cache is None:
+            y = XL.mlstm_forward(mp["mix"], xn)
+        else:
+            st = {k: v[pi, j] for k, v in cache["mlstm"].items()}
+            y, new = (XL.mlstm_decode if decode else XL.mlstm_prefill)(mp["mix"], xn, st)
+            _write(st, new)
+        h = h + y
+    sp = per["slstm"]
+    xn = L.rmsnorm(h, sp["ln1"]["scale"], cfg.norm_eps)
+    if cache is None:
+        y = XL.slstm_forward(sp["mix"], xn, cfg.n_heads)
+    else:
+        st = {k: v[pi] for k, v in cache["slstm"].items()}
+        y, new = (XL.slstm_decode if decode else XL.slstm_prefill)(sp["mix"], xn, st,
+                                                                  cfg.n_heads)
+        _write(st, new)
+    return h + y
+
+
 def _mamba_block(cfg, mp, h, state: Optional[dict], decode: bool):
     """One Mamba residual branch.  With a cache state (views of its leaves)
     the new state is written into them in place."""
@@ -212,8 +312,7 @@ def _mamba_block(cfg, mp, h, state: Optional[dict], decode: bool):
         return h + M.mamba_forward(mp["mix"], xn)
     step = M.mamba_decode if decode else M.mamba_prefill
     y, new = step(mp["mix"], xn, state)
-    state["h"].copy_(new["h"])
-    state["conv"].copy_(new["conv"])
+    _write(state, new)
     return h + y
 
 
@@ -259,11 +358,24 @@ def forward(
                  + torch.arange(S, device=dev)[None, :]).expand(B, S)
 
     aux = zl = torch.zeros((), device=dev)      # summed over the MoE layers
+    decode = cache is not None and S == 1
     if cfg.family == "hybrid":
-        decode = cache is not None and S == 1
         body = _maybe_remat(_period, cache)
         for pi, per in enumerate(_unstack(params["periods"], cfg.n_layers // cfg.attn_period)):
             h, aux, zl = body(cfg, per, h, aux, zl, positions, cache, pi, start, decode)
+    elif cfg.family == "ssm":
+        for pi, per in enumerate(_unstack(params["periods"],
+                                          cfg.n_layers // cfg.slstm_period)):
+            h = _xlstm_period(cfg, per, h, cache, pi, decode)
+    elif cfg.family == "audio":
+        if cache is None:
+            raise ValueError("whisper forward requires a cache carrying enc_out; use "
+                             "encode() + forward")
+        # sinusoidal decoder positions, one row of them a lane
+        h = h + L.sinusoidal_pos(positions, cfg.d_model).to(h.dtype)
+        for i, blk in enumerate(_unstack(params["blocks"], cfg.n_layers)):
+            kv = {"k": cache["kv"]["k"][i], "v": cache["kv"]["v"][i]}
+            h, _, _ = _dec_block(cfg, blk, h, positions, kv, start, cache["enc_out"])
     else:
         body = _maybe_remat(_block, cache)
         for i, blk in enumerate(_unstack(params["blocks"], cfg.n_layers)):
@@ -277,3 +389,16 @@ def forward(
     h = L.rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps)
     logits = L.unembed(params["tok"], h)
     return ForwardOut(logits, new_cache, aux, zl)
+
+
+def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor) -> torch.Tensor:
+    """The whisper encoder over precomputed frame embeddings [B, F, D] (the
+    conv frontend is a stub): the frames rounded to bf16, plus ``enc_pos``
+    (an f32 model promotes the sum back to f32, as JAX does)."""
+    B, n = frames.shape[:2]
+    h = frames.to(torch.bfloat16) + params["enc_pos"][None, :n]
+    positions = torch.arange(n, device=frames.device)[None].expand(B, n)
+    body = _maybe_remat(_enc_block, None)
+    for blk in _unstack(params["enc_blocks"], cfg.encoder_layers):
+        h = body(cfg, blk, h, positions)
+    return L.rmsnorm(h, params["enc_norm"]["scale"], cfg.norm_eps)

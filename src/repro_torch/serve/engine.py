@@ -17,10 +17,13 @@ Lock discipline — every section is classified by what it touches:
     physically disjoint, one Python dict of tensors is not.
 
 The device side runs two programs: a prefill of one request into its lane,
-zeroed and then written in place (the reference prefills into a fresh lane
-cache and copies it in), and a decode step over all `n_slots` lanes (free ones
-included: the shapes stay static, and a free lane's writes are overwritten
-by its next prefill).  Every lane decodes at its own position: the cache's
+reset to `init_cache`'s values and then written in place (the reference
+prefills into a fresh lane cache and copies it in; here one batch-1
+`init_cache`, kept for the engine's life, is copied into the lane: one
+lane's memory, 672 MiB for xLSTM-1.3B), and a decode step over all
+`n_slots` lanes (free ones included: the shapes stay static, and a free
+lane's state is reset before its next prefill).  Every lane decodes at its
+own position: the cache's
 ``len`` is the [n_slots] vector of lane positions, so each row gets its own
 RoPE position, cache write offset and visible length.  (The reference
 decodes every lane at ``slot_pos.max()``, which is wrong for every lane
@@ -89,7 +92,7 @@ class Request:
 
 def _lane_views(full, lane, slot: int):
     """`full`'s views of lane `slot`, found by matching `lane` (the same
-    tree at batch 1, on the meta device): a leaf of n_slots rows on the axis
+    tree at batch 1): a leaf of n_slots rows on the axis
     where the lane leaf has 1 becomes that slot's view; a scalar (the
     cache's len) starts from zero."""
     if isinstance(full, dict):
@@ -106,12 +109,12 @@ def _fresh(lane, full):
     return torch.zeros_like(lane, device=full.device)
 
 
-def _zero(tree: dict) -> None:
-    for v in tree.values():
+def _copy(dst: dict, src: dict) -> None:
+    for k, v in dst.items():
         if isinstance(v, dict):
-            _zero(v)
+            _copy(v, src[k])
         else:
-            v.zero_()
+            v.copy_(src[k])
 
 
 class ServeEngine:
@@ -123,7 +126,8 @@ class ServeEngine:
         self.max_seq = max_seq
         self.device = torch.device("cuda" if device is None else device)
         self.cache = model.init_cache(n_slots, max_seq, device=self.device)
-        self._lane_shape = model.init_cache(1, max_seq, device="meta")
+        # one lane as `init_cache` starts it: the lane reset copies it in
+        self._lane_init = model.init_cache(1, max_seq, device=self.device)
         self.slot_free = [True] * n_slots
         # ready = prefill landed; decode skips allocated-but-unprefilled lanes
         self.slot_ready = [False] * n_slots
@@ -142,13 +146,15 @@ class ServeEngine:
 
     # --------------------------------------------------------- plumbing
     def _prefill(self, prompt: list[int], slot: int) -> torch.Tensor:
-        """Prefill one request into lane `slot` of the cache: the lane is
-        zeroed first — a recurrent state (Mamba's h and conv window) left by
-        the lane's last occupant, or drifted by decoding the free lane,
-        would seed the new request's scan — then the model writes the
-        lane's views in place."""
-        views = _lane_views(self.cache, self._lane_shape, slot)
-        _zero(views)
+        """Prefill one request into lane `slot` of the cache: every lane
+        leaf first gets its initial value back, copied from a batch-1
+        `init_cache` (0, and -1e30 for the sLSTM stabiliser) — a recurrent
+        state (Mamba's h and conv window, the xLSTM states) left by the
+        lane's last occupant, or drifted by decoding the free lane, would
+        seed the new request's scan — then the model writes the lane's
+        views in place."""
+        views = _lane_views(self.cache, self._lane_init, slot)
+        _copy(views, self._lane_init)
         tokens = torch.tensor([prompt], dtype=torch.int64, device=self.device)
         logits, _ = self.model.prefill(self.params, tokens, views, None)
         return logits[0]

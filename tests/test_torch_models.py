@@ -1,5 +1,7 @@
 """The port's dense model stack against the JAX reference (the moe and
-hybrid families are held in `test_torch_hybrid.py`).
+hybrid families are held in `test_torch_hybrid.py`, ssm in
+`test_torch_xlstm.py`, audio in `test_torch_whisper.py`; their full-width
+param counts here).
 
 `repro_torch.models.layers` (rmsnorm, RoPE in its three styles, blockwise
 attention with q_offset / kv_valid_len / GQA / padding, cached attention,
@@ -24,6 +26,7 @@ reference runs in a child process through this file's own ``__main__``
 branch.
 """
 
+import dataclasses
 import os
 import pathlib
 import subprocess
@@ -53,7 +56,8 @@ BLOCKWISE = {
     "cache_like": (1, 64, True, 40, 41, 512, None),
 }
 ROPE = ("full", "2d", "none")
-FULL_CONFIGS = ("smollm-360m", "chatglm3-6b", "llava-next-mistral-7b")
+FULL_CONFIGS = ("smollm-360m", "chatglm3-6b", "llava-next-mistral-7b", "xlstm-1.3b",
+                "whisper-small")
 WRAPPING_CONFIGS = ("jamba-v0.1-52b", "qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b")
 
 
@@ -177,9 +181,9 @@ def _reference_child(d: pathlib.Path) -> None:
             out[f"{tag}/cache_len"] = cache["len"]
     for arch in FULL_CONFIGS:
         out[f"param_count/{arch}"] = np.int64(jbuild(jget(arch)).param_count())
-    for arch in WRAPPING_CONFIGS:
-        # the reference's own count wraps at 2**31 on these (ROADMAP §3):
-        # take the exact product of its leaves' shapes instead
+    for arch in FULL_CONFIGS + WRAPPING_CONFIGS:
+        # the reference's own count wraps at 2**31 on the WRAPPING_CONFIGS
+        # (ROADMAP §3): take the exact product of its leaves' shapes too
         leaves = jax.tree.leaves(jbuild(jget(arch)).init_shapes())
         out[f"param_exact/{arch}"] = np.int64(sum(int(np.prod(l.shape, dtype=np.int64))
                                                   for l in leaves))
@@ -353,7 +357,8 @@ def test_per_row_cache_len_equals_one_row_at_a_time(reference):
 
 @pytest.mark.parametrize("arch", FULL_CONFIGS)
 def test_param_count_matches_the_reference(reference, arch):
-    assert build_model(get_config(arch)).param_count() == int(reference[f"param_count/{arch}"])
+    count = build_model(get_config(arch)).param_count()
+    assert count == int(reference[f"param_count/{arch}"]) == int(reference[f"param_exact/{arch}"])
 
 
 @pytest.mark.parametrize("arch", WRAPPING_CONFIGS)
@@ -363,10 +368,9 @@ def test_param_count_is_the_exact_product(reference, arch):
     assert build_model(get_config(arch)).param_count() == int(reference[f"param_exact/{arch}"])
 
 
-@pytest.mark.parametrize("arch", ("xlstm-1.3b", "whisper-small"))
-def test_later_families_raise_naming_their_roadmap_item(arch):
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+def test_ssm_layer_counts_that_are_not_whole_periods_raise():
+    cfg = dataclasses.replace(get_config("xlstm-1.3b", smoke=True), n_layers=12)
+    with pytest.raises(ValueError, match="whole periods of 8"):
         build_model(cfg)
 
 

@@ -20,8 +20,8 @@ mix of lengths 2-9 through three slots) that only the port gets right.
 
 The jamba (hybrid) and qwen3-moe (moe) SMOKE engines are held to their
 own solo runs, and a lane recycled from a long request to a short one to
-the short request's solo tokens (the engine zeroes a lane's recurrent state
-before its prefill).
+the short request's solo tokens (the engine resets a lane's recurrent state
+to `init_cache`'s before its prefill).
 
 The lock discipline (`tests/test_training.py:191-260`) is held with a torch
 stub model: a recycle under the reader lock raises, threaded submitters
@@ -419,10 +419,21 @@ def test_launch_serve_smoke_on_cpu():
     assert text.count("req ") == 4
 
 
-@pytest.mark.parametrize("arch", ("whisper-small", "xlstm-1.3b"))
-def test_launch_serve_refuses_families_not_ported(arch):
-    with pytest.raises(SystemExit, match="ROADMAP queue 1 item 8"):
-        launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
+def test_launch_serve_refuses_whisper_as_the_reference_launcher_does():
+    with pytest.raises(SystemExit, match="serve demo targets decoder-only archs"):
+        launch_serve.main(["--arch", "whisper-small", "--smoke", "--device", "cpu"])
+
+
+def test_launch_serve_xlstm_smoke_on_cpu():
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        launch_serve.main(["--arch", "xlstm-1.3b", "--smoke", "--device", "cpu",
+                           "--requests", "3", "--max-new", "3", "--slots", "2"])
+    text = buf.getvalue()
+    assert "3 requests, 9 tokens" in text and "device cpu" in text
+    with pytest.raises(SystemExit, match="whole periods of 8"):
+        launch_serve.main(["--arch", "xlstm-1.3b", "--smoke", "--device", "cpu",
+                           "--layers", "4"])
 
 
 if __name__ == "__main__":
