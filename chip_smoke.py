@@ -275,6 +275,32 @@ no result line):
      version (the outputs are far below 1), and timed beside
      SDPA and the bound (4 B Hq Sq Sk hd flops at 989 TFLOP/s); those
      numbers go on row 11's entry of the kernels line.
+ 25. the parallel layer on SmolLM-360M at full width (it runs inside the
+     training phases, on T1's weights and T2's layer-0 checkpoint).  P1:
+     `parallel.overlap.overlapped_grad_sync` over a mesh {"pod": 2,
+     "data": 2}, rank r's f32 gradients those of row r of T1's batch
+     [4, 2048] (`loss_and_grads`, remat), ~5.8 GB stacked: under "auto"
+     kernel row 4 carries every in-pod ring put (3 a leaf, counted from
+     0), and with every plan group sent through the plain put the result
+     is bit-equal; a flush a bucket; every rank's copy equal; within 1e-6
+     of sum |g_r| of the sum of the four ranks' gradients and of 4 x the
+     n_microbatches=4 step's averaged gradients; timed in turns beside one
+     flat ring over a 4-rank axis, with `select_allreduce`'s pick and
+     prices.  P2: `compress_decompress` on rank 0's gradients (ms a round,
+     the dcn bytes ratio) and gradsync_sub.py's convergence check (40
+     rounds, error < 0.05) on layer 0's largest leaf.  P3: the 32 blocks as
+     4 stages of 8 over `pod` (`parallel.pipeline.pipeline_forward`), 4
+     microbatches of [1, 2048], kernel row 11 in every layer (128
+     launches, all wgmma): bit-equal to each microbatch through the stages
+     in sequence, its logits within 0.25 of the whole batch's forward;
+     the pipeline's, the sequential and the whole batch's host ms and
+     `bubble_fraction`.  P4: SmolLM's logits under a `ShardingPolicy` of
+     {"data": 4} bit-equal to no policy; qwen3-moe cut to 4 layers on
+     [4, 512] tokens under it: 4 MoE layers in 4 dispatch groups, each
+     bit-equal to its groups' no-policy `moe_ffn` calls; `elastic_restore`
+     of T2's layer-0 checkpoint for 2 survivors, prefer_model 2: every
+     leaf bit-equal on the card and tiled by its blocks.  Row 4's and row
+     11's entries of the kernels line get P1's and P3's launches.
 
 ``python3 chip_smoke.py --gather-shift`` times only `rmem.pages.gather_shift`
 and `paged_gather` at the rendezvous pull's shape on the package beside the
@@ -283,7 +309,8 @@ script (two trees in one call: copy the script into each);
 DSDE shapes and the launch floor, the same way;
 ``python3 chip_smoke.py --pool`` runs only phase 22, the device page pool;
 ``python3 chip_smoke.py --apps`` runs only phase 23, the hashtable and the FFT;
-``python3 chip_smoke.py --zoo`` runs only phase 24, xLSTM and whisper.
+``python3 chip_smoke.py --zoo`` runs only phase 24, xLSTM and whisper;
+``python3 chip_smoke.py --parallel`` runs only phase 25, P1-P4, on fresh weights.
 
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after.
@@ -398,6 +425,16 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_REL = 1e-2, 0.05   # backend "cuda" vs "torch" at one
 RESUME_STEPS, RESUME_STOP, RESUME_EVERY = 10, 7, 5
 # kernel row 13 through its ops surface at the training run's FSDP contraction
 RING_N, RING_TOL = 4, 1e-4      # ranks; kernel vs plain, relative to max |Y| (f32 sums)
+# the parallel layer (phase 25) on the training run's SmolLM-360M.  P1: 4
+# ranks as {"pod": 2, "data": 2}, one [1, 2048] row of T1's batch a rank.
+# Four f32 terms summed in two orders differ by at most 3 ulp of their
+# absolute sum (3 roundings each, 2**-24 relative): PAR_F32 is ~8 of them
+PAR_GRID, PAR_RANKS, PAR_F32 = {"pod": 2, "data": 2}, 4, 1e-6
+COMP_TIMED, COMP_ROUNDS, COMP_ERR = 3, 40, 0.05   # P2: gradsync_sub.py's check
+PIPE_STAGES, PIPE_MICRO, PIPE_REPS = 4, 4, 3      # P3: 32 layers as 4 stages of 8
+# P4: a policy over 4 data shards: the MoE dispatches B = 4 rows in 4 groups
+POLICY_GRID, POLICY_GROUPS, POLICY_MOE_TOKENS = {"data": 4}, 4, (4, 512)
+ELASTIC_SURVIVORS, ELASTIC_MODEL = 2, 2
 # the device page pool at a disaggregated deployment's decode-side KV pool
 # for llava-next-mistral-7b (src/repro/configs/llava_next_mistral_7b.py:7-8:
 # 8 KV heads of 128): a page is one layer's K and V for 16 tokens in f32, so
@@ -849,7 +886,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels += hybrid_serve_phases(torch, H100.hbm_bandwidth)
     torch.cuda.empty_cache()
-    kernels += training_phases(torch, H100.hbm_bandwidth)
+    rows, par = training_phases(torch, H100.hbm_bandwidth)
+    kernels += rows
+    next(r for r in kernels if r["name"] == "put_shift").update(par.pop("row4"))
+    next(r for r in kernels if r["name"] == "flash_attention").update(par.pop("row11"))
+    log(f"parallel phase numbers: {json.dumps(par)}")
     torch.cuda.empty_cache()
     zoo = zoo_phases(torch, H100.hbm_bandwidth)
     next(r for r in kernels if r["name"] == "flash_attention").update(zoo.pop("row11"))
@@ -2905,12 +2946,21 @@ def profile_step(torch, step_fn, params, opt, batch, L, top: int = 8) -> None:
             f"{e.key[:60]} {self_us(e) / 1e3:.1f} ms x{e.count}" for e in ranked))
 
 
-def resume_phase(torch, np, state: dict) -> None:
+def layer0_state(params: dict, opt) -> tuple:
+    """Layer 0's params and AdamW moments (views), as T2 checkpoints them."""
+    from repro_torch.train.optimizer import OptState, tree_map
+
+    def layer0(tree):
+        return tree_map(lambda x: x[0], tree["blocks"])
+
+    return (layer0(params), OptState(opt.step, layer0(opt.mu), layer0(opt.nu)))
+
+
+def resume_phase(torch, np, state: dict, d: str) -> tuple:
     """The launcher at --smoke on the card; the kill-and-resume contract of
     tests/test_training.py on the card (bit-equal at the last step); one
-    blocking checkpoint of layer 0's params and moments at full width."""
-    import tempfile
-
+    blocking checkpoint of layer 0's params and moments at full width, in
+    `d`.  Returns (its directory, the tree it saved)."""
     from repro_torch.ckpt.checkpoint import CheckpointManager, codec_name, flatten
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
@@ -2918,92 +2968,86 @@ def resume_phase(torch, np, state: dict) -> None:
     from repro_torch.launch import train as launch_train
     from repro_torch.models import build_model
     from repro_torch.models import layers as L
-    from repro_torch.train.optimizer import AdamWConfig, OptState, tree_leaves, tree_map
+    from repro_torch.train.optimizer import AdamWConfig, tree_leaves, tree_map
     from repro_torch.train.train_step import StepConfig, make_train_step
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    scratch = os.path.join(ROOT, "build")
-    os.makedirs(scratch, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=scratch) as d:
-        fops.launches = 0
-        hist = launch_train.main(["--smoke", "--steps", "6", "--seq", "128", "--ckpt-dir",
-                                  os.path.join(d, "launch"), "--ckpt-every", "3",
-                                  "--device", "cuda"])
-        got = CheckpointManager(os.path.join(d, "launch")).list_steps()
-        if len(hist) != 6 or not all(np.isfinite(r["loss"]) for r in hist) or got != [3, 6] \
-                or fops.launches == 0:
-            raise AssertionError(f"launch.train --smoke: history {hist}, checkpoints {got}, "
-                                 f"flash launches {fops.launches}")
-        log(f"launch.train --smoke --device cuda: 6 steps, loss {hist[0]['loss']:.4f} -> "
-            f"{hist[-1]['loss']:.4f}, checkpoints {got}, flash launches {fops.launches}")
+    fops.launches = 0
+    hist = launch_train.main(["--smoke", "--steps", "6", "--seq", "128", "--ckpt-dir",
+                              os.path.join(d, "launch"), "--ckpt-every", "3",
+                              "--device", "cuda"])
+    got = CheckpointManager(os.path.join(d, "launch")).list_steps()
+    if len(hist) != 6 or not all(np.isfinite(r["loss"]) for r in hist) or got != [3, 6] \
+            or fops.launches == 0:
+        raise AssertionError(f"launch.train --smoke: history {hist}, checkpoints {got}, "
+                             f"flash launches {fops.launches}")
+    log(f"launch.train --smoke --device cuda: 6 steps, loss {hist[0]['loss']:.4f} -> "
+        f"{hist[-1]['loss']:.4f}, checkpoints {got}, flash launches {fops.launches}")
 
-        cfg = get_config(MODEL_ARCH, smoke=True)
-        model = build_model(cfg)
-        params0 = model.init(0, device="cuda")
-        pipe = SyntheticTokenPipeline(DataConfig(cfg.vocab_size, 32, 4), device="cuda")
-        step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20),
-                               StepConfig())
+    cfg = get_config(MODEL_ARCH, smoke=True)
+    model = build_model(cfg)
+    params0 = model.init(0, device="cuda")
+    pipe = SyntheticTokenPipeline(DataConfig(cfg.vocab_size, 32, 4), device="cuda")
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20),
+                           StepConfig())
 
-        def trainer(sub, steps):
-            path = os.path.join(d, sub)
-            return Trainer(step, tree_map(torch.clone, params0), pipe,
-                           TrainerConfig(total_steps=steps, ckpt_every=RESUME_EVERY,
-                                         log_every=1, ckpt_dir=path),
-                           ckpt=CheckpointManager(path))
+    def trainer(sub, steps):
+        path = os.path.join(d, sub)
+        return Trainer(step, tree_map(torch.clone, params0), pipe,
+                       TrainerConfig(total_steps=steps, ckpt_every=RESUME_EVERY,
+                                     log_every=1, ckpt_dir=path),
+                       ckpt=CheckpointManager(path))
 
-        L.set_attention_backend("cuda")
-        try:
-            t = trainer("a", RESUME_STEPS)
-            t.run()
-            t1 = trainer("b", RESUME_STOP)
-            t1.run()                                    # "crashes" after RESUME_STOP
-            saved = t1.ckpt.list_steps()
-            t2 = trainer("b", RESUME_STEPS)
-            if not t2.maybe_resume() or t2.step != RESUME_STOP:
-                raise AssertionError(f"resume: restarted at {t2.step}")
-            t2.run()
-        finally:
-            L.set_attention_backend("torch")
-        pairs = list(zip(tree_leaves(t.params) + tree_leaves(t.opt_state.mu)
-                         + tree_leaves(t.opt_state.nu),
-                         tree_leaves(t2.params) + tree_leaves(t2.opt_state.mu)
-                         + tree_leaves(t2.opt_state.nu)))
-        diff = [i for i, (a, b) in enumerate(pairs) if not torch.equal(a, b)]
-        if diff:
-            raise AssertionError(f"resume: {len(diff)} of {len(pairs)} leaves differ at step "
-                                 f"{RESUME_STEPS}")
-        log(f"resume on the card ({cfg.name}, [4, 32] tokens, flash backend): "
-            f"{RESUME_STEPS} steps uninterrupted vs stopped at {RESUME_STOP} (checkpoints "
-            f"{saved}) and resumed there: all {len(pairs)} params and "
-            f"moments bit-equal at step {RESUME_STEPS}")
+    L.set_attention_backend("cuda")
+    try:
+        t = trainer("a", RESUME_STEPS)
+        t.run()
+        t1 = trainer("b", RESUME_STOP)
+        t1.run()                                    # "crashes" after RESUME_STOP
+        saved = t1.ckpt.list_steps()
+        t2 = trainer("b", RESUME_STEPS)
+        if not t2.maybe_resume() or t2.step != RESUME_STOP:
+            raise AssertionError(f"resume: restarted at {t2.step}")
+        t2.run()
+    finally:
+        L.set_attention_backend("torch")
+    pairs = list(zip(tree_leaves(t.params) + tree_leaves(t.opt_state.mu)
+                     + tree_leaves(t.opt_state.nu),
+                     tree_leaves(t2.params) + tree_leaves(t2.opt_state.mu)
+                     + tree_leaves(t2.opt_state.nu)))
+    diff = [i for i, (a, b) in enumerate(pairs) if not torch.equal(a, b)]
+    if diff:
+        raise AssertionError(f"resume: {len(diff)} of {len(pairs)} leaves differ at step "
+                             f"{RESUME_STEPS}")
+    log(f"resume on the card ({cfg.name}, [4, 32] tokens, flash backend): "
+        f"{RESUME_STEPS} steps uninterrupted vs stopped at {RESUME_STOP} (checkpoints "
+        f"{saved}) and resumed there: all {len(pairs)} params and "
+        f"moments bit-equal at step {RESUME_STEPS}")
 
-        # one checkpoint of layer 0 at full width
-        params, opt = state["params"], state["opt"]
-
-        def layer0(tree):
-            return tree_map(lambda x: x[0], tree["blocks"])
-
-        tree = (layer0(params), OptState(opt.step, layer0(opt.mu), layer0(opt.nu)))
-        nbytes = sum(leaf.numel() * leaf.element_size() for _, leaf in flatten(tree))
-        total = sum(leaf.numel() * leaf.element_size()
-                    for leaf in tree_leaves(params) + tree_leaves(opt.mu) + tree_leaves(opt.nu))
-        mgr = CheckpointManager(os.path.join(d, "layer0"))
-        t0 = time.perf_counter()
-        mgr.save(int(opt.step), tree, extra={"step": int(opt.step)}, blocking=True)
-        save_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        back, _ = mgr.restore(tree)
-        restore_s = time.perf_counter() - t0
-        if not all(torch.equal(a, b) for (_, a), (_, b) in zip(flatten(back), flatten(tree))):
-            raise AssertionError("checkpoint: layer 0 does not restore bit-equal")
-        on_disk = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in
-                      os.walk(os.path.join(d, "layer0")) for f in fs)
-        rate = nbytes / save_s
-        log(f"checkpoint of layer 0 at full width ({nbytes / 1e6:.1f} MB: bf16 params, f32 "
-            f"moments; codec {codec_name()}, {on_disk / 1e6:.1f} MB on disk): save "
-            f"{save_s:.2f} s = {rate / 1e6:.1f} MB/s, restore {restore_s:.2f} s, bit-equal; "
-            f"the whole {total / 1e9:.2f} GB state would take {total / rate:.0f} s a save "
-            f"at that rate (host CPU of the {card_line()} machine)")
+    # one checkpoint of layer 0 at full width
+    params, opt = state["params"], state["opt"]
+    tree = layer0_state(params, opt)
+    nbytes = sum(leaf.numel() * leaf.element_size() for _, leaf in flatten(tree))
+    total = sum(leaf.numel() * leaf.element_size()
+                for leaf in tree_leaves(params) + tree_leaves(opt.mu) + tree_leaves(opt.nu))
+    mgr = CheckpointManager(os.path.join(d, "layer0"))
+    t0 = time.perf_counter()
+    mgr.save(int(opt.step), tree, extra={"step": int(opt.step)}, blocking=True)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back, _ = mgr.restore(tree)
+    restore_s = time.perf_counter() - t0
+    if not all(torch.equal(a, b) for (_, a), (_, b) in zip(flatten(back), flatten(tree))):
+        raise AssertionError("checkpoint: layer 0 does not restore bit-equal")
+    on_disk = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in
+                  os.walk(os.path.join(d, "layer0")) for f in fs)
+    rate = nbytes / save_s
+    log(f"checkpoint of layer 0 at full width ({nbytes / 1e6:.1f} MB: bf16 params, f32 "
+        f"moments; codec {codec_name()}, {on_disk / 1e6:.1f} MB on disk): save "
+        f"{save_s:.2f} s = {rate / 1e6:.1f} MB/s, restore {restore_s:.2f} s, bit-equal; "
+        f"the whole {total / 1e9:.2f} GB state would take {total / rate:.0f} s a save "
+        f"at that rate (host CPU of the {card_line()} machine)")
+    return os.path.join(d, "layer0"), tree
 
 
 def unfused_arm(torch, rma_ops, x_t, w, mesh):
@@ -3191,10 +3235,14 @@ def ring_phase(torch, taps: dict, hbm: float) -> dict:
             **times["up"]}
 
 
-def training_phases(torch, hbm: float) -> list:
+def training_phases(torch, hbm: float) -> tuple:
     """SmolLM-360M trained at full width through the flash kernel (T1), the
     launcher and the resume contract on the card and a checkpoint's rate
-    (T2), and kernel row 13 through its ops surface on T1's activations (T3)."""
+    (T2), kernel row 13 through its ops surface on T1's activations (T3),
+    and the parallel layer on T1's model and T2's checkpoint (P1-P4).
+    Returns (row 13's entry, the parallel phases' numbers)."""
+    import tempfile
+
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -3205,14 +3253,400 @@ def training_phases(torch, hbm: float) -> list:
     model = build_model(get_config(MODEL_ARCH))
     state = train_phase(torch, np, model, L, fops)
     torch.cuda.empty_cache()
-    resume_phase(torch, np, state)
-    ring = ring_phase(torch, state["taps"], hbm)
-    del state
+    scratch = os.path.join(ROOT, "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as d:
+        layer0_dir, layer0_tree = resume_phase(torch, np, state, d)
+        ring = ring_phase(torch, state.pop("taps"), hbm)
+        torch.cuda.empty_cache()
+        par = parallel_phases(torch, model, state["params"], layer0_dir, layer0_tree)
+    del state, layer0_tree
     gc.collect()
     torch.cuda.empty_cache()
     return [{"name": "ring_matmul", "route": KERNELS["ring_matmul"][0],
              "source": KERNELS["ring_matmul"][1], "replaces": KERNELS["ring_matmul"][2],
-             **ring}]
+             **ring}], par
+
+
+# ------------------------------------------ the parallel layer (phase 25)
+def stacked_grads(torch, model, params, batch, grid: dict) -> tuple:
+    """Each rank's f32 gradients of its own row of `batch` (`loss_and_grads`,
+    remat on), stacked leaf by leaf as the grid's global view [pod, data,
+    ...]; and the bf16 per-rank trees' leaves are dropped as they go."""
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+    from repro_torch.train.train_step import loss_and_grads
+
+    ranks = math.prod(grid.values())
+    per = []
+    for r in range(ranks):
+        _, _, g = loss_and_grads(model, params, {k: v[r:r + 1] for k, v in batch.items()},
+                                 remat=True)
+        per.append(g)
+    lead = tuple(grid.values())
+    stacked = tree_map(lambda *gs: torch.stack([g.float() for g in gs]).reshape(
+        lead + tuple(gs[0].shape)), *per)
+    del per
+    return stacked, len(tree_leaves(stacked))
+
+
+def grad_sync_phase(torch, model, params, batch) -> dict:
+    """P1: `parallel.overlap.overlapped_grad_sync` over {"pod": 2, "data": 2}
+    on SmolLM-360M's f32 gradients, one [1, 2048] row of T1's batch a rank:
+    under "auto" (kernel row 4 carries every in-pod ring put; counted from
+    0) and with every plan group sent through the plain put, bit-equal;
+    every rank's copy equal; within PAR_F32 x sum |g_r| of the sum of the
+    four ranks' gradients and of 4 x the n_microbatches=4 step's averaged
+    gradients; then timed beside one flat ring over a 4-rank axis, with
+    `select_allreduce`'s pick."""
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.perfmodel import DEFAULT_MODEL
+    from repro_torch.kernels.rma import ops as rma_ops
+    from repro_torch.mesh import Mesh
+    from repro_torch.parallel.overlap import CollectiveStrategist, overlapped_grad_sync
+    from repro_torch.core.epoch import SyncStats
+    from repro_torch.parallel.overlap import bucket_grads
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+    from repro_torch.train.train_step import StepConfig, step_grads
+
+    t0 = time.perf_counter()
+    stacked, n_leaves = stacked_grads(torch, model, params, batch, PAR_GRID)
+    _, _, avg = step_grads(model, params, batch, StepConfig(n_microbatches=PAR_RANKS))
+    torch.cuda.synchronize()
+    grads_s = time.perf_counter() - t0
+    nbytes = sum(g.numel() * 4 for g in tree_leaves(avg))           # a rank's f32 bytes
+    mesh = Mesh(PAR_GRID, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    zero_rma_launches(rma_ops)
+    with SyncStats() as sync:
+        auto = overlapped_grad_sync(stacked, mesh)
+    torch.cuda.synchronize()
+    launches = dict(rma_ops.launches)
+    buckets = len(bucket_grads(stacked, mesh=mesh))
+    if sync.flush_msgs != buckets:
+        raise AssertionError(f"P1: {sync.flush_msgs} flushes for {buckets} buckets")
+    with plain_route(plan_mod):
+        plain = overlapped_grad_sync(stacked, mesh)
+    torch.cuda.synchronize()
+    if rma_ops.launches != launches:
+        raise AssertionError(f"P1: the plain route launched {rma_ops.launches} (after {launches})")
+    # every leaf a reduce-scatter step (one put) and an all-gather step (two)
+    want_puts = 3 * n_leaves
+    if launches["put_shift"] != want_puts or sum(launches.values()) != want_puts:
+        raise AssertionError(f"P1: rma launches {launches} under auto, want put_shift "
+                             f"{want_puts} ({n_leaves} leaves) and nothing else")
+    bitequal = all(torch.equal(a, b) for a, b in zip(tree_leaves(auto), tree_leaves(plain)))
+    del plain
+    if not bitequal:
+        raise AssertionError("P1: the synced grads under auto and under the plain put differ")
+    worst_sum = worst_avg = 0.0
+    for got, g, a in zip(tree_leaves(auto), tree_leaves(stacked), tree_leaves(avg)):
+        if not all(torch.equal(got[i, j], got[0, 0]) for i in range(2) for j in range(2)):
+            raise AssertionError("P1: the ranks' copies of the synced grads differ")
+        scale = g.abs().sum((0, 1)).clamp_min(1e-30)
+        worst_sum = max(worst_sum, float(((got[0, 0] - g.sum((0, 1))).abs() / scale).max()))
+        worst_avg = max(worst_avg, float(((got[0, 0] - PAR_RANKS * a).abs() / scale).max()))
+    if worst_sum > PAR_F32 or worst_avg > PAR_F32:
+        raise AssertionError(f"P1: |synced - sum| / sum|g_r| {worst_sum:.3g}, vs 4 x the "
+                             f"microbatch average {worst_avg:.3g} (bound {PAR_F32})")
+    peak = torch.cuda.max_memory_allocated()
+    del auto, avg
+
+    flat_mesh = Mesh({"data": PAR_RANKS}, device="cuda")
+    flat_in = tree_map(lambda g: g.reshape((PAR_RANKS,) + tuple(g.shape[2:])), stacked)
+    hier, flat = [], []
+    for order in ("hf", "fh", "hf"):                 # in turns
+        for arm in order:
+            if arm == "h":
+                hier += sync_ms(torch, lambda: overlapped_grad_sync(stacked, mesh), 1)
+            else:
+                flat += sync_ms(torch, lambda: overlapped_grad_sync(flat_in, flat_mesh,
+                                                                    outer_axis=None), 1)
+    st = CollectiveStrategist()
+    leaf_picks = collections.Counter(st.allreduce_plan(g.numel() // PAR_RANKS * 4, 2, 2)
+                                     for g in tree_leaves(stacked))
+    pick = st.allreduce_plan(nbytes, 2, 2)
+    model_h = sum(DEFAULT_MODEL.hierarchical_all_reduce(g.numel() // PAR_RANKS * 4, 2, 2)
+                  for g in tree_leaves(stacked)) * 1e3
+    model_f = sum(DEFAULT_MODEL.all_reduce(g.numel() // PAR_RANKS * 4, PAR_RANKS)
+                  for g in tree_leaves(stacked)) * 1e3
+    log(f"P1 hierarchical grad sync ({card_line()}): {MODEL_ARCH} at full width, mesh "
+        f"{PAR_GRID}, rank r's f32 grads of row r of T1's batch {list(batch['tokens'].shape)} "
+        f"({n_leaves} leaves, "
+        f"{nbytes / 1e9:.3f} GB a rank, {PAR_RANKS * nbytes / 1e9:.3f} GB stacked; "
+        f"grads {grads_s:.1f} s); auto vs plain put bit-equal, put_shift launches "
+        f"{launches['put_shift']} (3 a leaf), {buckets} buckets and as many flushes, every "
+        f"rank's copy equal; |synced - sum of the "
+        f"ranks| max {worst_sum:.3g} of sum|g_r|, vs 4 x the n_microbatches=4 step's average "
+        f"{worst_avg:.3g} (bound {PAR_F32}); peak {peak / 2**30:.2f} GiB")
+    log(f"P1 timing, host ms of synchronised calls in turns: hierarchical "
+        f"{' '.join(f'{t:.3f}' for t in hier)} (median {median(hier):.3f}), flat ring over "
+        f"{PAR_RANKS} ranks {' '.join(f'{t:.3f}' for t in flat)} (median {median(flat):.3f}); "
+        f"select_allreduce({nbytes}, 2, 2) = {pick!r} (priced hierarchical {model_h:.3f} ms, "
+        f"flat {model_f:.3f} ms over the leaves; by leaf {dict(leaf_picks)}); measured faster: "
+        f"{'hierarchical' if median(hier) < median(flat) else 'flat_ring'}")
+    return {"stacked": stacked, "put_launches": launches["put_shift"],
+            "numbers": {"grad_sync_bitequal": bitequal, "put_shift_launches": launches["put_shift"],
+                        "rel_err_sum": worst_sum, "rel_err_avg": worst_avg,
+                        "hier_ms": hier, "flat_ms": flat, "pick": pick,
+                        "priced_hier_ms": model_h, "priced_flat_ms": model_f,
+                        "peak_gib": peak / 2**30}}
+
+
+def compression_phase(torch, stacked: dict) -> dict:
+    """P2: `compress_decompress` on rank 0's gradient tree from P1 (what one
+    rank would send across pods): ms a round and the dcn_bytes ratio; then
+    gradsync_sub.py's convergence check (40 rounds, error < 0.05) on layer
+    0's largest leaf."""
+    from repro_torch.parallel.compression import compress_decompress, init_compression_state
+    from repro_torch.train.optimizer import tree_map
+
+    g0 = tree_map(lambda g: g[0, 0], stacked)
+    state = init_compression_state(g0)
+    out = {}
+
+    def round_():
+        nonlocal state
+        out["comp"], state, out["met"] = compress_decompress(g0, state)
+
+    times = sync_ms(torch, round_, COMP_TIMED)
+    met = out["met"]
+    ratio = met["dcn_bytes_compressed"] / met["dcn_bytes_uncompressed"]
+    del out, state
+    layer0 = tree_map(lambda g: g[0], g0["blocks"])
+    name, leaf = max(flat_leaves(layer0).items(), key=lambda kv: kv[1].numel())
+    g = {"w": leaf}
+    st = init_compression_state(g)
+    acc = torch.zeros_like(leaf)
+    for _ in range(COMP_ROUNDS):
+        comp, st, _ = compress_decompress(g, st)
+        acc += comp["w"]
+    err = float((acc / COMP_ROUNDS - leaf).abs().max() / leaf.abs().max())
+    if not err < COMP_ERR:
+        raise AssertionError(f"P2: error feedback after {COMP_ROUNDS} rounds {err:.4g} "
+                             f"(bound {COMP_ERR})")
+    log(f"P2 int8 error-feedback compression ({card_line()}): rank 0's grads "
+        f"({met['dcn_bytes_uncompressed'] / 1e9:.3f} GB f32 -> "
+        f"{met['dcn_bytes_compressed'] / 1e9:.3f} GB, ratio {ratio:.4f}): "
+        f"{' '.join(f'{t:.3f}' for t in times)} ms a round (median {median(times):.3f}); "
+        f"blocks/{name}[0] {tuple(leaf.shape)}: mean of {COMP_ROUNDS} rounds within "
+        f"{err:.3g} of the gradient (bound {COMP_ERR})")
+    return {"comp_ms": times, "dcn_ratio": ratio, "converge_err": err}
+
+
+def pipeline_phase(torch, model, params, tokens, L, fops) -> dict:
+    """P3: SmolLM-360M's 32 blocks as PIPE_STAGES stages over the `pod` axis
+    (`parallel.pipeline.pipeline_forward`), PIPE_MICRO microbatches of one
+    row of T1's batch, the flash kernel in every layer (counted from 0):
+    bit-equal to each microbatch through the 32 layers one at a time, and
+    its logits within FWD_BOUND of the whole batch's forward (other batch
+    shapes, other orders of sums in bf16)."""
+    from repro_torch.mesh import Mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.pipeline import PipelineConfig, pipeline_forward
+    from repro_torch.train.optimizer import tree_map
+
+    cfg = model.cfg
+    per = cfg.n_layers // PIPE_STAGES
+    stages = tree_map(lambda a: a.reshape((PIPE_STAGES, per) + tuple(a.shape[1:])),
+                      params["blocks"])
+    B, S = tokens.shape
+    start = torch.zeros((), dtype=torch.int32, device="cuda")
+
+    def run_layers(blocks: dict, n: int, h):
+        pos = torch.arange(h.shape[1], device="cuda")[None, :].expand(h.shape[0], -1)
+        for blk in T._unstack(blocks, n):
+            h, _, _ = T._block(cfg, blk, h, pos, None, start)
+        return h
+
+    def stage_fn(sp, h):
+        return run_layers(tree_map(lambda a: a[0], sp), per, h)
+
+    pcfg = PipelineConfig(PIPE_STAGES, PIPE_MICRO)
+    mesh = Mesh(PIPE_STAGES, "pod", device="cuda")
+    L.set_attention_backend("cuda")
+    try:
+        with torch.no_grad():
+            x = L.embed(params["tok"], tokens)                     # [B, S, D] bf16
+            x_micro = x.reshape((PIPE_MICRO, B // PIPE_MICRO) + tuple(x.shape[1:]))
+            fops.launches = 0
+            fops.launches_by_variant.update(wgmma=0, simt=0)
+            out = pipeline_forward(stage_fn, stages, x_micro, pcfg, mesh)
+            torch.cuda.synchronize()
+            launches, wgmma = fops.launches, fops.launches_by_variant["wgmma"]
+            seq = []
+            for m in range(PIPE_MICRO):
+                h = x_micro[m]
+                for s in range(PIPE_STAGES):
+                    h = stage_fn(tree_map(lambda a: a[s:s + 1], stages), h)
+                seq.append(h)
+            seq = torch.stack(seq)
+            whole = run_layers(params["blocks"], cfg.n_layers, x)
+            if not all(torch.equal(out[s], seq) for s in range(PIPE_STAGES)):
+                raise AssertionError("P3: the pipeline differs from the stages in sequence")
+
+            def logits(h):
+                return L.unembed(params["tok"], L.rmsnorm(h, params["final_norm"]["scale"],
+                                                          cfg.norm_eps)).float()
+
+            gap = float((logits(out[0].reshape(x.shape)) - logits(whole)).abs().max())
+            if gap > FWD_BOUND:
+                raise AssertionError(f"P3: pipeline logits {gap:.4g} from the whole batch's "
+                                     f"(bound {FWD_BOUND})")
+            want = PIPE_MICRO * cfg.n_layers
+            if launches != want or wgmma != want:
+                raise AssertionError(f"P3: flash launches {launches} (wgmma {wgmma}), want "
+                                     f"{want}")
+            pipe_ms = sync_ms(torch, lambda: pipeline_forward(stage_fn, stages, x_micro, pcfg,
+                                                              mesh), PIPE_REPS)
+            seq_ms = sync_ms(torch, lambda: [run_layers(params["blocks"], cfg.n_layers,
+                                                        x_micro[m]) for m in range(PIPE_MICRO)],
+                             PIPE_REPS)
+            whole_ms = sync_ms(torch, lambda: run_layers(params["blocks"], cfg.n_layers, x),
+                               PIPE_REPS)
+    finally:
+        L.set_attention_backend("torch")
+    log(f"P3 GPipe pipeline ({card_line()}): {MODEL_ARCH} at full width, {cfg.n_layers} layers "
+        f"as {PIPE_STAGES} stages of {per} over pod, {PIPE_MICRO} microbatches of "
+        f"[{B // PIPE_MICRO}, {S}], flash launches {launches} (all wgmma); bit-equal to the "
+        f"stages in sequence; logits {gap:.4g} from the whole batch's (bound {FWD_BOUND}); "
+        f"bubble_fraction {pcfg.bubble_fraction:.4f}; host ms: pipeline "
+        f"{' '.join(f'{t:.3f}' for t in pipe_ms)}, the {cfg.n_layers} layers a microbatch at a "
+        f"time {' '.join(f'{t:.3f}' for t in seq_ms)}, the whole batch "
+        f"{' '.join(f'{t:.3f}' for t in whole_ms)}")
+    return {"flash_launches": launches, "pipe_ms": pipe_ms, "seq_ms": seq_ms,
+            "whole_ms": whole_ms, "bubble_fraction": pcfg.bubble_fraction, "logit_gap": gap}
+
+
+def policy_phase(torch, model, params, tokens, L, layer0_dir: str, layer0_tree) -> dict:
+    """P4: SmolLM-360M's logits under a `ShardingPolicy` of {"data": 4}
+    bit-equal to no policy; a 4-layer qwen3-moe forward under it, each MoE
+    layer bit-equal to one no-policy `moe_ffn` call a dispatch group; then
+    `elastic_restore` of T2's layer-0 checkpoint for ELASTIC_SURVIVORS
+    survivors with prefer_model ELASTIC_MODEL: values bit-equal, every
+    leaf's blocks tiling it."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager, flatten
+    from repro_torch.configs import get_config
+    from repro_torch.ft.elastic import elastic_restore
+    from repro_torch.mesh import Mesh
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.parallel.sharding import ShardingPolicy, current_policy, use_policy
+
+    pol = ShardingPolicy(Mesh(POLICY_GRID, device="cuda"))
+    L.set_attention_backend("cuda")
+    try:
+        with torch.no_grad():
+            a = model.forward_logits(params, {"tokens": tokens}).logits
+            with use_policy(pol):
+                b = model.forward_logits(params, {"tokens": tokens}).logits
+            same = torch.equal(a, b)
+            del a, b
+            if not same:
+                raise AssertionError("P4: SmolLM's logits under the policy differ")
+            moe_model, moe_params = full_width(torch, build_model, get_config, MOE_ARCH,
+                                               MOE_LAYERS, MOE_SEED)
+            toks = torch.randint(0, moe_model.cfg.vocab_size, POLICY_MOE_TOKENS,
+                                 generator=torch.Generator(device="cuda").manual_seed(MOE_SEED),
+                                 device="cuda")
+            real, calls = moe_mod.moe_ffn, []
+
+            def tap(p, x, top_k, capacity_factor=1.25, mlp_type="swiglu"):
+                y, met = real(p, x, top_k, capacity_factor, mlp_type)
+                if current_policy() is not None:
+                    calls.append((p, x, top_k, capacity_factor, mlp_type, y,
+                                  moe_mod._n_groups(x.shape[0])))
+                return y, met
+
+            moe_mod.moe_ffn = tap
+            try:
+                with use_policy(pol):
+                    moe_model.forward_logits(moe_params, {"tokens": toks})
+            finally:
+                moe_mod.moe_ffn = real
+            groups = {c[-1] for c in calls}
+            for p, x, k, cf, mt, y, g in calls:
+                parts = [real(p, xg, k, cf, mt)[0] for xg in x.chunk(g)]
+                if not torch.equal(y, torch.cat(parts)):
+                    raise AssertionError("P4: a MoE layer under the policy differs from its "
+                                         "groups run alone")
+            if len(calls) != MOE_LAYERS or groups != {POLICY_GROUPS}:
+                raise AssertionError(f"P4: {len(calls)} MoE calls in {groups} groups, want "
+                                     f"{MOE_LAYERS} in {POLICY_GROUPS}")
+            del moe_model, moe_params, calls
+    finally:
+        L.set_attention_backend("torch")
+    torch.cuda.empty_cache()
+
+    like = tree_like(torch, layer0_tree)
+    t0 = time.perf_counter()
+    tree, extra, mesh, epol = elastic_restore(CheckpointManager(layer0_dir), like,
+                                              ELASTIC_SURVIVORS, ELASTIC_MODEL, device="cuda")
+    restore_s = time.perf_counter() - t0
+    saved, back = dict(flatten(layer0_tree)), dict(flatten(tree))
+    if not all(torch.equal(back[k], v) for k, v in saved.items()) or set(back) != set(saved):
+        raise AssertionError("P4: the elastic restore is not bit-equal")
+    sh = dict(flatten(epol.tree_shardings(like)))
+    n_blocks = 0
+    for key, v in back.items():
+        if v.device.type != mesh.device.type:
+            raise AssertionError(f"P4: {key} restored on {v.device}")
+        blocks = sh[key].blocks(v)
+        tiled = torch.full_like(v, float("nan")) if v.is_floating_point() else v.clone()
+        for c, blk in blocks.items():
+            tiled[sh[key].index(c, v.shape)] = blk
+        if not torch.equal(tiled, v) or len(blocks) != math.prod(mesh.shape.values()):
+            raise AssertionError(f"P4: {key}'s blocks do not tile it")
+        n_blocks += len(blocks)
+    specs = collections.Counter(str(tuple(s.spec)) for s in sh.values())
+    log(f"P4 sharding and elasticity ({card_line()}): SmolLM logits under ShardingPolicy "
+        f"{POLICY_GRID} bit-equal to no policy; {MOE_ARCH} cut to {MOE_LAYERS} layers on "
+        f"{list(POLICY_MOE_TOKENS)} tokens under it: {MOE_LAYERS} MoE layers in "
+        f"{POLICY_GROUPS} dispatch groups, each bit-equal to its groups' no-policy calls; "
+        f"elastic_restore of T2's layer-0 checkpoint (step {extra.get('step')}) for "
+        f"{ELASTIC_SURVIVORS} survivors, prefer_model {ELASTIC_MODEL}: mesh {mesh.shape}, "
+        f"{len(back)} leaves bit-equal on the card, {n_blocks} blocks tiling them, specs "
+        f"{dict(specs)}; {restore_s:.2f} s")
+    return {"restore_s": restore_s, "mesh": mesh.shape, "leaves": len(back)}
+
+
+def tree_like(torch, tree):
+    """`tree` with every tensor replaced by a meta tensor of its shape and dtype."""
+    if isinstance(tree, dict):
+        return {k: tree_like(torch, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [tree_like(torch, v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+
+
+def parallel_phases(torch, model, params, layer0_dir: str, layer0_tree) -> dict:
+    """P1-P4 on SmolLM-360M at full width (the training phases' model and
+    state), each phase's line printed as it ends."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import layers as L
+
+    t0 = time.perf_counter()
+    B, S = TRAIN_BATCH
+    batch = SyntheticTokenPipeline(DataConfig(model.cfg.vocab_size, S, B),
+                                   device="cuda").batch_at(0)
+    L.set_attention_backend("cuda")
+    try:
+        p1 = grad_sync_phase(torch, model, params, batch)
+    finally:
+        L.set_attention_backend("torch")
+    p2 = compression_phase(torch, p1.pop("stacked"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    p3 = pipeline_phase(torch, model, params, batch["tokens"], L, fops)
+    p4 = policy_phase(torch, model, params, batch["tokens"], L, layer0_dir, layer0_tree)
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    log(f"parallel phases P1-P4: {wall:.1f} s")
+    return {"row4": {"grad_sync_launches": p1["put_launches"]},
+            "row11": {"pipeline_launches": p3["flash_launches"]},
+            "P1": p1["numbers"], "P2": p2, "P3": p3, "P4": p4, "wall_s": wall}
 
 
 # ------------------------------------------ the rest of the model zoo
@@ -4356,8 +4790,40 @@ def queue_push_only() -> int:
     return 0
 
 
+def parallel_only() -> int:
+    """``python3 chip_smoke.py --parallel``: phase 25 (P1-P4) alone, on the
+    package beside this file, with SmolLM-360M's weights and moments fresh
+    from the seed (no training run) and a layer-0 checkpoint of them.
+    Prints one JSON line of its numbers."""
+    import tempfile
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import init_opt_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products, as in main()
+    model = build_model(get_config(MODEL_ARCH))
+    params = model.init(TRAIN_SEED, device="cuda")
+    tree = layer0_state(params, init_opt_state(params))
+    scratch = os.path.join(ROOT, "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as d:
+        CheckpointManager(os.path.join(d, "layer0")).save(0, tree, extra={"step": 0},
+                                                          blocking=True)
+        out = parallel_phases(torch, model, params, os.path.join(d, "layer0"), tree)
+    print(json.dumps({"tree": ROOT, **out}), flush=True)
+    return 0
+
+
 MODES = {"--gather-shift": gather_shift_only, "--queue-push": queue_push_only,
-         "--pool": pool_only, "--apps": apps_only, "--zoo": zoo_only}
+         "--pool": pool_only, "--apps": apps_only, "--zoo": zoo_only,
+         "--parallel": parallel_only}
 
 if __name__ == "__main__":
     sys.exit(MODES[sys.argv[1]]() if sys.argv[1:] else main())

@@ -258,9 +258,17 @@ class CheckpointManager:
         steps = self.list_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like: Any, step: Optional[int] = None) -> tuple[Any, dict]:
+    def restore(self, like: Any, step: Optional[int] = None,
+                shardings: Optional[Any] = None) -> tuple[Any, dict]:
         """Restore into the structure of `like`, each leaf in that leaf's
-        dtype and on its device; returns (tree, extra)."""
+        dtype and on its device; returns (tree, extra).
+
+        `shardings` (a tree like `like`'s, of `parallel.sharding`
+        placements, e.g. a policy's `tree_shardings`) may target another
+        mesh than the one that saved: the elastic re-shard path.  Each leaf
+        with a placement is checked to tile its mesh exactly and goes to the
+        mesh's device (`like` may then be meta tensors); the values are the
+        checkpoint's either way."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -274,9 +282,15 @@ class CheckpointManager:
                 for meta in manifest["arrays"]:
                     arrays[meta["key"]] = _from_host(unpack_bin(zf), meta["dtype"],
                                                      meta["shape"])
+        placed = {} if shardings is None else dict(
+            (key, sh) for key, sh in flatten(shardings) if sh is not None)
         values = {}
         for key, leaf in flatten(like):
             if key not in arrays:
                 raise KeyError(f"checkpoint missing leaf {key!r}")
-            values[key] = arrays[key].to(dtype=leaf.dtype, device=leaf.device)
+            device = leaf.device
+            if key in placed:
+                placed[key].check(arrays[key].shape)
+                device = placed[key].mesh.device
+            values[key] = arrays[key].to(dtype=leaf.dtype, device=device)
         return _unflatten_like(like, values), manifest["extra"]

@@ -8,6 +8,14 @@ the plan's backend dispatch.  The reference's `fori_loop`/`cond` become
 Python loops over steps; a rank's own index ``me`` becomes
 `Mesh.axis_index()` with advanced indexing, so each step is batched over
 all ranks.  Every tensor is the global view ``[p, ...]``.
+
+On a mesh of several named axes (``Mesh({"pod": 2, "data": 2})``) the
+global view is ``[pod, data, ...]`` and ``axis=`` names the axis a
+collective runs over: it is the one-axis schedule on the tensor with that
+axis moved to the front (`Mesh.front`) and the axis's own mesh
+(`Mesh.along`), the other rank dims riding along in every put.  A
+collective moves the axis once on the way in and once on the way out, so
+the ring's payloads stay contiguous from step to step.
 """
 
 from __future__ import annotations
@@ -20,12 +28,29 @@ from ..mesh import Mesh, MeshError
 from . import plan as plan_mod, rma
 
 
+def _axis(mesh: Mesh, axis) -> tuple[str, Mesh, int]:
+    """(the axis a collective runs over, its one-axis mesh, the count of
+    rank dims); None names a one-axis mesh's own axis."""
+    if axis is None:
+        if len(mesh.axis_names) > 1:
+            raise MeshError(f"a mesh of axes {mesh.axis_names} needs axis=")
+        axis = mesh.axis
+    return axis, mesh.along(axis), len(mesh.axis_names)
+
+
 # ------------------------------------------------------------ ring schedules
-def ring_all_gather(x: torch.Tensor, mesh: Mesh,
-                    bidirectional: bool = True) -> torch.Tensor:
+def ring_all_gather(x: torch.Tensor, mesh: Mesh, bidirectional: bool = True,
+                    axis: str | None = None) -> torch.Tensor:
     """All-gather via p - 1 one-sided ring puts; bidirectional sends half the
     shards each way.  x [p, ...] -> [p, p, ...]: rank r holds every rank's
-    block in rank order."""
+    block in rank order.  Over a named axis of a grid: x [ranks..., ...] ->
+    [ranks..., p_axis, ...]."""
+    axis, sub, k = _axis(mesh, axis)
+    out = _ring_all_gather(mesh.front(x, axis), sub, bidirectional)
+    return mesh.back(out.movedim(1, k), axis)
+
+
+def _ring_all_gather(x: torch.Tensor, mesh: Mesh, bidirectional: bool) -> torch.Tensor:
     p = mesh.p
     me = mesh.axis_index()
     if p == 1:
@@ -59,11 +84,18 @@ def ring_all_gather(x: torch.Tensor, mesh: Mesh,
     return out
 
 
-def ring_reduce_scatter(x: torch.Tensor, mesh: Mesh,
-                        op: Callable = torch.add) -> torch.Tensor:
+def ring_reduce_scatter(x: torch.Tensor, mesh: Mesh, op: Callable = torch.add,
+                        axis: str | None = None) -> torch.Tensor:
     """Reduce-scatter via ring accumulate: x [p, p, ...] (rank r's p chunks)
     -> [p, ...] (rank r's reduced chunk r).  Step i forwards the growing
-    partial of chunk (r - 1 - i) mod p to the right neighbour."""
+    partial of chunk (r - 1 - i) mod p to the right neighbour.  Over a named
+    axis of a grid: x [ranks..., p_axis, ...] -> [ranks..., ...]."""
+    axis, sub, k = _axis(mesh, axis)
+    out = _ring_reduce_scatter(mesh.front(x, axis).movedim(k, 1), sub, op)
+    return mesh.back(out, axis)
+
+
+def _ring_reduce_scatter(x: torch.Tensor, mesh: Mesh, op: Callable) -> torch.Tensor:
     p = mesh.p
     me = mesh.axis_index()
     if p == 1:
@@ -77,18 +109,45 @@ def ring_reduce_scatter(x: torch.Tensor, mesh: Mesh,
     return op(x[me, me], acc)
 
 
-def all_reduce(x: torch.Tensor, mesh: Mesh, op: Callable = torch.add) -> torch.Tensor:
+def _parts(x: torch.Tensor, k: int, p: int) -> tuple[torch.Tensor, int]:
+    """Each rank's block flattened and zero-padded into p equal chunks:
+    x [ranks(k dims)..., ...] -> ([ranks..., p, m], the unpadded length)."""
+    flat = x.reshape(tuple(x.shape[:k]) + (-1,))
+    n = flat.shape[-1]
+    return torch.nn.functional.pad(flat, (0, (-n) % p)).unflatten(-1, (p, -1)), n
+
+
+def _unparts(full: torch.Tensor, k: int, n: int, shape) -> torch.Tensor:
+    """Inverse of `_parts`: the gathered chunks cut back to each block."""
+    return full.flatten(k)[..., :n].reshape(shape)
+
+
+def all_reduce(x: torch.Tensor, mesh: Mesh, op: Callable = torch.add,
+               axis: str | None = None) -> torch.Tensor:
     """Reduce-scatter + all-gather ring all-reduce over the axis, built only
-    on one-sided puts.  x [p, ...] -> [p, ...], every rank the reduction."""
-    p = mesh.p
-    if p == 1:
+    on one-sided puts.  x [p, ...] -> [p, ...], every rank the reduction
+    (over a named axis of a grid, every rank of that axis)."""
+    axis, sub, k = _axis(mesh, axis)
+    if sub.p == 1:
         return x.clone()
-    flat = x.reshape(p, -1)
-    n = flat.shape[1]
-    parts = torch.nn.functional.pad(flat, (0, (-n) % p)).reshape(p, p, -1)
-    shard = ring_reduce_scatter(parts, mesh, op)
-    full = ring_all_gather(shard, mesh)
-    return full.reshape(p, -1)[:, :n].reshape(x.shape)
+    parts, n = _parts(x, k, sub.p)
+    shard = ring_reduce_scatter(parts, mesh, op, axis=axis)
+    full = ring_all_gather(shard, mesh, axis=axis)
+    return _unparts(full, k, n, x.shape)
+
+
+def hierarchical_all_reduce(x: torch.Tensor, mesh: Mesh, inner_axis: str,
+                            outer_axis: str) -> torch.Tensor:
+    """Two-level all-reduce over a grid: reduce-scatter within the pod (the
+    ring over `inner_axis`), `psum` across pods (`outer_axis`: each rank
+    carries 1/inner of its payload there), all-gather within the pod.
+    x [ranks..., ...] -> the same shape, every rank the sum over both axes."""
+    k = len(mesh.axis_names)
+    parts, n = _parts(x, k, mesh.shape[inner_axis])
+    shard = ring_reduce_scatter(parts, mesh, axis=inner_axis)   # in-pod
+    shard = mesh.psum(shard, outer_axis)                        # cross-pod (1/p bytes)
+    full = ring_all_gather(shard, mesh, axis=inner_axis)        # in-pod
+    return _unparts(full, k, n, x.shape)
 
 
 # ------------------------------------------------------------- halo exchange
@@ -110,14 +169,13 @@ def halo_exchange_1d(x: torch.Tensor, halo: int, mesh: Mesh, dim: int = 0) -> to
 
 def halo_exchange_nd(x: torch.Tensor, halos: dict[str, int],
                      axis_dims: dict[str, int], mesh: Mesh) -> torch.Tensor:
-    """Multi-axis halo exchange: one 1-D exchange per named axis.  The
-    port's mesh has one axis, so `halos` may name only `mesh.axis`."""
+    """Multi-axis halo exchange (the 4-D MILC lattice): one 1-D exchange per
+    named axis of the mesh, `axis_dims[ax]` counting a rank's own dims."""
+    k = len(mesh.axis_names)
     for ax, h in halos.items():
-        if ax != mesh.axis:
-            raise MeshError(f"halo_exchange_nd: axis {ax!r} is not the mesh's "
-                            f"axis {mesh.axis!r}")
         if h > 0:
-            x = halo_exchange_1d(x, h, mesh, dim=axis_dims[ax])
+            x = mesh.back(halo_exchange_1d(mesh.front(x, ax), h, mesh.along(ax),
+                                           dim=axis_dims[ax] + k - 1), ax)
     return x
 
 

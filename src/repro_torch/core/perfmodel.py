@@ -16,7 +16,9 @@ the epochs' decisions:
     (rendezvous), or ship a page table (paged);
   * `select_dispatch` — a sparse exchange through the notified queue or
     one dense all-to-all, the queue priced as the port runs it (O(p²)
-    buffers, one constant fitted to the card).
+    buffers, one constant fitted to the card);
+  * `select_allreduce` — one flat ring over a (pod, data) grid or the
+    hierarchical split, its cross-pod hop an HBM reduction on one card.
 
 All sizes are the bytes the card moves (every rank's block), all results
 seconds.
@@ -378,6 +380,28 @@ class PerfModel:
         shard = nbytes / n
         return self.ring_reduce_scatter(shard, n) + self.ring_all_gather(shard, n)
 
+    def p_psum(self, shard_bytes: float, pods: int, per_pod: int) -> float:
+        """The cross-pod hop of the hierarchical all-reduce on one card
+        (`Mesh.psum`): one reduction over the pod dim, reading every rank's
+        shard and writing one pod's worth at the HBM rate, then its copy
+        back to every pod.  The reference prices a DCN hop here; with the
+        pods stacked on one card no link is crossed."""
+        total = pods * per_pod * shard_bytes
+        return (2.0 * self.hw.launch_latency
+                + (total + total / pods) / self.hw.hbm_bandwidth
+                + (total / pods + total) / self.hw.copy_bandwidth)
+
+    def hierarchical_all_reduce(self, nbytes: float, pods: int, per_pod: int) -> float:
+        """In-pod reduce-scatter -> cross-pod `psum` -> in-pod all-gather of
+        `nbytes` a rank.  The in-pod ring moves every pod's shard in each
+        put (the pod dim rides along), so a step carries pods x per_pod
+        shards of nbytes / per_pod; the cross-pod hop carries 1/per_pod of
+        each rank's payload."""
+        shard = nbytes / per_pod
+        inpod = (self.ring_reduce_scatter(pods * shard, per_pod)
+                 + self.ring_all_gather(pods * shard, per_pod))
+        return inpod + self.p_psum(shard, pods, per_pod)
+
     def all_to_all(self, nbytes_per_pair: float, n: int) -> float:
         """Personalised exchange of `nbytes_per_pair` between every pair.
         The reference charges a torus axis's bisection; with the rank axis
@@ -386,6 +410,16 @@ class PerfModel:
         return self.hw.launch_latency + self._rw(nbytes_per_pair * n * (n - 1))
 
     # -- model-guided strategy selection ------------------------------------
+    def select_allreduce(self, nbytes: float, pods: int, per_pod: int
+                         ) -> Literal["flat_ring", "hierarchical"]:
+        """One ring over all pods x per_pod ranks, or the two-level split:
+        the split makes fewer launches (fewer ring steps) but moves its
+        payload once more (the psum and its copy back), so it wins below a
+        payload and the flat ring above it."""
+        flat = self.all_reduce(nbytes, pods * per_pod)
+        hier = self.hierarchical_all_reduce(nbytes, pods, per_pod)
+        return "hierarchical" if hier < flat and pods > 1 else "flat_ring"
+
     def p_queue_exchange(self, n_msgs: int, msg_bytes: float, p: int,
                          capacity_per_pair: int) -> float:
         """The queue-backed exchange as the port runs it

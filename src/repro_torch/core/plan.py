@@ -120,6 +120,10 @@ class RmaHandle:
     def __init__(self) -> None:
         self._result = _UNRESOLVED
 
+    @property
+    def resolved(self) -> bool:
+        return self._result is not _UNRESOLVED
+
     def result(self):
         if self._result is _UNRESOLVED:
             raise PlanError("handle not resolved — flush the plan first")
@@ -213,7 +217,8 @@ def _route(sig: tuple, ops: list, pack: bool, backend: str) -> Backend:
     the kernel's to carry (packed word buffers take "torch", as the
     reference sends them to XLA), under a forced "cuda" always (on CPU
     tensors the kernel's wrapper is its plain version).  Everything else
-    goes through the mesh: "torch"."""
+    goes through the mesh: "torch".  Under "auto" a "cuda" answer here is
+    the group's eligibility, which `RmaPlan._backend` then decides on."""
     shift_group = sig[0] == "ppermute" and all(op.shift is not None for op in ops)
     if not shift_group or backend == "torch":
         return "torch"
@@ -222,6 +227,15 @@ def _route(sig: tuple, ops: list, pack: bool, backend: str) -> Backend:
     if not pack and all(_cuda_eligible(op.payload) for op in ops):
         return "cuda"
     return "torch"
+
+
+def choose_backend(model: PerfModel, nbytes: float, shift_eligible: bool) -> Backend:
+    """Model-guided backend dispatch for one group under "auto".  On the
+    card the put kernel carries an eligible group at any size: it is a
+    copy at the rank stride, faster than the mesh's concatenation at every
+    payload measured (PERF.md, row 4), so no size threshold applies and
+    `model` prices nothing here.  It is the hook a strategist overrides."""
+    return "cuda" if shift_eligible else "torch"
 
 
 def _issue_ppermute(mesh: Mesh, x: torch.Tensor, perm: tuple,
@@ -237,13 +251,19 @@ def _issue_ppermute(mesh: Mesh, x: torch.Tensor, perm: tuple,
 class RmaPlan:
     """Records one-sided ops for one window axis; coalesces at flush."""
 
-    def __init__(self, mesh: Mesh, model: PerfModel = DEFAULT_MODEL) -> None:
+    def __init__(self, mesh: Mesh, model: PerfModel = DEFAULT_MODEL,
+                 strategist: Any = None) -> None:
         self.mesh = mesh
         self.axis = mesh.axis
         self.model = model
+        self.strategist = strategist   # optional CollectiveStrategist override
         self.ops: list[_RecordedOp] = []
         self.flushed = False
         self.stats: Optional[PlanStats] = None
+
+    @property
+    def pending(self) -> int:
+        return 0 if self.flushed else len(self.ops)
 
     def _record(self, kind, sig, payload, finalize=None, shift=None,
                 at=None) -> RmaHandle:
@@ -256,7 +276,7 @@ class RmaPlan:
         h = RmaHandle()
         self.ops.append(
             _RecordedOp(kind, sig, self.axis, payload, h,
-                        finalize or (lambda d: d), ranks=self.mesh.p,
+                        finalize or (lambda d: d), ranks=self.mesh.ranks,
                         shift=shift,
                         at=None if at is None else (int(at[0]), int(at[1]))))
         return h
@@ -327,7 +347,7 @@ class RmaPlan:
                      backend: str) -> tuple[int, int]:
         """Issue one signature group; returns (wire transfers, wire bytes
         per rank)."""
-        p = self.mesh.p
+        ranks = self.mesh.ranks
         if sig[0] == "local":
             for op in ops:
                 op.handle._result = op.finalize(op.payload)
@@ -361,7 +381,7 @@ class RmaPlan:
             op.handle._result = op.finalize(
                 self.mesh.all_gather(out) if gathered else out)
             off += w
-        return 1, packed.numel() // p * 4
+        return 1, packed.numel() // ranks * 4
 
     def flush(self, aggregate: Optional[bool] = None,
               backend: str = "auto") -> PlanStats:
@@ -370,8 +390,9 @@ class RmaPlan:
         aggregate: True forces packing of every fusable group, False forces
         per-op transfers, None consults `PerfModel.select_aggregation`.
         backend: "auto" sends every unpacked uniform-shift group of 32-bit
-        CUDA payloads to the put kernel and the rest to the mesh; "torch" or
-        "cuda" force one for every group the kernel can carry (`_route`).
+        CUDA payloads to the put kernel and the rest to the mesh
+        (`choose_backend`, or the plan's strategist); "torch" or "cuda"
+        force one for every group the kernel can carry (`_route`).
         `PlanStats.backends` counts the backend each transfer ran on.
         """
         if backend != "auto" and backend not in BACKENDS:
@@ -397,7 +418,7 @@ class RmaPlan:
             groups.setdefault((op.axis, op.sig), []).append(op)
 
         kinds: dict[tuple, int] = {}
-        p = self.mesh.p
+        ranks = self.mesh.ranks
         for (axis, sig), ops in groups.items():
             n = len(ops)
             group_bytes = sum(op.nbytes for op in ops)
@@ -406,11 +427,15 @@ class RmaPlan:
 
             if aggregate is None:
                 pack = (n > 1 and sig[0] != "local"
-                        and self.model.select_aggregation(n, p * group_bytes / n) == "pack")
+                        and self._aggregation(n, ranks * group_bytes / n) == "pack")
             else:
                 pack = bool(aggregate) and n > 1 and sig[0] != "local"
 
-            be = _route(sig, ops, pack, backend)
+            if backend == "auto":
+                be = self._backend(group_bytes,
+                                   _route(sig, ops, pack, backend) == "cuda")
+            else:
+                be = _route(sig, ops, pack, backend)
             wire, wire_bytes = self._issue_group(sig, ops, pack, be)
             stats.raw += n
             stats.coalesced += wire
@@ -436,6 +461,17 @@ class RmaPlan:
         )
         self.stats = stats
         return stats
+
+    # delegation points (the strategist can override the model rules)
+    def _aggregation(self, n: int, msg_bytes: float) -> str:
+        if self.strategist is not None:
+            return self.strategist.aggregation_plan(n, msg_bytes)
+        return self.model.select_aggregation(n, msg_bytes)
+
+    def _backend(self, nbytes: float, shift_eligible: bool) -> Backend:
+        if self.strategist is not None:
+            return self.strategist.backend_plan(nbytes, shift_eligible)
+        return choose_backend(self.model, nbytes, shift_eligible)
 
 
 # ------------------------------------------------------------- access epochs

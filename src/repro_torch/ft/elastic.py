@@ -2,9 +2,13 @@
 counterpart).
 
 `plan_mesh` picks the largest valid (data, model) grid for a surviving
-device count, keeping the model degree where it can.  The reference's
-`elastic_restore` (re-shard the latest checkpoint onto that grid) needs
-`parallel/sharding`, which the port does not have yet.
+device count, keeping the model degree where it can; `elastic_restore`
+re-shards the latest checkpoint onto that grid: a `Mesh` of named axes
+("data", "model") on one device, the reference's weight rules
+(`ShardingPolicy.tree_shardings`) placing every leaf, each checked to tile
+the grid.  The data axis absorbs the loss; the deterministic pipeline
+recomputes shard assignments from (seed, step, shard), so no sample is
+skipped or repeated across the restart.
 
 Serving-side elasticity (DESIGN.md §10.6): when a decode rank joins or
 leaves, the paged KV cache moves with it.  `migrate_kv_pages` /
@@ -20,6 +24,10 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+from ..ckpt.checkpoint import CheckpointManager
+from ..mesh import Mesh
+from ..parallel.sharding import ShardingPolicy
 
 
 @dataclasses.dataclass
@@ -42,6 +50,19 @@ def plan_mesh(n_devices: int, prefer_model: int) -> MeshPlan:
             best = MeshPlan(data, model)
         model //= 2
     return best
+
+
+def elastic_restore(ckpt: CheckpointManager, like_tree, n_surviving_devices: int,
+                    prefer_model: int, device=None, step: Optional[int] = None):
+    """Re-shard the latest (or `step`'s) checkpoint onto the mesh the
+    survivors make.  Returns (tree, extra, mesh, policy); every leaf is on
+    the mesh's device (`device`; None is the card)."""
+    plan = plan_mesh(n_surviving_devices, prefer_model)
+    mesh = Mesh({"data": plan.data, "model": plan.model}, device=device)
+    policy = ShardingPolicy(mesh=mesh)
+    shardings = policy.tree_shardings(like_tree)
+    tree, extra = ckpt.restore(like_tree, step=step, shardings=shardings)
+    return tree, extra, mesh, policy
 
 
 # --------------------------------------------------- paged-KV elasticity

@@ -20,11 +20,23 @@ batched over that leading dimension, and the collectives become indexing:
 A result of `all_gather` is identical at every receiver, so code computing a
 rank-independent function of it may read it once (`replicated`).
 
+A mesh may also carry several named axes, ``Mesh({"pod": 2, "data": 2})``:
+the ranks are then stacked as leading dims in axis order, ``x[pod, data,
+...]``.  A collective over one named axis is the one-axis collective above
+on the tensor with that axis moved to the front (`front` / `back`) and the
+axis's own one-axis mesh (`along`): the other rank dims ride along as
+payload, so a put over ``data`` shifts within every pod at once, as
+``ppermute`` over ``data`` does inside ``shard_map``.  `psum` over a named
+axis is the reference's native ``lax.psum``: a sum over that dim, the same
+at every rank of it.
+
 A multi-process backend (one rank per card, NCCL collectives) can replace
 this module later without touching its callers.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -44,14 +56,59 @@ def resolve_device(device=None) -> torch.device:
 
 
 class Mesh:
-    """p window ranks stacked on one device, named by one axis."""
+    """p window ranks stacked on one device, named by one axis; or, given a
+    dict of named axes, their grid stacked as leading dims in axis order.
 
-    def __init__(self, p: int, axis: str = "serve", device=None):
-        if p < 1:
-            raise MeshError(f"need p >= 1 ranks, got {p}")
-        self.p = int(p)
-        self.axis = axis
+    ``p`` and ``axis`` are a one-axis mesh's size and name.  A grid's ``p``
+    is its whole rank count and its ``axis`` the tuple of its names; its
+    per-axis collectives go through `along`.  ``ranks`` is the rank count of
+    the grid a mesh belongs to (``p`` for a one-axis mesh of its own), so a
+    payload's per-rank bytes are ``numel / ranks`` either way."""
+
+    def __init__(self, p, axis: str = "serve", device=None, *, ranks=None):
+        axes = dict(p) if isinstance(p, dict) else {axis: p}
+        if not axes or any(int(n) < 1 for n in axes.values()):
+            raise MeshError(f"need every axis >= 1 rank, got {axes}")
+        self.shape = {str(a): int(n) for a, n in axes.items()}
+        self.axis_names = tuple(self.shape)
+        self.p = math.prod(self.shape.values())
+        self.axis = self.axis_names[0] if len(self.shape) == 1 else self.axis_names
+        self.ranks = self.p if ranks is None else int(ranks)
         self.device = resolve_device(device)
+
+    # ------------------------------------------------------- named axes
+    def dim(self, axis: str) -> int:
+        """The rank dim that carries `axis`."""
+        if axis not in self.shape:
+            raise MeshError(f"mesh axes {self.axis_names} have no axis {axis!r}")
+        return self.axis_names.index(axis)
+
+    def along(self, axis: str) -> "Mesh":
+        """The one-axis mesh of `axis`: its collectives act on a tensor whose
+        leading dim is `axis` (`front`), the other rank dims riding along."""
+        self.dim(axis)
+        if len(self.shape) == 1:
+            return self
+        return Mesh(self.shape[axis], axis, self.device, ranks=self.ranks)
+
+    def front(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """x [ranks..., ...] with `axis`'s dim moved first (a view)."""
+        return x.movedim(self.dim(axis), 0)
+
+    def back(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """Inverse of `front` (a view)."""
+        return x.movedim(0, self.dim(axis))
+
+    def psum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``lax.psum`` over `axis`: every rank of it holds the sum over it.
+        A new tensor with x's strides, so a view `front` made of x stays a
+        view of the result."""
+        if tuple(x.shape[:len(self.shape)]) != tuple(self.shape.values()):
+            raise MeshError(f"expected leading rank dims {tuple(self.shape.values())}, "
+                            f"got {tuple(x.shape)}")
+        d = self.dim(axis)
+        out = torch.empty_like(x)
+        return out.copy_(x.sum(d, keepdim=True, dtype=x.dtype).expand_as(x))
 
     def axis_index(self) -> torch.Tensor:
         """[p] int64: rank r's own index, r."""
@@ -105,6 +162,9 @@ class Mesh:
         return gathered[0]
 
     def _check(self, x: torch.Tensor) -> None:
+        if len(self.shape) > 1:
+            raise MeshError(f"a mesh of axes {self.axis_names} moves along one named "
+                            "axis at a time: use mesh.along(axis)")
         if x.shape[0] != self.p:
             raise MeshError(
                 f"expected a leading rank dim of {self.p}, got {tuple(x.shape)}")

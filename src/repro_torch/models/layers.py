@@ -14,8 +14,9 @@ With a cache it is always blockwise.  The cache's ``len`` may be a scalar
 position a row): RoPE positions, the cache write offset, ``q_offset`` and
 ``kv_valid_len`` then follow each row.  Cache writes are in place.
 
-The reference's ``shard(...)`` annotations are identities on one card and
-are dropped.  `grad_cast_bf16` rounds the cotangent entering `unembed` to
+``shard(...)`` sits at the reference's sites (`parallel.sharding`): under a
+policy it checks the logical name and returns its input, since a placement
+changes no value on one card.  `grad_cast_bf16` rounds the cotangent entering `unembed` to
 bf16, as the reference's custom VJP does; remat is `transformer.set_remat`.
 """
 
@@ -26,6 +27,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.sharding import shard
 
 DEFAULT_BLOCK = 512
 
@@ -235,10 +238,11 @@ def attention(
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     if "bq" in params:
         q = q + params["bq"]
+    q = shard(q, "act_bthd")
     if cross_kv is not None:
         k, v = cross_kv
         out = blockwise_attention(q, k, v, causal=False, block_size=block_size)
-        return torch.einsum("bshk,hkd->bsd", out, params["wo"]), cache
+        return shard(torch.einsum("bshk,hkd->bsd", out, params["wo"]), "act_btd"), cache
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
     if "bk" in params:
@@ -273,7 +277,7 @@ def attention(
         )
 
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
-    return y, new_cache
+    return shard(y, "act_btd"), new_cache
 
 
 def make_cache(batch: int, max_seq: int, n_kv: int, head_dim: int,
@@ -305,7 +309,8 @@ def mlp(params: dict, x: torch.Tensor, mlp_type: str = "swiglu") -> torch.Tensor
         h = F.silu(x @ params["w_gate"]) * h
     else:
         h = F.gelu(h, approximate="tanh")      # jax.nn.gelu's default form
-    return h @ params["w_out"]
+    h = shard(h, "act_btf")
+    return shard(h @ params["w_out"], "act_btd")
 
 
 def sinusoidal_pos(positions: torch.Tensor, d_model: int) -> torch.Tensor:
@@ -335,7 +340,7 @@ def init_embed(gen, vocab: int, d_model: int, tie: bool, dtype=torch.bfloat16,
 
 
 def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()]
+    return shard(params["embed"][tokens.long()], "act_btd")
 
 
 def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -343,4 +348,4 @@ def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
     if w is None:
         w = params["embed"].T
     x = grad_cast_bf16(x)       # keep the backward residual stream in bf16
-    return torch.einsum("bsd,dv->bsv", x, w)
+    return shard(torch.einsum("bsd,dv->bsv", x, w), "logits")

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssm_scan import ops as ssm_ops
+from ..parallel.sharding import shard
 from . import layers as L
 
 
@@ -93,7 +94,7 @@ def mamba_prefill(params: dict, xin: torch.Tensor, state: Optional[dict]):
     """[B,S,D] -> ([B,S,D], new state).  With `state` the scan is seeded by
     its h and conv window (the chunked prefill) and the new state is
     returned; without, fresh zeros and None."""
-    xz = torch.einsum("bsd,de->bse", xin, params["in_proj"])
+    xz = shard(torch.einsum("bsd,de->bse", xin, params["in_proj"]), "act_btf")
     x, z, dt, Bm, Cm, conv_out = _ssm_inputs(
         params, xz, state["conv"] if state is not None else None)
     A = -torch.exp(params["A_log"])                          # [di, N]
@@ -102,7 +103,7 @@ def mamba_prefill(params: dict, xin: torch.Tensor, state: Optional[dict]):
     y, h_last = ssm_ops.selective_scan(decay, drive, Cm,
                                        state["h"] if state is not None else None)
     y = _gate_out(params, y, x, z, xin.dtype)
-    out = torch.einsum("bse,ed->bsd", y, params["out_proj"])
+    out = shard(torch.einsum("bse,ed->bsd", y, params["out_proj"]), "act_btd")
     return out, ({"h": h_last, "conv": conv_out} if state is not None else None)
 
 

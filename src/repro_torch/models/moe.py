@@ -3,13 +3,18 @@ counterpart of `repro.models.moe`).
 
 Expert parallelism is the paper's DSDE motif (§4.2): tokens are items,
 experts are targets.  Tokens are bucketed into per-expert slot ranges (the
-slotted one-sided accumulate), the experts run on their slot buffers, and a
-gate-weighted scatter-add brings the results back; `core.dsde.moe_dispatch`
+slotted one-sided accumulate), the experts run on their slot buffers, and
+each token sums its k gate-weighted results in the router's order (the
+reference scatter-adds them; a sum in a fixed order repeats bit for bit on
+the card, where a scatter-add's atomics do not); `core.dsde.moe_dispatch`
 and `moe_combine` run the same exchange explicitly on the rank axis.
 
-The reference groups tokens into G dispatch groups, one a data shard, when
-a sharding policy is active.  The port has one card and no policy, so G = 1
-and every sharding call of the reference is an identity here.  Routing
+Grouped dispatch: under an active `parallel.sharding` policy the tokens
+are split into G dispatch groups, one a data shard (`_n_groups`: the pod x
+data size, halved until it divides B), and each group is routed, capped
+and dropped on its own, as the reference does; capacity is per group, so
+a policy changes which tokens drop.  With no policy G = 1.  The
+reference's placement constraints change no value on one card.  Routing
 follows the reference exactly, since a different tie-break moves a token
 to another expert:
 
@@ -19,7 +24,7 @@ to another expert:
     in its expert's range is its index minus the first of its expert
     (`searchsorted(side="left")`);
   * capacity ``max(int(cf * T * k / E), 4, min(T, 16))`` over the T tokens
-    of the call; items past it go to an overflow row and are dropped (they
+    of a group; items past it go to an overflow row and are dropped (they
     fall through on the residual path).
 
 The router, its softmax and the losses are f32; the experts run in the
@@ -34,6 +39,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import current_policy
 from . import layers as L
 
 
@@ -55,6 +61,7 @@ class Routing(NamedTuple):
     s_gate: torch.Tensor          # [T*k] f32, the gate of each item
     ok: torch.Tensor              # [T*k] bool, within capacity
     capacity: int
+    order: torch.Tensor           # [T*k] int64, each item's index in token-major order
 
 
 def init_moe(gen, d_model: int, n_experts: int, d_ff: int, mlp_type: str = "swiglu",
@@ -118,29 +125,30 @@ def sort_dispatch(logits: torch.Tensor, probs: torch.Tensor, expert_idx: torch.T
     ok = pos < cap
     slot = torch.where(ok, s_e * cap + pos, torch.full_like(pos, E * cap))
     return Routing(logits, probs, expert_idx, gate, slot, flat_src[order], flat_g[order],
-                   ok, cap)
+                   ok, cap, order)
 
 
-def moe_ffn(params: dict, x: torch.Tensor, top_k: int, capacity_factor: float = 1.25,
-            mlp_type: str = "swiglu") -> tuple[torch.Tensor, MoEMetrics]:
-    """x [B, S, D] -> (y [B, S, D], metrics), one dispatch group of B*S tokens."""
-    B, S, D = x.shape
+def _n_groups(B: int) -> int:
+    """Dispatch groups: the data shards when a policy is active (else 1)."""
+    pol = current_policy()
+    if pol is None:
+        return 1
+    g = 1
+    for ax in ("pod", "data"):
+        g *= pol.mesh.shape.get(ax, 1)
+    while g > 1 and B % g:
+        g //= 2
+    return max(g, 1)
+
+
+def _group_ffn(params: dict, xt: torch.Tensor, r: Routing, mlp_type: str) -> torch.Tensor:
+    """One group's dispatch, experts and combine: xt [T, D] -> y [T, D] f32."""
+    T, D = xt.shape
     E = params["router"].shape[1]
-    T = B * S
-    xt = x.reshape(T, D)
-    r = route(params, xt, top_k, capacity_factor)
     cap, n_slots = r.capacity, E * r.capacity
 
-    # aux losses
-    me = r.probs.mean(0)
-    ce = torch.zeros(E, device=x.device).index_add_(
-        0, r.expert_idx.reshape(-1), torch.ones(T * top_k, device=x.device)) / (T * top_k)
-    aux = E * torch.sum(me * ce)
-    zloss = torch.mean(torch.logsumexp(r.logits, dim=-1) ** 2)
-    drop = 1.0 - r.ok.float().mean()
-
     # dispatch: each item to its slot; row n_slots is the overflow row
-    disp = torch.zeros(n_slots + 1, D, dtype=x.dtype, device=x.device)
+    disp = torch.zeros(n_slots + 1, D, dtype=xt.dtype, device=xt.device)
     disp[r.slot] = xt[r.src]
     disp = disp[:n_slots].reshape(E, cap, D)
 
@@ -153,12 +161,44 @@ def moe_ffn(params: dict, x: torch.Tensor, top_k: int, capacity_factor: float = 
         h = F.gelu(h, approximate="tanh")
     out = torch.einsum("ecf,efd->ecd", h, ex["w_out"]).reshape(n_slots, D)
 
-    # combine: the gate-weighted scatter-add back to the tokens (f32)
+    # combine: each item's gate-weighted output back to its token (f32),
+    # dropped items as zeros, summed over the token's k items in the router's
+    # order.  No scatter-add: a CUDA index_add_ adds in whatever order its
+    # atomics land, so a call would not repeat bit for bit.
     got = out[r.slot.clamp(max=n_slots - 1)].float() * r.s_gate[:, None]
     got = torch.where(r.ok[:, None], got, torch.zeros_like(got))
-    dst = torch.where(r.ok, r.src, torch.full_like(r.src, T))
-    y = torch.zeros(T + 1, D, device=x.device).index_add_(0, dst, got)[:T]
-    y = y.to(x.dtype).reshape(B, S, D)
+    per = torch.empty_like(got)
+    per[r.order] = got
+    return per.reshape(T, -1, D).sum(1)
+
+
+def moe_ffn(params: dict, x: torch.Tensor, top_k: int, capacity_factor: float = 1.25,
+            mlp_type: str = "swiglu") -> tuple[torch.Tensor, MoEMetrics]:
+    """x [B, S, D] -> (y [B, S, D], metrics), in G dispatch groups of
+    B * S / G tokens (`_n_groups`); the losses and the drop fraction are
+    over every token."""
+    B, S, D = x.shape
+    E = params["router"].shape[1]
+    G = _n_groups(B)
+    xt = x.reshape(G, B * S // G, D)
+    rs = [route(params, xt[g], top_k, capacity_factor) for g in range(G)]
+    ys = [_group_ffn(params, xt[g], r, mlp_type) for g, r in enumerate(rs)]
+
+    def cat(ts):
+        return ts[0] if G == 1 else torch.cat(ts)
+
+    # aux losses, over all groups
+    probs, logits = cat([r.probs for r in rs]), cat([r.logits for r in rs])
+    idx, ok = cat([r.expert_idx for r in rs]), cat([r.ok for r in rs])
+    n = idx.numel()
+    me = probs.mean(0)
+    ce = torch.zeros(E, device=x.device).index_add_(
+        0, idx.reshape(-1), torch.ones(n, device=x.device)) / n
+    aux = E * torch.sum(me * ce)
+    zloss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    drop = 1.0 - ok.float().mean()
+
+    y = cat(ys).to(x.dtype).reshape(B, S, D)
     if "shared" in params:
         y = y + L.mlp(params["shared"], x, mlp_type)
     return y, MoEMetrics(aux, zloss, drop)

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from ..parallel.sharding import shard
 from . import layers as L
 
 CHUNK = 64
@@ -75,7 +76,7 @@ def _mlstm_qkvif(params: dict, xin: torch.Tensor):
     in an f64 run)."""
     B, S, _ = xin.shape
     nh, dh, _ = params["wq_blk"].shape
-    up = torch.einsum("bsd,de->bse", xin, params["up_proj"])
+    up = shard(torch.einsum("bsd,de->bse", xin, params["up_proj"]), "act_btf")
     di = up.shape[-1] // 2
     x, z = up[..., :di], up[..., di:]
     xh = x.reshape(B, S, nh, dh)
@@ -166,7 +167,7 @@ def mlstm_prefill(params: dict, xin: torch.Tensor, state: Optional[dict],
     h = torch.stack(hs).permute(1, 2, 0, 3, 4).reshape(B, nh, nc * c, dh)[:, :, :S]
     h = h.transpose(1, 2).reshape(B, S, nh * dh).to(xin.dtype)
     h = h * params["ln"] * F.silu(z)
-    out = torch.einsum("bse,ed->bsd", h, params["down_proj"])
+    out = shard(torch.einsum("bse,ed->bsd", h, params["down_proj"]), "act_btd")
     return out, ({"C": C, "n": n, "m": m} if state is not None else None)
 
 
@@ -263,7 +264,7 @@ def _slstm_ffn(params: dict, h: torch.Tensor) -> torch.Tensor:
     u = L.einsum_promoted("...d,de->...e", h, params["w_in"])
     dff = u.shape[-1] // 2
     u = F.silu(u[..., :dff]) * u[..., dff:]
-    return torch.einsum("...e,ed->...d", u, params["w_out"])
+    return shard(torch.einsum("...e,ed->...d", u, params["w_out"]), "act_btd")
 
 
 def slstm_prefill(params: dict, xin: torch.Tensor, state: Optional[dict], n_heads: int):

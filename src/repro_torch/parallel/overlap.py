@@ -1,22 +1,36 @@
-"""Model-guided strategy selection: the `repro.parallel.overlap`
-`CollectiveStrategist`, for the decisions the one-card model can price.
+"""Model-guided strategy selection and the bucketed gradient sync (the
+`repro.parallel.overlap` counterpart).
 
-It asks `core.perfmodel.PerfModel` (H100 constants) which synchronisation
-family an epoch should use, whether a plan should pack a group, which KV
-transfer protocol a serving block should take, whether a sparse exchange
-goes through the queue or one all-to-all, and whether an FSDP contraction
-runs as the fused ring matmul (`kernels.ring_matmul`) or as an all-gather
-followed by a matmul.  The reference's other choices wait for a second
-rank axis (ROADMAP item 12): hierarchical all-reduce, the backend choice,
-and the bucketed gradient-sync overlap.
+1. `CollectiveStrategist` asks `core.perfmodel.PerfModel` (H100 constants)
+   which synchronisation family an epoch should use, whether a plan should
+   pack a group and on which backend it runs, which KV transfer protocol a
+   serving block should take, whether a sparse exchange goes through the
+   queue or one all-to-all, whether an FSDP contraction runs as the fused
+   ring matmul (`kernels.ring_matmul`) or as an all-gather followed by a
+   matmul, and whether an all-reduce over a (pod, data) grid runs as one
+   flat ring or hierarchically.
+
+2. `overlapped_grad_sync` reduces a gradient tree bucket by bucket over a
+   mesh's named axes: each bucket's leaves go through
+   `core.collectives.hierarchical_all_reduce` (or one ring over the inner
+   axis), and every bucket closes with `core.epoch.flush`, so the sync
+   ledger counts one flush a bucket.  PyTorch runs eagerly in stream order,
+   so the buckets run one after another; the bucketing keeps the
+   reference's epoch boundaries and ledger.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal
+from typing import Any, Literal, Optional
 
+from ..ckpt.checkpoint import _unflatten_like, flatten
+from ..core import collectives, epoch as epoch_mod
+from ..core import plan as plan_mod
+from ..core.epoch import SyncStats
 from ..core.perfmodel import DEFAULT_MODEL, PerfModel
+from ..mesh import Mesh
+from ..train.optimizer import tree_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +51,16 @@ class CollectiveStrategist:
         fused = self.model.p_ring_matmul(m, k, n, shards, dtype_bytes)
         unfused = self.model.p_allgather_matmul(m, k, n, shards, dtype_bytes)
         return "fused_ring" if fused < unfused else "unfused"
+
+    def allreduce_plan(self, nbytes: float, pods: int, per_pod: int
+                       ) -> Literal["flat_ring", "hierarchical"]:
+        return self.model.select_allreduce(nbytes, pods, per_pod)
+
+    def backend_plan(self, nbytes: float, shift_eligible: bool = True
+                     ) -> Literal["torch", "cuda"]:
+        """A plan group's backend: the mesh's indexing collectives or the
+        put kernel of `kernels.rma` (`core.plan.choose_backend`)."""
+        return plan_mod.choose_backend(self.model, nbytes, shift_eligible)
 
     def sync_plan(self, k_neighbors: int, p: int) -> Literal["pscw", "fence"]:
         return self.model.select_sync_mode(k_neighbors, p)
@@ -68,3 +92,56 @@ class CollectiveStrategist:
                 block_bytes, pages_per_block, reuse_fraction),
             "crossover_bytes": m.rendezvous_crossover_bytes(pages_per_block),
         }
+
+
+# ----------------------------------------------------- gradient-sync overlap
+def bucket_grads(grads: Any, bucket_bytes: int = 32 * 2**20,
+                 mesh: Optional[Mesh] = None) -> list[list]:
+    """Greedy size-bucketing of the gradient leaves (the reduction
+    granularity): leaf indices in `tree_leaves` order.  A leaf's size is
+    its bytes a rank: the whole tensor, or over `mesh` one rank's block of
+    the stacked global view."""
+    ranks = 1 if mesh is None else mesh.ranks
+    buckets, cur, cur_bytes = [], [], 0
+    for i, g in enumerate(tree_leaves(grads)):
+        nb = g.numel() // ranks * g.element_size()
+        if cur and cur_bytes + nb > bucket_bytes:
+            buckets.append(cur)
+            cur, cur_bytes = [], 0
+        cur.append(i)
+        cur_bytes += nb
+    if cur:
+        buckets.append(cur)
+    return buckets
+
+
+def overlapped_grad_sync(grads: Any, mesh: Mesh, inner_axis: str = "data",
+                         outer_axis: Optional[str] = "pod",
+                         bucket_bytes: int = 32 * 2**20,
+                         compress_outer: bool = False,
+                         stats: Optional[SyncStats] = None) -> Any:
+    """Sum a tree of stacked gradients ``[ranks..., ...]`` over `mesh`,
+    bucket by bucket: every leaf of a bucket through
+    `collectives.hierarchical_all_reduce` (`inner_axis` in the pod,
+    `outer_axis` across pods), or through one ring over `inner_axis` when
+    `outer_axis` is None.  Every bucket boundary is an `epoch.flush`
+    (MPI_Win_flush), so the sync ledger sees one flush a bucket (pass
+    `stats` or open a `SyncStats` scope to collect them).
+
+    `compress_outer` is accepted and, as in the reference, not applied: the
+    cross-pod hop always carries f32 (ROADMAP §3; `parallel.compression`
+    is the round trip a caller would place around it)."""
+    paths, leaves = zip(*flatten(grads))     # `tree_leaves`'s order
+    out = list(leaves)
+    for bucket in bucket_grads(grads, bucket_bytes, mesh):
+        for i in bucket:
+            if outer_axis is not None:
+                out[i] = collectives.hierarchical_all_reduce(leaves[i], mesh, inner_axis,
+                                                             outer_axis)
+            else:
+                out[i] = collectives.all_reduce(leaves[i], mesh, axis=inner_axis)
+        # the bucket boundary: flush the epoch before the next bucket
+        pinned = epoch_mod.flush(tuple(out[i] for i in bucket), stats=stats)
+        for j, i in enumerate(bucket):
+            out[i] = pinned[j]
+    return _unflatten_like(grads, dict(zip(paths, out)))
