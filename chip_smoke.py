@@ -301,6 +301,32 @@ no result line):
      of T2's layer-0 checkpoint for 2 survivors, prefer_model 2: every
      leaf bit-equal on the card and tiled by its blocks.  Row 4's and row
      11's entries of the kernels line get P1's and P3's launches.
+26. the host protocol mirrors held to the card, the race analysis of the
+    card's plans, the full-width run traced, and the conformance suite (it
+    runs after the apps phase).  26.1: `rmaq.queue.HostQueueGroup` at the
+    DSDE shape (p = 4096, k = 6, the DSDE ring of 131,072 rows, the DSDE
+    run's seeded data): the random-target epoch's flags, ring and five
+    counters equal to `enqueue_epoch`'s and each rank's `drain` equal to
+    `dequeue` slot for slot; the DSDE ops phase's wrap and backpressure
+    rounds through the mirror, kernel row 10 (counted from 0; its launches
+    go on row 10's entry) and `enqueue_shift`: flags the accepted prefix of
+    `n_sent`, rings bit-equal, TAIL/ENQ/NOTIF/DROP equal mod 2**32.  26.2:
+    `rmaq.flow.HostFlowChannel` against `flow.send` / `recv` at the
+    disaggregated shape (p = 4, 2 lanes, queue 64) on a seeded schedule
+    far past the credits: the same messages per (src, dest, lane) in
+    order, none rejected, conservation after every epoch on both (where
+    the two defer is logged).  26.3: the plans one `enqueue_epoch` flushes
+    on the card (64 ranks) lowered by `analysis.ir.from_plan`, race-free;
+    two puts aliasing one interval flagged.  26.4: FULL in fused paged and
+    rendezvous mode, 64 requests each, untraced and under the `Tracer`:
+    the same tokens (equal to `reference()`), wire counts and steps, row
+    1's launches equal to the fused run's decode steps; every request's
+    segments summing to its TTFT exactly, critical path within wall, the
+    sync ledger's shares summing to its attributed wait, the Chrome export
+    parsing in the wall-clock domain; the connected share, segment
+    p50/p90, event count and traced vs untraced ms/step logged.  26.5:
+    `sim.conformance.run_suite`, every protocol at 64 ranks, seeds 0-2,
+    under reorder, delay and duplicate, all passing, then `tear` caught.
 
 ``python3 chip_smoke.py --gather-shift`` times only `rmem.pages.gather_shift`
 and `paged_gather` at the rendezvous pull's shape on the package beside the
@@ -310,7 +336,9 @@ DSDE shapes and the launch floor, the same way;
 ``python3 chip_smoke.py --pool`` runs only phase 22, the device page pool;
 ``python3 chip_smoke.py --apps`` runs only phase 23, the hashtable and the FFT;
 ``python3 chip_smoke.py --zoo`` runs only phase 24, xLSTM and whisper;
-``python3 chip_smoke.py --parallel`` runs only phase 25, P1-P4, on fresh weights.
+``python3 chip_smoke.py --parallel`` runs only phase 25, P1-P4, on fresh weights;
+``python3 chip_smoke.py --conformance`` runs only phase 26 and ends with the
+result line.
 
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after.
@@ -490,6 +518,16 @@ XLSTM_F32_BOUND, XLSTM_F64_BOUND = 0.125, 1e-6
 WHISPER_ARCH, WHISPER_SEED = "whisper-small", 0
 WHISPER_RUN = dict(requests=8, plen=(4, 64), new=32, max_seq=448, seed=10, bound=0.125)
 ENC_BOUND = FWD_BOUND
+# phase 26, the host mirrors and the tooling: the flow mirror at the
+# disaggregated shape (p = 4, 2 producers, 2 lanes, FULL's queue of 64), a
+# schedule of 120 messages a producer against 16 credits a lane; the race
+# analysis of one enqueue epoch's plans at 64 ranks; the traced full-width
+# runs; the conformance suite at 64 ranks, 3 seeds, 3 chaos schedules
+FLOW_MIRROR = dict(p=4, producers=2, capacity=FULL["queue_capacity"], k=16, drain=6,
+                   msgs=120, seed=13, max_epochs=200)
+IR_P, IR_K, IR_SEED = 64, 6, 14
+TRACED_N, TRACED_SEED = 64, 15
+CONF_RANKS, CONF_SEEDS, CONF_SCHEDULES = 64, (0, 1, 2), ("reorder", "delay", "duplicate")
 
 
 def log(msg: str) -> None:
@@ -900,6 +938,10 @@ def main() -> int:
     log(f"pool phase numbers: {json.dumps(pool)}")
     torch.cuda.empty_cache()
     log(f"apps phase numbers: {json.dumps(apps_phase(torch, H100.hbm_bandwidth))}")
+    torch.cuda.empty_cache()
+    conf = conformance_phases(torch, disagg)
+    next(r for r in kernels if r["name"] == "queue_push")["launches"] += conf.pop("row10_launches")
+    log(f"conformance phase numbers: {json.dumps(conf)}")
     if len(kernels) != len(KERNELS):
         raise AssertionError(f"{len(kernels)} kernel rows, want {len(KERNELS)}")
     log(f"smoke wall time: {time.perf_counter() - T0:.1f} s")
@@ -4657,6 +4699,412 @@ def apps_phase(torch, hbm: float) -> dict:
     return out
 
 
+# -------------------------------- phase 26: the host mirrors and the tooling
+def lift_ctrs(np, ctrs):
+    """A device counter block [p, 5] (uint32 values) as `HostQueueGroup`'s
+    64-bit one: the same values mod 2**32, with head <= tail as integers
+    (the mirror's counters never wrap, so tail - head is its occupancy)."""
+    c = ctrs.cpu().numpy().astype(np.uint64)
+    occ = (c[:, 1] - c[:, 0]) & np.uint64(0xFFFFFFFF)     # TAIL - HEAD mod 2**32
+    c[:, 1] += np.where(c[:, 1] < occ, np.uint64(1 << 32), np.uint64(0))
+    c[:, 0] = c[:, 1] - occ
+    return c
+
+
+def same_ctrs(np, host, dev, cols) -> bool:
+    """The mirror's counters equal the device's mod 2**32 in `cols`."""
+    h = np.asarray(host, np.uint64)[:, cols] & np.uint64(0xFFFFFFFF)
+    return bool(np.array_equal(h, dev.cpu().numpy().astype(np.uint64)[:, cols]))
+
+
+def same_ring(np, host_buf, dev_buf) -> bool:
+    return bool(np.array_equal(host_buf.view(np.int32), dev_buf.cpu().numpy().view(np.int32)))
+
+
+def queue_mirror_phase(torch, np) -> dict:
+    """26.1: `HostQueueGroup` at the DSDE shape (p = 4096, k = 6 items of 2
+    f32, the DSDE ring of 131,072 rows a rank, the DSDE run's seeded data
+    and targets) against the device: the random-target epoch through
+    `enqueue_epoch` (flags, ring, the five counters) and its `dequeue`
+    against `drain` slot for slot; then rmaq_ops_phase's wrap and
+    backpressure rounds (every rank's k items to r + 1) through the mirror,
+    kernel row 10 (`queue_push`, counted from 0) and `enqueue_shift`."""
+    from repro_torch.core.plan import u32_to_wire
+    from repro_torch.kernels.rmaq import ops, ref
+    from repro_torch.mesh import Mesh
+    from repro_torch.rmaq import queue as rq
+
+    p, k, d = DSDE_P, DSDE_K, DSDE_D
+    mesh = Mesh(p, "x", device="cuda")
+    rng = np.random.default_rng(DSDE_SEED)
+    data_np = rng.standard_normal((p, k, d)).astype(np.float32)
+    tg_np = rng.integers(0, p, (p, k)).astype(np.int32)
+    data, tg = torch.from_numpy(data_np).cuda(), torch.from_numpy(tg_np).cuda()
+    cap = 1 << (p * DSDE_CAP - 1).bit_length()
+    desc, state = rq.queue_allocate(mesh, cap, (d,), data.dtype)
+    host = rq.HostQueueGroup(p, cap, d)
+    out = {"p": p, "k": k, "capacity": cap}
+
+    t0 = time.perf_counter()
+    state, rec, _ = rq.enqueue_epoch(desc, state, data, tg)
+    torch.cuda.synchronize()
+    out["device_epoch_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    flags = host.step({r: [(int(tg_np[r, j]), data_np[r, j]) for j in range(k)]
+                       for r in range(p)})
+    out["host_step_ms"] = (time.perf_counter() - t0) * 1e3
+    acc = rec.accepted.cpu().numpy()
+    bad = [r for r in range(p) if flags[r] != acc[r].tolist()]
+    if bad:
+        raise AssertionError(f"queue mirror, random targets: flags differ at ranks {bad[:8]}")
+    ring_np = state.buf.cpu().numpy()
+    if not (same_ring(np, host.buf, state.buf) and same_ctrs(np, host.ctrs, state.ctrs, range(5))):
+        raise AssertionError("queue mirror, random targets: ring or counters differ")
+    n_max = int(rq.available(state).max())
+    ctrs = state.ctrs.clone()
+    _, items, valid = rq.dequeue(desc, rq.QueueState(state.buf, ctrs.clone()), n_max)
+    items, valid = items.cpu().numpy(), valid.cpu().numpy()
+    for r in range(p):
+        rows = host.drain(r, n_max)
+        n = len(rows)
+        if n != int(valid[r].sum()) or (n and not np.array_equal(
+                np.stack(rows).view(np.int32), items[r, :n].view(np.int32))):
+            raise AssertionError(f"queue mirror: drain({r}) differs from dequeue")
+    out["drained"] = int(valid.sum())
+
+    wrap = ctrs.clone()
+    wrap[:, rq.HEAD] = (ctrs[:, rq.HEAD] + (2**32 - 2) - ctrs[:, rq.TAIL]) & 0xFFFFFFFF
+    wrap[:, rq.TAIL] = 2**32 - 2
+    bp = ctrs.clone()
+    even = torch.arange(0, p, 2, device="cuda")
+    bp[even, rq.HEAD] = (ctrs[even, rq.TAIL] - (cap - 3)) & 0xFFFFFFFF
+    sends = {r: [((r + 1) % p, data_np[r, j]) for j in range(k)] for r in range(p)}
+    for key in ops.launches:
+        ops.launches[key] = 0
+    for name, c in (("wrap", wrap), ("backpressure", bp)):
+        host.buf[...] = ring_np
+        host.ctrs[...] = lift_ctrs(np, c)
+        flags = host.step(sends)
+        wire = u32_to_wire(c[:, [rq.HEAD, rq.TAIL]]).contiguous()
+        k_ring, k_ctr, n_sent, n_notif = ops.queue_push(state.buf.clone(), wire.clone(),
+                                                        data, 1, mesh)
+        plain = ref.queue_push_ref(state.buf.clone(), wire.clone(), data, 1, mesh, cap)
+        s_state, s_rec = rq.enqueue_shift(desc, rq.QueueState(state.buf.clone(), c.clone()),
+                                          data, 1)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip((k_ring, k_ctr, n_sent, n_notif), plain)):
+            raise AssertionError(f"queue mirror {name}: queue_push differs from plain")
+        del plain
+        sent, s_acc = n_sent.cpu().numpy(), s_rec.accepted.cpu().numpy()
+        bad = [r for r in range(p) if flags[r] != [True] * int(sent[r]) + [False] * (k - int(sent[r]))
+               or flags[r] != s_acc[r].tolist()]
+        if bad:
+            raise AssertionError(f"queue mirror {name}: flags are not the accepted prefix of "
+                                 f"n_sent at ranks {bad[:8]}")
+        notif = (np.asarray(host.ctrs[:, rq.NOTIF], np.uint64)
+                 - c[:, rq.NOTIF].cpu().numpy().astype(np.uint64)) & np.uint64(0xFFFFFFFF)
+        tail_k = k_ctr[:, 1].cpu().numpy().astype(np.uint32).astype(np.uint64)
+        ok = (same_ring(np, host.buf, k_ring) and torch.equal(k_ring, s_state.buf)
+              and same_ctrs(np, host.ctrs, s_state.ctrs, [rq.TAIL, rq.ENQ, rq.NOTIF, rq.DROP])
+              and np.array_equal(np.asarray(host.ctrs[:, rq.TAIL], np.uint64)
+                                 & np.uint64(0xFFFFFFFF), tail_k)
+              and np.array_equal(notif, n_notif.cpu().numpy().astype(np.uint64)))
+        if not ok:
+            raise AssertionError(f"queue mirror {name}: ring rows or TAIL/ENQ/NOTIF/DROP "
+                                 "differ between the mirror, queue_push and enqueue_shift")
+        out[name] = {"admitted": int(sent.sum()), "held": int((sent < k).sum()),
+                     "wrapped": int(((c[:, rq.TAIL] % cap).cpu().numpy() + sent > cap).sum())}
+        del k_ring, k_ctr, s_state
+    out["row10_launches"] = ops.launches["queue_push"]
+    if out["row10_launches"] != 2 or out["wrap"]["wrapped"] == 0 \
+            or out["backpressure"]["held"] == 0:
+        raise AssertionError(f"queue mirror rounds: {out}")
+    log(f"26.1 queue mirror at p={p}, k={k}, ring {cap}: the random-target epoch's flags, "
+        f"ring and counters equal to enqueue_epoch ({out['device_epoch_ms']:.1f} ms on the "
+        f"card, the mirror {out['host_step_ms']:.1f} ms on the host); drain equal to dequeue "
+        f"slot for slot ({out['drained']} items); wrap round {out['wrap']} and backpressure "
+        f"round {out['backpressure']}: flags the accepted prefix of queue_push's n_sent, rings "
+        f"bit-equal to queue_push and enqueue_shift, TAIL/ENQ/NOTIF/DROP equal mod 2**32; "
+        f"row 10 launches {out['row10_launches']}")
+    del state, ring_np, host
+    torch.cuda.empty_cache()
+    return out
+
+
+def flow_mirror_phase(torch, np) -> dict:
+    """26.2: `HostFlowChannel` against `flow.send` / `flow.recv` at the
+    disaggregated shape (p = 4, 2 producers, 2 lanes, queue 64): a seeded
+    schedule of FLOW_MIRROR["msgs"] messages a producer, far past its 16
+    credits a lane, each producer sending its oldest FLOW_MIRROR["k"]
+    pending messages an epoch and keeping what is deferred, each consumer
+    draining FLOW_MIRROR["drain"] an epoch.  The same messages must arrive
+    per (src, dest, lane) in order, none rejected, conservation after
+    every epoch on both; where the two defer, epoch by epoch, is logged."""
+    from repro_torch.mesh import Mesh
+    from repro_torch.rmaq import channel as rch
+    from repro_torch.rmaq import flow as rfl
+    from repro_torch.rmaq import queue as rq
+
+    cfg = FLOW_MIRROR
+    p, nprod, cap, k, drain = cfg["p"], cfg["producers"], cfg["capacity"], cfg["k"], cfg["drain"]
+    rng = np.random.default_rng(cfg["seed"])
+    todo = {r: [(int(rng.integers(nprod, p)), int(rng.integers(2)), 1000 * r + i)
+                for i in range(cfg["msgs"])] for r in range(nprod)}
+    lanes = [rch.Lane("a", (2,), torch.int32), rch.Lane("b", (2,), torch.int32)]
+    hfc = rfl.HostFlowChannel(p, cap, lanes, n_producers=nprod)
+    channel, qs, fs = rfl.flow_allocate(Mesh(p, "serve", device="cuda"), cap, lanes,
+                                        n_producers=nprod)
+    host_q = {r: list(v) for r, v in todo.items()}
+    dev_q = {r: list(v) for r, v in todo.items()}
+    got_h, got_d, deferred = {}, {}, []
+    for epoch in range(cfg["max_epochs"]):
+        if not (any(host_q.values()) or any(dev_q.values())
+                or any(hfc.conservation(t)["occupancy"] for t in range(p))
+                or int(rq.available(qs).sum())):
+            break
+        dh = hfc.deferred
+        for r in range(nprod):
+            keep = [m for m in host_q[r][:k]
+                    if not hfc.send(r, "ab"[m[1]], [m[2], -m[2]], m[2], m[0])]
+            host_q[r] = keep + host_q[r][k:]
+        hfc.flush()
+        for t in range(p):
+            for m in hfc.recv(t, drain):
+                got_h.setdefault((m["src"], t, m["lane"]), []).append(m["payload"].tolist())
+        dest = torch.full((p, k), -1, dtype=torch.int64)
+        lane = torch.zeros((p, k), dtype=torch.int64)
+        tag = torch.zeros((p, k), dtype=torch.int64)
+        for r in range(nprod):
+            for j, (dd, ln, tg_) in enumerate(dev_q[r][:k]):
+                dest[r, j], lane[r, j], tag[r, j] = dd, ln, tg_
+        payload = torch.stack([tag, -tag], dim=-1).to(torch.int32)
+        qs, fs, rec = rfl.send(channel, qs, fs, "a", payload.cuda(), tag.cuda(),
+                               dest.cuda(), lane.cuda())
+        if int(rec.rejected.sum()) or hfc.rejected:
+            raise AssertionError(f"flow mirror epoch {epoch}: rejected {int(rec.rejected.sum())} "
+                                 f"on the card, {hfc.rejected} in the mirror")
+        acc = rec.accepted.cpu().tolist()
+        for r in range(nprod):
+            dev_q[r] = [m for m, ok in zip(dev_q[r][:k], acc[r]) if not ok] + dev_q[r][k:]
+        qs, fs, batch = rfl.recv(channel, qs, fs, drain)
+        words, ok = channel.payload_all(batch)
+        words, ok = words.cpu().tolist(), ok.cpu().tolist()
+        src, lid = batch.src.cpu().tolist(), batch.lane_id.cpu().tolist()
+        for t in range(p):
+            for i in range(drain):
+                if ok[t][i]:
+                    got_d.setdefault((src[t][i], t, "ab"[lid[t][i]]), []).append(words[t][i])
+        deferred.append((hfc.deferred - dh, int(rec.n_deferred.sum())))
+        c = rfl.conservation(channel, qs, fs)
+        hc = [hfc.conservation(t) for t in range(p)]
+        if not ((c["granted_minus_head"] == cap).all() and (c["outstanding_plus_occupancy"] == cap).all()
+                and all(x["granted_minus_head"] == x["outstanding_plus_occupancy"] == cap for x in hc)):
+            raise AssertionError(f"flow mirror epoch {epoch}: conservation {c} / {hc}")
+    else:
+        raise AssertionError(f"flow mirror: not drained in {cfg['max_epochs']} epochs")
+    if got_h != got_d or sum(map(len, got_h.values())) != nprod * cfg["msgs"]:
+        raise AssertionError("flow mirror: the messages received per (src, dest, lane) differ")
+    for (s, _, _), seq in got_h.items():
+        tags = [w[0] for w in seq]
+        if tags != sorted(tags) or any(t // 1000 != s for t in tags):
+            raise AssertionError(f"flow mirror: out of order from {s}: {tags[:8]}")
+    differ = [e for e, (a, b) in enumerate(deferred) if a != b]
+    out = {"epochs": len(deferred), "messages": nprod * cfg["msgs"],
+           "deferred_host": hfc.deferred, "deferred_card": sum(b for _, b in deferred),
+           "refreshes_host": hfc.refreshes, "epochs_deferring_differently": len(differ)}
+    log(f"26.2 flow mirror at p={p}, {nprod} producers, 2 lanes, queue {cap}: "
+        f"{out['messages']} messages delivered alike per (src, dest, lane), in order, "
+        f"rejected 0 on both, conservation after each of {out['epochs']} epochs on both; "
+        f"deferred: mirror {out['deferred_host']} ({hfc.refreshes} refreshes, each at the "
+        f"send), card {out['deferred_card']} (the refresh rides the epoch and lands for the "
+        f"next); {len(differ)} epochs deferred differently (first {differ[:6]}; per epoch "
+        f"mirror/card {deferred[:12]})")
+    return out
+
+
+def plans_ir_phase(torch, np) -> dict:
+    """26.3: the plans one device `enqueue_epoch` flushes on the card (at
+    IR_P ranks, IR_K seeded random targets a rank), tapped at
+    `RmaPlan.flush`, lowered by `analysis.ir.from_plan` race-free; two puts
+    aliasing one `at` interval on a card plan flagged."""
+    from repro_torch.analysis import ir, races
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.mesh import Mesh
+    from repro_torch.rmaq import queue as rq
+
+    mesh = Mesh(IR_P, "x", device="cuda")
+    desc, state = rq.queue_allocate(mesh, 64, (2,), torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(IR_SEED)
+    msgs = torch.randn(IR_P, IR_K, 2, device="cuda", generator=g)
+    dest = torch.randint(-1, IR_P, (IR_P, IR_K), device="cuda", generator=g)
+    plans, real = [], plan_mod.RmaPlan.flush
+
+    def tap(self, *a, **kw):
+        plans.append(self)
+        return real(self, *a, **kw)
+
+    plan_mod.RmaPlan.flush = tap
+    try:
+        rq.enqueue_epoch(desc, state, msgs, dest)
+        torch.cuda.synchronize()
+    finally:
+        plan_mod.RmaPlan.flush = real
+    lowered = [ir.from_plan(pl, p=IR_P) for pl in plans]
+    found = [races.check_ir(x) for x in lowered]
+    if len(plans) != 2 or any(found):
+        raise AssertionError(f"plans to IR: {len(plans)} plans, violations {found}")
+    bad = plan_mod.RmaPlan(Mesh(4, "x", device="cuda"))
+    x = torch.zeros(4, 4, device="cuda")
+    bad.put_shift(x, 1, at=(0, 16))
+    bad.put_shift(x, -1, at=(8, 24))
+    flagged = races.check_ir(ir.from_plan(bad))
+    if not flagged or {v.rule for v in flagged} != {"unsynchronized-conflict"}:
+        raise AssertionError(f"plans to IR: the aliasing puts were not flagged: {flagged}")
+    out = {"plans": [[op.sig[0] + ":" + str(op.kind) for op in pl.ops] for pl in plans],
+           "accesses": [len(x.accesses) for x in lowered], "negative_flagged": len(flagged)}
+    log(f"26.3 plans to IR: enqueue_epoch at p={IR_P} flushed {out['plans']}, lowered to "
+        f"{out['accesses']} accesses, race-free; the aliasing puts at one interval flagged "
+        f"{len(flagged)} times ({flagged[0].rule})")
+    return out
+
+
+def traced_serve_phase(torch, disagg) -> dict:
+    """26.4: the main path's FULL config in fused paged and rendezvous mode,
+    TRACED_N requests each, untraced and then under the port's `Tracer`
+    with the same seed and prompts: tokens equal between the two and to
+    `reference()`, the same wire counts, row 1's launches equal to the
+    decode steps in fused mode; over the traced events every request's
+    TTFT partitioned exactly by its segments (integer µs), its critical
+    path within its wall time, the sync ledger's per-request shares summing
+    to its attributed wait, and the Chrome export parsing with the request
+    events in the wall-clock domain."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_gather import ops as pg_ops
+    from repro_torch.obs import critpath
+    from repro_torch.obs.causal import build_dags
+    from repro_torch.obs.export import dumps_chrome_trace
+    from repro_torch.obs.trace import Tracer
+
+    out = {}
+    for mode, kw in (("fused", dict(paged=True, attend="fused")),
+                     ("rendezvous", dict(transport="rendezvous"))):
+        cfg = disagg.DisaggConfig(**kw, **FULL)
+        runs = []
+        for traced in (False, True, False):         # untraced on either side of traced
+            pa_ops.launches = pa_ops.shift_launches = pg_ops.launches = 0
+            tr = Tracer() if traced else contextlib.nullcontext()
+            with tr:
+                eng, dt = serve(disagg, cfg, TRACED_N, seed=TRACED_SEED)
+            runs.append(dict(eng=eng, dt=dt, tracer=tr if traced else None,
+                             launches=(pa_ops.launches, pa_ops.shift_launches,
+                                       pg_ops.launches)))
+            if mode == "fused" and pa_ops.launches != eng.steps_run:
+                raise AssertionError(f"traced serving {mode}: {pa_ops.launches} row-1 "
+                                     f"launches for {eng.steps_run} decode steps")
+        b = runs[1]["eng"]
+        for a in (runs[0]["eng"], runs[2]["eng"]):
+            if (a.results != b.results or a.msg_stats != b.msg_stats
+                    or a.steps_run != b.steps_run):
+                raise AssertionError(f"traced serving {mode}: tracing changed the tokens, "
+                                     "the wire counts or the steps")
+        tr = runs[1]["tracer"]
+        events = list(tr.events)
+        dags = build_dags(events)
+        bds, connected, on_rank0, rank0_connected = [], 0, 0, 0
+        for rid in b.results:
+            dag = dags.get(rid)
+            bd = critpath.ttft_breakdown(dag) if dag is not None else None
+            if bd is None or bd["segment_sum"] != bd["ttft"]:
+                raise AssertionError(f"traced serving {mode}: request {rid} breakdown {bd}")
+            cp, _ = critpath.critical_path(dag)
+            if cp > dag.wall():
+                raise AssertionError(f"traced serving {mode}: request {rid} critical path "
+                                     f"{cp} > wall {dag.wall()}")
+            bds.append(bd)
+            connected += dag.connected()
+            prefill = {e["rank"] for e in dag.events
+                       if e["rank"] < cfg.n_prefill and e["name"] != "serve.request.submit"}
+            on_rank0 += prefill == {0}
+            rank0_connected += prefill == {0} and dag.connected()
+        ledger = critpath.SyncLedger.from_events(events)
+        summ = ledger.summary()
+        shares = sum(ledger.by_rid().values())
+        if abs(shares - summ["attributed_wait"]) > 1e-6 or shares > ledger.total_wait() + 1e-6:
+            raise AssertionError(f"traced serving {mode}: ledger shares {shares} vs {summ}")
+        doc = json.loads(dumps_chrome_trace(tr))
+        names = {e["name"] for e in doc["traceEvents"]}
+        if not ({"serve.request.submit", "serve.request.first_token"} <= names
+                and doc["metadata"]["clock_domain"] == tr.clock_domain == "wall_us"):
+            raise AssertionError(f"traced serving {mode}: chrome export {doc['metadata']}")
+        agg = critpath.aggregate(bds)
+        seg = {s: (h["p50"], h["p90"]) for s, h in agg["segments"].items()}
+        ms = [r["dt"] / r["eng"].steps_run * 1e3 for r in runs]
+        out[mode] = {"requests": len(bds), "steps": b.steps_run, "events": len(events),
+                     "connected": connected, "prefilled_on_rank0": on_rank0,
+                     "rank0_connected": rank0_connected, "segments_p50_p90_us": seg,
+                     "ttft_p50_us": agg["ttft"]["p50"],
+                     "untraced_ms_per_step": [ms[0], ms[2]], "traced_ms_per_step": ms[1],
+                     "launches_rows_1_2_3": runs[1]["launches"],
+                     "sync_wait_us": ledger.total_wait()}
+        log(f"26.4 traced {mode}: {len(bds)} requests, {b.steps_run} steps, tokens, wire "
+            f"counts and steps equal untraced and traced; segment_sum == ttft for every "
+            f"request; {connected}/{len(bds)} DAGs connected, {on_rank0} requests prefilled "
+            f"on rank 0 ({rank0_connected} of them connected); {len(events)} events; "
+            f"segments p50/p90 us {seg}; ttft p50 {agg['ttft']['p50']:.0f} us; ms/step "
+            f"untraced {ms[0]:.3f} and {ms[2]:.3f}, traced {ms[1]:.3f}; rows 1/2/3 launches "
+            f"{runs[1]['launches']}; sync wait {ledger.total_wait()} us")
+        del runs, a, b, tr, events, dags
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def conformance_suite_phase() -> dict:
+    """26.5: the conformance suite on the card's host (no JAX there): every
+    protocol at CONF_RANKS ranks, seeds CONF_SEEDS, under reorder, delay
+    and duplicate, all passing; then `tear`, which must be caught."""
+    from repro_torch.sim import conformance as conf
+
+    t0 = time.perf_counter()
+    res = conf.run_suite(list(conf.PROTOCOLS), CONF_RANKS, CONF_SCHEDULES, CONF_SEEDS)
+    wall = time.perf_counter() - t0
+    failed = [str(r["error"]) for r in res if not r["ok"]]
+    if failed:
+        raise AssertionError(f"conformance suite: {len(failed)} runs failed: {failed[0]}")
+    t0 = time.perf_counter()
+    tear = conf.run_suite(list(conf.PROTOCOLS), CONF_RANKS, ["tear"], [0])
+    tear_wall = time.perf_counter() - t0
+    caught = sorted(r["spec"].protocol for r in tear if not r["ok"])
+    if not caught:
+        raise AssertionError("conformance suite: tear was not caught")
+    out = {"runs": len(res), "wall_s": wall, "events": sum(r["report"]["events"] for r in res),
+           "tear_caught": caught, "tear_wall_s": tear_wall}
+    log(f"26.5 conformance suite on the host: {len(res)} runs ({len(conf.PROTOCOLS)} protocols "
+        f"x {len(CONF_SCHEDULES)} schedules x {len(CONF_SEEDS)} seeds at {CONF_RANKS} ranks) "
+        f"passed in {wall:.2f} s, {out['events']} simulated events; tear caught on {caught} "
+        f"in {tear_wall:.2f} s")
+    return out
+
+
+def conformance_phases(torch, disagg) -> dict:
+    """Phase 26: the host protocol mirrors against the card, the card's
+    plans through the race analysis, the full-width disaggregated run
+    traced, and the conformance suite."""
+    out = {"card": card_line()}
+    t0 = time.perf_counter()
+    import numpy as np
+
+    out["queue"] = queue_mirror_phase(torch, np)
+    out["row10_launches"] = out["queue"].pop("row10_launches")
+    out["flow"] = flow_mirror_phase(torch, np)
+    out["ir"] = plans_ir_phase(torch, np)
+    out["traced"] = traced_serve_phase(torch, disagg)
+    out["suite"] = conformance_suite_phase()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 26: {out['wall_s']:.1f} s")
+    return out
+
+
 def apps_only() -> int:
     """``python3 chip_smoke.py --apps``: phase 23 alone, on the package
     beside this file.  Prints one JSON line of its numbers."""
@@ -4821,9 +5269,30 @@ def parallel_only() -> int:
     return 0
 
 
+def conformance_only() -> int:
+    """``python3 chip_smoke.py --conformance``: phase 26 alone, on the
+    package beside this file (row 10 and rows 1-3 build on first use).
+    Prints one JSON line of its numbers, then the result line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import common
+    from repro_torch.serve import disagg
+
+    build_all(common)
+    out = conformance_phases(torch, disagg)
+    print(json.dumps({"tree": ROOT, **out}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 MODES = {"--gather-shift": gather_shift_only, "--queue-push": queue_push_only,
          "--pool": pool_only, "--apps": apps_only, "--zoo": zoo_only,
-         "--parallel": parallel_only}
+         "--parallel": parallel_only, "--conformance": conformance_only}
 
 if __name__ == "__main__":
     sys.exit(MODES[sys.argv[1]]() if sys.argv[1:] else main())

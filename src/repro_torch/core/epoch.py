@@ -26,6 +26,7 @@ from typing import Any, ClassVar, Optional, Sequence
 from ..mesh import Mesh
 from ..obs import causal as obs_causal
 from ..obs import trace as obs_trace
+from ..obs.metrics import snapshot_delta
 from .perfmodel import DEFAULT_MODEL, PerfModel
 from .plan import PlanError, RmaPlan
 from .rma import OpCounter
@@ -69,6 +70,12 @@ class SyncStats:
 
     def snapshot(self) -> dict:
         return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+
+    def delta(self, prev) -> dict:
+        """Snapshot diff against `prev` (a snapshot dict or a SyncStats)."""
+        if hasattr(prev, "snapshot"):
+            prev = prev.snapshot()
+        return snapshot_delta(self.snapshot(), prev)
 
     @classmethod
     def record(cls, field: str, n: int = 1,

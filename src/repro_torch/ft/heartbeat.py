@@ -7,9 +7,9 @@ RPC, so a slow node never blocks the detector.  A node with no progress for
 `timeout_s` is dead; a node whose last step took more than
 `straggler_factor` x the fleet's median for `straggler_patience` checks in
 a row is a straggler.  The clock is injectable, so tests drive both
-decisions on one clock.  The reference's `ChannelHeartbeat` carries the
-beats over `rmaq.channel.HostChannel`, which the port has not copied yet
-(ROADMAP item 11); it waits for it.
+decisions on one clock.  `ChannelHeartbeat` carries the beats as notified
+puts into the monitor's ring over `rmaq.channel.HostChannel` (numpy, no
+device).
 """
 
 from __future__ import annotations
@@ -18,6 +18,9 @@ import dataclasses
 import time
 from collections import defaultdict, deque
 from typing import Optional
+
+from ..rmaq.channel import HostChannel, Lane
+from ..rmaq.queue import DROP
 
 
 @dataclasses.dataclass
@@ -81,3 +84,54 @@ class HeartbeatMonitor:
     def healthy_nodes(self) -> list[int]:
         self.check_dead()
         return [i for i in range(self.n) if i not in self.dead]
+
+
+# --------------------------------------------------------- channel transport
+class ChannelHeartbeat:
+    """Heartbeats carried as rmaq channel messages (DESIGN.md §6.6).
+
+    Every node is a producer into the monitor rank's MPSC ring: `beat()`
+    stages a (node, step) message on the "beat" lane; `poll()` runs one
+    enqueue epoch, drains the monitor's ring, and feeds the monitor — the
+    one-sided philosophy of the module docstring made literal: a beat is a
+    notified put into the monitor's window, never an RPC, so a slow node
+    can never block detection.
+
+    Backpressure is a *feature* here: if the monitor's ring fills because
+    poll() stalls, beats are rejected at the origin and the nodes simply
+    look stale — precisely the failure signal a control plane should see
+    (queue stats expose the drops for debugging).
+    """
+
+    LANE = "beat"
+    MONITOR_RANK = 0
+
+    def __init__(self, monitor: HeartbeatMonitor, capacity: int = 64):
+        self.monitor = monitor
+        self.channel = HostChannel(
+            p=monitor.n + 1,  # nodes 1..n produce; rank 0 is the monitor
+            capacity=capacity,
+            lanes=[Lane(self.LANE, (2,), "int32")],
+        )
+
+    def beat(self, node: int, step: int) -> None:
+        """Stage node's heartbeat (one-sided; delivered at next poll)."""
+        self.channel.send(
+            src=node + 1, name=self.LANE, payload=[node, step],
+            tag=step, dest=self.MONITOR_RANK,
+        )
+
+    def poll(self) -> int:
+        """One epoch: flush staged beats, drain the monitor ring, feed the
+        detector.  Returns the number of beats delivered."""
+        self.channel.flush()
+        msgs = self.channel.recv(self.MONITOR_RANK)
+        for m in msgs:
+            node, step = int(m["payload"][0]), int(m["payload"][1])
+            self.monitor.beat(node, step)
+        return len(msgs)
+
+    def stats(self) -> dict:
+        out = self.channel.stats(self.MONITOR_RANK)
+        out["dropped_total"] = int(self.channel.group.ctrs[:, DROP].sum())
+        return out

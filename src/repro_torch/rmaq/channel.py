@@ -185,3 +185,84 @@ def channel_allocate(mesh: Mesh, capacity: int,
     item_w = HDR + max(_lane_width(l) for l in lanes)
     desc, state = rq.queue_allocate(mesh, capacity, (item_w,), torch.float32)
     return Channel(lanes, desc), state
+
+
+# --------------------------------------------------------------- host mirror
+def _np_dtype(dtype) -> np.dtype:
+    """A lane's dtype as numpy's: torch dtypes map through an empty tensor,
+    anything else goes to `np.dtype` (names such as ``"float32"`` too)."""
+    if isinstance(dtype, torch.dtype):
+        return torch.empty(0, dtype=dtype).numpy().dtype
+    return np.dtype(dtype)
+
+
+class HostChannel:
+    """Host-side channel over `HostQueueGroup` — same header layout, same
+    admission protocol; used by control-plane components (ft.heartbeat).
+
+    `fabric` (a `core.fabric.Fabric`) is threaded through to the queue
+    group: the default in-process transport keeps today's semantics, the
+    sim transport runs the same protocol under chaos schedules.  `name`
+    namespaces this channel's fabric regions — give each channel sharing
+    one fabric a distinct name (the default suits one channel per fabric).
+    """
+
+    def __init__(self, p: int, capacity: int, lanes: Sequence[Lane], fabric=None,
+                 name: str = "q"):
+        self.lanes = tuple(
+            Lane(l.name, tuple(l.shape), _np_dtype(l.dtype), _lane_kind(l))
+            for l in lanes
+        )
+        for lane in self.lanes:
+            if np.dtype(lane.dtype).itemsize != 4:
+                raise ChannelError(f"lane dtypes must be 32-bit, got {lane.dtype}")
+        self.payload_words = max(
+            (int(np.prod(l.shape)) if l.shape else 1) for l in self.lanes
+        )
+        self.group = rq.HostQueueGroup(p, capacity, HDR + self.payload_words,
+                                       np.float32, fabric=fabric, name=name)
+        self._pending: dict[int, list[tuple[int, np.ndarray]]] = {}
+
+    def _lane_id(self, name: str) -> int:
+        for i, lane in enumerate(self.lanes):
+            if lane.name == name:
+                return i
+        raise ChannelError(f"unknown lane {name!r}")
+
+    def send(self, src: int, name: str, payload, tag: int, dest: int) -> None:
+        """Stage one message; delivered at the next `flush()` epoch."""
+        lid = self._lane_id(name)
+        lane = self.lanes[lid]
+        w = int(np.prod(lane.shape)) if lane.shape else 1
+        flat = np.asarray(payload, lane.dtype).reshape(w).view(np.float32)
+        row = np.zeros(HDR + self.payload_words, np.float32)
+        row[:HDR] = np.asarray([lid, src, tag, w], np.int32).view(np.float32)
+        row[HDR : HDR + w] = flat
+        self._pending.setdefault(src, []).append((dest, row))
+
+    def flush(self) -> dict[int, list[bool]]:
+        """Run one enqueue epoch over everything staged (the fence close)."""
+        sends, self._pending = self._pending, {}
+        return self.group.step(sends)
+
+    def recv(self, rank: int, max_n: int | None = None) -> list[dict]:
+        """Drain + demux rank's ring into decoded message dicts."""
+        out = []
+        for row in self.group.drain(rank, max_n):
+            hdr = row[:HDR].view(np.int32)
+            lane = self.lanes[int(hdr[0])]
+            w = int(hdr[3])
+            payload = row[HDR : HDR + w].view(lane.dtype).reshape(lane.shape or (1,))
+            out.append(
+                {
+                    "lane": lane.name,
+                    "kind": lane.kind,
+                    "src": int(hdr[1]),
+                    "tag": int(hdr[2]),
+                    "payload": payload.copy(),
+                }
+            )
+        return out
+
+    def stats(self, rank: int) -> dict:
+        return self.group.stats(rank)

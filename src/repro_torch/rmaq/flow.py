@@ -25,6 +25,7 @@ import torch
 
 from ..core.plan import U32_MASK, u32_from_wire, u32_to_wire
 from ..mesh import Mesh
+from ..obs import causal as obs_causal
 from ..obs import trace as obs_trace
 from . import channel as rch
 from . import notify
@@ -219,3 +220,195 @@ def conservation(channel: rch.Channel, qstate: rq.QueueState,
         "occupancy": occupancy,
         "capacity": channel.desc.capacity,
     }
+
+
+# ----------------------------------------------------------- host simulation
+class HostFlowChannel:
+    """Host-side mirror of the credit protocol over `HostChannel`.
+
+    Same cache / refresh / defer semantics as the SPMD path, with the
+    refresh as an explicit one-sided read (counted in `refreshes`) issued
+    only when the cache runs dry — the control-plane and unit tests exercise
+    exhaustion → refresh → recovery without a device mesh.
+
+    Credits cover **ring slots**, whatever the lane carries: on a
+    descriptor-kind lane table (rendezvous pull, §16) the window is
+    descriptor-width, so the credit protocol never has to account for
+    payload bytes — `bytes_by_kind` / `sends_by_kind` ledger the split so
+    engines and drift gates can assert a pull path puts zero payload
+    bytes through the ring.
+
+    Every window carries an **attach id** published beside the grant
+    block.  `ft/elastic` leave/join can reuse a rank id; a refresh that
+    monotonically maxed the *new* occupant's grants against the old
+    occupant's would advance `limit` by credits nobody granted.  The
+    refresh therefore rebases (limit := fresh, sent := 0) whenever the
+    published attach id differs from the one it last saw — the same
+    invalidation rule `rmem.DescriptorCache` applies to page tables.
+    """
+
+    def __init__(self, p: int, capacity: int, lanes: Sequence[rch.Lane],
+                 n_producers: Optional[int] = None, fabric=None,
+                 name: str = "q", causal_tags: bool = False):
+        # causal_tags: declares that message tags ARE request ids (the serve
+        # path's convention) — send/recv then stamp causal edge/cause links
+        # so traces stitch into cross-rank request DAGs (obs.causal).  Off
+        # by default: generic channels carry arbitrary tags.
+        self.causal_tags = causal_tags
+        self.ch = rch.HostChannel(p, capacity, lanes, fabric=fabric, name=name)
+        self.fabric = self.ch.group.fabric
+        self._granted_region = f"{name}.granted"
+        self._attach_region = f"{name}.attach"
+        self.p = p
+        self.L = len(self.ch.lanes)
+        self.capacity = capacity
+        self.n_producers = p if n_producers is None else n_producers
+        g = initial_grants(p, self.L, capacity, n_producers).astype(np.uint64)
+        self.granted = np.tile(g[None], (p, 1, 1))          # [owner, prod, L]
+        self.limit = np.tile(g[:, None, :], (1, p, 1))      # [prod, target, L]
+        self.sent = np.zeros((p, p, self.L), np.uint64)     # [prod, target, L]
+        # the published grant blocks live in the queue window (§9): remote
+        # refreshes read them through the fabric; owner-side grant returns
+        # stay direct (drain + grant move in lockstep, owner-locally)
+        self.fabric.register(self._granted_region, self.granted)
+        # window generation, bumped by rebind(); producers cache what they
+        # last saw per target and rebase their limit on mismatch
+        self.attach_id = np.zeros(p, np.int64)
+        self.fabric.register(self._attach_region, self.attach_id)
+        self._seen_attach = np.zeros((p, p), np.int64)      # [prod, target]
+        self.refreshes = 0
+        self.deferred = 0
+        self.rejected = 0   # ring-admission rejections: must stay 0
+        self.rebinds = 0    # refreshes that detected a window re-attach
+        self.sends_by_kind = {k: 0 for k in rch.LANE_KINDS}
+        self.bytes_by_kind = {k: 0 for k in rch.LANE_KINDS}
+
+    def available(self, src: int, dest: int, lane: int) -> int:
+        return int(self.limit[src, dest, lane] - self.sent[src, dest, lane])
+
+    def ring_slot_nbytes(self) -> int:
+        """Wire bytes one ring slot occupies (header + widest lane)."""
+        return 4 * (rch.HDR + self.ch.payload_words)
+
+    def ring_window_nbytes(self) -> int:
+        """Per-rank ring footprint — the memory the credit window covers.
+        On a descriptor lane table this is descriptor-sized no matter how
+        large the KV blocks being transferred are."""
+        return self.ring_slot_nbytes() * self.capacity
+
+    def _refresh(self, src: int, dest: int) -> None:
+        """One-sided get of dest's published grant row for this producer,
+        guarded by the window attach id (class docstring): a re-attached
+        window rebases the cache instead of maxing against stale grants."""
+        self.refreshes += 1
+        tr = obs_trace.TRACER
+        if tr.enabled:
+            tr.event("flow.refresh", rank=src, dest=dest)
+        aid = int(self.fabric.get(src, dest, self._attach_region))
+        fresh = self.fabric.get(src, dest, self._granted_region, (src,))
+        if aid != int(self._seen_attach[src, dest]):
+            self._seen_attach[src, dest] = aid
+            self.limit[src, dest] = fresh
+            self.sent[src, dest] = 0
+            self.rebinds += 1
+            if tr.enabled:
+                tr.event("flow.rebase", rank=src, dest=dest, attach=aid)
+            return
+        self.limit[src, dest] = np.maximum(self.limit[src, dest], fresh)
+
+    def rebind(self, rank: int, n_producers: Optional[int] = None) -> None:
+        """Re-attach `rank`'s window after an elastic leave/join reused its
+        id: fresh ring, fresh initial grants, bumped attach id.  The caller
+        (the membership layer) fences the fabric first so no epoch is in
+        flight.  Producers discover the re-attach at their next refresh and
+        rebase; the departed occupant's own outbound credit is frozen (its
+        sender state dies with it — re-granting a *resurrected producer* is
+        the membership layer's job, not the flow layer's)."""
+        nprod = self.n_producers if n_producers is None else n_producers
+        self.granted[rank] = initial_grants(
+            self.p, self.L, self.capacity, nprod).astype(np.uint64)
+        self.attach_id[rank] += 1
+        grp = self.ch.group
+        grp.ctrs[rank] = 0
+        grp.buf[rank] = 0
+        self.sent[rank] = self.limit[rank]
+        tr = obs_trace.TRACER
+        if tr.enabled:
+            tr.event("flow.rebind", rank=rank,
+                     attach=int(self.attach_id[rank]))
+
+    def send(self, src: int, name: str, payload, tag: int, dest: int) -> bool:
+        """Stage one credited message; False = deferred (cache dry even
+        after a refresh) and the message stays with the caller — it never
+        reaches the wire, so there is nothing to retry."""
+        lane = self.ch._lane_id(name)
+        tr = obs_trace.TRACER
+        if self.available(src, dest, lane) == 0:
+            self._refresh(src, dest)                 # fall back: cache is dry
+            if self.available(src, dest, lane) == 0:
+                self.deferred += 1
+                if tr.enabled:
+                    if self.causal_tags:
+                        tr.event("flow.send", rank=src, dest=dest, lane=lane,
+                                 outcome="deferred", rid=int(tag),
+                                 seg="credit_stall")
+                    else:
+                        tr.event("flow.send", rank=src, dest=dest, lane=lane,
+                                 outcome="deferred")
+                return False
+        if tr.enabled:
+            if self.causal_tags:
+                # producer end of the message's causal edge; the matching
+                # cause lands on the consumer's flow.deliver at recv
+                tr.event("flow.send", rank=src, dest=dest, lane=lane,
+                         outcome="credited", rid=int(tag),
+                         edge=obs_causal.edge(int(tag), f"flow{src}-{dest}"))
+            else:
+                tr.event("flow.send", rank=src, dest=dest, lane=lane,
+                         outcome="credited")
+        self.ch.send(src, name, payload, tag, dest)
+        self.sent[src, dest, lane] += 1
+        kind = self.ch.lanes[lane].kind
+        self.sends_by_kind[kind] += 1
+        self.bytes_by_kind[kind] += self.ring_slot_nbytes()
+        return True
+
+    def flush(self) -> dict[int, list[bool]]:
+        flags = self.ch.flush()
+        self.rejected += sum(fl.count(False) for fl in flags.values())
+        return flags
+
+    def recv(self, rank: int, max_n: Optional[int] = None) -> list[dict]:
+        msgs = self.ch.recv(rank, max_n)
+        tr = obs_trace.TRACER
+        if tr.enabled:
+            tr.event("flow.recv", rank=rank, n=len(msgs))
+            if self.causal_tags:
+                for m in msgs:
+                    tr.event("flow.deliver", rank=rank, rid=int(m["tag"]),
+                             src=int(m["src"]),
+                             cause=obs_causal.edge(
+                                 int(m["tag"]), f"flow{int(m['src'])}-{rank}"))
+        for m in msgs:
+            self.granted[rank, m["src"], self.ch._lane_id(m["lane"])] += 1
+        return msgs
+
+    def conservation(self, rank: int) -> dict:
+        ctrs = self.ch.group.ctrs[rank]
+        head, tail = int(ctrs[rq.HEAD]), int(ctrs[rq.TAIL])
+        g = int(self.granted[rank].sum())
+        outstanding = g - int(self.sent[:, rank].sum())
+        return {
+            "granted_minus_head": g - head,
+            "outstanding_plus_occupancy": outstanding + (tail - head),
+            "occupancy": tail - head,
+            "capacity": self.capacity,
+        }
+
+    def stats(self, rank: int) -> dict:
+        s = self.ch.stats(rank)
+        s.update(refreshes=self.refreshes, deferred=self.deferred,
+                 rejected=self.rejected, rebinds=self.rebinds,
+                 sends_by_kind=dict(self.sends_by_kind),
+                 bytes_by_kind=dict(self.bytes_by_kind))
+        return s

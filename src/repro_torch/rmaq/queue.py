@@ -35,8 +35,10 @@ import torch.nn.functional as F
 
 from ..core import plan as plan_mod
 from ..core import window as window_mod
+from ..core.fabric import default_fabric
 from ..core.plan import U32_MASK, u32_from_wire, u32_to_wire
 from ..mesh import Mesh
+from ..obs import causal as obs_causal
 from ..obs import trace as obs_trace
 
 # counter-block columns (one uint32 row of 5 per rank)
@@ -278,3 +280,118 @@ def stats(state: QueueState) -> dict:
         "dropped_by_me": c[..., DROP],
         "notifications": c[..., NOTIF],
     }
+
+
+# ----------------------------------------------------------- host simulation
+class HostQueueGroup:
+    """Host-side simulation of p ranks' rings, sharing `admission_plan`
+    (run on CPU tensors, so the host and device paths admit by one function
+    of ``(C, used, capacity)``).
+
+    The control plane (ft.heartbeat) and unit tests run the identical
+    protocol — reservation order, backpressure, wraparound — against numpy
+    buffers, without needing a device mesh.
+
+    Remote accesses route through a `core.fabric.Fabric`: the default
+    `LocalFabric` applies them immediately (byte-identical to the direct
+    mutation this class used to do — the diff test pins it), while
+    `repro_torch.sim.fabric.SimFabric` delays/reorders/duplicates delivery so the
+    conformance suite can run this exact protocol under chaos schedules.
+    """
+
+    def __init__(self, p: int, capacity: int, item_width: int, dtype=np.float32,
+                 fabric=None, name: str = "q"):
+        if capacity < 2 or capacity & (capacity - 1):
+            raise QueueError(f"capacity must be a power of two >= 2, got {capacity}")
+        self.p = p
+        self.capacity = capacity
+        self.item_width = item_width
+        self.buf = np.zeros((p, capacity, item_width), dtype)
+        self.ctrs = np.zeros((p, N_CTRS), np.uint64)
+        self.fabric = default_fabric(fabric, p=p)
+        self._name = name
+        self.fabric.register(f"{name}.buf", self.buf)
+        self.fabric.register(f"{name}.ctrs", self.ctrs)
+
+    def step(self, sends: dict[int, list[tuple[int, np.ndarray]]]) -> dict[int, list[bool]]:
+        """One enqueue epoch.  sends[r] = [(dest, payload), ...] in program
+        order.  Returns per-producer accepted flags (the receipt).
+
+        Fabric protocol per epoch: fence (close the previous epoch so the
+        reservation sees delivered state), ONE fused counter gather, then
+        per producer a batch of slot puts closed by a flush, and finally the
+        owner-side tail/enq/notif publish as `fence_add`s — ordered after
+        every payload of this epoch (payload visible ⇒ notification
+        visible, the §6.1 write-with-notification guarantee).
+        """
+        tr = obs_trace.TRACER
+        if not tr.enabled:
+            return self._step_impl(sends)
+        with tr.span("queue.step", rank=-1, queue=self._name,
+                     producers=len(sends), epoch=self.fabric.epoch,
+                     rids=obs_causal.current_epoch_rids()) as sp:
+            accepted = self._step_impl(sends)
+            flat = [ok for flags in accepted.values() for ok in flags]
+            sp.set(accepted=sum(flat), rejected=len(flat) - sum(flat))
+            return accepted
+
+    def _step_impl(self, sends: dict[int, list[tuple[int, np.ndarray]]]) -> dict[int, list[bool]]:
+        fab, name = self.fabric, self._name
+        fab.fence()  # close the previous epoch before reserving against it
+        C = np.zeros((self.p, self.p), np.int64)
+        for r, items in sends.items():
+            for dst, _ in items:
+                C[r, dst] += 1
+        ctrs_all = fab.gather(0, f"{name}.ctrs")           # reservation gather
+        used = (ctrs_all[:, TAIL] - ctrs_all[:, HEAD]).astype(np.int64)
+        grant, offset = (t.numpy() for t in admission_plan(
+            torch.from_numpy(C), torch.from_numpy(used), self.capacity))
+        accepted: dict[int, list[bool]] = {}
+        taken = np.zeros((self.p, self.p), np.int64)  # msgs placed so far per pair
+        for r, items in sends.items():
+            flags = []
+            for dst, payload in items:
+                j = taken[r, dst]
+                ok = j < grant[r, dst]
+                if ok:
+                    seq = ctrs_all[dst, TAIL] + np.uint64(offset[r, dst] + j)
+                    slot = int(seq) & (self.capacity - 1)
+                    fab.put(r, dst, f"{name}.buf", slot,
+                            np.asarray(payload, self.buf.dtype).reshape(-1))
+                else:
+                    fab.add(r, r, f"{name}.ctrs", (DROP,), 1)
+                taken[r, dst] = j + 1
+                flags.append(bool(ok))
+            accepted[r] = flags
+            fab.flush(r)                                   # producer's epoch close
+        admitted = grant.sum(axis=0).astype(np.uint64)
+        for t in np.nonzero(admitted)[0]:
+            n = admitted[t]
+            fab.fence_add(int(t), f"{name}.ctrs", (TAIL,), n)
+            fab.fence_add(int(t), f"{name}.ctrs", (ENQ,), n)
+            fab.fence_add(int(t), f"{name}.ctrs", (NOTIF,), n)
+        return accepted
+
+    def drain(self, rank: int, max_n: int | None = None) -> list[np.ndarray]:
+        avail = int(self.ctrs[rank, TAIL] - self.ctrs[rank, HEAD])
+        n = avail if max_n is None else min(avail, max_n)
+        tr = obs_trace.TRACER
+        if tr.enabled:
+            tr.event("queue.drain", rank=rank, queue=self._name, n=n,
+                     epoch=self.fabric.epoch)
+        out = []
+        for i in range(n):
+            slot = int(self.ctrs[rank, HEAD] + np.uint64(i)) & (self.capacity - 1)
+            out.append(self.buf[rank, slot].copy())
+        self.ctrs[rank, HEAD] += np.uint64(n)
+        return out
+
+    def stats(self, rank: int) -> dict:
+        c = self.ctrs[rank]
+        return {
+            "head": int(c[HEAD]),
+            "tail": int(c[TAIL]),
+            "enqueued": int(c[ENQ]),
+            "dropped_by_me": int(c[DROP]),
+            "notifications": int(c[NOTIF]),
+        }

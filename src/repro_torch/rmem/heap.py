@@ -53,6 +53,7 @@ from ..core.fabric import default_fabric
 from ..core.locks_sim import _AtomicWord
 from ..core.plan import U32_MASK, u32_from_wire, u32_to_wire
 from ..mesh import resolve_device
+from ..obs import causal as obs_causal
 from ..obs import flight as obs_flight
 from ..obs import trace as obs_trace
 from ..rmaq.queue import admission_plan
@@ -516,7 +517,8 @@ class HostPagePool:
                 tr = obs_trace.TRACER
                 if tr.enabled:
                     tr.event("heap.alloc", rank=origin, pool=self.name,
-                             page=idx, gen=int(self.gen[idx]))
+                             page=idx, gen=int(self.gen[idx]),
+                             rid=obs_causal.current_rid())
                 return idx
 
     def free(self, idx: int, origin: int = 0) -> None:
@@ -541,7 +543,8 @@ class HostPagePool:
                 tr = obs_trace.TRACER
                 if tr.enabled:
                     tr.event("heap.free", rank=origin, pool=self.name,
-                             page=idx, gen=int(self.gen[idx]))
+                             page=idx, gen=int(self.gen[idx]),
+                             rid=obs_causal.current_rid())
                 return
 
     # -------------------------------------------------------------- refcount

@@ -20,6 +20,7 @@ from repro.core import fabric as jfabric  # noqa: E402
 from repro.core import window as jwin  # noqa: E402
 from repro_torch.core import fabric as tfabric  # noqa: E402
 from repro_torch.core import window as twin  # noqa: E402
+from repro_torch.core.epoch import SyncStats  # noqa: E402
 from repro_torch.core.rma import OpCounter  # noqa: E402
 from repro_torch.mesh import Mesh  # noqa: E402
 
@@ -214,6 +215,8 @@ def test_fabric_ledger_is_private_and_diffs():
     cache.lookup(win, rid)
     assert c.snapshot()["raw_msgs"] == 0
     assert before["gets"] == before["raw_msgs"] == before["coalesced_msgs"] == 2
+    sync0 = {f"sync_{k}": 0 for k in SyncStats().snapshot()}
     assert fab.delta(before) == {"puts": 0, "gets": 1, "accs": 0, "colls": 0,
-                                 "raw_msgs": 1, "coalesced_msgs": 1, "by_axis": {}}
+                                 "raw_msgs": 1, "coalesced_msgs": 1, "by_axis": {},
+                                 **sync0, "epoch": 0}
     assert not any(v for v in fab.delta(fab).values() if not isinstance(v, dict))
