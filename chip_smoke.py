@@ -327,6 +327,38 @@ no result line):
     p50/p90, event count and traced vs untraced ms/step logged.  26.5:
     `sim.conformance.run_suite`, every protocol at 64 ranks, seeds 0-2,
     under reorder, delay and duplicate, all passing, then `tear` caught.
+27. the tools of item 12 (it runs last).  27.1: each model choice the perf
+    model adds against both arms measured on the card (host ms of
+    synchronised calls, the median of 51 after a warm-up, the two arms
+    taking turns, each arm's spread logged; the model must pick the
+    faster arm or one within 5 % of it): `select_put_backend`,
+    kernel row 4 against `Mesh.shift` at 8 KiB, 1 MiB and MILC's halo view
+    at p = 131,072 (192 MiB, read in place); `select_paged_attend`, row 1
+    against row 3 + the plain attention over the packed block, 128 pages
+    of disagg's [16, 2, 128] f32 page and of the device pool's 128 KiB page
+    as [16, 2, 1024] (the arms agree within 1e-4); `select_accumulate_mode`,
+    row 6 against lock, get (row 5), add, put (row 4), unlock at 64 KiB and
+    64 MiB (bit-equal); `select_flow_control` at the flow mirror's shape
+    (p = 4, 2 producers into one ring of 64 slots) held at occupancy 0.5
+    and 0.9 by a consumer draining what each round admits, each producer
+    offering 32 messages a round: reject / requeue through
+    `rmaq.queue.enqueue` (f / (1 - f) rejections per admitted message) against
+    `rmaq.flow.send` / `recv`, ms per delivered message; and the host's
+    exclusive lock and flush beside `p_lock_excl` and `p_flush`.  27.2:
+    `launch.hlo_cost.analyze` over T1's step (SmolLM-360M, [4, 2048],
+    remat) under backend "cuda" and "torch": equal non-attention product
+    FLOPs, attention products 16·B·H·S²·hd a layer in both, totals within
+    (1.2, 2.5) x 6·N·tokens, the predicted peak (memory before the call +
+    mem_out + mem_temp) within 10 % of `max_memory_allocated`, the
+    roofline terms beside the measured step.  27.3: `launch.dryrun --mesh
+    card` over every (arch x shape) cell on meta tensors in 8 processes
+    (attention on backend "torch"), every applicable cell "ok", and
+    `launch.roofline`'s table.  27.4: the five example drivers
+    (`repro_torch.examples`: disagg_serve, hashtable_kv, milc_stencil,
+    moe_dsde, fft3d) on the card at the reference's sizes (milc_stencil
+    on its 8 ranks, where the card's model picks the fence), each with its
+    own self-checks; rows 1 and 4 must
+    launch there (their launches go on their entries of the kernels line).
 
 ``python3 chip_smoke.py --gather-shift`` times only `rmem.pages.gather_shift`
 and `paged_gather` at the rendezvous pull's shape on the package beside the
@@ -338,7 +370,8 @@ DSDE shapes and the launch floor, the same way;
 ``python3 chip_smoke.py --zoo`` runs only phase 24, xLSTM and whisper;
 ``python3 chip_smoke.py --parallel`` runs only phase 25, P1-P4, on fresh weights;
 ``python3 chip_smoke.py --conformance`` runs only phase 26 and ends with the
-result line.
+result line; ``python3 chip_smoke.py --tools`` runs only phase 27 (after
+the kernels' build) and ends with the result line.
 
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after.
@@ -528,6 +561,28 @@ FLOW_MIRROR = dict(p=4, producers=2, capacity=FULL["queue_capacity"], k=16, drai
 IR_P, IR_K, IR_SEED = 64, 6, 14
 TRACED_N, TRACED_SEED = 64, 15
 CONF_RANKS, CONF_SEEDS, CONF_SCHEDULES = 64, (0, 1, 2), ("reorder", "delay", "duplicate")
+# phase 27, the tools: each model choice against both arms (host ms of
+# synchronised calls, the median of TOOLS_REPS after a warm-up, the arms
+# taking turns, each arm's spread logged; the pick must be the faster arm
+# or within CHOICE_SLACK of it).  Puts of 8 KiB and 1 MiB
+# over 8 ranks and of MILC's halo view (p = 131,072: 192 MiB, read in place);
+# paged attention over 128 pages of disagg's [16, 2, 128] f32 page and of
+# the device pool's 128 KiB page, as [16, 2, 1024]; accumulates of 64 KiB
+# and 64 MiB; the flow channel held at occupancy 0.5 and 0.9
+TOOLS_REPS, TOOLS_SEED, CHOICE_SLACK = 51, 16, 0.05
+PUT_P, PUT_BYTES = 8, (8 << 10, 1 << 20)
+ATTEND_K = 128
+ATTEND_PAGES = {"disagg's 16 KiB page": (16, 128, 8192),
+                "the pool's 128 KiB page": (16, 1024, 4096)}
+ACC_BYTES = (64 << 10, 64 << 20)
+FLOW_OCCUPANCY = (0.5, 0.9)
+# 27.2: the counter over T1's step.  The total (products, elementwise ops,
+# reductions, AdamW) within STEP_FACTOR of 6·N·tokens: at least 1.2 (remat
+# adds a forward of the blocks, 8/6 of their share, the LM head 6/6), at
+# most that plus the masked attention (0.46 at T1) and 60 % for the eager
+# elementwise work; the predicted peak within MEM_REL of the allocator's
+STEP_FACTOR, MEM_REL = (1.2, 2.5), 0.10
+DRY_JOBS = 8
 
 
 def log(msg: str) -> None:
@@ -942,6 +997,15 @@ def main() -> int:
     conf = conformance_phases(torch, disagg)
     next(r for r in kernels if r["name"] == "queue_push")["launches"] += conf.pop("row10_launches")
     log(f"conformance phase numbers: {json.dumps(conf)}")
+    torch.cuda.empty_cache()
+    tools = tools_phases(torch)
+    drove = tools["drivers"]["launches"]
+    row1 = drove["paged_attention"] + drove["paged_attention_shift"]
+    for name, n in (("paged_attention", row1), ("paged_gather", drove["paged_gather"]),
+                    *((k, drove[k]) for k in ("put_shift", "get_shift", "accumulate_shift",
+                                              "ring_all_gather"))):
+        next(r for r in kernels if r["name"] == name)["launches"] += n
+    log(f"tools phase numbers: {json.dumps(tools, default=str)}")
     if len(kernels) != len(KERNELS):
         raise AssertionError(f"{len(kernels)} kernel rows, want {len(KERNELS)}")
     log(f"smoke wall time: {time.perf_counter() - T0:.1f} s")
@@ -5105,6 +5169,443 @@ def conformance_phases(torch, disagg) -> dict:
     return out
 
 
+# ------------------------------------------ the tools (phase 27, PR 28)
+def arms_ms(torch, arms: dict, reps: int = TOOLS_REPS) -> tuple[dict, dict]:
+    """The median host ms of `reps` synchronised calls of each arm, after
+    one warm-up call each; the arms take turns, so a drift of the host's
+    speed reaches both alike.  Also each arm's spread: half its
+    interquartile range over its median."""
+    for fn in arms.values():
+        fn()
+    times = {k: [] for k in arms}
+    for _ in range(reps):
+        for k, fn in arms.items():
+            times[k] += sync_ms(torch, fn, 1)
+    med = {k: median(v) for k, v in times.items()}
+    spread = {}
+    for k, v in times.items():
+        v = sorted(v)
+        spread[k] = (v[3 * len(v) // 4] - v[len(v) // 4]) / 2 / med[k]
+    return med, spread
+
+
+def picked(model_pick: str, times: dict, spread: dict) -> dict:
+    """The model's pick against both arms' times: met if it is the faster
+    arm or within CHOICE_SLACK of it."""
+    fast = min(times, key=times.get)
+    ok = times[model_pick] <= (1 + CHOICE_SLACK) * times[fast]
+    return {"model": model_pick, "faster": fast, **{f"{k}_ms": v for k, v in times.items()},
+            "spread": spread, "met": ok}
+
+
+def attend_block(torch, q, blk, scale: float):
+    """The plain attention over a packed block of pages [m, k, pt, 2, hd]:
+    the "gather" arm's second half."""
+    m, k, pt, _, hd = blk.shape
+    kk = blk[:, :, :, 0].reshape(m, k * pt, hd)
+    vv = blk[:, :, :, 1].reshape(m, k * pt, hd)
+    sc = torch.einsum("mqd,mkd->mqk", q, kk) * scale
+    return torch.einsum("mqk,mkd->mqd", torch.softmax(sc, dim=-1), vv)
+
+
+def flow_arms(torch, occupancy: float) -> dict:
+    """Host ms per delivered message at the flow mirror's shape (p = 4, 2
+    producers into rank 2's ring of 64 slots, one lane of 2 int32) with the
+    ring held at `occupancy` by a consumer that drains each round exactly
+    what the round admitted: every round each producer offers 32 messages.
+    Retry: `rmaq.queue.enqueue` admits what fits and the host requeues the
+    rest, as `serve.disagg._requeue_rejected` does (the rejections per
+    admitted message are then f / (1 - f)).  Credit: `rmaq.flow.send` admits
+    what the credits allow and `flow.recv` returns them."""
+    from repro_torch.mesh import Mesh
+    from repro_torch.rmaq import channel as rch
+    from repro_torch.rmaq import flow as rfl
+    from repro_torch.rmaq import queue as rq
+
+    p, cap, k = 4, FLOW_MIRROR["capacity"], 32
+    occ = round(occupancy * cap)
+    occ += occ % 2                                     # an even share a producer
+    free = cap - occ
+    lanes = [rch.Lane("a", (2,), torch.int32)]
+    mesh = Mesh(p, "serve", device="cuda")
+
+    def offer(n):
+        dest = torch.full((p, k), -1, dtype=torch.int64, device="cuda")
+        dest[:2, :n] = 2
+        tag = torch.arange(p * k, device="cuda").reshape(p, k)
+        return torch.stack([tag, -tag], -1).to(torch.int32), tag, dest
+
+    # retry: the plain channel, nothing to count credits
+    channel, qs = rch.channel_allocate(mesh, cap, lanes)
+    payload, tag, dest = offer(occ // 2)
+    qs, _ = rq.enqueue(channel.desc, qs, channel.packed("a", payload, tag), dest)
+    payload, tag, dest = offer(k)
+    msgs = channel.packed("a", payload, tag)
+    retry = {"qs": qs, "admitted": 0, "rejected": 0, "rounds": 0}
+
+    def retry_round():
+        s, rec = rq.enqueue(channel.desc, retry["qs"], msgs, dest)
+        ok = int(rec.accepted.sum())
+        s, _ = channel.recv(s, ok)
+        retry.update(qs=s, admitted=retry["admitted"] + ok, rounds=retry["rounds"] + 1,
+                     rejected=retry["rejected"] + 2 * k - ok)
+
+    # credit: the flow channel at the same occupancy
+    fchannel, fqs, fs = rfl.flow_allocate(mesh, cap, lanes, n_producers=2)
+    fpayload, ftag, fdest = offer(occ // 2)
+    fqs, fs, _ = rfl.send(fchannel, fqs, fs, "a", fpayload, ftag, fdest)
+    fpayload, ftag, fdest = offer(k)
+    credit = {"qs": fqs, "fs": fs, "admitted": 0, "rounds": 0}
+
+    def credit_round():      # a round that admits nothing drains nothing
+        s, f, rec = rfl.send(fchannel, credit["qs"], credit["fs"], "a", fpayload, ftag, fdest)
+        if int(rec.rejected.sum()):
+            raise AssertionError("flow credit arm: a credited send was rejected")
+        ok = int(rec.accepted.sum())
+        if ok:
+            s, f, _ = rfl.recv(fchannel, s, f, ok)
+        credit.update(qs=s, fs=f, admitted=credit["admitted"] + ok,
+                      rounds=credit["rounds"] + 1)
+
+    rounds, spread = arms_ms(torch, {"retry": retry_round, "credit": credit_round})
+    if retry["admitted"] != free * retry["rounds"]:
+        raise AssertionError(f"flow retry arm at occupancy {occ}/{cap}: {retry['admitted']} "
+                             f"admitted in {retry['rounds']} rounds, want {free} a round")
+    per = credit["admitted"] / credit["rounds"]
+    return {"retry": rounds["retry"] / free, "credit": rounds["credit"] / per,
+            "rejects_per_admit": retry["rejected"] / retry["admitted"],
+            "occupancy": occ / cap, "free": free, "credit_admitted": per,
+            "nbytes": 4 * channel.desc.item_shape[0], "retry_round_ms": rounds["retry"],
+            "credit_round_ms": rounds["credit"], "spread": spread}
+
+
+def host_us(fn, setup=None, n: int = 10_000) -> float:
+    """Mean host µs of `fn` over n calls, `setup` (untimed) before each."""
+    total = 0
+    for _ in range(n):
+        if setup is not None:
+            setup()
+        t0 = time.perf_counter_ns()
+        fn()
+        total += time.perf_counter_ns() - t0
+    return total / n / 1e3
+
+
+def model_choices_phase(torch, np) -> dict:
+    """27.1: each of the four model choices PR 28 ports against both of
+    its arms measured on the card (host ms of synchronised calls, the median
+    of TOOLS_REPS after a warm-up), and the host's lock and flush beside
+    their prices."""
+    from repro_torch.core import epoch
+    from repro_torch.core.locks_sim import LockOrigin, LockWindow
+    from repro_torch.core.perfmodel import DEFAULT_MODEL as pm
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_gather import ops as pg_ops
+    from repro_torch.kernels.rma import ops as rma_ops
+    from repro_torch.mesh import Mesh
+
+    g = torch.Generator(device="cuda").manual_seed(TOOLS_SEED)
+    out = {"put": {}, "attend": {}, "accumulate": {}, "flow": {}}
+    # put: kernel row 4 against Mesh.shift
+    mesh = Mesh(PUT_P, "x", device="cuda")
+    lat = torch.randn((MILC_P,) + MILC_LOCAL, generator=g, device="cuda")
+    halo_mesh = Mesh(lat.shape[0], "t", device="cuda")
+    cases = {f"{n >> 10} KiB": (torch.randn(PUT_P, n // 4 // PUT_P, generator=g,
+                                            device="cuda"), mesh) for n in PUT_BYTES}
+    cases["MILC halo view"] = (lat.narrow(1, 0, 1), halo_mesh)
+    for name, (x, m) in cases.items():
+        if not torch.equal(rma_ops.put_shift(x, 1, m), m.shift(x, 1)):
+            raise AssertionError(f"27.1 put {name}: row 4 and Mesh.shift differ")
+        times, spread = arms_ms(torch, {"cuda": lambda: rma_ops.put_shift(x, 1, m),
+                                        "torch": lambda: m.shift(x, 1)})
+        out["put"][name] = {"nbytes": x.nbytes,
+                            **picked(pm.select_put_backend(x.nbytes), times, spread)}
+    del lat, cases
+    # paged attention: row 1 against row 3 + the plain attention over the block
+    for name, (pt, hd, n_pages) in ATTEND_PAGES.items():
+        pool = torch.randn(n_pages, pt, 2, hd, generator=g, device="cuda")
+        ids = torch.randperm(n_pages, generator=g, device="cuda")[:ATTEND_K].to(torch.int32)[None]
+        q = torch.randn(1, 1, hd, generator=g, device="cuda")
+        one = Mesh(1, "serve", device="cuda")
+        scale = hd ** -0.5
+
+        def gather_attend():
+            blk = pg_ops.paged_gather(pool[None], ids, 0, one)
+            return attend_block(torch, q, blk[0][None], scale)
+
+        err = float((pa_ops.paged_attention(q, pool, ids) - gather_attend()).abs().max())
+        if err > TOL:
+            raise AssertionError(f"27.1 attend {name}: the two arms differ by {err}")
+        times, spread = arms_ms(torch, {"fused": lambda: pa_ops.paged_attention(q, pool, ids),
+                                        "gather": gather_attend})
+        page_bytes = pt * 2 * hd * 4
+        out["attend"][name] = {"page_bytes": page_bytes, "pages": ATTEND_K, "max_abs_err": err,
+                               **picked(pm.select_paged_attend(ATTEND_K, page_bytes), times,
+                                        spread)}
+        del pool
+    # accumulate: row 6 against lock, get, add, put, unlock
+    lock = LockOrigin(LockWindow(p=1), rank=0)
+    for n in ACC_BYTES:
+        x = torch.randn(PUT_P, n // 4 // PUT_P, generator=g, device="cuda")
+        acc = torch.randn(PUT_P, n // 4 // PUT_P, generator=g, device="cuda")
+
+        def fallback():
+            lock.lock_exclusive(0)
+            try:
+                return rma_ops.put_shift(rma_ops.get_shift(acc, 1, mesh) + x, 1, mesh)
+            finally:
+                lock.unlock_exclusive(0)
+
+        if not torch.equal(rma_ops.accumulate_shift(x, acc, 1, mesh), fallback()):
+            raise AssertionError(f"27.1 accumulate at {n} B: the two arms differ")
+        times, spread = arms_ms(torch, {
+            "slotted": lambda: rma_ops.accumulate_shift(x, acc, 1, mesh),
+            "fetch_modify_writeback": fallback})
+        out["accumulate"][f"{n >> 10} KiB"] = {"nbytes": n, **picked(
+            pm.select_accumulate_mode(n, 2), times, spread)}
+    # flow control at the flow mirror's shape
+    for f in FLOW_OCCUPANCY:
+        arms = flow_arms(torch, f)
+        times = {"credit": arms.pop("credit"), "retry": arms.pop("retry")}
+        spread = arms.pop("spread")
+        out["flow"][f"{f:.1f}"] = {**arms, **picked(pm.select_flow_control(
+            arms["nbytes"], arms["occupancy"], round(arms["credit_admitted"])), times, spread)}
+    # the host's exclusive lock and flush beside their prices
+    win = LockWindow(p=1)
+    origin = LockOrigin(win, rank=0)
+    held = []
+
+    def release():
+        if held:
+            origin.unlock_exclusive(0)
+            held.clear()
+
+    lock_us = host_us(lambda: (origin.lock_exclusive(0), held.append(1)), setup=release)
+    release()
+    t = torch.zeros(4, device="cuda")
+    flush_us = host_us(lambda: epoch.flush(t))
+    out["lock_excl_us"] = {"measured": lock_us, "price": pm.p_lock_excl() * 1e6}
+    out["flush_us"] = {"measured": flush_us, "price": pm.p_flush() * 1e6}
+    for kind in ("put", "attend", "accumulate", "flow"):
+        for name, r in out[kind].items():
+            arms = ", ".join(f"{k[:-3]} {v:.4f} ms ±{r['spread'][k[:-3]]:.1%}"
+                             for k, v in r.items()
+                             if k.endswith("_ms") and not k.endswith("round_ms"))
+            log(f"27.1 {kind} at {name}: model {r['model']}, measured faster {r['faster']} "
+                f"({arms}) -> {'met' if r['met'] else 'MISSED'}"
+                + (f"; rejects per admitted {r['rejects_per_admit']:.3f}, credit admits "
+                   f"{r['credit_admitted']:.2f} a round; a round: retry "
+                   f"{r['retry_round_ms']:.4f} ms, credit {r['credit_round_ms']:.4f} ms"
+                   if kind == "flow" else ""))
+    log(f"27.1 p_lock_excl: measured {lock_us:.3f} us, priced {pm.p_lock_excl() * 1e6:.3f} "
+        f"us; p_flush: measured {flush_us:.3f} us, priced {pm.p_flush() * 1e6:.3f} us "
+        f"({card_line()})")
+    missed = [(k, n) for k in ("put", "attend", "accumulate", "flow")
+              for n, r in out[k].items() if not r["met"]]
+    out["missed"] = missed
+    return out
+
+
+def counter_phase(torch, np) -> dict:
+    """27.2: `launch.hlo_cost.analyze` over SmolLM-360M's T1 step ([4, 2048],
+    remat, bf16, AdamW) on the card, once under backend "cuda" and once
+    under "torch": equal non-attention product FLOPs; attention's products
+    16·B·H·S²·hd a layer under both ("torch" folds every block, the masked
+    half included, in the forward, remat's second forward and the backward's
+    two products each; "cuda": the flash kernel's causal half twice, then
+    its backward recomputes and differentiates the plain full attention);
+    the totals within STEP_FACTOR of 6·N·tokens; the footprint mem_out +
+    mem_temp over the memory allocated before the call within MEM_REL of
+    `torch.cuda.max_memory_allocated`; the roofline terms beside the
+    measured step."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.perfmodel import H100, roofline_terms
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch import hlo_cost
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import StepConfig, make_train_step
+
+    model = build_model(get_config(MODEL_ARCH))
+    cfg = model.cfg
+    B, S = TRAIN_BATCH
+    params = model.init(TRAIN_SEED, device="cuda")
+    opt = init_opt_state(params)
+    batch = SyntheticTokenPipeline(DataConfig(cfg.vocab_size, S, B), device="cuda").batch_at(0)
+    step = make_train_step(model, AdamWConfig(**TRAIN_OPT), StepConfig(remat=True))
+    n, tokens = model.param_count(), B * S
+    attn = 16.0 * B * cfg.n_heads * S * S * cfg.hd * cfg.n_layers
+    out = {"n_params": n, "tokens": tokens, "six_n_tokens": 6.0 * n * tokens,
+           "attention_want": attn}
+    for backend in ("cuda", "torch"):
+        L.set_attention_backend(backend)
+        try:
+            step(params, opt, batch)                       # builds, warms the allocator
+            times = sync_ms(torch, lambda: step(params, opt, batch), 3)
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fops.launches = 0
+            s = hlo_cost.analyze(step, params, opt, batch)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            L.set_attention_backend("torch")
+        predicted = base + s.mem_out + s.mem_temp
+        terms = roofline_terms(s.flops, s.hbm_bytes, s.collective_bytes, chips=1)
+        step_ms = median(times)
+        bound = max(terms["compute_s"], terms["memory_s"], terms["collective_s"])
+        out[backend] = {
+            "flops": s.flops, "hbm_bytes": s.hbm_bytes, "product_flops": s.product_flops,
+            "non_attention_products": s.product_flops_by_scope.get("", 0.0),
+            "attention_products": s.product_flops_by_scope.get("attention", 0.0),
+            "kernel_flops": dict(s.kernel_flops), "flash_launches": fops.launches,
+            "ops": s.n_ops, "mem_args": s.mem_args, "mem_out": s.mem_out, "mem_temp": s.mem_temp,
+            "allocated_before": base, "predicted_peak": predicted, "max_memory_allocated": peak,
+            "step_ms": step_ms, **{k: terms[k] for k in ("compute_s", "memory_s", "dominant",
+                                                         "roofline_fraction")},
+            "roofline_share": bound / (step_ms / 1e3)}
+        r = out[backend]
+        log(f"27.2 counter over T1's step, backend {backend} ({card_line()}): {s.n_ops} ops, "
+            f"{s.flops / 1e12:.3f} TFLOP ({s.flops / out['six_n_tokens']:.3f} x 6*N*tokens), "
+            f"products {s.product_flops / 1e12:.3f} (non-attention "
+            f"{r['non_attention_products'] / 1e12:.4f}, attention "
+            f"{r['attention_products'] / 1e12:.4f}, want {attn / 1e12:.4f}), kernels "
+            f"{ {k: v / 1e12 for k, v in s.kernel_flops.items()} } TFLOP, "
+            f"{s.hbm_bytes / 1e12:.3f} TB; memory args {s.mem_args / 2**30:.3f} + out "
+            f"{s.mem_out / 2**30:.3f} + temp {s.mem_temp / 2**30:.3f} GiB, predicted peak "
+            f"{predicted / 2**30:.3f} GiB vs max_memory_allocated {peak / 2**30:.3f} GiB; "
+            f"roofline compute {terms['compute_s'] * 1e3:.1f} ms, memory "
+            f"{terms['memory_s'] * 1e3:.1f} ms ({terms['dominant']}), step {step_ms:.1f} ms "
+            f"(median of 3): {r['roofline_share']:.1%} of the roofline")
+        if abs(r["attention_products"] - attn) > 1e-9 * attn:
+            raise AssertionError(f"27.2 {backend}: attention products "
+                                 f"{r['attention_products']:.6e}, want {attn:.6e}")
+        if not STEP_FACTOR[0] <= s.flops / out["six_n_tokens"] <= STEP_FACTOR[1]:
+            raise AssertionError(f"27.2 {backend}: {s.flops / out['six_n_tokens']:.3f} x "
+                                 f"6*N*tokens, outside {STEP_FACTOR}")
+        if abs(predicted - peak) > MEM_REL * peak:
+            raise AssertionError(f"27.2 {backend}: predicted peak {predicted} vs "
+                                 f"max_memory_allocated {peak}, beyond {MEM_REL:.0%}")
+    if out["cuda"]["non_attention_products"] != out["torch"]["non_attention_products"]:
+        raise AssertionError(f"27.2: non-attention products differ, cuda "
+                             f"{out['cuda']['non_attention_products']} vs torch "
+                             f"{out['torch']['non_attention_products']}")
+    if out["cuda"]["flash_launches"] != 2 * cfg.n_layers or "flash_attention" not in \
+            out["cuda"]["kernel_flops"]:
+        raise AssertionError(f"27.2: the counted cuda step launched the flash kernel "
+                             f"{out['cuda']['flash_launches']} times")
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_phase() -> dict:
+    """27.3: `launch.dryrun --mesh card` over every (arch x shape) cell on
+    meta tensors in parallel processes, every applicable cell "ok"; then
+    `launch.roofline`'s table of them."""
+    import tempfile
+
+    from repro_torch.configs import get_config, shape_applicable
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun, roofline
+
+    t0 = time.perf_counter()
+    scratch = os.path.join(ROOT, "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as d:
+        recs = dryrun.main(["--mesh", "card", "--out", d, "--jobs", str(DRY_JOBS)])
+        rows = roofline.main(["--dir", d])
+    bad = [r for r in recs
+           if r["status"] != ("ok" if shape_applicable(get_config(r["arch"]),
+                                                       SHAPES[r["shape"]])[0] else "skipped")]
+    if bad:
+        raise AssertionError(
+            f"27.3 dry-run: {[(r['arch'], r['shape'], r['status']) for r in bad]}")
+    ok = [r for r in recs if r["status"] == "ok"]
+    out = {"cells": len(recs), "ok": len(ok), "fits": sum(r["fits"] for r in ok),
+           "rows": len(rows) - 1, "wall_s": time.perf_counter() - t0}
+    log(f"27.3 dry-run --mesh card: {out['ok']} of {out['cells']} cells ok, the rest skipped "
+        f"as the reference skips them; {out['fits']} fit the card's {80} GB; "
+        f"{out['wall_s']:.1f} s with {DRY_JOBS} processes")
+    return out
+
+
+def drivers_phase(torch) -> dict:
+    """27.4: the five example drivers at the reference's sizes on the card;
+    each raises unless its own checks hold, and nothing here catches that.
+    Kernel launches are counted from 0 over the five runs: row 1 (the
+    paged fused decode) and row 4 (the plans' puts) must be among them."""
+    from repro_torch.examples import disagg_serve, fft3d, hashtable_kv, milc_stencil, moe_dsde
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_gather import ops as pg_ops
+    from repro_torch.kernels.rma import ops as rma_ops
+
+    pa_ops.launches = pa_ops.shift_launches = pg_ops.launches = 0
+    zero_rma_launches(rma_ops)
+    out = {}
+    for mod in (disagg_serve, hashtable_kv, milc_stencil, moe_dsde, fft3d):
+        name = mod.__name__.rsplit(".", 1)[1]
+        t0 = time.perf_counter()
+        out[name] = mod.main(["--device", "cuda"])
+        out[name + "_s"] = time.perf_counter() - t0
+    out["launches"] = {"paged_attention": pa_ops.launches,
+                       "paged_attention_shift": pa_ops.shift_launches,
+                       "paged_gather": pg_ops.launches, **rma_ops.launches}
+    if not (pa_ops.launches and rma_ops.launches["put_shift"]):
+        raise AssertionError(f"27.4: the drivers did not go through rows 1 and 4: "
+                             f"{out['launches']}")
+    log(f"27.4 drivers on the card: disagg_serve {out['disagg_serve']}, hashtable_kv "
+        f"{out['hashtable_kv']}, milc_stencil {out['milc_stencil']}, moe_dsde "
+        f"{out['moe_dsde']}, fft3d {out['fft3d']}; launches {out['launches']}")
+    return out
+
+
+def tools_phases(torch) -> dict:
+    """Phase 27: 27.1-27.4."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    out = {"choices": model_choices_phase(torch, np)}
+    torch.cuda.empty_cache()
+    out["counter"] = counter_phase(torch, np)
+    out["dryrun"] = dryrun_phase()
+    out["drivers"] = drivers_phase(torch)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 27: {out['wall_s']:.1f} s")
+    if out["choices"]["missed"]:
+        raise AssertionError(f"27.1: the model's pick is neither the faster arm nor within "
+                             f"{CHOICE_SLACK:.0%} of it at {out['choices']['missed']}")
+    return out
+
+
+def tools_only() -> int:
+    """``python3 chip_smoke.py --tools``: phase 27 alone, on the package
+    beside this file (the kernels build first).  Prints one JSON line of
+    its numbers, then the result line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import common
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products, as in main()
+    log(card_line())
+    build_all(common)
+    out = tools_phases(torch)
+    print(json.dumps({"tree": ROOT, **out}, default=str), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def apps_only() -> int:
     """``python3 chip_smoke.py --apps``: phase 23 alone, on the package
     beside this file.  Prints one JSON line of its numbers."""
@@ -5292,7 +5793,8 @@ def conformance_only() -> int:
 
 MODES = {"--gather-shift": gather_shift_only, "--queue-push": queue_push_only,
          "--pool": pool_only, "--apps": apps_only, "--zoo": zoo_only,
-         "--parallel": parallel_only, "--conformance": conformance_only}
+         "--parallel": parallel_only, "--conformance": conformance_only,
+         "--tools": tools_only}
 
 if __name__ == "__main__":
     sys.exit(MODES[sys.argv[1]]() if sys.argv[1:] else main())

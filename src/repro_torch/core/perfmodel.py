@@ -51,6 +51,7 @@ class HardwareSpec:
 
     hbm_bandwidth: float = 3.35e12          # B/s, HBM3 (data sheet)
     peak_flops_bf16: float = 989e12         # FLOP/s, dense bf16 tensor cores (data sheet)
+    hbm_capacity: float = 80e9              # bytes of HBM3 (data sheet; the dry-run's `fits`)
     launch_latency: float = 10.1e-6         # s per PyTorch op, back to back
     event_latency: float = 15.3e-6          # s: record an event + wait on it
     copy_bandwidth: float = 3.00e12         # B/s read + written by Tensor.copy_
@@ -73,6 +74,27 @@ class HardwareSpec:
     gemm_flops_bf16: float = 744.5e12       # FLOP/s of torch.matmul, bf16 in and out
     all_gather_bandwidth: float = 1.40e12   # B/s read + written by kernel row 7
     #                                         (ring_all_gather) gathering W, its launch in
+    # The choices PR 28 adds (`select_put_backend`, `select_paged_attend`,
+    # `select_accumulate_mode`, `select_flow_control`) and the host's lock and
+    # flush, from chip_smoke.py's phase 27.1 (host ms of synchronised calls,
+    # medians; PERF.md, "PR 28"):
+    csrc_launch_latency: float = 18.0e-6    # s: one hand kernel's call through
+    #                                         kernels.common.Entry, host-bound
+    put_kernel_bandwidth: float = 2.86e12   # B/s read + written by kernel row 4 (put_shift)
+    shift_latency: float = 23.0e-6          # s: one Mesh.shift call (two row slices and a
+    #                                         torch.cat), host-bound: 5 µs above a csrc call
+    shift_bandwidth: float = 2.36e12        # B/s read + written by Mesh.shift (torch.cat)
+    #                                         at MILC's halo view
+    attend_latency: float = 150.0e-6        # s: the plain attention over a packed block
+    #                                         (disagg's "gather" attend), host-bound; fitted
+    #                                         at 128 pages of 16 KiB
+    lock_latency: float = 2.45e-6           # s: core.locks_sim's exclusive lock, uncontended
+    flush_latency: float = 0.745e-6         # s: core.epoch.flush (a ledger record; stream
+    #                                         order completes the ops)
+    requeue_latency: float = 49.4e-6        # s: one rejected send: the slope of the retry
+    #                                         arm's ms per message in its rejections
+    flow_epoch_latency: float = 4.43e-3     # s: a flow.send + recv round beyond the retry
+    #                                         arm's accept path, fitted at occupancy 0.5 and 0.9
 
 H100 = HardwareSpec()
 
@@ -117,6 +139,26 @@ class PerfModel:
         """Slotted accumulate: the put into the slot, then the owner's add
         (read slot + read acc + write)."""
         return self.p_put(nbytes) + self.hw.launch_latency + self._rw(nbytes, 3.0)
+
+    def p_put_kernel(self, nbytes: float) -> float:
+        """Kernel row 4 (`kernels.rma.ops.put_shift`): one hand kernel's
+        call, the payload read and written at the kernel's rate."""
+        return self.hw.csrc_launch_latency + 2.0 * nbytes / self.hw.put_kernel_bandwidth
+
+    def p_accumulate_kernel(self, nbytes: float) -> float:
+        """Kernel row 6 (`accumulate_shift`), the slotted accumulate in one
+        launch: the payload and the owner's block read, the sum written."""
+        return self.hw.csrc_launch_latency + 3.0 * nbytes / self.hw.put_kernel_bandwidth
+
+    def select_put_backend(self, nbytes: float) -> Literal["torch", "cuda"]:
+        """A put's lowering (`core.plan.choose_backend`'s two backends):
+        `Mesh.shift` ("torch": two row slices and a `torch.cat`) or kernel
+        row 4 ("cuda": one hand kernel called through ctypes).  Both are
+        copies; on the card the hand kernel costs less to call and moves
+        the bytes faster, so it wins at every size, as `choose_backend`
+        assumes (the reference's XLA path wins below ~4 KiB on the TPU)."""
+        torch_arm = self.hw.shift_latency + 2.0 * nbytes / self.hw.shift_bandwidth
+        return "cuda" if self.p_put_kernel(nbytes) < torch_arm else "torch"
 
     def p_message_rate(self, nbytes: float = 8.0) -> float:
         """Per-message cost of back-to-back transfers: launch-bound for small
@@ -187,8 +229,19 @@ class PerfModel:
         """One atomic increment of the reader count: one small kernel."""
         return self.hw.launch_latency
 
+    def p_lock_excl(self) -> float:
+        """The exclusive lock the port takes (`core.locks_sim`'s writer
+        lock, which `serve.engine` takes to change the slot table): the
+        master's fetch-add and the local CAS, on the host."""
+        return self.hw.lock_latency
+
     def p_unlock(self) -> float:
         return self.hw.launch_latency
+
+    def p_flush(self) -> float:
+        """`core.epoch.flush` on one card: stream order already completes
+        the origin's ops, so it is the host's ledger record alone."""
+        return self.hw.flush_latency
 
     def select_sync_mode(self, k: int, p: int) -> Literal["pscw", "fence"]:
         """Paper §6: PSCW iff P_post + P_complete + P_start + P_wait < P_fence."""
@@ -232,6 +285,60 @@ class PerfModel:
         get of the published credit word (`notify.fetch_credits`)."""
         return 0.0 if fused else self.p_get(4.0)
 
+    # -- flow control: credit vs reject / requeue ---------------------------
+    def expected_rejects(self, occupancy: float) -> float:
+        """Expected rejected attempts per accepted enqueue when the ring
+        runs at occupancy fraction f: acceptance is geometric, f/(1-f)
+        wasted attempts on average (unbounded as the ring saturates)."""
+        f = min(max(occupancy, 0.0), 0.999999)
+        return f / (1.0 - f)
+
+    def p_reject(self, nbytes: float) -> float:
+        """One rejected send as the port retries it
+        (`serve.disagg._requeue_rejected`): spliced back onto the host's
+        queue and its payload moved again in the next epoch, which the
+        producer runs anyway (no launch of its own)."""
+        return self.hw.requeue_latency + self._rw(nbytes)
+
+    def p_enqueue_retry(self, nbytes: float, occupancy: float) -> float:
+        """Reject / requeue at steady ring occupancy f: the accept path plus
+        `p_reject` for each expected rejection.  The reference charges a
+        rejection a reservation round and a doorbell; on one card the
+        epoch is vectorised, so a rejected message rides the next one."""
+        return (self.p_queue_enqueue(nbytes)
+                + self.expected_rejects(occupancy) * self.p_reject(nbytes))
+
+    def p_enqueue_credit(self, nbytes: float, credit_batch: int,
+                         fused: bool = True) -> float:
+        """Credit-gated enqueue (`rmaq.flow.send` / `recv`): the accept path
+        plus, once an epoch of `credit_batch` messages, the credit books
+        (`flow_epoch_latency`) and the refresh (free when it rides the
+        reservation).  No reject term at any occupancy: an uncredited
+        message waits at its origin."""
+        return (self.p_queue_enqueue(nbytes)
+                + (self.p_credit_refresh(fused) + self.hw.flow_epoch_latency)
+                / max(credit_batch, 1))
+
+    def select_flow_control(self, nbytes: float, occupancy: float, credit_batch: int,
+                            fused: bool = True) -> Literal["credit", "retry"]:
+        """Credits, or reject and requeue.  On one card the credit books
+        cost host time every epoch while a rejection is nearly free, so
+        retry wins at low occupancy and credit only once rejections pile
+        up (the reference's fused refresh makes credit never worse)."""
+        credit = self.p_enqueue_credit(nbytes, credit_batch, fused)
+        retry = self.p_enqueue_retry(nbytes, occupancy)
+        return "credit" if credit <= retry else "retry"
+
+    def flow_crossover_occupancy(self, nbytes: float, credit_batch: int,
+                                 fused: bool = False) -> float:
+        """Smallest occupancy (1 % grid) where credit beats reject / retry;
+        1.0 when it never does."""
+        for i in range(100):
+            f = i / 100.0
+            if self.select_flow_control(nbytes, f, credit_batch, fused) == "credit":
+                return f
+        return 1.0
+
     def p_page_alloc(self, fused: bool = True) -> float:
         """Marginal cost of one remote page allocation: the fetch-and-op on
         the owner's free-list head word (one 8-byte message) plus the
@@ -248,6 +355,41 @@ class PerfModel:
         total = n_pages * page_bytes
         pack = 2.0 * total / self.hw.hbm_bandwidth
         return self.p_put(8.0 * n_pages) + self.p_put(total) + pack
+
+    def p_paged_attention(self, n_pages: int, page_bytes: float) -> float:
+        """Kernel row 1 (`kernels.paged_attention`): one hand kernel walks
+        the scattered pages in place and folds them into its online softmax
+        — one call, the pages read once, no packed block."""
+        return (self.hw.csrc_launch_latency
+                + (8.0 * n_pages + n_pages * page_bytes) / self.hw.hbm_bandwidth)
+
+    def p_paged_gather_attend(self, n_pages: int, page_bytes: float) -> float:
+        """Gather then attend (disagg's ``attend="gather"``): kernel row 3
+        packs the pages into one block (read + written), then the plain
+        attention reads the block again."""
+        total = n_pages * page_bytes
+        return (self.hw.csrc_launch_latency + (8.0 * n_pages + 2.0 * total) / self.hw.hbm_bandwidth
+                + self.hw.attend_latency + total / self.hw.hbm_bandwidth)
+
+    def select_paged_attend(self, n_pages: int,
+                            page_bytes: float) -> Literal["fused", "gather"]:
+        """Decode attention over scattered KV pages: stream them through
+        row 1 ("fused") or gather then attend.  On one card there is no
+        per-message injection cost for the gather to amortise, so the fused
+        walk, one call with no pack and no re-read, wins at every size."""
+        fused = self.p_paged_attention(n_pages, page_bytes)
+        gather = self.p_paged_gather_attend(n_pages, page_bytes)
+        return "fused" if fused <= gather else "gather"
+
+    def paged_attend_crossover_bytes(self, n_pages: int = 4) -> float:
+        """Smallest page size (geometric scan from 8 B) where the fused
+        stream beats gather-then-attend."""
+        s = 8.0
+        while s < 64 * 2**20:
+            if self.select_paged_attend(n_pages, s) == "fused":
+                return s
+            s *= 2.0
+        return s
 
     # -- KV transport: inline, paged, eager push vs rendezvous pull ----------
     def p_append_inline(self, block_bytes: float) -> float:
@@ -486,6 +628,19 @@ class PerfModel:
         return max(hw.unfused_call_latency,
                    gather + max(flops / rate, mm_bytes / hw.hbm_bandwidth))
 
+    def select_accumulate_mode(self, nbytes: float,
+                               k: int) -> Literal["slotted", "fetch_modify_writeback"]:
+        """Paper §2.4's fallback (lock, get, add, put, unlock) vs the
+        slotted accumulate, kernel row 6's one launch.  The fallback makes
+        two hand-kernel calls, an add and the lock's round trips and moves
+        the payload more often, so the slotted form wins at every size; `k`
+        (the neighbours, whose slots cost memory) does not enter the time."""
+        del k
+        slotted = self.p_accumulate_kernel(nbytes)
+        fallback = (self.p_lock_excl() + 2.0 * self.p_put_kernel(nbytes)
+                    + self.hw.launch_latency + self._rw(nbytes, 3.0) + self.p_unlock())
+        return "slotted" if slotted <= fallback else "fetch_modify_writeback"
+
     def select_dispatch(self, n_msgs: int, msg_bytes: float, p: int,
                         capacity_per_pair: int) -> Literal["queue", "alltoall"]:
         """Sparse exchange (DSDE, MoE dispatch): per-message notified puts
@@ -498,3 +653,21 @@ class PerfModel:
 
 
 DEFAULT_MODEL = PerfModel()
+
+
+def roofline_terms(hlo_flops: float, hlo_bytes: float, collective_bytes: float,
+                   chips: int, hw: HardwareSpec = H100) -> dict:
+    """The three roofline terms (seconds) of whole-program totals, normalised
+    per card: compute at the bf16 tensor-core peak, memory at the HBM rate.
+    On one card the mesh's collectives are HBM copies between stacked
+    ranks, so the collective term is their bytes at the copy rate
+    (`copy_bandwidth`); the spec has no NVLink field until a mesh spans
+    cards.  ``roofline_fraction`` is compute's share of the largest term."""
+    compute_t = hlo_flops / (chips * hw.peak_flops_bf16)
+    memory_t = hlo_bytes / (chips * hw.hbm_bandwidth)
+    collective_t = collective_bytes / (chips * hw.copy_bandwidth)
+    terms = {"compute_s": compute_t, "memory_s": memory_t, "collective_s": collective_t}
+    terms["dominant"] = max(terms, key=terms.get)
+    bound = max(compute_t, memory_t, collective_t)
+    terms["roofline_fraction"] = compute_t / bound if bound > 0 else 0.0
+    return terms

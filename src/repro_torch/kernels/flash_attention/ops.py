@@ -21,6 +21,7 @@ import ctypes
 
 import torch
 
+from ...obs import cost
 from .. import common
 from .ref import attention_ref
 
@@ -119,6 +120,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global launches
     launches += 1
     launches_by_variant[kind] += 1
+    # its bound's counts: QK^T and PV over the visible keys (half of them
+    # when causal), q read and out written, k and v read
+    cost.report_kernel("flash_attention", (2 if causal else 4) * B * Hq * Sq * Sk * hd,
+                       (2 * q.numel() + k.numel() + v.numel()) * q.element_size())
     return out
 
 
@@ -144,9 +149,12 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
-        with torch.enable_grad():
-            out = attention_ref(q, k, v, causal=ctx.causal)
-        dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        # a cost counter attributes the recomputation and its backward, which
+        # no forward scope reaches, to attention
+        with cost.scope("attention"):
+            with torch.enable_grad():
+                out = attention_ref(q, k, v, causal=ctx.causal)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
         return dq, dk, dv, None
 
 

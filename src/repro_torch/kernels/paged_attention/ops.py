@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from ...obs import cost
 from ...mesh import Mesh
 from .. import common
 from . import ref
@@ -118,6 +119,12 @@ def _launch(entry: common.Entry, q: torch.Tensor, kv_pages: torch.Tensor, ids: t
     entry(qs.data_ptr(), kv_pages.data_ptr(), ids.data_ptr(), out.data_ptr(),
           ws.data_ptr(), tickets.data_ptr(), *lead, Sq, hd, n_pages, pt, k,
           int(causal), pl.pages, pl.splits, pl.groups, stream)
+    if cost.active() is not None:
+        # its bound's counts over the pages the ids name (a sync, so only
+        # while a cost counter runs): QK^T and PV, the pages, q and out, ids
+        valid = int((ids >= 0).sum())
+        cost.report_kernel("paged_attention", 4 * valid * pt * hd * Sq,
+                           valid * pt * 2 * hd * 4 + 2 * q.nbytes + ids.nbytes)
     return out
 
 

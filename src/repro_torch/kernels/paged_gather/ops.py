@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from ...obs import cost
 from ...mesh import Mesh
 from .. import common
 from . import ref
@@ -67,4 +68,6 @@ def paged_gather(pages: torch.Tensor, ids: torch.Tensor, shift: int, mesh: Mesh,
                 common.current_stream(pages.get_device()))
         global launches
         launches += 1
+        # the rows read and written, the ids read
+        cost.report_kernel("paged_gather", 0, 2 * out.nbytes + ids.nbytes, product=False)
     return out

@@ -26,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from ...obs import cost
 from ...mesh import Mesh
 from .. import common
 from .ref import ring_schedule_ref
@@ -191,6 +192,9 @@ def _launch(x_t: torch.Tensor, w: torch.Tensor, mesh: Mesh, force: str | None) -
     if ks == 0:
         return out.zero_()
     stream = common.current_stream(w.get_device())
+    # its bound's counts: all n copies' products, x_t and w read, Y written
+    cost.report_kernel("ring_matmul", 2 * n * m * n * ks * N,
+                       x_t.nbytes + w.nbytes + out.nbytes)
     global launches
     if kind == "wgmma":
         p = plan(n, ks, N)

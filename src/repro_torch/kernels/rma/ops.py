@@ -19,6 +19,7 @@ import math
 
 import torch
 
+from ...obs import cost
 from ...mesh import Mesh
 from .. import common
 from . import ref
@@ -88,9 +89,15 @@ def _words(op: str, x: torch.Tensor) -> tuple[torch.Tensor, int, int]:
     return _rows(x)
 
 
-def _launch(op: str, entry: common.Entry, device: int, *args) -> None:
+def _launch(op: str, entry: common.Entry, device: int, out: torch.Tensor,
+            passes: float, *args) -> None:
+    """Launch, count, and report to a running cost counter: the output
+    written and `passes - 1` blocks of its size read (its bound's bytes);
+    an accumulate's adds as FLOPs."""
     entry(*args, common.current_stream(device))
     launches[op] += 1
+    cost.report_kernel(op, out.numel() if op == "accumulate_shift" else 0,
+                       passes * out.nbytes, product=False)
 
 
 def _fresh(x: torch.Tensor) -> torch.Tensor:
@@ -104,7 +111,7 @@ def put_shift(x: torch.Tensor, shift: int, mesh: Mesh) -> torch.Tensor:
     xs, row, stride = _words("put_shift", x)
     out = _fresh(x)
     if out.numel():
-        _launch("put_shift", _PUT, x.get_device(), xs.data_ptr(), out.data_ptr(),
+        _launch("put_shift", _PUT, x.get_device(), out, 2, xs.data_ptr(), out.data_ptr(),
                 mesh.p, row, stride, int(shift))
     return out
 
@@ -116,7 +123,7 @@ def get_shift(x: torch.Tensor, src_shift: int, mesh: Mesh) -> torch.Tensor:
     xs, row, stride = _words("get_shift", x)
     out = _fresh(x)
     if out.numel():
-        _launch("get_shift", _GET, x.get_device(), xs.data_ptr(), out.data_ptr(),
+        _launch("get_shift", _GET, x.get_device(), out, 2, xs.data_ptr(), out.data_ptr(),
                 mesh.p, row, stride, int(src_shift))
     return out
 
@@ -136,7 +143,7 @@ def accumulate_shift(x: torch.Tensor, acc: torch.Tensor, shift: int,
     (xs, row, x_stride), (acs, _, acc_stride) = _rows(x), _rows(acc)
     out = _fresh(acc)
     if out.numel():
-        _launch("accumulate_shift", _ACC, x.get_device(), xs.data_ptr(),
+        _launch("accumulate_shift", _ACC, x.get_device(), out, 3, xs.data_ptr(),
                 acs.data_ptr(), out.data_ptr(), mesh.p, row, x_stride,
                 acc_stride, int(shift))
     return out
@@ -150,6 +157,7 @@ def ring_all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     xs, row, stride = _words("ring_all_gather", x)
     out = torch.empty((mesh.p,) + tuple(x.shape), dtype=x.dtype, device=x.device)
     if out.numel():
-        _launch("ring_all_gather", _GATHER, x.get_device(), xs.data_ptr(),
-                out.data_ptr(), mesh.p, row, stride)
+        # every rank's block read once, every receiver's copy written
+        _launch("ring_all_gather", _GATHER, x.get_device(), out, 1 + 1 / mesh.p,
+                xs.data_ptr(), out.data_ptr(), mesh.p, row, stride)
     return out

@@ -18,6 +18,7 @@ import ctypes
 
 import torch
 
+from ...obs import cost
 from ...mesh import Mesh
 from .. import common
 from ..rma import ops as rma_ops
@@ -33,9 +34,12 @@ _PUSH = common.Entry(_NAME, "rmaq_queue_push", [_P, _P, _P, _P, _P, _I, _I, _I, 
 launches = {"notified_put": 0, "notify_accumulate": 0, "queue_push": 0}
 
 
-def _launch(op: str, entry: common.Entry, device: int, *args) -> None:
+def _launch(op: str, entry: common.Entry, device: int, nbytes: int, *args) -> None:
+    """Launch, count, and report `nbytes` (its bound's bytes) to a running
+    cost counter."""
     entry(*args, common.current_stream(device))
     launches[op] += 1
+    cost.report_kernel(op, 0, nbytes, product=False)
 
 
 def _words(op: str, name: str, t: torch.Tensor) -> None:
@@ -56,8 +60,9 @@ def notified_put(x: torch.Tensor, cnt: torch.Tensor, shift: int,
     _words("notified_put", "cnt", cnt)
     cnt = cnt.contiguous()
     out, cnt_out = rma_ops._fresh(x), torch.empty_like(cnt)
-    _launch("notified_put", _PUT, x.get_device(), xs.data_ptr(), out.data_ptr(),
-            cnt.data_ptr(), cnt_out.data_ptr(), mesh.p, row, stride, int(shift))
+    _launch("notified_put", _PUT, x.get_device(), 2 * (out.nbytes + cnt.nbytes),
+            xs.data_ptr(), out.data_ptr(), cnt.data_ptr(), cnt_out.data_ptr(), mesh.p, row,
+            stride, int(shift))
     return out, cnt_out
 
 
@@ -77,7 +82,7 @@ def notify_accumulate(cnt: torch.Tensor, local: torch.Tensor, shift: int,
                         f"{cnt.dtype} and {local.dtype}")
     cnt, local = cnt.contiguous(), local.contiguous()
     out = torch.empty_like(local)
-    _launch("notify_accumulate", _ACC, local.get_device(), cnt.data_ptr(),
+    _launch("notify_accumulate", _ACC, local.get_device(), 3 * out.nbytes, cnt.data_ptr(),
             local.data_ptr(), out.data_ptr(), mesh.p, int(shift))
     return out
 
@@ -113,7 +118,9 @@ def queue_push(buf: torch.Tensor, ctr: torch.Tensor, msgs: torch.Tensor,
     msgs = msgs.contiguous()
     counts = ctr.new_empty((2, p))                      # int32, on ctr's card
     ptr = counts.data_ptr()
-    _launch("queue_push", _PUSH, buf.get_device(), buf.data_ptr(), ctr.data_ptr(),
-            msgs.data_ptr(), ptr, ptr + 4 * p, p, cap, ms[1], bs[2], int(shift))
+    # the counters read and written, the messages read and placed, the counts
+    _launch("queue_push", _PUSH, buf.get_device(), 2 * (ctr.nbytes + msgs.nbytes) + 4 * p,
+            buf.data_ptr(), ctr.data_ptr(), msgs.data_ptr(), ptr, ptr + 4 * p, p, cap,
+            ms[1], bs[2], int(shift))
     n_sent, n_notif = counts.unbind()
     return buf, ctr, n_sent, n_notif

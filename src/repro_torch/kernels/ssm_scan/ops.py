@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from ...obs import cost
 from .. import common
 from .ref import ssm_scan_ref
 
@@ -69,15 +70,40 @@ def _launch(decay, drive, c, h0):
           _DTYPES[decay.dtype], B, S, d, N, common.current_stream(decay.get_device()))
     global launches
     launches += 1
+    _report(decay, c, h0, y, h_last)
     return y, h_last
+
+
+def _report(decay, c, h0, y, h_last) -> None:
+    """The kernel's bound's counts to a running cost counter: decay and
+    drive, c, y, h0 and h_last; the FMA of h, the product with c and the
+    sum over N."""
+    B, S, d, N = decay.shape
+    cost.report_kernel("ssm_scan", 4 * B * S * d * N,
+                       2 * B * S * d * N * decay.element_size() + B * S * N * 4
+                       + y.nbytes + (0 if h0 is None else B * d * N * 4) + h_last.nbytes,
+                       product=False)
 
 
 def _forward(decay, drive, c, h0):
     if decay.device.type == "cpu":
         return ssm_scan_ref(decay, drive, c, h0)
+    if decay.device.type == "meta" and cost.active() is not None:
+        return _meta(decay, c, h0)
     if decay.device.type != "cuda":
         raise ValueError(f"ssm_scan runs on cpu or cuda, not {decay.device}")
     return _launch(decay, drive, c, h0)
+
+
+def _meta(decay, c, h0):
+    """What a launch would give on meta tensors under a running cost
+    counter (`launch.dryrun`): the outputs' shapes, and the kernel's counts
+    to the counter.  Nothing runs and nothing is counted as a launch."""
+    B, S, d, N = decay.shape
+    y = torch.empty(B, S, d, dtype=decay.dtype, device="meta")
+    h_last = torch.empty(B, d, N, dtype=torch.float32, device="meta")
+    _report(decay, c, h0, y, h_last)
+    return y, h_last
 
 
 class _Scan(torch.autograd.Function):

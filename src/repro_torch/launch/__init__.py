@@ -1,1 +1,2 @@
-"""repro_torch.launch — command-line entry points (`serve`)."""
+"""repro_torch.launch — command-line entry points (`serve`, `train`,
+`dryrun`, `roofline`) and the cost counter over torch ops (`hlo_cost`)."""

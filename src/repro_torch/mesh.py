@@ -30,6 +30,10 @@ payload, so a put over ``data`` shifts within every pod at once, as
 axis is the reference's native ``lax.psum``: a sum over that dim, the same
 at every rank of it.
 
+Each collective records its kind (the reference's HLO name), its operand's
+bytes (every rank's block on the card) and its group size into a running
+`launch.hlo_cost` counter through `obs.cost`'s hooks.
+
 A multi-process backend (one rank per card, NCCL collectives) can replace
 this module later without touching its callers.
 """
@@ -39,6 +43,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from .obs import cost
 
 
 class MeshError(RuntimeError):
@@ -107,6 +113,8 @@ class Mesh:
             raise MeshError(f"expected leading rank dims {tuple(self.shape.values())}, "
                             f"got {tuple(x.shape)}")
         d = self.dim(axis)
+        cost.record_collective("all-reduce", x.nbytes, self.shape[axis],
+                               self.p // self.shape[axis])
         out = torch.empty_like(x)
         return out.copy_(x.sum(d, keepdim=True, dtype=x.dtype).expand_as(x))
 
@@ -117,6 +125,7 @@ class Mesh:
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """x [p, ...] -> [p(receiver), p(source), ...] (a view)."""
         self._check(x)
+        cost.record_collective("all-gather", x.nbytes, self.p)
         return x.unsqueeze(0).expand((self.p,) + tuple(x.shape))
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
@@ -124,6 +133,7 @@ class Mesh:
         self._check(x)
         if x.ndim < 2 or x.shape[1] != self.p:
             raise MeshError(f"all_to_all needs [p, p, ...], got {tuple(x.shape)}")
+        cost.record_collective("all-to-all", x.nbytes, self.p)
         return x.transpose(0, 1)
 
     def ppermute(self, x: torch.Tensor, perm) -> torch.Tensor:
@@ -131,6 +141,7 @@ class Mesh:
         ``(src, dst)`` pair; ranks that no pair names as a destination get
         zeros (their window is simply not written)."""
         self._check(x)
+        cost.record_collective("collective-permute", x.nbytes, self.p)
         out = torch.zeros_like(x, memory_format=torch.contiguous_format)
         if len(perm):
             src, dst = (torch.tensor(list(c), dtype=torch.int64, device=x.device)
@@ -143,6 +154,7 @@ class Mesh:
         one concatenation of two row ranges (one copy kernel, no index
         tensor).  Always a new contiguous tensor."""
         self._check(x)
+        cost.record_collective("collective-permute", x.nbytes, self.p)
         s = int(shift) % self.p
         if s == 0:
             return x.clone(memory_format=torch.contiguous_format)
@@ -154,6 +166,7 @@ class Mesh:
         self._check(x)
         if x.ndim < 2 or x.shape[1] % self.p:
             raise MeshError(f"psum_scatter needs [p, p*m, ...], got {tuple(x.shape)}")
+        cost.record_collective("reduce-scatter", x.nbytes, self.p)
         return x.sum(0, dtype=x.dtype).reshape((self.p, x.shape[1] // self.p) + tuple(x.shape[2:]))
 
     @staticmethod

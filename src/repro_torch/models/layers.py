@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..obs import cost
 from ..parallel.sharding import shard
 
 DEFAULT_BLOCK = 512
@@ -188,33 +189,48 @@ def blockwise_attention(
     q_off = _per_row(q_offset, B, dev)                       # [B, 1]
     kv_len = None if kv_valid_len is None else _per_row(kv_valid_len, B, dev)
 
-    outs = []
-    for iq in range(nq):
+    def kv_block(qblk, q_pos, ik, m, l, acc):
+        kv_pos = ik * bk + torch.arange(bk, device=dev)      # [bk]
+        sc = torch.einsum("bhgqd,bhkd->bhgqk", qblk, kb[ik].float()) * scale
+        mask = (kv_pos < Sk)[None, None, :].expand(B, bq, bk)
+        if causal:
+            mask = mask & (q_pos[:, :, None] >= kv_pos[None, None, :])
+        if kv_len is not None:
+            mask = mask & (kv_pos[None, None, :] < kv_len[:, :, None])
+        mask = mask[:, None, None]                           # [B, 1, 1, bq, bk]
+        sc = torch.where(mask, sc, float("-inf"))
+        m_new = torch.maximum(m, sc.amax(-1))
+        m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+        pr = torch.exp(sc - m_safe[..., None])
+        pr = torch.where(mask, pr, 0.0)
+        corr = torch.where(torch.isneginf(m), 0.0, torch.exp(m - m_safe))
+        l = l * corr + pr.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhgqk,bhkd->bhgqd", pr.to(v.dtype).float(), vb[ik].float())
+        return m_new, l, acc
+
+    # on meta tensors (the dry-run) every block pair has the same shapes:
+    # one runs and is counted nq x nk times (`obs.cost.repeat`); a block's
+    # temporaries die with its call, before its repeat counts what lives
+    fold = dev.type == "meta"
+
+    def q_block(iq):
         qblk = qb[iq].float()                                # [B, Hkv, g, bq, hd]
         q_pos = q_off + iq * bq + torch.arange(bq, device=dev)   # [B, bq]
         m = torch.full((B, Hkv, g, bq), float("-inf"), device=dev)
         l = torch.zeros(B, Hkv, g, bq, device=dev)
         acc = torch.zeros(B, Hkv, g, bq, hd, device=dev)
-        for ik in range(nk):
-            kv_pos = ik * bk + torch.arange(bk, device=dev)      # [bk]
-            sc = torch.einsum("bhgqd,bhkd->bhgqk", qblk, kb[ik].float()) * scale
-            mask = (kv_pos < Sk)[None, None, :].expand(B, bq, bk)
-            if causal:
-                mask = mask & (q_pos[:, :, None] >= kv_pos[None, None, :])
-            if kv_len is not None:
-                mask = mask & (kv_pos[None, None, :] < kv_len[:, :, None])
-            mask = mask[:, None, None]                       # [B, 1, 1, bq, bk]
-            sc = torch.where(mask, sc, float("-inf"))
-            m_new = torch.maximum(m, sc.amax(-1))
-            m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
-            pr = torch.exp(sc - m_safe[..., None])
-            pr = torch.where(mask, pr, 0.0)
-            corr = torch.where(torch.isneginf(m), 0.0, torch.exp(m - m_safe))
-            l = l * corr + pr.sum(-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bhgqk,bhkd->bhgqd", pr.to(v.dtype).float(), vb[ik].float())
-            m = m_new
-        outs.append((acc / l.clamp_min(1e-30)[..., None]).to(q.dtype))
+        with cost.repeat(nk if fold else 1) as rep:
+            for ik in range(1 if fold else nk):
+                m, l, acc = kv_block(qblk, q_pos, ik, m, l, acc)
+            if fold and not torch.is_grad_enabled():
+                rep.carried(m, l, acc)           # the next trip replaces them
+        return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+    with cost.repeat(nq if fold else 1):
+        outs = [q_block(iq) for iq in range(1 if fold else nq)]
+    if fold:
+        outs *= nq
     # [nq, B, Hkv, g, bq, hd] -> [B, Sq, H, hd]
     out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(B, nq * bq, H, hd)
     return out[:, :Sq]
@@ -241,7 +257,8 @@ def attention(
     q = shard(q, "act_bthd")
     if cross_kv is not None:
         k, v = cross_kv
-        out = blockwise_attention(q, k, v, causal=False, block_size=block_size)
+        with cost.scope("attention"):
+            out = blockwise_attention(q, k, v, causal=False, block_size=block_size)
         return shard(torch.einsum("bshk,hkd->bsd", out, params["wo"]), "act_btd"), cache
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
@@ -250,13 +267,14 @@ def attention(
     q = apply_rope(q, positions, rope_style)
     k = apply_rope(k, positions, rope_style)
     if cache is None:
-        if _ATTN_BACKEND[0] == "cuda":
-            from ..kernels.flash_attention.ops import flash_attention
+        with cost.scope("attention"):
+            if _ATTN_BACKEND[0] == "cuda":
+                from ..kernels.flash_attention.ops import flash_attention
 
-            out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), causal=causal).transpose(1, 2)
-        else:
-            out = blockwise_attention(q, k, v, causal=causal, block_size=block_size)
+                out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                      v.transpose(1, 2), causal=causal).transpose(1, 2)
+            else:
+                out = blockwise_attention(q, k, v, causal=causal, block_size=block_size)
         new_cache = None
     else:
         # decode / chunked prefill: write the rows into the cache in place,
@@ -271,10 +289,11 @@ def attention(
         ck[b_idx, at] = k.to(ck.dtype)
         cv[b_idx, at] = v.to(cv.dtype)
         new_cache = {"k": ck, "v": cv, "len": start + S}
-        out = blockwise_attention(
-            q, ck, cv, causal=True, q_offset=start,
-            block_size=block_size, kv_valid_len=start + S,
-        )
+        with cost.scope("attention"):
+            out = blockwise_attention(
+                q, ck, cv, causal=True, q_offset=start,
+                block_size=block_size, kv_valid_len=start + S,
+            )
 
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
     return shard(y, "act_btd"), new_cache

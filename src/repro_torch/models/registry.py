@@ -1,6 +1,7 @@
 """Model facade: init / forward / loss / prefill / decode (the counterpart
-of `repro.models.registry`), plus `params_from_jax`, which turns the
-reference's param pytree (as numpy) into the port's."""
+of `repro.models.registry`), plus `input_specs` (meta-tensor stand-ins for
+the dry-run) and `params_from_jax`, which turns the reference's param
+pytree (as numpy) into the port's."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShapeConfig
 from . import transformer as T
 
 
@@ -30,11 +31,15 @@ class Model:
         gen = torch.Generator(device=dev).manual_seed(seed)
         return T.init_lm(self.cfg, gen, dev)
 
+    def init_shapes(self) -> dict:
+        """The params as meta tensors (no allocation): torch's counterpart
+        of the reference's `ShapeDtypeStruct` tree, for the dry-run."""
+        return T.init_lm(self.cfg, None, "meta")
+
     def param_count(self) -> int:
         """The exact sum of the leaves' sizes (the reference's count wraps
         at 2**31 on a leaf that large; ROADMAP §3)."""
-        params = T.init_lm(self.cfg, None, "meta")
-        return sum(leaf.numel() for leaf in _leaves(params))
+        return sum(leaf.numel() for leaf in _leaves(self.init_shapes()))
 
     # ------------------------------------------------------------ train
     def forward_logits(self, params: dict, batch: dict) -> T.ForwardOut:
@@ -89,6 +94,35 @@ class Model:
         """token [B] -> (logits [B, V], cache)."""
         out = T.forward(params, self.cfg, token[:, None], cache=cache)
         return out.logits[:, 0], out.cache
+
+
+    # ---------------------------------------------------------- dry-run
+    def input_specs(self, shape: ShapeConfig, dp_shards: int = 1) -> dict:
+        """Meta-tensor stand-ins for every model input of this cell, the
+        reference's shapes and dtypes (`dp_shards` is unused there too).
+
+        train  : {tokens, labels [B,S]} (+frontend stubs)
+        prefill: {tokens [B,S]} (+frontend stubs)
+        decode : {token [B], cache(seq_len)} — one new token against a full cache
+        """
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+
+        def sds(shp, dtype=torch.int32):
+            return torch.empty(shp, dtype=dtype, device="meta")
+
+        def frontend(d):
+            if cfg.frontend == "audio_frames":
+                d["frames"] = sds((B, cfg.encoder_seq, cfg.d_model), torch.float32)
+            elif cfg.frontend == "vision_patches":
+                d["patches"] = sds((B, cfg.frontend_tokens, cfg.d_model), torch.float32)
+            return d
+
+        if shape.kind == "train":
+            return frontend({"tokens": sds((B, S)), "labels": sds((B, S))})
+        if shape.kind == "prefill":
+            return frontend({"tokens": sds((B, S))})
+        return {"token": sds((B,)), "cache": T.init_cache(cfg, B, S, "meta")}
 
 
 def _frames(cfg: ArchConfig, inputs: Optional[dict]) -> torch.Tensor:

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from ..obs import cost
 from ..parallel.sharding import shard
 from . import layers as L
 
@@ -158,10 +159,18 @@ def mlstm_prefill(params: dict, xin: torch.Tensor, state: Optional[dict],
     if torch.is_grad_enabled() and q.requires_grad:
         step = functools.partial(torch.utils.checkpoint.checkpoint, _mlstm_chunk,
                                  use_reentrant=False)
+    # on meta tensors (the dry-run) every chunk has the same shapes: one
+    # runs and is counted nc times (`obs.cost.repeat`)
+    fold = xin.device.type == "meta"
     hs = []
-    for i in range(nc):
-        C, n, m, h = step(C, n, m, qc[i], kc[i], vc[i], ic[i], csum_f[i], fsum[i])
-        hs.append(h)
+    with cost.repeat(nc if fold else 1) as rep:
+        for i in range(1 if fold else nc):
+            C, n, m, h = step(C, n, m, qc[i], kc[i], vc[i], ic[i], csum_f[i], fsum[i])
+            hs.append(h)
+        if fold and not torch.is_grad_enabled():
+            rep.carried(C, n, m)            # the next trip replaces them
+    if fold:
+        hs *= nc
 
     # [nc, B, nh, c, dh] -> [B, nh, nc*c, dh], chunks in order
     h = torch.stack(hs).permute(1, 2, 0, 3, 4).reshape(B, nh, nc * c, dh)[:, :, :S]
@@ -277,10 +286,19 @@ def slstm_prefill(params: dict, xin: torch.Tensor, state: Optional[dict], n_head
     else:
         init = init_slstm_state(B, D, xin.dtype, xin.device)
         carry = (init["c"], init["n"], init["h"], init["m"])
+    # on meta tensors (the dry-run) every step has the same shapes: one runs
+    # and is counted S times; each step's h stays in `hs`, and without
+    # autograd nothing keeps the replaced c, n, m
+    fold = xin.device.type == "meta"
     hs = []
-    for t in range(S):
-        carry = _slstm_step(r, n_heads, carry, zs[:, :, t])
-        hs.append(carry[2])
+    with cost.repeat(S if fold else 1) as rep:
+        for t in range(1 if fold else S):
+            carry = _slstm_step(r, n_heads, carry, zs[:, :, t])
+            hs.append(carry[2])
+        if fold and not torch.is_grad_enabled():
+            rep.carried(carry[0], carry[1], carry[3])
+    if fold:
+        hs *= S
     out = _slstm_ffn(params, torch.stack(hs, dim=1))
     new_state = dict(zip(("c", "n", "h", "m"), carry)) if state is not None else None
     return out, new_state

@@ -10,9 +10,11 @@
   * `critpath` — critical paths, the TTFT segment breakdown and the
     sync-plane wait ledger over those DAGs;
   * `export`   — Chrome / Perfetto trace and metrics JSON;
-  * `flight`   — the bounded ring recorder and its `on_error` dump.
+  * `flight`   — the bounded ring recorder and its `on_error` dump;
+  * `cost`     — the hooks through which the mesh, the kernels' wrappers
+    and the models report to a running `launch.hlo_cost` counter.
 
-Layering: `trace` and `metrics` import nothing of `repro_torch.core`, so
+Layering: `trace`, `metrics` and `cost` import nothing of `repro_torch.core`, so
 instrumented hot paths reach the global tracer with one attribute load.
 """
 
