@@ -401,7 +401,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 F32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 TOL = 1e-4                      # kernel vs plain, f32, different sum order
 SOURCES = ("paged_attention", "rma", "paged_gather", "rmaq",    # csrc/<name>.cu, one nvcc each
-           "flash_attention", "ssm_scan", "ring_matmul")
+           "flash_attention", "ssm_scan", "ring_matmul", "rma_peer")
 KERNELS = {
     # name -> (route, source, TPU kernel it replaces)
     "paged_attention": ("cuda", "src/repro_torch/csrc/paged_attention.cu",
@@ -430,6 +430,15 @@ KERNELS = {
                  "src/repro/kernels/ssm_scan/kernel.py:46"),
     "ring_matmul": ("cuda", "src/repro_torch/csrc/ring_matmul.cu",
                     "src/repro/kernels/ring_matmul/kernel.py:74"),
+    # the peer forms of rows 4-7: one rank a process (phase 28)
+    "put_shift_peer": ("cuda", "src/repro_torch/csrc/rma_peer.cu",
+                       "src/repro/kernels/rma/kernel.py:48"),
+    "get_shift_peer": ("cuda", "src/repro_torch/csrc/rma_peer.cu",
+                       "src/repro/kernels/rma/kernel.py:80"),
+    "accumulate_shift_peer": ("cuda", "src/repro_torch/csrc/rma_peer.cu",
+                              "src/repro/kernels/rma/kernel.py:114"),
+    "ring_all_gather_peer": ("cuda", "src/repro_torch/csrc/rma_peer.cu",
+                             "src/repro/kernels/rma/kernel.py:168"),
 }
 FULL = dict(n_prefill=2, d_model=128, vocab=32000, page_tokens=16,
             block_tokens=2048, pool_pages=8192, queue_capacity=64,
@@ -583,6 +592,10 @@ FLOW_OCCUPANCY = (0.5, 0.9)
 # elementwise work; the predicted peak within MEM_REL of the allocator's
 STEP_FACTOR, MEM_REL = (1.2, 2.5), 0.10
 DRY_JOBS = 8
+# phase 28, one rank a process: MILC's 64³ x 96 HISQ lattice split along T
+# over p = 4 ranks ([24, 64, 64, 64, 6] f32 a rank, 144 MiB; 6 MiB halo
+# slices each way) and the all-reduce of 4 x 25 MiB, 4 processes on the card
+PROC_P, PROC_LOCAL, PROC_SEED, PROC_TIMEOUT = 4, (24, 64, 64, 64, 6), 17, 300.0
 
 
 def log(msg: str) -> None:
@@ -1006,6 +1019,10 @@ def main() -> int:
                                               "ring_all_gather"))):
         next(r for r in kernels if r["name"] == name)["launches"] += n
     log(f"tools phase numbers: {json.dumps(tools, default=str)}")
+    torch.cuda.empty_cache()
+    rows, procs = procs_phases(torch, H100.hbm_bandwidth)
+    kernels += rows
+    log(f"procs phase numbers: {json.dumps(procs)}")
     if len(kernels) != len(KERNELS):
         raise AssertionError(f"{len(kernels)} kernel rows, want {len(KERNELS)}")
     log(f"smoke wall time: {time.perf_counter() - T0:.1f} s")
@@ -5584,6 +5601,431 @@ def tools_phases(torch) -> dict:
     return out
 
 
+# ------------------------------------------------- one rank a process (28)
+def digest(torch, t) -> str:
+    """A block's bits, hashed on the host: bit-equality across processes."""
+    import hashlib
+
+    flat = t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
+    return hashlib.blake2b(flat, digest_size=16).hexdigest()
+
+
+def host_ms(torch, mesh, fn, reps: int) -> float:
+    """Host ms a call of a collective `fn`, every rank in step: a barrier
+    before, the stream drained after."""
+    fn()
+    torch.cuda.synchronize()
+    mesh.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def proc_milc(torch, mesh, rma_ops, epoch_mod, milc, OpCounter) -> dict:
+    """28.1 in one rank: MILC's 64³ x 96 lattice along T, this rank's
+    [1, 24, 64, 64, 64, 6] block (the stacked run's row, from the same
+    seed), 5 steps as a user calls them, each step checked and hashed."""
+    r, p, dev = mesh.rank, mesh.p, mesh.device
+    g = torch.Generator(device=dev).manual_seed(PROC_SEED)
+    full = torch.randn((p,) + PROC_LOCAL, device=dev, generator=g)
+    lat = full[r:r + 1].clone()
+    del full
+    torch.cuda.empty_cache()
+    v, steps = lat, []
+    zero_rma_launches(rma_ops)
+    for step in range(MILC_STEPS):
+        before = dict(rma_ops.launches)
+        held = mesh.barriers, mesh.tokens
+        with OpCounter() as c, opened_epochs(epoch_mod) as eps:
+            out = milc.stencil_step(v, mesh)
+        torch.cuda.synchronize()
+        got = {k: rma_ops.launches[k] - before[k] for k in before}
+        counts = (c.puts, c.raw_msgs, c.coalesced_msgs)
+        sync = [(ep.stats.post_msgs, ep.stats.complete_msgs) for ep in eps]
+        held = (mesh.barriers - held[0], mesh.tokens - held[1])
+        if got != {"put_shift": 2, "get_shift": 0, "accumulate_shift": 0,
+                   "ring_all_gather": 0} or counts != (2, 2, 2) or sync != [(2, 2)] \
+                or held != (0, 4):
+            raise AssertionError(f"28.1 rank {r} step {step}: launches {got}, puts/raw/coalesced "
+                                 f"{counts}, PSCW post/complete {sync}, host barriers/tokens "
+                                 f"{held}; want 2 put_shift, (2, 2, 2), [(2, 2)], (0, 4)")
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"28.1 rank {r} step {step}: non-finite output")
+        steps.append(digest(torch, out))
+        v = out * 0.0625                     # keep magnitudes O(1); exact in f32
+    launches = dict(rma_ops.launches)
+    ms = host_ms(torch, mesh, lambda: milc.stencil_step(lat, mesh), MILC_STEPS)
+    return {"digests": steps, "launches": launches, "ms_per_step": ms, "lat": lat}
+
+
+def proc_all_reduce(torch, mesh, rma_ops, collectives) -> dict:
+    """28.2 in one rank: this rank's 25 MiB f32 row of the stacked run's
+    [4, 25 MiB] (the same seed) through `core.collectives.all_reduce`."""
+    r, p, dev = mesh.rank, mesh.p, mesh.device
+    n = AR_MIB * 2**20 // 4
+    g = torch.Generator(device=dev).manual_seed(PROC_SEED + 1)
+    x = torch.randn(p, n, device=dev, generator=g)
+    want = x.sum(0)
+    xr = x[r:r + 1].clone()
+    del x
+    zero_rma_launches(rma_ops)
+    out = collectives.all_reduce(xr, mesh)
+    torch.cuda.synchronize()
+    launches = dict(rma_ops.launches)
+    expected = (p - 1) + 2 * -(-(p - 1) // 2)
+    rel = float((out[0] - want).abs().max() / want.abs().max())
+    if not torch.isfinite(out).all() or rel > AR_TOL or launches["put_shift"] != expected:
+        raise AssertionError(f"28.2 rank {r}: rel err {rel} (tol {AR_TOL}), put_shift launches "
+                             f"{launches['put_shift']} (want {expected})")
+    ms = host_ms(torch, mesh, lambda: collectives.all_reduce(xr, mesh), 3)
+    return {"digest": digest(torch, out), "launches": launches, "rel": rel, "ms": ms,
+            "expected": expected, "x": xr}
+
+
+def proc_ops(torch, mesh, rma_ops, collectives, lat, xr) -> dict:
+    """28.3 in one rank: the peer forms through `kernels.rma.ops` on the
+    same data, each against the schedule's own result."""
+    p = mesh.p
+    want = collectives.halo_exchange_1d(lat, 1, mesh, dim=0)
+    shard = xr.reshape(1, p, -1)[:, 0].contiguous()
+    zero_rma_launches(rma_ops)
+    lo = rma_ops.get_shift(lat[:, :1], +1, mesh)        # the right neighbour's low slice
+    hi = rma_ops.get_shift(lat[:, -1:], -1, mesh)       # the left neighbour's high slice
+    acc = rma_ops.accumulate_shift(lat[:, -1:], lat[:, :1], +1, mesh)
+    gathered = rma_ops.ring_all_gather(shard, mesh)
+    torch.cuda.synchronize()
+    launches = dict(rma_ops.launches)
+    if not (torch.equal(hi, want[:, :1]) and torch.equal(lo, want[:, -1:])):
+        raise AssertionError(f"28.3 rank {mesh.rank}: the get-based halo pull differs "
+                             "from the put-based exchange")
+    if not torch.equal(acc, lat[:, :1] + want[:, :1]):
+        raise AssertionError(f"28.3 rank {mesh.rank}: accumulate_shift differs from the "
+                             "boundary sum")
+    if not torch.equal(gathered, collectives.ring_all_gather(shard, mesh)):
+        raise AssertionError(f"28.3 rank {mesh.rank}: the peer all-gather differs from "
+                             "the ring schedule")
+    if min(launches[k] for k in ("get_shift", "accumulate_shift", "ring_all_gather")) == 0:
+        raise AssertionError(f"28.3 rank {mesh.rank}: ops path {launches}")
+    return {"launches": launches}
+
+
+def check_peer(torch, mesh, rma_ops, ref) -> dict:
+    """28.4: each peer kernel against its plain version, bit for bit, at
+    the halo and all-reduce chunk shapes and at the edge cases (shift 0,
+    -1, >= p; 21-word rows; int32; a rank block that is not contiguous);
+    returns each op's max abs error (0.0 when bit-equal)."""
+    dev, p = mesh.device, mesh.p
+    g = torch.Generator(device=dev).manual_seed(PROC_SEED + 2 + mesh.rank)
+    halo = torch.randn((1, 1) + PROC_LOCAL[1:], device=dev, generator=g)
+    chunk = torch.randn(1, AR_MIB * 2**20 // 4 // p, device=dev, generator=g)
+    odd = torch.randn(1, 3, 7, device=dev, generator=g)
+    ints = torch.randint(-2**31, 2**31 - 1, (1, 8), device=dev, generator=g, dtype=torch.int32)
+    inner = torch.randn(1, 4, 8, device=dev, generator=g)[:, :, :3]
+    errs = dict.fromkeys(rma_ops.launches, 0.0)
+
+    def compare(name, got, want, what):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} (peer) differs from its plain version at {what}, "
+                                 f"rank {mesh.rank}")
+        errs[name] = max(errs[name], float((got.double() - want.double()).abs().max()))
+
+    for x, shifts in ((halo, (1, -1)), (chunk, (1, -1, 0, p + 3)),
+                      (odd, (0, 1, -1, 7, -12)), (ints, (2, -1)), (inner, (1, -2))):
+        for s in shifts:
+            what = f"{tuple(x.shape)} {x.dtype} shift {s}"
+            compare("put_shift", rma_ops.put_shift(x, s, mesh), ref.put_shift_ref(x, s, mesh), what)
+            compare("get_shift", rma_ops.get_shift(x, s, mesh), ref.get_shift_ref(x, s, mesh), what)
+            if x.dtype == torch.float32:
+                acc = torch.randn(x.shape, device=dev, generator=g)
+                compare("accumulate_shift", rma_ops.accumulate_shift(x, acc, s, mesh),
+                        ref.accumulate_shift_ref(x, acc, s, mesh), what)
+        compare("ring_all_gather", rma_ops.ring_all_gather(x, mesh),
+                ref.ring_all_gather_ref(x, mesh), f"{tuple(x.shape)} {x.dtype}")
+    torch.cuda.synchronize()
+    return errs
+
+
+def time_peer(torch, mesh, rma_ops, Mesh, lat, xr, hbm: float) -> dict:
+    """28.5: each peer kernel alone (its launches, no fence; CUDA events
+    over 50 calls), its plain copy, the stacked kernel of rows 4-7 on the
+    same bytes and the bytes bound, timed by one rank while the others
+    wait at a barrier (ranks take turns); then each whole op (kernel,
+    fence, copy-out) with every rank in step, by host clock.  The put's
+    and the get's plain copies are one PyTorch call each (``copy_`` into
+    the peer's mapped block, ``clone`` of it), so their time is also the
+    row's library time; the accumulate (a copy and an add) and the
+    gather (p - 1 copies) have no one call."""
+    from repro_torch.kernels import common
+    from repro_torch.procmesh import as_bytes
+
+    p, r = mesh.p, mesh.rank
+    halo, low = lat[:, -1:].contiguous(), lat[:, :1].contiguous()
+    shard = xr.reshape(1, p, -1)[:, 0].contiguous()
+    hb, sb = halo.nbytes, shard.nbytes
+    seg, off = mesh.round(p * max(hb, sb))       # a slot every rank has mapped
+    table, stream = seg.table_ptr, common.current_stream(mesh.device.index)
+    right, words, swords = (r + 1) % p, halo.numel(), shard.numel()
+    stacked = Mesh(p, "t", device=mesh.device)
+    hstk, sstk = halo.reshape(p, -1), shard.reshape(p, -1)
+    slot = seg.view(r, off, hb).view(torch.float32).reshape(halo.shape)
+
+    def hops(x, n):
+        for hop in range(p - 1):
+            rma_ops._PEER_HOP(x.data_ptr(), table, p, r, hop, off, n, stream)
+
+    def plain_hops(x, nb):
+        src = as_bytes(x)
+        for hop in range(p - 1):
+            b = (r - hop) % p
+            if hop:
+                src = seg.view(r, off + b * nb, nb)
+            seg.view(right, off + b * nb, nb).copy_(src)
+
+    out_h = torch.empty_like(halo)
+    hbytes = as_bytes(halo)
+    rows = {   # name -> (kernel's launches, plain copy, stacked kernel, bound bytes)
+        "put_shift": (
+            lambda: rma_ops._PEER_PUT(halo.data_ptr(), table, p, r, 1, off, words, stream),
+            lambda: seg.view(right, off, hb).copy_(hbytes),
+            lambda: rma_ops.put_shift(hstk, 1, stacked), 2 * hb),
+        "get_shift": (
+            lambda: rma_ops._PEER_GET(out_h.data_ptr(), table, p, r, 1, off, words, stream),
+            lambda: seg.view(right, off, hb).clone(),
+            lambda: rma_ops.get_shift(hstk, 1, stacked), 2 * hb),
+        "accumulate_shift": (
+            lambda: (rma_ops._PEER_PUT(halo.data_ptr(), table, p, r, 1, off, words, stream),
+                     rma_ops._PEER_ACC(low.data_ptr(), table, out_h.data_ptr(), r, off, words,
+                                       stream)),
+            lambda: (seg.view(right, off, hb).copy_(as_bytes(halo)), low + slot),
+            lambda: rma_ops.accumulate_shift(hstk, low.reshape(p, -1), 1, stacked), 3 * hb),
+        "ring_all_gather": (
+            lambda: hops(shard, swords), lambda: plain_hops(shard, sb),
+            lambda: rma_ops.ring_all_gather(sstk, stacked), (1 + p) * sb),
+    }
+    out = {}
+    for turn in range(p):
+        mesh.barrier()
+        if turn == r:
+            for name, (kern, plain, stk, nbytes) in rows.items():
+                plain_ms = time_ms(plain)
+                out[name] = {"ms": time_ms(kern), "plain_ms": plain_ms,
+                             "library_ms": plain_ms if name in ("put_shift", "get_shift")
+                             else None,
+                             "stacked_ms": time_ms(stk), "bound_ms": nbytes / hbm * 1e3,
+                             "bytes": nbytes}
+        torch.cuda.synchronize()
+    mesh.fence()
+    ops_ms = {
+        "put_shift": host_ms(torch, mesh, lambda: rma_ops.put_shift(halo, 1, mesh), 10),
+        "get_shift": host_ms(torch, mesh, lambda: rma_ops.get_shift(halo, 1, mesh), 10),
+        "accumulate_shift": host_ms(torch, mesh, lambda: rma_ops.accumulate_shift(
+            halo, low, 1, mesh), 10),
+        "ring_all_gather": host_ms(torch, mesh, lambda: rma_ops.ring_all_gather(shard, mesh), 10),
+    }
+    for name, ms in ops_ms.items():
+        out[name]["op_ms"] = ms
+    return out
+
+
+def time_epochs(torch, mesh, epoch_mod) -> dict:
+    """28.6: what synchronisation costs on its own (host ms, every rank in
+    step): the stream drain, a barrier of the bootstrap, a fence epoch
+    (open + close), a PSCW epoch with MILC's k = 2 (post, start,
+    complete, wait)."""
+    def fence():
+        ep = epoch_mod.FenceEpoch(mesh)
+        ep.close(ep.open(None))
+
+    def pscw():
+        ep = epoch_mod.PSCWEpoch(mesh, [0, 1])
+        ep.wait(ep.complete(ep.start(ep.post(None))))
+
+    return {"stream_drain_ms": host_ms(torch, mesh, mesh.flush, 50),
+            "barrier_ms": host_ms(torch, mesh, mesh.barrier, 50),
+            "fence_epoch_ms": host_ms(torch, mesh, fence, 20),
+            "pscw_epoch_ms": host_ms(torch, mesh, pscw, 20)}
+
+
+def proc_rank(mesh, hbm: float) -> dict:
+    """Phase 28 in one rank's process: 28.1-28.6; raises on any failure."""
+    import torch
+
+    from repro_torch.apps import milc
+    from repro_torch.core import collectives
+    from repro_torch.core import epoch as epoch_mod
+    from repro_torch.core.rma import OpCounter
+    from repro_torch.kernels.rma import ops as rma_ops
+    from repro_torch.kernels.rma import ref
+    from repro_torch.mesh import Mesh
+
+    t0 = time.perf_counter()
+    out = {"rank": mesh.rank, "device": str(mesh.device)}
+    m = proc_milc(torch, mesh, rma_ops, epoch_mod, milc, OpCounter)
+    a = proc_all_reduce(torch, mesh, rma_ops, collectives)
+    o = proc_ops(torch, mesh, rma_ops, collectives, m["lat"], a["x"])
+    out["main_path"] = {k: m["launches"][k] + a["launches"][k] + o["launches"][k]
+                        for k in rma_ops.launches}
+    out["used_bytes"] = torch.cuda.mem_get_info(mesh.device)
+    out["peak_allocated"] = torch.cuda.max_memory_allocated(mesh.device)
+    out["errs"] = check_peer(torch, mesh, rma_ops, ref)
+    out["times"] = time_peer(torch, mesh, rma_ops, Mesh, m.pop("lat"), a.pop("x"), hbm)
+    out["epochs"] = time_epochs(torch, mesh, epoch_mod)
+    out.update(milc=m, all_reduce=a, wall_s=time.perf_counter() - t0)
+    return out
+
+
+def procs_phases(torch, hbm: float) -> tuple:
+    """Phase 28: the one-sided layer with one rank a process, 4 processes
+    on the card (the rows of kernels 4-7's peer forms, and its numbers)."""
+    from repro_torch import procmesh
+    from repro_torch.apps import milc
+    from repro_torch.core import collectives
+    from repro_torch.kernels.rma import ops as rma_ops
+    from repro_torch.kernels.rma import ref
+    from repro_torch.mesh import Mesh
+
+    t0 = time.perf_counter()
+    p = PROC_P
+    log(f"phase 28: {p} processes time-sharing one card ({card_line()}); no link is "
+        "crossed, so no time here is an NVLink time")
+    # the stacked Mesh(4) run of the same data, in this process
+    mesh = Mesh(p, "t", device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(PROC_SEED)
+    v = torch.randn((p,) + PROC_LOCAL, device="cuda", generator=g)
+    lat0, digests, err = v, [], 0.0
+    for step in range(MILC_STEPS):
+        out = milc.stencil_step(v, mesh)
+        e = float((out - milc.stencil_reference(v)).abs().max())
+        if not torch.isfinite(out).all() or e > MILC_TOL:
+            raise AssertionError(f"28.1 stacked step {step}: max abs err {e} > {MILC_TOL}")
+        err = max(err, e)
+        digests.append([digest(torch, out[r]) for r in range(p)])
+        v = out * 0.0625
+    stacked_ms = time_steps(torch, milc, mesh, lat0)
+    del v, out, lat0
+    n = AR_MIB * 2**20 // 4
+    g = torch.Generator(device="cuda").manual_seed(PROC_SEED + 1)
+    x = torch.randn(p, n, device="cuda", generator=g)
+    ar = collectives.all_reduce(x, mesh)
+    ar_rows = {digest(torch, ar[r]) for r in range(p)}
+    t1 = time.perf_counter()
+    collectives.all_reduce(x, mesh)
+    torch.cuda.synchronize()
+    ar_stacked_ms = (time.perf_counter() - t1) * 1e3
+    if len(ar_rows) != 1:
+        raise AssertionError("28.2 stacked: the ranks' all-reduce rows differ")
+    del x, ar
+    torch.cuda.empty_cache()
+    log(f"28 stacked Mesh({p}): MILC {PROC_LOCAL} a rank, {MILC_STEPS} steps, max abs err "
+        f"{err:.3g} vs stencil_reference (tol {MILC_TOL}), {stacked_ms:.3f} ms/step; "
+        f"all-reduce {p} x {AR_MIB} MiB {ar_stacked_ms:.3f} ms")
+
+    t1 = time.perf_counter()
+    ranks = procmesh.run(proc_rank, p, device="cuda", args=(hbm,), axis="t",
+                         timeout=PROC_TIMEOUT)
+    run_s = time.perf_counter() - t1
+    for r, res in enumerate(ranks):
+        got = res["milc"]["digests"]
+        if got != [d[r] for d in digests]:
+            bad = [s for s in range(MILC_STEPS) if got[s] != digests[s][r]]
+            raise AssertionError(f"28.1 rank {r}: steps {bad} differ from the stacked run's row")
+        if {res["all_reduce"]["digest"]} != ar_rows:
+            raise AssertionError(f"28.2 rank {r}: the all-reduce differs from the stacked run")
+    ms_steps = [res["milc"]["ms_per_step"] for res in ranks]
+    log(f"28.1 MILC over {p} processes: every rank's {MILC_STEPS} steps bit-equal to its row "
+        f"of the stacked run (so within {MILC_TOL} of stencil_reference: {err:.3g}); 2 peer "
+        f"put_shift launches a step a rank, OpCounter 2/2/2 and SyncStats post/complete 2/2 "
+        f"a step, and a step's synchronisation its PSCW epoch's alone: 4 tokens sent a rank "
+        f"(post and complete to the 2 T neighbours), no host barrier; ms/step by rank {[round(x, 3) for x in ms_steps]} beside the stacked "
+        f"{stacked_ms:.3f}")
+    a = ranks[0]["all_reduce"]
+    log(f"28.2 all-reduce {p} x {AR_MIB} MiB: rel err {max(x['all_reduce']['rel'] for x in ranks):.3g} "
+        f"(tol {AR_TOL}), bit-equal to the stacked run, {a['expected']} peer put_shift "
+        f"launches a rank; ms by rank {[round(x['all_reduce']['ms'], 3) for x in ranks]} "
+        f"beside the stacked {ar_stacked_ms:.3f}")
+    log(f"28.3 ops surface by rank: {[x['main_path'] for x in ranks]} (main path: 28.1-28.3)")
+
+    # p = 1: a one-rank mesh in this process
+    solo = procmesh.ProcMesh(1, 0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(PROC_SEED + 9)
+    errs1 = dict.fromkeys(rma_ops.launches, 0.0)
+    for xs in (torch.randn(1, 3, 7, device="cuda", generator=g),
+               torch.randn(1, 64, device="cuda", generator=g)):
+        for s in (0, 1, -1):
+            for name, got, want in (
+                    ("put_shift", rma_ops.put_shift(xs, s, solo), ref.put_shift_ref(xs, s, solo)),
+                    ("get_shift", rma_ops.get_shift(xs, s, solo), ref.get_shift_ref(xs, s, solo)),
+                    ("accumulate_shift", rma_ops.accumulate_shift(xs, xs, s, solo),
+                     ref.accumulate_shift_ref(xs, xs, s, solo))):
+                if not (torch.equal(got, want) and torch.equal(got, xs * (2 if "acc" in name else 1))):
+                    raise AssertionError(f"28.4 p = 1: {name} shift {s} differs from plain")
+        if not torch.equal(rma_ops.ring_all_gather(xs, solo), ref.ring_all_gather_ref(xs, solo)):
+            raise AssertionError("28.4 p = 1: ring_all_gather differs from plain")
+    solo.close()
+    errs = {k: max([res["errs"][k] for res in ranks] + [errs1[k]]) for k in errs1}
+    log(f"28.4 peer kernels vs plain: bit-equal at the halo {PROC_LOCAL[1:]} and chunk shapes, "
+        f"shifts 0, -1, >= p, p = 1, 21-word rows, int32, a non-contiguous block; max abs "
+        f"err {errs}")
+    times = ranks[0]["times"]
+    for name, t in times.items():
+        lib = "one PyTorch call, so also the library time" if t["library_ms"] is not None \
+            else "no one PyTorch call computes it"
+        log(f"28.5 {name} (peer, rank 0 alone): kernel {t['ms'] * 1e3:.1f} us, plain copy "
+            f"{t['plain_ms'] * 1e3:.1f} us ({lib}), stacked rma.cu kernel on the same bytes "
+            f"{t['stacked_ms'] * 1e3:.1f} us, bound {t['bound_ms'] * 1e3:.1f} us (bytes "
+            f"{t['bytes']}); the whole op (kernel, fence, copy-out, {p} ranks in step) "
+            f"{t['op_ms']:.3f} ms; by rank: kernel "
+            f"{[round(x['times'][name]['ms'] * 1e3, 1) for x in ranks]} us")
+    ep = {k: max(x["epochs"][k] for x in ranks) for k in ranks[0]["epochs"]}
+    used = max(x["used_bytes"][1] - x["used_bytes"][0] for x in ranks)
+    log(f"28.6 synchronisation on its own (host ms, slowest rank): {json.dumps(ep)}; device "
+        f"memory in use at the end of the main path {used / 2**30:.2f} GiB (all {p} "
+        f"contexts), torch peak a rank {max(x['peak_allocated'] for x in ranks) / 2**20:.0f} MiB; "
+        f"ranks' run {run_s:.1f} s, phase {time.perf_counter() - t0:.1f} s")
+    rows = []
+    for name in ("put_shift", "get_shift", "accumulate_shift", "ring_all_gather"):
+        peer = f"{name}_peer"
+        t = times[name]
+        rows.append({"name": peer, "route": KERNELS[peer][0], "source": KERNELS[peer][1],
+                     "replaces": KERNELS[peer][2],
+                     "launches": sum(x["main_path"][name] for x in ranks),
+                     "launches_per_rank": [x["main_path"][name] for x in ranks],
+                     "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound_ms"], "bound_by": "bytes",
+                     "library_ms": t["library_ms"],
+                     "stacked_ms": t["stacked_ms"], "op_ms": t["op_ms"]})
+    numbers = {"milc_ms_per_step": ms_steps, "milc_stacked_ms": stacked_ms,
+               "all_reduce_ms": [x["all_reduce"]["ms"] for x in ranks],
+               "all_reduce_stacked_ms": ar_stacked_ms, "epochs": ep, "used_bytes": used,
+               "run_s": run_s, "wall_s": time.perf_counter() - t0}
+    return rows, numbers
+
+
+def procs_only() -> int:
+    """``python3 chip_smoke.py --procs``: phase 28 alone, on the package
+    beside this file (the kernels build first).  Prints the kernels line of
+    its four rows, then the result line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.core.perfmodel import H100
+    from repro_torch.kernels import common
+
+    log(card_line())
+    build_all(common)
+    rows, numbers = procs_phases(torch, H100.hbm_bandwidth)
+    log(f"procs phase numbers: {json.dumps(numbers)}")
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def tools_only() -> int:
     """``python3 chip_smoke.py --tools``: phase 27 alone, on the package
     beside this file (the kernels build first).  Prints one JSON line of
@@ -5794,7 +6236,7 @@ def conformance_only() -> int:
 MODES = {"--gather-shift": gather_shift_only, "--queue-push": queue_push_only,
          "--pool": pool_only, "--apps": apps_only, "--zoo": zoo_only,
          "--parallel": parallel_only, "--conformance": conformance_only,
-         "--tools": tools_only}
+         "--tools": tools_only, "--procs": procs_only}
 
 if __name__ == "__main__":
     sys.exit(MODES[sys.argv[1]]() if sys.argv[1:] else main())

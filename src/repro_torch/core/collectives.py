@@ -7,7 +7,9 @@ bidirectional ring step) single-epoch `RmaPlan`s, so each put goes through
 the plan's backend dispatch.  The reference's `fori_loop`/`cond` become
 Python loops over steps; a rank's own index ``me`` becomes
 `Mesh.axis_index()` with advanced indexing, so each step is batched over
-all ranks.  Every tensor is the global view ``[p, ...]``.
+all ranks.  Every tensor is the global view ``[p, ...]``; on a `ProcMesh`
+(one rank a process) it is this rank's row ``[1, ...]`` and the same code
+runs the rank's own program, its puts the peer forms.
 
 On a mesh of several named axes (``Mesh({"pod": 2, "data": 2})``) the
 global view is ``[pod, data, ...]`` and ``axis=`` names the axis a
@@ -56,14 +58,15 @@ def _ring_all_gather(x: torch.Tensor, mesh: Mesh, bidirectional: bool) -> torch.
     if p == 1:
         return x[:, None].clone()
 
-    out = torch.zeros((p,) + tuple(x.shape), dtype=x.dtype, device=x.device)
-    out[me, me] = x
+    row = torch.arange(x.shape[0], device=x.device)     # the rank blocks held here
+    out = torch.zeros((x.shape[0], p) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    out[row, me] = x
 
     if not bidirectional:
         buf = x
         for i in range(p - 1):
             buf = rma.put_shift(buf, +1, mesh)           # receive from the left
-            out[me, (me - i - 1) % p] = buf
+            out[row, (me - i - 1) % p] = buf
         return out
 
     fwd = bwd = x
@@ -78,9 +81,9 @@ def _ring_all_gather(x: torch.Tensor, mesh: Mesh, bidirectional: bool) -> torch.
         step_plan.flush()
         fwd, bwd = h_f.result(), h_b.result()
         if i < steps_f:
-            out[me, (me - i - 1) % p] = fwd
+            out[row, (me - i - 1) % p] = fwd
         if i < steps_b:
-            out[me, (me + i + 1) % p] = bwd
+            out[row, (me + i + 1) % p] = bwd
     return out
 
 
@@ -101,12 +104,13 @@ def _ring_reduce_scatter(x: torch.Tensor, mesh: Mesh, op: Callable) -> torch.Ten
     if p == 1:
         return x[:, 0].clone()
 
+    row = torch.arange(x.shape[0], device=x.device)     # the rank blocks held here
     acc = torch.zeros_like(x[:, 0])
     for i in range(p - 1):
-        chunk = x[me, (me - 1 - i) % p]
+        chunk = x[row, (me - 1 - i) % p]
         outgoing = chunk if i == 0 else op(chunk, acc)
         acc = rma.put_shift(outgoing, +1, mesh)
-    return op(x[me, me], acc)
+    return op(x[row, me], acc)
 
 
 def _parts(x: torch.Tensor, k: int, p: int) -> tuple[torch.Tensor, int]:
@@ -157,14 +161,25 @@ def halo_exchange_1d(x: torch.Tensor, halo: int, mesh: Mesh, dim: int = 0) -> to
     `dim` counts a rank's own dims (0 is the first dim after the rank dim).
     Returns x padded with `halo` remote rows on each side of `dim`
     (periodic): two puts in one plan, O(k=2) messages."""
+    h_left, h_right = halo_puts(x, halo, mesh, dim)
+    return torch.cat([h_left.result(), x, h_right.result()], dim=dim + 1)
+
+
+def halo_puts(x: torch.Tensor, halo: int, mesh: Mesh, dim: int = 0,
+              sync=None) -> tuple:
+    """The two puts of `halo_exchange_1d` in one flushed plan: handles of
+    the left neighbour's high rows and the right neighbour's low rows.
+    With `sync` (an open fence or PSCW epoch) they resolve when it closes
+    on a `ProcMesh` (`RmaPlan.flush`), so the epoch's own synchronisation
+    orders them."""
     d = dim + 1
     lo = x.narrow(d, 0, halo)
     hi = x.narrow(d, x.shape[d] - halo, halo)
     ep = plan_mod.RmaPlan(mesh)
     h_left = ep.put_shift(hi, +1)    # the left neighbour's high rows
     h_right = ep.put_shift(lo, -1)   # the right neighbour's low rows
-    ep.flush()
-    return torch.cat([h_left.result(), x, h_right.result()], dim=d)
+    ep.flush(sync=sync)
+    return h_left, h_right
 
 
 def halo_exchange_nd(x: torch.Tensor, halos: dict[str, int],

@@ -5,8 +5,10 @@ The paper's models price each RMA function by its latency and bandwidth on
 a network.  Here every rank is a row of one stacked device tensor, so a put
 between ranks is an HBM-to-HBM copy on one card: its price is one kernel
 launch plus the bytes it reads and writes at the card's copy rate.  NVLink
-enters only with a multi-card mesh.  The same objects drive the plan's and
-the epochs' decisions:
+enters only with a `ProcMesh` whose ranks sit on different cards: there a
+put's bytes cross the link at the data sheet's rate each way (`p_crossing`;
+its latency is not measured yet, so it has no term).  The same objects
+drive the plan's and the epochs' decisions:
 
   * `select_aggregation` — pack a same-signature group into one transfer or
     issue its ops one by one;
@@ -50,6 +52,8 @@ class HardwareSpec:
     the median of three runs (PERF.md, "H100 model constants")."""
 
     hbm_bandwidth: float = 3.35e12          # B/s, HBM3 (data sheet)
+    link_bandwidth: float = 450e9           # B/s each way to another card over NVLink 4
+    #                                         (data sheet, 900 GB/s both ways; not measured)
     peak_flops_bf16: float = 989e12         # FLOP/s, dense bf16 tensor cores (data sheet)
     hbm_capacity: float = 80e9              # bytes of HBM3 (data sheet; the dry-run's `fits`)
     launch_latency: float = 10.1e-6         # s per PyTorch op, back to back
@@ -139,6 +143,17 @@ class PerfModel:
         """Slotted accumulate: the put into the slot, then the owner's add
         (read slot + read acc + write)."""
         return self.p_put(nbytes) + self.hw.launch_latency + self._rw(nbytes, 3.0)
+
+    def p_crossing(self, nbytes: float, link: bool = False) -> float:
+        """`nbytes` from one rank's memory into another's: across cards over
+        NVLink at the data sheet's rate each way (`link`); on one card read
+        and written in HBM at its data-sheet rate.  It prices a crossing
+        alone: the put-backend and sync-mode choices take no `link`, since
+        both arms of each would cross it at the same rate, so a crossing
+        leaves both choices as they are on one card."""
+        if link:
+            return nbytes / self.hw.link_bandwidth
+        return 2.0 * nbytes / self.hw.hbm_bandwidth
 
     def p_put_kernel(self, nbytes: float) -> float:
         """Kernel row 4 (`kernels.rma.ops.put_shift`): one hand kernel's

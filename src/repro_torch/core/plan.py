@@ -23,6 +23,10 @@ before the family's closing sync.
 Payloads are global views (leading rank dim p).  Byte counts are per rank,
 exactly as the reference counts them inside one rank's `shard_map` trace, so
 `PlanStats.bytes_wire` and the `OpCounter` ledger match the reference's.
+On a `ProcMesh` (one rank a process) a payload is this rank's ``[1, ...]``
+block and a group's transfer is a round of peer stores: "cuda" the peer
+kernels of `repro_torch.kernels.rma`, "torch" the mesh's plain peer
+copies.  Each process's ledgers are its rank's, equal to the stacked run's.
 
 Word carrier: the reference packs into uint32 words; here the words are
 int32 with the same bits (torch's uint32 arithmetic is thin, and a word is
@@ -43,6 +47,7 @@ from ..kernels.rma import ops as rma_ops
 from ..mesh import Mesh
 from ..obs import trace as obs_trace
 from ..obs.metrics import snapshot_delta
+from ..procmesh import ProcMesh, aligned
 from .perfmodel import DEFAULT_MODEL, PerfModel
 from .rma import OpCounter
 
@@ -234,7 +239,10 @@ def choose_backend(model: PerfModel, nbytes: float, shift_eligible: bool) -> Bac
     card the put kernel carries an eligible group at any size: it is a
     copy at the rank stride, faster than the mesh's concatenation at every
     payload measured (PERF.md, row 4), so no size threshold applies and
-    `model` prices nothing here.  It is the hook a strategist overrides."""
+    `model` prices nothing here.  On a `ProcMesh` whose ranks sit on
+    different cards both backends would cross the link at the same rate
+    (`PerfModel.p_crossing`), so the answer is the same.  It is the hook a
+    strategist overrides."""
     return "cuda" if shift_eligible else "torch"
 
 
@@ -276,7 +284,7 @@ class RmaPlan:
         h = RmaHandle()
         self.ops.append(
             _RecordedOp(kind, sig, self.axis, payload, h,
-                        finalize or (lambda d: d), ranks=self.mesh.ranks,
+                        finalize or (lambda d: d), ranks=self.mesh.local_ranks,
                         shift=shift,
                         at=None if at is None else (int(at[0]), int(at[1]))))
         return h
@@ -344,47 +352,89 @@ class RmaPlan:
         return self.mesh.all_gather(x)
 
     def _issue_group(self, sig: tuple, ops: list[_RecordedOp], pack: bool,
-                     backend: str) -> tuple[int, int]:
+                     backend: str, deferred: Optional[list] = None) -> tuple[int, int]:
         """Issue one signature group; returns (wire transfers, wire bytes
-        per rank)."""
-        ranks = self.mesh.ranks
+        per rank).  With `deferred` (a list), the group's transfers are
+        appended to it as (payload, shift, backend, resolve) instead: the
+        flush stores them and the epoch resolves them after its sync."""
+        ranks = self.mesh.local_ranks
         if sig[0] == "local":
             for op in ops:
                 op.handle._result = op.finalize(op.payload)
             return len(ops), 0
 
         if not pack or len(ops) == 1:
-            for op in ops:
-                op.handle._result = op.finalize(
-                    self._move(sig, op.payload, op.shift, backend))
-            return len(ops), sum(op.nbytes for op in ops)
+            moves = [(op.payload, op.shift, functools.partial(self._resolve_one, op))
+                     for op in ops]
+            wire = len(ops), sum(op.nbytes for op in ops)
+        else:
+            packed, resolve = self._packed(sig, ops)
+            moves = [(packed, ops[0].shift, resolve)]
+            wire = 1, packed.numel() // ranks * 4
+        for payload, shift, resolve in moves:
+            if deferred is not None:
+                deferred.append((payload, shift, backend, resolve))
+            else:
+                resolve(self._move(sig, payload, shift, backend))
+        return wire
 
-        # fused: encode each payload to words, move once, decode.  The
-        # per-rank lead dims (1 for all_to_all's destination dim) sit
-        # behind the rank dim of the global view.  Every op of a ppermute
-        # group has the same permutation, so the first op's shift holds.
-        # An all-gather's p copies are one broadcast view: decode the one
-        # copy every receiver holds and broadcast it again, so the decode
-        # never materialises p copies.
+    @staticmethod
+    def _resolve_one(op: _RecordedOp, moved: torch.Tensor) -> None:
+        op.handle._result = op.finalize(moved)
+
+    def _packed(self, sig: tuple, ops: list[_RecordedOp]) -> tuple[torch.Tensor, Callable]:
+        """A fused group: each payload encoded to words and packed into one
+        transfer, and the function that decodes what moved into the ops'
+        results.  The per-rank lead dims (1 for all_to_all's destination
+        dim) sit behind the rank dim of the global view.  Every op of a
+        ppermute group has the same permutation, so the first op's shift
+        holds.  An all-gather's p copies are one broadcast view: decode the
+        one copy every receiver holds ([p_src, ...]) and broadcast it
+        again, so the decode never materialises p copies (on a ProcMesh
+        the one copy is this rank's)."""
         lead = 2 if sig[0] == "all_to_all" else 1
         gathered = sig[0] == "all_gather"
         segs = [_encode(op.payload, lead) for op in ops]
-        packed = torch.cat(segs, dim=lead)
-        moved = self._move(sig, packed, ops[0].shift, backend)
-        if gathered:
-            moved = self.mesh.replicated(moved)
-        off = 0
-        for op, seg in zip(ops, segs):
-            w = seg.shape[-1]
-            out = _decode(moved[..., off:off + w], tuple(op.payload.shape),
-                          op.payload.dtype)
-            op.handle._result = op.finalize(
-                self.mesh.all_gather(out) if gathered else out)
-            off += w
-        return 1, packed.numel() // ranks * 4
+
+        def resolve(moved: torch.Tensor) -> None:
+            if gathered:
+                moved = self.mesh.replicated(moved)
+            off = 0
+            for op, seg in zip(ops, segs):
+                w = seg.shape[-1]
+                shape = tuple(op.payload.shape)
+                if gathered:
+                    shape = (moved.shape[0],) + shape[1:]
+                out = _decode(moved[..., off:off + w], shape, op.payload.dtype)
+                if gathered:
+                    out = out[None] if isinstance(self.mesh, ProcMesh) else self.mesh.all_gather(out)
+                op.handle._result = op.finalize(out)
+                off += w
+
+        return torch.cat(segs, dim=lead), resolve
+
+    def _defer(self, deferred: list, sync: Any) -> None:
+        """Store a flush's deferred transfers into the epoch segment, with
+        no fence, and hand `sync` what resolves them once its closing
+        synchronisation has made every peer's stores visible."""
+        mesh = self.mesh
+        sizes = [aligned(t.nbytes) for t, _, _, _ in deferred]
+        seg, base = mesh.round(sum(sizes), epoch=True)
+        offs = [base + sum(sizes[:i]) for i in range(len(sizes))]
+        for (t, shift, backend, _), off in zip(deferred, offs):
+            if backend == "cuda":
+                rma_ops.put_store(t, shift, mesh, seg, off)
+            else:
+                mesh.store(t, shift, seg, off)
+
+        def resolve() -> None:
+            for (t, _, _, res), off in zip(deferred, offs):
+                res(mesh.take(seg, off, tuple(t.shape), t.dtype))
+
+        sync.defer(resolve)
 
     def flush(self, aggregate: Optional[bool] = None,
-              backend: str = "auto") -> PlanStats:
+              backend: str = "auto", sync: Any = None) -> PlanStats:
         """Issue every recorded op (MPI_Win_flush for the whole plan).
 
         aggregate: True forces packing of every fusable group, False forces
@@ -394,21 +444,28 @@ class RmaPlan:
         (`choose_backend`, or the plan's strategist); "torch" or "cuda"
         force one for every group the kernel can carry (`_route`).
         `PlanStats.backends` counts the backend each transfer ran on.
+        sync: the fence or PSCW epoch (`core.epoch`) this flush runs in.
+        On a `ProcMesh` the uniform-shift put groups that the epoch's
+        closing sync reaches (`sync.admits`) are stored with no fence of
+        their own, and their handles resolve when the epoch closes; every
+        other group, and every group on a `Mesh`, is issued and resolved
+        here.
         """
         if backend != "auto" and backend not in BACKENDS:
             raise PlanError(f"unknown backend {backend!r}; "
                             f"expected 'auto' or one of {BACKENDS}")
         tr = obs_trace.TRACER
         if not tr.enabled:
-            return self._flush_impl(aggregate, backend)
+            return self._flush_impl(aggregate, backend, sync)
         with tr.span("plan.flush", axis=self.axis, pending=len(self.ops)) as sp:
-            stats = self._flush_impl(aggregate, backend)
+            stats = self._flush_impl(aggregate, backend, sync)
             sp.set(raw=stats.raw, coalesced=stats.coalesced,
                    groups=stats.groups, packed_groups=stats.packed_groups,
                    bytes_wire=stats.bytes_wire)
             return stats
 
-    def _flush_impl(self, aggregate: Optional[bool], backend: str) -> PlanStats:
+    def _flush_impl(self, aggregate: Optional[bool], backend: str,
+                    sync: Any) -> PlanStats:
         if self.flushed:
             raise PlanError("plan already flushed")
         self.flushed = True
@@ -419,6 +476,7 @@ class RmaPlan:
 
         kinds: dict[tuple, int] = {}
         ranks = self.mesh.ranks
+        deferred: list = []
         for (axis, sig), ops in groups.items():
             n = len(ops)
             group_bytes = sum(op.nbytes for op in ops)
@@ -436,7 +494,12 @@ class RmaPlan:
                                    _route(sig, ops, pack, backend) == "cuda")
             else:
                 be = _route(sig, ops, pack, backend)
-            wire, wire_bytes = self._issue_group(sig, ops, pack, be)
+            shifts = [op.shift for op in ops]
+            defer = (sync is not None and isinstance(self.mesh, ProcMesh)
+                     and sig[0] == "ppermute" and None not in shifts
+                     and sync.admits(shifts))
+            wire, wire_bytes = self._issue_group(sig, ops, pack, be,
+                                                 deferred if defer else None)
             stats.raw += n
             stats.coalesced += wire
             stats.bytes_wire += wire_bytes
@@ -446,6 +509,8 @@ class RmaPlan:
             for op in ops:
                 if op.kind is not None:
                     kinds[(op.kind, axis)] = kinds.get((op.kind, axis), 0) + 1
+        if deferred:
+            self._defer(deferred, sync)
 
         OpCounter.record_plan(
             kinds, raw=stats.raw, coalesced=stats.coalesced,
@@ -520,7 +585,8 @@ class AccessEpoch:
     def close(self, tree: Any, *, aggregate: Optional[bool] = None,
               backend: str = "auto") -> Any:
         if not self.plan.flushed:
-            self.plan_stats = self.plan.flush(aggregate=aggregate, backend=backend)
+            self.plan_stats = self.plan.flush(aggregate=aggregate, backend=backend,
+                                              sync=self.sync)
             self.sync.stats.raw_msgs += self.plan_stats.raw
             self.sync.stats.coalesced_msgs += self.plan_stats.coalesced
         if self.family == "fence":

@@ -20,7 +20,10 @@ accumulates in `.plans`.  The snapshot keys are the reference's, so one
 ledger schema reads both packages.
 
 Counts are per rank, as in the reference where one trace is one rank's
-program: a plan over the stacked ``[p, ...]`` view is counted once.
+program: a plan over the stacked ``[p, ...]`` view is counted once.  On a
+`ProcMesh` (one rank a process) every op takes this rank's ``[1, ...]``
+block and returns its row of the stacked result; each process counts its
+own rank's ops, the same counts as the stacked run's.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 
 from ..mesh import Mesh
 from ..obs import trace as obs_trace
+from ..procmesh import ProcMesh
 from ..obs.metrics import snapshot_delta
 
 
@@ -82,9 +86,11 @@ def get_index(x: torch.Tensor, src: int, mesh: Mesh) -> torch.Tensor:
 
 def get_gather(x: torch.Tensor, src_per_rank: torch.Tensor,
                mesh: Mesh) -> torch.Tensor:
-    """Rank r gets the block of rank ``src_per_rank[r]`` (a gather-get)."""
+    """Rank r gets the block of rank ``src_per_rank[r]`` (a gather-get);
+    on a `ProcMesh`, src_per_rank holds this rank's source."""
     full = _one(mesh, lambda p: p.all_gather(x, kind="gets"))
-    return full[mesh.axis_index(), src_per_rank.to(device=full.device, dtype=torch.int64)]
+    rows = torch.arange(full.shape[0], device=full.device)
+    return full[rows, src_per_rank.to(device=full.device, dtype=torch.int64)]
 
 
 # -------------------------------------------------------------- accumulate
@@ -131,7 +137,9 @@ def put_all_to_all(x: torch.Tensor, mesh: Mesh, tiled: bool = False) -> torch.Te
         OpCounter.record("colls")
         p = mesh.p
         mesh._check(x)
-        blocks = x.reshape((p, p, x.shape[1] // p) + tuple(x.shape[2:]))
+        blocks = x.reshape((x.shape[0], p, x.shape[1] // p) + tuple(x.shape[2:]))
+        if isinstance(mesh, ProcMesh):
+            return mesh.all_to_all(blocks).reshape(x.shape)
         return blocks.transpose(0, 1).reshape(x.shape)
     return _one(mesh, lambda p: p.put_all_to_all(x, kind="colls"))
 

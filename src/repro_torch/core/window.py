@@ -17,6 +17,12 @@ windows need Ω(p).  The four modes over a `Mesh`:
   * ``win_allocate_shared``— the intra-node window: same layout as an
     allocated window (on one card every rank is load/store reachable).
 
+On a `ProcMesh` (one rank a process) ``win_allocate`` and ``win_create``
+give this rank's block ``[1, *local_shape]`` of a symmetric segment that
+every peer maps (`Window.peer` is rank r's block as mapped here, for
+direct loads and stores), and ``win_free`` releases it: a fence, every
+peer closes its mapping, a barrier, every owner frees.
+
 Windows are metadata; ``Window.metadata_nbytes()`` counts the same bytes as
 the reference (`repro.core.window`), so the complexity claims hold for
 both packages.  The reference's ``Window.global_spec()`` (a JAX
@@ -27,12 +33,14 @@ dimension of one tensor, not a device placement.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from ..mesh import Mesh
+from ..procmesh import ProcMesh
 
 
 class WindowError(RuntimeError):
@@ -56,6 +64,8 @@ class Window:
     attach_id: int = 0
     regions: dict = dataclasses.field(default_factory=dict)
     _next_region: int = 0
+    # on a ProcMesh: the symmetric segment that holds every rank's block
+    segment: Any = None
 
     @property
     def axis(self) -> Optional[str]:
@@ -67,6 +77,19 @@ class Window:
 
     def global_shape(self) -> tuple[int, ...]:
         return (self.n_ranks,) + tuple(self.local_shape)
+
+    def block_shape(self) -> tuple[int, ...]:
+        """The tensor this process holds: every rank's block on a stacked
+        `Mesh`, its own on a `ProcMesh`."""
+        return (self.mesh.local_ranks,) + tuple(self.local_shape)
+
+    def peer(self, rank: int) -> torch.Tensor:
+        """Rank `rank`'s block [1, *local_shape] as mapped in this process
+        (a `ProcMesh` window): loads and stores reach its memory."""
+        if self.segment is None:
+            raise WindowError("peer() needs a window allocated on a ProcMesh")
+        n = math.prod(self.local_shape) * self.dtype.itemsize
+        return self.segment.view(rank, 0, n).view(self.dtype).reshape(self.block_shape())
 
     def metadata_nbytes(self) -> int:
         """Bytes of per-process metadata — the paper's scalability metric."""
@@ -128,11 +151,30 @@ class DescriptorCache:
 
 
 # ------------------------------------------------------------------ creation
+def _buffer(win: Window) -> torch.Tensor:
+    """A window's zero-filled memory on the mesh device: the stacked
+    ``[p, ...]`` tensor, or on a `ProcMesh` this rank's block of a new
+    symmetric segment (collective)."""
+    mesh = win.mesh
+    if not isinstance(mesh, ProcMesh):
+        return torch.zeros(win.global_shape(), dtype=win.dtype, device=mesh.device)
+    win.segment = mesh.allocate(math.prod(win.local_shape) * win.dtype.itemsize)
+    return win.peer(mesh.rank)
+
+
 def win_allocate(mesh: Mesh, local_shape: tuple[int, ...],
                  dtype: Any = torch.float32) -> tuple[Window, torch.Tensor]:
     """MPI_Win_allocate: the symmetric heap, zero-filled on the mesh device."""
     win = Window("allocate", mesh, tuple(local_shape), dtype)
-    return win, torch.zeros(win.global_shape(), dtype=dtype, device=mesh.device)
+    return win, _buffer(win)
+
+
+def win_free(win: Window) -> None:
+    """MPI_Win_free: on a `ProcMesh`, collective; the window's tensors must
+    not be used after it.  A stacked window's tensor is freed by PyTorch."""
+    if win.segment is not None:
+        win.segment.free()
+        win.segment = None
 
 
 def win_create(base_offsets, mesh: Mesh, local_shape: tuple[int, ...],
@@ -145,7 +187,7 @@ def win_create(base_offsets, mesh: Mesh, local_shape: tuple[int, ...],
         raise WindowError(
             f"need one base offset per rank on axis {mesh.axis!r} ({mesh.p})")
     win = Window("create", mesh, tuple(local_shape), dtype, base_offsets=offsets)
-    return win, torch.zeros(win.global_shape(), dtype=dtype, device=mesh.device)
+    return win, _buffer(win)
 
 
 def win_create_dynamic(mesh: Optional[Mesh]) -> Window:

@@ -3,7 +3,13 @@
 Each takes the stacked global view ``x [p, ...]`` (rank r's block is
 ``x[r]``).  On CPU tensors it computes the plain PyTorch version (`ref`);
 on CUDA tensors it launches the hand-written kernel (``csrc/rma.cu``) or
-raises — there is no fallback.  The kernels read each rank's block in place
+raises — there is no fallback.  On a `ProcMesh` (one rank a process) x is
+this rank's block ``[1, ...]`` and each op runs its peer form: the kernels
+of ``csrc/rma_peer.cu`` store into (or load from) the peers' blocks of the
+mesh's exchange segment through its pointer table, the round's fence makes
+the stores visible, and the result is this rank's row of the stacked op's
+(the plain versions do the same with ``Tensor.copy_`` on the mapped
+blocks).  The kernels read each rank's block in place
 at the tensor's rank stride, so a halo slice ``x.narrow(1, ...)`` of a
 bigger array is not copied; only a view whose per-rank block is not
 contiguous (a slice of an inner dim) is made contiguous first, and that
@@ -21,6 +27,7 @@ import torch
 
 from ...obs import cost
 from ...mesh import Mesh
+from ...procmesh import ProcMesh
 from .. import common
 from . import ref
 
@@ -30,8 +37,16 @@ _PUT = common.Entry(_NAME, "rma_put_shift", [_P, _P, _I, _I, _I, _I])
 _GET = common.Entry(_NAME, "rma_get_shift", [_P, _P, _I, _I, _I, _I])
 _ACC = common.Entry(_NAME, "rma_accumulate_shift_f32", [_P, _P, _P, _I, _I, _I, _I, _I])
 _GATHER = common.Entry(_NAME, "rma_ring_all_gather", [_P, _P, _I, _I, _I])
+# the peer forms (csrc/rma_peer.cu): x or out, the pointer table, then
+# p, rank, shift / hop, the byte offset in the segment, the words
+_PEER_PUT = common.Entry("rma_peer", "rma_peer_put", [_P, _P, _I, _I, _I, _I, _I])
+_PEER_GET = common.Entry("rma_peer", "rma_peer_get", [_P, _P, _I, _I, _I, _I, _I])
+_PEER_ACC = common.Entry("rma_peer", "rma_peer_accumulate_f32", [_P, _P, _P, _I, _I, _I])
+_PEER_HOP = common.Entry("rma_peer", "rma_peer_ring_hop", [_P, _P, _I, _I, _I, _I, _I])
 
-# kernel launches by op
+# kernel launches by kernel row, each counted where it is launched: a peer
+# get's exposing store and a peer accumulate's slot store launch the peer
+# put kernel and count under put_shift; a peer gather counts its p - 1 hops
 launches = {"put_shift": 0, "get_shift": 0, "accumulate_shift": 0,
             "ring_all_gather": 0}
 
@@ -108,6 +123,8 @@ def put_shift(x: torch.Tensor, shift: int, mesh: Mesh) -> torch.Tensor:
     """Put rank r's block to rank (r + shift) mod p; returns what landed."""
     if not _on_card("put_shift", mesh, x):
         return ref.put_shift_ref(x, shift, mesh)
+    if isinstance(mesh, ProcMesh):
+        return _peer_put(x, shift, mesh)
     xs, row, stride = _words("put_shift", x)
     out = _fresh(x)
     if out.numel():
@@ -120,6 +137,8 @@ def get_shift(x: torch.Tensor, src_shift: int, mesh: Mesh) -> torch.Tensor:
     """Get rank (r + src_shift) mod p's block into rank r."""
     if not _on_card("get_shift", mesh, x):
         return ref.get_shift_ref(x, src_shift, mesh)
+    if isinstance(mesh, ProcMesh):
+        return _peer_get(x, src_shift, mesh)
     xs, row, stride = _words("get_shift", x)
     out = _fresh(x)
     if out.numel():
@@ -140,6 +159,8 @@ def accumulate_shift(x: torch.Tensor, acc: torch.Tensor, shift: int,
     if x.dtype != torch.float32 or acc.dtype != torch.float32:
         raise TypeError(f"accumulate_shift kernel takes float32, got "
                         f"{x.dtype} and {acc.dtype}")
+    if isinstance(mesh, ProcMesh):
+        return _peer_accumulate(x, acc, shift, mesh)
     (xs, row, x_stride), (acs, _, acc_stride) = _rows(x), _rows(acc)
     out = _fresh(acc)
     if out.numel():
@@ -151,9 +172,12 @@ def accumulate_shift(x: torch.Tensor, acc: torch.Tensor, shift: int,
 
 def ring_all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """x [p, ...] -> [p(receiver), p(source), ...]: each receiver's copy of
-    every rank's block, in rank order (what every TPU rank holds)."""
+    every rank's block, in rank order (what every TPU rank holds); on a
+    `ProcMesh` x [1, ...] -> [1, p, ...]."""
     if not _on_card("ring_all_gather", mesh, x):
         return ref.ring_all_gather_ref(x, mesh)
+    if isinstance(mesh, ProcMesh):
+        return _peer_ring_all_gather(x, mesh)
     xs, row, stride = _words("ring_all_gather", x)
     out = torch.empty((mesh.p,) + tuple(x.shape), dtype=x.dtype, device=x.device)
     if out.numel():
@@ -161,3 +185,81 @@ def ring_all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
         _launch("ring_all_gather", _GATHER, x.get_device(), out, 1 + 1 / mesh.p,
                 xs.data_ptr(), out.data_ptr(), mesh.p, row, stride)
     return out
+
+
+# ------------------------------------------------------------- peer forms
+def _block(op: str, x: torch.Tensor) -> torch.Tensor:
+    """This rank's block as contiguous 32-bit words (a copy only where it
+    is not contiguous)."""
+    if x.dtype.itemsize != 4 or x.dtype.is_complex:
+        raise TypeError(f"{op} moves 32-bit words; got {x.dtype}")
+    return x if x.is_contiguous() else x.contiguous()
+
+
+def put_store(x: torch.Tensor, shift: int, mesh: ProcMesh, seg, off: int) -> None:
+    """The store half of a peer put, with no fence: this rank's block into
+    rank (rank + shift) mod p's block of `seg` at byte `off`.  The epoch
+    that closes the round makes it visible (`core.plan`'s deferred
+    groups).  CPU tensors take the plain copy (`ProcMesh.store`)."""
+    if not _on_card("put_shift", mesh, x):
+        mesh.store(x, shift, seg, off)
+        return
+    xs = _block("put_shift", x)
+    if xs.numel():
+        _launch("put_shift", _PEER_PUT, x.get_device(), xs, 2, xs.data_ptr(),
+                seg.table_ptr, mesh.p, mesh.rank, int(shift), off, xs.numel())
+
+
+def _peer_put(x: torch.Tensor, shift: int, mesh: ProcMesh) -> torch.Tensor:
+    """This rank's block stored into rank (rank + shift) mod p's slot; after
+    the fence, what landed here."""
+    seg, off = mesh.round(x.nbytes)
+    put_store(x, shift, mesh, seg, off)
+    mesh.fence()
+    return mesh.take(seg, off, tuple(x.shape), x.dtype)
+
+
+def _peer_get(x: torch.Tensor, src_shift: int, mesh: ProcMesh) -> torch.Tensor:
+    """Every rank exposes its block in its own slot (the put kernel at shift
+    0); after the fence, this rank loads rank (rank + src_shift) mod p's."""
+    xs = _block("get_shift", x)
+    seg, off = mesh.round(xs.nbytes)
+    put_store(xs, 0, mesh, seg, off)
+    mesh.fence()
+    out = _fresh(xs)
+    if xs.numel():
+        _launch("get_shift", _PEER_GET, x.get_device(), out, 2, out.data_ptr(),
+                seg.table_ptr, mesh.p, mesh.rank, int(src_shift), off, xs.numel())
+    return out
+
+
+def _peer_accumulate(x: torch.Tensor, acc: torch.Tensor, shift: int,
+                     mesh: ProcMesh) -> torch.Tensor:
+    """The slotted accumulate: this rank's block into rank (rank + shift)
+    mod p's slot; after the fence, the owner's add of its slot to acc."""
+    xs, acs = _block("accumulate_shift", x), _block("accumulate_shift", acc)
+    seg, off = mesh.round(xs.nbytes)
+    put_store(xs, shift, mesh, seg, off)
+    mesh.fence()
+    out = _fresh(acs)
+    if xs.numel():
+        _launch("accumulate_shift", _PEER_ACC, x.get_device(), out, 3, acs.data_ptr(),
+                seg.table_ptr, out.data_ptr(), mesh.rank, off, xs.numel())
+    return out
+
+
+def _peer_ring_all_gather(x: torch.Tensor, mesh: ProcMesh) -> torch.Tensor:
+    """p - 1 hops to the right neighbour, a fence after each: hop h forwards
+    slot (rank - h) mod p of the gather buffer (this rank's x at hop 0)."""
+    xs = _block("ring_all_gather", x)
+    p, nb = mesh.p, xs.nbytes
+    seg, off = mesh.round(p * nb)
+    dev = x.get_device()
+    for hop in range(p - 1):
+        if nb:
+            _launch("ring_all_gather", _PEER_HOP, dev, xs, 2, xs.data_ptr(),
+                    seg.table_ptr, p, mesh.rank, hop, off, xs.numel())
+        mesh.fence()
+    out = mesh.take(seg, off, (p,) + tuple(x.shape[1:]), x.dtype)
+    out[mesh.rank] = xs[0]
+    return out[None]

@@ -34,8 +34,10 @@ Each collective records its kind (the reference's HLO name), its operand's
 bytes (every rank's block on the card) and its group size into a running
 `launch.hlo_cost` counter through `obs.cost`'s hooks.
 
-A multi-process backend (one rank per card, NCCL collectives) can replace
-this module later without touching its callers.
+`repro_torch.procmesh.ProcMesh` has this surface for ranks that are
+processes of their own (one rank a process, windows in peer-mapped
+memory): there a tensor's leading dim holds this process's one rank block,
+and code that sizes it by ``mesh.local_ranks`` runs on either mesh.
 """
 
 from __future__ import annotations
@@ -81,6 +83,11 @@ class Mesh:
         self.axis = self.axis_names[0] if len(self.shape) == 1 else self.axis_names
         self.ranks = self.p if ranks is None else int(ranks)
         self.device = resolve_device(device)
+
+    @property
+    def local_ranks(self) -> int:
+        """The rank blocks a tensor on this mesh holds: every rank's."""
+        return self.ranks
 
     # ------------------------------------------------------- named axes
     def dim(self, axis: str) -> int:
