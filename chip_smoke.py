@@ -359,6 +359,29 @@ no result line):
     on its 8 ranks, where the card's model picks the fence), each with its
     own self-checks; rows 1 and 4 must
     launch there (their launches go on their entries of the kernels line).
+28. the one-sided layer with one rank a process (`repro_torch.procmesh`,
+    4 processes sharing the card): MILC's 64³ x 96 lattice along T and the
+    4 x 25 MiB all-reduce, every rank bit-equal to its row of the stacked
+    `Mesh(4)` run; the peer forms of rows 4-7 (`csrc/rma_peer.cu`) through
+    the ops surface, against their plain versions, timed alone; the
+    synchronisation's own costs.
+29. disaggregated serving with one rank a process: `DisaggEngine` at FULL
+    (p = 4, 2 prefill and 2 decode, d_model 128, vocab 32000, 2048-token
+    blocks of 128 pages, 8192 pages of [16, 2, 128] f32 a rank) over 4
+    processes sharing the card, in fused-paged, inline (credit flow) and
+    rendezvous transport, 64 requests each: every rank's tokens, steps,
+    msg_stats, novel pages, retries and stalls equal to the stacked
+    `Mesh(4)` run of the same requests and to `reference()`; the wire
+    fingerprints (paged 8 -> 3, inline 2 a step, rendezvous 4 with no
+    payload on the ring), pool, pin and credit conservation; ms a step
+    beside the stacked run's, host barriers, tokens and host gathers a
+    step, device memory.  Then the peer forms of rows 2, 3 and 8-10
+    through their ops surfaces on the runs' data (counts zeroed before,
+    read after): the one-sided reads held to the two-plan `gather_pages`
+    pull and the readout's context; each against its plain version on the
+    same ranks (rows 3 and 8-10 bit-equal, row 2 within 1e-4); each timed
+    alone by rank 0 while the others wait, beside its plain version, one
+    PyTorch call where one computes the same function, and its bound.
 
 ``python3 chip_smoke.py --gather-shift`` times only `rmem.pages.gather_shift`
 and `paged_gather` at the rendezvous pull's shape on the package beside the
@@ -371,7 +394,9 @@ DSDE shapes and the launch floor, the same way;
 ``python3 chip_smoke.py --parallel`` runs only phase 25, P1-P4, on fresh weights;
 ``python3 chip_smoke.py --conformance`` runs only phase 26 and ends with the
 result line; ``python3 chip_smoke.py --tools`` runs only phase 27 (after
-the kernels' build) and ends with the result line.
+the kernels' build) and ends with the result line; ``--procs`` and
+``--disagg-procs`` run only phase 28 and phase 29, their rows of the
+kernels line, then the result line.
 
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after.
@@ -401,7 +426,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 F32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 TOL = 1e-4                      # kernel vs plain, f32, different sum order
 SOURCES = ("paged_attention", "rma", "paged_gather", "rmaq",    # csrc/<name>.cu, one nvcc each
-           "flash_attention", "ssm_scan", "ring_matmul", "rma_peer")
+           "flash_attention", "ssm_scan", "ring_matmul", "rma_peer", "rmaq_peer")
 KERNELS = {
     # name -> (route, source, TPU kernel it replaces)
     "paged_attention": ("cuda", "src/repro_torch/csrc/paged_attention.cu",
@@ -439,6 +464,17 @@ KERNELS = {
                               "src/repro/kernels/rma/kernel.py:114"),
     "ring_all_gather_peer": ("cuda", "src/repro_torch/csrc/rma_peer.cu",
                              "src/repro/kernels/rma/kernel.py:168"),
+    # the peer forms of rows 2, 3 and 8-10 (phase 29)
+    "paged_attention_shift_peer": ("cuda", "src/repro_torch/csrc/paged_attention.cu",
+                                   "src/repro/kernels/paged_attention/kernel.py:219"),
+    "paged_gather_peer": ("cuda", "src/repro_torch/csrc/paged_gather.cu",
+                          "src/repro/kernels/paged_gather/kernel.py:86"),
+    "notified_put_peer": ("cuda", "src/repro_torch/csrc/rmaq_peer.cu",
+                          "src/repro/kernels/rmaq/kernel.py:85"),
+    "notify_accumulate_peer": ("cuda", "src/repro_torch/csrc/rmaq_peer.cu",
+                               "src/repro/kernels/rmaq/kernel.py:128"),
+    "queue_push_peer": ("cuda", "src/repro_torch/csrc/rmaq_peer.cu",
+                        "src/repro/kernels/rmaq/kernel.py:221"),
 }
 FULL = dict(n_prefill=2, d_model=128, vocab=32000, page_tokens=16,
             block_tokens=2048, pool_pages=8192, queue_capacity=64,
@@ -596,6 +632,13 @@ DRY_JOBS = 8
 # over p = 4 ranks ([24, 64, 64, 64, 6] f32 a rank, 144 MiB; 6 MiB halo
 # slices each way) and the all-reduce of 4 x 25 MiB, 4 processes on the card
 PROC_P, PROC_LOCAL, PROC_SEED, PROC_TIMEOUT = 4, (24, 64, 64, 64, 6), 17, 300.0
+# phase 29: FULL's engine over PROC_P processes, DISAGG_N requests a transport
+DISAGG_N, DISAGG_SEED = 64, 29
+DISAGG_MODES = {"fused": dict(paged=True, attend="fused"), "inline": dict(paged=False),
+                "rendezvous": dict(transport="rendezvous")}
+DISAGG_SHIFT = FULL["n_prefill"]        # decode rank r reads its prefill owner r - 2 (p = 4)
+DISAGG_PEER_ROWS = ("paged_attention_shift_peer", "paged_gather_peer", "notified_put_peer",
+                    "notify_accumulate_peer", "queue_push_peer")
 
 
 def log(msg: str) -> None:
@@ -1023,6 +1066,10 @@ def main() -> int:
     rows, procs = procs_phases(torch, H100.hbm_bandwidth)
     kernels += rows
     log(f"procs phase numbers: {json.dumps(procs)}")
+    torch.cuda.empty_cache()
+    rows, dprocs = disagg_procs_phases(torch, H100.hbm_bandwidth)
+    kernels += rows
+    log(f"disagg procs phase numbers: {json.dumps(dprocs)}")
     if len(kernels) != len(KERNELS):
         raise AssertionError(f"{len(kernels)} kernel rows, want {len(KERNELS)}")
     log(f"smoke wall time: {time.perf_counter() - T0:.1f} s")
@@ -6003,6 +6050,454 @@ def procs_phases(torch, hbm: float) -> tuple:
     return rows, numbers
 
 
+# ------------------------------- disaggregated serving over processes (29)
+def disagg_summary(eng, reqs: dict) -> dict:
+    """The framework-independent outcome of one engine run (the stacked and
+    each process's must agree), and its checks."""
+    ms = {k: v for k, v in eng.msg_stats.items()}
+    out = {"results": {int(r): int(t) for r, t in eng.results.items()},
+           "steps_run": eng.steps_run, "msg_stats": ms,
+           "novel_pages_shipped": eng.novel_pages_shipped, "retries": eng.retries,
+           "credit_stalls": eng.credit_stalls, "pool_stalls": eng.pool_stalls,
+           "lane_sends": eng.lane_sends.tolist(), "appends": eng.appends,
+           "ring_payload_appends": eng.ring_payload_appends,
+           "paged_stats": eng.paged_stats(), "rendezvous_stats": eng.rendezvous_stats(),
+           "flow_ok": eng.flow_stats()["conservation_ok"],
+           "queue": {k: v.tolist() for k, v in eng.queue_stats().items()}}
+    bad = [rid for rid, toks in reqs.items() if out["results"].get(rid) != eng.reference(toks)]
+    want = {"inline": (6, 2), "paged": (8, 3), "rendezvous": (8, 4)}[eng.mode]
+    pool_ok = (out["paged_stats"] or out["rendezvous_stats"] or {"pool_conservation_ok": True}
+               )["pool_conservation_ok"]
+    rs = out["rendezvous_stats"]
+    if bad or len(out["results"]) != len(reqs) or eng.retries or not out["flow_ok"] \
+            or not pool_ok or (ms["raw_msgs_per_step"], ms["wire_msgs_per_step"]) != want \
+            or (rs and (rs["ring_payload_appends"] or rs["pins_outstanding"])):
+        raise AssertionError(
+            f"29 {eng.mode}: {len(out['results'])}/{len(reqs)} results, tokens differ for "
+            f"{bad[:8]}, retries {eng.retries}, credit conservation {out['flow_ok']}, pool "
+            f"conservation {pool_ok}, raw -> wire {ms['raw_msgs_per_step']} -> "
+            f"{ms['wire_msgs_per_step']} (want {want}), rendezvous {rs}")
+    return out
+
+
+def disagg_serve_rank(torch, np, disagg, mesh) -> tuple:
+    """29.1 in one rank: the three transports at FULL over the process mesh;
+    returns each one's summary and numbers, and the runs' engines."""
+    out, engines = {}, {}
+    for name, kw in DISAGG_MODES.items():
+        cfg = disagg.DisaggConfig(**kw, **FULL)
+        held = mesh.barriers, mesh.tokens, mesh.host_gathers
+        eng = disagg.DisaggEngine(mesh.p, cfg, seed=DISAGG_SEED, mesh=mesh)
+        reqs = prompts(np.random.default_rng(DISAGG_SEED), DISAGG_N, cfg)
+        for rid, toks in reqs.items():
+            eng.submit(rid, toks)
+        init = (mesh.barriers - held[0], mesh.tokens - held[1], mesh.host_gathers - held[2])
+        torch.cuda.synchronize()
+        mesh.barrier()
+        held = mesh.barriers, mesh.tokens, mesh.host_gathers
+        t0 = time.perf_counter()
+        eng.run_until_drained(max_steps=4 * DISAGG_N + 16)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        steps = eng.steps_run
+        sync = ((mesh.barriers - held[0]) / steps, (mesh.tokens - held[1]) / steps,
+                (mesh.host_gathers - held[2]) / steps)
+        out[name] = {"summary": disagg_summary(eng, reqs), "ms_per_step": dt / steps * 1e3,
+                     "per_step": sync, "init": init, "host_gathers": eng.host_gathers,
+                     "device_bytes": torch.cuda.mem_get_info(mesh.device),
+                     "peak_allocated": torch.cuda.max_memory_allocated(mesh.device)}
+        engines[name] = eng
+    return out, engines
+
+
+def disagg_peer_inputs(torch, mesh, engines) -> dict:
+    """The peer kernels' inputs at the disagg shape, from the runs: the
+    rendezvous engine's pool (symmetric, FULL's 8192 pages of [16, 2, 128]
+    f32) read at shift DISAGG_SHIFT (each decode rank from its prefill
+    owner), 128 seeded page ids (one request's pull) and the same ids as
+    slots 0-127 of the pull's 2048 (the rest holes); q = w_q; one request's
+    KV block [1, 2048, 2, 128] (the inline message) and a count word; the
+    inline run's NOTIF counter; and two symmetric copies of the rendezvous
+    run's descriptor ring [64, 260] with its (head, tail), and its last
+    descriptor as the message."""
+    import numpy as np
+
+    from repro_torch.core.plan import u32_to_wire
+    from repro_torch.rmaq import queue as rq
+
+    r, dev = mesh.rank, mesh.device
+    rdv, inline = engines["rendezvous"], engines["inline"]
+    pool, cfg = rdv.pool, rdv.cfg
+    ppb, m = cfg.pages_per_block, cfg.max_recv_per_step
+    g = torch.Generator(device=dev).manual_seed(DISAGG_SEED + r)
+    ids128 = torch.randperm(cfg.pool_pages, generator=g, device=dev)[:ppb].to(torch.int32)[None]
+    ids_pull = torch.full((1, m * ppb), -1, dtype=torch.int32, device=dev)
+    ids_pull[:, :ppb] = ids128
+    toks = torch.as_tensor(prompts(np.random.default_rng(DISAGG_SEED + r), 1, cfg)[0],
+                           device=dev)
+    ring = [mesh.symmetric(tuple(rdv.qstate.buf.shape[1:]), torch.float32) for _ in range(2)]
+    ctr = [mesh.symmetric((2,), torch.int32) for _ in range(2)]
+    c = rdv.qstate.ctrs
+    for b, k in zip(ring, ctr):
+        b.copy_(rdv.qstate.buf)
+        k.copy_(u32_to_wire(c[:, [rq.HEAD, rq.TAIL]]))
+    last = int((c[0, rq.TAIL] - 1) & (cfg.queue_capacity - 1))
+    return {"pool": pool, "ids128": ids128, "ids_pull": ids_pull,
+            "q": rdv.params["w_q"].reshape(1, 1, -1).contiguous(),
+            "block": inline._compute_kv(toks)[None].contiguous(),
+            "cnt": torch.tensor([r + 1], dtype=torch.int32, device=dev),
+            "notif": u32_to_wire(inline.qstate.ctrs[:, rq.NOTIF]).contiguous(),
+            "ring": ring, "ctr": ctr, "msg": rdv.qstate.buf[:, last:last + 1].clone(),
+            "cfg": cfg}
+
+
+def disagg_peer_path(torch, mesh, ins: dict, mods: dict) -> dict:
+    """29.2 in one rank: rows 2, 3 and 8-10 through their ops surfaces (and
+    `rmem.pages.gather_shift`) on the runs' data, counts zeroed before and
+    read after, each held to what it stands for: the one-sided reads to
+    the two-plan pull `gather_pages` of the same descriptor and to the
+    readout's context over it, the notified put's delivery (hashed for the
+    parent), the accumulate to the counter + 1, the push's accept."""
+    from repro_torch.core.plan import u32_to_wire
+
+    pg_ops, pa_ops, rq_ops, rpg = mods["pg"], mods["pa"], mods["rq"], mods["rpg"]
+    s, cfg, r, p = DISAGG_SHIFT, ins["cfg"], mesh.rank, mesh.p
+    ppb, m = cfg.pages_per_block, cfg.max_recv_per_step
+    entries = torch.full((1, m, ppb, 2), -1, dtype=torch.int32, device=mesh.device)
+    entries[0, 0, :, 0] = (r + s) % p
+    entries[0, 0, :, 1] = ins["ids128"][0]
+    valid = torch.zeros((1, m), dtype=torch.bool, device=mesh.device)
+    valid[0, 0] = True
+    block = rpg.gather_pages(mesh, ins["pool"], entries, valid)   # the two-plan pull
+    pg_ops.launches, pa_ops.shift_launches = 0, 0
+    rq_ops.launches.update(dict.fromkeys(rq_ops.launches, 0))
+    pulled = rpg.gather_shift(mesh, ins["pool"], ins["ids_pull"], s)
+    rows = pg_ops.paged_gather(ins["pool"], ins["ids128"], s, mesh)
+    ctx = pa_ops.paged_attention_shift(ins["q"], ins["pool"], ins["ids128"], s, mesh, scale=1.0)
+    got, cnt = rq_ops.notified_put(ins["block"], ins["cnt"], s, mesh)
+    notif = rq_ops.notify_accumulate(torch.ones_like(ins["cnt"]), ins["notif"], s, mesh)
+    _, ctr, n_sent, n_notif = rq_ops.queue_push(ins["ring"][0], ins["ctr"][0], ins["msg"], s,
+                                                mesh)
+    torch.cuda.synchronize()
+    launches = {"paged_gather_peer": pg_ops.launches,
+                "paged_attention_shift_peer": pa_ops.shift_launches,
+                **{f"{k}_peer": v for k, v in rq_ops.launches.items()}}
+    want = block[0, 0].reshape(ppb, cfg.page_tokens, 2, cfg.d_model)
+    k_in = want[:, :, 0].reshape(-1, cfg.d_model)
+    v_in = want[:, :, 1].reshape(-1, cfg.d_model)
+    ref_ctx = torch.softmax(k_in @ ins["q"][0, 0], dim=0) @ v_in
+    ctx_err = float((ctx[0, 0] - ref_ctx).abs().max())
+    checks = {
+        "gather_shift == gather_pages": torch.equal(pulled[0, :ppb], want)
+        and not pulled[0, ppb:].any(),
+        "paged_gather == gather_pages": torch.equal(rows[0], want),
+        "attention ~ readout": ctx_err <= TOL,
+        "notified count": int(cnt[0]) == (r - s) % p + 1,
+        "accumulate == counter + 1": torch.equal(
+            notif, u32_to_wire(ins["notif"].long() + 1)),
+        "push admitted": int(n_sent[0]) == 1 and int(n_notif[0]) == 1,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"29.2 rank {r}: {checks} (attention err {ctx_err})")
+    return {"launches": launches, "ctx_err": ctx_err, "block": digest(torch, ins["block"]),
+            "delivered": digest(torch, got), "checks": checks}
+
+
+def disagg_peer_check(torch, mesh, ins: dict, mods: dict) -> dict:
+    """29.3: each peer kernel against its plain version on the same ranks at
+    the path's inputs and at shifts 0, 1, -1 and p + 1: rows 3 and 8-10
+    bit-equal, row 2 within TOL; returns each row's max abs error."""
+    pg_ops, pa_ops, rq_ops = mods["pg"], mods["pa"], mods["rq"]
+    pg_ref, pa_ref, rq_ref = mods["pg_ref"], mods["pa_ref"], mods["rq_ref"]
+    cap = ins["cfg"].queue_capacity
+    errs = dict.fromkeys(DISAGG_PEER_ROWS, 0.0)
+
+    def same(name, got, want, what):
+        for a, b in zip(got, want):
+            if name != "paged_attention_shift_peer" and not torch.equal(a, b):
+                raise AssertionError(f"29.3 {name} differs from its plain version at {what}, "
+                                     f"rank {mesh.rank}")
+            errs[name] = max(errs[name], float((a.double() - b.double()).abs().max()))
+        if errs[name] > TOL:
+            raise AssertionError(f"29.3 {name}: max abs err {errs[name]} at {what}")
+
+    for s in (DISAGG_SHIFT, 0, 1, -1, mesh.p + 1):
+        what = f"shift {s}"
+        for ids in (ins["ids128"], ins["ids_pull"]):
+            for holes in (False, True):
+                same("paged_gather_peer",
+                     [pg_ops.paged_gather(ins["pool"], ids, s, mesh, holes=holes)],
+                     [pg_ref.paged_gather_peer_ref(ins["pool"], ids, s, mesh, holes)], what)
+        same("paged_attention_shift_peer",
+             [pa_ops.paged_attention_shift(ins["q"], ins["pool"], ins["ids128"], s, mesh,
+                                           scale=1.0)],
+             [pa_ref.paged_attention_peer_ref(ins["q"], ins["pool"], ins["ids128"], s, mesh,
+                                              scale=1.0)], what)
+        same("notified_put_peer", rq_ops.notified_put(ins["block"], ins["cnt"], s, mesh),
+             rq_ref.notified_put_peer_ref(ins["block"], ins["cnt"], s, mesh), what)
+        same("notify_accumulate_peer",
+             [rq_ops.notify_accumulate(ins["cnt"], ins["notif"], s, mesh)],
+             [rq_ref.notify_accumulate_peer_ref(ins["cnt"], ins["notif"], s, mesh)], what)
+        pushed = []
+        for fn in (rq_ops.queue_push, rq_ref.queue_push_peer_ref):
+            ins["ring"][1].copy_(ins["ring"][0])
+            ins["ctr"][1].copy_(ins["ctr"][0])
+            pushed.append([t.clone() for t in fn(ins["ring"][1], ins["ctr"][1], ins["msg"], s,
+                                                 mesh, cap)])
+        same("queue_push_peer", pushed[0], pushed[1], what)
+    torch.cuda.synchronize()
+    return errs
+
+
+def disagg_peer_times(torch, mesh, ins: dict, mods: dict, hbm: float) -> dict:
+    """29.4: each peer kernel alone (its launches, no fence; CUDA events over
+    50 calls) beside its plain version and, where one PyTorch call computes
+    the same function, that call, timed by one rank while the others wait
+    at a barrier (the ranks take turns); the bound from this run's inputs."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.plan import U32_MASK, u32_to_wire
+    from repro_torch.kernels import common
+    from repro_torch.procmesh import aligned, as_bytes
+
+    pg_ops, pa_ops, rq_ops = mods["pg"], mods["pa"], mods["rq"]
+    pa_ref = mods["pa_ref"]
+    s, r, p, cfg = DISAGG_SHIFT, mesh.rank, mesh.p, ins["cfg"]
+    t, stream = (r + s) % p, common.current_stream(mesh.device.index)
+    pool, ids, q, block = ins["pool"], ins["ids128"], ins["q"], ins["block"]
+    pseg, poff = mesh.locate(pool)
+    n_pages, w, k = pool.shape[1], pool[0, 0].numel(), ids.shape[1]
+    pt, hd = cfg.page_tokens, cfg.d_model
+    owner = mesh.peer(pool, t)[0]
+    safe = ids[0].long()
+    out_rows = torch.empty((1, k) + tuple(pool.shape[2:]), device=mesh.device)
+    local_ids = torch.arange(k, device=mesh.device)[None]       # ids are valid: no mask
+    kv = owner[safe]                                            # [k, pt, 2, hd]
+    k_all, v_all = kv[:, :, 0].reshape(1, 1, -1, hd), kv[:, :, 1].reshape(1, 1, -1, hd)
+    # the exchange slots the stores go to: one collective round before the turns
+    xb = aligned(block.nbytes)
+    xseg, xoff = mesh.round(xb + 8)
+    bbytes, cnt, local = as_bytes(block), ins["cnt"], ins["notif"]
+    acc_out = torch.empty_like(local)
+    ring, ctr, msg = ins["ring"][1], ins["ctr"][1], ins["msg"]
+    (bseg, boff), (cseg, coff) = mesh.locate(ring), mesh.locate(ctr)
+    counts = torch.empty((2, 1), dtype=torch.int32, device=mesh.device)
+    ring_t, ctr_t = mesh.peer(ring, t), mesh.peer(ctr, t)
+    cap = cfg.queue_capacity
+    slot_here = xseg.tensor(r, (1,), torch.int32, xoff + xb)
+
+    def push_plain():
+        head, tail = (ctr_t[0].long() & U32_MASK).tolist()
+        acc = min((cap - ((tail - head) & U32_MASK)) & U32_MASK, msg.shape[1])
+        ring_t[0, (tail + torch.arange(acc, device=mesh.device)) & (cap - 1)] = msg[0, :acc]
+        xseg.view(t, xoff + xb, 4).copy_(as_bytes(torch.tensor([acc], dtype=torch.int32,
+                                                               device=mesh.device)))
+        ctr[:, 1] = u32_to_wire(ctr[:, 1].long() + slot_here.long())
+
+    valid = int((ids >= 0).sum())
+    rows = {   # name -> (kernel's launches, plain, library or None, (bytes, flops))
+        "paged_gather_peer": (
+            lambda: pg_ops._PEER(pseg.table_ptr, poff, ids.data_ptr(), out_rows.data_ptr(), p,
+                                 r, s, n_pages, w, k, 0, stream),
+            lambda: owner[safe.clamp(0, n_pages - 1)],
+            lambda: torch.index_select(owner, 0, safe),
+            (2 * k * w * 4 + ids.nbytes, 0)),
+        "paged_attention_shift_peer": (
+            lambda: pa_ops._launch(pa_ops._PEER, q, (pseg.table_ptr, poff), ids, 1.0, False,
+                                   n_pages, pt, (p, r, s)),
+            lambda: pa_ref.paged_attention_ref(q, owner[safe], local_ids, scale=1.0),
+            lambda: F.scaled_dot_product_attention(q[:, None], k_all, v_all, scale=1.0),
+            (valid * pt * 2 * hd * 4 + 2 * q.nbytes + ids.nbytes, 4 * valid * pt * hd)),
+        "notified_put_peer": (
+            lambda: rq_ops._PEER_PUT(block.data_ptr(), cnt.data_ptr(), xseg.table_ptr, p, r, s,
+                                     xoff, xoff + xb, block.numel(), 1, stream),
+            lambda: (xseg.view(t, xoff, block.nbytes).copy_(bbytes),
+                     xseg.view(t, xoff + xb, 4).copy_(as_bytes(cnt))),
+            None, (2 * (block.nbytes + 4), 0)),
+        "notify_accumulate_peer": (
+            lambda: (rq_ops._PEER_STORE(cnt.data_ptr(), xseg.table_ptr, p, r, s, xoff + xb, 1,
+                                        stream),
+                     rq_ops._PEER_ADD(local.data_ptr(), xseg.table_ptr, acc_out.data_ptr(), r,
+                                      xoff + xb, 1, stream)),
+            lambda: (xseg.view(t, xoff + xb, 4).copy_(as_bytes(cnt)),
+                     u32_to_wire(local.long() + slot_here.long())),
+            None, (5 * 4, 0)),
+        "queue_push_peer": (
+            lambda: (rq_ops._PEER_PUSH(msg.data_ptr(), bseg.table_ptr, boff, cseg.table_ptr,
+                                       coff, xseg.table_ptr, xoff + xb, counts.data_ptr(), p,
+                                       r, s, cap, msg.shape[1], msg.shape[2], stream),
+                     rq_ops._PEER_PUBLISH(ctr.data_ptr(), xseg.table_ptr, r, xoff + xb,
+                                          counts[1].data_ptr(), stream)),
+            push_plain, None, (2 * msg.nbytes + 8 + 4 + 4 + 4 + 8 + 4, 0)),
+    }
+    out = {}
+    mesh.fence()
+    for turn in range(p):
+        mesh.barrier()
+        if turn == r:
+            for name, (kern, plain, lib, (nbytes, flops)) in rows.items():
+                k_ms, p_ms = time_ms(kern), time_ms(plain)
+                bound, bound_by = max((nbytes / hbm * 1e3, "bytes"),
+                                      (flops / F32_FLOPS_PER_S * 1e3, "operations"))
+                out[name] = {"ms": k_ms, "plain_ms": p_ms,
+                             "library_ms": None if lib is None else time_ms(lib),
+                             "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
+                             "flops": flops}
+            torch.cuda.synchronize()
+            out["push_admitted"] = int(counts[0, 0])
+        torch.cuda.synchronize()
+    mesh.fence()
+    return out
+
+
+def disagg_rank(mesh, hbm: float) -> dict:
+    """Phase 29 in one rank's process: 29.1-29.4; raises on any failure."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+    from repro_torch.kernels.paged_gather import ops as pg_ops
+    from repro_torch.kernels.paged_gather import ref as pg_ref
+    from repro_torch.kernels.rmaq import ops as rq_ops
+    from repro_torch.kernels.rmaq import ref as rq_ref
+    from repro_torch.rmem import pages as rpg
+    from repro_torch.serve import disagg
+
+    mods = {"pg": pg_ops, "pa": pa_ops, "rq": rq_ops, "rpg": rpg, "pg_ref": pg_ref,
+            "pa_ref": pa_ref, "rq_ref": rq_ref}
+    t0 = time.perf_counter()
+    out, engines = disagg_serve_rank(torch, np, disagg, mesh)
+    ins = disagg_peer_inputs(torch, mesh, engines)
+    path = disagg_peer_path(torch, mesh, ins, mods)
+    errs = disagg_peer_check(torch, mesh, ins, mods)
+    times = disagg_peer_times(torch, mesh, ins, mods, hbm)
+    if mesh.rank == 0 and times["push_admitted"] != 1:
+        raise AssertionError(f"29.4: the last timed push admitted {times['push_admitted']}")
+    return {"rank": mesh.rank, "serve": out, "path": path, "errs": errs, "times": times,
+            "wall_s": time.perf_counter() - t0}
+
+
+def disagg_procs_phases(torch, hbm: float) -> tuple:
+    """Phase 29: `DisaggEngine` at FULL with one rank a process, 4 processes
+    on the card, beside the stacked `Mesh(4)` engine on the same requests,
+    and the peer forms of rows 2, 3 and 8-10 (their rows of the kernels
+    line, and the phase's numbers)."""
+    import numpy as np
+
+    from repro_torch import procmesh
+    from repro_torch.serve import disagg
+
+    t0 = time.perf_counter()
+    p = PROC_P
+    card = card_line()
+    log(f"phase 29: disaggregated serving over {p} processes time-sharing one card ({card}); "
+        "no link is crossed, so no time here is an NVLink time")
+    stacked = {}
+    for name, kw in DISAGG_MODES.items():
+        cfg = disagg.DisaggConfig(**kw, **FULL)
+        eng, dt = serve(disagg, cfg, DISAGG_N, seed=DISAGG_SEED)
+        reqs = prompts(np.random.default_rng(DISAGG_SEED), DISAGG_N, cfg)
+        stacked[name] = {"summary": disagg_summary(eng, reqs),
+                         "ms_per_step": dt / eng.steps_run * 1e3}
+        del eng
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks = procmesh.run(disagg_rank, p, device="cuda", args=(hbm,), timeout=PROC_TIMEOUT)
+    run_s = time.perf_counter() - t1
+    for name in DISAGG_MODES:
+        want = stacked[name]["summary"]
+        for res in ranks:
+            got = res["serve"][name]["summary"]
+            if got != want:
+                diff = sorted(k for k in want if got.get(k) != want[k])
+                raise AssertionError(f"29.1 {name} rank {res['rank']}: {diff} differ from the "
+                                     "stacked run's")
+        ms = want["msg_stats"]
+        per = [res["serve"][name]["per_step"] for res in ranks]
+        log(f"29.1 {name}: {DISAGG_N} requests, {want['steps_run']} steps, every rank's tokens, "
+            f"steps, msg_stats, novel pages {want['novel_pages_shipped']}, retries "
+            f"{want['retries']}, stalls {want['credit_stalls']}/{want['pool_stalls']} equal to "
+            f"the stacked run's and to reference(); raw -> wire {ms['raw_msgs_per_step']} -> "
+            f"{ms['wire_msgs_per_step']} a step, ring payload appends "
+            f"{want['ring_payload_appends']}; ms/step by rank "
+            f"{[round(res['serve'][name]['ms_per_step'], 3) for res in ranks]} beside the "
+            f"stacked {stacked[name]['ms_per_step']:.3f}; host barriers / tokens / host gathers "
+            f"a step by rank {[tuple(round(x, 2) for x in pr) for pr in per]}; device memory in "
+            f"use {max(res['serve'][name]['device_bytes'][1] - res['serve'][name]['device_bytes'][0] for res in ranks) / 2**30:.2f} GiB "
+            f"(all contexts), torch peak a rank "
+            f"{max(res['serve'][name]['peak_allocated'] for res in ranks) / 2**20:.0f} MiB")
+    s = DISAGG_SHIFT
+    for res in ranks:
+        src = ranks[(res["rank"] - s) % p]["path"]["block"]
+        if res["path"]["delivered"] != src:
+            raise AssertionError(f"29.2 rank {res['rank']}: the notified put delivered another "
+                                 "block than its producer's")
+    launches = {name: sum(res["path"]["launches"][name] for res in ranks)
+                for name in DISAGG_PEER_ROWS}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"29.2: a peer kernel of the path launched no time: {launches}")
+    log(f"29.2 rows 2, 3, 8-10 through their ops surfaces on the runs' data at shift {s} "
+        f"(decode rank <- its prefill owner): gather_shift and paged_gather bit-equal to the "
+        f"two-plan gather_pages pull, paged_attention_shift within "
+        f"{max(res['path']['ctx_err'] for res in ranks):.3g} of the readout's context, the "
+        f"notified put's block its producer's, the accumulate the counter + 1, the push "
+        f"admitted; launches {launches}")
+    errs = {k: max(res["errs"][k] for res in ranks) for k in DISAGG_PEER_ROWS}
+    log(f"29.3 peer kernels vs plain on the same ranks (the path's inputs, shifts {s}, 0, 1, "
+        f"-1, {p + 1}; rows 3 and 8-10 bit-equal, row 2 within {TOL}): max abs err {errs}")
+    times = ranks[0]["times"]
+    rows = []
+    for name in DISAGG_PEER_ROWS:
+        t = times[name]
+        lib = (f"library {t['library_ms'] * 1e3:.1f} us" if t["library_ms"] is not None
+               else "no one PyTorch call computes it")
+        log(f"29.4 {name} (rank 0 alone; {card}): kernel {t['ms'] * 1e3:.1f} us, plain "
+            f"{t['plain_ms'] * 1e3:.1f} us, {lib}, bound {t['bound_ms'] * 1e3:.3f} us "
+            f"({t['bound_by']}: {t['bytes']} bytes, {t['flops']} flops), launches "
+            f"{launches[name]}; kernel by rank "
+            f"{[round(x['times'][name]['ms'] * 1e3, 1) for x in ranks]} us")
+        rows.append({"name": name, "route": KERNELS[name][0], "source": KERNELS[name][1],
+                     "replaces": KERNELS[name][2], "launches": launches[name],
+                     "launches_per_rank": [x["path"]["launches"][name] for x in ranks],
+                     "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                     "library_ms": t["library_ms"]})
+    numbers = {name: {"ms_per_step": [x["serve"][name]["ms_per_step"] for x in ranks],
+                      "stacked_ms_per_step": stacked[name]["ms_per_step"],
+                      "per_step": [x["serve"][name]["per_step"] for x in ranks],
+                      "steps": stacked[name]["summary"]["steps_run"]}
+               for name in DISAGG_MODES}
+    numbers.update(run_s=run_s, wall_s=time.perf_counter() - t0,
+                   ranks_wall_s=[x["wall_s"] for x in ranks])
+    log(f"29: ranks' run {run_s:.1f} s, phase {time.perf_counter() - t0:.1f} s")
+    return rows, numbers
+
+
+def disagg_procs_only() -> int:
+    """``python3 chip_smoke.py --disagg-procs``: phase 29 alone, on the
+    package beside this file (the kernels build first).  Prints the kernels
+    line of its five rows, then the result line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.core.perfmodel import H100
+    from repro_torch.kernels import common
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products, as in main()
+    log(card_line())
+    build_all(common)
+    rows, numbers = disagg_procs_phases(torch, H100.hbm_bandwidth)
+    log(f"disagg procs phase numbers: {json.dumps(numbers)}")
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def procs_only() -> int:
     """``python3 chip_smoke.py --procs``: phase 28 alone, on the package
     beside this file (the kernels build first).  Prints the kernels line of
@@ -6236,7 +6731,8 @@ def conformance_only() -> int:
 MODES = {"--gather-shift": gather_shift_only, "--queue-push": queue_push_only,
          "--pool": pool_only, "--apps": apps_only, "--zoo": zoo_only,
          "--parallel": parallel_only, "--conformance": conformance_only,
-         "--tools": tools_only, "--procs": procs_only}
+         "--tools": tools_only, "--procs": procs_only,
+         "--disagg-procs": disagg_procs_only}
 
 if __name__ == "__main__":
     sys.exit(MODES[sys.argv[1]]() if sys.argv[1:] else main())

@@ -88,8 +88,7 @@ class Window:
         (a `ProcMesh` window): loads and stores reach its memory."""
         if self.segment is None:
             raise WindowError("peer() needs a window allocated on a ProcMesh")
-        n = math.prod(self.local_shape) * self.dtype.itemsize
-        return self.segment.view(rank, 0, n).view(self.dtype).reshape(self.block_shape())
+        return self.segment.tensor(rank, self.block_shape(), self.dtype)
 
     def metadata_nbytes(self) -> int:
         """Bytes of per-process metadata — the paper's scalability metric."""

@@ -61,6 +61,18 @@
 //
 // Both entries are one launch of the same kernel: the local form is the
 // shift form with p = 1.
+//
+// The peer form of paged_attention_shift_pallas (paged_attention_peer_f32),
+// for ranks that are processes of their own: the owner's pool lies in a
+// symmetric segment that every peer maps (rma_peer.cu's contract), and the
+// same split walk takes the owner's base from the segment's device table,
+// table[(rank + shift) mod p] + off, instead of kv + owner * pool_stride;
+// this rank's q rows are the launch's rows.  It computes what the TPU
+// kernel computes (this rank attends over the owner's pages), but the
+// reference's page requests and replies become one one-sided read: the
+// K and V rows are loaded through the peer mapping, and the owner runs
+// nothing.  The wrapper brackets the launch with the epoch's fences (the
+// owner's writes visible before, every read done after).
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -83,6 +95,9 @@ struct Args {
   float* ws;               // (m, l) [rows * S][2], padded to 4 floats, then
                            // acc [rows * S][hd]
   int* tickets;            // [groups], 0 on entry, 0 on exit
+  const unsigned long long* table;   // peer form: the segment's base pointers
+  long long table_off;     // peer form: the pool's byte offset in a block
+  int owner;               // peer form: the rank whose pool is read
   size_t pool_stride;      // floats between two ranks' pools
   int p, off;              // row i reads the pool of rank (i + off) % p
   int Sq, hd, n_pages, pt, k, causal;
@@ -180,7 +195,11 @@ __global__ void __launch_bounds__(kThreads) paged_attention_split(const Args a) 
       continue;
     }
     const int i = r / a.Sq;
-    const float* pool = a.kv + (size_t)((i + a.off) % a.p) * a.pool_stride;
+    const float* pool =
+        a.table != nullptr
+            ? reinterpret_cast<const float*>(reinterpret_cast<const char*>(a.table[a.owner]) +
+                                             a.table_off)
+            : a.kv + (size_t)((i + a.off) % a.p) * a.pool_stride;
     const V* qrow = reinterpret_cast<const V*>(a.q + (size_t)r * a.hd);
     V qv[NC], acc[NC];
 #pragma unroll
@@ -390,8 +409,9 @@ int run(Args a, cudaStream_t stream) {
   const long long blocks = (long long)a.groups * a.S;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   const int n = (int)blocks;
-  if (a.hd % 128 == 0 && aligned16(a.q) && aligned16(a.kv) && aligned16(a.out) &&
-      aligned16(a.ws)) {
+  // a segment's bases come from cudaMalloc (256-byte aligned)
+  const bool kv16 = a.table != nullptr ? a.table_off % 16 == 0 : aligned16(a.kv);
+  if (a.hd % 128 == 0 && aligned16(a.q) && kv16 && aligned16(a.out) && aligned16(a.ws)) {
     switch (a.hd / 128) {                          // float4 chunks a lane
       case 1: return launch<4, 1>(a, n, stream);
       case 2: return launch<4, 2>(a, n, stream);
@@ -422,7 +442,7 @@ extern "C" int paged_attention_f32(const void* q, const void* kv_pages,
                                    int P, int S, int groups, void* stream) {
   const Args a{static_cast<const float*>(q), static_cast<const float*>(kv_pages),
                static_cast<const int32_t*>(ids), static_cast<float*>(out),
-               static_cast<float*>(ws), static_cast<int*>(tickets), 0, 1, 0,
+               static_cast<float*>(ws), static_cast<int*>(tickets), nullptr, 0, 0, 0, 1, 0,
                Sq, hd, n_pages, pt, k, causal, P, S, groups, m * Sq, 0};
   return run(a, (cudaStream_t)stream);
 }
@@ -438,8 +458,26 @@ extern "C" int paged_attention_shift_f32(const void* q, const void* kv_pages,
   if (p < 1) return (int)cudaErrorInvalidValue;
   const Args a{static_cast<const float*>(q), static_cast<const float*>(kv_pages),
                static_cast<const int32_t*>(ids), static_cast<float*>(out),
-               static_cast<float*>(ws), static_cast<int*>(tickets),
+               static_cast<float*>(ws), static_cast<int*>(tickets), nullptr, 0, 0,
                (size_t)n_pages * pt * 2 * hd, p, ((shift % p) + p) % p,
                Sq, hd, n_pages, pt, k, causal, P, S, groups, p * Sq, 0};
+  return run(a, (cudaStream_t)stream);
+}
+
+// Peer entry: this rank's q [1, Sq, hd] attends over pages ids [1, k] of
+// rank (rank + shift) mod p's pool, [n_pages, pt, 2, hd] f32 at off_bytes of
+// the segment whose base pointers `table` holds (device memory).
+extern "C" int paged_attention_peer_f32(const void* q, const void* table, long long off_bytes,
+                                        const void* ids, void* out, void* ws, void* tickets,
+                                        int p, int rank, int shift, int Sq, int hd,
+                                        int n_pages, int pt, int k, int causal, int P, int S,
+                                        int groups, void* stream) {
+  if (p < 1 || rank < 0 || rank >= p || off_bytes < 0) return (int)cudaErrorInvalidValue;
+  const int owner = (int)((((long long)rank + shift) % p + p) % p);
+  const Args a{static_cast<const float*>(q), nullptr,
+               static_cast<const int32_t*>(ids), static_cast<float*>(out),
+               static_cast<float*>(ws), static_cast<int*>(tickets),
+               static_cast<const unsigned long long*>(table), off_bytes, owner, 0, 1, 0,
+               Sq, hd, n_pages, pt, k, causal, P, S, groups, Sq, 0};
   return run(a, (cudaStream_t)stream);
 }

@@ -28,6 +28,19 @@
 // (st.global.cs: the output is written once and not read again here).
 // A TMA 1-D bulk copy (global -> shared -> global in 8 KiB chunks) was
 // measured slower at the rendezvous pull's inputs (PERF.md) and dropped.
+//
+// The peer form (paged_gather_peer), for ranks that are processes of their
+// own: the owner's pool lies in a symmetric segment that every peer maps
+// (rma_peer.cu's contract), and the kernel takes the owner's base from the
+// segment's device table, table[(rank + shift) mod p] + off, instead of
+// pages + owner * stride; this rank's k rows are the launch's rows.  It
+// computes what the TPU kernel computes (the requester gets the owner's
+// rows), but the reference's request / reply pair (the id list sent to the
+// owner, the packed block sent back) becomes one one-sided read: the
+// requester loads the rows through the peer mapping, and the owner runs
+// nothing.  The wrapper brackets the launch with the epoch's fences (the
+// owner's writes visible before, every read done after); no kernel waits
+// on another process.
 
 #include "rotate.cuh"
 
@@ -57,10 +70,14 @@ __device__ __forceinline__ uint4 zero_of(uint4) { return make_uint4(0u, 0u, 0u, 
 __device__ __forceinline__ uint32_t zero_of(uint32_t) { return 0u; }
 
 // rows = p * k output rows of vw V-units each
+// (the peer form: `table` non-null, the pool read at table[owner] + base)
 template <typename V, bool HOLES>
 __global__ void __launch_bounds__(kThreads) gather_rows(
     const V* __restrict__ pages, const int32_t* __restrict__ ids, V* __restrict__ out,
-    long long rows, long long k, long long p, long long n_pages, int vw, long long off) {
+    long long rows, long long k, long long p, long long n_pages, int vw, long long off,
+    const unsigned long long* __restrict__ table, long long owner, long long base) {
+  if (table != nullptr)
+    pages = reinterpret_cast<const V*>(reinterpret_cast<const char*>(table[owner]) + base);
   const int lane = threadIdx.x & 31;
   for (long long q = blockIdx.x; q < rows; q += gridDim.x) {
     long long row = 0;
@@ -92,7 +109,9 @@ __global__ void __launch_bounds__(kThreads) gather_rows(
 // looked up on the instance's first launch), no more than there are rows.
 template <typename V, bool HOLES>
 int launch(const void* pages, const int32_t* ids, void* out, long long rows, long long k,
-           long long p, long long n_pages, long long vw, long long off, cudaStream_t s) {
+           long long p, long long n_pages, long long vw, long long off, cudaStream_t s,
+           const unsigned long long* table = nullptr, long long owner = 0,
+           long long base = 0) {
   static int per_sm = 0;
   auto kernel = gather_rows<V, HOLES>;
   if (per_sm < 1 &&
@@ -103,7 +122,7 @@ int launch(const void* pages, const int32_t* ids, void* out, long long rows, lon
   const long long most = (long long)per_sm * sm_count();
   kernel<<<(int)(rows < most ? rows : most), kThreads, 0, s>>>(
       static_cast<const V*>(pages), ids, static_cast<V*>(out), rows, k, p, n_pages, (int)vw,
-      off);
+      off, table, owner, base);
   return (int)cudaGetLastError();
 }
 
@@ -130,4 +149,33 @@ extern "C" int paged_gather_shift(const void* pages, const void* ids, void* out,
                  : launch<uint4, false>(pages, id, out, rows, k, p, n_pages, vw, off, s);
   return holes ? launch<uint32_t, true>(pages, id, out, rows, k, p, n_pages, vw, off, s)
                : launch<uint32_t, false>(pages, id, out, rows, k, p, n_pages, vw, off, s);
+}
+
+// The peer form: this rank's k rows of rank (rank + shift) mod p's pool,
+// [n_pages, w] words at off_bytes of the segment whose base pointers
+// `table` holds (device memory), into out [k, w].
+extern "C" int paged_gather_peer(const void* table, long long off_bytes, const void* ids,
+                                 void* out, long long p, long long rank, long long shift,
+                                 long long n_pages, long long w, long long k, int holes,
+                                 void* stream) {
+  if (p < 1 || k < 0 || w < 0 || off_bytes < 0) return (int)cudaErrorInvalidValue;
+  if (k * w == 0) return (int)cudaSuccess;
+  if (n_pages < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const auto* tab = static_cast<const unsigned long long*>(table);
+  const long long owner = mod(rank + shift, p);
+  // the segment's bases come from cudaMalloc (256-byte aligned)
+  const bool vec = w % 4 == 0 && off_bytes % 16 == 0 && aligned16(out);
+  const int32_t* id = static_cast<const int32_t*>(ids);
+  const long long vw = vec ? w / 4 : w;
+  if (vw >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  if (vec)
+    return holes ? launch<uint4, true>(nullptr, id, out, k, k, 1, n_pages, vw, 0, s, tab, owner,
+                                       off_bytes)
+                 : launch<uint4, false>(nullptr, id, out, k, k, 1, n_pages, vw, 0, s, tab,
+                                        owner, off_bytes);
+  return holes ? launch<uint32_t, true>(nullptr, id, out, k, k, 1, n_pages, vw, 0, s, tab,
+                                        owner, off_bytes)
+               : launch<uint32_t, false>(nullptr, id, out, k, k, 1, n_pages, vw, 0, s, tab,
+                                         owner, off_bytes);
 }

@@ -15,6 +15,15 @@ the host).  The wrapper keeps, per (device, stream), a workspace for the
 partials (`torch.empty`) and a zeroed ticket buffer, which every launch
 leaves at zero again: launches on one stream run in order, and launches
 on two streams never share either.
+
+On a `ProcMesh` (one rank a process) `paged_attention_shift` runs its peer
+form: q [1, Sq, hd], ids [1, k] and this rank's pool [1, n_pages, pt, 2,
+hd], which must be a symmetric tensor (`ProcMesh.symmetric`, a window of
+`core.window.win_allocate`); the split walk reads rank (rank + shift)'s
+pool in place through the peer mapping (the kernel
+``paged_attention_peer_f32``, one launch counted in `shift_launches`;
+on the CPU `ref.paged_attention_peer_ref`), between a fence that opens
+the epoch and one that closes it.  A pool outside every segment is refused.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import torch
 
 from ...obs import cost
 from ...mesh import Mesh
+from ...procmesh import ProcMesh
 from .. import common
 from . import ref
 
@@ -44,6 +54,9 @@ shift_launches = 0      # kernel launches by `paged_attention_shift`
 _LOCAL = common.Entry(_NAME, "paged_attention_f32", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10)
 _SHIFT = common.Entry(_NAME, "paged_attention_shift_f32",
                       [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11)
+_PEER = common.Entry(_NAME, "paged_attention_peer_f32",
+                     [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4
+                     + [ctypes.c_int] * 12)
 _BUFFERS: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
 
@@ -103,10 +116,11 @@ def _buffers(q: torch.Tensor, device: int, stream: int, workspace: int,
     return ws, tickets
 
 
-def _launch(entry: common.Entry, q: torch.Tensor, kv_pages: torch.Tensor, ids: torch.Tensor,
+def _launch(entry: common.Entry, q: torch.Tensor, kv_pages, ids: torch.Tensor,
             scale: float, causal: bool, n_pages: int, pt: int, lead: tuple) -> torch.Tensor:
     """One launch of the split kernel; `lead` is the entry's leading ints
-    (m, or p and shift)."""
+    (m, or p and shift); `kv_pages` the pool's pointer arguments: the pool,
+    or (the peer form) a segment's table and the pool's offset in it."""
     m, Sq, hd = q.shape
     k = ids.shape[1]
     pl = plan(m, Sq, k, pt, hd)
@@ -116,7 +130,8 @@ def _launch(entry: common.Entry, q: torch.Tensor, kv_pages: torch.Tensor, ids: t
     device = q.get_device()
     stream = common.current_stream(device)
     ws, tickets = _buffers(q, device, stream, pl.workspace, pl.groups)
-    entry(qs.data_ptr(), kv_pages.data_ptr(), ids.data_ptr(), out.data_ptr(),
+    pool = (kv_pages.data_ptr(),) if isinstance(kv_pages, torch.Tensor) else kv_pages
+    entry(qs.data_ptr(), *pool, ids.data_ptr(), out.data_ptr(),
           ws.data_ptr(), tickets.data_ptr(), *lead, Sq, hd, n_pages, pt, k,
           int(causal), pl.pages, pl.splits, pl.groups, stream)
     if cost.active() is not None:
@@ -196,6 +211,8 @@ def paged_attention_shift(q: torch.Tensor, kv_pages: torch.Tensor,
     p, Sq, hd = q.shape
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
+    if isinstance(mesh, ProcMesh):
+        return _peer_attention(q, kv_pages, ids, shift, mesh, scale, causal)
     if q.device.type == "cpu":
         return ref.paged_attention_shift_ref(q, kv_pages, ids, shift, mesh,
                                              scale=scale, causal=causal)
@@ -206,4 +223,24 @@ def paged_attention_shift(q: torch.Tensor, kv_pages: torch.Tensor,
                   kv_pages.shape[1], kv_pages.shape[2], (p, int(shift) % p))
     global shift_launches
     shift_launches += 1
+    return out
+
+
+def _peer_attention(q: torch.Tensor, kv_pages: torch.Tensor, ids: torch.Tensor, shift: int,
+                    mesh: ProcMesh, scale: float, causal: bool) -> torch.Tensor:
+    """The peer form: this rank's rows over pages ``ids[0]`` of rank (rank +
+    shift)'s symmetric pool, read in place between the epoch's fences."""
+    if q.device.type == "cpu":
+        return ref.paged_attention_peer_ref(q, kv_pages, ids, shift, mesh,
+                                            scale=scale, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention_shift runs on cpu or cuda, not {q.device}")
+    _check_cuda_args(q, kv_pages, ids, ranks=1)
+    seg, off = mesh.locate(kv_pages)
+    mesh.fence()                    # the owner's writes are visible
+    out = _launch(_PEER, q, (seg.table_ptr, off), ids, scale, causal, kv_pages.shape[1],
+                  kv_pages.shape[2], (mesh.p, mesh.rank, int(shift) % mesh.p))
+    global shift_launches
+    shift_launches += 1
+    mesh.fence()                    # every read done before an owner writes again
     return out

@@ -12,7 +12,8 @@ Queries attend over the tokens of the pages named by an int32 page-id list:
 Pages carry K and V interleaved, ``[n_pages, page_tokens, 2, hd]``: the
 layout of the serving engine's page pools.  `paged_attention_shift_ref`
 is the cross-rank form: each rank attends over pages of another rank's
-pool.
+pool; `paged_attention_peer_ref` the same on a `ProcMesh`, the owner's
+pages cloned through its mapped block.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from __future__ import annotations
 import torch
 
 from ...mesh import Mesh
-from ..paged_gather.ref import paged_gather_ref
+from ...procmesh import ProcMesh
+from ..paged_gather.ref import paged_gather_peer_ref, paged_gather_ref
 
 NEG_INF = -1e30
 
@@ -70,3 +72,18 @@ def paged_attention_shift_ref(q: torch.Tensor, kv_pages: torch.Tensor,
     local_ids = torch.where(ids >= 0, local, torch.full_like(local, -1))
     return paged_attention_ref(q, rows.reshape((p * k,) + tuple(rows.shape[2:])),
                                local_ids, scale=scale, causal=causal)
+
+
+def paged_attention_peer_ref(q: torch.Tensor, kv_pages: torch.Tensor, ids: torch.Tensor,
+                             shift: int, mesh: ProcMesh, scale: float | None = None,
+                             causal: bool = False) -> torch.Tensor:
+    """The peer form on a `ProcMesh`: q [1, Sq, hd], kv_pages [1, n_pages,
+    pt, 2, hd] a symmetric tensor, ids [1, k] -> [1, Sq, hd], this rank
+    attending over pages ``ids`` of rank (rank + shift)'s pool: the pages
+    read through the peer mapping (`paged_gather_peer_ref`, between the
+    epoch's fences), then the requester's mask over them."""
+    k = ids.shape[1]
+    rows = paged_gather_peer_ref(kv_pages, ids, shift, mesh)[0]    # [k, pt, 2, hd]
+    local = torch.arange(k, device=ids.device)[None]
+    local_ids = torch.where(ids >= 0, local, torch.full_like(local, -1))
+    return paged_attention_ref(q, rows, local_ids, scale=scale, causal=causal)

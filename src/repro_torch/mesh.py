@@ -181,6 +181,12 @@ class Mesh:
         """The one copy of an `all_gather` result every receiver holds."""
         return gathered[0]
 
+    @staticmethod
+    def host_gather(x: torch.Tensor) -> torch.Tensor:
+        """Every rank's block of x on the host, [p, ...]: the stacked x
+        holds them all (`ProcMesh.host_gather` is the collective read)."""
+        return x.cpu()
+
     def _check(self, x: torch.Tensor) -> None:
         if len(self.shape) > 1:
             raise MeshError(f"a mesh of axes {self.axis_names} moves along one named "

@@ -38,6 +38,17 @@ and the table is also a device array of base pointers for the kernels; on
 the CPU it is a file that the peers map with ``torch.from_file(...,
 shared=True)``.  A segment is freed collectively: a fence, every peer
 closes its mapping (``cudaIpcCloseMemHandle``), a barrier, the owner frees.
+A *symmetric tensor* lies in this rank's block of a segment (`symmetric`,
+or a window of `core.window.win_allocate`): `locate` gives its segment and
+offset and `peer(t, r)` rank r's counterpart as mapped here, so a peer
+kernel reads or stores into a peer's pool or ring in place.
+
+**Host gathers.**  Where every process runs the same host scheduler
+(`serve.disagg.DisaggEngine` on a `ProcMesh`), the scheduler reads each
+step's device results of every rank through `host_gather`: one small
+exchange round of int32 words.  That is the controller's read, not a
+protocol message, so it enters no op ledger and is counted apart
+(`host_gathers`).
 
 **Exchange rounds.**  An eager collective or peer op is a round over the
 mesh's exchange segment: the stores into the peers' blocks are issued,
@@ -175,6 +186,13 @@ class Segment:
                                 f"its {self.nbytes}")
         return self.blocks[rank % self.mesh.p][off:off + nbytes]
 
+    def tensor(self, rank: int, shape, dtype: torch.dtype, off: int = 0) -> torch.Tensor:
+        """Rank `rank`'s block from byte `off`, seen as `shape` of `dtype`:
+        this process's own memory for its own rank, a peer's as mapped
+        here (loads and stores reach it)."""
+        nbytes = math.prod(shape) * dtype.itemsize
+        return self.view(rank, off, nbytes).view(dtype).reshape(tuple(shape))
+
     @property
     def table_ptr(self) -> int:
         return self.table.data_ptr()
@@ -237,6 +255,7 @@ class ProcMesh:
         self._sends: list = []
         self._reads: Optional[torch.cuda.Event] = None
         self.barriers = self.tokens = 0
+        self.host_gathers = 0
 
     # ------------------------------------------------------------ bootstrap
     @property
@@ -321,6 +340,50 @@ class ProcMesh:
             seg, half = self.allocate(2 * size), 0
         self._rounds[epoch] = [seg, half ^ 1]
         return seg, half * (seg.nbytes // 2)
+
+    def symmetric(self, shape, dtype: torch.dtype) -> torch.Tensor:
+        """A zero-filled tensor ``[1, *shape]`` in a new symmetric segment:
+        this rank's block, whose peers' blocks `peer` reaches (collective)."""
+        shape = (1,) + tuple(shape)
+        return self.allocate(math.prod(shape) * dtype.itemsize).tensor(self.rank, shape, dtype)
+
+    def locate(self, t: torch.Tensor) -> tuple[Segment, int]:
+        """The segment whose block on this rank holds `t`, and t's byte
+        offset in it.  A peer form reads or writes the same offset of a
+        peer's block, so `t` must lie whole in a segment and be dense; any
+        other tensor is refused (it is never copied into one)."""
+        if not t.is_contiguous():
+            raise ProcMeshError(f"a symmetric tensor must be contiguous, got strides "
+                                f"{t.stride()} for {tuple(t.shape)}")
+        ptr, n = t.data_ptr(), t.nbytes
+        for seg in self._segments:
+            base = seg.blocks[self.rank].data_ptr()
+            if base <= ptr and ptr + n <= base + seg.nbytes:
+                return seg, ptr - base
+        raise ProcMeshError(f"a tensor {tuple(t.shape)} {t.dtype} outside every symmetric "
+                            "segment of this mesh (allocate it with ProcMesh.symmetric or "
+                            "core.window.win_allocate)")
+
+    def peer(self, t: torch.Tensor, rank: int) -> torch.Tensor:
+        """Rank `rank`'s counterpart of the symmetric tensor `t`: the same
+        shape at the same offset of its block, as mapped here."""
+        seg, off = self.locate(t)
+        return seg.tensor(rank, t.shape, t.dtype, off)
+
+    def host_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's block of x [1, ...] on the host, [p, ...] in rank
+        order (collective).  It is the controller reading device results
+        when every process runs the same host scheduler: this rank's block
+        into its own slot of an exchange round, a fence, the p slots read
+        back.  It is no protocol message: no op ledger records it, and it
+        is counted apart, in `host_gathers`."""
+        self._check(x)
+        self.host_gathers += 1
+        seg, off = self.round(x.nbytes)
+        seg.view(self.rank, off, x.nbytes).copy_(as_bytes(x))
+        self.fence()
+        rows = torch.stack([seg.view(r, off, x.nbytes) for r in range(self.p)]).cpu()
+        return rows.view(x.dtype).reshape((self.p,) + tuple(x.shape[1:]))
 
     def take(self, seg: Segment, off: int, shape, dtype) -> torch.Tensor:
         """A fresh copy of this rank's bytes at `off`, as `shape` of `dtype`."""

@@ -10,6 +10,10 @@ int32/uint32/float32 payloads round-trip exactly.  Small header integers
 are float32 denormals: messages are assembled in the int32 domain and only
 viewed as float32 (`Tensor.view`), and cells move only by copy, index or
 `where` — no arithmetic ever touches them.
+
+Tensors lead with the rank dim of `queue`'s rule: every rank's on a stacked
+`Mesh`, this process's one rank on a `ProcMesh`; a header's source is the
+sender's global rank id (``mesh.axis_index()``).
 """
 
 from __future__ import annotations
@@ -66,12 +70,12 @@ def _bits(x: torch.Tensor) -> torch.Tensor:
 
 
 class RecvBatch(NamedTuple):
-    """Demux view of drained messages, per rank: fields [p, n]."""
+    """Demux view of drained messages, per local rank: fields [R, n]."""
 
     lane_id: torch.Tensor   # int32
     src: torch.Tensor       # int32
     tag: torch.Tensor       # int32
-    words: torch.Tensor     # [p, n, payload_words] float32 raw payload cells
+    words: torch.Tensor     # [R, n, payload_words] float32 raw payload cells
     valid: torch.Tensor     # bool
 
 
@@ -128,7 +132,7 @@ class Channel:
     def packed(self, name: str, payload: torch.Tensor, tag: torch.Tensor,
                lane_id: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Pack + stamp each rank as its messages' source.  payload
-        [p, k, *lane.shape], tag [p, k].  `lane_id` ([p, k]) overrides the
+        [R, k, *lane.shape], tag [R, k].  `lane_id` ([R, k]) overrides the
         static lane id per message (homogeneous lane tables only)."""
         bits = self._pack_bits(name, payload, tag)
         me = self.desc.mesh.axis_index().to(torch.int32)

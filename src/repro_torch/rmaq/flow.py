@@ -11,7 +11,8 @@ nothing is ever rejected at the ring, nothing is replayed.  The refresh of
 marginal wire transfers) and lands for the next epoch.  Conservation per
 target: ``sum granted - head == capacity`` at all times.
 
-Global view: every leaf ``[p, p, L]`` — row r is rank r's local ``[p, L]``.
+Global view: every leaf ``[p, p, L]`` — row r is rank r's local ``[p, L]``;
+on a `ProcMesh` (one rank a process) a leaf is this rank's ``[1, p, L]``.
 The counters are uint32 in the reference; here they are int64 holding
 uint32 values, masked with ``& 0xFFFFFFFF`` wherever the reference wraps.
 """
@@ -37,7 +38,8 @@ class FlowError(RuntimeError):
 
 
 class FlowState(NamedTuple):
-    """Credit state of every rank; each leaf [p, p, L] int64 (uint32 values).
+    """Credit state of this process's ranks; each leaf [R, p, L] int64
+    (uint32 values), R = ``mesh.local_ranks``.
 
     `sent` / `limit` are origin-private (row r, column t = r's traffic
     toward target t); `granted` is the published block (row t, column r =
@@ -81,12 +83,12 @@ def initial_grants(p: int, n_lanes: int, capacity: int,
 def flow_attach(mesh: Mesh, channel: rch.Channel,
                 n_producers: Optional[int] = None) -> FlowState:
     """Allocate the credit state for an existing channel."""
-    p, L = mesh.p, len(channel.lanes)
+    p, L, R = mesh.p, len(channel.lanes), mesh.local_ranks
     g = torch.as_tensor(initial_grants(p, L, channel.desc.capacity, n_producers)
                         .astype(np.int64), device=mesh.device)
-    granted = g[None].expand(p, p, L).clone()
-    limit = g[:, None, :].expand(p, p, L).clone()
-    sent = torch.zeros((p, p, L), dtype=torch.int64, device=mesh.device)
+    granted = g[None].expand(R, p, L).clone()
+    limit = g[mesh.axis_index()][:, None, :].expand(R, p, L).clone()
+    sent = torch.zeros((R, p, L), dtype=torch.int64, device=mesh.device)
     return FlowState(sent, limit, granted)
 
 
@@ -98,7 +100,7 @@ def flow_allocate(mesh: Mesh, capacity: int, lanes: Sequence[rch.Lane],
 
 
 def credits(fstate: FlowState) -> torch.Tensor:
-    """[p, p, L] — every sender's local credit cache (limit - sent), as the
+    """[R, p, L] — each sender's local credit cache (limit - sent), as the
     reference's uint32 difference read as int32."""
     d = (fstate.limit - fstate.sent) & U32_MASK
     return torch.where(d >= 1 << 31, d - (1 << 32), d)
@@ -116,8 +118,8 @@ def _advance_limit(limit: torch.Tensor, fresh: torch.Tensor) -> torch.Tensor:
 def send(channel: rch.Channel, qstate: rq.QueueState, fstate: FlowState,
          name: str, payload: torch.Tensor, tag: torch.Tensor,
          dest: torch.Tensor, lane: Optional[torch.Tensor] = None):
-    """Credit-gated channel send (collective).  payload [p, k, *lane.shape],
-    tag/dest [p, k]; `lane` ([p, k]) selects a runtime lane per message.
+    """Credit-gated channel send (collective).  payload [R, k, *lane.shape],
+    tag/dest [R, k]; `lane` ([R, k]) selects a runtime lane per message.
     Returns (qstate, fstate, FlowReceipt)."""
     desc = channel.desc
     mesh = desc.mesh
@@ -135,10 +137,10 @@ def send(channel: rch.Channel, qstate: rq.QueueState, fstate: FlowState,
     zero = torch.zeros_like(dest)
     dest_safe = torch.where(valid, dest, zero)
     lane_safe = torch.where(valid, lane, zero)
-    rows = mesh.axis_index()[:, None].expand_as(dest)
+    rows = torch.arange(dest.shape[0], device=dest.device)[:, None].expand_as(dest)
 
     # ---- spend from the local cache: per-(target, lane) FIFO admission
-    avail = credits(fstate)                                    # [p, p, L]
+    avail = credits(fstate)                                    # [R, p, L]
     pos = rq._fifo_pos(dest_safe * L + lane_safe, valid, p * L)
     ok = valid & (pos < avail[rows, dest_safe, lane_safe])
     dry = valid & ~ok
@@ -155,7 +157,7 @@ def send(channel: rch.Channel, qstate: rq.QueueState, fstate: FlowState,
     spent = torch.zeros_like(fstate.sent).index_put_(
         (rows, dest_safe, lane_safe), ok.to(torch.int64), accumulate=True)
     # what each owner t grants ME: granted_all[me][t, me, :]
-    fresh = u32_from_wire(mesh.replicated(granted_all)).transpose(0, 1)
+    fresh = u32_from_wire(mesh.replicated(granted_all)).transpose(0, 1)[mesh.axis_index()]
     fstate = FlowState(
         sent=(fstate.sent + spent) & U32_MASK,
         limit=_advance_limit(fstate.limit, fresh),
@@ -183,7 +185,7 @@ def recv(channel: rch.Channel, qstate: rq.QueueState, fstate: FlowState,
     zero = torch.zeros_like(batch.src, dtype=torch.int64)
     src_safe = torch.where(ok, batch.src.to(torch.int64), zero)
     lane_safe = torch.where(ok, batch.lane_id.to(torch.int64), zero)
-    rows = channel.desc.mesh.axis_index()[:, None].expand_as(src_safe)
+    rows = torch.arange(src_safe.shape[0], device=src_safe.device)[:, None].expand_as(src_safe)
     granted = fstate.granted
     granted.index_put_((rows, src_safe, lane_safe), ok.to(torch.int64),
                        accumulate=True)
@@ -198,7 +200,7 @@ def refresh(channel: rch.Channel, fstate: FlowState) -> FlowState:
     mesh = channel.desc.mesh
     granted_all = notify.fetch_credits(u32_to_wire(fstate.granted), mesh)
     # what each owner t grants ME: granted_all[me][t, me, :]
-    fresh = u32_from_wire(mesh.replicated(granted_all)).transpose(0, 1)
+    fresh = u32_from_wire(mesh.replicated(granted_all)).transpose(0, 1)[mesh.axis_index()]
     return fstate._replace(limit=_advance_limit(fstate.limit, fresh))
 
 
@@ -207,10 +209,13 @@ def conservation(channel: rch.Channel, qstate: rq.QueueState,
                  fstate: FlowState) -> dict:
     """Global-view conservation check (host side).  For every target t:
     sum_{r,l} granted[t,r,l] - head[t] == capacity and outstanding credits
-    + ring occupancy == capacity (exact until the counters wrap)."""
-    granted = fstate.granted.cpu().numpy().astype(np.int64)   # [t, r, L]
-    sent = fstate.sent.cpu().numpy().astype(np.int64)         # [r, t, L]
-    ctrs = qstate.ctrs.cpu().numpy().astype(np.int64)         # [t, 5]
+    + ring occupancy == capacity (exact until the counters wrap).  On a
+    `ProcMesh` it is collective: every rank's blocks come to the host by
+    `ProcMesh.host_gather`."""
+    rows = channel.desc.mesh.host_gather
+    granted = rows(fstate.granted).numpy().astype(np.int64)   # [t, r, L]
+    sent = rows(fstate.sent).numpy().astype(np.int64)         # [r, t, L]
+    ctrs = rows(qstate.ctrs).numpy().astype(np.int64)         # [t, 5]
     head, tail = ctrs[:, rq.HEAD], ctrs[:, rq.TAIL]
     outstanding = granted.sum(axis=(1, 2)) - sent.sum(axis=(0, 2))
     occupancy = tail - head

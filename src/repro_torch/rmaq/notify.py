@@ -10,7 +10,9 @@ visibility implies counter visibility by construction.  The kernel form of
 the same primitives is `repro_torch.kernels.rmaq` (payload and count word
 in one launch).
 
-Every tensor is the global view ``[p, ...]``.  Notification counters are
+Every tensor is the global view ``[p, ...]``; on a `ProcMesh` (one rank a
+process) its leading dim is this process's rank block (``[1, ...]``), and
+every result is this rank's row of the stacked one.  Notification counters are
 uint32 in the reference; here they are int64 holding uint32 values (as the
 queue's counters are) and travel as 32-bit words, so the wire bytes match.
 """
@@ -28,8 +30,8 @@ from ..mesh import Mesh
 
 
 def _doorbell(mesh: Mesh) -> torch.Tensor:
-    """Every rank's uint32 1, in its 4-byte wire form."""
-    return torch.ones(mesh.p, dtype=torch.int32, device=mesh.device)
+    """Each of this process's ranks' uint32 1, in its 4-byte wire form."""
+    return torch.ones(mesh.local_ranks, dtype=torch.int32, device=mesh.device)
 
 
 # ------------------------------------------------------------ notified puts
@@ -78,13 +80,14 @@ def fetch_and_add_ordered(x: torch.Tensor, mesh: Mesh
 
     Every rank contributes ``x[r]``; serialisation is the epoch's rank
     order, so rank r fetches the exclusive prefix sum over lower ranks.
-    Returns (old value per rank [p, ...], total [p, ...]): the queue's slot
-    reservation, computed from one counter gather."""
+    Returns (old value of each of this process's ranks [R, ...], total
+    [R, ...]): the queue's slot reservation, computed from one counter
+    gather."""
     pl = plan_mod.RmaPlan(mesh)
     h = pl.all_gather(x, kind="gets")                # counter window read
     pl.flush()
     all_x = mesh.replicated(h.result())              # [p, ...]
-    prefix = torch.cumsum(all_x, dim=0, dtype=x.dtype) - all_x
+    prefix = (torch.cumsum(all_x, dim=0, dtype=x.dtype) - all_x)[mesh.axis_index()]
     OpCounter.record("accs", axis=mesh.axis)
     total = all_x.sum(dim=0, dtype=x.dtype)
     return prefix, total.expand_as(x)
@@ -92,7 +95,7 @@ def fetch_and_add_ordered(x: torch.Tensor, mesh: Mesh
 
 def fetch_credits(published: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """One-sided read of every rank's published credit block:
-    published [p, ...] -> [p(reader), p(owner), ...].
+    published [R, ...] -> [R(reader), p(owner), ...].
 
     This is the standalone refresh of an idle sender; on the hot path the
     refresh rides the enqueue epoch's reservation gather instead

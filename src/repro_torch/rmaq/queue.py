@@ -13,7 +13,13 @@ ring in an allocated window.  One enqueue epoch is the reference protocol:
      ride ONE fused all-to-all, and each owner scatters into disjoint slots
      (``seq & (capacity-1)``) and publishes its tail.
 
-Global view: ``buf [p, capacity, item_w]``, ``ctrs [p, 5]``.  The counters
+Global view: ``buf [p, capacity, item_w]``, ``ctrs [p, 5]``; on a
+`ProcMesh` (one rank a process) the leading dim is this process's one rank
+block (``mesh.local_ranks``), so ``buf [1, capacity, item_w]``: a rank's
+row index into its own tensors is ``arange(local_ranks)``, its global rank
+id ``mesh.axis_index()``, and only dims indexed by a peer rank keep p.
+Admission runs on the gathered ``[p, p]`` counts, so every rank computes
+the same grants.  The counters
 are uint32 in the reference; here they are int64 holding uint32 values, and
 every place the reference wraps masks with ``& 0xFFFFFFFF``, so behaviour
 matches at wrap as well.  On the wire they travel as 32-bit words.
@@ -51,19 +57,19 @@ class QueueError(RuntimeError):
 
 
 class QueueState(NamedTuple):
-    """Device state of every rank's queue: buf [p, capacity, item_w],
-    ctrs [p, 5] int64 (uint32 values)."""
+    """Device state of this process's ranks' queues: buf [R, capacity,
+    item_w], ctrs [R, 5] int64 (uint32 values); R = ``mesh.local_ranks``."""
 
     buf: torch.Tensor
     ctrs: torch.Tensor
 
 
 class EnqueueReceipt(NamedTuple):
-    accepted: torch.Tensor       # [p, k] bool — per input message: granted?
-    n_sent: torch.Tensor         # [p] int — messages accepted somewhere
-    n_dropped: torch.Tensor      # [p] int — valid messages rejected
-    incoming: torch.Tensor       # [p, p] — msgs admitted into MY ring, per producer
-    notifications: torch.Tensor  # [p] — notifications delivered to me
+    accepted: torch.Tensor       # [R, k] bool — per input message: granted?
+    n_sent: torch.Tensor         # [R] int — messages accepted somewhere
+    n_dropped: torch.Tensor      # [R] int — valid messages rejected
+    incoming: torch.Tensor       # [R, p] — msgs admitted into MY ring, per producer
+    notifications: torch.Tensor  # [R] — notifications delivered to me
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,7 +104,7 @@ def queue_allocate(mesh: Mesh, capacity: int, item_shape: tuple = (),
     item_w = int(np.prod(item_shape)) if item_shape else 1
     win, buf = window_mod.win_allocate(mesh, (capacity, item_w), dtype)
     desc = QueueDescriptor(mesh, capacity, tuple(item_shape), dtype, win)
-    ctrs = torch.zeros((mesh.p, N_CTRS), dtype=torch.int64, device=mesh.device)
+    ctrs = torch.zeros((mesh.local_ranks, N_CTRS), dtype=torch.int64, device=mesh.device)
     return desc, QueueState(buf, ctrs)
 
 
@@ -134,22 +140,24 @@ def enqueue_epoch(desc: QueueDescriptor, state: QueueState, msgs: torch.Tensor,
                   dest: torch.Tensor, reserve_riders: tuple = ()):
     """Collective enqueue epoch (all ranks).
 
-    msgs [p, k, *item_shape]; dest [p, k] int target ranks, -1 = no message.
-    Returns (state, receipt, rider_out): `reserve_riders` are extra [p, ...]
-    tensors all-gathered on the reservation plan — they ride the SAME fused
-    wire transfer as the counter fetch and come back as [p(me), p, ...]
-    each.  Rejected messages (receipt.accepted False) stay with the caller.
+    msgs [R, k, *item_shape]; dest [R, k] int target ranks, -1 = no message
+    (R = ``mesh.local_ranks``).  Returns (state, receipt, rider_out):
+    `reserve_riders` are extra [R, ...] tensors all-gathered on the
+    reservation plan — they ride the SAME fused wire transfer as the
+    counter fetch and come back as [R(me), p, ...] each.  Rejected messages
+    (receipt.accepted False) stay with the caller.
     """
     mesh = desc.mesh
-    p, cap = mesh.p, desc.capacity
+    p, cap, R = mesh.p, desc.capacity, mesh.local_ranks
     k = dest.shape[1]
     dev = dest.device
-    me = mesh.axis_index()
+    me = mesh.axis_index()                     # global ids of my ranks
+    mine = torch.arange(R, device=dev)[:, None]    # their rows in my tensors
     tr = obs_trace.TRACER
     if tr.enabled:
         tr.event("queue.enqueue_epoch", axis=desc.axis, k=int(k), p=int(p),
                  riders=len(reserve_riders))
-    flat = msgs.reshape(p, k, desc.item_width).to(desc.dtype)
+    flat = msgs.reshape(R, k, desc.item_width).to(desc.dtype)
 
     # out-of-range dests are "no message" (never accepted)
     dest = dest.to(torch.int64)
@@ -175,7 +183,7 @@ def enqueue_epoch(desc: QueueDescriptor, state: QueueState, msgs: torch.Tensor,
     base = (tails[None, :] + offset) & U32_MASK
 
     rows = me[:, None]
-    pos = _fifo_pos(dest, valid, p)                               # [p, k]
+    pos = _fifo_pos(dest, valid, p)                               # [R, k]
     accepted = valid & (pos < grant[rows, dest_safe])
     seq = (base[rows, dest_safe] + pos) & U32_MASK
 
@@ -183,24 +191,24 @@ def enqueue_epoch(desc: QueueDescriptor, state: QueueState, msgs: torch.Tensor,
     # the send buffers is the trash row for rejected messages
     slot_idx = dest_safe * k + pos
     put_idx = torch.where(accepted, slot_idx, torch.full_like(slot_idx, p * k))
-    send_buf = torch.zeros((p, p * k + 1, desc.item_width), dtype=desc.dtype,
+    send_buf = torch.zeros((R, p * k + 1, desc.item_width), dtype=desc.dtype,
                            device=dev)
-    send_buf[rows, put_idx] = flat
-    send_seq = torch.zeros((p, p * k + 1), dtype=torch.int32, device=dev)
-    send_seq[rows, put_idx] = u32_to_wire(seq)
-    send_val = torch.zeros((p, p * k + 1), dtype=torch.bool, device=dev)
-    send_val[rows, put_idx] = accepted
+    send_buf[mine, put_idx] = flat
+    send_seq = torch.zeros((R, p * k + 1), dtype=torch.int32, device=dev)
+    send_seq[mine, put_idx] = u32_to_wire(seq)
+    send_val = torch.zeros((R, p * k + 1), dtype=torch.bool, device=dev)
+    send_val[mine, put_idx] = accepted
 
     # payload + sequence numbers + notification flags: ONE fused transfer
     pplan = plan_mod.RmaPlan(mesh)
     h_buf = pplan.put_all_to_all(
-        send_buf[:, : p * k].reshape(p, p, k, desc.item_width), kind="puts")
-    h_seq = pplan.put_all_to_all(send_seq[:, : p * k].reshape(p, p, k), kind=None)
-    h_val = pplan.put_all_to_all(send_val[:, : p * k].reshape(p, p, k), kind="accs")
+        send_buf[:, : p * k].reshape(R, p, k, desc.item_width), kind="puts")
+    h_seq = pplan.put_all_to_all(send_seq[:, : p * k].reshape(R, p, k), kind=None)
+    h_val = pplan.put_all_to_all(send_val[:, : p * k].reshape(R, p, k), kind="accs")
     pplan.flush(aggregate=True)
-    recv_buf = h_buf.result().reshape(p, p * k, desc.item_width)
-    recv_seq = u32_from_wire(h_seq.result()).reshape(p, p * k)
-    in_val = h_val.result().reshape(p, p * k)
+    recv_buf = h_buf.result().reshape(R, p * k, desc.item_width)
+    recv_seq = u32_from_wire(h_seq.result()).reshape(R, p * k)
+    in_val = h_val.result().reshape(R, p * k)
 
     # ---- owner side: scatter into disjoint ring slots, publish the tail
     r_idx, j_idx = in_val.nonzero(as_tuple=True)
@@ -218,7 +226,7 @@ def enqueue_epoch(desc: QueueDescriptor, state: QueueState, msgs: torch.Tensor,
         accepted=accepted,
         n_sent=n_sent,
         n_dropped=n_dropped,
-        incoming=grant.t(),
+        incoming=grant.t()[me],
         notifications=n_in,
     )
     return state, receipt, rider_out
@@ -237,7 +245,7 @@ def enqueue_shift(desc: QueueDescriptor, state: QueueState, msgs: torch.Tensor,
     case the `queue_push` kernel implements (`kernels.rmaq`)."""
     mesh = desc.mesh
     k = msgs.shape[1]
-    dest = ((mesh.axis_index() + shift) % mesh.p)[:, None].expand(mesh.p, k)
+    dest = ((mesh.axis_index() + shift) % mesh.p)[:, None].expand(mesh.local_ranks, k)
     return enqueue(desc, state, msgs, dest)
 
 
@@ -249,20 +257,21 @@ def available(state: QueueState) -> torch.Tensor:
 def dequeue(desc: QueueDescriptor, state: QueueState, max_n: int):
     """Owner-local drain of up to `max_n` messages per rank in arrival order.
 
-    Returns (state, items [p, max_n, *item_shape], valid [p, max_n]).
+    Returns (state, items [R, max_n, *item_shape], valid [R, max_n]).
     Purely local: head is consumer-private."""
     tr = obs_trace.TRACER
     if tr.enabled:
         tr.event("queue.dequeue", axis=desc.axis, max_n=int(max_n))
-    p = desc.mesh.p
-    n = torch.clamp(available(state), max=max_n)                  # [p]
+    R = state.ctrs.shape[0]
+    n = torch.clamp(available(state), max=max_n)                  # [R]
     offs = torch.arange(max_n, device=state.ctrs.device)
     valid = offs[None, :] < n[:, None]
     idx = (state.ctrs[:, HEAD:HEAD + 1] + offs[None, :]) & desc.mask
-    items = state.buf[desc.mesh.axis_index()[:, None], idx]      # [p, max_n, w]
+    mine = torch.arange(R, device=state.ctrs.device)[:, None]
+    items = state.buf[mine, idx]                                  # [R, max_n, w]
     items = torch.where(valid[..., None], items, torch.zeros_like(items))
     state.ctrs[:, HEAD] = (state.ctrs[:, HEAD] + n) & U32_MASK
-    return state, items.reshape((p, max_n) + tuple(desc.item_shape)), valid
+    return state, items.reshape((R, max_n) + tuple(desc.item_shape)), valid
 
 
 def drain(desc: QueueDescriptor, state: QueueState):

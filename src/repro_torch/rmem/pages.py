@@ -18,7 +18,11 @@ wraps as policy.  Device side:
 all-to-all; `gather_pages` is the consumer's pull by descriptor (two fused
 gets, the rendezvous data path); `gather_local` is the owner-local
 page-table read; `gather_shift` reads rows of the pool of rank r + shift
-through the paged-gather kernel.
+through the paged-gather kernel.  On a `ProcMesh` (one rank a process) the
+device tensors lead with this process's one rank block (``[1, ...]``, the
+rule of `rmaq.queue`), and `gather_shift` needs the pool in a symmetric
+segment (`ProcMesh.symmetric`, `core.window.win_allocate`): it reads the
+owner's pool in place through the peer mapping.
 """
 
 from __future__ import annotations
@@ -247,25 +251,25 @@ def scatter_pages(mesh: Mesh, pool: torch.Tensor, payload: torch.Tensor,
                   slot: torch.Tensor, dest: torch.Tensor) -> torch.Tensor:
     """Write pages into remote pools (collective).
 
-    pool [p, n_pages, *ps], payload [p, S, *ps], slot/dest [p, S] int
-    (-1 = no page in that staging slot).  Payloads and their target slots
-    ride ONE fused all-to-all; each owner scatters rows into its pool.  The
-    pool is updated **in place** (a functional update would copy every
-    rank's whole pool per step) and returned."""
-    p, n_pages = mesh.p, pool.shape[1]
+    pool [R, n_pages, *ps], payload [R, S, *ps], slot/dest [R, S] int
+    (-1 = no page in that staging slot; R = ``mesh.local_ranks``).  Payloads
+    and their target slots ride ONE fused all-to-all; each owner scatters
+    rows into its pool.  The pool is updated **in place** (a functional
+    update would copy every rank's whole pool per step) and returned."""
+    p, n_pages, R = mesh.p, pool.shape[1], mesh.local_ranks
     S = slot.shape[1]
     dev = pool.device
-    flat = payload.reshape(p, S, -1).to(pool.dtype)
+    flat = payload.reshape(R, S, -1).to(pool.dtype)
     slot = slot.to(torch.int64)
     dest = dest.to(torch.int64)
     valid = (dest >= 0) & (dest < p) & (slot >= 0) & (slot < n_pages)
     drow = torch.where(valid, dest, torch.full_like(dest, p))   # p = trash row
-    rows = mesh.axis_index()[:, None].expand_as(drow)
+    rows = torch.arange(R, device=dev)[:, None].expand_as(drow)
     j = torch.arange(S, device=dev)[None, :].expand_as(drow)
-    send_pay = torch.zeros((p, p + 1, S, flat.shape[2]), dtype=pool.dtype,
+    send_pay = torch.zeros((R, p + 1, S, flat.shape[2]), dtype=pool.dtype,
                            device=dev)
     send_pay[rows, drow, j] = flat
-    send_slot = torch.full((p, p + 1, S), -1, dtype=torch.int32, device=dev)
+    send_slot = torch.full((R, p + 1, S), -1, dtype=torch.int32, device=dev)
     send_slot[rows, drow, j] = torch.where(
         valid, slot, torch.full_like(slot, -1)).to(torch.int32)
 
@@ -273,11 +277,11 @@ def scatter_pages(mesh: Mesh, pool: torch.Tensor, payload: torch.Tensor,
     h_pay = plan.put_all_to_all(send_pay[:, :p], kind="puts")
     h_slot = plan.put_all_to_all(send_slot[:, :p], kind=None)   # rider
     plan.flush(aggregate=True)
-    recv_pay = h_pay.result().reshape(p, p * S, -1)
-    recv_slot = h_slot.result().reshape(p, p * S).to(torch.int64)
+    recv_pay = h_pay.result().reshape(R, p * S, -1)
+    recv_slot = h_slot.result().reshape(R, p * S).to(torch.int64)
 
     r_idx, i_idx = (recv_slot >= 0).nonzero(as_tuple=True)
-    pool.view(p, n_pages, -1)[r_idx, recv_slot[r_idx, i_idx]] = recv_pay[r_idx, i_idx]
+    pool.view(R, n_pages, -1)[r_idx, recv_slot[r_idx, i_idx]] = recv_pay[r_idx, i_idx]
     return pool
 
 
@@ -295,26 +299,26 @@ def gather_pages(mesh: Mesh, pool: torch.Tensor, entries: torch.Tensor,
     """Pull pages from their owners' pools by descriptor (collective): the
     rendezvous data path.
 
-    pool [p, n_pages, *ps], entries [p, m, ppb, 2] int ((owner, page id)
-    rows, the published descriptors), valid [p, m] bool.  The consumer
+    pool [R, n_pages, *ps], entries [R, m, ppb, 2] int ((owner, page id)
+    rows, the published descriptors), valid [R, m] bool.  The consumer
     initiates: one fused get carries the wanted-id lists to every owner,
     the owners' packed replies come back on a second — two wire transfers,
-    batched over every (request, page) pair.  Returns [p, m, ppb, *ps] with
+    batched over every (request, page) pair.  Returns [R, m, ppb, *ps] with
     invalid requests zeroed.  Every rank takes part: ranks that want
     nothing send empty id lists and still serve replies from their pool."""
-    p, n_pages = mesh.p, pool.shape[1]
+    p, n_pages, R = mesh.p, pool.shape[1], mesh.local_ranks
     m, ppb = entries.shape[1], entries.shape[2]
     S = m * ppb                                          # flat pull slots
     dev = pool.device
-    owner = entries[..., ENTRY_OWNER].reshape(p, S).to(torch.int64)
-    pid = entries[..., ENTRY_PAGE].reshape(p, S).to(torch.int64)
+    owner = entries[..., ENTRY_OWNER].reshape(R, S).to(torch.int64)
+    pid = entries[..., ENTRY_PAGE].reshape(R, S).to(torch.int64)
     want = (valid.repeat_interleave(ppb, dim=1) & (owner >= 0) & (owner < p)
             & (pid >= 0) & (pid < n_pages))
     orow = torch.where(want, owner, torch.full_like(owner, p))   # p = trash row
-    me = mesh.axis_index()[:, None].expand_as(orow)
+    me = torch.arange(R, device=dev)[:, None].expand_as(orow)    # my rows
     j = torch.arange(S, device=dev)[None, :].expand_as(orow)
     # row d of rank r: the page ids r wants from owner d (-1 elsewhere)
-    send_ids = torch.full((p, p + 1, S), -1, dtype=torch.int32, device=dev)
+    send_ids = torch.full((R, p + 1, S), -1, dtype=torch.int32, device=dev)
     send_ids[me, orow, j] = torch.where(want, pid, torch.full_like(pid, -1)).to(torch.int32)
 
     plan = plan_mod.RmaPlan(mesh)
@@ -323,9 +327,9 @@ def gather_pages(mesh: Mesh, pool: torch.Tensor, entries: torch.Tensor,
     recv_ids = h_ids.result()                            # [owner, requester, S]
 
     # every owner serves every requester from its pool; -1 slots reply zeros
-    flat = pool.view(p, n_pages, -1)
+    flat = pool.view(R, n_pages, -1)
     safe = torch.clamp(recv_ids.to(torch.int64), 0, n_pages - 1)
-    reply = flat[mesh.axis_index()[:, None, None], safe]          # [owner, req, S, w]
+    reply = flat[torch.arange(R, device=dev)[:, None, None], safe]   # [owner, req, S, w]
     reply.masked_fill_((recv_ids < 0)[..., None], 0)
 
     plan = plan_mod.RmaPlan(mesh)
@@ -333,16 +337,17 @@ def gather_pages(mesh: Mesh, pool: torch.Tensor, entries: torch.Tensor,
     plan.flush(aggregate=True)
     recv_pay = h_pay.result()                            # [requester, owner, S, w]
 
-    out = recv_pay[me, torch.clamp(orow, 0, p - 1), j]   # [p, S, w]
+    out = recv_pay[me, torch.clamp(orow, 0, p - 1), j]   # [R, S, w]
     out.masked_fill_(~want[..., None], 0)
-    return out.reshape((p, m, ppb) + tuple(pool.shape[2:]))
+    return out.reshape((R, m, ppb) + tuple(pool.shape[2:]))
 
 
 def gather_shift(mesh: Mesh, pool: torch.Tensor, ids: torch.Tensor,
                  shift: int) -> torch.Tensor:
     """Cross-rank page read: rank r fetches rows ``ids[r]`` of rank
-    (r + shift)'s pool.  pool [p, n_pages, *ps], ids [p, k] int32 ->
-    [p, k, *ps], rows whose id is < 0 zeroed.  One paged-gather launch in
+    (r + shift)'s pool.  pool [R, n_pages, *ps], ids [R, k] int32 ->
+    [R, k, *ps], rows whose id is < 0 zeroed (on a `ProcMesh`, R = 1 and
+    the pool a symmetric tensor).  One paged-gather launch in
     hole mode on the card (its plain version on the CPU): the kernel clamps
     ids past the pool and writes a hole as zero words without reading it,
     which is the reference's gather of the clamped ids and its mask."""

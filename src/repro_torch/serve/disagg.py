@@ -31,7 +31,19 @@ readout to emit one token per request.  Modes:
 
 All p ranks run on one device as the leading dimension of stacked tensors
 (`repro_torch.mesh`), with the same role masks the reference's SPMD step
-uses.  The model is the reference's small single-head attention stack
+uses.  Given a `repro_torch.procmesh.ProcMesh` (``mesh=``), the engine runs
+one rank a process instead, as the reference runs a rank a chip: every
+process runs the same host scheduler (the reference has one controller)
+and builds the same global ``[p, ...]`` step inputs, its device step takes
+its own row, and the step's results of every rank (sent, rejected, the
+tokens out and the credits) come back to every process as one packed int32
+`ProcMesh.host_gather`, so every process takes the same decisions.  That
+gather is the controller's read, not a protocol message: it is counted in
+`host_gathers`, never in `OpCounter` or `msg_stats`.  The pools then live
+in symmetric segments, so a peer can read them in place
+(`rmem.pages.gather_shift`).
+
+The model is the reference's small single-head attention stack
 (embedding KV producer + query readout decoder); `params_from_jax` loads the
 reference engine's parameters so both packages compute the same thing.
 """
@@ -52,6 +64,7 @@ from ..obs import flight as obs_flight
 from ..obs import trace as obs_trace
 from ..obs.metrics import MetricsRegistry
 from ..parallel.overlap import CollectiveStrategist
+from ..procmesh import ProcMesh
 from ..rmaq import channel as rch
 from ..rmaq import flow as rfl
 from ..rmaq import queue as rq
@@ -182,12 +195,23 @@ class DisaggEngine:
     """Host-orchestrated, device-stepped disaggregated serving engine.
 
     `p` ranks (the first `cfg.n_prefill` prefill, the rest decode) stacked
-    on `device` (None = the card).  `params` (e.g. from `params_from_jax`)
-    replaces the engine's own random parameters."""
+    on `device` (None = the card), or, given `mesh` (a `ProcMesh` of p
+    ranks), one rank a process on the mesh's device.  `params` (e.g. from
+    `params_from_jax`) replaces the engine's own random parameters."""
 
     def __init__(self, p: int, cfg: DisaggConfig, seed: int = 0, *,
-                 params: dict | None = None, device=None, axis: str = "serve"):
-        self.mesh = Mesh(p, axis, device)
+                 params: dict | None = None, device=None, axis: str = "serve",
+                 mesh: ProcMesh | None = None):
+        if mesh is None:
+            self.mesh = Mesh(p, axis, device)
+            self._rows = slice(None)               # every rank's row
+        else:
+            if not isinstance(mesh, ProcMesh) or mesh.p != p:
+                raise ValueError(f"mesh must be a ProcMesh of {p} ranks, got {mesh!r}")
+            if device is not None and resolve_device(device).type != mesh.device.type:
+                raise ValueError(f"device {device} differs from the mesh's {mesh.device}")
+            self.mesh = mesh
+            self._rows = slice(mesh.rank, mesh.rank + 1)   # this process's row
         self.device = self.mesh.device
         self.cfg = cfg
         self.p = p
@@ -252,9 +276,12 @@ class DisaggEngine:
             # DECODER-owned (prefill scatters novel pages into them);
             # rendezvous pools are PREFILL-owned: pages stay at the rank that
             # computed them until the decoder pulls.
-            self.pool = torch.zeros((self.p, cfg.pool_pages, cfg.page_tokens, 2,
-                                     cfg.d_model), dtype=torch.float32,
-                                    device=self.device)
+            page = (cfg.pool_pages, cfg.page_tokens, 2, cfg.d_model)
+            if isinstance(self.mesh, ProcMesh):    # a peer may read it in place
+                self.pool = self.mesh.symmetric(page, torch.float32)
+            else:
+                self.pool = torch.zeros((self.p,) + page, dtype=torch.float32,
+                                        device=self.device)
             owners = (range(cfg.n_prefill) if self.mode == "rendezvous"
                       else range(cfg.n_prefill, self.p))
             self.kv = rpg.PagedKVPool(
@@ -268,6 +295,10 @@ class DisaggEngine:
         if cfg.flow:
             self.channel, self.qstate, self.fstate = rfl.flow_allocate(
                 self.mesh, cfg.queue_capacity, lanes, n_producers=cfg.n_prefill)
+            # the credits the host schedules by, [p(producer), p(target), L]:
+            # the initial grants here, then each step's read-back
+            g = rfl.initial_grants(self.p, cfg.n_lanes, cfg.queue_capacity, cfg.n_prefill)
+            self._credits = np.repeat(g[:, None, :].astype(np.int64), self.p, axis=1)
         else:
             self.channel, self.qstate = rch.channel_allocate(
                 self.mesh, cfg.queue_capacity, lanes)
@@ -300,6 +331,7 @@ class DisaggEngine:
         # request is cancelled)
         self._pins: dict[int, list[tuple[int, int, int]]] = {}
         self.steps_run = 0
+        self.host_gathers = 0      # device-result reads (one a step), no protocol message
         # request-lifecycle latency ledgers: TTFT = submit -> result landing;
         # TBT = engine-wide gap between consecutive result landings
         self.metrics = MetricsRegistry()
@@ -333,7 +365,7 @@ class DisaggEngine:
         return out_req, out_tok
 
     def _decode_batch(self, batch: rch.RecvBatch):
-        kv_in, mask = self.channel.payload_all(batch)          # [p, m, bt, 2, d]
+        kv_in, mask = self.channel.payload_all(batch)          # [R, m, bt, 2, d]
         p, m = mask.shape
         out_req, out_tok = self._readout(
             kv_in.reshape((p * m,) + tuple(kv_in.shape[2:])), mask.reshape(-1),
@@ -347,8 +379,8 @@ class DisaggEngine:
         return is_prefill, torch.where(is_prefill, dest, torch.full_like(dest, -1))
 
     def _step_flow(self, qstate, fstate, tokens, req_id, dest, lane):
-        """Inline credit step.  tokens [p, bt], req_id/dest [p], lane [p, 1]:
-        each rank's staged request (req_id -1 = none)."""
+        """Inline credit step.  tokens [R, bt], req_id/dest [R], lane [R, 1]:
+        each local rank's staged request (req_id -1 = none)."""
         cfg = self.cfg
         is_prefill, dest_eff = self._staged_dest(req_id, dest)
         kv_block = self._compute_kv(tokens)                    # [p, bt, 2, d]
@@ -382,7 +414,7 @@ class DisaggEngine:
         drain the rings.  Attention runs in `_attend`."""
         cfg = self.cfg
         # 1. novel pages: compute their KV, write them into the owners' pools
-        kv_pages = self._compute_kv(novel_toks)                # [p, S, pt, 2, d]
+        kv_pages = self._compute_kv(novel_toks)                # [R, S, pt, 2, d]
         pool = rpg.scatter_pages(self.mesh, pool, kv_pages, novel_slot, novel_dest)
         # 2. channel append: the page table is the message payload
         is_prefill, dest_eff = self._staged_dest(req_id, dest)
@@ -392,23 +424,25 @@ class DisaggEngine:
         # 3. drain: the received page tables ARE the decode input
         qstate, fstate, batch = rfl.recv(self.channel, qstate, fstate,
                                          cfg.max_recv_per_step)
-        entries, mask = self.channel.payload_all(batch)        # [p, m, ppb, 2]
+        entries, mask = self.channel.payload_all(batch)        # [R, m, ppb, 2]
         sent_ok = receipt.accepted[:, 0] & is_prefill
         return (qstate, fstate, pool, entries, mask, batch.tag, sent_ok,
                 receipt.rejected)
 
     def _attend(self, pool, entries, mask, tags):
-        """Paged decode attention, page table -> token, for every rank in one
-        go: the stacked pool is flattened to [p*pool_pages, pt, 2, d] and
-        each rank's own-page ids are offset by rank*pool_pages (-1 stays
-        -1), so "fused" is ONE kernel launch per decode step over
-        p*max_recv_per_step rows (prefill ranks' rows are fully masked and
-        come out zero).  Scale 1.0: the engine's unscaled readout."""
+        """Paged decode attention, page table -> token, for every local rank
+        in one go: the pool is flattened to [R*pool_pages, pt, 2, d] and each
+        rank's own-page ids are offset by its row*pool_pages (-1 stays -1;
+        on a `ProcMesh` the row, so the offset, is 0), so "fused" is ONE
+        kernel launch per decode step over R*max_recv_per_step rows
+        (prefill ranks' rows are fully masked and come out zero).  Scale
+        1.0: the engine's unscaled readout."""
         cfg = self.cfg
         p, m = mask.shape
         me = self.mesh.axis_index()[:, None, None]
         mine = entries[..., rpg.ENTRY_OWNER] == me
-        page = entries[..., rpg.ENTRY_PAGE].to(torch.int64) + me * cfg.pool_pages
+        row = torch.arange(p, device=mask.device)[:, None, None]
+        page = entries[..., rpg.ENTRY_PAGE].to(torch.int64) + row * cfg.pool_pages
         ids = torch.where(mask[..., None] & mine, page, torch.full_like(page, -1))
         ids = ids.reshape(p * m, cfg.pages_per_block).to(torch.int32)
         pool_flat = pool.view((p * cfg.pool_pages,) + tuple(pool.shape[2:]))
@@ -431,7 +465,7 @@ class DisaggEngine:
         tables) on the descriptor lane, and the decode ranks — gated by
         their drain width — pull the pages with one fused gather and attend
         in the same step.  No KV payload takes a ring slot."""
-        cfg, p = self.cfg, self.p
+        cfg, p = self.cfg, pool.shape[0]
         # 1. novel pages land in the staging rank's own pool, in place;
         # slots outside the pool are dropped
         n_pages = pool.shape[1]
@@ -448,7 +482,7 @@ class DisaggEngine:
         # 3. drain descriptors: the decoder's readiness gate
         qstate, fstate, batch = rfl.recv(self.channel, qstate, fstate,
                                          cfg.max_recv_per_step)
-        entries, mask = self.channel.payload_all(batch)        # [p, m, ppb, 2]
+        entries, mask = self.channel.payload_all(batch)        # [R, m, ppb, 2]
         # 4. pull the pages from their owners, then attend over the block
         kv_in = rpg.gather_pages(self.mesh, pool, entries, mask)
         m = mask.shape[1]
@@ -460,7 +494,29 @@ class DisaggEngine:
                 out_tok.reshape(p, m), sent_ok, receipt.rejected)
 
     def _step_inputs(self, **arrays) -> dict:
-        return {k: torch.as_tensor(v, device=self.device) for k, v in arrays.items()}
+        """The global [p, ...] numpy step inputs as this process's device
+        tensors: every row on a stacked `Mesh`, its own on a `ProcMesh`."""
+        return {k: torch.as_tensor(v[self._rows], device=self.device)
+                for k, v in arrays.items()}
+
+    def _read_back(self, sent_ok, rejected, out_req, out_tok):
+        """One step's results of every rank on the host, as numpy: sent_ok
+        [p] bool, rejected [p], out_req / out_tok [p, m], and (credit flow)
+        the credits the next step schedules by.  One packed int32 transfer:
+        the stacked tensors' copy, or one `ProcMesh.host_gather`.  It is
+        the controller reading device results, counted in `host_gathers`
+        and in no op ledger."""
+        R, m = out_req.shape
+        cols = [sent_ok.to(torch.int32)[:, None], rejected.to(torch.int32)[:, None],
+                out_req.to(torch.int32), out_tok.to(torch.int32)]
+        if self.fstate is not None:
+            cols.append((self.fstate.limit - self.fstate.sent).to(torch.int32).reshape(R, -1))
+        rows = self.mesh.host_gather(torch.cat(cols, dim=1)).numpy()
+        self.host_gathers += 1
+        if self.fstate is not None:
+            self._credits = rows[:, 2 + 2 * m:].astype(np.int64).reshape(self.p, self.p, -1)
+        return (rows[:, 0].astype(bool), rows[:, 1], rows[:, 2:2 + m],
+                rows[:, 2 + m:2 + 2 * m])
 
     def _trace_message_stats(self) -> dict:
         """Run one step with no request staged on cloned state under an
@@ -468,7 +524,7 @@ class DisaggEngine:
         (wire) message counts of the KV-shipping path."""
         cfg, p = self.cfg, self.p
         clone = lambda t: None if t is None else t.__class__(*(x.clone() for x in t))
-        qstate, fstate = clone(self.qstate), clone(self.fstate)
+        qstate, fstate = clone(self.qstate), clone(self.fstate)   # collective on a ProcMesh
         idle = self._step_inputs(req_id=np.full((p,), -1, np.int32),
                                  dest=np.full((p,), -1, np.int32),
                                  lane=np.zeros((p, 1), np.int32))
@@ -488,8 +544,8 @@ class DisaggEngine:
                 else:
                     self._ship_rdv(*args)
             else:
-                tokens = torch.full((p, cfg.block_tokens), -1, dtype=torch.int32,
-                                    device=self.device)
+                tokens = self._step_inputs(
+                    tokens=np.full((p, cfg.block_tokens), -1, np.int32))["tokens"]
                 args = (tokens, idle["req_id"], idle["dest"], idle["lane"])
                 if fstate is None:
                     self._step_legacy(qstate, *args)
@@ -556,8 +612,9 @@ class DisaggEngine:
 
     def _host_credits(self) -> np.ndarray:
         """[p(producer), p(target), L] credits the device-side caches hold,
-        read back from the flow state (the same one-epoch staleness)."""
-        return (self.fstate.limit - self.fstate.sent).cpu().numpy()
+        as the last step's read-back brought them (the same one-epoch
+        staleness); a copy the caller may spend from."""
+        return self._credits.copy()
 
     def _select_lane(self, credits: np.ndarray, r: int,
                      targets=None) -> tuple[int, int] | None:
@@ -717,22 +774,25 @@ class DisaggEngine:
         (self.qstate, self.fstate, self.pool, entries, mask, tags, sent_ok,
          rejected) = self._ship(self.qstate, self.fstate, self.pool, **ins)
         self.steps_run += 1
+
+        # decode attention, host-timed per step with the read-back (the
+        # ship's work drained first): the fused-vs-gather A/B
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        t0 = time.perf_counter()
+        out_req, out_tok = self._attend(self.pool, entries, mask, tags)
+        sent_ok, rejected, out_req, out_tok = self._read_back(sent_ok, rejected, out_req,
+                                                              out_tok)
+        attend_us = (time.perf_counter() - t0) * 1e6
         if int(rejected.sum()):
             raise RuntimeError(
                 "credit conservation violated: a credited paged append was "
                 "rejected at the ring")
-        sent_ok = sent_ok.cpu().numpy()
         for r, rid in appended.items():
             if not bool(sent_ok[r]):
                 raise RuntimeError(f"credited paged append not delivered: {rid}")
             self._rank_job[r] = None        # the prefill rank frees up
             del self._jobs[rid]
-
-        # decode attention, host-timed per step: the fused-vs-gather A/B
-        t0 = time.perf_counter()
-        out_req, out_tok = self._attend(self.pool, entries, mask, tags)
-        out_req, out_tok = out_req.cpu().numpy(), out_tok.cpu().numpy()
-        attend_us = (time.perf_counter() - t0) * 1e6
         self.metrics.histogram("serve.attend_us").observe(attend_us)
         tr = obs_trace.TRACER
         if tr.enabled:
@@ -832,18 +892,18 @@ class DisaggEngine:
         (self.qstate, self.fstate, self.pool, out_req, out_tok, sent_ok,
          rejected) = self._ship_rdv(self.qstate, self.fstate, self.pool, **ins)
         self.steps_run += 1
+        sent_ok, rejected, out_req, out_tok = self._read_back(sent_ok, rejected, out_req,
+                                                              out_tok)
         if int(rejected.sum()):
             raise RuntimeError(
                 "credit conservation violated: a credited descriptor append "
                 "was rejected at the ring")
-        sent_ok = sent_ok.cpu().numpy()
         for r, rid in appended.items():
             if not bool(sent_ok[r]):
                 raise RuntimeError(f"credited descriptor append not delivered: {rid}")
             self._rank_job[r] = None        # the prefill rank frees up
             del self._jobs[rid]
 
-        out_req, out_tok = out_req.cpu().numpy(), out_tok.cpu().numpy()
         emitted = 0
         for rr in range(cfg.n_prefill, p):
             for rid, tok in zip(out_req[rr], out_tok[rr]):
@@ -959,25 +1019,27 @@ class DisaggEngine:
         if cfg.flow:
             (self.qstate, self.fstate, out_req, out_tok, sent_ok,
              rejected) = self._step_flow(self.qstate, self.fstate, **ins)
+        else:
+            self.qstate, out_req, out_tok, sent_ok = self._step_legacy(
+                self.qstate, **ins)
+            rejected = torch.zeros_like(sent_ok, dtype=torch.int32)
+        sent_ok, rejected, out_req, out_tok = self._read_back(sent_ok, rejected, out_req,
+                                                              out_tok)
+        if cfg.flow:
             if int(rejected.sum()):
                 raise RuntimeError(
                     "credit conservation violated: a credited send was "
                     "rejected at the ring (mixed credited/uncredited "
                     "producers on one channel?)")
-            sent_ok = sent_ok.cpu().numpy()
             lost = [staged[r] for r in sorted(staged) if not bool(sent_ok[r])]
             if lost:
                 raise RuntimeError(f"credited sends not delivered: {lost}")
         else:
-            self.qstate, out_req, out_tok, sent_ok = self._step_legacy(
-                self.qstate, **ins)
-            sent_ok = sent_ok.cpu().numpy()
             # backpressure: rejected sends go back to the head of the queue
             # in staging order
             self.retries += _requeue_rejected(self._pending, staged, sent_ok)
 
         self.steps_run += 1
-        out_req, out_tok = out_req.cpu().numpy(), out_tok.cpu().numpy()
         emitted = 0
         for r in range(cfg.n_prefill, p):
             for rid, tok in zip(out_req[r], out_tok[r]):
@@ -1020,8 +1082,10 @@ class DisaggEngine:
         return int(logits.argmax())
 
     def queue_stats(self) -> dict:
-        return {k: v.cpu().numpy().astype(np.uint32)
-                for k, v in rq.stats(self.qstate).items()}
+        """Every rank's queue counters (uint32; collective on a `ProcMesh`)."""
+        ctrs = self.mesh.host_gather(self.qstate.ctrs)
+        return {k: v.numpy().astype(np.uint32)
+                for k, v in rq.stats(rq.QueueState(None, ctrs)).items()}
 
     def paged_stats(self) -> dict:
         """Paged-mode instrumentation: prefix sharing, page traffic, and the
