@@ -374,14 +374,33 @@ no result line):
     `Mesh(4)` run of the same requests and to `reference()`; the wire
     fingerprints (paged 8 -> 3, inline 2 a step, rendezvous 4 with no
     payload on the ring), pool, pin and credit conservation; ms a step
-    beside the stacked run's, host barriers, tokens and host gathers a
-    step, device memory.  Then the peer forms of rows 2, 3 and 8-10
+    beside the stacked run's, host barriers (held to `DISAGG_BARRIERS`),
+    tokens and host gathers a step, device memory; every all-to-all of
+    whole-word blocks (the queue's, the pull's) stored by row 4's peer
+    form, its launches counted.  Then the peer forms of rows 2, 3 and 8-10
     through their ops surfaces on the runs' data (counts zeroed before,
     read after): the one-sided reads held to the two-plan `gather_pages`
     pull and the readout's context; each against its plain version on the
     same ranks (rows 3 and 8-10 bit-equal, row 2 within 1e-4); each timed
     alone by rank 0 while the others wait, beside its plain version, one
     PyTorch call where one computes the same function, and its bound.
+30. DSDE, the MoE dispatch, the hashtable and the 3-D FFT with one rank a
+    process (4 processes sharing the card), each from a fixed seed, the
+    same inputs through the stacked `Mesh(4)` in this process: DSDE at
+    k = 6,144 items of 2 f32 a rank, 2,048 slots a pair, a uniform and a
+    skewed draw, all four protocols; qwen3-moe-30b-a3b's dispatch and
+    combine (d 2048, 128 experts, top-8, bf16, 1,024 tokens a rank, a
+    per-expert scale as the experts); the hashtable at 16,384 keys a rank
+    an epoch into 2**16 table and heap cells a rank, 4 epochs, a
+    re-insert and a lookup of present and absent keys; the FFT at 512³
+    (`fft3d`, `fft3d_slabs`).  Every rank's results bit-equal to its row
+    of the stacked run (the FFT within 1e-4 of the spectrum's max abs),
+    ledgers and drops equal; every all-to-all block stored by row 4's
+    peer form (p launches a transfer a rank, asserted; no whole-word
+    block through `ProcMesh.all_to_all`).  Ms a call (median and spread),
+    host barriers and row 4 launches a call, inserts/s, lookups/s and
+    FFT GFLOP/s beside the stacked run's; the kernel and `copy_` arms of
+    one all-to-all of each payload dtype, bit-equal, timed side by side.
 
 ``python3 chip_smoke.py --gather-shift`` times only `rmem.pages.gather_shift`
 and `paged_gather` at the rendezvous pull's shape on the package beside the
@@ -396,7 +415,8 @@ DSDE shapes and the launch floor, the same way;
 result line; ``python3 chip_smoke.py --tools`` runs only phase 27 (after
 the kernels' build) and ends with the result line; ``--procs`` and
 ``--disagg-procs`` run only phase 28 and phase 29, their rows of the
-kernels line, then the result line.
+kernels line, then the result line; ``--apps-procs`` runs only phase 30
+and ends with the result line.
 
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after.
@@ -639,6 +659,27 @@ DISAGG_MODES = {"fused": dict(paged=True, attend="fused"), "inline": dict(paged=
 DISAGG_SHIFT = FULL["n_prefill"]        # decode rank r reads its prefill owner r - 2 (p = 4)
 DISAGG_PEER_ROWS = ("paged_attention_shift_peer", "paged_gather_peer", "notified_put_peer",
                     "notify_accumulate_peer", "queue_push_peer")
+# phase 29 in a whole smoke before its all-to-alls took row 4 (PERF.md §5):
+# host barriers and ms a step over processes
+DISAGG_BARRIERS = {"fused": 4, "inline": 3, "rendezvous": 5}
+DISAGG_PR30_MS = {"fused": 32.3, "inline": 18.0, "rendezvous": 33.0}
+# phase 30: DSDE, MoE, the hashtable and the FFT over PROC_P processes, the
+# same inputs through the stacked Mesh(PROC_P).  DSDE at the total of the
+# DSDE phase (p = 4096 x k = 6 = 24,576 items): k = 6,144 items of DSDE_D
+# f32 a rank, 2,048 slots a pair against a mean pair load of 1,536; a
+# uniform draw and a skewed one (half of every rank's items to rank 0, so
+# drops occur).  MoE at qwen3-moe-30b-a3b's published widths
+# (src/repro/configs/qwen3_moe_30b_a3b.py: d_model 2048, 128 experts,
+# top-8) in bf16, 1,024 tokens a rank, capacity factor 1.25, a per-expert
+# scale as the experts.  The hashtable at HT_BATCH keys a rank an epoch
+# into HT_TABLE / HT_HEAP cells a rank, HT_EPOCHS epochs and the re-insert,
+# at the hashtable phase's multiple of the mean pair load (4x): 16,384
+# slots a pair for the inserts (4,096 expected), 32,768 for the lookup's
+# 2 x HT_BATCH keys a rank (8,192 expected).  The FFT at FFT_N³.
+APPS_K, APPS_CAP, APPS_SEED = 6144, 2048, 30
+APPS_MOE = dict(tokens=1024, d=2048, experts=128, top_k=8, cf=1.25)
+APPS_HT_CAP, APPS_HT_LOOKUP_CAP = 16384, 32768
+APPS_REPS, APPS_FFT_REPS, APPS_ARM_REPS = 7, 3, 11
 
 
 def log(msg: str) -> None:
@@ -1069,7 +1110,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows, dprocs = disagg_procs_phases(torch, H100.hbm_bandwidth)
     kernels += rows
+    row4 = next(r for r in kernels if r["name"] == "put_shift_peer")
+    row4["launches"] += dprocs.pop("row4_launches")
     log(f"disagg procs phase numbers: {json.dumps(dprocs)}")
+    torch.cuda.empty_cache()
+    aprocs = apps_procs_phases(torch, H100.hbm_bandwidth)
+    row4["launches"] += aprocs.pop("row4_launches")
+    row4["all_to_all"] = {name: {"ms": median(a["ms"]), "torch_ms": median(a["torch_ms"]),
+                                 "bound_ms": a["bound_ms"], "bytes": a["bytes"]}
+                          for name, a in aprocs["arms"].items()}
+    log(f"apps procs phase numbers: {json.dumps(aprocs)}")
     if len(kernels) != len(KERNELS):
         raise AssertionError(f"{len(kernels)} kernel rows, want {len(KERNELS)}")
     log(f"smoke wall time: {time.perf_counter() - T0:.1f} s")
@@ -1478,7 +1528,7 @@ def plain_route(plan_mod):
     """Sends every plan group through the plain PyTorch put (the mesh), for
     a comparison timing only: the counted runs never use it."""
     real = plan_mod._route
-    plan_mod._route = lambda sig, ops, pack, backend: "torch"
+    plan_mod._route = lambda sig, ops, pack, backend, procs=False: "torch"
     try:
         yield
     finally:
@@ -6083,10 +6133,15 @@ def disagg_summary(eng, reqs: dict) -> dict:
 def disagg_serve_rank(torch, np, disagg, mesh) -> tuple:
     """29.1 in one rank: the three transports at FULL over the process mesh;
     returns each one's summary and numbers, and the runs' engines."""
+    from repro_torch import procmesh
+    from repro_torch.kernels.rma import ops as rma_ops
+
     out, engines = {}, {}
     for name, kw in DISAGG_MODES.items():
         cfg = disagg.DisaggConfig(**kw, **FULL)
         held = mesh.barriers, mesh.tokens, mesh.host_gathers
+        seen, restore = a2a_watch(torch, procmesh, rma_ops)
+        row4 = rma_ops.launches["put_shift"]
         eng = disagg.DisaggEngine(mesh.p, cfg, seed=DISAGG_SEED, mesh=mesh)
         reqs = prompts(np.random.default_rng(DISAGG_SEED), DISAGG_N, cfg)
         for rid, toks in reqs.items():
@@ -6099,11 +6154,14 @@ def disagg_serve_rank(torch, np, disagg, mesh) -> tuple:
         eng.run_until_drained(max_steps=4 * DISAGG_N + 16)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        restore()
         steps = eng.steps_run
         sync = ((mesh.barriers - held[0]) / steps, (mesh.tokens - held[1]) / steps,
                 (mesh.host_gathers - held[2]) / steps)
         out[name] = {"summary": disagg_summary(eng, reqs), "ms_per_step": dt / steps * 1e3,
                      "per_step": sync, "init": init, "host_gathers": eng.host_gathers,
+                     "row4_launches": rma_ops.launches["put_shift"] - row4,
+                     "copy_a2a": dict(seen),
                      "device_bytes": torch.cuda.mem_get_info(mesh.device),
                      "peak_allocated": torch.cuda.max_memory_allocated(mesh.device)}
         engines[name] = eng
@@ -6415,6 +6473,15 @@ def disagg_procs_phases(torch, hbm: float) -> tuple:
                                      "stacked run's")
         ms = want["msg_stats"]
         per = [res["serve"][name]["per_step"] for res in ranks]
+        row4 = [res["serve"][name]["row4_launches"] for res in ranks]
+        copies = [res["serve"][name]["copy_a2a"] for res in ranks]
+        if any(c["carriable"] for c in copies) or min(row4) == 0:
+            raise AssertionError(f"29.1 {name}: row 4 launches by rank {row4}, "
+                                 f"ProcMesh.all_to_all calls by rank {copies}: every "
+                                 "all-to-all of whole-word blocks must take the kernel")
+        if any(round(pr[0], 9) != DISAGG_BARRIERS[name] for pr in per):
+            raise AssertionError(f"29.1 {name}: host barriers a step by rank "
+                                 f"{[pr[0] for pr in per]}, want {DISAGG_BARRIERS[name]}")
         log(f"29.1 {name}: {DISAGG_N} requests, {want['steps_run']} steps, every rank's tokens, "
             f"steps, msg_stats, novel pages {want['novel_pages_shipped']}, retries "
             f"{want['retries']}, stalls {want['credit_stalls']}/{want['pool_stalls']} equal to "
@@ -6422,8 +6489,13 @@ def disagg_procs_phases(torch, hbm: float) -> tuple:
             f"{ms['wire_msgs_per_step']} a step, ring payload appends "
             f"{want['ring_payload_appends']}; ms/step by rank "
             f"{[round(res['serve'][name]['ms_per_step'], 3) for res in ranks]} beside the "
-            f"stacked {stacked[name]['ms_per_step']:.3f}; host barriers / tokens / host gathers "
-            f"a step by rank {[tuple(round(x, 2) for x in pr) for pr in per]}; device memory in "
+            f"stacked {stacked[name]['ms_per_step']:.3f} (before row 4 took the all-to-alls: "
+            f"{DISAGG_PR30_MS[name]} over processes); host barriers / tokens / host gathers "
+            f"a step by rank {[tuple(round(x, 2) for x in pr) for pr in per]} (want "
+            f"{DISAGG_BARRIERS[name]} barriers: an all-to-all through row 4 takes one fence, "
+            f"as through copy_); row 4 launches a step by rank "
+            f"{[round(n / want['steps_run'], 2) for n in row4]}, ProcMesh.all_to_all calls "
+            f"{copies}; device memory in "
             f"use {max(res['serve'][name]['device_bytes'][1] - res['serve'][name]['device_bytes'][0] for res in ranks) / 2**30:.2f} GiB "
             f"(all contexts), torch peak a rank "
             f"{max(res['serve'][name]['peak_allocated'] for res in ranks) / 2**20:.0f} MiB")
@@ -6469,9 +6541,459 @@ def disagg_procs_phases(torch, hbm: float) -> tuple:
                       "steps": stacked[name]["summary"]["steps_run"]}
                for name in DISAGG_MODES}
     numbers.update(run_s=run_s, wall_s=time.perf_counter() - t0,
-                   ranks_wall_s=[x["wall_s"] for x in ranks])
+                   ranks_wall_s=[x["wall_s"] for x in ranks],
+                   row4_launches=sum(x["serve"][m]["row4_launches"] for x in ranks
+                                     for m in DISAGG_MODES))
     log(f"29: ranks' run {run_s:.1f} s, phase {time.perf_counter() - t0:.1f} s")
     return rows, numbers
+
+
+# ------------- DSDE, MoE, the hashtable and the FFT over processes (30)
+def a2a_watch(torch, procmesh, rma_ops):
+    """Counts `ProcMesh.all_to_all` calls (the mesh's `copy_` route) in this
+    process, split by whether the kernel could have carried the blocks:
+    under "auto" a call of whole-word CUDA blocks is a fault."""
+    seen = {"carriable": 0, "other": 0}
+    real = procmesh.ProcMesh.all_to_all
+
+    def counted(self, x):
+        seen["carriable" if x.is_cuda and rma_ops.block_words(x) else "other"] += 1
+        return real(self, x)
+
+    procmesh.ProcMesh.all_to_all = counted
+    return seen, lambda: setattr(procmesh.ProcMesh, "all_to_all", real)
+
+
+def apps_rows(torch, mesh, t):
+    """This process's rows of a stacked [p, ...] tensor made from a seed
+    (all of them on a stacked `Mesh`)."""
+    return t[mesh.rank:mesh.rank + 1].contiguous() if hasattr(mesh, "rank") else t
+
+
+def apps_call(torch, mesh, rma_ops, OpCounter, fn) -> tuple:
+    """One checked call: (result, OpCounter snapshot and plans, row 4
+    launches)."""
+    launched = rma_ops.launches["put_shift"]
+    with OpCounter() as c:
+        res = fn()
+    torch.cuda.synchronize()
+    return res, {"ops": c.snapshot(), "plans": c.plans}, rma_ops.launches["put_shift"] - launched
+
+
+def apps_times(torch, mesh, fn, reps: int = APPS_REPS) -> dict:
+    """Host ms of `reps` synchronised calls after a warm-up, every rank in
+    step (a barrier of the bootstrap before each call, outside its time),
+    and the host barriers a warm call takes (the first call's include the
+    exchange segment's growth)."""
+    fn()
+    times, barriers = [], 0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        getattr(mesh, "barrier", lambda: None)()
+        held = getattr(mesh, "barriers", 0)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        barriers += getattr(mesh, "barriers", 0) - held
+    return {"ms": times, "barriers": barriers / reps}
+
+
+def row_digests(torch, res) -> list:
+    """Each local row's digest of every tensor of a result: [rows][tensors]."""
+    ts = list(res) if isinstance(res, (tuple, list)) else [res]
+    return [[digest(torch, t[i]) for t in ts] for i in range(ts[0].shape[0])]
+
+
+def apps_inputs(torch, mesh) -> dict:
+    """Phase 30's inputs, every rank's from one seed (the same tensors in the
+    stacked run and in each process, which keeps its own rows)."""
+    p, dev = mesh.p, mesh.device
+    g = torch.Generator(device=dev).manual_seed(APPS_SEED)
+    k, m = APPS_K, APPS_MOE
+    data = torch.randn(p, k, DSDE_D, generator=g, device=dev)
+    uniform = torch.randint(0, p, (p, k), generator=g, device=dev, dtype=torch.int32)
+    skew = uniform.clone()
+    skew[:, :k // 2] = 0                  # half of every rank's items to rank 0
+    tokens = torch.randn(p, m["tokens"], m["d"], generator=g, device=dev).to(torch.bfloat16)
+    logits = torch.randn(p, m["tokens"], m["experts"], generator=g, device=dev)
+    gate, idx = torch.topk(torch.softmax(logits, dim=-1), m["top_k"])
+    gate = (gate / gate.sum(-1, keepdim=True)).to(torch.bfloat16)
+    scale = (torch.rand(m["experts"], generator=g, device=dev) + 0.5).to(torch.bfloat16)
+    b = HT_BATCH
+    n_keys = HT_EPOCHS * p * b
+    newest = torch.randint(0, 2**62, (n_keys,), generator=g, device=dev)
+    fresh = torch.randint(0, 2**62, (n_keys,), generator=g, device=dev)  # the re-insert's values
+    jp = torch.randint(0, n_keys, (p, b), generator=g, device=dev)
+    x = torch.randn((p, FFT_N // p, FFT_N, FFT_N), dtype=torch.complex64, generator=g,
+                    device=dev)
+    return {"data": data, "uniform": uniform, "skew": skew, "tokens": tokens, "idx": idx,
+            "gate": gate, "scale": scale, "newest": newest, "fresh": fresh, "jp": jp, "x": x}
+
+
+def apps_dsde(torch, mesh, rma_ops, OpCounter, ins: dict) -> dict:
+    """30.1: the four protocols on both draws, checked and hashed; each
+    protocol timed on the uniform draw."""
+    from repro_torch.core import dsde
+
+    data = apps_rows(torch, mesh, ins["data"])
+    out = {}
+    for draw in ("uniform", "skew"):
+        tg = apps_rows(torch, mesh, ins[draw])
+        for proto in DSDE_PROTOCOLS:
+            fn = lambda f=getattr(dsde, proto): f(data, tg, mesh, APPS_CAP)  # noqa: E731
+            res, led, launched = apps_call(torch, mesh, rma_ops, OpCounter, fn)
+            row = {"digests": row_digests(torch, res), "ledger": led, "launches": launched,
+                   "dropped": res.sent_dropped.tolist(),
+                   "received": res.recv_valid.sum(1).tolist()}
+            if draw == "uniform":
+                row.update(apps_times(torch, mesh, fn))
+            out[f"{proto}/{draw}"] = row
+            del res
+    return out
+
+
+def apps_moe(torch, mesh, rma_ops, OpCounter, ins: dict) -> dict:
+    """30.2: qwen3-moe's dispatch and combine, a per-expert scale as the
+    experts; checked, hashed and timed."""
+    from repro_torch.core import dsde
+
+    m = APPS_MOE
+    tokens, idx, gate = (apps_rows(torch, mesh, ins[k]) for k in ("tokens", "idx", "gate"))
+    local_e = m["experts"] // mesh.p
+    mine = mesh.axis_index()[:, None] * local_e + torch.arange(local_e, device=mesh.device)
+    scale = ins["scale"][mine][..., None, None]
+
+    def dispatch():
+        return dsde.moe_dispatch(tokens, idx, gate, m["experts"], mesh, capacity_factor=m["cf"])
+
+    disp, led_d, launch_d = apps_call(torch, mesh, rma_ops, OpCounter, dispatch)
+    combine = lambda: dsde.moe_combine(disp.expert_inputs * scale, disp, m["tokens"], mesh)  # noqa: E731
+    comb, led_c, launch_c = apps_call(torch, mesh, rma_ops, OpCounter, combine)
+    if not torch.isfinite(comb.float()).all():
+        raise AssertionError("30.2: non-finite combine output")
+    return {"dispatch": {"digests": row_digests(torch, disp), "ledger": led_d,
+                         "launches": launch_d,
+                         **apps_times(torch, mesh, dispatch)},
+            "combine": {"digests": row_digests(torch, comb), "ledger": led_c,
+                        "launches": launch_c,
+                        **apps_times(torch, mesh, combine)}}
+
+
+def apps_hashtable(torch, mesh, rma_ops, OpCounter, ins: dict) -> dict:
+    """30.3: 4 insert epochs of distinct keys and a re-insert of every
+    HT_REINSERT-th, then a lookup of present and absent keys, every answer
+    checked; volumes and answers hashed; insert and lookup epochs timed."""
+    from repro_torch.core import hashtable as ht
+
+    p, b, dev = mesh.p, HT_BATCH, mesh.device
+    n_keys = HT_EPOCHS * p * b
+    newest = ins["newest"].clone()
+    vol = ht.make_volume(HT_TABLE, HT_HEAP, mesh.local_ranks, device=dev)
+    out, vol1 = {}, None
+    for e in range(HT_EPOCHS + 1):
+        if e < HT_EPOCHS:
+            j = torch.arange(e * p * b, (e + 1) * p * b, device=dev).reshape(p, b)
+        else:
+            j = torch.arange(0, n_keys, HT_REINSERT, device=dev).reshape(p, -1)
+            newest[j.reshape(-1)] = ins["fresh"][j.reshape(-1)]
+        j = apps_rows(torch, mesh, j)
+        (vol, dropped), led, launched = apps_call(
+            torch, mesh, rma_ops, OpCounter,
+            lambda: ht.insert_epoch(vol, ht_keys(j), newest[j], mesh, APPS_HT_CAP))
+        if int(dropped.sum()):
+            raise AssertionError(f"30.3 insert epoch {e + 1} dropped {int(dropped.sum())}")
+        out[f"insert{e + 1}"] = {"digests": row_digests(torch, list(vol) + [dropped]),
+                                 "ledger": led, "launches": launched}
+        if e == 0:
+            vol1 = vol
+    jp = apps_rows(torch, mesh, ins["jp"])
+    ja = apps_rows(torch, mesh, torch.arange(n_keys, n_keys + p * b, device=dev).reshape(p, b))
+    q = ht_keys(torch.cat((jp, ja), dim=1))
+    (vals, found), led, launched = apps_call(
+        torch, mesh, rma_ops, OpCounter,
+        lambda: ht.lookup_epoch(vol, q, mesh, APPS_HT_LOOKUP_CAP))
+    if not (bool(found[:, :b].all()) and torch.equal(vals[:, :b], newest[jp])
+            and not bool(found[:, b:].any())):
+        raise AssertionError("30.3 lookup: a present key missed or stale, or an absent key found")
+    out["lookup"] = {"digests": row_digests(torch, (vals, found)), "ledger": led,
+                     "launches": launched}
+    j2 = apps_rows(torch, mesh, torch.arange(p * b, 2 * p * b, device=dev).reshape(p, b))
+    k2, v2 = ht_keys(j2), newest[j2]
+    out["insert"] = apps_times(torch, mesh, lambda: ht.insert_epoch(vol1, k2, v2, mesh,
+                                                                    APPS_HT_CAP))
+    out["lookup"].update(apps_times(torch, mesh, lambda: ht.lookup_epoch(
+        vol, q, mesh, APPS_HT_LOOKUP_CAP)))
+    if hasattr(mesh, "rank"):         # each rank's device busy share of one call
+        out["profiles"] = {
+            "insert": profile_call(torch, f"30.3 rank {mesh.rank} insert epoch",
+                                   lambda: ht.insert_epoch(vol1, k2, v2, mesh, APPS_HT_CAP)),
+            "lookup": profile_call(torch, f"30.3 rank {mesh.rank} lookup epoch",
+                                   lambda: ht.lookup_epoch(vol, q, mesh, APPS_HT_LOOKUP_CAP))}
+    return out
+
+
+def apps_fft(torch, mesh, rma_ops, OpCounter, ins: dict) -> dict:
+    """30.4: NAS FT class C, both schedules held to `fft3d_reference`
+    (FFT_TOL of the spectrum's max abs) and timed."""
+    from repro_torch.apps import fft
+
+    x = apps_rows(torch, mesh, ins["x"])
+    ref = fft.fft3d_reference(ins["x"])
+    want, scale = apps_rows(torch, mesh, ref), float(ref.abs().max())
+    del ref
+    out = {}
+    for name in ("fft3d", "fft3d_slabs"):
+        fn = lambda f=getattr(fft, name): f(x, mesh)  # noqa: E731
+        got, led, launched = apps_call(torch, mesh, rma_ops, OpCounter, fn)
+        err = float((got - want).abs().max()) / scale
+        if got.shape != x.shape or not err <= FFT_TOL:
+            raise AssertionError(f"30.4 {name}: {tuple(got.shape)}, max abs err {err:.3g} of "
+                                 f"the max abs (tol {FFT_TOL})")
+        del got
+        out[name] = {"err": err, "ledger": led, "launches": launched,
+                     **apps_times(torch, mesh, fn, reps=APPS_FFT_REPS)}
+    if hasattr(mesh, "rank"):
+        out["profile"] = profile_call(torch, f"30.4 rank {mesh.rank} fft3d",
+                                      lambda: fft.fft3d(x, mesh))
+    return out
+
+
+def apps_arms(torch, mesh, rma_ops, ins: dict, hbm: float) -> dict:
+    """30.5: one all-to-all of each payload dtype at its path's shape, the
+    kernel arm (row 4's peer form, p launches) beside the "torch" arm
+    (`ProcMesh.all_to_all`, a `copy_` a block), each held to the other bit
+    for bit and timed with every rank in step (host ms, fence and copy-out
+    included); the bound is the payload read once and written once."""
+    p, dev = mesh.p, mesh.device
+    m = APPS_MOE
+    cap = int(m["cf"] * m["tokens"] * m["top_k"] / m["experts"]) + 1
+    slots = m["experts"] // p * cap
+    g = torch.Generator(device=dev).manual_seed(APPS_SEED + 1 + mesh.rank)
+    payloads = {
+        "float32 (DSDE slots)": torch.randn(1, p, APPS_CAP, DSDE_D, generator=g, device=dev),
+        "int32 (DSDE counts)": torch.randint(0, APPS_CAP, (1, p), generator=g, device=dev,
+                                             dtype=torch.int32),
+        "bool (DSDE validity)": torch.rand(1, p, APPS_CAP, generator=g, device=dev) < 0.5,
+        "bfloat16 (MoE tokens)": torch.randn(1, p, slots, m["d"], generator=g,
+                                             device=dev).to(torch.bfloat16),
+        "int64 (hashtable items)": torch.randint(-2**62, 2**62, (1, p, APPS_HT_CAP, 2),
+                                                 generator=g, device=dev),
+        "complex64 (FFT y-blocks)": ins["x"][mesh.rank:mesh.rank + 1].reshape(
+            1, FFT_N // p, p, FFT_N // p, FFT_N).transpose(1, 2),
+    }
+    out = {}
+    for name, x in payloads.items():
+        a, b = rma_ops.all_to_all(x, mesh), mesh.all_to_all(x)
+        if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+            raise AssertionError(f"30.5 {name}: the kernel arm differs from ProcMesh.all_to_all")
+        before = rma_ops.launches["put_shift"]
+        kern = apps_times(torch, mesh, lambda: rma_ops.all_to_all(x, mesh), APPS_ARM_REPS)["ms"]
+        launched = rma_ops.launches["put_shift"] - before
+        plain = apps_times(torch, mesh, lambda: mesh.all_to_all(x), APPS_ARM_REPS)["ms"]
+        if launched != p * (APPS_ARM_REPS + 1):
+            raise AssertionError(f"30.5 {name}: {launched} launches in {APPS_ARM_REPS + 1} calls")
+        out[name] = {"bytes": x.nbytes, "ms": kern, "torch_ms": plain,
+                     "bound_ms": 2 * x.nbytes / hbm * 1e3, "contiguous": x.is_contiguous()}
+    return out
+
+
+def apps_rank(mesh, hbm: float) -> dict:
+    """Phase 30 in one rank's process (and, on a stacked `Mesh`, the stacked
+    run): 30.1-30.4, with each call's row 4 launches and host barriers;
+    raises on any failure."""
+    import torch
+
+    from repro_torch import procmesh
+    from repro_torch.core.rma import OpCounter
+    from repro_torch.kernels.rma import ops as rma_ops
+
+    t0 = time.perf_counter()
+    ins = apps_inputs(torch, mesh)
+    seen, restore = a2a_watch(torch, procmesh, rma_ops)
+    try:
+        out = {"rank": getattr(mesh, "rank", None),
+               "dsde": apps_dsde(torch, mesh, rma_ops, OpCounter, ins),
+               "moe": apps_moe(torch, mesh, rma_ops, OpCounter, ins),
+               "ht": apps_hashtable(torch, mesh, rma_ops, OpCounter, ins),
+               "fft": apps_fft(torch, mesh, rma_ops, OpCounter, ins)}
+        out["copy_a2a"] = dict(seen)
+    finally:
+        restore()
+    if isinstance(mesh, procmesh.ProcMesh):
+        out["arms"] = apps_arms(torch, mesh, rma_ops, ins, hbm)
+        out["peak_allocated"] = torch.cuda.max_memory_allocated(mesh.device)
+        out["device_bytes"] = torch.cuda.mem_get_info(mesh.device)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def apps_calls(res: dict) -> dict:
+    """Every checked call of a phase-30 run by name: {name: its row}."""
+    calls = {f"dsde {k}": v for k, v in res["dsde"].items()}
+    calls.update({f"moe {k}": v for k, v in res["moe"].items()})
+    calls.update({f"hashtable {k}": v for k, v in res["ht"].items() if "ledger" in v})
+    calls.update({f"fft {k}": v for k, v in res["fft"].items() if "ledger" in v})
+    return calls
+
+
+def apps_timed(res: dict) -> dict:
+    """Every timed call of a phase-30 run by name: {name: {"ms", "barriers"}}
+    (the hashtable's insert timed from epoch 1's volume)."""
+    calls = {k: v for k, v in apps_calls(res).items() if "ms" in v}
+    calls["hashtable insert"] = res["ht"]["insert"]
+    return calls
+
+
+def spread(xs: list) -> str:
+    return f"{median(xs):.3f} ms (min {min(xs):.3f}, max {max(xs):.3f}, n {len(xs)})"
+
+
+def apps_procs_phases(torch, hbm: float) -> dict:
+    """Phase 30: DSDE, the MoE dispatch, the hashtable and the 3-D FFT with
+    one rank a process (PROC_P processes on the card), every all-to-all
+    block stored by row 4's peer form, against the stacked `Mesh(4)` run of
+    the same inputs in this process.  Returns the phase's numbers, row 4's
+    launches among them."""
+    from repro_torch import procmesh
+    from repro_torch.apps import fft
+    from repro_torch.mesh import Mesh
+
+    t0 = time.perf_counter()
+    p = PROC_P
+    card = card_line()
+    log(f"phase 30: DSDE, MoE, the hashtable and the FFT over {p} processes time-sharing one "
+        f"card ({card}); no link is crossed, so no time here is an NVLink time")
+    stacked = apps_rank(Mesh(p, "x", device="cuda"), hbm)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks = procmesh.run(apps_rank, p, device="cuda", args=(hbm,), axis="x",
+                         timeout=PROC_TIMEOUT)
+    run_s = time.perf_counter() - t1
+    want_calls = apps_calls(stacked)
+    transfers = apps_transfers(p)
+    for res in ranks:
+        r = res["rank"]
+        if res["copy_a2a"]["carriable"]:
+            raise AssertionError(f"30 rank {r}: {res['copy_a2a']['carriable']} all-to-alls of "
+                                 "whole-word CUDA blocks went through ProcMesh.all_to_all")
+        for name, got in apps_calls(res).items():
+            want = want_calls[name]
+            if "digests" in want and got["digests"] != [want["digests"][r]]:
+                raise AssertionError(f"30 rank {r} {name}: differs from the stacked run's row")
+            if got["ledger"] != want["ledger"]:
+                raise AssertionError(f"30 rank {r} {name}: ledger {got['ledger']['ops']} vs the "
+                                     f"stacked {want['ledger']['ops']}")
+            if "dropped" in want and got["dropped"] != [want["dropped"][r]]:
+                raise AssertionError(f"30 rank {r} {name}: drops {got['dropped']} vs "
+                                     f"{want['dropped'][r]}")
+            if got["launches"] != p * transfers[name]:
+                raise AssertionError(f"30 rank {r} {name}: {got['launches']} row 4 launches, "
+                                     f"want {p} x {transfers[name]} all-to-all transfers")
+    for name, want in want_calls.items():
+        if "received" in want and sum(want["received"]) + sum(want["dropped"]) != p * APPS_K:
+            raise AssertionError(f"30.1 stacked {name}: items not conserved")
+    skew = {k.split(" ")[1]: want_calls[k]["dropped"] for k in want_calls
+            if k.endswith("/skew")}
+    if not all(sum(d) > 0 for d in skew.values()):
+        raise AssertionError(f"30.1: the skewed draw dropped nothing: {skew}")
+    launches = sum(res_call["launches"] for res in ranks
+                   for res_call in apps_calls(res).values())
+    log(f"30 checks: every rank's DSDE results (4 protocols x 2 draws), MoE dispatch and "
+        f"combine, volumes after {HT_EPOCHS + 1} insert epochs and lookup answers bit-equal "
+        f"to its row of the stacked Mesh({p}) run, ledgers (by kind, raw, wire, plans) equal, "
+        f"drops on the skewed draw equal ({skew}); FFT within "
+        f"{max(res['fft'][k]['err'] for res in ranks for k in ('fft3d', 'fft3d_slabs')):.3g} "
+        f"of the max abs (tol {FFT_TOL}); row 4 launches {launches} in the checked calls = "
+        f"{p} a rank per all-to-all transfer, no all-to-all of whole-word blocks through "
+        f"copy_ (ProcMesh.all_to_all calls by rank "
+        f"{[res['copy_a2a'] for res in ranks]}); ranks' run {run_s:.1f} s")
+    numbers = {"card": card, "calls": {}}
+    for name, want in apps_timed(stacked).items():
+        ms = [x for res in ranks for x in apps_timed(res)[name]["ms"]]
+        got = apps_timed(ranks[0])[name]
+        numbers["calls"][name] = {"ms": ms, "stacked_ms": want["ms"],
+                                  "barriers_per_call": got["barriers"],
+                                  "launches_per_call": p * transfers[name]}
+        log(f"30 {name}: over {p} processes {spread(ms)} (all ranks' calls), stacked "
+            f"Mesh({p}) {spread(want['ms'])}; host barriers a warm call {got['barriers']:g}, "
+            f"row 4 launches a call a rank {p * transfers[name]}")
+    ht_ms = {k: [x for res in ranks for x in res["ht"][k]["ms"]] for k in ("insert", "lookup")}
+    b = HT_BATCH
+    rates = {"inserts_per_s": p * b / median(ht_ms["insert"]) * 1e3,
+             "lookups_per_s": 2 * p * b / median(ht_ms["lookup"]) * 1e3,
+             "stacked_inserts_per_s": p * b / median(stacked["ht"]["insert"]["ms"]) * 1e3,
+             "stacked_lookups_per_s": 2 * p * b / median(stacked["ht"]["lookup"]["ms"]) * 1e3}
+    log(f"30.3 hashtable: {rates['inserts_per_s']:.4g} inserts/s over processes "
+        f"({rates['stacked_inserts_per_s']:.4g} stacked), {rates['lookups_per_s']:.4g} "
+        f"lookups/s ({rates['stacked_lookups_per_s']:.4g} stacked)")
+    prof = {f"rank {res['rank']} {k}": {"wall_ms": v["wall_ms"], "busy_ms": v["busy_ms"]}
+            for res in ranks for k, v in list(res["ht"]["profiles"].items())
+            + [("fft3d", res["fft"]["profile"])]}
+    log(f"30 profiles (one call each, every rank in step): " + "; ".join(
+        f"{k} wall {v['wall_ms']:.3f} ms, device busy {v['busy_ms']:.3f} ms "
+        f"({v['busy_ms'] / v['wall_ms']:.1%})" for k, v in prof.items()))
+    flops = fft.fft_flops(FFT_N)
+    for name in ("fft3d", "fft3d_slabs"):
+        ms = median(numbers["calls"][f"fft {name}"]["ms"])
+        sms = median(numbers["calls"][f"fft {name}"]["stacked_ms"])
+        numbers["calls"][f"fft {name}"].update(gflops=flops / ms / 1e6,
+                                                stacked_gflops=flops / sms / 1e6)
+        log(f"30.4 {name} at {FFT_N}³: {ms:.3f} ms over processes ({flops / ms / 1e6:.1f} "
+            f"GFLOP/s), stacked {sms:.3f} ms ({flops / sms / 1e6:.1f} GFLOP/s)")
+    arms = {name: {"ms": [x for res in ranks for x in res["arms"][name]["ms"]],
+                   "torch_ms": [x for res in ranks for x in res["arms"][name]["torch_ms"]],
+                   "bound_ms": ranks[0]["arms"][name]["bound_ms"],
+                   "bytes": ranks[0]["arms"][name]["bytes"]} for name in ranks[0]["arms"]}
+    for name, a in arms.items():
+        log(f"30.5 all-to-all of {name}, {a['bytes']} bytes a rank ({card}): kernel arm "
+            f"{spread(a['ms'])}, torch arm {spread(a['torch_ms'])}, bit-equal; bound "
+            f"{a['bound_ms'] * 1e3:.2f} us (bytes)")
+    used = max(x["device_bytes"][1] - x["device_bytes"][0] for x in ranks)
+    numbers.update(rates=rates, arms=arms, profiles=prof, row4_launches=launches, run_s=run_s,
+                   used_gib=used / 2**30,
+                   peak_mib=max(x["peak_allocated"] for x in ranks) / 2**20,
+                   wall_s=time.perf_counter() - t0)
+    log(f"30: device memory in use {used / 2**30:.2f} GiB (all contexts), torch peak a rank "
+        f"{numbers['peak_mib']:.0f} MiB; phase {numbers['wall_s']:.1f} s")
+    return numbers
+
+
+def apps_transfers(p: int) -> dict:
+    """All-to-all transfers a call of each checked function (the plans'
+    unpacked groups, the queue's packed one, and one a plane of
+    `fft3d_slabs` plus the transpose back): p row 4 launches each."""
+    dsde = {"exchange_accumulate": 3, "exchange_alltoall_baseline": 4,
+            "exchange_reduce_scatter_baseline": 3, "exchange_queue": 1}
+    out = {f"dsde {k}/{d}": v for k, v in dsde.items() for d in ("uniform", "skew")}
+    out.update({"moe dispatch": 4, "moe combine": 3, "hashtable lookup": 5,
+                "fft fft3d": 2, "fft fft3d_slabs": FFT_N // p + 1})
+    out.update({f"hashtable insert{e + 1}": 3 for e in range(HT_EPOCHS + 1)})
+    out["hashtable insert"] = 3
+    return out
+
+
+def apps_procs_only() -> int:
+    """``python3 chip_smoke.py --apps-procs``: phase 30 alone, on the package
+    beside this file (the kernels build first).  Prints its numbers, then
+    the result line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.core.perfmodel import H100
+    from repro_torch.kernels import common
+
+    log(card_line())
+    build_all(common)
+    numbers = apps_procs_phases(torch, H100.hbm_bandwidth)
+    log(f"apps procs phase numbers: {json.dumps(numbers)}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 def disagg_procs_only() -> int:
@@ -6732,7 +7254,7 @@ MODES = {"--gather-shift": gather_shift_only, "--queue-push": queue_push_only,
          "--pool": pool_only, "--apps": apps_only, "--zoo": zoo_only,
          "--parallel": parallel_only, "--conformance": conformance_only,
          "--tools": tools_only, "--procs": procs_only,
-         "--disagg-procs": disagg_procs_only}
+         "--disagg-procs": disagg_procs_only, "--apps-procs": apps_procs_only}
 
 if __name__ == "__main__":
     sys.exit(MODES[sys.argv[1]]() if sys.argv[1:] else main())

@@ -19,7 +19,11 @@ alltoall and reduce-scatter baselines, and the queue-backed exchange over
 chooses between the queue and the all-to-all.
 
 Every tensor is the global view: data [p, n, d], targets [p, n]; results
-carry a leading rank dim.  `moe_dispatch` and `moe_combine` are the same
+carry a leading rank dim.  On a `ProcMesh` (one rank a process) the
+leading dim is this process's one rank block (R = ``mesh.local_ranks``):
+data [1, n, d], and a rank's rows are ``arange(R)`` while only the dims a
+peer indexes (targets, source ranks, slot ranges) keep p.  Each rank's
+results are its row of the stacked run's, bit for bit.  `moe_dispatch` and `moe_combine` are the same
 exchange with experts as targets (expert parallelism over the rank axis),
 the explicit form of `models.moe.moe_ffn`'s dispatch.
 """
@@ -36,15 +40,15 @@ from . import collectives, plan as plan_mod
 
 
 class DSDEResult(NamedTuple):
-    recv_data: torch.Tensor     # [p, slots, item]  payload each rank received
-    recv_valid: torch.Tensor    # [p, slots] bool   which slots hold real items
-    recv_counts: torch.Tensor   # [p, p]            items received from each rank
-    sent_dropped: torch.Tensor  # [p]               items dropped by the bound
+    recv_data: torch.Tensor     # [R, slots, item]  payload each rank received
+    recv_valid: torch.Tensor    # [R, slots] bool   which slots hold real items
+    recv_counts: torch.Tensor   # [R, p]            items received from each rank
+    sent_dropped: torch.Tensor  # [R]               items dropped by the bound
 
 
 def _send_counts(targets: torch.Tensor, p: int) -> torch.Tensor:
-    """[p(src), p(dst)] int32: how many items each rank sends each target.
-    Counted by one scatter-add into the [p, p] result: a one-hot [p, n, p]
+    """[R(src), p(dst)] int32: how many items each rank sends each target.
+    Counted by one scatter-add into the [R, p] result: a one-hot [p, n, p]
     form would take p * n * p words (128 GiB at p = 1024, n = 16,384)."""
     counts = torch.zeros((targets.shape[0], p), dtype=torch.int32, device=targets.device)
     return counts.scatter_add_(1, targets.long(),
@@ -68,7 +72,7 @@ def exchange_accumulate(data: torch.Tensor, targets: torch.Tensor, mesh: Mesh,
     bound for rank 0 when that item exists (while its slot stays valid).
     Here a dropped item writes nothing, so every valid slot holds its item.
     """
-    p = mesh.p
+    p, R = mesh.p, mesh.local_ranks
     cap = capacity_per_pair
     n, d = data.shape[1], data.shape[2]
     dev = data.device
@@ -79,25 +83,25 @@ def exchange_accumulate(data: torch.Tensor, targets: torch.Tensor, mesh: Mesh,
 
     # ---- step 2: pack items into per-target slot ranges (origin side)
     sorted_tgt, order = torch.sort(targets.long(), dim=1, stable=True)
-    sorted_data = torch.gather(data, 1, order[..., None].expand(p, n, d))
+    sorted_data = torch.gather(data, 1, order[..., None].expand(R, n, d))
     first = torch.searchsorted(sorted_tgt, sorted_tgt, side="left")
     idx_in_group = torch.arange(n, device=dev) - first
     ok = idx_in_group < cap
     dropped = (~ok).sum(dim=1)
-    rows = torch.arange(p, device=dev)[:, None].expand(p, n)
+    rows = torch.arange(R, device=dev)[:, None].expand(R, n)
     slot = sorted_tgt * cap + idx_in_group
-    slots = torch.zeros((p, p * cap, d), dtype=data.dtype, device=dev)
-    valid = torch.zeros((p, p * cap), dtype=torch.bool, device=dev)
+    slots = torch.zeros((R, p * cap, d), dtype=data.dtype, device=dev)
+    valid = torch.zeros((R, p * cap), dtype=torch.bool, device=dev)
     slots[rows[ok], slot[ok]] = sorted_data[ok]
     valid[rows[ok], slot[ok]] = True
 
     # ---- step 3: one-sided puts of each slot range into its target window
-    h_recv = xplan.put_all_to_all(slots.reshape(p, p, cap, d), kind="puts")
-    h_valid = xplan.put_all_to_all(valid.reshape(p, p, cap), kind=None)
+    h_recv = xplan.put_all_to_all(slots.reshape(R, p, cap, d), kind="puts")
+    h_valid = xplan.put_all_to_all(valid.reshape(R, p, cap), kind=None)
     xplan.flush()
     return DSDEResult(
-        recv_data=h_recv.result().reshape(p, p * cap, d),
-        recv_valid=h_valid.result().reshape(p, p * cap),
+        recv_data=h_recv.result().reshape(R, p * cap, d),
+        recv_valid=h_valid.result().reshape(R, p * cap),
         recv_counts=h_counts.result(),
         sent_dropped=dropped,
     )
@@ -111,7 +115,7 @@ def exchange_alltoall_baseline(data: torch.Tensor, targets: torch.Tensor,
     res = exchange_accumulate(data, targets, mesh, capacity_per_pair)
     # the extra dense count round (the payload movement is identical)
     collectives.all_to_all(
-        torch.zeros((mesh.p, mesh.p), dtype=torch.int32, device=data.device), mesh)
+        torch.zeros((mesh.local_ranks, mesh.p), dtype=torch.int32, device=data.device), mesh)
     return res
 
 
@@ -119,7 +123,7 @@ def exchange_reduce_scatter_baseline(data: torch.Tensor, targets: torch.Tensor,
                                      mesh: Mesh, capacity_per_pair: int) -> DSDEResult:
     """Baseline 2: a reduce-scatter of the counts (each rank learns only its
     receive total), then the personalised sends."""
-    totals = mesh.psum_scatter(_send_counts(targets, mesh.p))        # [p, 1]
+    totals = mesh.psum_scatter(_send_counts(targets, mesh.p))        # [R, 1]
     res = exchange_accumulate(data, targets, mesh, capacity_per_pair)
     return res._replace(recv_counts=totals.expand_as(res.recv_counts))
 
@@ -150,35 +154,35 @@ def exchange_queue(data: torch.Tensor, targets: torch.Tensor, mesh: Mesh,
 
 # -------------------------------------------------------------- MoE dispatch
 class MoEDispatch(NamedTuple):
-    expert_inputs: torch.Tensor   # [p, local_e, p*cap, d]
-    combine_idx: torch.Tensor     # [p, local_e, p*cap] flat source token (src_rank * n_tok + t)
-    combine_valid: torch.Tensor   # [p, local_e, p*cap] bool
-    gate_weights: torch.Tensor    # [p, local_e, p*cap]
+    expert_inputs: torch.Tensor   # [R, local_e, p*cap, d]
+    combine_idx: torch.Tensor     # [R, local_e, p*cap] flat source token (src_rank * n_tok + t)
+    combine_valid: torch.Tensor   # [R, local_e, p*cap] bool
+    gate_weights: torch.Tensor    # [R, local_e, p*cap]
 
 
 def moe_dispatch(tokens: torch.Tensor, expert_idx: torch.Tensor, gate_w: torch.Tensor,
                  n_experts: int, mesh: Mesh, capacity_factor: float = 1.25) -> MoEDispatch:
     """Expert-parallel token dispatch = DSDE with experts as targets.
 
-    tokens [p, n_tok, d], expert_idx and gate_w [p, n_tok, top_k] (global
+    tokens [R, n_tok, d], expert_idx and gate_w [R, n_tok, top_k] (global
     expert ids); each rank owns n_experts / p experts.  Every rank packs
     its (token, expert) items into [p, local_e, cap] slot ranges — a stable
     sort by expert, an item's position in its expert's range from
     `searchsorted`, items past `cap` dropped — and one plan's all-to-all
     (tokens, gates, source indices, validity) moves each range to the rank
     that owns its experts."""
-    p = mesh.p
+    p, R = mesh.p, mesh.local_ranks
     _, n_tok, d = tokens.shape
     top_k = expert_idx.shape[2]
     local_e = n_experts // p
     cap = int(capacity_factor * n_tok * top_k / n_experts) + 1
     dev = tokens.device
 
-    flat_exp = expert_idx.reshape(p, n_tok * top_k).long()
-    flat_gate = gate_w.reshape(p, n_tok * top_k)
+    flat_exp = expert_idx.reshape(R, n_tok * top_k).long()
+    flat_gate = gate_w.reshape(R, n_tok * top_k)
     s_exp, order = torch.sort(flat_exp, dim=1, stable=True)
-    src = torch.arange(n_tok, device=dev).repeat_interleave(top_k)[order]   # [p, n*k]
-    s_tok = torch.gather(tokens, 1, src[..., None].expand(p, n_tok * top_k, d))
+    src = torch.arange(n_tok, device=dev).repeat_interleave(top_k)[order]   # [R, n*k]
+    s_tok = torch.gather(tokens, 1, src[..., None].expand(R, n_tok * top_k, d))
     s_gate = torch.gather(flat_gate, 1, order)
     pos = torch.arange(n_tok * top_k, device=dev) - torch.searchsorted(s_exp, s_exp,
                                                                        side="left")
@@ -188,12 +192,12 @@ def moe_dispatch(tokens: torch.Tensor, expert_idx: torch.Tensor, gate_w: torch.T
     # the overflow column n_slots and never clobber a valid slot
     slot = (s_exp // local_e) * (local_e * cap) + (s_exp % local_e) * cap + pos
     slot = torch.where(ok, slot, torch.full_like(slot, n_slots))
-    rows = torch.arange(p, device=dev)[:, None]
+    rows = torch.arange(R, device=dev)[:, None]
 
     def scatter(vals, shape, dtype):
-        buf = torch.zeros((p, n_slots + 1) + shape, dtype=dtype, device=dev)
+        buf = torch.zeros((R, n_slots + 1) + shape, dtype=dtype, device=dev)
         buf[rows, slot] = vals.to(dtype)
-        return buf[:, :n_slots].reshape((p, p, local_e * cap) + shape)
+        return buf[:, :n_slots].reshape((R, p, local_e * cap) + shape)
 
     dplan = plan_mod.RmaPlan(mesh)
     h_t = dplan.put_all_to_all(scatter(s_tok, (d,), tokens.dtype), kind="puts")
@@ -202,10 +206,10 @@ def moe_dispatch(tokens: torch.Tensor, expert_idx: torch.Tensor, gate_w: torch.T
     h_v = dplan.put_all_to_all(scatter(ok, (), torch.bool), kind=None)
     dplan.flush()
 
-    def regroup(a):     # [p, p_src, local_e*cap, ...] -> [p, local_e, p_src*cap, ...]
+    def regroup(a):     # [R, p_src, local_e*cap, ...] -> [R, local_e, p_src*cap, ...]
         rest = tuple(a.shape[3:])
-        return (a.reshape((p, p, local_e, cap) + rest).transpose(1, 2)
-                .reshape((p, local_e, p * cap) + rest))
+        return (a.reshape((R, p, local_e, cap) + rest).transpose(1, 2)
+                .reshape((R, local_e, p * cap) + rest))
 
     recv, recv_s = regroup(h_t.result()), regroup(h_s.result())
     src_rank = torch.arange(p, device=dev).repeat_interleave(cap)
@@ -215,11 +219,11 @@ def moe_dispatch(tokens: torch.Tensor, expert_idx: torch.Tensor, gate_w: torch.T
 
 def moe_combine(expert_outputs: torch.Tensor, dispatch: MoEDispatch, n_tok: int,
                 mesh: Mesh) -> torch.Tensor:
-    """Return the experts' outputs [p, local_e, p*cap, d] to their source
+    """Return the experts' outputs [R, local_e, p*cap, d] to their source
     ranks and combine: the same exchange reversed, then a gate-weighted
     scatter-add into each rank's token buffer (the slotted accumulate).
-    Returns [p, n_tok, d]."""
-    p = mesh.p
+    Returns [R, n_tok, d]."""
+    p, R = mesh.p, mesh.local_ranks
     _, local_e, slots, d = expert_outputs.shape
     cap = slots // p
     dev = expert_outputs.device
@@ -227,21 +231,21 @@ def moe_combine(expert_outputs: torch.Tensor, dispatch: MoEDispatch, n_tok: int,
     weighted = torch.where(dispatch.combine_valid[..., None], weighted,
                            torch.zeros_like(weighted))
 
-    def back(a):        # [p, local_e, p_dst*cap, ...] -> [p, p_dst, local_e*cap, ...]
+    def back(a):        # [R, local_e, p_dst*cap, ...] -> [R, p_dst, local_e*cap, ...]
         rest = tuple(a.shape[3:])
-        return (a.reshape((p, local_e, p, cap) + rest).transpose(1, 2)
-                .reshape((p, p, local_e * cap) + rest))
+        return (a.reshape((R, local_e, p, cap) + rest).transpose(1, 2)
+                .reshape((R, p, local_e * cap) + rest))
 
     cplan = plan_mod.RmaPlan(mesh)
     h_b = cplan.put_all_to_all(back(weighted), kind="puts")
     h_i = cplan.put_all_to_all(back(dispatch.combine_idx % n_tok), kind=None)
     h_v = cplan.put_all_to_all(back(dispatch.combine_valid), kind=None)
     cplan.flush()
-    flat = h_b.result().reshape(p, -1, d)
-    fidx = h_i.result().reshape(p, -1)
-    fval = h_v.result().reshape(p, -1)
-    out = torch.zeros(p, n_tok + 1, d, dtype=expert_outputs.dtype, device=dev)
-    rows = torch.arange(p, device=dev)[:, None].expand_as(fidx)
+    flat = h_b.result().reshape(R, -1, d)
+    fidx = h_i.result().reshape(R, -1)
+    fval = h_v.result().reshape(R, -1)
+    out = torch.zeros(R, n_tok + 1, d, dtype=expert_outputs.dtype, device=dev)
+    rows = torch.arange(R, device=dev)[:, None].expand_as(fidx)
     out.index_put_((rows, torch.where(fval, fidx, torch.full_like(fidx, n_tok))), flat,
                    accumulate=True)
     return out[:, :n_tok]

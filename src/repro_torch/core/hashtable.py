@@ -14,7 +14,10 @@ owner-side probe of table slot and chain, and the answers put back.
 
 Every tensor is the global view: a volume's leaves are ``[p, table_size]``
 and ``[p, heap_size]`` with ``next_free`` and ``last_insert`` ``[p]``, keys
-``[p, n]``.  Keys and values are int64, links int32.  (The reference
+``[p, n]``.  On a `ProcMesh` (one rank a process) the leading dim is this
+process's one rank block, R = ``mesh.local_ranks`` (``make_volume(..., R)``):
+the owner's work sizes by the volume's rows and only the owner ids and
+slot ranges a peer indexes keep p.  Keys and values are int64, links int32.  (The reference
 declares the same widths; run without JAX's x64 mode, as its tests run, its
 volume is int32.)
 
@@ -77,6 +80,8 @@ class LocalVolume(NamedTuple):
 
 
 def make_volume(table_size: int, heap_size: int, p: int, device=None) -> LocalVolume:
+    """An empty volume of `p` rank rows: the mesh's p stacked, or a
+    `ProcMesh`'s ``local_ranks`` (1)."""
     dev = resolve_device(device)
 
     def full(n, v, dtype):
@@ -221,9 +226,9 @@ def owner_insert_plain(vol: LocalVolume, keys: torch.Tensor, vals: torch.Tensor,
 # ------------------------------------------------------------------- epochs
 def insert_epoch(vol: LocalVolume, keys: torch.Tensor, vals: torch.Tensor, mesh: Mesh,
                  capacity_per_pair: int) -> tuple[LocalVolume, torch.Tensor]:
-    """One insert epoch: every rank's keys and values [p, n] routed to their
+    """One insert epoch: every rank's keys and values [R, n] routed to their
     owners by one DSDE exchange (one-sided puts), then the owner insert.
-    Returns (the new volume, [p] items each rank dropped to the capacity)."""
+    Returns (the new volume, [R] items each rank dropped to the capacity)."""
     keys = keys.long()
     items = torch.stack((keys, vals.long()), dim=2)             # [p, n, 2]
     res = dsde.exchange_accumulate(items, hash_owner(keys, mesh.p), mesh,
@@ -255,14 +260,14 @@ def _probe(vol: LocalVolume, keys: torch.Tensor, live: torch.Tensor
 
 def lookup_epoch(vol: LocalVolume, keys: torch.Tensor, mesh: Mesh,
                  capacity_per_pair: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """One-sided lookup of every rank's keys [p, n]: a DSDE exchange of the
+    """One-sided lookup of every rank's keys [R, n]: a DSDE exchange of the
     queries, the owner-side probe, and the answers put back with their
-    validity in one plan.  Returns (values [p, n] int64, found [p, n] bool);
+    validity in one plan.  Returns (values [R, n] int64, found [R, n] bool);
     a query dropped to the capacity reads (0, False)."""
-    p = mesh.p
+    p, R = mesh.p, mesh.local_ranks
     n = keys.shape[1]
     keys = keys.long()
-    qid = torch.arange(n, device=keys.device).expand(p, n)
+    qid = torch.arange(n, device=keys.device).expand(R, n)
     res = dsde.exchange_accumulate(torch.stack((keys, qid), dim=2),
                                    hash_owner(keys, p), mesh, capacity_per_pair)
     rkeys, rqid = res.recv_data[..., 0], res.recv_data[..., 1]
@@ -271,15 +276,15 @@ def lookup_epoch(vol: LocalVolume, keys: torch.Tensor, mesh: Mesh,
     # the answers fly back one-sided to the slot ranges they came from
     slots = rkeys.shape[1]
     cap = slots // p
-    ans = torch.stack((rqid, vals, found.long()), dim=2).reshape(p, p, cap, 3)
+    ans = torch.stack((rqid, vals, found.long()), dim=2).reshape(R, p, cap, 3)
     hplan = plan_mod.RmaPlan(mesh)
     h_back = hplan.put_all_to_all(ans, kind="puts")
-    h_bval = hplan.put_all_to_all(res.recv_valid.reshape(p, p, cap), kind=None)
+    h_bval = hplan.put_all_to_all(res.recv_valid.reshape(R, p, cap), kind=None)
     hplan.flush()
-    back = h_back.result().reshape(p, slots, 3)
-    idx = torch.where(h_bval.result().reshape(p, slots), back[..., 0], n)   # n: trash
-    out_vals = torch.zeros((p, n + 1), dtype=torch.int64, device=keys.device)
-    out_found = torch.zeros((p, n + 1), dtype=torch.bool, device=keys.device)
+    back = h_back.result().reshape(R, slots, 3)
+    idx = torch.where(h_bval.result().reshape(R, slots), back[..., 0], n)   # n: trash
+    out_vals = torch.zeros((R, n + 1), dtype=torch.int64, device=keys.device)
+    out_found = torch.zeros((R, n + 1), dtype=torch.bool, device=keys.device)
     out_vals.scatter_(1, idx, back[..., 1])
     out_found.scatter_(1, idx, back[..., 2].bool())
     return out_vals[:, :n], out_found[:, :n]

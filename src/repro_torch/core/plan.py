@@ -13,7 +13,9 @@ a single collective, then split and decoded losslessly.  Whether to pack is
 Each transfer runs on a backend: ``"torch"`` (`repro_torch.mesh`'s indexing
 collectives on the stacked ``[p, ...]`` view) or ``"cuda"`` (the
 hand-written put kernel of `repro_torch.kernels.rma`, which carries every
-unpacked uniform-shift group of 32-bit payloads on the card — `_route`).
+unpacked uniform-shift group of 32-bit payloads on the card, and on a
+`ProcMesh` every all-to-all group whose blocks are whole 32-bit words —
+`_route`).
 
 `AccessEpoch` ties a plan to one of the three synchronisation families
 (fence / PSCW / shared lock): `open()` performs the family's opening sync,
@@ -25,8 +27,10 @@ exactly as the reference counts them inside one rank's `shard_map` trace, so
 `PlanStats.bytes_wire` and the `OpCounter` ledger match the reference's.
 On a `ProcMesh` (one rank a process) a payload is this rank's ``[1, ...]``
 block and a group's transfer is a round of peer stores: "cuda" the peer
-kernels of `repro_torch.kernels.rma`, "torch" the mesh's plain peer
-copies.  Each process's ledgers are its rank's, equal to the stacked run's.
+kernels of `repro_torch.kernels.rma` (an all-to-all: p launches of the
+peer put, one a destination block), "torch" the mesh's plain peer copies;
+either takes one fence a transfer.  Each process's ledgers are its
+rank's, equal to the stacked run's.
 
 Word carrier: the reference packs into uint32 words; here the words are
 int32 with the same bits (torch's uint32 arithmetic is thin, and a word is
@@ -216,14 +220,18 @@ def _cuda_eligible(x: torch.Tensor) -> bool:
     return x.is_cuda and x.dtype.itemsize == 4 and not x.dtype.is_complex
 
 
-def _route(sig: tuple, ops: list, pack: bool, backend: str) -> Backend:
-    """The backend a group runs on.  Only a uniform-shift ppermute group can
-    take the kernel: under "auto" when it is unpacked and every payload is
-    the kernel's to carry (packed word buffers take "torch", as the
-    reference sends them to XLA), under a forced "cuda" always (on CPU
-    tensors the kernel's wrapper is its plain version).  Everything else
+def _route(sig: tuple, ops: list, pack: bool, backend: str,
+           procs: bool = False) -> Backend:
+    """The backend a group runs on.  A uniform-shift ppermute group takes
+    the kernel under "auto" when it is unpacked and every payload is the
+    kernel's to carry (packed word buffers take "torch", as the reference
+    sends them to XLA), under a forced "cuda" always (on CPU tensors the
+    kernel's wrapper is its plain version).  On a `ProcMesh` (`procs`) an
+    all-to-all group takes it too (`_route_all_to_all`).  Everything else
     goes through the mesh: "torch".  Under "auto" a "cuda" answer here is
     the group's eligibility, which `RmaPlan._backend` then decides on."""
+    if procs and sig[0] == "all_to_all":
+        return _route_all_to_all([op.payload for op in ops], pack, backend)
     shift_group = sig[0] == "ppermute" and all(op.shift is not None for op in ops)
     if not shift_group or backend == "torch":
         return "torch"
@@ -234,12 +242,29 @@ def _route(sig: tuple, ops: list, pack: bool, backend: str) -> Backend:
     return "torch"
 
 
+def _route_all_to_all(payloads: list, pack: bool, backend: str) -> Backend:
+    """An all-to-all group's backend on a `ProcMesh`.  The put kernel moves
+    32-bit words, so a group with a block that is not whole words goes to
+    "torch" (the mesh's copies) whatever the backend asked for: that is
+    the rule, never a failed build or launch, which raises.  A packed
+    group's buffer is words.  Otherwise "torch" forces the mesh's copies,
+    "cuda" the kernel (on CPU tensors its plain stores), and "auto" takes
+    the kernel for payloads on the card."""
+    if backend == "torch" or not (pack or all(rma_ops.block_words(x) for x in payloads)):
+        return "torch"
+    if backend == "cuda" or all(x.is_cuda for x in payloads):
+        return "cuda"
+    return "torch"
+
+
 def choose_backend(model: PerfModel, nbytes: float, shift_eligible: bool) -> Backend:
     """Model-guided backend dispatch for one group under "auto".  On the
     card the put kernel carries an eligible group at any size: it is a
     copy at the rank stride, faster than the mesh's concatenation at every
     payload measured (PERF.md, row 4), so no size threshold applies and
-    `model` prices nothing here.  On a `ProcMesh` whose ranks sit on
+    `model` prices nothing here.  On a `ProcMesh` an eligible all-to-all
+    group's stores are the same peer put, a launch a block, against the
+    mesh's `copy_` a block: the same answer.  Where the ranks sit on
     different cards both backends would cross the link at the same rate
     (`PerfModel.p_crossing`), so the answer is the same.  It is the hook a
     strategist overrides."""
@@ -253,6 +278,20 @@ def _issue_ppermute(mesh: Mesh, x: torch.Tensor, perm: tuple,
     if shift is not None:
         return mesh.shift(x, shift)
     return mesh.ppermute(x, perm)
+
+
+def issue_all_to_all(mesh: Mesh, x: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+    """x [R, p_dst, ...] -> [R, p_src, ...] on `backend`: "cuda" the peer put
+    kernel's all-to-all (`rma_ops.all_to_all`, a `ProcMesh` only), "torch"
+    the mesh's own; "auto" resolves as a plan's one-op group would
+    (`_route`, `choose_backend`)."""
+    if backend == "auto":
+        eligible = (isinstance(mesh, ProcMesh)
+                    and _route_all_to_all([x], False, backend) == "cuda")
+        backend = choose_backend(DEFAULT_MODEL, x.nbytes, eligible)
+    if backend == "cuda":
+        return rma_ops.all_to_all(x, mesh)
+    return mesh.all_to_all(x)
 
 
 # ----------------------------------------------------------------- the plan
@@ -348,7 +387,7 @@ class RmaPlan:
         if sig[0] == "ppermute":
             return _issue_ppermute(self.mesh, x, sig[1], shift, backend)
         if sig[0] == "all_to_all":
-            return self.mesh.all_to_all(x)
+            return issue_all_to_all(self.mesh, x, backend)
         return self.mesh.all_gather(x)
 
     def _issue_group(self, sig: tuple, ops: list[_RecordedOp], pack: bool,
@@ -440,9 +479,11 @@ class RmaPlan:
         aggregate: True forces packing of every fusable group, False forces
         per-op transfers, None consults `PerfModel.select_aggregation`.
         backend: "auto" sends every unpacked uniform-shift group of 32-bit
-        CUDA payloads to the put kernel and the rest to the mesh
-        (`choose_backend`, or the plan's strategist); "torch" or "cuda"
-        force one for every group the kernel can carry (`_route`).
+        CUDA payloads to the put kernel, and on a `ProcMesh` every
+        all-to-all group of CUDA payloads whose blocks are whole words
+        (packed or not), and the rest to the mesh (`choose_backend`, or
+        the plan's strategist); "torch" or "cuda" force one for every
+        group the kernel can carry (`_route`).
         `PlanStats.backends` counts the backend each transfer ran on.
         sync: the fence or PSCW epoch (`core.epoch`) this flush runs in.
         On a `ProcMesh` the uniform-shift put groups that the epoch's
@@ -489,11 +530,12 @@ class RmaPlan:
             else:
                 pack = bool(aggregate) and n > 1 and sig[0] != "local"
 
+            procs = isinstance(self.mesh, ProcMesh)
             if backend == "auto":
                 be = self._backend(group_bytes,
-                                   _route(sig, ops, pack, backend) == "cuda")
+                                   _route(sig, ops, pack, backend, procs=procs) == "cuda")
             else:
-                be = _route(sig, ops, pack, backend)
+                be = _route(sig, ops, pack, backend, procs=procs)
             shifts = [op.shift for op in ops]
             defer = (sync is not None and isinstance(self.mesh, ProcMesh)
                      and sig[0] == "ppermute" and None not in shifts

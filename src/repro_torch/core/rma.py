@@ -132,14 +132,18 @@ def put_all_to_all(x: torch.Tensor, mesh: Mesh, tiled: bool = False) -> torch.Te
     """Personalised all-to-all built on one-sided puts.  Untiled: x
     [p_src, p_dst, ...] -> [p_dst, p_src, ...].  Tiled: x [p, p*k, ...],
     chunk b of each rank's block goes to rank b, concatenated in source
-    order (one collective, counted as such)."""
+    order (one collective, counted as such).  On a `ProcMesh` both forms
+    take a plan group's route (`core.plan._route`): the peer put kernel
+    for blocks of whole words on the card."""
     if tiled:
         OpCounter.record("colls")
         p = mesh.p
         mesh._check(x)
         blocks = x.reshape((x.shape[0], p, x.shape[1] // p) + tuple(x.shape[2:]))
         if isinstance(mesh, ProcMesh):
-            return mesh.all_to_all(blocks).reshape(x.shape)
+            from . import plan as plan_mod
+
+            return plan_mod.issue_all_to_all(mesh, blocks).reshape(x.shape)
         return blocks.transpose(0, 1).reshape(x.shape)
     return _one(mesh, lambda p: p.put_all_to_all(x, kind="colls"))
 

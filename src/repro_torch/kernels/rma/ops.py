@@ -9,7 +9,9 @@ of ``csrc/rma_peer.cu`` store into (or load from) the peers' blocks of the
 mesh's exchange segment through its pointer table, the round's fence makes
 the stores visible, and the result is this rank's row of the stacked op's
 (the plain versions do the same with ``Tensor.copy_`` on the mapped
-blocks).  The kernels read each rank's block in place
+blocks).  A peer all-to-all (`all_to_all`) is p launches of the peer put
+kernel, one a destination block, each block seen as 32-bit words whatever
+its dtype.  The kernels read each rank's block in place
 at the tensor's rank stride, so a halo slice ``x.narrow(1, ...)`` of a
 bigger array is not copied; only a view whose per-rank block is not
 contiguous (a slice of an inner dim) is made contiguous first, and that
@@ -188,6 +190,19 @@ def ring_all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 
 # ------------------------------------------------------------- peer forms
+def block_words(x: torch.Tensor) -> bool:
+    """Whether each destination block of an all-to-all payload x [R, p, ...]
+    is a whole number of 4-byte words: what the put kernel can carry as a
+    word view, whatever x's dtype (a bool block of 4k elements, bf16 of 2k,
+    any int64 or complex64 block)."""
+    return math.prod(x.shape[2:]) * x.dtype.itemsize % 4 == 0
+
+
+def word_view(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor's bytes as flat int32 words (a view, no copy)."""
+    return t.reshape(-1).view(torch.uint8).view(torch.int32)
+
+
 def _block(op: str, x: torch.Tensor) -> torch.Tensor:
     """This rank's block as contiguous 32-bit words (a copy only where it
     is not contiguous)."""
@@ -208,6 +223,38 @@ def put_store(x: torch.Tensor, shift: int, mesh: ProcMesh, seg, off: int) -> Non
     if xs.numel():
         _launch("put_shift", _PEER_PUT, x.get_device(), xs, 2, xs.data_ptr(),
                 seg.table_ptr, mesh.p, mesh.rank, int(shift), off, xs.numel())
+
+
+def all_to_all(x: torch.Tensor, mesh: ProcMesh) -> torch.Tensor:
+    """x [1, p_dst, ...] -> [1, p_src, ...] on a `ProcMesh` (the result of
+    `ProcMesh.all_to_all`): block d of this rank's x is stored into rank
+    d's slot `rank` of one exchange round by the peer put kernel at shift
+    (d - rank) mod p; this rank's own block is a launch at shift 0 too, so
+    every block goes through the kernel, p launches a call.  Then the
+    round's fence, and this rank's p slots copied out.  A block goes as a
+    view of 32-bit words whatever its dtype (a copy only where the block
+    is not contiguous); a block that is not whole words is refused.  CPU
+    tensors take the plain stores (`ProcMesh.store`)."""
+    p, r = mesh.p, mesh.rank
+    if x.ndim < 2 or x.shape[1] != p:
+        raise ValueError(f"all_to_all needs [1, p, ...], got {tuple(x.shape)}")
+    nb = math.prod(x.shape[2:]) * x.dtype.itemsize
+    on_card = _on_card("put_shift", mesh, x)
+    if on_card and not block_words(x):
+        raise TypeError(f"all_to_all moves 32-bit words; a block of {tuple(x.shape[2:])} "
+                        f"{x.dtype} is {nb} bytes")
+    seg, off = mesh.round(x.nbytes)
+    for d in range(p):
+        if not on_card:
+            mesh.store(x[:, d], d - r, seg, off + r * nb)
+            continue
+        blk = x[0, d]
+        w = word_view(blk if blk.is_contiguous() else blk.contiguous())
+        if w.numel():
+            _launch("put_shift", _PEER_PUT, x.get_device(), w, 2, w.data_ptr(), seg.table_ptr,
+                    p, r, (d - r) % p, off + r * nb, w.numel())
+    mesh.fence()
+    return mesh.take(seg, off, tuple(x.shape), x.dtype)
 
 
 def _peer_put(x: torch.Tensor, shift: int, mesh: ProcMesh) -> torch.Tensor:

@@ -123,8 +123,12 @@ class _DeviceBytes:
 
 def as_bytes(x: torch.Tensor) -> torch.Tensor:
     """x's elements as a flat uint8 tensor (a copy only where x's memory is
-    not dense)."""
-    return x.contiguous().reshape(-1).view(torch.uint8)
+    not dense).  A one-element slice may keep its parent's stride, which
+    a dtype view refuses: it is read at stride 1."""
+    flat = x.contiguous().reshape(-1)
+    if flat.numel() == 1:
+        flat = flat.as_strided((1,), (1,))
+    return flat.view(torch.uint8)
 
 
 class Segment:

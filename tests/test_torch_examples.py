@@ -64,6 +64,26 @@ def test_fft3d_matches_fftn():
     assert fft3d.main(CPU)["rel_err"] < fft3d.TOL
 
 
+def test_hashtable_kv_runs_one_rank_a_process(capsys):
+    out = hashtable_kv.main(CPU + ["--procs", "4"])
+    assert out == {"hits": 256, "keys": 256, "dropped": 0}
+    assert "4 processes: every rank's volume and answers equal its rows of the stacked " \
+           "run" in capsys.readouterr().out
+
+
+def test_moe_dsde_runs_one_rank_a_process(capsys):
+    out = moe_dsde.main(CPU + ["--procs", "4"])
+    assert out["routed"] == out["pairs"] == 256 and out["p99_err"] < moe_dsde.TOL
+    assert "4 processes: every rank's combined tokens equal its rows of the stacked " \
+           "run" in capsys.readouterr().out
+
+
+def test_fft3d_runs_one_rank_a_process(capsys):
+    assert fft3d.main(CPU + ["--procs", "4"])["rel_err"] < fft3d.TOL
+    assert "4 processes: every rank's slab equals its row of the stacked run" \
+        in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("mod", [disagg_serve, hashtable_kv, milc_stencil, moe_dsde, fft3d])
 def test_default_device_is_the_card(mod):
     if torch.cuda.is_available():
