@@ -401,6 +401,29 @@ no result line):
     host barriers and row 4 launches a call, inserts/s, lookups/s and
     FFT GFLOP/s beside the stacked run's; the kernel and `copy_` arms of
     one all-to-all of each payload dtype, bit-equal, timed side by side.
+31. the parallel layer with one rank a process: phase 25's P1-P4 and row
+    13 on SmolLM-360M at full width (fresh weights from TRAIN_SEED, one
+    [4, 2048] batch) over 4 processes as the grid `ProcMesh` {"pod": 2,
+    "data": 2}, beside the stacked grid `Mesh` run of the same inputs in
+    this process, whose tensors the ranks read through CUDA IPC.  P1:
+    `overlapped_grad_sync`, rank r's f32 gradients of row r (each row
+    checked against the stacked row first): every rank bit-equal to its
+    stacked row (so within 1e-6 of sum |g_r|), ledgers and buckets equal,
+    3 row 4 launches a leaf, host barriers a leaf counted; then timed in
+    turns beside one flat ring over the same ranks as one axis of 4, with
+    `select_allreduce`'s pick and prices.  P2: each rank's int8 round of
+    its own gradients bit-equal to the stacked row's.  P3: the 32 blocks
+    as 4 stages of 8, one a process holding only its stage's weights (the
+    ranks as a pod axis of 4), 4 microbatches: bit-equal per rank, 32
+    "wgmma" flash launches a rank, 7 row 4 puts; ms beside the stacked
+    pipeline.  P4: `elastic_restore` of a layer-0 checkpoint onto the
+    grid 4 survivors make with prefer_model 2, each rank restoring only
+    its blocks, bit-equal to the stacked restore's at its coordinate.  Row
+    13: layer 0's up projection over one axis of 4 processes (4 "wgmma"
+    launches at n = 1 and 3 row 4 hops a rank a call) within 1e-4 x max
+    |Y| of its plain version and of the stacked kernel's row, three calls
+    bit-equal, timed beside the stacked kernel and a plain all-gather +
+    `torch.matmul` over the same processes.
 
 ``python3 chip_smoke.py --gather-shift`` times only `rmem.pages.gather_shift`
 and `paged_gather` at the rendezvous pull's shape on the package beside the
@@ -416,7 +439,9 @@ result line; ``python3 chip_smoke.py --tools`` runs only phase 27 (after
 the kernels' build) and ends with the result line; ``--procs`` and
 ``--disagg-procs`` run only phase 28 and phase 29, their rows of the
 kernels line, then the result line; ``--apps-procs`` runs only phase 30
-and ends with the result line.
+and ends with the result line; ``--parallel-procs`` runs only phase 31,
+its rows of the kernels line (rows 4's peer form, 11 and 13 with this
+phase's launches and times), then the result line.
 
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after.
@@ -680,6 +705,11 @@ APPS_K, APPS_CAP, APPS_SEED = 6144, 2048, 30
 APPS_MOE = dict(tokens=1024, d=2048, experts=128, top_k=8, cf=1.25)
 APPS_HT_CAP, APPS_HT_LOOKUP_CAP = 16384, 32768
 APPS_REPS, APPS_FFT_REPS, APPS_ARM_REPS = 7, 3, 11
+# phase 31: phase 25's P1-P4 and row 13 with one rank a process, 4 processes
+# as the grid {"pod": 2, "data": 2} (P3 the same ranks as a pod axis of 4, P4
+# as the grid that 4 survivors make with prefer_model 2, row 13 as one axis)
+PP_GRID, PP_ELASTIC, PP_GRID_ELASTIC = PAR_GRID, (4, 2), {"data": 2, "model": 2}
+PP_TURNS, RING_REPS, PP_TIMEOUT = ("hf", "fh", "hf"), 5, 300.0
 
 
 def log(msg: str) -> None:
@@ -1120,6 +1150,16 @@ def main() -> int:
                                  "bound_ms": a["bound_ms"], "bytes": a["bytes"]}
                           for name, a in aprocs["arms"].items()}
     log(f"apps procs phase numbers: {json.dumps(aprocs)}")
+    torch.cuda.empty_cache()
+    pp = parallel_procs_phases(torch, H100.hbm_bandwidth)
+    row4["launches"] += pp.pop("row4_launches")
+    pp.pop("row4_put")
+    next(r for r in kernels if r["name"] == "flash_attention")["launches"] += pp.pop(
+        "row11_launches")
+    row13 = next(r for r in kernels if r["name"] == "ring_matmul")
+    row13["launches"] += pp.pop("row13_launches")
+    row13["procs"] = pp.pop("row13_procs")
+    log(f"parallel procs phase numbers: {json.dumps(pp)}")
     if len(kernels) != len(KERNELS):
         raise AssertionError(f"{len(kernels)} kernel rows, want {len(KERNELS)}")
     log(f"smoke wall time: {time.perf_counter() - T0:.1f} s")
@@ -3653,6 +3693,26 @@ def compression_phase(torch, stacked: dict) -> dict:
     return {"comp_ms": times, "dcn_ratio": ratio, "converge_err": err}
 
 
+def stage_layers(torch, cfg, per: int) -> tuple:
+    """(run_layers(blocks, n, h), stage_fn(stage, h)): the first n of the
+    stacked `blocks` on h [mb, S, D] one after another, and a pipeline
+    stage's `per` layers given its [1, per, ...] slice."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import tree_map
+
+    def run_layers(blocks: dict, n: int, h):
+        pos = torch.arange(h.shape[1], device=h.device)[None, :].expand(h.shape[0], -1)
+        start = torch.zeros((), dtype=torch.int32, device=h.device)
+        for blk in T._unstack(blocks, n):
+            h, _, _ = T._block(cfg, blk, h, pos, None, start)
+        return h
+
+    def stage_fn(sp, h):
+        return run_layers(tree_map(lambda a: a[0], sp), per, h)
+
+    return run_layers, stage_fn
+
+
 def pipeline_phase(torch, model, params, tokens, L, fops) -> dict:
     """P3: SmolLM-360M's 32 blocks as PIPE_STAGES stages over the `pod` axis
     (`parallel.pipeline.pipeline_forward`), PIPE_MICRO microbatches of one
@@ -3661,7 +3721,6 @@ def pipeline_phase(torch, model, params, tokens, L, fops) -> dict:
     its logits within FWD_BOUND of the whole batch's forward (other batch
     shapes, other orders of sums in bf16)."""
     from repro_torch.mesh import Mesh
-    from repro_torch.models import transformer as T
     from repro_torch.parallel.pipeline import PipelineConfig, pipeline_forward
     from repro_torch.train.optimizer import tree_map
 
@@ -3670,17 +3729,7 @@ def pipeline_phase(torch, model, params, tokens, L, fops) -> dict:
     stages = tree_map(lambda a: a.reshape((PIPE_STAGES, per) + tuple(a.shape[1:])),
                       params["blocks"])
     B, S = tokens.shape
-    start = torch.zeros((), dtype=torch.int32, device="cuda")
-
-    def run_layers(blocks: dict, n: int, h):
-        pos = torch.arange(h.shape[1], device="cuda")[None, :].expand(h.shape[0], -1)
-        for blk in T._unstack(blocks, n):
-            h, _, _ = T._block(cfg, blk, h, pos, None, start)
-        return h
-
-    def stage_fn(sp, h):
-        return run_layers(tree_map(lambda a: a[0], sp), per, h)
-
+    run_layers, stage_fn = stage_layers(torch, cfg, per)
     pcfg = PipelineConfig(PIPE_STAGES, PIPE_MICRO)
     mesh = Mesh(PIPE_STAGES, "pod", device="cuda")
     L.set_attention_backend("cuda")
@@ -6974,6 +7023,551 @@ def apps_transfers(p: int) -> dict:
     return out
 
 
+# ------------------------------------ the parallel layer over processes (31)
+def grads_equal(torch, tree, stacked, at: tuple) -> bool:
+    """Whether every leaf of `tree` is bit-equal to the block `at` of the
+    matching stacked leaf (leaves in `tree_leaves` order)."""
+    from repro_torch.train.optimizer import tree_leaves
+
+    i, j = at
+    return all(torch.equal(a, b[i:i + 1, j:j + 1])
+               for a, b in zip(tree_leaves(tree), tree_leaves(stacked), strict=True))
+
+
+def pp_put_row(torch, mesh, rma_ops, ref, nwords: int, hbm: float) -> dict:
+    """Row 4's peer form on the `data` sub-axis at P1's largest in-pod hop
+    (`nwords` f32): bit-equal to its plain version on every rank; then the
+    kernel alone (its launch, no fence; CUDA events) and its plain copy
+    into the right neighbour's block, timed by rank 0 while the others wait
+    at a barrier."""
+    from repro_torch.kernels import common
+    from repro_torch.procmesh import as_bytes
+
+    sub = mesh.along("data")
+    g = torch.Generator(device=mesh.device).manual_seed(PROC_SEED + 31 + mesh.rank)
+    x = torch.randn(1, 1, nwords, device=mesh.device, generator=g)
+    if not torch.equal(rma_ops.put_shift(x, 1, sub), ref.put_shift_ref(x, 1, sub)):
+        raise AssertionError(f"31 rank {mesh.rank}: row 4's peer form on the data axis "
+                             "differs from its plain version")
+    seg, off = sub.round(x.nbytes)
+    stream, xb = common.current_stream(mesh.device.index), as_bytes(x)
+    right = seg.view(sub.rank + 1, off, x.nbytes)
+    out = {}
+    mesh.barrier()
+    if mesh.rank == 0:
+        out = {"ms": time_ms(lambda: rma_ops._PEER_PUT(x.data_ptr(), seg.table_ptr, sub.p,
+                                                       sub.rank, 1, off, nwords, stream)),
+               "plain_ms": time_ms(lambda: right.copy_(xb)),
+               "bound_ms": 2 * x.nbytes / hbm * 1e3, "bytes": 2 * x.nbytes}
+    torch.cuda.synchronize()
+    mesh.fence()
+    return out
+
+
+def pp_rank(mesh, ins: dict, hbm: float) -> dict:
+    """Phase 31 in one rank's process of the {"pod": 2, "data": 2} grid: P1
+    (the sync, then its arms in turns beside one flat ring over the same
+    four ranks as one axis), P2, P3 (the ranks as a pod axis of 4), P4 (as
+    the survivors' {"data": 2, "model": 2} grid) and row 13 (as one axis of
+    4), each against the stacked run's results the parent shares; raises
+    on any failure."""
+    import torch
+
+    from repro_torch.ckpt.checkpoint import CheckpointManager, flatten
+    from repro_torch.configs import get_config
+    from repro_torch.core.epoch import SyncStats
+    from repro_torch.core.rma import OpCounter
+    from repro_torch.ft.elastic import elastic_restore
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ring_matmul import ops as rops
+    from repro_torch.kernels.ring_matmul import ref as rref
+    from repro_torch.kernels.rma import ops as rma_ops
+    from repro_torch.kernels.rma import ref
+    from repro_torch.models import layers as L
+    from repro_torch.parallel.compression import compress_decompress, init_compression_state
+    from repro_torch.parallel.overlap import bucket_grads, overlapped_grad_sync
+    from repro_torch.parallel.pipeline import PipelineConfig, pipeline_forward
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    r, at = mesh.rank, mesh.coords
+    out = {"rank": r, "coords": at}
+
+    # P1: this rank's row, held to the stacked row before the sync
+    row = tree_map(lambda g: g[at[0]:at[0] + 1, at[1]:at[1] + 1].clone(), ins["grads"])
+    out["row_equal"] = grads_equal(torch, row, ins["grads"], at)
+    n_leaves = len(tree_leaves(row))
+    zero_rma_launches(rma_ops)
+    held = mesh.barriers
+    with SyncStats() as sync, OpCounter() as c:
+        synced = overlapped_grad_sync(row, mesh)
+    torch.cuda.synchronize()
+    out["p1"] = {"launches": dict(rma_ops.launches), "barriers": mesh.barriers - held,
+                 "ledger": {"ops": c.snapshot(), "plans": c.plans, "flushes": sync.flush_msgs},
+                 "buckets": bucket_grads(row, mesh=mesh),
+                 "equal": grads_equal(torch, synced, ins["synced"], at)}
+    del synced
+    flat = mesh.regrid({"data": PAR_RANKS})
+    flat_row = tree_map(lambda g: g[0], row)
+    zero_rma_launches(rma_ops)
+    held = mesh.barriers
+    overlapped_grad_sync(flat_row, flat, outer_axis=None)
+    torch.cuda.synchronize()
+    out["p1"]["flat"] = {"launches": dict(rma_ops.launches), "barriers": mesh.barriers - held}
+    arms = {"h": lambda: overlapped_grad_sync(row, mesh),
+            "f": lambda: overlapped_grad_sync(flat_row, flat, outer_axis=None)}
+    times = {"h": [], "f": []}
+    for order in PP_TURNS:
+        for arm in order:
+            times[arm].append(host_ms(torch, mesh, arms[arm], 1))
+    out["p1"]["hier_ms"], out["p1"]["flat_ms"] = times["h"], times["f"]
+    for arm in "hf":                 # a warm call's barriers: the segments have grown
+        held = mesh.barriers
+        arms[arm]()
+        out["p1"]["warm_barriers_" + arm] = mesh.barriers - held
+    del flat_row
+    big = max(g.numel() for g in tree_leaves(row))
+    out["put"] = pp_put_row(torch, mesh, rma_ops, ref, -(-big // 2), hbm)
+
+    # P2: one int8 error-feedback round of this rank's own gradients
+    dec, st, met = compress_decompress(row, init_compression_state(row))
+    torch.cuda.synchronize()
+    want_dec, want_res = ins["comp"][r]
+    out["p2"] = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(dec) + tree_leaves(st.residual),
+        tree_leaves(want_dec) + tree_leaves(want_res), strict=True))
+    del row, dec, st
+    torch.cuda.empty_cache()
+
+    # P3: one stage a process, its own 8 layers' weights
+    pod = mesh.regrid({"pod": PIPE_STAGES})
+    cfg = get_config(MODEL_ARCH)
+    per = cfg.n_layers // PIPE_STAGES
+    stage = tree_map(lambda a: a[pod.rank:pod.rank + 1].clone(), ins["stages"])
+    x_micro = ins["x_micro"].clone()
+    _, stage_fn = stage_layers(torch, cfg, per)
+    pcfg = PipelineConfig(PIPE_STAGES, PIPE_MICRO)
+    L.set_attention_backend("cuda")
+    try:
+        with torch.no_grad():
+            fops.launches = 0
+            fops.launches_by_variant.update(wgmma=0, simt=0)
+            zero_rma_launches(rma_ops)
+            pout = pipeline_forward(stage_fn, stage, x_micro, pcfg, pod)
+            torch.cuda.synchronize()
+            out["p3"] = {"flash": fops.launches, "wgmma": fops.launches_by_variant["wgmma"],
+                         "launches": dict(rma_ops.launches), "digest": digest(torch, pout),
+                         "ms": [host_ms(torch, mesh, lambda: pipeline_forward(
+                             stage_fn, stage, x_micro, pcfg, pod), 1)
+                             for _ in range(PIPE_REPS)]}
+    finally:
+        L.set_attention_backend("torch")
+    del stage, x_micro, pout
+
+    # P4: the survivors' grid, this rank's blocks only
+    grid = mesh.regrid(PP_GRID_ELASTIC)
+    t1 = time.perf_counter()
+    tree, extra, emesh, _ = elastic_restore(CheckpointManager(ins["ckpt"]), ins["like"],
+                                            *PP_ELASTIC, mesh=grid)
+    torch.cuda.synchronize()
+    out["p4"] = {"s": time.perf_counter() - t1, "coords": grid.coords, "extra": extra,
+                 "shape": emesh.shape,
+                 "blocks": {k: (digest(torch, v), tuple(v.shape), str(v.device))
+                            for k, v in flatten(tree)}}
+    del tree
+
+    # row 13 over processes: the ranks as one axis of RING_N
+    ring = mesh.regrid({"model": RING_N})
+    x_t = ins["ring_x"].clone()
+    K, N = ins["ring_w"].shape
+    w_r = ins["ring_w"].reshape(RING_N, K // RING_N, N)[ring.rank:ring.rank + 1].clone()
+    rops.launches = 0
+    rops.launches_by_variant.update(wgmma=0, simt=0)
+    zero_rma_launches(rma_ops)
+    y = rops.ring_matmul_ranks(x_t, w_r, ring)
+    torch.cuda.synchronize()
+    launches = {"ring_matmul": rops.launches, "wgmma": rops.launches_by_variant["wgmma"],
+                **rma_ops.launches}
+    plain = rref.ring_schedule_ref(x_t, w_r, ring)
+    scale = float(plain.abs().max())
+    out["ring"] = {
+        "launches": launches, "scale": scale,
+        "err_plain": float((y - plain).abs().max()),
+        "err_stacked": float((y[0] - ins["ring_y"][ring.rank]).abs().max()),
+        "three": all(torch.equal(rops.ring_matmul_ranks(x_t, w_r, ring), y) for _ in range(2)),
+        "ms": host_ms(torch, ring, lambda: rops.ring_matmul_ranks(x_t, w_r, ring), RING_REPS),
+        "plain_ms": host_ms(torch, ring, lambda: rref.ring_schedule_ref(x_t, w_r, ring),
+                            RING_REPS),
+        "allgather_matmul_ms": host_ms(torch, ring, lambda: torch.matmul(
+            x_t.T, ring.all_gather(w_r)[0].reshape(K, N)), RING_REPS)}
+    out["peak_allocated"] = torch.cuda.max_memory_allocated(mesh.device)
+    out["wall_s"] = time.perf_counter() - t0
+    ins.clear()          # release the parent's tensors before this process exits
+    return out
+
+
+def pp_inputs(torch, hbm: float, d: str) -> dict:
+    """The stacked side of phase 31 in this process, on SmolLM-360M's fresh
+    weights from TRAIN_SEED and one [4, 2048] batch: P1's four rows and the
+    stacked grid sync, P2's round of each row, P3's stacked pipeline, P4's
+    stacked restore of a layer-0 checkpoint saved under `d`, row 13 on
+    Mesh(RING_N); the tensors a rank reads are shared with the ranks."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager, flatten
+    from repro_torch.configs import get_config
+    from repro_torch.core.epoch import SyncStats
+    from repro_torch.core.perfmodel import DEFAULT_MODEL
+    from repro_torch.core.rma import OpCounter
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+    from repro_torch.ft.elastic import elastic_restore
+    from repro_torch.kernels.ring_matmul import ops as rops
+    from repro_torch.kernels.rma import ops as rma_ops
+    from repro_torch.mesh import Mesh
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.parallel.compression import compress_decompress, init_compression_state
+    from repro_torch.parallel.overlap import (CollectiveStrategist, bucket_grads,
+                                              overlapped_grad_sync)
+    from repro_torch.parallel.pipeline import PipelineConfig, pipeline_forward
+    from repro_torch.train.optimizer import init_opt_state, tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    model = build_model(get_config(MODEL_ARCH))
+    params = model.init(TRAIN_SEED, device="cuda")
+    cfg = model.cfg
+    B, S = TRAIN_BATCH
+    batch = SyntheticTokenPipeline(DataConfig(cfg.vocab_size, S, B),
+                                   device="cuda").batch_at(0)
+    ins, st = {}, {}
+    L.set_attention_backend("cuda")
+    try:
+        stacked, n_leaves = stacked_grads(torch, model, params, batch, PAR_GRID)
+    finally:
+        L.set_attention_backend("torch")
+    mesh = Mesh(PAR_GRID, device="cuda")
+    with SyncStats() as sync, OpCounter() as c:
+        synced = overlapped_grad_sync(stacked, mesh)
+    torch.cuda.synchronize()
+    st["ledger"] = {"ops": c.snapshot(), "plans": c.plans, "flushes": sync.flush_msgs}
+    st["buckets"] = bucket_grads(stacked, mesh=mesh)
+    worst = 0.0
+    for got, g in zip(tree_leaves(synced), tree_leaves(stacked)):
+        scale = g.abs().sum((0, 1)).clamp_min(1e-30)
+        worst = max(worst, float(((got[0, 0] - g.sum((0, 1))).abs() / scale).max()))
+    if worst > PAR_F32:
+        raise AssertionError(f"31 P1 stacked: |synced - sum| / sum|g_r| {worst:.3g} "
+                             f"(bound {PAR_F32})")
+    st["worst_sum"], st["n_leaves"] = worst, n_leaves
+    st["nbytes"] = sum(g[0, 0].numel() * 4 for g in tree_leaves(stacked))
+    st["hier_ms"] = sync_ms(torch, lambda: overlapped_grad_sync(stacked, mesh), len(PP_TURNS))
+    strat = CollectiveStrategist()
+    st["pick"] = strat.allreduce_plan(st["nbytes"], 2, 2)
+    sizes = [g[0, 0].numel() * 4 for g in tree_leaves(stacked)]
+    st["priced_hier_ms"] = sum(DEFAULT_MODEL.hierarchical_all_reduce(n, 2, 2)
+                               for n in sizes) * 1e3
+    st["priced_flat_ms"] = sum(DEFAULT_MODEL.all_reduce(n, PAR_RANKS) for n in sizes) * 1e3
+    st["leaf_picks"] = dict(collections.Counter(strat.allreduce_plan(n, 2, 2) for n in sizes))
+    ins["grads"], ins["synced"] = stacked, synced
+    ins["comp"] = []
+    for r in range(PAR_RANKS):
+        i, j = divmod(r, PAR_GRID["data"])
+        row = tree_map(lambda g, i=i, j=j: g[i:i + 1, j:j + 1], stacked)
+        dec, res, _ = compress_decompress(row, init_compression_state(row))
+        ins["comp"].append((dec, res.residual))
+    torch.cuda.synchronize()
+
+    # P3 stacked, and layer 0's MLP input for row 13
+    per = cfg.n_layers // PIPE_STAGES
+    stages = tree_map(lambda a: a.reshape((PIPE_STAGES, per) + tuple(a.shape[1:])),
+                      params["blocks"])
+    run_layers, stage_fn = stage_layers(torch, cfg, per)
+    pcfg = PipelineConfig(PIPE_STAGES, PIPE_MICRO)
+    pmesh = Mesh(PIPE_STAGES, "pod", device="cuda")
+    real_mlp, taps = L.mlp, {}
+
+    def tap(p, x, mlp_type="swiglu"):
+        if not taps:
+            taps.update(x=x.detach().clone(), w_in=p["w_in"].detach().clone())
+        return real_mlp(p, x, mlp_type)
+
+    L.set_attention_backend("cuda")
+    try:
+        with torch.no_grad():
+            x = L.embed(params["tok"], batch["tokens"])
+            ins["x_micro"] = x.reshape((PIPE_MICRO, B // PIPE_MICRO) + tuple(x.shape[1:]))
+            pout = pipeline_forward(stage_fn, stages, ins["x_micro"], pcfg, pmesh)
+            torch.cuda.synchronize()
+            st["pipe_digests"] = [digest(torch, pout[s]) for s in range(PIPE_STAGES)]
+            st["pipe_ms"] = sync_ms(torch, lambda: pipeline_forward(
+                stage_fn, stages, ins["x_micro"], pcfg, pmesh), PIPE_REPS)
+            L.mlp = tap
+            try:
+                run_layers(params["blocks"], 1, x)
+            finally:
+                L.mlp = real_mlp
+    finally:
+        L.set_attention_backend("torch")
+    ins["stages"] = stages
+    del pout, x
+
+    # P4 stacked: a layer-0 checkpoint of these weights, restored onto the grid
+    tree0 = layer0_state(params, init_opt_state(params))
+    ckpt = os.path.join(d, "layer0")
+    CheckpointManager(ckpt).save(0, tree0, extra={"step": 0}, blocking=True)
+    like = tree_like(torch, tree0)
+    del tree0
+    tree, extra, emesh, pol = elastic_restore(CheckpointManager(ckpt), like, *PP_ELASTIC,
+                                              device="cuda")
+    sh = dict(flatten(pol.tree_shardings(like)))
+    st["blocks"], n_blocks = {}, 0
+    for key, v in flatten(tree):
+        blocks = sh[key].blocks(v)
+        tiled = torch.full_like(v, float("nan")) if v.is_floating_point() else v.clone()
+        for c_, blk in blocks.items():
+            tiled[sh[key].index(c_, v.shape)] = blk
+            st["blocks"].setdefault(c_, {})[key] = (digest(torch, blk), tuple(blk.shape))
+        if not torch.equal(tiled, v) or len(blocks) != math.prod(emesh.shape.values()):
+            raise AssertionError(f"31 P4 stacked: {key}'s blocks do not tile it")
+        n_blocks += len(blocks)
+    st["extra"], st["emesh"], st["n_blocks"] = extra, emesh.shape, n_blocks
+    st["specs"] = dict(collections.Counter(str(tuple(s.spec)) for s in sh.values()))
+    ins["ckpt"], ins["like"] = ckpt, like
+    del tree
+
+    # row 13 stacked: T1's up projection shape at layer 0 of these weights
+    xt = taps["x"].reshape(-1, taps["x"].shape[-1]).T.contiguous()      # [D, B*S]
+    w = taps["w_in"]                                                    # [D, F]
+    ws = w.reshape(RING_N, w.shape[0] // RING_N, w.shape[1])
+    rmesh = Mesh(RING_N, device="cuda")
+    ins["ring_x"], ins["ring_w"] = xt, w
+    ins["ring_y"] = rops.ring_matmul_ranks(xt, ws, rmesh)
+    st["ring_stacked_ms"] = time_ms(lambda: rops.ring_matmul_ranks(xt, ws, rmesh), reps=20)
+    K, m = xt.shape
+    flops = 2 * RING_N * m * K * w.shape[1]
+    nbytes = xt.nbytes + w.nbytes + RING_N * m * w.shape[1] * 4
+    st["ring_bound_ms"], st["ring_bound_by"] = max(
+        (flops / BF16_FLOPS_PER_S * 1e3, "operations"), (nbytes / hbm * 1e3, "bytes"))
+    st["ring_shape"] = {"x_t": tuple(xt.shape), "w": tuple(ws.shape), "plan": tuple(
+        rops.plan(1, ws.shape[1], ws.shape[2]))}
+    del params, stacked, synced
+    torch.cuda.synchronize()
+    st["inputs_s"] = time.perf_counter() - t0
+    zero_rma_launches(rma_ops)
+    return ins, st
+
+
+def parallel_procs_phases(torch, hbm: float) -> dict:
+    """Phase 31: phase 25's P1-P4 and row 13 with one rank a process, 4
+    processes on the card as a grid `ProcMesh` {"pod": 2, "data": 2},
+    against the stacked grid run of the same inputs in this process.
+    Returns the phase's numbers and the kernel rows' launches."""
+    import tempfile
+
+    from repro_torch import procmesh
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    card = card_line()
+    layers = get_config(MODEL_ARCH).n_layers
+    log(f"phase 31: the parallel layer over {PAR_RANKS} processes time-sharing one card "
+        f"({card}) as the grid {PP_GRID}; no link is crossed, so no time here is an NVLink "
+        "time")
+    scratch = os.path.join(ROOT, "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as d:
+        ins, st = pp_inputs(torch, hbm, d)
+        t1 = time.perf_counter()
+        ranks = procmesh.run(pp_rank, PAR_RANKS, device="cuda", args=(ins, hbm),
+                             axes=PP_GRID, timeout=PP_TIMEOUT)
+        run_s = time.perf_counter() - t1
+    del ins
+    gc.collect()
+    torch.cuda.ipc_collect()         # the ranks are gone: release what they were lent
+    torch.cuda.empty_cache()
+    n = st["n_leaves"]
+    for res in ranks:
+        r, p1 = res["rank"], res["p1"]
+        if not res["row_equal"]:
+            raise AssertionError(f"31 P1 rank {r}: its gradient row differs from the stacked row")
+        if not p1["equal"]:
+            raise AssertionError(f"31 P1 rank {r}: the synced grads differ from the stacked row")
+        if p1["ledger"] != st["ledger"] or p1["buckets"] != st["buckets"]:
+            raise AssertionError(f"31 P1 rank {r}: ledger {p1['ledger']['ops']} / buckets "
+                                 f"{len(p1['buckets'])} vs the stacked "
+                                 f"{st['ledger']['ops']} / {len(st['buckets'])}")
+        if p1["ledger"]["flushes"] != len(st["buckets"]):
+            raise AssertionError(f"31 P1 rank {r}: {p1['ledger']['flushes']} flushes for "
+                                 f"{len(st['buckets'])} buckets")
+        if p1["launches"]["put_shift"] != 3 * n or sum(p1["launches"].values()) != 3 * n:
+            raise AssertionError(f"31 P1 rank {r}: rma launches {p1['launches']}, want "
+                                 f"put_shift {3 * n} (3 a leaf) and nothing else")
+        if not res["p2"]:
+            raise AssertionError(f"31 P2 rank {r}: the int8 round differs from the stacked row")
+        p3 = res["p3"]
+        want_puts = PIPE_MICRO + PIPE_STAGES - 1
+        if p3["digest"] != st["pipe_digests"][r]:
+            raise AssertionError(f"31 P3 rank {r}: the outputs differ from the stacked row")
+        per = PIPE_MICRO * layers // PIPE_STAGES
+        if p3["flash"] != per or p3["wgmma"] != per or p3["launches"]["put_shift"] != want_puts:
+            raise AssertionError(f"31 P3 rank {r}: flash {p3['flash']} (wgmma {p3['wgmma']}), "
+                                 f"want {per}; row 4 {p3['launches']}, want {want_puts}")
+        p4 = res["p4"]
+        want = st["blocks"][tuple(p4["coords"])]
+        got = {k: v[:2] for k, v in p4["blocks"].items()}
+        if got != want or p4["extra"] != st["extra"] or p4["shape"] != st["emesh"]:
+            bad = sorted(k for k in want if got.get(k) != want[k])
+            raise AssertionError(f"31 P4 rank {r}: blocks {bad} differ from the stacked "
+                                 "restore's at its coordinate")
+        if any(dev.split(":")[0] != "cuda" for _, _, dev in p4["blocks"].values()):
+            raise AssertionError(f"31 P4 rank {r}: a block restored off the card")
+        rg = res["ring"]
+        tol = RING_TOL * rg["scale"]
+        if not (rg["err_plain"] <= tol and rg["err_stacked"] <= tol and rg["three"]):
+            raise AssertionError(f"31 row 13 rank {r}: err vs plain {rg['err_plain']:.3g}, vs "
+                                 f"the stacked row {rg['err_stacked']:.3g} (tol {tol:.3g}), "
+                                 f"three calls bit-equal {rg['three']}")
+        lc = rg["launches"]
+        if (lc["ring_matmul"], lc["wgmma"], lc["put_shift"]) != (RING_N, RING_N, RING_N - 1):
+            raise AssertionError(f"31 row 13 rank {r}: launches {lc}, want {RING_N} wgmma "
+                                 f"and {RING_N - 1} put_shift")
+    seen = {tuple(res["p4"]["coords"]) for res in ranks}
+    if len(seen) != PAR_RANKS:
+        raise AssertionError(f"31 P4: the ranks hold the coordinates {seen}")
+    p1s = [res["p1"] for res in ranks]
+    hier = [t for p in p1s for t in p["hier_ms"]]
+    flat = [t for p in p1s for t in p["flat_ms"]]
+    bar_h = p1s[0]["barriers"] / n
+    bar_f = p1s[0]["flat"]["barriers"] / n
+    warm_h, warm_f = p1s[0]["warm_barriers_h"] / n, p1s[0]["warm_barriers_f"] / n
+    log(f"31 P1 grad sync over processes ({card}): {MODEL_ARCH} at full width, rank r's f32 "
+        f"grads of row r of a {list(TRAIN_BATCH)} batch ({n} leaves, "
+        f"{st['nbytes'] / 1e9:.3f} GB a rank), each rank's row checked against the stacked "
+        f"row before the sync; every rank's result bit-equal to its row of the stacked grid "
+        f"run (so within {st['worst_sum']:.3g} of sum|g_r| of the rows' sum, bound "
+        f"{PAR_F32}); ledgers and buckets equal ({len(st['buckets'])} buckets, as many "
+        f"flushes); row 4 peer launches a rank {p1s[0]['launches']['put_shift']} (3 a leaf), "
+        f"host barriers a leaf {warm_h:g} in a warm call, {bar_h:g} in the first (the "
+        f"segments grow); the flat ring over 4: {warm_f:g} and {bar_f:g}, row 4 launches "
+        f"{p1s[0]['flat']['launches']['put_shift'] / n:g} a leaf")
+    log(f"31 P1 timing, host ms a sync in turns (all ranks' samples): hierarchical "
+        f"{spread(hier)}, flat ring over {PAR_RANKS} processes {spread(flat)}; the stacked "
+        f"grid sync {spread(st['hier_ms'])}; select_allreduce({st['nbytes']}, 2, 2) = "
+        f"{st['pick']!r} (priced hierarchical {st['priced_hier_ms']:.3f} ms, flat "
+        f"{st['priced_flat_ms']:.3f} ms over the leaves; by leaf {st['leaf_picks']}); measured "
+        f"faster over processes: {'hierarchical' if median(hier) < median(flat) else 'flat_ring'}")
+    log(f"31 P2: every rank's int8 error-feedback round of its own gradients bit-equal to "
+        f"the stacked row's (outputs and residuals)")
+    pipe = [t for res in ranks for t in res["p3"]["ms"]]
+    log(f"31 P3 GPipe over processes ({card}): {layers} layers as "
+        f"{PIPE_STAGES} stages of {layers // PIPE_STAGES}, one a process "
+        f"holding its stage's weights, {PIPE_MICRO} microbatches: every rank's outputs "
+        f"bit-equal to the stacked pipeline's; flash launches a rank "
+        f"{ranks[0]['p3']['flash']} (all wgmma, {sum(x['p3']['flash'] for x in ranks)} in all), "
+        f"row 4 puts a rank {ranks[0]['p3']['launches']['put_shift']}; host ms {spread(pipe)} "
+        f"beside the stacked {spread(st['pipe_ms'])}")
+    log(f"31 P4 elastic restore over processes: {PP_ELASTIC[0]} survivors, prefer_model "
+        f"{PP_ELASTIC[1]} -> {st['emesh']}, each rank's {len(ranks[0]['p4']['blocks'])} blocks "
+        f"bit-equal to the stacked restore's at its coordinate, the four ranks' blocks tiling "
+        f"every leaf ({st['n_blocks']} blocks; specs {st['specs']}); "
+        f"{max(x['p4']['s'] for x in ranks):.2f} s (slowest rank)")
+    rg = [res["ring"] for res in ranks]
+    log(f"31 row 13 over processes ({card}): x_t {st['ring_shape']['x_t']}, w "
+        f"{st['ring_shape']['w']} bf16 over one axis of {RING_N} processes, {RING_N} "
+        f"wgmma launches ({st['ring_shape']['plan']}) and {RING_N - 1} row 4 hops a rank a "
+        f"call; max abs err vs plain {max(x['err_plain'] for x in rg):.3g}, vs the stacked "
+        f"kernel's row {max(x['err_stacked'] for x in rg):.3g} (tol {RING_TOL} x max |Y| = "
+        f"{RING_TOL * max(x['scale'] for x in rg):.3g}); three calls bit-equal; host ms a "
+        f"call: kernel ring {spread([x['ms'] for x in rg])}, plain ring_schedule_ref "
+        f"{spread([x['plain_ms'] for x in rg])}, plain all-gather + torch.matmul "
+        f"{spread([x['allgather_matmul_ms'] for x in rg])}; the stacked kernel "
+        f"{st['ring_stacked_ms']:.3f} ms; bound {st['ring_bound_ms']:.4f} ms "
+        f"({st['ring_bound_by']})")
+    put = ranks[0]["put"]
+    log(f"31 row 4 peer form on the data axis (rank 0 alone, {put['bytes'] // 2} bytes, P1's "
+        f"largest in-pod hop): kernel {put['ms'] * 1e3:.1f} us, plain copy_ "
+        f"{put['plain_ms'] * 1e3:.1f} us, bound {put['bound_ms'] * 1e3:.1f} us (bytes)")
+    wall = time.perf_counter() - t0
+    log(f"31: stacked side {st['inputs_s']:.1f} s, ranks' run {run_s:.1f} s, torch peak a rank "
+        f"{max(x['peak_allocated'] for x in ranks) / 2**30:.2f} GiB; phase {wall:.1f} s")
+    row4 = sum(x["p1"]["launches"]["put_shift"] + x["p3"]["launches"]["put_shift"]
+               + x["ring"]["launches"]["put_shift"] for x in ranks)
+    return {"card": card, "row4_launches": row4,
+            "row11_launches": sum(x["p3"]["flash"] for x in ranks),
+            "row13_launches": sum(x["ring"]["launches"]["ring_matmul"] for x in ranks),
+            "row13_procs": {"ms": median([x["ms"] for x in rg]),
+                            "plain_ms": median([x["plain_ms"] for x in rg]),
+                            "allgather_matmul_ms": median([x["allgather_matmul_ms"] for x in rg]),
+                            "stacked_ms": st["ring_stacked_ms"], "bound_ms": st["ring_bound_ms"],
+                            "bound_by": st["ring_bound_by"],
+                            "max_abs_err": max(x["err_plain"] for x in rg)},
+            "row4_put": put,
+            "P1": {"hier_ms": hier, "flat_ms": flat, "stacked_ms": st["hier_ms"],
+                   "barriers_per_leaf": warm_h, "flat_barriers_per_leaf": warm_f,
+                   "first_call_barriers_per_leaf": [bar_h, bar_f],
+                   "put_launches_per_rank": p1s[0]["launches"]["put_shift"],
+                   "pick": st["pick"], "priced_hier_ms": st["priced_hier_ms"],
+                   "priced_flat_ms": st["priced_flat_ms"], "rel_err_sum": st["worst_sum"]},
+            "P3": {"ms": pipe, "stacked_ms": st["pipe_ms"]},
+            "P4": {"s": [x["p4"]["s"] for x in ranks], "blocks": st["n_blocks"]},
+            "run_s": run_s, "wall_s": wall}
+
+
+def parallel_procs_only() -> int:
+    """``python3 chip_smoke.py --parallel-procs``: phase 31 alone, on the
+    package beside this file (the kernels build first).  Prints the kernels
+    line of rows 4 (peer), 11 and 13 with this phase's launches and times,
+    then the result line."""
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.configs import get_config
+    from repro_torch.core.perfmodel import H100
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products, as in main()
+    log(card_line())
+    build_all(common)
+    pp = parallel_procs_phases(torch, H100.hbm_bandwidth)
+    # row 11 at the pipeline's attention shape: [1, 2048] a microbatch
+    cfg = get_config(MODEL_ARCH)
+    g = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+    S = TRAIN_BATCH[1]
+    q, k, v = (torch.randn(1, h, S, cfg.hd, generator=g, device="cuda").to(torch.bfloat16)
+               for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    err = float((fops.flash_attention(q, k, v).float() - fref.attention_ref(q, k, v).float())
+                .abs().max())
+    if err > 2e-2:
+        raise AssertionError(f"flash_attention at the pipeline's shape: {err:.3g} from plain")
+    flash = time_flash(torch, F, fops, fref, q, k, v, H100.hbm_bandwidth)
+    put, ring = pp.pop("row4_put"), pp.pop("row13_procs")
+    rows = [{"name": "put_shift_peer", "route": KERNELS["put_shift_peer"][0],
+             "source": KERNELS["put_shift_peer"][1], "replaces": KERNELS["put_shift_peer"][2],
+             "launches": pp.pop("row4_launches"), "max_abs_err": 0.0, "ms": put["ms"],
+             "plain_ms": put["plain_ms"], "bound_ms": put["bound_ms"], "bound_by": "bytes",
+             "library_ms": put["plain_ms"]},
+            {"name": "flash_attention", "route": KERNELS["flash_attention"][0],
+             "source": KERNELS["flash_attention"][1], "replaces": KERNELS["flash_attention"][2],
+             "launches": pp.pop("row11_launches"), "max_abs_err": err,
+             **{key: flash[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms")}},
+            {"name": "ring_matmul", "route": KERNELS["ring_matmul"][0],
+             "source": KERNELS["ring_matmul"][1], "replaces": KERNELS["ring_matmul"][2],
+             "launches": pp.pop("row13_launches"), "max_abs_err": ring["max_abs_err"],
+             "ms": ring["ms"], "plain_ms": ring["plain_ms"], "bound_ms": ring["bound_ms"],
+             "bound_by": ring["bound_by"], "library_ms": ring["allgather_matmul_ms"],
+             "stacked_ms": ring["stacked_ms"], "over": "processes"}]
+    log(f"parallel procs phase numbers: {json.dumps(pp)}")
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def apps_procs_only() -> int:
     """``python3 chip_smoke.py --apps-procs``: phase 30 alone, on the package
     beside this file (the kernels build first).  Prints its numbers, then
@@ -7254,7 +7848,8 @@ MODES = {"--gather-shift": gather_shift_only, "--queue-push": queue_push_only,
          "--pool": pool_only, "--apps": apps_only, "--zoo": zoo_only,
          "--parallel": parallel_only, "--conformance": conformance_only,
          "--tools": tools_only, "--procs": procs_only,
-         "--disagg-procs": disagg_procs_only, "--apps-procs": apps_procs_only}
+         "--disagg-procs": disagg_procs_only, "--apps-procs": apps_procs_only,
+         "--parallel-procs": parallel_procs_only}
 
 if __name__ == "__main__":
     sys.exit(MODES[sys.argv[1]]() if sys.argv[1:] else main())

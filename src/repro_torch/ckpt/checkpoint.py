@@ -268,7 +268,9 @@ class CheckpointManager:
         mesh than the one that saved: the elastic re-shard path.  Each leaf
         with a placement is checked to tile its mesh exactly and goes to the
         mesh's device (`like` may then be meta tensors); the values are the
-        checkpoint's either way."""
+        checkpoint's either way.  Over a grid `ProcMesh` a placed leaf is
+        only this rank's block of it (`NamedSharding.held`), a tensor of its
+        own; the files are the same."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -288,9 +290,10 @@ class CheckpointManager:
         for key, leaf in flatten(like):
             if key not in arrays:
                 raise KeyError(f"checkpoint missing leaf {key!r}")
-            device = leaf.device
+            device, value = leaf.device, arrays[key]
             if key in placed:
-                placed[key].check(arrays[key].shape)
-                device = placed[key].mesh.device
-            values[key] = arrays[key].to(dtype=leaf.dtype, device=device)
+                placed[key].check(value.shape)
+                device, value = placed[key].mesh.device, placed[key].held(value)
+            values[key] = torch.empty(value.shape, dtype=leaf.dtype,
+                                      device=device).copy_(value)
         return _unflatten_like(like, values), manifest["extra"]

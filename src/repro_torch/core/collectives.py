@@ -17,7 +17,10 @@ collective runs over: it is the one-axis schedule on the tensor with that
 axis moved to the front (`Mesh.front`) and the axis's own mesh
 (`Mesh.along`), the other rank dims riding along in every put.  A
 collective moves the axis once on the way in and once on the way out, so
-the ring's payloads stay contiguous from step to step.
+the ring's payloads stay contiguous from step to step.  Over a grid
+`ProcMesh` (one rank a process) the same code runs on this rank's ``[1,
+1, ...]`` block, `along` being the axis's view of the process group: each
+rank gets the stacked grid run's row.
 """
 
 from __future__ import annotations

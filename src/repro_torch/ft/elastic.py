@@ -4,9 +4,10 @@ counterpart).
 `plan_mesh` picks the largest valid (data, model) grid for a surviving
 device count, keeping the model degree where it can; `elastic_restore`
 re-shards the latest checkpoint onto that grid: a `Mesh` of named axes
-("data", "model") on one device, the reference's weight rules
-(`ShardingPolicy.tree_shardings`) placing every leaf, each checked to tile
-the grid.  The data axis absorbs the loss; the deterministic pipeline
+("data", "model") on one device, or the survivors' grid `ProcMesh` with one
+rank a process (each then holding only its blocks), the reference's weight
+rules (`ShardingPolicy.tree_shardings`) placing every leaf, each checked
+to tile the grid.  The data axis absorbs the loss; the deterministic pipeline
 recomputes shard assignments from (seed, step, shard), so no sample is
 skipped or repeated across the restart.
 
@@ -26,7 +27,8 @@ import dataclasses
 from typing import Optional
 
 from ..ckpt.checkpoint import CheckpointManager
-from ..mesh import Mesh
+from ..mesh import Mesh, MeshError
+from ..procmesh import ProcMesh
 from ..parallel.sharding import ShardingPolicy
 
 
@@ -53,12 +55,21 @@ def plan_mesh(n_devices: int, prefer_model: int) -> MeshPlan:
 
 
 def elastic_restore(ckpt: CheckpointManager, like_tree, n_surviving_devices: int,
-                    prefer_model: int, device=None, step: Optional[int] = None):
+                    prefer_model: int, device=None, step: Optional[int] = None,
+                    mesh: Optional[ProcMesh] = None):
     """Re-shard the latest (or `step`'s) checkpoint onto the mesh the
     survivors make.  Returns (tree, extra, mesh, policy); every leaf is on
-    the mesh's device (`device`; None is the card)."""
+    the mesh's device (`device`; None is the card).  Given `mesh`, the
+    survivors' grid `ProcMesh` of that plan (one rank a process, e.g.
+    ``survivors.regrid({"data": 2, "model": 2})``), each process restores
+    only its own block of every leaf, on its own device."""
     plan = plan_mesh(n_surviving_devices, prefer_model)
-    mesh = Mesh({"data": plan.data, "model": plan.model}, device=device)
+    grid = {"data": plan.data, "model": plan.model}
+    if mesh is None:
+        mesh = Mesh(grid, device=device)
+    elif mesh.shape != grid:
+        raise MeshError(f"{n_surviving_devices} survivors with prefer_model {prefer_model} "
+                        f"make the grid {grid}, not {mesh.shape}")
     policy = ShardingPolicy(mesh=mesh)
     shardings = policy.tree_shardings(like_tree)
     tree, extra = ckpt.restore(like_tree, step=step, shardings=shardings)

@@ -17,6 +17,13 @@ a cluster of n blocks an output tile) and "simt" (everything else: one
 launch a ring step, n a call).  `launches` counts the kernel's launches and
 nothing else, so a run can show that its path went through it;
 `launches_by_variant` splits the same count.
+
+On a one-axis `procmesh.ProcMesh` (one rank a process, or a grid's
+``model`` axis through `along`) rank r holds ``x_t [K, m]`` and its shard
+``w [1, K/n, N]``, and its copy ``[1, m, N]`` comes from n launches of the
+kernel at n = 1 with the shards travelling the ring by the put kernel's
+peer form (`_peer_ring`); its plain version is `ref.ring_schedule_ref` on
+the same mesh.
 """
 
 from __future__ import annotations
@@ -28,7 +35,9 @@ import torch
 
 from ...obs import cost
 from ...mesh import Mesh
+from ...procmesh import ProcMesh
 from .. import common
+from ..rma import ops as rma_ops
 from .ref import ring_schedule_ref
 
 _NAME = "ring_matmul"
@@ -163,14 +172,14 @@ def _check(x_t: torch.Tensor, w: torch.Tensor, mesh: Mesh) -> None:
         raise ValueError(f"ring_matmul takes x_t [K, m] and w [n, K/n, N], got "
                          f"{tuple(x_t.shape)}, {tuple(w.shape)}")
     mesh._check(w)
-    if w.shape[0] * w.shape[1] != x_t.shape[0]:
+    if mesh.p * w.shape[1] != x_t.shape[0]:
         raise ValueError(f"w {tuple(w.shape)} does not shard x_t's K = {x_t.shape[0]} "
                          f"over {mesh.p} ranks")
     if x_t.device != w.device:
         raise ValueError(f"ring_matmul tensors on several devices: {x_t.device}, {w.device}")
 
 
-def _launch(x_t: torch.Tensor, w: torch.Tensor, mesh: Mesh, force: str | None) -> torch.Tensor:
+def _launch(x_t: torch.Tensor, w: torch.Tensor, force: str | None) -> torch.Tensor:
     if x_t.dtype not in _DTYPES or w.dtype != x_t.dtype:
         raise TypeError(f"the ring_matmul kernel takes bf16 or f32 x_t and w of one "
                         f"dtype, got {x_t.dtype}, {w.dtype}")
@@ -227,7 +236,33 @@ def ring_matmul_ranks(x_t: torch.Tensor, w: torch.Tensor, mesh: Mesh,
         return ring_schedule_ref(x_t, w, mesh)
     if w.device.type != "cuda":
         raise ValueError(f"ring_matmul runs on cpu or cuda, not {w.device}")
-    return _launch(x_t, w, mesh, variant)
+    if isinstance(mesh, ProcMesh):
+        return _peer_ring(x_t, w, mesh, variant)
+    return _launch(x_t, w, variant)
+
+
+def _peer_ring(x_t: torch.Tensor, w: torch.Tensor, mesh: ProcMesh,
+               force: str | None) -> torch.Tensor:
+    """The ring over processes: at each of n hops this rank's product of
+    the shard it holds with that shard's K-slice of x_t, by this kernel at
+    n = 1, added in f32 in the ring's order; between hops the put kernel's
+    peer form stores the shard (as 32-bit words) into the right
+    neighbour's slot, and a fence: n - 1 fenced rounds.  The clustered
+    ring cannot span processes.  x_t [K, m], w [1, K/n, N] -> [1, m, N]."""
+    n, ks, r = mesh.p, w.shape[1], mesh.rank
+    held = w.contiguous()
+    if held.nbytes % 4:
+        raise TypeError(f"ring_matmul over processes moves its shard as 32-bit words; a "
+                        f"shard of {tuple(w.shape[1:])} {w.dtype} is {held.nbytes} bytes")
+    out = None
+    for i in range(n):
+        j = (r - i) % n
+        part = _launch(x_t[j * ks:(j + 1) * ks], held, force)
+        out = part if out is None else out + part
+        if i < n - 1:
+            words = rma_ops.put_shift(held.reshape(1, -1).view(torch.int32), 1, mesh)
+            held = words.view(w.dtype).reshape(held.shape)
+    return out
 
 
 def ring_matmul(x_t: torch.Tensor, w: torch.Tensor, mesh: Mesh) -> torch.Tensor:

@@ -11,6 +11,9 @@ and gives each rank's own copy ``[n, m, N]``: at step i every rank forwards
 the shard it holds to its right neighbour's other buffer slot and adds
 ``x_t[j*ks:(j+1)*ks].T @ shard`` for the shard it holds, ``j = (r - i) mod
 n``, to its output, in f32.  The `ops` wrapper computes it on CPU tensors.
+On a `ProcMesh` (one rank a process) w is this rank's shard ``[1, K/n,
+N]``, the shard travels by the mesh's plain peer copy, and the result is
+this rank's copy ``[1, m, N]``.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ def ring_schedule_ref(x_t: torch.Tensor, w: torch.Tensor, mesh: Mesh) -> torch.T
     n, ks = mesh.p, w.shape[1]
     xs = x_t.float().reshape(n, ks, x_t.shape[1])             # [n, K/n, m]
     me = mesh.axis_index()
-    buf = torch.empty((n, 2) + tuple(w.shape[1:]), dtype=w.dtype, device=w.device)
+    buf = torch.empty((w.shape[0], 2) + tuple(w.shape[1:]), dtype=w.dtype, device=w.device)
     out = None
     for i in range(n):
         held = w if i == 0 else buf[:, i % 2]

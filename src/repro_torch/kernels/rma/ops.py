@@ -9,11 +9,15 @@ of ``csrc/rma_peer.cu`` store into (or load from) the peers' blocks of the
 mesh's exchange segment through its pointer table, the round's fence makes
 the stores visible, and the result is this rank's row of the stacked op's
 (the plain versions do the same with ``Tensor.copy_`` on the mapped
-blocks).  A peer all-to-all (`all_to_all`) is p launches of the peer put
-kernel, one a destination block, each block seen as 32-bit words whatever
-its dtype.  The kernels read each rank's block in place
-at the tensor's rank stride, so a halo slice ``x.narrow(1, ...)`` of a
-bigger array is not copied; only a view whose per-rank block is not
+blocks).  On a view of a grid (`ProcMesh.along`) the table is the view's
+own, its ranks' blocks in the axis's order, so with the axis's size and
+this rank's coordinate the same kernels store along the axis: a put along
+``data`` reaches world rank ``pod * D + (d + s) mod D``, along ``pod``
+rank ``((q + s) mod P) * D + d``.  A peer all-to-all (`all_to_all`) is p
+launches of the peer put kernel, one a destination block, each block seen
+as 32-bit words whatever its dtype.  The kernels read each rank's block
+in place at the tensor's rank stride, so a halo slice ``x.narrow(1, ...)``
+of a bigger array is not copied; only a view whose per-rank block is not
 contiguous (a slice of an inner dim) is made contiguous first, and that
 copy belongs to the op, not the kernel.  The output is always a fresh
 contiguous tensor.  `launches` counts kernel launches per op (and

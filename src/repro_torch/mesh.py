@@ -36,8 +36,10 @@ bytes (every rank's block on the card) and its group size into a running
 
 `repro_torch.procmesh.ProcMesh` has this surface for ranks that are
 processes of their own (one rank a process, windows in peer-mapped
-memory): there a tensor's leading dim holds this process's one rank block,
-and code that sizes it by ``mesh.local_ranks`` runs on either mesh.
+memory): there a tensor's leading dims hold this process's one rank block,
+``[1, ...]`` on one axis and ``[1, 1, ...]`` on a grid, and code that sizes
+them by ``mesh.local_ranks`` runs on either mesh.  `NamedAxes` is the
+bookkeeping the two share.
 """
 
 from __future__ import annotations
@@ -63,7 +65,60 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-class Mesh:
+class NamedAxes:
+    """The axis bookkeeping `Mesh` and `procmesh.ProcMesh` share: a dict of
+    named axes (or one axis) in order, ``p`` their rank count, the rank
+    dim that carries each axis (`dim`, `front`, `back`) and the checks of
+    a tensor's leading rank dims (`rank_dims`: every rank's on a stacked
+    mesh, ``[1, 1, ...]`` over processes)."""
+
+    _lead_note = ""
+
+    def _name_axes(self, p, axis) -> None:
+        axes = dict(p) if isinstance(p, dict) else {axis: p}
+        if not axes or any(int(n) < 1 for n in axes.values()):
+            raise MeshError(f"need every axis >= 1 rank, got {axes}")
+        self.shape = {str(a): int(n) for a, n in axes.items()}
+        self.axis_names = tuple(self.shape)
+        self.p = math.prod(self.shape.values())
+        self.axis = self.axis_names[0] if len(self.shape) == 1 else self.axis_names
+
+    @property
+    def rank_dims(self) -> tuple:
+        """The leading dims of a tensor on this mesh, one an axis."""
+        raise NotImplementedError
+
+    def dim(self, axis: str) -> int:
+        """The rank dim that carries `axis`."""
+        if axis not in self.shape:
+            raise MeshError(f"mesh axes {self.axis_names} have no axis {axis!r}")
+        return self.axis_names.index(axis)
+
+    def front(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """x [ranks..., ...] with `axis`'s dim moved first (a view)."""
+        return x.movedim(self.dim(axis), 0)
+
+    def back(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """Inverse of `front` (a view)."""
+        return x.movedim(0, self.dim(axis))
+
+    def _check_rank_dims(self, x: torch.Tensor) -> None:
+        want = self.rank_dims
+        if tuple(x.shape[:len(want)]) != want:
+            raise MeshError(f"expected leading rank dims {want}, got {tuple(x.shape)}")
+
+    def _check(self, x: torch.Tensor) -> None:
+        """A one-axis collective's operand: one leading rank dim."""
+        if len(self.shape) > 1:
+            raise MeshError(f"a mesh of axes {self.axis_names} moves along one named "
+                            "axis at a time: use mesh.along(axis)")
+        lead = self.rank_dims[0]
+        if x.ndim == 0 or x.shape[0] != lead:
+            raise MeshError(f"expected a leading rank dim of {lead}{self._lead_note}, "
+                            f"got {tuple(x.shape)}")
+
+
+class Mesh(NamedAxes):
     """p window ranks stacked on one device, named by one axis; or, given a
     dict of named axes, their grid stacked as leading dims in axis order.
 
@@ -74,13 +129,7 @@ class Mesh:
     payload's per-rank bytes are ``numel / ranks`` either way."""
 
     def __init__(self, p, axis: str = "serve", device=None, *, ranks=None):
-        axes = dict(p) if isinstance(p, dict) else {axis: p}
-        if not axes or any(int(n) < 1 for n in axes.values()):
-            raise MeshError(f"need every axis >= 1 rank, got {axes}")
-        self.shape = {str(a): int(n) for a, n in axes.items()}
-        self.axis_names = tuple(self.shape)
-        self.p = math.prod(self.shape.values())
-        self.axis = self.axis_names[0] if len(self.shape) == 1 else self.axis_names
+        self._name_axes(p, axis)
         self.ranks = self.p if ranks is None else int(ranks)
         self.device = resolve_device(device)
 
@@ -89,13 +138,12 @@ class Mesh:
         """The rank blocks a tensor on this mesh holds: every rank's."""
         return self.ranks
 
-    # ------------------------------------------------------- named axes
-    def dim(self, axis: str) -> int:
-        """The rank dim that carries `axis`."""
-        if axis not in self.shape:
-            raise MeshError(f"mesh axes {self.axis_names} have no axis {axis!r}")
-        return self.axis_names.index(axis)
+    @property
+    def rank_dims(self) -> tuple:
+        """Every rank's block: one dim an axis, of the axis's size."""
+        return tuple(self.shape.values())
 
+    # ------------------------------------------------------- named axes
     def along(self, axis: str) -> "Mesh":
         """The one-axis mesh of `axis`: its collectives act on a tensor whose
         leading dim is `axis` (`front`), the other rank dims riding along."""
@@ -104,21 +152,11 @@ class Mesh:
             return self
         return Mesh(self.shape[axis], axis, self.device, ranks=self.ranks)
 
-    def front(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        """x [ranks..., ...] with `axis`'s dim moved first (a view)."""
-        return x.movedim(self.dim(axis), 0)
-
-    def back(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        """Inverse of `front` (a view)."""
-        return x.movedim(0, self.dim(axis))
-
     def psum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """``lax.psum`` over `axis`: every rank of it holds the sum over it.
         A new tensor with x's strides, so a view `front` made of x stays a
         view of the result."""
-        if tuple(x.shape[:len(self.shape)]) != tuple(self.shape.values()):
-            raise MeshError(f"expected leading rank dims {tuple(self.shape.values())}, "
-                            f"got {tuple(x.shape)}")
+        self._check_rank_dims(x)
         d = self.dim(axis)
         cost.record_collective("all-reduce", x.nbytes, self.shape[axis],
                                self.p // self.shape[axis])
@@ -186,11 +224,3 @@ class Mesh:
         """Every rank's block of x on the host, [p, ...]: the stacked x
         holds them all (`ProcMesh.host_gather` is the collective read)."""
         return x.cpu()
-
-    def _check(self, x: torch.Tensor) -> None:
-        if len(self.shape) > 1:
-            raise MeshError(f"a mesh of axes {self.axis_names} moves along one named "
-                            "axis at a time: use mesh.along(axis)")
-        if x.shape[0] != self.p:
-            raise MeshError(
-                f"expected a leading rank dim of {self.p}, got {tuple(x.shape)}")

@@ -99,9 +99,10 @@ def bucket_grads(grads: Any, bucket_bytes: int = 32 * 2**20,
                  mesh: Optional[Mesh] = None) -> list[list]:
     """Greedy size-bucketing of the gradient leaves (the reduction
     granularity): leaf indices in `tree_leaves` order.  A leaf's size is
-    its bytes a rank: the whole tensor, or over `mesh` one rank's block of
-    the stacked global view."""
-    ranks = 1 if mesh is None else mesh.ranks
+    its bytes a rank: the whole tensor, or over `mesh` one rank's block,
+    the leaf over the rank blocks it holds (every rank's of the stacked
+    global view; on a `ProcMesh` the leaf is this rank's own block)."""
+    ranks = 1 if mesh is None else mesh.local_ranks
     buckets, cur, cur_bytes = [], [], 0
     for i, g in enumerate(tree_leaves(grads)):
         nb = g.numel() // ranks * g.element_size()
@@ -120,8 +121,9 @@ def overlapped_grad_sync(grads: Any, mesh: Mesh, inner_axis: str = "data",
                          bucket_bytes: int = 32 * 2**20,
                          compress_outer: bool = False,
                          stats: Optional[SyncStats] = None) -> Any:
-    """Sum a tree of stacked gradients ``[ranks..., ...]`` over `mesh`,
-    bucket by bucket: every leaf of a bucket through
+    """Sum a tree of stacked gradients ``[ranks..., ...]`` over `mesh`
+    (over a grid `ProcMesh`, this rank's ``[1, 1, ...]`` blocks), bucket by
+    bucket: every leaf of a bucket through
     `collectives.hierarchical_all_reduce` (`inner_axis` in the pod,
     `outer_axis` across pods), or through one ring over `inner_axis` when
     `outer_axis` is None.  Every bucket boundary is an `epoch.flush`
@@ -141,7 +143,7 @@ def overlapped_grad_sync(grads: Any, mesh: Mesh, inner_axis: str = "data",
             else:
                 out[i] = collectives.all_reduce(leaves[i], mesh, axis=inner_axis)
         # the bucket boundary: flush the epoch before the next bucket
-        pinned = epoch_mod.flush(tuple(out[i] for i in bucket), stats=stats)
+        pinned = epoch_mod.flush(tuple(out[i] for i in bucket), stats=stats, mesh=mesh)
         for j, i in enumerate(bucket):
             out[i] = pinned[j]
     return _unflatten_like(grads, dict(zip(paths, out)))

@@ -16,7 +16,11 @@ product, row-major) — equal, entry for entry, to the reference's
 leaf (`fit_spec`), and `tree_shardings` gives each leaf a `NamedSharding`:
 its mesh and spec, which can cut the leaf into its blocks on the mesh's
 grid (`blocks`), each block what the device at that grid coordinate would
-hold.
+hold.  Over a grid `procmesh.ProcMesh` (one rank a process) `local` is the
+one block this rank holds, at its coordinate, and `held` what this
+process keeps of a leaf on either mesh.  A policy builds on either mesh;
+its model forward is never split over processes (the reference's comes
+from XLA's partitioner, which has no counterpart here).
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ from typing import Any, Optional
 import torch
 
 from ..ckpt.checkpoint import _unflatten_like, flatten
-from ..mesh import Mesh
+from ..mesh import Mesh, MeshError
+from ..procmesh import ProcMesh
 
 DP = ("pod", "data")  # the combined data axes (pod may be absent)
 
@@ -225,6 +230,19 @@ class NamedSharding:
         self.check(x.shape)
         grid = itertools.product(*(range(n) for n in self.mesh.shape.values()))
         return {c: x[self.index(c, x.shape)] for c in grid}
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """The block of x this rank holds on a `ProcMesh`: the one at its
+        grid coordinate (a view of x)."""
+        if not isinstance(self.mesh, ProcMesh):
+            raise MeshError("a stacked mesh holds every block of a leaf: use blocks(x)")
+        self.check(x.shape)
+        return x[self.index(self.mesh.coords, x.shape)]
+
+    def held(self, x: torch.Tensor) -> torch.Tensor:
+        """What this process keeps of x: the whole leaf on a stacked mesh,
+        its own block (`local`) over processes."""
+        return self.local(x) if isinstance(self.mesh, ProcMesh) else x
 
 
 # ------------------------------------------------------- ambient policy API

@@ -20,6 +20,18 @@ stacked result restricted to that row:
 ``p`` stays the world's rank count and ``local_ranks`` is 1, so code that
 sizes the leading dim by ``mesh.local_ranks`` runs on either mesh.
 
+**Grids.**  ``run(fn, 4, axes={"pod": 2, "data": 2})`` gives each rank a
+grid `ProcMesh`: world rank = row-major over the axes (pod the major one,
+as the stacked ``[pod, data, ...]``), a tensor's leading dims ``[1, 1,
+...]``, `front` / `back` / `dim` / `psum` over any axis, and `along(axis)`
+the one-axis mesh of the ranks sharing this rank's other coordinates (a
+put along ``data`` reaches world rank ``pod * D + (d + s) mod D``, along
+``pod`` rank ``((q + s) mod P) * D + d``).  Such a sub-mesh is a view of
+the same process group: its rounds use the group's segments, every rank
+issuing the same rounds (SPMD) so that the group's barrier fences them,
+and the peer kernels reach its ranks through a pointer table in the
+axis's order (`SegmentView`), with no change to the kernels.
+
 **Launch and bootstrap.**  `run(fn, nprocs)` starts one process a rank
 with the ``spawn`` start method (CUDA cannot be forked), joins them into a
 ``gloo`` group over a `FileStore` in a temporary directory (no network),
@@ -90,7 +102,7 @@ from typing import Any, Callable, Optional, Sequence
 import torch
 
 from .kernels import common
-from .mesh import MeshError, resolve_device
+from .mesh import MeshError, NamedAxes, resolve_device
 from .obs import cost
 
 ALIGN = 256                     # bytes: a slot's offset in a segment
@@ -220,6 +232,24 @@ class Segment:
             os.unlink(os.path.join(mesh.workdir, f"segment-{self.id}-rank{mesh.rank}"))
         self._ptrs = []
         mesh._segments.remove(self)
+        mesh._views = {k: v for k, v in mesh._views.items() if k[0] != self.id}
+
+
+class SegmentView(Segment):
+    """A group's segment as a view of the group sees it (`ProcMesh.along`):
+    its rank r is the group's rank ``mesh.members[r]``, and on the card
+    ``table`` holds those ranks' base pointers in the view's order, so a
+    peer kernel given the view's rank and size stores into the right
+    block.  Freed with its segment, never alone."""
+
+    def __init__(self, seg: Segment, mesh: "ProcMesh") -> None:
+        self.mesh, self.nbytes, self.id = mesh, seg.nbytes, seg.id
+        self.blocks = [seg.blocks[m] for m in mesh.members]
+        self.table = None if seg.table is None else seg.table[list(mesh.members)]
+        self._ptrs = []
+
+    def free(self) -> None:
+        raise ProcMeshError("a view's segment is freed with the group's")
 
 
 def neighbour_offsets(k: int) -> list[int]:
@@ -227,26 +257,42 @@ def neighbour_offsets(k: int) -> list[int]:
     return [(i // 2 + 1) * (1 if i % 2 == 0 else -1) for i in range(k)]
 
 
-class ProcMesh:
-    """One rank of a p-rank axis, this process's, with `Mesh`'s surface.
+class ProcMesh(NamedAxes):
+    """One rank of a p-rank axis, or of a grid of named axes, this
+    process's, with `Mesh`'s surface.
 
     Made by `run` in each rank's process (or, for one rank, directly:
     ``ProcMesh(1, 0, device=...)`` needs no process group).  ``devices``
     names every rank's device, so a model can tell a crossing of a link
-    from one within a card."""
+    from one within a card.
+
+    Given a dict of named axes, ``ProcMesh({"pod": 2, "data": 2}, rank)``
+    is a grid: the world rank is row-major over the axes in order (the
+    first the major one, as the stacked ``[pod, data, ...]``), ``coords``
+    this rank's coordinate on each, and a tensor's leading dims are one
+    unit dim an axis.  `along(axis)` is the one-axis mesh of the ranks
+    that share this rank's other coordinates (its ``p`` the axis's size,
+    its ``rank`` this rank's coordinate on it) and `regrid` the same ranks
+    as another grid: both are views of the process group that `run`
+    made.  A view's rounds use the group's exchange and epoch segments,
+    with every rank of the group issuing the same rounds in the same order
+    (SPMD), so the group's barrier fences them; a view sees a segment
+    through its own ranks (`SegmentView`), and on the card through a
+    pointer table of its ranks' blocks in its own order, which the peer
+    kernels index as they index the group's."""
 
     local_ranks = 1
+    _lead_note = " (this process's rank block)"
 
-    def __init__(self, p: int, rank: int, axis: str = "serve", device=None, *,
+    def __init__(self, p, rank: int, axis: str = "serve", device=None, *,
                  workdir: Optional[str] = None, devices: Optional[Sequence[str]] = None):
-        if isinstance(p, dict):
-            raise MeshError("a ProcMesh has one axis")
-        if not 0 <= rank < p:
-            raise MeshError(f"rank {rank} outside a mesh of {p}")
-        self.p, self.rank, self.axis = int(p), int(rank), str(axis)
-        self.shape = {self.axis: self.p}
-        self.axis_names = (self.axis,)
+        self._name_axes(p, axis)
+        if not 0 <= rank < self.p:
+            raise MeshError(f"rank {rank} outside a mesh of {self.p}")
+        self.rank = int(rank)
         self.ranks = self.p
+        self.world, self.members = self, tuple(range(self.p))
+        self.coords = self._coords(self.rank)
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -258,19 +304,60 @@ class ProcMesh:
         self._rounds: dict = {}          # eager / epoch -> [segment, next half]
         self._sends: list = []
         self._reads: Optional[torch.cuda.Event] = None
-        self.barriers = self.tokens = 0
-        self.host_gathers = 0
+        self._counts = {"barriers": 0, "tokens": 0, "host_gathers": 0}
+        self._views: dict = {}           # (segment id, members) -> SegmentView
+        self._along: dict = {}
+
+    def _view(self, shape: dict, members: tuple) -> "ProcMesh":
+        """The mesh of `shape` over the world ranks `members` (row-major),
+        which hold this process's rank: a view of this process group."""
+        v = object.__new__(ProcMesh)
+        v._name_axes(shape, None)
+        world = self.world
+        v.world, v.members = world, tuple(members)
+        v.rank, v.ranks = v.members.index(world.rank), world.p
+        v.coords = v._coords(v.rank)
+        v.device = world.device
+        v.devices = tuple(world.devices[m] for m in v.members)
+        v._along = {}
+        return v
+
+    def _coords(self, rank: int) -> tuple:
+        out = []
+        for n in reversed(tuple(self.shape.values())):
+            rank, c = divmod(rank, n)
+            out.append(c)
+        return tuple(reversed(out))
+
+    @property
+    def rank_dims(self) -> tuple:
+        """This process's one rank block: a unit dim an axis."""
+        return (1,) * len(self.shape)
 
     # ------------------------------------------------------------ bootstrap
+    @property
+    def barriers(self) -> int:
+        """Host barriers this process entered, over every view of its group."""
+        return self.world._counts["barriers"]
+
+    @property
+    def tokens(self) -> int:
+        """PSCW tokens this process sent, over every view of its group."""
+        return self.world._counts["tokens"]
+
+    @property
+    def host_gathers(self) -> int:
+        return self.world._counts["host_gathers"]
+
     @property
     def crosses_link(self) -> bool:
         """Whether ranks of this mesh sit on different devices."""
         return len(set(self.devices)) > 1
 
     def barrier(self) -> None:
-        """A barrier of the bootstrap (host only)."""
-        if self.p > 1:
-            self.barriers += 1
+        """A barrier of the bootstrap (host only), over the whole group."""
+        if self.world.p > 1:
+            self.world._counts["barriers"] += 1
             torch.distributed.barrier()
 
     def fence(self) -> None:
@@ -288,32 +375,35 @@ class ProcMesh:
         """Mark this point of the stream: the copies out of this rank's
         window issued so far (an epoch's results)."""
         if self.device.type == "cuda":
-            self._reads = torch.cuda.Event()
-            self._reads.record(torch.cuda.current_stream(self.device))
+            self.world._reads = torch.cuda.Event()
+            self.world._reads.record(torch.cuda.current_stream(self.device))
 
     def reads_done(self) -> None:
         """Wait until the stream has passed the mark, so that peers may
         store into the window again (PSCW's post)."""
-        if self._reads is not None:
-            self._reads.synchronize()
-            self._reads = None
+        if self.world._reads is not None:
+            self.world._reads.synchronize()
+            self.world._reads = None
 
     def gather_objects(self, obj: Any) -> list:
-        """Every rank's `obj` (small metadata only: handles, paths)."""
-        if self.p == 1:
+        """Every rank's `obj` (small metadata only: handles, paths), in this
+        mesh's rank order; collective over the whole group."""
+        if self.world.p == 1:
             return [obj]
-        out = [None] * self.p
+        out = [None] * self.world.p
         torch.distributed.all_gather_object(out, obj)
-        return out
+        return [out[m] for m in self.members]
 
     def notify(self, offsets: Sequence[int], tag: int) -> None:
         """A token to rank + o for each offset o (rank itself skipped)."""
+        w = self.world
         for j, o in enumerate(offsets):
             dst = (self.rank + o) % self.p
             if dst != self.rank:
-                self.tokens += 1
+                w._counts["tokens"] += 1
                 tok = torch.zeros(1, dtype=torch.int32)
-                self._sends.append((torch.distributed.isend(tok, dst, tag=tag + j), tok))
+                w._sends.append((torch.distributed.isend(tok, self.members[dst], tag=tag + j),
+                                 tok))
 
     def await_tokens(self, offsets: Sequence[int], tag: int) -> None:
         """The token of rank - o for each offset o, then every send of this
@@ -321,29 +411,43 @@ class ProcMesh:
         for j, o in enumerate(offsets):
             src = (self.rank - o) % self.p
             if src != self.rank:
-                torch.distributed.recv(torch.zeros(1, dtype=torch.int32), src, tag=tag + j)
-        for work, _ in self._sends:
+                torch.distributed.recv(torch.zeros(1, dtype=torch.int32), self.members[src],
+                                       tag=tag + j)
+        for work, _ in self.world._sends:
             work.wait()
-        self._sends = []
+        self.world._sends = []
 
     # ------------------------------------------------------------ segments
     def allocate(self, nbytes: int) -> Segment:
-        """A symmetric segment of `nbytes` a rank, zero-filled (collective)."""
-        return Segment(self, nbytes)
+        """A symmetric segment of `nbytes` a rank, zero-filled (collective
+        over the whole group), as this mesh sees it."""
+        return self._seg(Segment(self.world, nbytes))
+
+    def _seg(self, seg: Segment) -> Segment:
+        """`seg` as this mesh sees it: the group's own where this mesh holds
+        every rank of the group in its order, else a cached `SegmentView`."""
+        if self.members == self.world.members:
+            return seg
+        key = (seg.id, self.members)
+        views = self.world._views
+        if key not in views:
+            views[key] = SegmentView(seg, self)
+        return views[key]
 
     def round(self, nbytes: int, epoch: bool = False) -> tuple[Segment, int]:
         """The exchange segment (or, with `epoch`, the epoch segment) and
         this round's offset for `nbytes` a rank (collective: every rank
         asks for the same bytes)."""
+        w = self.world
         need = aligned(max(int(nbytes), 1))
-        seg, half = self._rounds.get(epoch, (None, 0))
+        seg, half = w._rounds.get(epoch, (None, 0))
         if seg is None or need > seg.nbytes // 2:
             size = max(need, MIN_EXCHANGE, 0 if seg is None else seg.nbytes)
             if seg is not None:
                 seg.free()
-            seg, half = self.allocate(2 * size), 0
-        self._rounds[epoch] = [seg, half ^ 1]
-        return seg, half * (seg.nbytes // 2)
+            seg, half = Segment(w, 2 * size), 0
+        w._rounds[epoch] = [seg, half ^ 1]
+        return self._seg(seg), half * (seg.nbytes // 2)
 
     def symmetric(self, shape, dtype: torch.dtype) -> torch.Tensor:
         """A zero-filled tensor ``[1, *shape]`` in a new symmetric segment:
@@ -360,10 +464,11 @@ class ProcMesh:
             raise ProcMeshError(f"a symmetric tensor must be contiguous, got strides "
                                 f"{t.stride()} for {tuple(t.shape)}")
         ptr, n = t.data_ptr(), t.nbytes
-        for seg in self._segments:
-            base = seg.blocks[self.rank].data_ptr()
+        w = self.world
+        for seg in w._segments:
+            base = seg.blocks[w.rank].data_ptr()
             if base <= ptr and ptr + n <= base + seg.nbytes:
-                return seg, ptr - base
+                return self._seg(seg), ptr - base
         raise ProcMeshError(f"a tensor {tuple(t.shape)} {t.dtype} outside every symmetric "
                             "segment of this mesh (allocate it with ProcMesh.symmetric or "
                             "core.window.win_allocate)")
@@ -382,7 +487,7 @@ class ProcMesh:
         back.  It is no protocol message: no op ledger records it, and it
         is counted apart, in `host_gathers`."""
         self._check(x)
-        self.host_gathers += 1
+        self.world._counts["host_gathers"] += 1
         seg, off = self.round(x.nbytes)
         seg.view(self.rank, off, x.nbytes).copy_(as_bytes(x))
         self.fence()
@@ -396,7 +501,9 @@ class ProcMesh:
 
     def close(self) -> None:
         """Frees every segment (collective), and a one-rank mesh's own
-        directory of CPU segments."""
+        directory of CPU segments.  A view owns nothing: its group closes."""
+        if self.world is not self:
+            raise ProcMeshError("a view of a process group is closed with the group")
         for seg in list(reversed(self._segments)):
             seg.free()
         self._rounds = {}
@@ -405,31 +512,33 @@ class ProcMesh:
             self.workdir = None
 
     # ----------------------------------------------------- the Mesh surface
-    def dim(self, axis: str) -> int:
-        if axis != self.axis:
-            raise MeshError(f"mesh axes {self.axis_names} have no axis {axis!r}")
-        return 0
-
     def along(self, axis: str) -> "ProcMesh":
-        self.dim(axis)
-        return self
+        """The one-axis mesh of `axis`: the ranks that share this rank's
+        other coordinates, in the axis's order (this mesh, on one axis)."""
+        d = self.dim(axis)
+        if len(self.shape) == 1:
+            return self
+        if axis not in self._along:
+            sizes = tuple(self.shape.values())
+            stride = math.prod(sizes[d + 1:])
+            base = self.rank - self.coords[d] * stride
+            members = tuple(self.members[base + c * stride] for c in range(sizes[d]))
+            self._along[axis] = self._view({axis: sizes[d]}, members)
+        return self._along[axis]
 
-    def front(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        self.dim(axis)
-        return x
-
-    def back(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        self.dim(axis)
-        return x
+    def regrid(self, axes) -> "ProcMesh":
+        """These ranks, in their order, as the grid `axes` (a dict of named
+        axes, or one axis name for a single axis): the 2 x 2 grid's four
+        ranks as one axis of 4, say, or as the grid of other names."""
+        shape = dict(axes) if isinstance(axes, dict) else {str(axes): self.p}
+        if math.prod(shape.values()) != self.p:
+            raise MeshError(f"a grid {shape} of {math.prod(shape.values())} ranks over "
+                            f"{self.p}")
+        return self._view(shape, self.members)
 
     def axis_index(self) -> torch.Tensor:
         """[1] int64: this rank's index."""
         return torch.tensor([self.rank], device=self.device)
-
-    def _check(self, x: torch.Tensor) -> None:
-        if x.ndim == 0 or x.shape[0] != self.local_ranks:
-            raise MeshError(f"expected a leading dim of this process's {self.local_ranks} "
-                            f"rank block, got {tuple(x.shape)}")
 
     def _exchange_blocks(self, block_shape, dtype, slots: int, sends,
                          zero: bool = False) -> torch.Tensor:
@@ -512,8 +621,12 @@ class ProcMesh:
         return got.sum(0, dtype=x.dtype)[None]
 
     def psum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        """``lax.psum`` over the axis: every rank the sum over ranks."""
+        """``lax.psum`` over `axis`: every rank the sum over that axis's
+        ranks, in their order (on a grid, through `along`)."""
         self.dim(axis)
+        if len(self.shape) > 1:
+            self._check_rank_dims(x)
+            return self.back(self.along(axis).psum(self.front(x, axis), axis), axis)
         self._check(x)
         cost.record_collective("all-reduce", x.nbytes, self.p, 1)
         sends = [(x[0], d, self.rank) for d in range(self.p)]
@@ -528,7 +641,7 @@ class ProcMesh:
 
 # ----------------------------------------------------------------- launch
 def _rank_main(fn, rank: int, p: int, device: str, n_dev: int, workdir: str,
-               axis: str, args: tuple, results, timeout: float) -> None:
+               axis, args: tuple, results, timeout: float) -> None:
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     ok = False
     try:
@@ -543,7 +656,8 @@ def _rank_main(fn, rank: int, p: int, device: str, n_dev: int, workdir: str,
             devices = [f"cuda:{r % n_dev}" for r in range(p)]
         else:
             dev, devices = torch.device("cpu"), ["cpu"] * p
-        mesh = ProcMesh(p, rank, axis, dev, workdir=workdir, devices=devices)
+        shape = axis if isinstance(axis, dict) else p
+        mesh = ProcMesh(shape, rank, axis, dev, workdir=workdir, devices=devices)
         out = pickle.dumps(fn(mesh, *args))    # by value: this process exits
         mesh.close()
         results.put((rank, "ok", out))
@@ -555,13 +669,20 @@ def _rank_main(fn, rank: int, p: int, device: str, n_dev: int, workdir: str,
             torch.distributed.destroy_process_group()
 
 
-def run(fn: Callable, nprocs: int, device=None, *, args: tuple = (), axis: str = "serve",
-        timeout: float = 600.0) -> list:
+def run(fn: Callable, nprocs: int, device=None, *, args: tuple = (), axis="serve",
+        axes: Optional[dict] = None, timeout: float = 600.0) -> list:
     """``fn(mesh, *args)`` in `nprocs` processes, one rank each; returns
-    their results in rank order.  `fn` must be importable by name (spawn)
+    their results in rank order.  The mesh has the one axis `axis`, or
+    the grid `axes` (a dict of named axes, also taken as `axis`), whose
+    ranks must number `nprocs`.  `fn` must be importable by name (spawn)
     and its results picklable.  Raises `ProcMeshError` with a rank's
     traceback if it raises, or when `timeout` seconds pass before every
     rank is done; no rank process is left running either way."""
+    if axes is not None:
+        axis = dict(axes)
+    if isinstance(axis, dict) and math.prod(axis.values()) != nprocs:
+        raise MeshError(f"a grid {axis} of {math.prod(axis.values())} ranks over "
+                        f"{nprocs} processes")
     dev = resolve_device(device)
     if dev.type not in ("cuda", "cpu"):
         raise MeshError(f"a ProcMesh runs on cuda or cpu, not {dev}")

@@ -535,8 +535,20 @@ def test_the_mesh_surface_refuses_what_the_stacked_mesh_refuses():
         m.along("x")
     with pytest.raises(MeshError, match="lattice must be"):
         tmilc.stencil_step(torch.ones(4, 2, 4, 4, 4, 6), m)
-    with pytest.raises(MeshError):
-        procmesh.ProcMesh({"a": 2}, 0, device="cpu")
+    # a grid: row-major ranks, one unit rank dim an axis, one-axis views
+    g = procmesh.ProcMesh({"pod": 2, "data": 3}, 4, device="cpu")
+    assert (g.shape, g.axis_names, g.p, g.ranks, g.coords) == (
+        {"pod": 2, "data": 3}, ("pod", "data"), 6, 6, (1, 1))
+    assert g.rank_dims == (1, 1) and g.dim("data") == 1
+    data, pod = g.along("data"), g.along("pod")
+    assert (data.p, data.rank, data.ranks, data.members) == (3, 1, 6, (3, 4, 5))
+    assert (pod.p, pod.rank, pod.ranks, pod.members) == (2, 1, 6, (1, 4))
+    with pytest.raises(MeshError, match="along"):
+        g.shift(torch.ones(1, 1, 3), 1)
+    with pytest.raises(MeshError, match="6 ranks over 4 processes"):
+        procmesh.run(_hangs, 4, device="cpu", axes={"pod": 2, "data": 3})
+    with pytest.raises(MeshError, match="outside"):
+        procmesh.ProcMesh({"pod": 2, "data": 3}, 6, device="cpu")
     with pytest.raises(MeshError):
         procmesh.run(_hangs, 2, device="meta")
     with pytest.raises(procmesh.ProcMeshError, match="shared workdir"):
