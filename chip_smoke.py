@@ -424,6 +424,21 @@ no result line):
     |Y| of its plain version and of the stacked kernel's row, three calls
     bit-equal, timed beside the stacked kernel and a plain all-gather +
     `torch.matmul` over the same processes.
+32. the model-vs-measured count gate (`repro_torch.obs.drift`) over the
+    port's own protocol counts.  Set A: `obs.drift_docs.set_a` drives the
+    port on p = 4 stacked ranks at the reference smoke benchmarks' shapes
+    (32 puts of 8 B eagerly and as one plan; the 16-step flood of a 4-slot
+    ring through `Channel.send` and `flow.send`; the retry and credit
+    engines and both transport sizes with 12 requests; the crossover flip;
+    the traced conformance slices at 64 ranks, "delay", seed 0; the
+    inline, paged fused and paged gather engines on the 50 %-shared-prefix
+    workload), each run with the launch counts zeroed before and read
+    after (the fused decode must launch row 1).  Set B: the same fields of
+    phases 3 and 5a's full-width fused, gather, inline and rendezvous
+    runs, read from those engines when they finished.  Each set is
+    written under the reference's three file names into a temporary
+    directory and gated: a violation exits non-zero.  Counts only; no
+    timing field.
 
 ``python3 chip_smoke.py --gather-shift`` times only `rmem.pages.gather_shift`
 and `paged_gather` at the rendezvous pull's shape on the package beside the
@@ -441,7 +456,9 @@ the kernels' build) and ends with the result line; ``--procs`` and
 kernels line, then the result line; ``--apps-procs`` runs only phase 30
 and ends with the result line; ``--parallel-procs`` runs only phase 31,
 its rows of the kernels line (rows 4's peer form, 11 and 13 with this
-phase's launches and times), then the result line.
+phase's launches and times), then the result line; ``--drift`` runs only
+phase 32's set A (set B reads the whole smoke's full-width runs) and ends
+with the result line.
 
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after.
@@ -462,6 +479,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 T0 = time.perf_counter()
@@ -968,6 +986,7 @@ def main() -> int:
     from repro_torch.core.perfmodel import H100
     from repro_torch.kernels import common
     from repro_torch.kernels.paged_attention import ops, ref
+    from repro_torch.obs import drift_docs
     from repro_torch.serve import disagg
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
@@ -1000,6 +1019,7 @@ def main() -> int:
                              f"{eng.steps_run} decode steps")
     fused = eng.serve_metrics()
     fused_tokens = dict(eng.results)
+    set_b = {"fused": drift_docs.run_record(eng, N_FUSED)}   # phase 32's set B
     fused_ms = dt / eng.steps_run * 1e3
     log(f"fused: {N_FUSED} requests, {eng.steps_run} steps, {dt:.3f} s, "
         f"{dt / eng.steps_run * 1e3:.3f} ms/step, attend_us p50 "
@@ -1069,6 +1089,7 @@ def main() -> int:
     if ops.launches != before:
         raise AssertionError("the gather path launched the attention kernel")
     gather = eng.serve_metrics()
+    set_b["gather"] = drift_docs.run_record(eng, N_GATHER)
     log(f"gather: {N_GATHER} requests, {eng.steps_run} steps, "
         f"{dt / eng.steps_run * 1e3:.3f} ms/step, attend_us p50 "
         f"{gather['attend_us']['p50']:.1f} p90 {gather['attend_us']['p90']:.1f}")
@@ -1076,6 +1097,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     cfg_i = disagg.DisaggConfig(paged=False, **FULL)
     eng, dt = serve(disagg, cfg_i, N_INLINE, seed=2)
+    set_b["inline"] = drift_docs.run_record(eng, N_INLINE)
     log(f"inline: {N_INLINE} requests, {eng.steps_run} steps, "
         f"{dt / eng.steps_run * 1e3:.3f} ms/step, bytes_wire/step "
         f"{eng.msg_stats['bytes_wire_per_step']}")
@@ -1096,7 +1118,8 @@ def main() -> int:
         "library_ms": library_ms,
     }]
     torch.cuda.empty_cache()
-    kernels += rendezvous_phases(torch, F, disagg, fused_tokens, fused_ms, H100.hbm_bandwidth)
+    kernels += rendezvous_phases(torch, F, disagg, fused_tokens, fused_ms, H100.hbm_bandwidth,
+                                 set_b)
     torch.cuda.empty_cache()
     kernels += rma_phases(torch)
     torch.cuda.empty_cache()
@@ -1160,6 +1183,12 @@ def main() -> int:
     row13["launches"] += pp.pop("row13_launches")
     row13["procs"] = pp.pop("row13_procs")
     log(f"parallel procs phase numbers: {json.dumps(pp)}")
+    torch.cuda.empty_cache()
+    drift = drift_phase(torch, set_b)
+    for run in drift["launches"].values():
+        for name, n in run.items():
+            next(r for r in kernels if r["name"] == name)["launches"] += n
+    log(f"drift phase numbers: {json.dumps(drift)}")
     if len(kernels) != len(KERNELS):
         raise AssertionError(f"{len(kernels)} kernel rows, want {len(KERNELS)}")
     log(f"smoke wall time: {time.perf_counter() - T0:.1f} s")
@@ -1175,6 +1204,7 @@ def rendezvous_serve(torch, disagg, fused_tokens: dict, fused_ms: float) -> dict
     """256 full-width requests in rendezvous mode, token-exact against
     `reference()` and the fused run; keeps the busiest step's pull (its
     descriptors, the pulled block, the readout's context, the pool)."""
+    from repro_torch.obs import drift_docs
     from repro_torch.rmem import pages as rpg
 
     cfg = disagg.DisaggConfig(transport="rendezvous", **FULL)
@@ -1227,6 +1257,7 @@ def rendezvous_serve(torch, disagg, fused_tokens: dict, fused_ms: float) -> dict
         f"busiest pull {busiest['rows']} requests")
     busiest["params"] = eng.params
     busiest["cfg"] = cfg
+    busiest["drift"] = drift_docs.run_record(eng, N_FUSED)
     return busiest
 
 
@@ -1535,7 +1566,8 @@ def time_gather_shift(torch, pg_ops, pg_ref, rpg, mesh, pool, ids, s, flat, rows
 
 
 def rendezvous_phases(torch, F, disagg, fused_tokens: dict, fused_ms: float,
-                      hbm: float) -> list:
+                      hbm: float, set_b: dict) -> list:
+    """Phases 5a and 5b; the rendezvous run's counts go to `set_b`."""
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.paged_attention import ref as pa_ref
     from repro_torch.kernels.paged_gather import ops as pg_ops
@@ -1544,6 +1576,7 @@ def rendezvous_phases(torch, F, disagg, fused_tokens: dict, fused_ms: float,
     from repro_torch.rmem import pages as rpg
 
     run = rendezvous_serve(torch, disagg, fused_tokens, fused_ms)
+    set_b["rendezvous"] = run.pop("drift")
     torch.cuda.empty_cache()
     auto_phase(torch, disagg)
     cancel_phase(torch, disagg)
@@ -7823,6 +7856,97 @@ def parallel_only() -> int:
     return 0
 
 
+# --------------------------------------------- phase 32: the count gate
+def row_launches() -> dict:
+    """Every stacked-mesh kernel row's launch count, by row name."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_gather import ops as pg_ops
+    from repro_torch.kernels.rma import ops as rma_ops
+    from repro_torch.kernels.rmaq import ops as rmaq_ops
+
+    return {"paged_attention": pa_ops.launches, "paged_attention_shift": pa_ops.shift_launches,
+            "paged_gather": pg_ops.launches, **rma_ops.launches, **rmaq_ops.launches}
+
+
+def zero_row_launches() -> None:
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_gather import ops as pg_ops
+    from repro_torch.kernels.rma import ops as rma_ops
+    from repro_torch.kernels.rmaq import ops as rmaq_ops
+
+    pa_ops.launches = pa_ops.shift_launches = pg_ops.launches = 0
+    zero_rma_launches(rma_ops)
+    for k in rmaq_ops.launches:
+        rmaq_ops.launches[k] = 0
+
+
+def gate_set(name: str, docs: dict) -> dict:
+    """Write `docs` under the reference's file names into a temporary
+    directory and gate them; a violation raises SystemExit, uncaught."""
+    from repro_torch.obs import drift, drift_docs
+
+    with tempfile.TemporaryDirectory() as d:
+        drift_docs.write(docs, d)
+        log(f"32: set {name}")
+        entries = drift.gate(d)
+    if not entries:
+        raise AssertionError(f"32: set {name}: no entries")
+    gated = sum(e["gate"] for e in entries)
+    log(f"32: set {name}: {len(entries)} entries, {gated} gated, "
+        f"{len(entries) - gated} informational, 0 violations")
+    return {"entries": len(entries), "gated": gated, "info": len(entries) - gated}
+
+
+def drift_phase(torch, set_b: dict | None) -> dict:
+    """Phase 32: set A driven here, on the card, each run's kernel launches
+    by row counted from 0; set B from the full-width runs' records (None:
+    set A only).  Returns the sets' entry counts, the launches by run and
+    the phase's wall time."""
+    from repro_torch.obs import drift_docs
+
+    t0 = time.perf_counter()
+    launches = {}
+
+    def counted(name, fn):
+        zero_row_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = {k: v for k, v in row_launches().items() if v}
+        log(f"32: {name}: {time.perf_counter() - t0:.1f} s in, launches {launches[name]}")
+        return out
+
+    out = {"A": gate_set("A", drift_docs.set_a("cuda", run=counted))}
+    if not launches["rmem.fused"].get("paged_attention"):
+        raise AssertionError(f"32: the fused decode launched no row 1: {launches}")
+    if set_b is not None:
+        out["B"] = gate_set("B", drift_docs.set_b(**set_b))
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 32: {out['wall_s']:.1f} s ({card_line()})")
+    return out
+
+
+def drift_only() -> int:
+    """``python3 chip_smoke.py --drift``: phase 32's set A alone, on the
+    package beside this file (rows 1, 3 and 4 build on first use).  Prints
+    one JSON line of its numbers, then the result line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import common
+
+    log(card_line())
+    build_all(common)
+    out = drift_phase(torch, None)
+    print(json.dumps({"tree": ROOT, **out}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def conformance_only() -> int:
     """``python3 chip_smoke.py --conformance``: phase 26 alone, on the
     package beside this file (row 10 and rows 1-3 build on first use).
@@ -7849,7 +7973,7 @@ MODES = {"--gather-shift": gather_shift_only, "--queue-push": queue_push_only,
          "--parallel": parallel_only, "--conformance": conformance_only,
          "--tools": tools_only, "--procs": procs_only,
          "--disagg-procs": disagg_procs_only, "--apps-procs": apps_procs_only,
-         "--parallel-procs": parallel_procs_only}
+         "--parallel-procs": parallel_procs_only, "--drift": drift_only}
 
 if __name__ == "__main__":
     sys.exit(MODES[sys.argv[1]]() if sys.argv[1:] else main())

@@ -1,5 +1,5 @@
 """repro_torch.obs — span tracing, metrics, causal stitching, export (copy of
-`repro.obs` but `drift`).
+`repro.obs`).
 
   * `trace`    — the process-wide tracer seam (`TRACER.event`), no-op
     default, with a virtual-clock seam (`attach_clock`);
@@ -16,6 +16,9 @@
 
 Layering: `trace`, `metrics` and `cost` import nothing of `repro_torch.core`, so
 instrumented hot paths reach the global tracer with one attribute load.
+`drift` (the model-vs-measured count gate) and `drift_docs` (the count
+documents it reads) look upward, into the perf model and the engines, and
+are imported only by their users, never from here.
 """
 
 from . import causal, critpath, export, flight, metrics, trace  # noqa: F401

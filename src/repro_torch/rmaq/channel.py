@@ -99,6 +99,10 @@ class Channel:
     def payload_words(self) -> int:
         return self.desc.item_width - HDR
 
+    def metadata_nbytes(self) -> int:
+        """The lane table (32 bytes a lane) + the queue descriptor's."""
+        return 32 * len(self.lanes) + self.desc.metadata_nbytes()
+
     # ------------------------------------------------------------- packing
     def _pack_bits(self, name: str, payload: torch.Tensor,
                    tag: torch.Tensor) -> torch.Tensor:
@@ -144,8 +148,17 @@ class Channel:
             bits[..., 0] = lane_id.to(torch.int32)
         return bits.view(torch.float32)
 
+    def send(self, state: rq.QueueState, name: str, payload: torch.Tensor,
+             tag: torch.Tensor, dest: torch.Tensor
+             ) -> tuple[rq.QueueState, rq.EnqueueReceipt]:
+        """Collective: enqueue ``payload[:, i]`` on lane `name` at rank
+        ``dest[:, i]`` (-1 = skip); a full ring rejects (receipt.accepted
+        False, the caller retries).  payload [R, k, *lane.shape], tag/dest
+        [R, k]."""
+        return rq.enqueue(self.desc, state, self.packed(name, payload, tag), dest)
+
     def recv(self, state: rq.QueueState, max_n: int) -> tuple[rq.QueueState, RecvBatch]:
-        """Owner-local drain + header decode; `payload_all` decodes the rows."""
+        """Owner-local drain + header decode; `payload` decodes the rows."""
         state, items, valid = rq.dequeue(self.desc, state, max_n)
         hdr = items[..., :HDR].contiguous().view(torch.int32)
         neg = torch.full_like(hdr[..., 0], -1)
@@ -166,6 +179,13 @@ class Channel:
             flat = flat.view(lane.dtype)
         flat = torch.where(mask[..., None], flat, torch.zeros_like(flat))
         return flat.reshape(tuple(mask.shape) + tuple(lane.shape)), mask
+
+    def payload(self, batch: RecvBatch, name: str) -> tuple[torch.Tensor, torch.Tensor]:
+        """Lane `name`'s messages from a RecvBatch: (typed [R, n,
+        *lane.shape] payloads, [R, n] bool mask of the rows on this lane).
+        Other lanes' rows are zeroed."""
+        mask = batch.valid & (batch.lane_id == self.lane_id(name))
+        return self._decode_rows(batch, self.lane(name), mask)
 
     def payload_all(self, batch: RecvBatch):
         """Decode every valid row regardless of lane (lanes as credit

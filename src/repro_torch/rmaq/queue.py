@@ -94,6 +94,12 @@ class QueueDescriptor:
     def mask(self) -> int:
         return self.capacity - 1
 
+    def metadata_nbytes(self) -> int:
+        """Per-process queue metadata: descriptor constants + the window's
+        own O(1) descriptor.  Independent of p and of capacity: the ring
+        storage is window payload, not metadata."""
+        return 48 + self.window.metadata_nbytes()
+
 
 # ------------------------------------------------------------------ creation
 def queue_allocate(mesh: Mesh, capacity: int, item_shape: tuple = (),

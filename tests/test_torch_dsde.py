@@ -232,7 +232,7 @@ def jax_ref(tmp_path_factory, inputs):
                XLA_FLAGS=f"--xla_force_host_platform_device_count={NP}")
     env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run([sys.executable, __file__, "child", str(d)],
-                          capture_output=True, text=True, timeout=900, env=env)
+                          capture_output=True, text=True, timeout=90, env=env)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
     return dict(np.load(d / "out.npz")), json.loads((d / "snaps.json").read_text())
 

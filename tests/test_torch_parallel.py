@@ -334,7 +334,7 @@ def ref(tmp_path_factory):
                XLA_FLAGS=f"--xla_force_host_platform_device_count={NDEV}")
     env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run([sys.executable, __file__, "child", str(d)],
-                          capture_output=True, text=True, timeout=600, env=env)
+                          capture_output=True, text=True, timeout=120, env=env)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
     return d, dict(np.load(d / "out.npz")), json.loads((d / "meta.json").read_text())
 

@@ -352,7 +352,7 @@ def runs(tmp_path_factory, inputs):
     try:
         ranks = procmesh.run(_rank_main, NP, device="cpu", args=(inputs,), axis="x",
                              timeout=TIMEOUT)
-        stdout, stderr = child.communicate(timeout=600)
+        stdout, stderr = child.communicate(timeout=90)
     finally:
         if child.poll() is None:
             child.kill()

@@ -303,7 +303,7 @@ def runs(tmp_path_factory, inputs):
     try:
         ranks = procmesh.run(_rank_main, NP, device="cpu", args=(str(d),), axis=AXIS,
                              timeout=TIMEOUT)
-        stdout, stderr = child.communicate(timeout=600)
+        stdout, stderr = child.communicate(timeout=60)
     finally:
         if child.poll() is None:
             child.kill()

@@ -279,14 +279,14 @@ def runs(tmp_path_factory):
     child = subprocess.Popen([sys.executable, __file__, "child", str(d)], env=env,
                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
-        deadline = time.monotonic() + 300
+        deadline = time.monotonic() + 150
         while not (d / "params.npz").exists():
             if child.poll() is not None or time.monotonic() > deadline:
                 out, err = child.communicate(timeout=60) if child.poll() is not None else ("", "")
                 pytest.fail(f"the JAX child wrote no parameters:\n{out[-2000:]}{err[-4000:]}")
             time.sleep(0.2)
         ranks = procmesh.run(_rank_main, NP, device="cpu", args=(str(d),), timeout=TIMEOUT)
-        stdout, stderr = child.communicate(timeout=600)
+        stdout, stderr = child.communicate(timeout=150)
     finally:
         if child.poll() is None:
             child.kill()

@@ -333,7 +333,7 @@ def runs(tmp_path_factory):
     try:
         ranks = procmesh.run(_rank_main, NP, device="cpu", args=(inputs, grads, ckpt),
                              axes=GRID, timeout=TIMEOUT)
-        stdout, stderr = child.communicate(timeout=600)
+        stdout, stderr = child.communicate(timeout=120)
     finally:
         if child.poll() is None:
             child.kill()

@@ -369,7 +369,7 @@ def _run_jax_child(case: str, workdir: pathlib.Path, devices: int) -> None:
                XLA_FLAGS=f"--xla_force_host_platform_device_count={devices}")
     env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run([sys.executable, __file__, case, str(workdir)],
-                          capture_output=True, text=True, timeout=900, env=env)
+                          capture_output=True, text=True, timeout=90, env=env)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
 
 

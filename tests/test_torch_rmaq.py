@@ -55,7 +55,7 @@ def _run_jax_child(case: str, workdir: pathlib.Path) -> dict:
                XLA_FLAGS=f"--xla_force_host_platform_device_count={P_RANKS}")
     env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run([sys.executable, __file__, case, str(workdir)],
-                          capture_output=True, text=True, timeout=600, env=env)
+                          capture_output=True, text=True, timeout=60, env=env)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
     return dict(np.load(workdir / "out.npz"))
 
@@ -315,6 +315,126 @@ def test_flow_send_recv_match_reference_across_wrap(tmp_path):
     assert bool((fs.granted < START).any() and (fs.limit < START).any()), \
         "the grant and limit counters never wrapped"
 
+
+
+# ------------------------------------------- metadata and the typed send
+def _one_rank_meshes():
+    return jax.make_mesh((1,), ("w",)), Mesh(1, "w", device="cpu")
+
+
+@pytest.mark.parametrize("cap, item", [(8, (4,)), (512, (256,))])
+def test_queue_metadata_nbytes_matches_reference(cap, item):
+    """O(1): the queue's metadata is the reference's count, whatever the
+    capacity and item size (the ring is window payload, not metadata)."""
+    jmesh, tmesh = _one_rank_meshes()
+    jdesc, _ = jq.queue_allocate(jmesh, "w", cap, item)
+    tdesc, _ = tq.queue_allocate(tmesh, cap, item)
+    small, _ = tq.queue_allocate(tmesh, 8, (4,))
+    assert tdesc.metadata_nbytes() == jdesc.metadata_nbytes() == small.metadata_nbytes()
+    assert tdesc.metadata_nbytes() == 48 + tdesc.window.metadata_nbytes()
+
+
+@pytest.mark.parametrize("cap", [8, 1024])
+def test_channel_metadata_counts_lanes_not_capacity(cap):
+    jmesh, tmesh = _one_rank_meshes()
+    jch_, _ = jch.channel_allocate(jmesh, "w", cap, [jch.Lane("a", (4,)), jch.Lane("b", (2,))])
+    tlanes = [tch.Lane("a", (4,)), tch.Lane("b", (2,))]
+    tch_, _ = tch.channel_allocate(tmesh, cap, tlanes)
+    small, _ = tch.channel_allocate(tmesh, 8, tlanes)
+    assert tch_.metadata_nbytes() == jch_.metadata_nbytes() == small.metadata_nbytes()
+    assert tch_.metadata_nbytes() == 2 * 32 + tch_.desc.metadata_nbytes()
+
+
+SEND_CAP, SEND_K, SEND_DRAIN = 4, 3, 4
+
+
+def _send_inputs():
+    """Two epochs on one rank: lane "a" (f32 [4]), then lane "b" (int32
+    [2]); the second overfills the 4-slot ring, and one message skips."""
+    rng = np.random.default_rng(7)
+    return [
+        ("a", rng.standard_normal((SEND_K, 4)).astype(np.float32),
+         np.array([5, 6, 7], np.int32), np.array([0, -1, 0], np.int32)),
+        ("b", rng.integers(-2**31, 2**31, (SEND_K, 2), dtype=np.int64).astype(np.int32),
+         np.array([8, 9, 10], np.int32), np.array([0, 0, 0], np.int32)),
+    ]
+
+
+def test_channel_send_recv_payload_match_reference():
+    """`Channel.send` + `recv` + `payload` against the reference's on a
+    one-device mesh, with a full ring: receipts, ring, decoded lanes."""
+    jmesh, tmesh = _one_rank_meshes()
+    jlanes = [jch.Lane("a", (4,), jnp.float32), jch.Lane("b", (2,), jnp.int32)]
+    tlanes = [tch.Lane("a", (4,), torch.float32), tch.Lane("b", (2,), torch.int32)]
+    jc, jst = jch.channel_allocate(jmesh, "w", SEND_CAP, jlanes)
+    tc, tst = tch.channel_allocate(tmesh, SEND_CAP, tlanes)
+    specs = jq.state_specs("w")
+    s1, s2, s3 = P("w"), P("w", None), P("w", None, None)
+    rejected = 0
+    for name, payload, tag, dest in _send_inputs():
+        def body(st, pl, tg, ds, name=name):
+            st, r = jc.send(jq.to_local(st), name, pl[0], tg[0], ds[0])
+            return (jq.to_global(st), r.accepted[None], r.n_sent[None],
+                    r.n_dropped[None], r.incoming[None], r.notifications[None])
+
+        f = jax.jit(shard_map(body, mesh=jmesh, in_specs=(specs, s3, s2, s2),
+                              out_specs=(specs, s2, s1, s1, s2, s1), check_vma=False))
+        jst, *jrec = f(jst, payload[None], tag[None], dest[None])
+        tst, trec = tc.send(tst, name, torch.from_numpy(payload)[None],
+                            torch.from_numpy(tag)[None], torch.from_numpy(dest)[None])
+        for got, want in zip(trec, jrec):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(got.numpy().dtype))
+        np.testing.assert_array_equal(_bits(tst.buf.numpy()), _bits(jst.buf))
+        np.testing.assert_array_equal(tst.ctrs.numpy(), np.asarray(jst.ctrs).astype(np.int64))
+        rejected += int(trec.n_dropped.sum())
+    assert rejected > 0, "the ring never ran full"
+
+    def rbody(st):
+        st, b = jc.recv(jq.to_local(st), SEND_DRAIN)
+        pa, ma = jc.payload(b, "a")
+        pb, mb = jc.payload(b, "b")
+        return (jq.to_global(st), b.lane_id[None], b.src[None], b.tag[None],
+                pa[None], ma[None], pb[None], mb[None])
+
+    f = jax.jit(shard_map(rbody, mesh=jmesh, in_specs=(specs,),
+                          out_specs=(specs, s2, s2, s2, s3, s2, s3, s2), check_vma=False))
+    jst, *jout = f(jst)
+    tst, batch = tc.recv(tst, SEND_DRAIN)
+    pa, ma = tc.payload(batch, "a")
+    pb, mb = tc.payload(batch, "b")
+    assert pa.dtype == torch.float32 and pb.dtype == torch.int32
+    for got, want in zip((batch.lane_id, batch.src, batch.tag, pa, ma, pb, mb), jout):
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+    np.testing.assert_array_equal(tst.ctrs.numpy(), np.asarray(jst.ctrs).astype(np.int64))
+    assert bool(ma.any()) and bool(mb.any()) and not bool((ma & mb).any())
+
+
+def test_channel_send_is_enqueue_of_packed_across_ranks():
+    """At p = 4, `Channel.send` is `enqueue` of `packed`, bit for bit: the
+    source stamped, -1 skipped, a full ring rejecting."""
+    mesh = Mesh(P_RANKS, "x", device="cpu")
+    lanes = [tch.Lane("a", (3,), torch.int32), tch.Lane("b", (2,), torch.float32)]
+    ch, st = tch.channel_allocate(mesh, CAP, lanes)
+    ch2, st2 = tch.channel_allocate(mesh, CAP, lanes)
+    rng = np.random.default_rng(3)
+    dropped = 0
+    for e in range(EPOCHS):
+        payload = torch.from_numpy(rng.integers(-2**31, 2**31, (P_RANKS, 5, 3),
+                                                dtype=np.int64).astype(np.int32))
+        tag = torch.from_numpy(rng.integers(0, 100, (P_RANKS, 5)).astype(np.int32))
+        dest = torch.from_numpy(rng.integers(-1, P_RANKS, (P_RANKS, 5)).astype(np.int32))
+        st, rec = ch.send(st, "a", payload, tag, dest)
+        st2, rec2 = tq.enqueue(ch2.desc, st2, ch2.packed("a", payload, tag), dest)
+        for got, want in zip(rec, rec2):
+            assert torch.equal(got, want)
+        assert torch.equal(st.buf.view(torch.int32), st2.buf.view(torch.int32))
+        assert torch.equal(st.ctrs, st2.ctrs)
+        dropped += int(rec.n_dropped.sum())
+        st, b = ch.recv(st, 1)
+        st2, _ = ch2.recv(st2, 1)
+    assert dropped > 0
+    srcs = b.src[b.valid]
+    assert bool((srcs >= 0).all() and (srcs < P_RANKS).all())
 
 if __name__ == "__main__":
     {"queue": _queue_child, "flow": _flow_child}[sys.argv[1]](pathlib.Path(sys.argv[2]))

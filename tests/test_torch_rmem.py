@@ -40,7 +40,7 @@ def _run_jax_child(case: str, workdir: pathlib.Path) -> dict:
                XLA_FLAGS=f"--xla_force_host_platform_device_count={P_RANKS}")
     env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run([sys.executable, __file__, case, str(workdir)],
-                          capture_output=True, text=True, timeout=600, env=env)
+                          capture_output=True, text=True, timeout=90, env=env)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
     return dict(np.load(workdir / "out.npz"))
 

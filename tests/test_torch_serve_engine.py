@@ -140,7 +140,7 @@ def reference(tmp_path_factory):
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run([sys.executable, __file__, str(d)], capture_output=True,
-                          text=True, timeout=300, env=env)
+                          text=True, timeout=150, env=env)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
     return dict(np.load(d / "out.npz"))
 
