@@ -439,6 +439,26 @@ no result line):
     written under the reference's three file names into a temporary
     directory and gated: a violation exits non-zero.  Counts only; no
     timing field.
+33. a model step split over a `ProcMesh`'s ``model`` axis: qwen1.5-110b at
+    its published widths cut to 8 of 80 layers (reduced: depth only),
+    keyed random bf16 weights (each leaf one layer slice at a time from a
+    generator keyed by seed, leaf and layer).  One process runs it whole:
+    `make_prefill_step` on 4 prompts of 64-256 tokens (the flash kernel),
+    `Model.prefill` of each into its row of one cache, 16 greedy
+    `make_serve_step` steps; then freed.  Four processes on the card run
+    it under ``ShardingPolicy(ProcMesh({"model": 4}), fsdp=False)``, each
+    drawing the same slices and keeping only its blocks (its weight bytes
+    must be its blocks' by the fitted specs), the same calls with the
+    decode teacher-forced on the whole run's tokens: every logit within
+    TP_REL (1/16) of the whole run's max |logit| of the whole run's, and
+    the argmax equal wherever the whole run's top-2 margin exceeds twice
+    that bound; 32 "wgmma" flash launches a rank (16 q
+    / 2 KV heads of 128), and exactly the ring collectives' row 4 peer
+    puts (1 + 2 x 8 all-reduces and one all-gather a forward), nothing
+    else.  Host ms of a forward, a prefill and a decode step, the
+    all-reduce at the decode shape beside `ProcMesh.psum`'s one round on
+    the same bytes (rounds counted as host barriers), row 4's peer put at
+    the all-reduce's chunk, and each rank's torch peak.
 
 ``python3 chip_smoke.py --gather-shift`` times only `rmem.pages.gather_shift`
 and `paged_gather` at the rendezvous pull's shape on the package beside the
@@ -458,7 +478,9 @@ and ends with the result line; ``--parallel-procs`` runs only phase 31,
 its rows of the kernels line (rows 4's peer form, 11 and 13 with this
 phase's launches and times), then the result line; ``--drift`` runs only
 phase 32's set A (set B reads the whole smoke's full-width runs) and ends
-with the result line.
+with the result line; ``--tp-procs`` runs only phase 33, its rows of the
+kernels line (row 4's peer form and row 11 with this phase's launches, row
+11 timed at a rank's attention shape), then the result line.
 
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after.
@@ -728,6 +750,22 @@ APPS_REPS, APPS_FFT_REPS, APPS_ARM_REPS = 7, 3, 11
 # as the grid that 4 survivors make with prefer_model 2, row 13 as one axis)
 PP_GRID, PP_ELASTIC, PP_GRID_ELASTIC = PAR_GRID, (4, 2), {"data": 2, "model": 2}
 PP_TURNS, RING_REPS, PP_TIMEOUT = ("hf", "fh", "hf"), 5, 300.0
+# phase 33: qwen1.5-110b at its published widths (src/repro/configs/qwen1_5_110b.py:
+# d_model 8192, 64 heads and 8 KV heads of 128, F 49152, vocab 152064, q/k/v
+# biases) cut to 8 of 80 layers, split over ProcMesh({"model": 4}) with
+# fsdp=False (the reference's pure-TP setting), 4 processes sharing the
+# card, against one process running the same weights whole.  The logits
+# differ by the partial sums' extra roundings (each rank's projection is
+# rounded to bf16 before the f32 sum, then again), which 8 random layers
+# carry to logits of std ~1.8: bf16 rounding, so it grows with the
+# logits' scale, as a bf16 run's own distance from an f32 one does.  Every
+# logit is held within TP_REL of the whole run's max |logit| (a missing or
+# doubled reduction moves them by their own scale), and the argmax
+# wherever the whole run's top-2 margin exceeds twice that bound (two
+# logits each within the bound cannot swap across a wider margin)
+TP_ARCH, TP_LAYERS, TP_RANKS, TP_SEED = "qwen1.5-110b", 8, 4, 33
+TP_PLENS, TP_STEPS, TP_REL, TP_TIMEOUT = (64, 128, 192, 256), 16, 2 ** -4, 600.0
+TP_GRID, TP_AR_REPS = {"model": TP_RANKS}, 20
 
 
 def log(msg: str) -> None:
@@ -1189,6 +1227,15 @@ def main() -> int:
         for name, n in run.items():
             next(r for r in kernels if r["name"] == name)["launches"] += n
     log(f"drift phase numbers: {json.dumps(drift)}")
+    torch.cuda.empty_cache()
+    tp = tp_serve_phases(torch, H100.hbm_bandwidth)
+    row4["launches"] += tp.pop("row4_launches")
+    next(r for r in kernels if r["name"] == "ring_all_gather_peer")["launches"] += tp.pop(
+        "row7_launches")
+    next(r for r in kernels if r["name"] == "flash_attention")["launches"] += tp.pop(
+        "row11_launches")
+    row4["tensor_parallel_put"] = tp.pop("put")
+    log(f"tp procs phase numbers: {json.dumps(tp)}")
     if len(kernels) != len(KERNELS):
         raise AssertionError(f"{len(kernels)} kernel rows, want {len(KERNELS)}")
     log(f"smoke wall time: {time.perf_counter() - T0:.1f} s")
@@ -3117,10 +3164,10 @@ def train_phase(torch, np, model, L, fops) -> dict:
     real_mlp = L.mlp
     taps: dict = {}
 
-    def tap(p, x, mlp_type="swiglu"):    # layer 0's MLP input and weights, last step
+    def tap(p, x, *args, **kw):          # layer 0's MLP input and weights, last step
         if not taps:
             taps.update(x=x.detach().clone(), **{k: v.detach().clone() for k, v in p.items()})
-        return real_mlp(p, x, mlp_type)
+        return real_mlp(p, x, *args, **kw)
 
     losses, times, launches, wgmma = [], [], [], []
     L.set_attention_backend("cuda")
@@ -7067,21 +7114,22 @@ def grads_equal(torch, tree, stacked, at: tuple) -> bool:
                for a, b in zip(tree_leaves(tree), tree_leaves(stacked), strict=True))
 
 
-def pp_put_row(torch, mesh, rma_ops, ref, nwords: int, hbm: float) -> dict:
-    """Row 4's peer form on the `data` sub-axis at P1's largest in-pod hop
-    (`nwords` f32): bit-equal to its plain version on every rank; then the
-    kernel alone (its launch, no fence; CUDA events) and its plain copy
-    into the right neighbour's block, timed by rank 0 while the others wait
-    at a barrier."""
+def pp_put_row(torch, mesh, rma_ops, ref, nwords: int, hbm: float, axis: str = "data",
+               phase: int = 31) -> dict:
+    """Row 4's peer form on the `axis` sub-axis at `nwords` f32 (phase 31:
+    P1's largest in-pod hop): bit-equal to its plain version on every rank;
+    then the kernel alone (its launch, no fence; CUDA events) and its plain
+    copy into the right neighbour's block, timed by rank 0 while the others
+    wait at a barrier."""
     from repro_torch.kernels import common
     from repro_torch.procmesh import as_bytes
 
-    sub = mesh.along("data")
-    g = torch.Generator(device=mesh.device).manual_seed(PROC_SEED + 31 + mesh.rank)
+    sub = mesh.along(axis)
+    g = torch.Generator(device=mesh.device).manual_seed(PROC_SEED + phase + mesh.rank)
     x = torch.randn(1, 1, nwords, device=mesh.device, generator=g)
     if not torch.equal(rma_ops.put_shift(x, 1, sub), ref.put_shift_ref(x, 1, sub)):
-        raise AssertionError(f"31 rank {mesh.rank}: row 4's peer form on the data axis "
-                             "differs from its plain version")
+        raise AssertionError(f"{phase} rank {mesh.rank}: row 4's peer form on the {axis} "
+                             "axis differs from its plain version")
     seg, off = sub.round(x.nbytes)
     stream, xb = common.current_stream(mesh.device.index), as_bytes(x)
     right = seg.view(sub.rank + 1, off, x.nbytes)
@@ -7317,10 +7365,10 @@ def pp_inputs(torch, hbm: float, d: str) -> dict:
     pmesh = Mesh(PIPE_STAGES, "pod", device="cuda")
     real_mlp, taps = L.mlp, {}
 
-    def tap(p, x, mlp_type="swiglu"):
+    def tap(p, x, *args, **kw):
         if not taps:
             taps.update(x=x.detach().clone(), w_in=p["w_in"].detach().clone())
-        return real_mlp(p, x, mlp_type)
+        return real_mlp(p, x, *args, **kw)
 
     L.set_attention_backend("cuda")
     try:
@@ -7968,12 +8016,437 @@ def conformance_only() -> int:
     return 0
 
 
+# ----------------------- phase 33: a model step split over the model axis
+def tp_config(get_config):
+    import dataclasses
+
+    return dataclasses.replace(get_config(TP_ARCH), n_layers=TP_LAYERS)
+
+
+def tp_std(cfg, path: str):
+    """The std of a dense leaf's draw (None: the norm scales, ones): the
+    port's init scales, and 0.02 for the q/k/v biases (the port's init
+    makes them 0), so that their split is exercised too."""
+    leaf = path.rsplit("/", 1)[-1]
+    if leaf == "scale":
+        return None
+    if leaf in ("embed", "lm_head", "bq", "bk", "bv"):
+        return 0.02
+    return (cfg.d_ff if leaf == "w_out" else cfg.d_model) ** -0.5
+
+
+def keyed_params(torch, cfg, seed: int, policy=None) -> dict:
+    """Random bf16 weights of a dense `cfg` on the card, each leaf drawn one
+    layer slice at a time from a `torch.Generator` keyed by (seed, leaf,
+    layer).  Under a policy that splits the model over processes each slice
+    is drawn whole and only this rank's block of it is kept, so the ranks
+    hold the blocks of the very values a whole run makes, and no process
+    holds more than one slice of a leaf beyond its blocks."""
+    from repro_torch.ckpt.checkpoint import _unflatten_like, flatten
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+
+    shapes = build_model(cfg).init_shapes()
+    cut = dict(flatten(policy.tree_shardings(shapes))) if policy is not None else {}
+    out = {}
+    for i, (path, leaf) in enumerate(flatten(shapes)):
+        shape, std = tuple(leaf.shape), tp_std(cfg, path)
+        stacked = path.startswith("blocks/")
+        one = shape[1:] if stacked else shape
+        at = (cut[path].index(policy.mesh.coords, shape)[1 if stacked else 0:]
+              if path in cut else None)
+        dst = None
+        for j in range(shape[0] if stacked else 1):
+            if std is None:
+                full = torch.ones(one, dtype=torch.bfloat16, device="cuda")
+            else:
+                g = torch.Generator(device="cuda").manual_seed(seed * 1_000_003 + i * 1_009 + j)
+                full = L._normal(g, one, std, torch.bfloat16, "cuda")
+            blk = full if at is None else full[at]
+            if not stacked:
+                dst = blk.clone()
+                break
+            if dst is None:
+                dst = torch.empty((shape[0],) + tuple(blk.shape), dtype=blk.dtype, device="cuda")
+            dst[j] = blk
+            del full, blk
+        out[path] = dst
+    return _unflatten_like(shapes, out)
+
+
+def tp_bytes(torch, cfg, policy) -> dict:
+    """The weight bytes a rank holds by the fitted specs: each leaf's block
+    at this rank's coordinate; and the whole model's, split and whole."""
+    from repro_torch.ckpt.checkpoint import flatten
+    from repro_torch.models import build_model
+
+    shapes = build_model(cfg).init_shapes()
+    out = {"rank": 0, "whole": 0, "split_whole": 0}
+    for (path, leaf), (_, ns) in zip(flatten(shapes), flatten(policy.tree_shardings(shapes))):
+        n = leaf.numel() * leaf.element_size()
+        block = math.prod(len(range(*s.indices(d))) for s, d in
+                          zip(ns.index(policy.mesh.coords, leaf.shape), leaf.shape))
+        out["whole"] += n
+        out["rank"] += block * leaf.element_size()
+        if block != leaf.numel():
+            out["split_whole"] += n
+    return out
+
+
+def tp_prompts(torch, cfg) -> list:
+    g = torch.Generator(device="cuda").manual_seed(TP_SEED)
+    return [torch.randint(0, cfg.vocab_size, (n,), generator=g, device="cuda")
+            for n in TP_PLENS]
+
+
+def tp_serve(torch, model, params, prompts: list, policy, tokens=None) -> dict:
+    """Phase 33's main path, under `policy` (None: whole): make_prefill_step
+    on each prompt alone (`forward_logits`, the flash kernel), Model.prefill
+    of each into its own row of one cache made under the policy, then
+    TP_STEPS make_serve_step steps over the rows, greedy or teacher-forced
+    on `tokens` [TP_STEPS, rows].  Logits, the tokens fed and host ms."""
+    from repro_torch.parallel.sharding import use_policy
+    from repro_torch.train.train_step import make_prefill_step, make_serve_step
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    pre, serve = make_prefill_step(model, policy), make_serve_step(model, policy)
+    fwd, fwd_ms = [], []
+    for p in prompts:
+        lg, ms = timed(lambda: pre(params, {"tokens": p[None]}))
+        fwd.append(lg[0])
+        fwd_ms.append(ms)
+    with use_policy(policy):
+        cache = model.init_cache(len(prompts), max(TP_PLENS) + TP_STEPS, device="cuda")
+    last, pre_ms = [], []
+    for b, p in enumerate(prompts):
+        row = {"kv": {k: v[:, b:b + 1] for k, v in cache["kv"].items()},
+               "len": torch.zeros((), dtype=torch.int32, device="cuda")}
+        with torch.no_grad(), use_policy(policy):
+            (lg, _), ms = timed(lambda: model.prefill(params, p[None], row))
+        last.append(lg[0])
+        pre_ms.append(ms)
+    cache["len"] = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device="cuda")
+    tok = torch.stack(last).argmax(-1)
+    fed, steps, step_ms = [], [], []
+    for s in range(TP_STEPS):
+        if tokens is not None:
+            tok = tokens[s]
+        fed.append(tok)
+        (lg, cache), ms = timed(lambda: serve(params, tok, cache))
+        steps.append(lg)
+        step_ms.append(ms)
+        tok = lg.argmax(-1)
+    return {"forward": fwd, "prefill": torch.stack(last), "steps": torch.stack(steps),
+            "tokens": torch.stack(fed), "forward_ms": fwd_ms, "prefill_ms": pre_ms,
+            "step_ms": step_ms}
+
+
+def tp_margin(torch, logits):
+    """The top-2 margin of each row of logits [..., V] (f32)."""
+    top = logits.float().topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def tp_bounds(want: dict) -> dict:
+    """Each part's bound: TP_REL of the whole run's max |logit| there."""
+    return {"forward": TP_REL * max(float(b.float().abs().max()) for b in want["forward"]),
+            **{part: TP_REL * float(want[part].float().abs().max())
+               for part in ("prefill", "steps")}}
+
+
+def tp_check(torch, got: dict, want: dict) -> dict:
+    """Max abs logit error of each part, and the count of argmax changes
+    where the whole run's top-2 margin exceeds twice the part's bound."""
+    bound = tp_bounds(want)
+    pairs = {"forward": list(zip(got["forward"], want["forward"])),
+             "prefill": [(got["prefill"], want["prefill"])],
+             "steps": list(zip(got["steps"], want["steps"]))}
+    out, flips = {}, 0
+    for part, ab in pairs.items():
+        errs = [float((a.float() - b.float()).abs().max()) for a, b in ab]
+        out[part] = max(errs)
+        for a, b in ab:
+            sure = tp_margin(torch, b) > 2 * bound[part]
+            flips += int(((a.argmax(-1) != b.argmax(-1)) & sure).sum())
+        if part == "steps":
+            out["steps_by_step"] = errs
+    out["argmax_flips_beyond_bound"] = flips
+    return out
+
+
+def tp_rank(mesh, ref: dict, hbm: float) -> dict:
+    """Phase 33 in one rank's process of ProcMesh({"model": 4}): its blocks
+    of the keyed weights, the main path under ShardingPolicy(mesh,
+    fsdp=False) teacher-forced on the whole run's tokens (its launch counts
+    zeroed before and read after), the logits held to the whole run's; then
+    one decode-shape all-reduce timed beside `ProcMesh.psum` on the same
+    bytes, and row 4's peer put at the all-reduce's chunk."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.rma import OpCounter
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rma import ops as rma_ops
+    from repro_torch.kernels.rma import ref as rma_ref
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.parallel.sharding import ShardingPolicy
+
+    t0 = time.perf_counter()
+    cfg = tp_config(get_config)
+    model = build_model(cfg)
+    policy = ShardingPolicy(mesh, fsdp=False)
+    torch.cuda.reset_peak_memory_stats()
+    params = keyed_params(torch, cfg, TP_SEED, policy)
+    torch.cuda.synchronize()
+    out = {"rank": mesh.rank, "model_rank": policy.model_rank, "init_s": time.perf_counter() - t0,
+           "bytes": sum(v.nbytes for v in flat_leaves(params).values()),
+           "want_bytes": tp_bytes(torch, cfg, policy)}
+    L.set_attention_backend("cuda")
+    fops.launches = 0
+    fops.launches_by_variant = {k: 0 for k in fops.launches_by_variant}
+    zero_rma_launches(rma_ops)
+    b0 = mesh.barriers
+    try:
+        with OpCounter() as c:
+            run = tp_serve(torch, model, params, ref["prompts"], policy, ref["tokens"])
+        torch.cuda.synchronize()
+    finally:
+        L.set_attention_backend("torch")
+    out["launches"] = {"flash": fops.launches, "wgmma": fops.launches_by_variant["wgmma"],
+                       **rma_ops.launches}
+    out["puts"], out["barriers"] = c.puts, mesh.barriers - b0
+    out["err"] = tp_check(torch, run, ref)
+    out["tokens_equal"] = bool(torch.equal(run["tokens"], ref["tokens"]))
+    for k in ("forward_ms", "prefill_ms", "step_ms"):
+        out[k] = run[k]
+    del run
+    out["peak_allocated"] = torch.cuda.max_memory_allocated()
+
+    # one all-reduce at the decode shape, beside psum's one round on the same bytes
+    g = torch.Generator(device="cuda").manual_seed(TP_SEED + 1 + mesh.rank)
+    y = torch.randn(len(TP_PLENS), 1, cfg.d_model, generator=g, device="cuda").to(torch.bfloat16)
+    ring = policy.all_reduce(y)
+    one = mesh.psum(y.float()[None], "model")[0].to(y.dtype)
+    out["ar_vs_psum"] = float((ring.float() - one.float()).abs().max())
+    b1 = mesh.barriers
+    out["ar_ms"] = host_ms(torch, mesh, lambda: policy.all_reduce(y), TP_AR_REPS)
+    b2 = mesh.barriers
+    out["psum_ms"] = host_ms(torch, mesh, lambda: mesh.psum(y.float()[None], "model"),
+                             TP_AR_REPS)
+    b3 = mesh.barriers
+    # host_ms runs the call once more before its timed reps, and one barrier
+    out["ar_rounds"] = (b2 - b1 - 1) / (TP_AR_REPS + 1)
+    out["psum_rounds"] = (b3 - b2 - 1) / (TP_AR_REPS + 1)
+    out["ar_bytes"] = y.numel() * 4
+    out["put"] = pp_put_row(torch, mesh, rma_ops, rma_ref, y.numel() // TP_RANKS, hbm,
+                            axis="model", phase=33)
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def tp_serve_phases(torch, hbm: float) -> dict:
+    """Phase 33: qwen1.5-110b at full width, 8 of 80 layers, split over
+    ProcMesh({"model": 4}) in 4 processes on the card, against one process
+    running the same keyed weights whole (run first, then freed).  Returns
+    the phase's numbers and the kernel rows' launches."""
+    from repro_torch import procmesh
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+
+    t0 = time.perf_counter()
+    card = card_line()
+    cfg = tp_config(get_config)
+    log(f"phase 33: {TP_ARCH} at full width, {TP_LAYERS} of 80 layers (reduced: depth only), "
+        f"split over ProcMesh({TP_GRID}) with fsdp=False in {TP_RANKS} processes sharing one "
+        f"card ({card}); no link is crossed")
+    model = build_model(cfg)
+    params = keyed_params(torch, cfg, TP_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    whole_bytes = sum(v.nbytes for v in flat_leaves(params).values())
+    prompts = tp_prompts(torch, cfg)
+    L.set_attention_backend("cuda")
+    before = fops.launches
+    try:
+        want = tp_serve(torch, model, params, prompts, None)
+    finally:
+        L.set_attention_backend("torch")
+    whole_flash = fops.launches - before
+    fops.launches = before          # the comparison run's launches are not the path's
+    torch.cuda.synchronize()
+    whole_peak = torch.cuda.max_memory_allocated()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = {"prompts": prompts, "tokens": want["tokens"], "forward": want["forward"],
+           "prefill": want["prefill"], "steps": want["steps"]}
+    t1 = time.perf_counter()
+    ranks = procmesh.run(tp_rank, TP_RANKS, device="cuda", args=(ref, hbm), axes=TP_GRID,
+                         timeout=TP_TIMEOUT)
+    run_s = time.perf_counter() - t1
+    margins = float(tp_margin(torch, want["steps"]).min())
+    bounds = tp_bounds(want)
+    scale = {k: v / TP_REL for k, v in bounds.items()}
+    del ref
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+
+    n_fwd = 2 * len(TP_PLENS) + TP_STEPS
+    gather = 2 * -(-(TP_RANKS - 1) // 2)
+    want_puts = n_fwd * ((1 + 2 * TP_LAYERS) * (TP_RANKS - 1 + gather) + gather)
+    want_flash = len(TP_PLENS) * TP_LAYERS
+    for res in ranks:
+        r, e, lc = res["rank"], res["err"], res["launches"]
+        wb = res["want_bytes"]
+        if res["bytes"] != wb["rank"] or wb["rank"] != (wb["whole"] - wb["split_whole"]
+                                                       + wb["split_whole"] // TP_RANKS):
+            raise AssertionError(f"33 rank {r}: {res['bytes']} weight bytes, its blocks' "
+                                 f"{wb}")
+        if wb["whole"] != whole_bytes:
+            raise AssertionError(f"33: the whole model is {whole_bytes} bytes, the specs "
+                                 f"say {wb['whole']}")
+        over = [k for k in bounds if e[k] > bounds[k]]
+        if over or e["argmax_flips_beyond_bound"] or not res["tokens_equal"]:
+            raise AssertionError(f"33 rank {r}: logits {e} vs the whole run (bounds {bounds}),"
+                                 f" tokens fed equal {res['tokens_equal']}")
+        if (lc["flash"], lc["wgmma"]) != (want_flash, want_flash):
+            raise AssertionError(f"33 rank {r}: flash launches {lc['flash']} (wgmma "
+                                 f"{lc['wgmma']}), want {want_flash}, all wgmma")
+        if lc["put_shift"] != want_puts or res["puts"] != want_puts or any(
+                lc[k] for k in lc if k not in ("flash", "wgmma", "put_shift")):
+            raise AssertionError(f"33 rank {r}: rma launches {lc}, puts {res['puts']}, want "
+                                 f"{want_puts} row 4 peer puts and nothing else")
+        if res["ar_vs_psum"] > 2 ** -7 * 8:
+            raise AssertionError(f"33 rank {r}: the ring all-reduce is {res['ar_vs_psum']:.3g} "
+                                 "from psum's")
+    if sorted(x["model_rank"] for x in ranks) != list(range(TP_RANKS)):
+        raise AssertionError(f"33: model ranks {[x['model_rank'] for x in ranks]}")
+    wb = ranks[0]["want_bytes"]
+    steps = [t for x in ranks for t in x["step_ms"][1:]]
+    fwd = [t for x in ranks for t in x["forward_ms"][1:]]
+    pre = [t for x in ranks for t in x["prefill_ms"][1:]]
+    errs = {k: max(x["err"][k] for x in ranks) for k in ("forward", "prefill", "steps")}
+    log(f"33 whole run in this process ({card}): {whole_bytes / 1e9:.3f} GB of weights "
+        f"(keyed init {init_s:.1f} s), peak {whole_peak / 2**30:.2f} GiB, {want_flash} flash "
+        f"launches; ms: forward {[round(t, 2) for t in want['forward_ms']]}, prefill "
+        f"{[round(t, 2) for t in want['prefill_ms']]}, decode step median "
+        f"{median(want['step_ms'][1:]):.2f}; smallest top-2 margin of a step {margins:.4f}")
+    log(f"33 split over {TP_RANKS} processes ({card}): each rank {wb['rank'] / 1e9:.3f} GB "
+        f"of weights = the split leaves' 1/{TP_RANKS} ({wb['split_whole'] / 1e9:.3f} GB whole) "
+        f"+ the whole ones ({(wb['whole'] - wb['split_whole']) / 1e9:.6f} GB); torch peak a "
+        f"rank {[round(x['peak_allocated'] / 2**30, 2) for x in ranks]} GiB")
+    log(f"33 logits vs the whole run, max abs over ranks: forward (4 prompts of {TP_PLENS}) "
+        f"{errs['forward']:.4g}, prefill last {errs['prefill']:.4g}, {TP_STEPS} teacher-forced "
+        f"decode steps {errs['steps']:.4g} (by step "
+        f"{[round(max(x['err']['steps_by_step'][s] for x in ranks), 4) for s in range(TP_STEPS)]}"
+        f"); the whole run's max |logit| {scale}, bounds (TP_REL = {TP_REL:g} of it) "
+        f"{bounds}; argmax equal wherever the top-2 margin exceeds twice the bound")
+    log(f"33 launches a rank: row 11 {want_flash} (all wgmma, 16 q / 2 KV heads of 128 a "
+        f"rank), row 4 peer {want_puts} (= {n_fwd} forwards x ({1 + 2 * TP_LAYERS} all-reduces"
+        f" x {TP_RANKS - 1 + gather} puts + 1 all-gather x {gather}), row 7 peer 0 (the "
+        f"gather is the ring of row 4 puts); host barriers a rank {ranks[0]['barriers']}")
+    log(f"33 host ms ({card}), all ranks' samples after each one's first: forward "
+        f"(make_prefill_step) {spread(fwd)}, Model.prefill {spread(pre)}, decode step "
+        f"{spread(steps)}; whole: decode step {median(want['step_ms'][1:]):.3f}")
+    ar = [x["ar_ms"] for x in ranks]
+    ps = [x["psum_ms"] for x in ranks]
+    log(f"33 all-reduce at the decode shape ({ranks[0]['ar_bytes']} B f32 a rank, {card}): "
+        f"ring {spread(ar)}, {ranks[0]['ar_rounds']:g} rounds (host barriers) a call; "
+        f"ProcMesh.psum on the same bytes {spread(ps)}, {ranks[0]['psum_rounds']:g} round; "
+        f"ring vs psum max abs {max(x['ar_vs_psum'] for x in ranks):.3g}")
+    put = ranks[0]["put"]
+    log(f"33 row 4 peer put at the all-reduce's chunk ({put['bytes'] // 2} B, rank 0 alone): "
+        f"kernel {put['ms'] * 1e3:.1f} us, plain copy_ {put['plain_ms'] * 1e3:.1f} us, bound "
+        f"{put['bound_ms'] * 1e3:.2f} us (bytes)")
+    wall = time.perf_counter() - t0
+    log(f"33: ranks' run {run_s:.1f} s (init {max(x['init_s'] for x in ranks):.1f} s), phase "
+        f"{wall:.1f} s")
+    return {"card": card, "row4_launches": sum(x["launches"]["put_shift"] for x in ranks),
+            "row11_launches": sum(x["launches"]["flash"] for x in ranks),
+            "row7_launches": sum(x["launches"]["ring_all_gather"] for x in ranks),
+            "put": put, "reduced": {"n_layers": [80, TP_LAYERS]},
+            "err": errs, "bounds": bounds, "max_logit": scale,
+            "weights_gb_rank": wb["rank"] / 1e9,
+            "weights_gb_whole": whole_bytes / 1e9,
+            "peak_gib": [x["peak_allocated"] / 2**30 for x in ranks],
+            "whole_peak_gib": whole_peak / 2**30,
+            "forward_ms": fwd, "prefill_ms": pre, "step_ms": steps,
+            "whole_step_ms": want["step_ms"], "whole_forward_ms": want["forward_ms"],
+            "whole_prefill_ms": want["prefill_ms"], "whole_flash": whole_flash,
+            "ar_ms": ar, "psum_ms": ps, "ar_rounds": ranks[0]["ar_rounds"],
+            "psum_rounds": ranks[0]["psum_rounds"], "ar_bytes": ranks[0]["ar_bytes"],
+            "barriers": ranks[0]["barriers"], "puts_per_rank": want_puts,
+            "run_s": run_s, "wall_s": wall}
+
+
+def tp_procs_only() -> int:
+    """``python3 chip_smoke.py --tp-procs``: phase 33 alone, on the package
+    beside this file (the kernels build first).  Prints the kernels line of
+    rows 4 (peer) and 11 with this phase's launches and times (row 7's peer
+    launches, none, among the numbers), then the result line."""
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.configs import get_config
+    from repro_torch.core.perfmodel import H100
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products, as in main()
+    log(card_line())
+    build_all(common)
+    tp = tp_serve_phases(torch, H100.hbm_bandwidth)
+    # row 11 at a rank's attention shape: 16 q / 2 KV heads, the longest prompt
+    cfg = tp_config(get_config)
+    g = torch.Generator(device="cuda").manual_seed(TP_SEED)
+    S = max(TP_PLENS)
+    q, k, v = (torch.randn(1, h // TP_RANKS, S, cfg.hd, generator=g, device="cuda")
+               .to(torch.bfloat16) for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    err = float((fops.flash_attention(q, k, v).float() - fref.attention_ref(q, k, v).float())
+                .abs().max())
+    if err > BF16_TOL:
+        raise AssertionError(f"flash_attention at a rank's shape: {err:.3g} from plain")
+    flash = time_flash(torch, F, fops, fref, q, k, v, H100.hbm_bandwidth)
+    put = tp.pop("put")
+    rows = [{"name": "put_shift_peer", "route": KERNELS["put_shift_peer"][0],
+             "source": KERNELS["put_shift_peer"][1], "replaces": KERNELS["put_shift_peer"][2],
+             "launches": tp.pop("row4_launches"), "max_abs_err": 0.0, "ms": put["ms"],
+             "plain_ms": put["plain_ms"], "bound_ms": put["bound_ms"], "bound_by": "bytes",
+             "library_ms": put["plain_ms"]},
+            {"name": "flash_attention", "route": KERNELS["flash_attention"][0],
+             "source": KERNELS["flash_attention"][1], "replaces": KERNELS["flash_attention"][2],
+             "launches": tp.pop("row11_launches"), "max_abs_err": err,
+             **{key: flash[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms")}}]
+    log(f"tp procs phase numbers: {json.dumps(tp)}")
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 MODES = {"--gather-shift": gather_shift_only, "--queue-push": queue_push_only,
          "--pool": pool_only, "--apps": apps_only, "--zoo": zoo_only,
          "--parallel": parallel_only, "--conformance": conformance_only,
          "--tools": tools_only, "--procs": procs_only,
          "--disagg-procs": disagg_procs_only, "--apps-procs": apps_procs_only,
-         "--parallel-procs": parallel_procs_only, "--drift": drift_only}
+         "--parallel-procs": parallel_procs_only, "--drift": drift_only,
+         "--tp-procs": tp_procs_only}
 
 if __name__ == "__main__":
     sys.exit(MODES[sys.argv[1]]() if sys.argv[1:] else main())

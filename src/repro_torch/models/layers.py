@@ -16,7 +16,16 @@ position a row): RoPE positions, the cache write offset, ``q_offset`` and
 
 ``shard(...)`` sits at the reference's sites (`parallel.sharding`): under a
 policy it checks the logical name and returns its input, since a placement
-changes no value on one card.  `grad_cast_bf16` rounds the cotangent entering `unembed` to
+changes no value on one card.  Under a policy that splits the model over
+processes (`parallel.sharding.tensor_parallel`) the params are this rank's
+blocks, and the model's whole sizes (``heads``, ``d_ff``, ``vocab``) say
+which of them are split: `attention` runs over its own q heads (each meets
+its own GQA group's K/V heads, a selection of them where K/V are whole and
+q split), `mlp` over its own slice of F, and both all-reduce the partial
+sum of a projection whose contraction dim is split; `embed` looks up the
+ids of its own block of the vocabulary, zeros for the rest, and
+all-reduces; `unembed` all-gathers its block of the logits into the whole
+vocabulary.  `grad_cast_bf16` rounds the cotangent entering `unembed` to
 bf16, as the reference's custom VJP does; remat is `transformer.set_remat`.
 """
 
@@ -29,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ..obs import cost
-from ..parallel.sharding import shard
+from ..parallel.sharding import ShardingPolicy, shard, tensor_parallel
 
 DEFAULT_BLOCK = 512
 
@@ -245,21 +254,26 @@ def attention(
     cache: Optional[dict] = None,   # {"k": [B,Smax,Hkv,hd], "v": ..., "len": [] or [B]}
     cross_kv: Optional[tuple] = None,   # precomputed (k, v) [B, Sk, Hkv, hd]
     block_size: int = DEFAULT_BLOCK,
+    heads: Optional[tuple] = None,      # the model's (n_heads, n_kv_heads)
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """GQA attention, optionally with a decode cache or cross-attention K/V.
     Cross-attention projects q only, applies no RoPE, always runs blockwise
     and non-causal (the reference never sends it to the kernel) and returns
-    the cache untouched."""
+    the cache untouched.  Under a model split over processes `heads` is
+    required and params, cache and `cross_kv` hold this rank's heads."""
     B, S, D = x.shape
+    tp = tensor_parallel()
+    group, reduce = _local_heads(tp, params, heads, D)
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     if "bq" in params:
         q = q + params["bq"]
     q = shard(q, "act_bthd")
     if cross_kv is not None:
-        k, v = cross_kv
+        k, v = (_take_heads(t, group) for t in cross_kv)
         with cost.scope("attention"):
             out = blockwise_attention(q, k, v, causal=False, block_size=block_size)
-        return shard(torch.einsum("bshk,hkd->bsd", out, params["wo"]), "act_btd"), cache
+        y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+        return shard(tp.all_reduce(y) if reduce else y, "act_btd"), cache
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
     if "bk" in params:
@@ -267,6 +281,7 @@ def attention(
     q = apply_rope(q, positions, rope_style)
     k = apply_rope(k, positions, rope_style)
     if cache is None:
+        k, v = _take_heads(k, group), _take_heads(v, group)
         with cost.scope("attention"):
             if _ATTN_BACKEND[0] == "cuda":
                 from ..kernels.flash_attention.ops import flash_attention
@@ -291,12 +306,55 @@ def attention(
         new_cache = {"k": ck, "v": cv, "len": start + S}
         with cost.scope("attention"):
             out = blockwise_attention(
-                q, ck, cv, causal=True, q_offset=start,
-                block_size=block_size, kv_valid_len=start + S,
+                q, _take_heads(ck, group), _take_heads(cv, group), causal=True,
+                q_offset=start, block_size=block_size, kv_valid_len=start + S,
             )
 
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
-    return shard(y, "act_btd"), new_cache
+    return shard(tp.all_reduce(y) if reduce else y, "act_btd"), new_cache
+
+
+def _is_split(tp: ShardingPolicy, path: str, local: torch.Tensor, shape: tuple,
+              dim: int) -> bool:
+    """Whether this rank's leaf `local` at `path` holds dim `dim` of the
+    whole `shape` split over ``model`` (else whole); a leaf of neither size
+    (the whole weights where blocks were due) is refused."""
+    split = tp.splits(path, shape, dim)
+    want = shape[dim] // tp.tp if split else shape[dim]
+    if local.shape[dim] != want:
+        raise ValueError(f"{path}: this rank holds {local.shape[dim]} of dim {dim} of "
+                         f"{tuple(shape)}, its block has {want}: give each rank its blocks "
+                         "(ShardingPolicy.local_params or params_from_jax(..., policy=))")
+    return split
+
+
+def _local_heads(tp: Optional[ShardingPolicy], params: dict, heads: Optional[tuple],
+                 D: int) -> tuple[Optional[torch.Tensor], bool]:
+    """Under a model split: (the local K/V head each local q head attends
+    with, or None where the local heads already form GQA groups in order;
+    whether ``wo``'s heads are split, so that its sum is reduced)."""
+    if tp is None:
+        return None, False
+    if heads is None:
+        raise ValueError("attention under a model split over processes needs heads="
+                         "(n_heads, n_kv_heads)")
+    H, Hkv = heads
+    hd = params["wq"].shape[-1]
+    hq, hkv = params["wq"].shape[-2], params["wk"].shape[-2]
+    q0 = tp.model_rank * hq if _is_split(tp, "wq", params["wq"], (D, H, hd), 1) else 0
+    kv0 = tp.model_rank * hkv if _is_split(tp, "wk", params["wk"], (D, Hkv, hd), 1) else 0
+    reduce = _is_split(tp, "wo", params["wo"], (H, hd, D), 0)
+    g = H // Hkv
+    kv_of = [(q0 + i) // g - kv0 for i in range(hq)]
+    if hq % hkv == 0 and kv_of == [i // (hq // hkv) for i in range(hq)]:
+        return None, reduce
+    return torch.tensor(kv_of, device=params["wq"].device), reduce
+
+
+def _take_heads(t: torch.Tensor, group: Optional[torch.Tensor]) -> torch.Tensor:
+    """t [B, S, Hkv, hd] with one K/V head a local q head where `group`
+    says so (`_local_heads`), else t itself."""
+    return t if group is None else t.index_select(2, group)
 
 
 def make_cache(batch: int, max_seq: int, n_kv: int, head_dim: int,
@@ -322,14 +380,24 @@ def init_mlp(gen, d_model: int, d_ff: int, mlp_type: str = "swiglu",
     return p
 
 
-def mlp(params: dict, x: torch.Tensor, mlp_type: str = "swiglu") -> torch.Tensor:
+def mlp(params: dict, x: torch.Tensor, mlp_type: str = "swiglu",
+        d_ff: Optional[int] = None) -> torch.Tensor:
+    """Under a model split over processes `d_ff` (the model's F) is required
+    and the params are this rank's slice of F."""
     h = x @ params["w_in"]
     if mlp_type == "swiglu":
         h = F.silu(x @ params["w_gate"]) * h
     else:
         h = F.gelu(h, approximate="tanh")      # jax.nn.gelu's default form
     h = shard(h, "act_btf")
-    return shard(h @ params["w_out"], "act_btd")
+    y = h @ params["w_out"]
+    tp = tensor_parallel()
+    if tp is not None:
+        if d_ff is None:
+            raise ValueError("mlp under a model split over processes needs d_ff=")
+        if _is_split(tp, "w_out", params["w_out"], (d_ff, x.shape[-1]), 0):
+            y = tp.all_reduce(y)
+    return shard(y, "act_btd")
 
 
 def sinusoidal_pos(positions: torch.Tensor, d_model: int) -> torch.Tensor:
@@ -358,13 +426,44 @@ def init_embed(gen, vocab: int, d_model: int, tie: bool, dtype=torch.bfloat16,
     return p
 
 
-def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return shard(params["embed"][tokens.long()], "act_btd")
+def embed(params: dict, tokens: torch.Tensor, vocab: Optional[int] = None) -> torch.Tensor:
+    """Under a model split over processes `vocab` (the model's) is required;
+    a rank whose block of the table is split looks up the ids in its block,
+    zeros for the rest, and the all-reduce sums the one row each id has."""
+    w, ids = params["embed"], tokens.long()
+    tp = tensor_parallel()
+    if tp is None or not _split_vocab(tp, "embed", w, vocab, 0):
+        return shard(w[ids], "act_btd")
+    n = w.shape[0]
+    ids = ids - tp.model_rank * n
+    mine = (ids >= 0) & (ids < n)
+    h = torch.where(mine[..., None], w[ids.clamp(0, n - 1)], 0)
+    return shard(tp.all_reduce(h), "act_btd")
 
 
-def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
+def unembed(params: dict, x: torch.Tensor, vocab: Optional[int] = None) -> torch.Tensor:
+    """Under a model split over processes `vocab` is required; a rank whose
+    block of ``lm_head`` (or, tied, of ``embed``) is split computes its
+    block of the logits and all-gathers the whole vocabulary."""
     w = params.get("lm_head")
-    if w is None:
+    tied = w is None
+    if tied:
         w = params["embed"].T
     x = grad_cast_bf16(x)       # keep the backward residual stream in bf16
-    return shard(torch.einsum("bsd,dv->bsv", x, w), "logits")
+    logits = torch.einsum("bsd,dv->bsv", x, w)
+    tp = tensor_parallel()
+    if tp is not None and (_split_vocab(tp, "embed", params["embed"], vocab, 0) if tied
+                           else _split_vocab(tp, "lm_head", w, vocab, 1)):
+        logits = tp.all_gather(logits, dim=-1)
+    return shard(logits, "logits")
+
+
+def _split_vocab(tp: ShardingPolicy, path: str, w: torch.Tensor, vocab: Optional[int],
+                 dim: int) -> bool:
+    """Whether this rank's ``embed`` ([V, D], dim 0) or ``lm_head`` ([D, V],
+    dim 1) is its block of a vocabulary split over ``model``."""
+    if vocab is None:
+        raise ValueError(f"{path} under a model split over processes needs vocab=")
+    shape = list(w.shape)
+    shape[dim] = vocab
+    return _is_split(tp, path, w, tuple(shape), dim)

@@ -1,7 +1,12 @@
 """Model facade: init / forward / loss / prefill / decode (the counterpart
 of `repro.models.registry`), plus `input_specs` (meta-tensor stand-ins for
 the dry-run) and `params_from_jax`, which turns the reference's param
-pytree (as numpy) into the port's."""
+pytree (as numpy) into the port's, or into this rank's blocks of it under
+a policy that splits the model over processes.  `forward_logits`,
+`prefill` and `decode_step` run unchanged under such a policy
+(`parallel.sharding`): given this rank's blocks, and a cache made by
+`init_cache` under the policy, they return the whole vocabulary's
+logits on every rank."""
 
 from __future__ import annotations
 
@@ -12,6 +17,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig, ShapeConfig
+from ..parallel.sharding import ShardingPolicy
 from . import transformer as T
 
 
@@ -150,14 +156,21 @@ def build_model(cfg: ArchConfig) -> Model:
 F32_LEAVES = ("router", "A_log", "D_skip")
 
 
-def params_from_jax(np_params: dict, device=None, dtype=torch.bfloat16) -> dict:
+def params_from_jax(np_params: dict, device=None, dtype=torch.bfloat16,
+                    policy: Optional[ShardingPolicy] = None) -> dict:
     """The reference's param pytree, its leaves as numpy, as the port's
     params on `device` in `dtype` (the dtype the reference ran them in:
     bf16 as it makes them, or f32 where a test casts them); the leaves of
     `F32_LEAVES` stay f32, as the reference keeps them.  The structure and
-    the leaf shapes are the same in both packages."""
+    the leaf shapes are the same in both packages.  Under a `policy` that
+    splits the model over processes (`ShardingPolicy.splits_model`) each
+    leaf is this rank's block of it (`NamedSharding.local` of its fitted
+    spec: `ShardingPolicy.local_params`), cut from the numpy leaf before it
+    reaches the device; any other policy changes nothing."""
+    if policy is not None and policy.splits_model:
+        np_params = policy.local_params(np_params)
     dev = _device(device)
     return {k: (params_from_jax(v, device, dtype) if isinstance(v, dict)
-                else torch.tensor(np.asarray(v)).to(
+                else torch.tensor(np.ascontiguousarray(v)).to(
                     device=dev, dtype=torch.float32 if k in F32_LEAVES else dtype))
             for k, v in np_params.items()}

@@ -48,6 +48,13 @@ stacked once, not scattered into a zero tensor a layer.
 `init_cache` gives every leaf its initial value: 0, and -1e30 for the
 sLSTM stabiliser ``m`` (`xlstm.SLSTM_INIT`); the serving engine's lane
 reset copies a batch-1 `init_cache` into the lane.
+
+Under a policy that splits the model over processes
+(`parallel.sharding.tensor_parallel`; the dense family only, the rest
+refused by `ShardingPolicy.check_model_split`) `forward` takes this rank's
+blocks of the params and hands the layers the config's whole sizes, and
+`init_cache` sizes the K/V cache at this rank's KV heads (``n_kv_heads /
+tp`` where ``wk`` is split, all of them where it is whole).
 """
 
 from __future__ import annotations
@@ -59,6 +66,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..configs.base import ArchConfig
+from ..parallel.sharding import tensor_parallel
 from . import layers as L
 from . import mamba as M
 from . import moe as X
@@ -192,6 +200,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None) -> dict:
     for audio ``enc_out`` [B, encoder_seq, D] bf16 (a prefill replaces
     it)."""
     check_family(cfg)
+    tp = tensor_parallel()
+    n_kv_heads = cfg.n_kv_heads
+    if tp is not None:
+        tp.check_model_split(cfg)
+        n_kv_heads = tp.local_size("wk", (cfg.d_model, cfg.n_kv_heads, cfg.hd), 1)
     cache: dict = {}
     if cfg.family == "ssm":
         n_p = cfg.n_layers // cfg.slstm_period
@@ -202,7 +215,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None) -> dict:
         n_kv = cfg.n_layers
         if cfg.family == "hybrid":
             n_kv, n_m, _, _ = _hybrid_counts(cfg)
-        shape = (n_kv, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+        shape = (n_kv, batch, max_seq, n_kv_heads, cfg.hd)
         cache["kv"] = {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
                        "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
     if cfg.family == "hybrid":
@@ -234,12 +247,13 @@ def _attn_block(cfg, blk, h, positions, cache_kv, cache_len, cross_kv=None):
     cache = None
     if cache_kv is not None:
         cache = {"k": cache_kv["k"], "v": cache_kv["v"], "len": cache_len}
+    heads = (cfg.n_heads, cfg.n_kv_heads)
     y, _ = L.attention(blk["attn"], L.rmsnorm(h, blk["ln1"]["scale"], cfg.norm_eps),
-                       positions, cfg.rope_style, causal=True, cache=cache)
+                       positions, cfg.rope_style, causal=True, cache=cache, heads=heads)
     h = h + y
     if cross_kv is not None:
         y, _ = L.attention(blk["xattn"], L.rmsnorm(h, blk["ln_x"]["scale"], cfg.norm_eps),
-                           positions, "none", causal=False, cross_kv=cross_kv)
+                           positions, "none", causal=False, cross_kv=cross_kv, heads=heads)
         h = h + y
     return h
 
@@ -250,7 +264,7 @@ def _ffn_block(cfg, blk, h):
     if "moe" in blk:
         y, met = X.moe_ffn(blk["moe"], xn, cfg.moe_top_k, mlp_type=cfg.mlp_type)
         return h + y, met.aux_loss, met.router_z_loss
-    return h + L.mlp(blk["mlp"], xn, cfg.mlp_type), None, None
+    return h + L.mlp(blk["mlp"], xn, cfg.mlp_type, cfg.d_ff), None, None
 
 
 def _block(cfg, blk, h, positions, kv, start):
@@ -346,9 +360,12 @@ def forward(
     prefix_embeds: Optional[torch.Tensor] = None,   # vlm patches [B, P, D]
 ) -> ForwardOut:
     check_family(cfg)
+    tp = tensor_parallel()
+    if tp is not None:
+        tp.check_model_split(cfg)
     B, S = tokens.shape
     dev = tokens.device
-    h = L.embed(params["tok"], tokens)
+    h = L.embed(params["tok"], tokens, cfg.vocab_size)
     if prefix_embeds is not None and cfg.family == "vlm":
         h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
         S = h.shape[1]
@@ -387,7 +404,7 @@ def forward(
     new_cache = None if cache is None else {**cache, "len": start + S}
 
     h = L.rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps)
-    logits = L.unembed(params["tok"], h)
+    logits = L.unembed(params["tok"], h, cfg.vocab_size)
     return ForwardOut(logits, new_cache, aux, zl)
 
 

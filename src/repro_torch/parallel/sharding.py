@@ -18,9 +18,27 @@ its mesh and spec, which can cut the leaf into its blocks on the mesh's
 grid (`blocks`), each block what the device at that grid coordinate would
 hold.  Over a grid `procmesh.ProcMesh` (one rank a process) `local` is the
 one block this rank holds, at its coordinate, and `held` what this
-process keeps of a leaf on either mesh.  A policy builds on either mesh;
-its model forward is never split over processes (the reference's comes
-from XLA's partitioner, which has no counterpart here).
+process keeps of a leaf on either mesh.  A policy builds on either mesh.
+
+**A model step split over processes.**  Under a policy whose mesh is a
+`procmesh.ProcMesh` with a ``model`` axis of tp > 1 (`splits_model`) a
+rank holds only its blocks of the weights (`local_params`, or
+`models.registry.params_from_jax(..., policy=)`) and the dense model step
+computes with them: attention over its own heads, the MLP over its own
+slice of F, the embedding and the LM head over its own block of the
+vocabulary.  `splits` says, from a leaf's fitted spec, whether a dim is
+split over ``model``: a projection whose contraction dim is split leaves
+a partial sum that `all_reduce` completes, and the LM head's block of the
+vocabulary is joined by `all_gather`.  Both run over the axis's view
+(`ProcMesh.along`) through the one-sided ring collectives
+(`core.collectives`), whose puts are the peer kernels' on the card: the
+collectives XLA's partitioner inserts into the reference's split
+forward.  A leaf whose spec fits no split (6 q heads but 3 KV heads at
+tp = 2: ``wk`` / ``wv`` replicated) is whole on every rank, and a sum over
+a whole leaf is never reduced.  What such a split does not carry yet is
+refused by `check_model_split` (ROADMAP item 12c).  A policy on a stacked
+`Mesh`, or over processes without a ``model`` axis of more than one,
+changes no value.
 """
 
 from __future__ import annotations
@@ -34,8 +52,9 @@ from typing import Any, Optional
 import torch
 
 from ..ckpt.checkpoint import _unflatten_like, flatten
+from ..core import collectives
 from ..mesh import Mesh, MeshError
-from ..procmesh import ProcMesh
+from ..procmesh import ProcMesh, as_bytes
 
 DP = ("pod", "data")  # the combined data axes (pod may be absent)
 
@@ -151,6 +170,105 @@ class ShardingPolicy:
                                self.mesh)
                 for path, leaf in flatten(tree)}
 
+    # ------------------------------------ the model step split over processes
+    @property
+    def splits_model(self) -> bool:
+        """Whether this policy splits the model step over processes: a
+        `ProcMesh` with a ``model`` axis of more than one rank."""
+        return isinstance(self.mesh, ProcMesh) and self.mesh.shape.get("model", 1) > 1
+
+    @property
+    def tp(self) -> int:
+        """The size of the ``model`` axis (1 without one)."""
+        return self.mesh.shape.get("model", 1)
+
+    @property
+    def model_rank(self) -> int:
+        """This rank's coordinate on the ``model`` axis."""
+        return self.mesh.along("model").rank
+
+    def splits(self, path: str, shape, dim: int) -> bool:
+        """Whether the fitted spec of a leaf at `path` of the whole `shape`
+        splits its dim `dim` over ``model``."""
+        entry = fit_spec(self.param_spec(path, len(shape)), tuple(shape), self.mesh)[dim]
+        return "model" in (entry if isinstance(entry, tuple) else (entry,))
+
+    def local_size(self, path: str, shape, dim: int) -> int:
+        """The size of dim `dim` of this rank's block of that leaf."""
+        return shape[dim] // self.tp if self.splits(path, shape, dim) else shape[dim]
+
+    def check_model_split(self, cfg=None) -> None:
+        """Raise for what a model step split over processes does not carry
+        yet, naming its ROADMAP item; a no-op unless `splits_model`.
+        Without `cfg` only the policy's own options are checked."""
+        if not self.splits_model:
+            return
+        if self.fsdp:
+            raise NotImplementedError(
+                "FSDP over `data` under a model split over processes is ROADMAP item "
+                "12c.2; build the policy with fsdp=False")
+        if self.seq_parallel:
+            raise NotImplementedError(
+                "sequence-parallel activations over processes are ROADMAP item 12c.3")
+        if cfg is None:
+            return
+        if self.kv_seq_shard or cfg.n_kv_heads < self.tp:
+            raise NotImplementedError(
+                f"{cfg.name}: a KV cache split on its sequence ({cfg.n_kv_heads} KV heads "
+                f"over model = {self.tp}, kv_seq_shard={self.kv_seq_shard}) is ROADMAP item "
+                "12c.3")
+        if cfg.family != "dense":
+            item = {"moe": "12c.4 (experts over `model`)",
+                    "hybrid": "12c.4 and 12c.5 (experts and Mamba channels over `model`)",
+                    "ssm": "12c.5 (xLSTM channels over `model`)"}.get(cfg.family, "12c")
+            raise NotImplementedError(
+                f"{cfg.name}: only the dense family splits over processes; the "
+                f"{cfg.family} family's split is ROADMAP item {item}")
+
+    def local_params(self, tree: Any) -> Any:
+        """This rank's block of every leaf of `tree`: ``tree_shardings(tree)``,
+        then each one's `NamedSharding.local`.  A tensor's block is a copy,
+        so that the whole leaf may go; any other leaf's (numpy) a view."""
+        self.check_model_split()
+        specs = self._specs(tree)
+
+        def block(path, leaf):
+            got = NamedSharding(self.mesh, specs[path]).local(leaf)
+            if isinstance(got, torch.Tensor):
+                return got.clone(memory_format=torch.contiguous_format)
+            return got
+
+        return _unflatten_like(tree, {path: block(path, leaf) for path, leaf in flatten(tree)})
+
+    def all_reduce(self, y: torch.Tensor) -> torch.Tensor:
+        """Each rank's partial sum y -> the sum over the ``model`` axis: the
+        one-sided ring all-reduce (`core.collectives.all_reduce`), summed
+        in f32 (in y's dtype where that is wider) and returned in y's."""
+        _no_backward(y)
+        acc = y if y.dtype.itemsize >= 4 else y.float()
+        out = collectives.all_reduce(acc.contiguous()[None], self.mesh.along("model"))
+        return out[0].to(y.dtype)
+
+    def all_gather(self, y: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """Each rank's block y -> the ``model`` axis's blocks in its order,
+        concatenated along `dim`: the one-sided ring all-gather
+        (`core.collectives.ring_all_gather`) of y's bytes as 32-bit words."""
+        _no_backward(y)
+        sub = self.mesh.along("model")
+        raw = as_bytes(y)
+        words = torch.nn.functional.pad(raw, (0, -raw.numel() % 4)).view(torch.int32)
+        got = collectives.ring_all_gather(words[None], sub)[0]          # [p, words]
+        blocks = got.view(torch.uint8)[:, :raw.numel()].contiguous().view(y.dtype)
+        return torch.cat(list(blocks.reshape((sub.p,) + tuple(y.shape))), dim=dim)
+
+
+def _no_backward(y: torch.Tensor) -> None:
+    """The split step's collectives have no backward: a gradient through one
+    would be silently wrong, so a tensor that needs one is refused."""
+    if torch.is_grad_enabled() and y.requires_grad:
+        raise NotImplementedError("the train step split over `model` is ROADMAP item 12c.1: "
+                                  "these collectives have no backward")
+
 
 def fit_spec(spec: P, shape: tuple, mesh: Mesh) -> P:
     """Drop mesh axes that do not divide their dim evenly.
@@ -263,6 +381,13 @@ def use_policy(policy: Optional[ShardingPolicy]):
 
 def current_policy() -> Optional[ShardingPolicy]:
     return _ACTIVE[-1] if _ACTIVE else None
+
+
+def tensor_parallel() -> Optional[ShardingPolicy]:
+    """The active policy where it splits the model step over processes
+    (`ShardingPolicy.splits_model`), else None."""
+    pol = current_policy()
+    return pol if pol is not None and pol.splits_model else None
 
 
 def shard(x, logical_name: str):

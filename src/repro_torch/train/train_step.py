@@ -5,6 +5,9 @@ PyTorch runs eagerly, so a step is a plain function, not a jitted one.
 A `parallel.sharding.ShardingPolicy` (``policy=``) is active around the
 loss and the AdamW update, where the reference activates it: its
 placements change no value on one card, its MoE dispatch groups do.
+Under a policy that splits the model over processes the prefill and serve
+steps run the split forward on this rank's blocks, and the train step
+raises: its collectives have no backward yet (ROADMAP item 12c.1).
 Microbatches run in a Python loop where the reference scans; their
 f32-accumulated gradients are averaged (`step_grads`).  Remat
 (`models.transformer.set_remat`) is switched on around the loss only, as
@@ -80,7 +83,11 @@ def step_grads(model: Model, params: dict, batch: dict, step_cfg: StepConfig = S
 def make_train_step(model: Model, opt_cfg: AdamWConfig,
                     step_cfg: StepConfig = StepConfig(),
                     policy: Optional[ShardingPolicy] = None) -> Callable:
-    """Returns train_step(params, opt_state, batch) -> (params, opt_state, metrics)."""
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state, metrics).
+    Refused under a policy that splits the model over processes."""
+    if policy is not None and policy.splits_model:
+        raise NotImplementedError("the train step split over `model` is ROADMAP item 12c.1: "
+                                  "the split forward's collectives have no backward")
 
     def train_step(params: dict, opt_state: OptState, batch: dict):
         loss, met, grads = step_grads(model, params, batch, step_cfg, policy)
