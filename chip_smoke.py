@@ -459,6 +459,27 @@ no result line):
     all-reduce at the decode shape beside `ProcMesh.psum`'s one round on
     the same bytes (rounds counted as host barriers), row 4's peer put at
     the all-reduce's chunk, and each rank's torch peak.
+34. the train step split over a ``{"data": 2, "model": 2}`` `ProcMesh`:
+    starcoder2-15b at its published widths cut to 4 of 40 layers
+    (reduced: depth only), keyed random bf16 weights, AdamW (T1's
+    settings) with remat, the synthetic pipeline's global batch [4, 2048],
+    3 steps.  One process runs the 3 steps whole (backend "cuda") and
+    keeps on the card the gradient of step 1 (its first moment over 1 -
+    b1, unclipped) and the params after it; then the rest is freed.  Four
+    processes on the card run `make_train_step` under the reference's
+    `make_policy` (fsdp=True), each drawing the same slices and keeping
+    only its 2-D blocks, its AdamW moments ZeRO-1 blocks, and taking its
+    rows of each batch: every step's loss within 1e-2 of the whole run's;
+    at step 1 every leaf's gradient block within 5 % relative L2 of the
+    whole run's cut to it, the grad norm within 5 %, and the params
+    within 2 lr plus one bf16 ulp of the whole run's (`tt_step1`); ranks
+    holding one block hold the same bits after every step; each rank's bytes of
+    params and both moments its blocks' by the fitted specs; 8 "wgmma"
+    flash launches a step a rank (the forward and the recomputation of
+    each layer) and exactly the schedule's row 4 peer puts (`tt_puts`),
+    nothing else.  Host ms a step, fenced rounds (host barriers) a step,
+    the device's busy share of a profiled step, each rank's torch peak,
+    and row 4's peer put at an FSDP gather's block.
 
 ``python3 chip_smoke.py --gather-shift`` times only `rmem.pages.gather_shift`
 and `paged_gather` at the rendezvous pull's shape on the package beside the
@@ -480,7 +501,8 @@ phase's launches and times), then the result line; ``--drift`` runs only
 phase 32's set A (set B reads the whole smoke's full-width runs) and ends
 with the result line; ``--tp-procs`` runs only phase 33, its rows of the
 kernels line (row 4's peer form and row 11 with this phase's launches, row
-11 timed at a rank's attention shape), then the result line.
+11 timed at a rank's attention shape), then the result line;
+``--tp-train-procs`` runs only phase 34 the same way.
 
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after.
@@ -766,6 +788,15 @@ PP_TURNS, RING_REPS, PP_TIMEOUT = ("hf", "fh", "hf"), 5, 300.0
 TP_ARCH, TP_LAYERS, TP_RANKS, TP_SEED = "qwen1.5-110b", 8, 4, 33
 TP_PLENS, TP_STEPS, TP_REL, TP_TIMEOUT = (64, 128, 192, 256), 16, 2 ** -4, 600.0
 TP_GRID, TP_AR_REPS = {"model": TP_RANKS}, 20
+# phase 34: starcoder2-15b at its published widths (src/repro/configs/starcoder2_15b.py:
+# d_model 6144, 48 heads and 4 KV heads of 128, F 24576 gelu, vocab 49152,
+# q/k/v biases) cut to 4 of 40 layers, trained over ProcMesh({"data": 2,
+# "model": 2}) under the reference's make_policy (fsdp=True), 4 processes
+# sharing the card, against one process running the same 3 steps whole.
+# T1's optimizer, batch and bounds (TRAIN_OPT, TRAIN_BATCH: 2 rows a data
+# coordinate; TRAIN_LOSS_TOL and TRAIN_GRAD_REL, its cuda-vs-torch bounds)
+TT_ARCH, TT_LAYERS, TT_RANKS, TT_SEED = "starcoder2-15b", 4, 4, 34
+TT_GRID, TT_STEPS, TT_TIMEOUT = {"data": 2, "model": 2}, 3, 900.0
 
 
 def log(msg: str) -> None:
@@ -1236,6 +1267,13 @@ def main() -> int:
         "row11_launches")
     row4["tensor_parallel_put"] = tp.pop("put")
     log(f"tp procs phase numbers: {json.dumps(tp)}")
+    torch.cuda.empty_cache()
+    tt = tt_train_phases(torch, H100.hbm_bandwidth)
+    row4["launches"] += tt.pop("row4_launches")
+    next(r for r in kernels if r["name"] == "flash_attention")["launches"] += tt.pop(
+        "row11_launches")
+    row4["tensor_parallel_train_put"] = tt.pop("put")
+    log(f"tp train procs phase numbers: {json.dumps(tt)}")
     if len(kernels) != len(KERNELS):
         raise AssertionError(f"{len(kernels)} kernel rows, want {len(KERNELS)}")
     log(f"smoke wall time: {time.perf_counter() - T0:.1f} s")
@@ -8440,13 +8478,447 @@ def tp_procs_only() -> int:
     return 0
 
 
+# -------------- phase 34: the train step split over {"data": 2, "model": 2}
+def tt_config(get_config):
+    import dataclasses
+
+    return dataclasses.replace(get_config(TT_ARCH), n_layers=TT_LAYERS)
+
+
+def tt_batches(torch, cfg) -> list:
+    """The TT_STEPS global batches of the synthetic pipeline (the same on
+    every process: it draws on the host)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
+
+    B, S = TRAIN_BATCH
+    pipe = SyntheticTokenPipeline(DataConfig(cfg.vocab_size, S, B, seed=TT_SEED),
+                                  device="cuda")
+    return [pipe.batch_at(i) for i in range(TT_STEPS)]
+
+
+def tt_mu_per_grad(grad_norm: float) -> float:
+    """Step 1's first moment over its gradient: AdamW from zero moments
+    keeps (1 - b1) x the clipped gradient, clipped at the step's norm."""
+    from repro_torch.train.optimizer import AdamWConfig
+
+    opt = AdamWConfig(**TRAIN_OPT)
+    return (1 - opt.b1) * min(1.0, opt.clip_norm / max(grad_norm, 1e-9))
+
+
+def tt_puts(cfg) -> int:
+    """Row 4 peer puts of one split train step a rank, from the schedule at
+    tp = dp = 2 (`core.collectives`): a ring all-reduce over two ranks is 1
+    reduce-scatter put and 2 all-gather puts (both directions of its one
+    step), the vocabulary all-gather 2, an FSDP gather 1 (one direction)
+    and its reduce-scatter 1.  Forward: the embedding's gather and
+    all-reduce, each layer's 6 gathered leaves (wq, wk, wv, wo, w_in,
+    w_out) and 2 all-reduces, the LM head's gather and vocabulary gather.
+    The remat recomputation stops at a layer's last saved tensor: its 6
+    gathers again and the attention's all-reduce.  Backward: 2 entry
+    all-reduces and 6 reduce-scatters a layer, the LM head's entry and two
+    reduce-scatters.  Then the data sum (one all-reduce) and the global
+    norm (one all-reduce over the 4 ranks: 3 + 2 x 2 puts)."""
+    ar, vocab, fg, rs = 3, 2, 1, 1
+    leaves = 6 if cfg.mlp_type == "gelu" else 7
+    layer = (leaves * fg + 2 * ar) + (leaves * fg + ar) + (2 * ar + leaves * rs)
+    tok = 2 * fg + ar + vocab + ar + 2 * rs
+    return tok + cfg.n_layers * layer + ar + 3 + 2 * 2
+
+
+def tt_ulp(torch, w):
+    """One bf16 ulp at each element's magnitude (the least subnormal's at 0)."""
+    _, e = torch.frexp(w.float())
+    return torch.where(w != 0, torch.ldexp(torch.ones_like(w, dtype=torch.float32), e - 8),
+                       torch.full_like(w, 2.0 ** -133, dtype=torch.float32))
+
+
+def tt_rel(torch, a, want) -> float:
+    """||a - want|| / ||want|| in f32, `want` moved to a's device."""
+    want = want.to(a.device).float()
+    return float((a.float() - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def tt_whole(torch, cfg, model, batches: list) -> dict:
+    """The TT_STEPS steps whole in this process (backend "cuda"): losses,
+    grad norms, lrs, host ms, flash launches a step, the peak; step 1's
+    gradient (bf16) and the params after it, moved to the host (the
+    ranks' processes map them from shared memory).  First the witness:
+    step 1's gradient at the same params in f32, each bf16 run's distance
+    from which says how far bf16 alone moves a leaf's gradient."""
+    from repro_torch.ckpt.checkpoint import flatten
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import layers as L
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state, tree_map
+    from repro_torch.train.train_step import StepConfig, loss_and_grads, make_train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = keyed_params(torch, cfg, TT_SEED)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0, "loss": [], "grad_norm": [], "lr": [], "ms": [],
+           "flash": [], "wgmma": [],
+           "bytes": sum(v.nbytes for v in flat_leaves(params).values())}
+    # the witness: step 1's gradient at the same params in f32 (backend "torch")
+    t = time.perf_counter()
+    p32 = tree_map(lambda v: v.float(), params)
+    _, _, g32 = loss_and_grads(model, p32, batches[0], remat=True)
+    del p32
+    out["grads32"] = {k: v.cpu() for k, v in flatten(g32)}
+    del g32
+    out["witness_s"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    opt = init_opt_state(params)
+    step = make_train_step(model, AdamWConfig(**TRAIN_OPT), StepConfig(remat=True))
+    before = fops.launches, fops.launches_by_variant["wgmma"]
+    L.set_attention_backend("cuda")
+    try:
+        for i, batch in enumerate(batches):
+            f0, w0 = fops.launches, fops.launches_by_variant["wgmma"]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, opt, met = step(params, opt, batch)
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t) * 1e3)
+            out["flash"].append(fops.launches - f0)
+            out["wgmma"].append(fops.launches_by_variant["wgmma"] - w0)
+            for k in ("loss", "grad_norm", "lr"):
+                out[k].append(float(met[k]))
+            if i == 0:
+                c = tt_mu_per_grad(out["grad_norm"][0])
+                g = {k: (v / c).to(torch.bfloat16) for k, v in flatten(opt.mu)}
+                out["rel32"] = {k: tt_rel(torch, v, out["grads32"][k]) for k, v in g.items()}
+                out["grads"] = {k: v.cpu() for k, v in g.items()}
+                out["params"] = {k: v.cpu() for k, v in flatten(params)}
+                del g
+    finally:
+        L.set_attention_backend("torch")
+    # the comparison run's launches are not the path's
+    fops.launches, fops.launches_by_variant["wgmma"] = before
+    torch.cuda.synchronize()
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["finite"] = all(bool(torch.isfinite(v).all()) for v in flat_leaves(params).values())
+    return out
+
+
+def tt_rank(mesh, ref: dict, hbm: float) -> dict:
+    """Phase 34 in one rank's process of ProcMesh({"data": 2, "model": 2}):
+    its 2-D blocks of the keyed weights, ZeRO-1 moments, TT_STEPS calls of
+    `make_train_step` under `make_policy` (the launch counts zeroed before
+    the steps and read after each), step 1's gradient and params held to
+    the whole run's blocks, every block's digest after every step; then a
+    profiled step and row 4's peer put at an FSDP gather's block."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.ckpt.checkpoint import flatten
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core.rma import OpCounter
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rma import ops as rma_ops
+    from repro_torch.kernels.rma import ref as rma_ref
+    from repro_torch.launch.dryrun import make_policy
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.parallel.sharding import NamedSharding
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import StepConfig, make_train_step
+
+    t0 = time.perf_counter()
+    cfg = tt_config(get_config)
+    model = build_model(cfg)
+    policy = make_policy(mesh, cfg, SHAPES["train_4k"])
+    torch.cuda.reset_peak_memory_stats()
+    params = keyed_params(torch, cfg, TT_SEED, policy)
+    opt = init_opt_state(params)
+    specs = policy.flat_specs(model.init_shapes())
+    batches = tt_batches(torch, cfg)
+    step = make_train_step(model, AdamWConfig(**TRAIN_OPT), StepConfig(remat=True), policy)
+    torch.cuda.synchronize()
+    out = {"rank": mesh.rank, "coords": mesh.coords, "init_s": time.perf_counter() - t0,
+           "want_bytes": tp_bytes(torch, cfg, policy), "loss": [], "grad_norm": [], "lr": [],
+           "ms": [], "rounds": [], "flash": [], "wgmma": [], "puts": [], "digests": [],
+           "blocks": {p: NamedSharding(mesh, sp).index(mesh.coords, ref["shapes"][p])
+                      for p, sp in specs.items()}}
+    out["blocks"] = {p: [(s.start, s.stop) for s in v] for p, v in out["blocks"].items()}
+    # the leaves whose block another rank holds too: a spec that leaves a grid axis out
+    shared = {p for p, sp in specs.items()
+              if not set(mesh.axis_names) <= {a for e in sp if e for a in
+                                               (e if isinstance(e, tuple) else (e,))}}
+    L.set_attention_backend("cuda")
+    fops.launches = 0
+    fops.launches_by_variant = {k: 0 for k in fops.launches_by_variant}
+    zero_rma_launches(rma_ops)
+    try:
+        with OpCounter() as c:
+            for i, batch in enumerate(batches):
+                f0, w0, p0 = fops.launches, fops.launches_by_variant["wgmma"], c.puts
+                torch.cuda.synchronize()
+                mesh.barrier()
+                b0, t = mesh.barriers, time.perf_counter()
+                params, opt, met = step(params, opt, batch)
+                torch.cuda.synchronize()
+                out["ms"].append((time.perf_counter() - t) * 1e3)
+                out["rounds"].append(mesh.barriers - b0)
+                out["flash"].append(fops.launches - f0)
+                out["wgmma"].append(fops.launches_by_variant["wgmma"] - w0)
+                out["puts"].append(c.puts - p0)
+                for k in ("loss", "grad_norm", "lr"):
+                    out[k].append(float(met[k]))
+                trees = {"params": params, "mu": opt.mu, "nu": opt.nu}
+                out["digests"].append({f"{k}/{p}": digest(torch, v) for k, t in trees.items()
+                                       for p, v in flatten(t) if p in shared})
+                if i == 0:
+                    out.update(tt_step1(torch, mesh, specs, params, opt.mu, ref,
+                                        out["grad_norm"][0], out["lr"][0]))
+        out["launches"] = {"flash": fops.launches, "wgmma": fops.launches_by_variant["wgmma"],
+                           **rma_ops.launches}
+        out["bytes"] = {k: sum(v.nbytes for v in flat_leaves(t).values())
+                        for k, t in (("params", params), ("mu", opt.mu), ("nu", opt.nu))}
+        out["peak_allocated"] = torch.cuda.max_memory_allocated()
+        # one more step under the profiler (its launches are not the path's)
+        mesh.barrier()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            step(params, opt, batches[-1])
+            torch.cuda.synchronize()
+            out["profiled_ms"] = (time.perf_counter() - t) * 1e3
+        out["busy_ms"] = sum(self_us(e) for e in prof.key_averages()
+                             if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    finally:
+        L.set_attention_backend("torch")
+    del params, opt, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    D, F = cfg.d_model, cfg.d_ff
+    out["put"] = pp_put_row(torch, mesh, rma_ops, rma_ref, D // 2 * F // 2 // 2, hbm,
+                            axis="data", phase=34)
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def tt_step1(torch, mesh, specs: dict, params, mu, ref: dict, grad_norm: float,
+             lr: float) -> dict:
+    """Step 1 held to the whole run's, on this rank's blocks: every leaf's
+    gradient's relative L2 distance, and the params' distance in units of
+    its bound with the count of elements past it.  From one bf16 start,
+    Adam's first step moves an element by lr x (g / (|g| + eps) + wd p):
+    the two runs' f32 results differ by at most 2 lr, and each is rounded
+    to bf16 by at most half an ulp of itself, so the bound is 2 lr plus
+    one bf16 ulp at the larger of the two elements."""
+    from repro_torch.ckpt.checkpoint import flatten
+    from repro_torch.parallel.sharding import NamedSharding
+
+    rel, rel32, over, worst = {}, {}, 0, 0.0
+    c = tt_mu_per_grad(grad_norm)
+    for path, m in flatten(mu):
+        g, at = m / c, NamedSharding(mesh, specs[path])
+        rel[path] = tt_rel(torch, g.to(torch.bfloat16), at.local(ref["grads"][path]))
+        rel32[path] = tt_rel(torch, g.to(torch.bfloat16), at.local(ref["grads32"][path]))
+        del g
+    for path, p in flatten(params):
+        want = NamedSharding(mesh, specs[path]).local(ref["params"][path]).to(p.device)
+        err = (p.float() - want.float()).abs() / (
+            2 * lr + tt_ulp(torch, torch.maximum(p.abs(), want.abs())))
+        over += int((err > 1).sum())
+        worst = max(worst, float(err.max()))
+        del err
+    return {"grad_rel": rel, "grad_rel32": rel32, "param_over": over, "param_worst": worst}
+
+
+def tt_train_phases(torch, hbm: float) -> dict:
+    """Phase 34: starcoder2-15b at full width, 4 of 40 layers, trained over
+    ProcMesh({"data": 2, "model": 2}) in 4 processes on the card under
+    `make_policy`, against one process running the same 3 steps whole
+    (run first; what the ranks compare against goes to the host, the
+    card is freed).  Returns the phase's numbers and the kernel rows'
+    launches."""
+    from repro_torch import procmesh
+    from repro_torch.ckpt.checkpoint import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    card = card_line()
+    cfg = tt_config(get_config)
+    log(f"phase 34: {TT_ARCH} at full width, {TT_LAYERS} of 40 layers (reduced: depth only), "
+        f"trained over ProcMesh({TT_GRID}) under make_policy (fsdp=True) in {TT_RANKS} "
+        f"processes sharing one card ({card}); no link is crossed")
+    model = build_model(cfg)
+    batches = tt_batches(torch, cfg)
+    want = tt_whole(torch, cfg, model, batches)
+    ref = {"grads": want.pop("grads"), "params": want.pop("params"),
+           "grads32": want.pop("grads32"),
+           "shapes": {p: tuple(v.shape) for p, v in flatten(model.init_shapes())}}
+    del batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"34 whole run in this process ({card}): {want['bytes'] / 1e9:.3f} GB of weights "
+        f"(keyed init {want['init_s']:.1f} s), peak {want['peak'] / 2**30:.2f} GiB, flash "
+        f"{want['flash']} a step; losses {want['loss']}, grad norms {want['grad_norm']}, lr "
+        f"{want['lr']}; ms a step {[round(t, 1) for t in want['ms']]}; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB left allocated here")
+    t1 = time.perf_counter()
+    ranks = procmesh.run(tt_rank, TT_RANKS, device="cuda", args=(ref, hbm), axes=TT_GRID,
+                         timeout=TT_TIMEOUT)
+    run_s = time.perf_counter() - t1
+    del ref
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+
+    want_puts = tt_puts(cfg)
+    want_flash = 2 * TT_LAYERS
+    bad = []                    # every check's failure, raised after the logs
+    if not want["finite"] or want["flash"] != [want_flash] * TT_STEPS or \
+            want["wgmma"] != want["flash"]:
+        bad.append(f"whole run: finite {want['finite']}, flash {want['flash']} (wgmma "
+                   f"{want['wgmma']}), want {want_flash} a step")
+    for res in ranks:
+        r, wb, lc = res["rank"], res["want_bytes"], res["launches"]
+        if wb["whole"] != want["bytes"]:
+            bad.append(f"the whole model is {want['bytes']} bytes, the specs say {wb['whole']}")
+        if res["bytes"] != {"params": wb["rank"], "mu": 2 * wb["rank"], "nu": 2 * wb["rank"]}:
+            bad.append(f"rank {r}: bytes {res['bytes']}, its blocks' {wb}")
+        loss = [abs(a - b) for a, b in zip(res["loss"], want["loss"])]
+        if max(loss) > TRAIN_LOSS_TOL or not all(math.isfinite(x) for x in res["loss"]):
+            bad.append(f"rank {r}: losses {res['loss']} vs the whole run's {want['loss']}")
+        gn = abs(res["grad_norm"][0] - want["grad_norm"][0]) / want["grad_norm"][0]
+        over = {k: v for k, v in res["grad_rel"].items() if v > TRAIN_GRAD_REL}
+        if over or gn > TRAIN_GRAD_REL:
+            bad.append(f"rank {r}: step 1 gradient blocks past {TRAIN_GRAD_REL:g} relative L2: "
+                       f"{over}; grad norm {res['grad_norm'][0]} vs {want['grad_norm'][0]}")
+        if res["param_over"] or res["lr"][0] != want["lr"][0]:
+            bad.append(f"rank {r}: {res['param_over']} param elements past 2 lr + 1 ulp after "
+                       f"step 1 (worst {res['param_worst']:.3g} of it), lr {res['lr'][0]} vs "
+                       f"{want['lr'][0]}")
+        if res["flash"] != [want_flash] * TT_STEPS or res["wgmma"] != res["flash"]:
+            bad.append(f"rank {r}: flash launches a step {res['flash']} (wgmma "
+                       f"{res['wgmma']}), want {want_flash}, all wgmma")
+        if res["puts"] != [want_puts] * TT_STEPS or lc["put_shift"] != want_puts * TT_STEPS \
+                or any(lc[k] for k in lc if k not in ("flash", "wgmma", "put_shift")):
+            bad.append(f"rank {r}: puts a step {res['puts']}, rma launches {lc}, want "
+                       f"{want_puts} row 4 peer puts a step and nothing else")
+    for s in range(TT_STEPS):
+        held: dict = {}
+        for res in ranks:
+            for key, d in res["digests"][s].items():
+                block = tuple(map(tuple, res["blocks"][key.split("/", 1)[1]]))
+                held.setdefault((key, block), set()).add(d)
+        split = [k for k, v in held.items() if len(v) > 1]
+        if split:
+            bad.append(f"step {s + 1}: ranks holding one block differ: {split[:6]}")
+    if sorted(x["coords"] for x in ranks) != [(0, 0), (0, 1), (1, 0), (1, 1)]:
+        bad.append(f"coords {[x['coords'] for x in ranks]}")
+    shared = sum(1 for k in ranks[0]["digests"][0]
+                 if sum(1 for x in ranks if x["digests"][0][k] == ranks[0]["digests"][0][k]) > 1)
+    wb = ranks[0]["want_bytes"]
+    ms = [t for x in ranks for t in x["ms"][1:]]
+    rounds = [x["rounds"] for x in ranks]
+    busy = [x["busy_ms"] / x["profiled_ms"] for x in ranks]
+    grad_rel = max(max(x["grad_rel"].values()) for x in ranks)
+    by_leaf = {k: [round(max(x[f][k] for x in ranks), 4) for f in ("grad_rel", "grad_rel32")]
+               + [round(want["rel32"][k], 4)] for k in ranks[0]["grad_rel"]}
+    log(f"34 split over {TT_RANKS} processes ({card}): each rank {wb['rank'] / 1e9:.3f} GB of "
+        f"weights + {2 * wb['rank'] / 1e9:.3f} GB a moment = its 2-D blocks by the fitted "
+        f"specs; torch peak a rank {[round(x['peak_allocated'] / 2**30, 2) for x in ranks]} "
+        f"GiB; init {max(x['init_s'] for x in ranks):.1f} s")
+    log(f"34 vs the whole run: losses {[x['loss'] for x in ranks]} (max abs diff "
+        f"{max(abs(a - b) for x in ranks for a, b in zip(x['loss'], want['loss'])):.3g}, "
+        f"bound {TRAIN_LOSS_TOL:g}); step 1 grad norm {[x['grad_norm'][0] for x in ranks]} "
+        f"vs {want['grad_norm'][0]}; worst leaf's gradient relative L2 {grad_rel:.4g} (bound "
+        f"{TRAIN_GRAD_REL:g}); params after step 1 at most "
+        f"{max(x['param_worst'] for x in ranks):.3g} of 2 lr + 1 ulp; {shared} leaves held "
+        f"by several ranks, the same bits after every step")
+    log(f"34 step 1's gradient by leaf, relative L2 [split vs whole, split vs f32, whole vs "
+        f"f32] (max over ranks; the f32 witness {want['witness_s']:.1f} s): {by_leaf}")
+    log(f"34 launches a rank a step: row 11 {want_flash} (all wgmma: "
+        f"{cfg.n_heads // 2} q / {cfg.n_kv_heads // 2} KV heads of {cfg.hd}, 2 rows), row 4 "
+        f"peer {want_puts} (tt_puts); nothing else")
+    log(f"34 host ms a step ({card}), all ranks' steps after their first: {spread(ms)} "
+        f"(first steps {[round(x['ms'][0], 1) for x in ranks]}); whole: "
+        f"{[round(t, 1) for t in want['ms']]}; fenced rounds (host barriers) a step by rank "
+        f"{rounds}; a profiled step's device busy share by rank "
+        f"{[round(b, 4) for b in busy]} (sum {sum(busy):.3f}, the card's share if the contexts "
+        f"never overlap)")
+    if bad:
+        raise AssertionError("34: " + "; ".join(bad))
+    put = ranks[0]["put"]
+    log(f"34 row 4 peer put at an FSDP gather's block ({put['bytes'] // 2} B, rank 0 alone): "
+        f"kernel {put['ms'] * 1e3:.1f} us, plain copy_ {put['plain_ms'] * 1e3:.1f} us, bound "
+        f"{put['bound_ms'] * 1e3:.2f} us (bytes)")
+    wall = time.perf_counter() - t0
+    log(f"34: ranks' run {run_s:.1f} s, phase {wall:.1f} s")
+    return {"card": card, "row4_launches": sum(x["launches"]["put_shift"] for x in ranks),
+            "row11_launches": sum(x["launches"]["flash"] for x in ranks), "put": put,
+            "reduced": {"n_layers": [40, TT_LAYERS]}, "puts_per_step": want_puts,
+            "loss": [x["loss"] for x in ranks], "whole_loss": want["loss"],
+            "grad_norm": [x["grad_norm"] for x in ranks], "whole_grad_norm": want["grad_norm"],
+            "grad_rel": grad_rel, "param_worst": max(x["param_worst"] for x in ranks),
+            "weights_gb_rank": wb["rank"] / 1e9, "weights_gb_whole": want["bytes"] / 1e9,
+            "peak_gib": [x["peak_allocated"] / 2**30 for x in ranks],
+            "whole_peak_gib": want["peak"] / 2**30, "ms": [x["ms"] for x in ranks],
+            "whole_ms": want["ms"], "rounds": rounds, "busy": busy,
+            "profiled_ms": [x["profiled_ms"] for x in ranks], "run_s": run_s, "wall_s": wall}
+
+
+def tt_procs_only() -> int:
+    """``python3 chip_smoke.py --tp-train-procs``: phase 34 alone, on the
+    package beside this file (the kernels build first).  Prints the kernels
+    line of rows 4 (peer) and 11 with this phase's launches and times,
+    then the result line."""
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.configs import get_config
+    from repro_torch.core.perfmodel import H100
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products, as in main()
+    log(card_line())
+    build_all(common)
+    tt = tt_train_phases(torch, H100.hbm_bandwidth)
+    # row 11 at a rank's attention shape: 24 q / 2 KV heads, its 2 rows
+    cfg = tt_config(get_config)
+    g = torch.Generator(device="cuda").manual_seed(TT_SEED)
+    rows, S = TRAIN_BATCH[0] // TT_GRID["data"], TRAIN_BATCH[1]
+    q, k, v = (torch.randn(rows, h // TT_GRID["model"], S, cfg.hd, generator=g, device="cuda")
+               .to(torch.bfloat16) for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    err = float((fops.flash_attention(q, k, v).float() - fref.attention_ref(q, k, v).float())
+                .abs().max())
+    if err > BF16_TOL:
+        raise AssertionError(f"flash_attention at a rank's shape: {err:.3g} from plain")
+    flash = time_flash(torch, F, fops, fref, q, k, v, H100.hbm_bandwidth)
+    put = tt.pop("put")
+    rows = [{"name": "put_shift_peer", "route": KERNELS["put_shift_peer"][0],
+             "source": KERNELS["put_shift_peer"][1], "replaces": KERNELS["put_shift_peer"][2],
+             "launches": tt.pop("row4_launches"), "max_abs_err": 0.0, "ms": put["ms"],
+             "plain_ms": put["plain_ms"], "bound_ms": put["bound_ms"], "bound_by": "bytes",
+             "library_ms": put["plain_ms"]},
+            {"name": "flash_attention", "route": KERNELS["flash_attention"][0],
+             "source": KERNELS["flash_attention"][1], "replaces": KERNELS["flash_attention"][2],
+             "launches": tt.pop("row11_launches"), "max_abs_err": err,
+             **{key: flash[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms")}}]
+    log(f"tp train procs phase numbers: {json.dumps(tt)}")
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 MODES = {"--gather-shift": gather_shift_only, "--queue-push": queue_push_only,
          "--pool": pool_only, "--apps": apps_only, "--zoo": zoo_only,
          "--parallel": parallel_only, "--conformance": conformance_only,
          "--tools": tools_only, "--procs": procs_only,
          "--disagg-procs": disagg_procs_only, "--apps-procs": apps_procs_only,
          "--parallel-procs": parallel_procs_only, "--drift": drift_only,
-         "--tp-procs": tp_procs_only}
+         "--tp-procs": tp_procs_only, "--tp-train-procs": tt_procs_only}
 
 if __name__ == "__main__":
     sys.exit(MODES[sys.argv[1]]() if sys.argv[1:] else main())

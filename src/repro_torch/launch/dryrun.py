@@ -20,6 +20,10 @@ the reference's keys (``mem_*`` and ``hlo_*`` are the whole card's) and
 
 ``--mesh single`` and ``--mesh multi`` (the reference's 256- and 512-chip
 meshes, `repro/launch/mesh.py`) are refused: the port runs on one card.
+`make_policy` is the reference's rule for a cell's `ShardingPolicy` (FSDP
+on, the KV cache split on its sequence for ``long_500k`` or fewer KV heads
+than the ``model`` axis); over a grid `procmesh.ProcMesh` it is the policy
+the split step runs under.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from ..configs import ARCH_IDS, SHAPES, get_config, shape_applicable
 from ..core.perfmodel import H100
 from ..models import build_model
 from ..models import layers as L
+from ..parallel.sharding import ShardingPolicy
 from ..train.optimizer import AdamWConfig, init_opt_state
 from ..train.train_step import StepConfig, make_prefill_step, make_serve_step, make_train_step
 from . import hlo_cost
@@ -46,6 +51,17 @@ REFUSED = {"single": "the reference's 16x16 production mesh (256 chips)",
            "multi": "the reference's 2x16x16 production mesh (512 chips)",
            "both": "the reference's two production meshes"}
 DEFAULT_OUT = "results/dryrun"
+
+
+def make_policy(mesh, cfg, shape) -> ShardingPolicy:
+    """The reference's policy for a cell on `mesh` (a `Mesh` or a
+    `procmesh.ProcMesh`): FSDP over ``data``, no sequence-parallel
+    activations, the KV cache split on its sequence for ``long_500k`` or
+    where the ``model`` axis outnumbers the KV heads."""
+    tp = mesh.shape.get("model", 1)
+    return ShardingPolicy(mesh=mesh, seq_parallel=False,
+                          kv_seq_shard=(shape.name == "long_500k") or cfg.n_kv_heads < tp,
+                          fsdp=True)
 
 
 def run_cell(arch: str, shape_name: str, mesh_name: str = "card", smoke: bool = False) -> dict:

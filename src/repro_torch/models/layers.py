@@ -25,8 +25,14 @@ q split), `mlp` over its own slice of F, and both all-reduce the partial
 sum of a projection whose contraction dim is split; `embed` looks up the
 ids of its own block of the vocabulary, zeros for the rest, and
 all-reduces; `unembed` all-gathers its block of the logits into the whole
-vocabulary.  `grad_cast_bf16` rounds the cotangent entering `unembed` to
-bf16, as the reference's custom VJP does; remat is `transformer.set_remat`.
+vocabulary.  For the backward, a replicated activation entering split
+heads, a split F or a split vocabulary passes through the policy's
+column-parallel entry (`ShardingPolicy.enter`), and so does a K/V leaf
+that is whole on every rank while the q heads are split (each rank's use
+of it, and so its gradient, is partial); the norm scales' use is
+replicated, and their gradient whole on every rank.  `grad_cast_bf16`
+rounds the cotangent entering `unembed` to bf16, as the reference's custom
+VJP does; remat is `transformer.set_remat`.
 """
 
 from __future__ import annotations
@@ -263,7 +269,11 @@ def attention(
     required and params, cache and `cross_kv` hold this rank's heads."""
     B, S, D = x.shape
     tp = tensor_parallel()
-    group, reduce = _local_heads(tp, params, heads, D)
+    group, reduce, kv_whole = _local_heads(tp, params, heads, D)
+    if reduce:
+        x = tp.enter(x)
+        if kv_whole:
+            params = {k: tp.enter(v) if k in _KV_LEAVES else v for k, v in params.items()}
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     if "bq" in params:
         q = q + params["bq"]
@@ -328,13 +338,17 @@ def _is_split(tp: ShardingPolicy, path: str, local: torch.Tensor, shape: tuple,
     return split
 
 
+_KV_LEAVES = ("wk", "wv", "bk", "bv")
+
+
 def _local_heads(tp: Optional[ShardingPolicy], params: dict, heads: Optional[tuple],
-                 D: int) -> tuple[Optional[torch.Tensor], bool]:
+                 D: int) -> tuple[Optional[torch.Tensor], bool, bool]:
     """Under a model split: (the local K/V head each local q head attends
     with, or None where the local heads already form GQA groups in order;
-    whether ``wo``'s heads are split, so that its sum is reduced)."""
+    whether ``wo``'s heads are split, so that its sum is reduced; whether
+    the K/V heads are whole on this rank)."""
     if tp is None:
-        return None, False
+        return None, False, False
     if heads is None:
         raise ValueError("attention under a model split over processes needs heads="
                          "(n_heads, n_kv_heads)")
@@ -342,13 +356,14 @@ def _local_heads(tp: Optional[ShardingPolicy], params: dict, heads: Optional[tup
     hd = params["wq"].shape[-1]
     hq, hkv = params["wq"].shape[-2], params["wk"].shape[-2]
     q0 = tp.model_rank * hq if _is_split(tp, "wq", params["wq"], (D, H, hd), 1) else 0
-    kv0 = tp.model_rank * hkv if _is_split(tp, "wk", params["wk"], (D, Hkv, hd), 1) else 0
+    kv_split = _is_split(tp, "wk", params["wk"], (D, Hkv, hd), 1)
+    kv0 = tp.model_rank * hkv if kv_split else 0
     reduce = _is_split(tp, "wo", params["wo"], (H, hd, D), 0)
     g = H // Hkv
     kv_of = [(q0 + i) // g - kv0 for i in range(hq)]
     if hq % hkv == 0 and kv_of == [i // (hq // hkv) for i in range(hq)]:
-        return None, reduce
-    return torch.tensor(kv_of, device=params["wq"].device), reduce
+        return None, reduce, not kv_split
+    return torch.tensor(kv_of, device=params["wq"].device), reduce, not kv_split
 
 
 def _take_heads(t: torch.Tensor, group: Optional[torch.Tensor]) -> torch.Tensor:
@@ -384,6 +399,14 @@ def mlp(params: dict, x: torch.Tensor, mlp_type: str = "swiglu",
         d_ff: Optional[int] = None) -> torch.Tensor:
     """Under a model split over processes `d_ff` (the model's F) is required
     and the params are this rank's slice of F."""
+    tp = tensor_parallel()
+    split = False
+    if tp is not None:
+        if d_ff is None:
+            raise ValueError("mlp under a model split over processes needs d_ff=")
+        split = _is_split(tp, "w_out", params["w_out"], (d_ff, x.shape[-1]), 0)
+        if split:
+            x = tp.enter(x)
     h = x @ params["w_in"]
     if mlp_type == "swiglu":
         h = F.silu(x @ params["w_gate"]) * h
@@ -391,12 +414,8 @@ def mlp(params: dict, x: torch.Tensor, mlp_type: str = "swiglu",
         h = F.gelu(h, approximate="tanh")      # jax.nn.gelu's default form
     h = shard(h, "act_btf")
     y = h @ params["w_out"]
-    tp = tensor_parallel()
-    if tp is not None:
-        if d_ff is None:
-            raise ValueError("mlp under a model split over processes needs d_ff=")
-        if _is_split(tp, "w_out", params["w_out"], (d_ff, x.shape[-1]), 0):
-            y = tp.all_reduce(y)
+    if split:
+        y = tp.all_reduce(y)
     return shard(y, "act_btd")
 
 
@@ -426,6 +445,33 @@ def init_embed(gen, vocab: int, d_model: int, tie: bool, dtype=torch.bfloat16,
     return p
 
 
+class _Lookup(torch.autograd.Function):
+    """``w[ids]`` whose backward sums each row's cotangents in f32 (or f64),
+    then rounds once: the index backward of a bf16 table adds every
+    repeat of an id in bf16, and a frequent token repeats hundreds of
+    times in a batch."""
+
+    @staticmethod
+    def forward(ctx, w, ids):
+        ctx.save_for_backward(ids)
+        ctx.shape, ctx.dtype = w.shape, w.dtype
+        return w[ids]
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        g = at_least_f32(g)
+        acc = torch.zeros(ctx.shape, dtype=g.dtype, device=g.device)
+        return acc.index_put_((ids,), g, accumulate=True).to(ctx.dtype), None
+
+
+def lookup(w: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The rows `ids` of the table `w`, their gradient summed in f32."""
+    if torch.is_grad_enabled() and w.requires_grad:
+        return _Lookup.apply(w, ids)
+    return w[ids]
+
+
 def embed(params: dict, tokens: torch.Tensor, vocab: Optional[int] = None) -> torch.Tensor:
     """Under a model split over processes `vocab` (the model's) is required;
     a rank whose block of the table is split looks up the ids in its block,
@@ -433,11 +479,11 @@ def embed(params: dict, tokens: torch.Tensor, vocab: Optional[int] = None) -> to
     w, ids = params["embed"], tokens.long()
     tp = tensor_parallel()
     if tp is None or not _split_vocab(tp, "embed", w, vocab, 0):
-        return shard(w[ids], "act_btd")
+        return shard(lookup(w, ids), "act_btd")
     n = w.shape[0]
     ids = ids - tp.model_rank * n
     mine = (ids >= 0) & (ids < n)
-    h = torch.where(mine[..., None], w[ids.clamp(0, n - 1)], 0)
+    h = torch.where(mine[..., None], lookup(w, ids.clamp(0, n - 1)), 0)
     return shard(tp.all_reduce(h), "act_btd")
 
 
@@ -450,10 +496,13 @@ def unembed(params: dict, x: torch.Tensor, vocab: Optional[int] = None) -> torch
     if tied:
         w = params["embed"].T
     x = grad_cast_bf16(x)       # keep the backward residual stream in bf16
-    logits = torch.einsum("bsd,dv->bsv", x, w)
     tp = tensor_parallel()
-    if tp is not None and (_split_vocab(tp, "embed", params["embed"], vocab, 0) if tied
-                           else _split_vocab(tp, "lm_head", w, vocab, 1)):
+    split = tp is not None and (_split_vocab(tp, "embed", params["embed"], vocab, 0) if tied
+                                else _split_vocab(tp, "lm_head", w, vocab, 1))
+    if split:
+        x = tp.enter(x)         # its cotangent summed in f32, then rounded
+    logits = torch.einsum("bsd,dv->bsv", x, w)
+    if split:
         logits = tp.all_gather(logits, dim=-1)
     return shard(logits, "logits")
 

@@ -6,7 +6,8 @@ a policy that splits the model over processes.  `forward_logits`,
 `prefill` and `decode_step` run unchanged under such a policy
 (`parallel.sharding`): given this rank's blocks, and a cache made by
 `init_cache` under the policy, they return the whole vocabulary's
-logits on every rank."""
+logits on every rank; `loss` is then this rank's rows' loss, which the
+split train step (`train.train_step`) sums over the data axes."""
 
 from __future__ import annotations
 
@@ -165,8 +166,9 @@ def params_from_jax(np_params: dict, device=None, dtype=torch.bfloat16,
     the leaf shapes are the same in both packages.  Under a `policy` that
     splits the model over processes (`ShardingPolicy.splits_model`) each
     leaf is this rank's block of it (`NamedSharding.local` of its fitted
-    spec: `ShardingPolicy.local_params`), cut from the numpy leaf before it
-    reaches the device; any other policy changes nothing."""
+    spec: `ShardingPolicy.local_params`; 2-D over ``data`` x ``model``
+    under ``fsdp=True``), cut from the numpy leaf before it reaches the
+    device; any other policy changes nothing."""
     if policy is not None and policy.splits_model:
         np_params = policy.local_params(np_params)
     dev = _device(device)

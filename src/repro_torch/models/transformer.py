@@ -54,7 +54,13 @@ Under a policy that splits the model over processes
 refused by `ShardingPolicy.check_model_split`) `forward` takes this rank's
 blocks of the params and hands the layers the config's whole sizes, and
 `init_cache` sizes the K/V cache at this rank's KV heads (``n_kv_heads /
-tp`` where ``wk`` is split, all of them where it is whole).
+tp`` where ``wk`` is split, all of them where it is whole).  Where the
+policy also splits leaves over ``data`` (FSDP, `ShardingPolicy.
+gathers_data`) each layer's blocks are gathered over ``data`` inside its
+remat body (`_block`), so the backward's recomputation gathers them again
+and no gathered layer is kept for it, and ``tok``'s leaves are gathered at
+each use (the embedding, the LM head); the layers then see the blocks of a
+split over ``model`` alone.
 """
 
 from __future__ import annotations
@@ -65,8 +71,9 @@ from typing import Any, NamedTuple, Optional
 import torch
 import torch.utils.checkpoint
 
+from ..ckpt.checkpoint import flatten
 from ..configs.base import ArchConfig
-from ..parallel.sharding import tensor_parallel
+from ..parallel.sharding import current_policy, tensor_parallel, use_policy
 from . import layers as L
 from . import mamba as M
 from . import moe as X
@@ -85,9 +92,19 @@ def set_remat(flag: bool) -> None:
 
 def _maybe_remat(body, cache):
     """`body` checkpointed (non-reentrant) when remat is on and there is no
-    cache to write: only the cache-free forward is differentiated."""
+    cache to write: only the cache-free forward is differentiated.  The
+    recomputation runs in the backward, after the forward's `use_policy`
+    has closed, so the body carries the forward's policy into it (MoE
+    dispatch groups, the split step's collectives), as a traced body does
+    in the reference."""
     if _REMAT[0] and cache is None:
-        return functools.partial(torch.utils.checkpoint.checkpoint, body,
+        pol = current_policy()
+
+        def under_policy(*args):
+            with use_policy(pol):
+                return body(*args)
+
+        return functools.partial(torch.utils.checkpoint.checkpoint, under_policy,
                                  use_reentrant=False)
     return body
 
@@ -267,8 +284,11 @@ def _ffn_block(cfg, blk, h):
     return h + L.mlp(blk["mlp"], xn, cfg.mlp_type, cfg.d_ff), None, None
 
 
-def _block(cfg, blk, h, positions, kv, start):
-    """One dense / vlm / moe layer -> (h, aux, z), as `_ffn_block`."""
+def _block(cfg, blk, h, positions, kv, start, gather=None):
+    """One dense / vlm / moe layer -> (h, aux, z), as `_ffn_block`; `gather`
+    (FSDP) joins the layer's blocks over ``data`` first."""
+    if gather is not None:
+        blk = gather(blk)
     h = _attn_block(cfg, blk, h, positions, kv, start)
     return _ffn_block(cfg, blk, h)
 
@@ -365,7 +385,10 @@ def forward(
         tp.check_model_split(cfg)
     B, S = tokens.shape
     dev = tokens.device
-    h = L.embed(params["tok"], tokens, cfg.vocab_size)
+    gather = _fsdp_gather(tp, cfg) if tp is not None and tp.gathers_data else None
+    tok = params["tok"] if gather is None else gather({"embed": params["tok"]["embed"]}, "tok")
+    h = L.embed(tok, tokens, cfg.vocab_size)
+    del tok
     if prefix_embeds is not None and cfg.family == "vlm":
         h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
         S = h.shape[1]
@@ -395,17 +418,50 @@ def forward(
             h, _, _ = _dec_block(cfg, blk, h, positions, kv, start, cache["enc_out"])
     else:
         body = _maybe_remat(_block, cache)
+        layer = None if gather is None else functools.partial(gather, prefix="blocks", lead=1)
         for i, blk in enumerate(_unstack(params["blocks"], cfg.n_layers)):
             kv = None if cache is None else {"k": cache["kv"]["k"][i],
                                              "v": cache["kv"]["v"][i]}
-            h, a, z = body(cfg, blk, h, positions, kv, start)
+            h, a, z = body(cfg, blk, h, positions, kv, start, layer)
             if a is not None:
                 aux, zl = aux + a, zl + z
     new_cache = None if cache is None else {**cache, "len": start + S}
 
     h = L.rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps)
-    logits = L.unembed(params["tok"], h, cfg.vocab_size)
+    tok = params["tok"]
+    if gather is not None:
+        head = "lm_head" if "lm_head" in tok else "embed"
+        tok = gather({head: tok[head]}, "tok")
+    logits = L.unembed(tok, h, cfg.vocab_size)
     return ForwardOut(logits, new_cache, aux, zl)
+
+
+_DATA_DIMS: dict = {}
+
+
+def _fsdp_gather(tp, cfg: ArchConfig):
+    """`gather(tree, prefix, lead=0)`: the leaves of `tree` (at `prefix` in
+    the params, with `lead` stacked dims cut away) joined over ``data``
+    where their fitted spec splits them there (`ShardingPolicy.data_dim`,
+    from the whole leaves' shapes), the rest as they are."""
+    key = (cfg, tuple(tp.mesh.shape.items()))
+    if key not in _DATA_DIMS:
+        _DATA_DIMS[key] = {path: tp.data_dim(path, tuple(leaf.shape))
+                           for path, leaf in flatten(init_lm(cfg, None, "meta"))}
+    dims = _DATA_DIMS[key]
+
+    def gather(tree: dict, prefix: str, lead: int = 0) -> dict:
+        out = {}
+        for k, v in tree.items():
+            path = f"{prefix}/{k}"
+            if isinstance(v, dict):
+                out[k] = gather(v, path, lead)
+            else:
+                d = dims[path]
+                out[k] = v if d is None else tp.gather_data(v, d - lead)
+        return out
+
+    return gather
 
 
 def encode(params: dict, cfg: ArchConfig, frames: torch.Tensor) -> torch.Tensor:

@@ -35,10 +35,25 @@ vocabulary is joined by `all_gather`.  Both run over the axis's view
 collectives XLA's partitioner inserts into the reference's split
 forward.  A leaf whose spec fits no split (6 q heads but 3 KV heads at
 tp = 2: ``wk`` / ``wv`` replicated) is whole on every rank, and a sum over
-a whole leaf is never reduced.  What such a split does not carry yet is
-refused by `check_model_split` (ROADMAP item 12c).  A policy on a stacked
-`Mesh`, or over processes without a ``model`` axis of more than one,
-changes no value.
+a whole leaf is never reduced.
+
+**Its backward.**  Each collective is a `torch.autograd.Function`, so the
+train step differentiates the split forward (Megatron's pairs): the
+row-parallel sum (`all_reduce`) passes its cotangent to every rank's
+partial unchanged; the column-parallel entry (`enter`), the identity
+forward, all-reduces over ``model`` the cotangent of a replicated
+activation entering split heads or a split F, and of a leaf whole on
+every rank but used there in part (the mixed fit's ``wk`` / ``wv`` /
+``bk`` / ``bv``); the vocabulary gather hands each rank its slice of the
+cotangent.  With ``fsdp=True`` a leaf's fitted spec may also split a dim
+over ``data``: `gather_data` all-gathers it over that axis at its use
+(FSDP), and its backward reduce-scatters the gathered leaf's cotangent
+over ``data``, so a rank's gradient block is already summed over the
+``data`` ranks; `sum_over` sums the rest (`train.train_step`), and
+`norm_sq` counts every block once in the clip's global norm.  What such a
+split does not carry yet is refused by `check_model_split` (ROADMAP items
+12c.3-12c.5).  A policy on a stacked `Mesh`, or over processes without a
+``model`` axis of more than one, changes no value.
 """
 
 from __future__ import annotations
@@ -158,14 +173,32 @@ class ShardingPolicy:
         """A spec for each leaf of `tree` (tensors, or anything with a
         ``shape``), fitted to the leaf's shape; the leaf paths are the
         reference's (``blocks/attn/wq``, ``1/.mu/...``)."""
-        return _unflatten_like(tree, self._specs(tree))
+        return _unflatten_like(tree, self.flat_specs(tree))
 
     def tree_shardings(self, tree: Any) -> Any:
         """One `NamedSharding` (this mesh, the leaf's spec) a leaf."""
         return _unflatten_like(tree, {path: NamedSharding(self.mesh, spec)
-                                      for path, spec in self._specs(tree).items()})
+                                      for path, spec in self.flat_specs(tree).items()})
 
-    def _specs(self, tree: Any) -> dict:
+    def local_batch(self, batch: dict) -> dict:
+        """This rank's rows of a global batch by the reference's batch specs
+        (`launch/dryrun.py` `_batch_specs`): ``tokens`` / ``labels``,
+        ``frames`` / ``patches`` and ``token`` split over the data axes
+        (fitted), anything else whole."""
+        dp = _dp(self.mesh)
+        out = {}
+        for k, v in batch.items():
+            spec = P(dp) if k in ("tokens", "labels", "frames", "patches", "token") else P()
+            out[k] = NamedSharding(self.mesh, fit_spec(spec, tuple(v.shape), self.mesh)).local(v)
+        return out
+
+    @staticmethod
+    def names(spec: P, axis: str) -> bool:
+        """Whether `spec` splits a dim over `axis`."""
+        return any(axis in _axes_of(entry) for entry in spec)
+
+    def flat_specs(self, tree: Any) -> dict:
+        """{leaf path: its fitted spec} for every leaf of `tree`."""
         return {path: fit_spec(self.param_spec(path, len(leaf.shape)), tuple(leaf.shape),
                                self.mesh)
                 for path, leaf in flatten(tree)}
@@ -203,10 +236,6 @@ class ShardingPolicy:
         Without `cfg` only the policy's own options are checked."""
         if not self.splits_model:
             return
-        if self.fsdp:
-            raise NotImplementedError(
-                "FSDP over `data` under a model split over processes is ROADMAP item "
-                "12c.2; build the policy with fsdp=False")
         if self.seq_parallel:
             raise NotImplementedError(
                 "sequence-parallel activations over processes are ROADMAP item 12c.3")
@@ -230,7 +259,7 @@ class ShardingPolicy:
         then each one's `NamedSharding.local`.  A tensor's block is a copy,
         so that the whole leaf may go; any other leaf's (numpy) a view."""
         self.check_model_split()
-        specs = self._specs(tree)
+        specs = self.flat_specs(tree)
 
         def block(path, leaf):
             got = NamedSharding(self.mesh, specs[path]).local(leaf)
@@ -240,34 +269,161 @@ class ShardingPolicy:
 
         return _unflatten_like(tree, {path: block(path, leaf) for path, leaf in flatten(tree)})
 
+    # ------------------------------------- the split step's collectives
+    @property
+    def gathers_data(self) -> bool:
+        """Whether the split step gathers FSDP blocks over ``data``: fsdp on a
+        model split whose ``data`` axis has more than one rank."""
+        return self.splits_model and self.fsdp and self.mesh.shape.get("data", 1) > 1
+
+    @property
+    def data_axes(self) -> tuple:
+        """The data axes of more than one rank: the batch's rows are split
+        over them and a gradient is summed over them."""
+        return tuple(a for a in (_dp(self.mesh) or ()) if self.mesh.shape[a] > 1)
+
+    def data_dim(self, path: str, shape) -> Optional[int]:
+        """The dim of the leaf of whole `shape` at `path` that its fitted
+        spec splits over ``data`` (None where it splits none, or where this
+        policy gathers nothing over ``data``)."""
+        if not self.gathers_data:
+            return None
+        spec = fit_spec(self.param_spec(path, len(shape)), tuple(shape), self.mesh)
+        return next((d for d, entry in enumerate(spec) if "data" in _axes_of(entry)), None)
+
     def all_reduce(self, y: torch.Tensor) -> torch.Tensor:
         """Each rank's partial sum y -> the sum over the ``model`` axis: the
         one-sided ring all-reduce (`core.collectives.all_reduce`), summed
-        in f32 (in y's dtype where that is wider) and returned in y's."""
-        _no_backward(y)
-        acc = y if y.dtype.itemsize >= 4 else y.float()
-        out = collectives.all_reduce(acc.contiguous()[None], self.mesh.along("model"))
-        return out[0].to(y.dtype)
+        in f32 (in y's dtype where that is wider) and returned in y's.  Its
+        backward is the identity into each rank's partial."""
+        return _RowSum.apply(y, self.mesh.along("model"))
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """The column-parallel entry of `x` (replicated over ``model``) into
+        this rank's split part: x itself; its backward all-reduces x's
+        cotangent over ``model``, each rank's part of it being partial."""
+        if not (torch.is_grad_enabled() and x.requires_grad):
+            return x
+        return _Enter.apply(x, self.mesh.along("model"))
 
     def all_gather(self, y: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """Each rank's block y -> the ``model`` axis's blocks in its order,
         concatenated along `dim`: the one-sided ring all-gather
-        (`core.collectives.ring_all_gather`) of y's bytes as 32-bit words."""
-        _no_backward(y)
-        sub = self.mesh.along("model")
-        raw = as_bytes(y)
-        words = torch.nn.functional.pad(raw, (0, -raw.numel() % 4)).view(torch.int32)
-        got = collectives.ring_all_gather(words[None], sub)[0]          # [p, words]
-        blocks = got.view(torch.uint8)[:, :raw.numel()].contiguous().view(y.dtype)
-        return torch.cat(list(blocks.reshape((sub.p,) + tuple(y.shape))), dim=dim)
+        (`core.collectives.ring_all_gather`) of y's bytes as 32-bit words.
+        Its backward is this rank's slice of the cotangent (the whole
+        tensor's use is replicated over ``model``)."""
+        return _VocabGather.apply(y, self.mesh.along("model"), dim % y.ndim)
+
+    def gather_data(self, y: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's FSDP block y of a leaf -> the ``data`` axis's blocks
+        along `dim`, joined (the ring all-gather); its backward reduce-
+        scatters the cotangent over ``data`` (summed in f32, returned in
+        y's dtype where that is wider)."""
+        return _FsdpGather.apply(y, self.mesh.along("data"), dim % y.ndim)
+
+    def sum_over(self, axis: str, tensors: list) -> list:
+        """Each tensor summed over `axis`: one ring all-reduce of their f32
+        concatenation (every rank of the axis gets the same bits), each
+        returned in its dtype."""
+        if not tensors:
+            return []
+        flat = torch.cat([t.detach().float().reshape(-1) for t in tensors])
+        got = collectives.all_reduce(flat[None], self.mesh.along(axis))[0]
+        return [part.view(t.shape).to(t.dtype)
+                for part, t in zip(got.split([t.numel() for t in tensors]), tensors)]
+
+    def norm_sq(self, leaves: list, specs: list) -> torch.Tensor:
+        """The sum of squares of a tree of blocks over the whole grid, each
+        block counted once: a leaf's squares count on the ranks whose
+        coordinate is 0 on every axis its spec does not split, and the sum
+        is one ring all-reduce over every rank of the grid (f32)."""
+        at = dict(zip(self.mesh.axis_names, self.mesh.coords))
+        own = torch.zeros((), dtype=torch.float32, device=self.mesh.device)
+        for g, spec in zip(leaves, specs):
+            if all(c == 0 for a, c in at.items() if not self.names(spec, a)):
+                own = own + g.float().square().sum()
+        grid = self.mesh.regrid({"grid": self.mesh.p})
+        return collectives.all_reduce(own.reshape(1, 1), grid).reshape(())
 
 
-def _no_backward(y: torch.Tensor) -> None:
-    """The split step's collectives have no backward: a gradient through one
-    would be silently wrong, so a tensor that needs one is refused."""
-    if torch.is_grad_enabled() and y.requires_grad:
-        raise NotImplementedError("the train step split over `model` is ROADMAP item 12c.1: "
-                                  "these collectives have no backward")
+def _axes_of(entry) -> tuple:
+    """A spec entry's mesh axes (None: none)."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def _ring_sum(y: torch.Tensor, sub: Mesh) -> torch.Tensor:
+    acc = y if y.dtype.itemsize >= 4 else y.float()
+    return collectives.all_reduce(acc.contiguous()[None], sub)[0].to(y.dtype)
+
+
+def _ring_gather(y: torch.Tensor, sub: Mesh, dim: int, bidirectional: bool = True
+                 ) -> torch.Tensor:
+    raw = as_bytes(y)
+    words = torch.nn.functional.pad(raw, (0, -raw.numel() % 4)).view(torch.int32)
+    got = collectives.ring_all_gather(words[None], sub, bidirectional)[0]   # [p, words]
+    blocks = got.view(torch.uint8)[:, :raw.numel()].contiguous().view(y.dtype)
+    return torch.cat(list(blocks.reshape((sub.p,) + tuple(y.shape))), dim=dim)
+
+
+class _RowSum(torch.autograd.Function):
+    """The row-parallel sum: the ring all-reduce; backward the identity."""
+
+    @staticmethod
+    def forward(ctx, y, sub):
+        return _ring_sum(y, sub)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Enter(torch.autograd.Function):
+    """The column-parallel entry: the identity; backward the ring all-reduce."""
+
+    @staticmethod
+    def forward(ctx, x, sub):
+        ctx.sub = sub
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ring_sum(g, ctx.sub), None
+
+
+class _VocabGather(torch.autograd.Function):
+    """The vocabulary all-gather; backward this rank's slice."""
+
+    @staticmethod
+    def forward(ctx, y, sub, dim):
+        ctx.sub, ctx.dim, ctx.n = sub, dim, y.shape[dim]
+        return _ring_gather(y, sub, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.sub.rank * ctx.n, ctx.n), None, None
+
+
+class _FsdpGather(torch.autograd.Function):
+    """The FSDP gather over ``data``: the ring all-gather (one direction at
+    two ranks, where both directions reach the same neighbour); backward
+    the ring reduce-scatter, in f32 or wider.  It keeps no tensor for the
+    backward, so a recomputation under checkpointing replaces nothing it
+    holds."""
+
+    @staticmethod
+    def forward(ctx, y, sub, dim):
+        ctx.sub, ctx.dim = sub, dim
+        return _ring_gather(y, sub, dim, bidirectional=sub.p > 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        p, dim = ctx.sub.p, ctx.dim
+        acc = g if g.dtype.itemsize >= 4 else g.float()
+        chunks = acc.unflatten(dim, (p, g.shape[dim] // p)).movedim(dim, 0)
+        got = collectives.ring_reduce_scatter(chunks.contiguous()[None], ctx.sub)[0]
+        return got.to(g.dtype), None, None
 
 
 def fit_spec(spec: P, shape: tuple, mesh: Mesh) -> P:
@@ -308,10 +464,7 @@ class NamedSharding:
     spec: P
 
     def _axes(self, d: int) -> tuple:
-        entry = self.spec[d] if d < len(self.spec) else None
-        if entry is None:
-            return ()
-        return tuple(entry) if isinstance(entry, tuple) else (entry,)
+        return _axes_of(self.spec[d] if d < len(self.spec) else None)
 
     def check(self, shape) -> None:
         """Raise unless the spec tiles `shape` exactly on the mesh."""

@@ -11,6 +11,13 @@ The update is functional: new params and a new state, the inputs untouched.
 
 Trees are nested dicts of tensors; their leaves are visited in sorted key
 order, the order `jax.tree.leaves` gives the reference's dicts.
+
+Under a policy that splits the model over processes
+(`parallel.sharding.tensor_parallel`) the params, grads and moments are
+this rank's blocks (ZeRO-1: the moments take the params' 2-D specs), the
+update is elementwise on them, and the clip's global norm takes the
+leaves' fitted specs (``specs=``) so that every block counts once over
+the grid (`ShardingPolicy.norm_sq`).
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from ..parallel.sharding import tensor_parallel
 
 
 def tree_leaves(tree: Any) -> list:
@@ -62,15 +71,17 @@ def init_opt_state(params: Any) -> OptState:
     return OptState(step, tree_map(zeros, params), tree_map(zeros, params))
 
 
-def opt_state_from_jax(step, mu: dict, nu: dict, device=None) -> OptState:
+def opt_state_from_jax(step, mu: dict, nu: dict, device=None, policy=None) -> OptState:
     """The reference's `OptState` (its step and moment trees as numpy) as
-    the port's, on `device` (CUDA unless it says otherwise)."""
+    the port's, on `device` (CUDA unless it says otherwise); under a
+    `policy` that splits the model over processes, this rank's blocks of
+    the moments (`models.registry.params_from_jax`)."""
     from ..models.registry import params_from_jax
 
-    mu_t = params_from_jax(mu, device, dtype=torch.float32)
+    mu_t = params_from_jax(mu, device, dtype=torch.float32, policy=policy)
     dev = tree_leaves(mu_t)[0].device
     return OptState(torch.tensor(np.asarray(step), dtype=torch.int32, device=dev),
-                    mu_t, params_from_jax(nu, device, dtype=torch.float32))
+                    mu_t, params_from_jax(nu, device, dtype=torch.float32, policy=policy))
 
 
 def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
@@ -82,19 +93,30 @@ def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cfg.lr * cos)
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(g.float().square().sum() for g in tree_leaves(tree)))
+def global_norm(tree: Any, specs: Any = None) -> torch.Tensor:
+    """The L2 norm of every leaf; under a model split over processes, of
+    the whole tree whose blocks `tree` holds (`specs`: the leaves' fitted
+    specs, the tree's structure)."""
+    tp = tensor_parallel()
+    if tp is None:
+        return torch.sqrt(sum(g.float().square().sum() for g in tree_leaves(tree)))
+    if specs is None:
+        raise ValueError("the global norm of a split step's blocks needs their fitted specs "
+                         "(specs=)")
+    return torch.sqrt(tp.norm_sq(tree_leaves(tree), tree_leaves(specs)))
 
 
-def clip_by_global_norm(grads: Any, max_norm: float) -> tuple[Any, torch.Tensor]:
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: Any, max_norm: float,
+                        specs: Any = None) -> tuple[Any, torch.Tensor]:
+    norm = global_norm(grads, specs)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
 
-def adamw_update(cfg: AdamWConfig, params: Any, grads: Any,
-                 state: OptState) -> tuple[Any, OptState, dict]:
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+def adamw_update(cfg: AdamWConfig, params: Any, grads: Any, state: OptState,
+                 specs: Any = None) -> tuple[Any, OptState, dict]:
+    """`specs`: the leaves' fitted specs, under a model split over processes."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, specs)
     step = state.step + 1
     lr = lr_at(cfg, state.step)
     b1c = 1.0 - cfg.b1 ** step.float()

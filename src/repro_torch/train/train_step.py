@@ -5,11 +5,19 @@ PyTorch runs eagerly, so a step is a plain function, not a jitted one.
 A `parallel.sharding.ShardingPolicy` (``policy=``) is active around the
 loss and the AdamW update, where the reference activates it: its
 placements change no value on one card, its MoE dispatch groups do.
-Under a policy that splits the model over processes the prefill and serve
-steps run the split forward on this rank's blocks, and the train step
-raises: its collectives have no backward yet (ROADMAP item 12c.1).
+Under a policy that splits the model over processes (`ShardingPolicy.
+splits_model`) every step runs the split forward on this rank's blocks.
+The train step there computes the reference's step on the global batch:
+the rank takes its rows by the reference's batch spec (``P(("pod",
+"data"), None)``), its backward runs through the split forward's
+collectives (their autograd rules, `parallel.sharding`), each gradient
+block is summed over the data axes (a leaf split over ``data`` by its
+FSDP gather's backward, every other leaf and the loss in one ring
+all-reduce of their concatenation) and divided by their ranks, and AdamW
+updates the blocks with the clip's global norm counting each block once.
 Microbatches run in a Python loop where the reference scans; their
-f32-accumulated gradients are averaged (`step_grads`).  Remat
+f32-accumulated gradients are averaged (`step_grads`), and a split step
+runs its collectives once a microbatch, its data sums once.  Remat
 (`models.transformer.set_remat`) is switched on around the loss only, as
 the reference does, so the flash kernel runs once a layer in the forward
 and once more in the backward's recomputation.
@@ -22,6 +30,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..ckpt.checkpoint import _unflatten_like, flatten
 from ..models import transformer as T
 from ..models.registry import Model
 from ..parallel.sharding import ShardingPolicy, use_policy
@@ -59,7 +68,17 @@ def step_grads(model: Model, params: dict, batch: dict, step_cfg: StepConfig = S
                policy: Optional[ShardingPolicy] = None) -> tuple[torch.Tensor, dict, dict]:
     """A train step's (loss, metrics, grads): one `loss_and_grads`, or with
     n microbatches (B must divide by n) their f32-accumulated grads and
-    losses, averaged."""
+    losses, averaged.  Under a policy that splits the model over processes
+    `batch` is the global batch and `params` this rank's blocks: the loss
+    and metrics are the global batch's, the grads this rank's blocks of
+    its gradient."""
+    if policy is None or not policy.splits_model:
+        return _step_grads(model, params, batch, step_cfg, policy)
+    loss, met, grads = _step_grads(model, params, policy.local_batch(batch), step_cfg, policy)
+    return _sum_over_data(model, policy, loss, met, grads)
+
+
+def _step_grads(model, params, batch, step_cfg, policy):
     n = step_cfg.n_microbatches
     if n == 1:
         return loss_and_grads(model, params, batch, step_cfg.remat, policy)
@@ -80,19 +99,47 @@ def step_grads(model: Model, params: dict, batch: dict, step_cfg: StepConfig = S
     return loss, {"nll": loss, "aux": torch.zeros_like(loss), "z": torch.zeros_like(loss)}, grads
 
 
+_METRICS = ("nll", "aux", "z")
+
+
+def _sum_over_data(model: Model, policy: ShardingPolicy, loss: torch.Tensor, met: dict,
+                   grads: dict) -> tuple[torch.Tensor, dict, dict]:
+    """This data rank's (loss, metrics, grads) -> the global batch's: on
+    each data axis, one ring all-reduce of the loss, the metrics and every
+    gradient block that the axis does not split (a block split over
+    ``data`` is already summed there by its gather's backward); then
+    everything divided by the data ranks (each took equal rows)."""
+    specs = policy.flat_specs(model.init_shapes())
+    g = dict(flatten(grads))
+    vals = torch.stack([loss] + [torch.as_tensor(met[k], device=loss.device).float()
+                                 for k in _METRICS])
+    dp = 1
+    for axis in policy.data_axes:
+        dp *= policy.mesh.shape[axis]
+        todo = [p for p in g if not policy.names(specs[p], axis)]
+        *summed, vals = policy.sum_over(axis, [g[p] for p in todo] + [vals])
+        g.update(zip(todo, summed))
+    g = {p: (v.float() / dp).to(v.dtype) for p, v in g.items()}
+    vals = vals / dp
+    return vals[0], dict(zip(_METRICS, vals[1:])), _unflatten_like(grads, g)
+
+
 def make_train_step(model: Model, opt_cfg: AdamWConfig,
                     step_cfg: StepConfig = StepConfig(),
                     policy: Optional[ShardingPolicy] = None) -> Callable:
     """Returns train_step(params, opt_state, batch) -> (params, opt_state, metrics).
-    Refused under a policy that splits the model over processes."""
+    Under a policy that splits the model over processes `params` and the
+    moments are this rank's blocks and `batch` the global batch (what
+    `ShardingPolicy.check_model_split` refuses is refused here)."""
+    specs = None
     if policy is not None and policy.splits_model:
-        raise NotImplementedError("the train step split over `model` is ROADMAP item 12c.1: "
-                                  "the split forward's collectives have no backward")
+        policy.check_model_split(model.cfg)
+        specs = policy.tree_specs(model.init_shapes())
 
     def train_step(params: dict, opt_state: OptState, batch: dict):
         loss, met, grads = step_grads(model, params, batch, step_cfg, policy)
         with use_policy(policy):
-            params, opt_state, om = adamw_update(opt_cfg, params, grads, opt_state)
+            params, opt_state, om = adamw_update(opt_cfg, params, grads, opt_state, specs)
         return params, opt_state, {"loss": loss, **met, **om}
 
     return train_step

@@ -29,8 +29,11 @@ can differ); every rank's leaves are the blocks the reference's specs
 give its coordinate, bit for bit; the forward's collectives are the
 one-sided ring's puts (an `OpCounter` ledger of exactly the expected
 count), with every `torch.distributed` collective made to raise while it
-runs.  The refusals of what the split does not carry yet, the train-step
-guard and `params_from_jax`'s blocks run in this process.
+runs.  The refusals of what the split does not carry yet, the train
+step's guard of them and `params_from_jax`'s blocks run in this process;
+the backward of each of the split step's collectives runs on two more
+CPU processes, against the same function computed whole.  The train step
+over the grid is `tests/test_torch_tensor_parallel_train.py`'s.
 """
 
 import dataclasses
@@ -47,8 +50,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import procmesh  # noqa: E402
 from repro_torch.ckpt.checkpoint import flatten  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import SHAPES, get_config  # noqa: E402
 from repro_torch.core.rma import OpCounter  # noqa: E402
+from repro_torch.launch.dryrun import make_policy  # noqa: E402
 from repro_torch.models.registry import build_model, params_from_jax  # noqa: E402
 from repro_torch.parallel.sharding import ShardingPolicy, use_policy  # noqa: E402
 from repro_torch.train.optimizer import AdamWConfig  # noqa: E402
@@ -370,7 +374,8 @@ REFUSALS = {
     "kv_seq_shard": (ARCH, 2, {"kv_seq_shard": True}, "12c.3"),
     "fewer_kv_heads_than_tp": (ARCH, 4, {}, "12c.3"),
     "seq_parallel": (ARCH, 2, {"seq_parallel": True}, "12c.3"),
-    "fsdp": (ARCH, 2, {"fsdp": True}, "12c.2"),
+    # FSDP (12c.2) is carried now; it lifts no refusal of a later item
+    "fsdp": (ARCH, 4, {"fsdp": True}, "12c.3"),
     "moe": ("qwen3-moe-30b-a3b", 2, {}, "12c.4"),
     "hybrid": ("jamba-v0.1-52b", 2, {}, "12c.5"),
     "ssm": ("xlstm-1.3b", 2, {}, "12c.5"),
@@ -392,17 +397,102 @@ def test_what_the_split_does_not_carry_is_refused(case):
 
 
 def test_train_step_under_a_model_split_raises():
+    """The train step under a model split raises for what items 12c.3-12c.5
+    name, at construction; the dense split, with or without FSDP over
+    ``data`` (the reference's `make_policy`), and a policy that splits
+    nothing over processes build a step."""
+    for case in ("fewer_kv_heads_than_tp", "seq_parallel", "moe", "hybrid", "ssm"):
+        arch, tp, kw, item = REFUSALS[case]
+        with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
+            make_train_step(build_model(get_config(arch, smoke=True)), AdamWConfig(),
+                            policy=_split_policy(tp, **kw))
     model = build_model(get_config(ARCH, smoke=True))
-    with pytest.raises(NotImplementedError, match=r"12c\.1"):
-        make_train_step(model, AdamWConfig(), policy=_split_policy())
-    # nor can a gradient pass through the split step's collectives
-    y = torch.ones(2, 3, requires_grad=True)
-    for collective in (_split_policy().all_reduce, _split_policy().all_gather):
-        with pytest.raises(NotImplementedError, match=r"12c\.1"):
-            collective(y)
-    # a policy that splits nothing over processes still trains
-    make_train_step(model, AdamWConfig(),
-                    policy=ShardingPolicy(procmesh.ProcMesh({"model": 1}, 0, device="cpu")))
+    grid = procmesh.ProcMesh({"data": 2, "model": 2}, 0, device="cpu")
+    for pol in (_split_policy(), make_policy(grid, model.cfg, SHAPES["train_4k"]),
+                ShardingPolicy(procmesh.ProcMesh({"model": 1}, 0, device="cpu"))):
+        assert callable(make_train_step(model, AdamWConfig(), policy=pol))
+
+
+def test_a_split_with_fsdp_is_accepted():
+    """fsdp=True over the grid (12c.2): the model and its cache are
+    accepted, and each rank's leaves are its 2-D blocks (``data`` x
+    ``model``), the norm scales and the biases as their specs say."""
+    cfg = get_config(ARCH, smoke=True)
+    flat = _np_params("qwen")
+    for r in range(NP):
+        mesh = procmesh.ProcMesh(GRID, r, device="cpu")
+        pol = make_policy(mesh, cfg, SHAPES["train_4k"])
+        assert pol.fsdp and pol.splits_model and pol.gathers_data
+        pol.check_model_split(cfg)
+        with use_policy(pol):
+            assert build_model(cfg).init_cache(1, 8, device="cpu")["kv"]["k"].shape[3] == 1
+        d, m = mesh.coords
+        got = dict(flatten(params_from_jax(_tree(flat), "cpu", torch.float32, policy=pol)))
+        np.testing.assert_array_equal(got["blocks/attn/wq"].numpy(),
+                                      flat["blocks/attn/wq"][:, 32 * d:32 * d + 32,
+                                                             2 * m:2 * m + 2])
+        np.testing.assert_array_equal(got["blocks/mlp/w_out"].numpy(),
+                                      flat["blocks/mlp/w_out"][:, 64 * m:64 * m + 64,
+                                                               32 * d:32 * d + 32])
+        np.testing.assert_array_equal(got["tok/lm_head"].numpy(),
+                                      flat["tok/lm_head"][32 * d:32 * d + 32,
+                                                          128 * m:128 * m + 128])
+        np.testing.assert_array_equal(got["blocks/attn/bq"].numpy(),
+                                      flat["blocks/attn/bq"][:, 2 * m:2 * m + 2])
+        np.testing.assert_array_equal(got["blocks/ln1/scale"].numpy(), flat["blocks/ln1/scale"])
+
+
+def _collective_grads(mesh) -> dict:
+    """Each collective of the split step in a function of whole tensors,
+    computed with this rank's parts and again whole: the gradients (this
+    rank's parts of them) of both.  Two ranks as the ``model`` axis, then
+    as ``data``."""
+    g = torch.Generator().manual_seed(7)
+    x, a, b, v, w, c = (torch.randn(*s, generator=g, dtype=torch.float64)
+                        for s in ((3, 4), (4, 6), (6, 4), (4, 10), (3, 4), (3, 10)))
+    pol = ShardingPolicy(mesh.regrid({"model": 2}), fsdp=False)
+    r = pol.model_rank
+    cols, rows = slice(3 * r, 3 * r + 3), slice(5 * r, 5 * r + 5)
+
+    def split(x, a_m, b_m, v_m):
+        y = pol.all_reduce(pol.enter(x) @ a_m @ b_m)               # row-parallel pair
+        logits = pol.all_gather(pol.enter(x) @ v_m, dim=-1)         # vocabulary-parallel
+        return (y * w).sum() + (logits * c).sum()
+
+    def whole(x, a, b, v):
+        return (x @ a @ b * w).sum() + (x @ v * c).sum()
+
+    out = {}
+    parts = [t.clone().requires_grad_(True) for t in (x, a[:, cols], b[cols], v[:, rows])]
+    out["model"] = [t.numpy() for t in torch.autograd.grad(split(*parts), parts)]
+    full = [t.clone().requires_grad_(True) for t in (x, a, b, v)]
+    gw = torch.autograd.grad(whole(*full), full)
+    out["model_want"] = [t.numpy() for t in (gw[0], gw[1][:, cols], gw[2][cols],
+                                             gw[3][:, rows])]
+
+    # FSDP: each data rank its rows of x and its block of a's rows
+    data = ShardingPolicy(mesh.regrid({"data": 2, "model": 1}))
+    d = data.mesh.coords[0]
+    xs = torch.cat([x, w])                                       # [6, 4]: 3 rows a rank
+    a_d = a[2 * d:2 * d + 2].clone().requires_grad_(True)
+    loss = ((xs[3 * d:3 * d + 3] @ data.gather_data(a_d, 0)) ** 2).sum()
+    out["data"] = torch.autograd.grad(loss, a_d)[0].numpy()
+    a_full = a.clone().requires_grad_(True)
+    out["data_want"] = torch.autograd.grad(((xs @ a_full) ** 2).sum(), a_full)[0][
+        2 * d:2 * d + 2].numpy()
+    return out
+
+
+def test_split_collectives_differentiate_as_the_whole_function():
+    """The row-parallel sum (backward the identity), the column-parallel
+    entry (backward the all-reduce), the vocabulary gather (backward the
+    slice) and the FSDP gather (backward the reduce-scatter), in f64 on two
+    CPU processes: each rank's gradients are its parts of the whole
+    function's."""
+    for res in procmesh.run(_collective_grads, 2, device="cpu", timeout=TIMEOUT):
+        for got, want in zip(res["model"], res["model_want"]):
+            np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(res["data"], res["data_want"], rtol=1e-12, atol=1e-12)
 
 
 def test_whole_weights_under_a_split_are_refused():
