@@ -480,6 +480,34 @@ no result line):
     nothing else.  Host ms a step, fenced rounds (host barriers) a step,
     the device's busy share of a profiled step, each rank's torch peak,
     and row 4's peer put at an FSDP gather's block.
+35. a KV cache split on its sequence over a `ProcMesh`'s ``model`` axis:
+    chatglm3-6b at its published widths and all 28 layers, keyed random
+    bf16 weights, 4 prompts of 2,036-7,600 tokens ending just short of
+    the 2,048-position block boundaries of an 8,192-position cache (the
+    fourth inside the last block; reduced from decode_32k's 32,768, which
+    ``--kv-seq-procs --decode-32k`` runs with prompts of 8,180-30,000 in
+    chunks of 5,000).  One process runs it whole: `make_prefill_step` on
+    each prompt's first 2,048 tokens (the flash kernel), each prompt
+    prefilled alone into its row in chunks of 1,500 (crossing the
+    boundaries), 16 greedy `make_serve_step` steps; then
+    freed.  Four processes on the card run it under the reference's
+    `make_policy` for decode_32k over ``ProcMesh({"model": 4})`` (2 KV
+    heads under 4 ranks: the cache's sequence in 4 blocks), each keeping
+    only its blocks of the same slices, the decode teacher-forced on the
+    whole run's tokens: every logit within TP_REL of the whole run's max
+    |logit|, the argmax held wherever the top-2 margin exceeds twice that;
+    each rank's cache 1/4 of the whole run's bytes, its layer 0 block
+    equal to the whole run's positions bit for bit; 112 "wgmma" flash
+    launches a rank and exactly the schedule's row 4 peer puts
+    (`kv_schedule`: the ring collectives' puts, and 4 a partials'
+    all-to-all), nothing else.  Part 2: its first 8 layers (reduced:
+    depth) over ``{"data": 2, "model": 2}`` under `make_policy` for
+    long_500k (the 2 KV heads split one a rank, FSDP over ``data``), an
+    8,192-position cache, 4 rows of 4,082-4,094 tokens, 2 a data
+    coordinate, with the same bounds.  Host ms of a prefill and a decode
+    step beside the whole run's, fenced rounds (host barriers) a decode
+    step, each rank's torch peak, and row 4's peer put at the partials'
+    all-to-all block.
 
 ``python3 chip_smoke.py --gather-shift`` times only `rmem.pages.gather_shift`
 and `paged_gather` at the rendezvous pull's shape on the package beside the
@@ -502,7 +530,10 @@ phase 32's set A (set B reads the whole smoke's full-width runs) and ends
 with the result line; ``--tp-procs`` runs only phase 33, its rows of the
 kernels line (row 4's peer form and row 11 with this phase's launches, row
 11 timed at a rank's attention shape), then the result line;
-``--tp-train-procs`` runs only phase 34 the same way.
+``--tp-train-procs`` runs only phase 34 the same way; ``--kv-seq-procs``
+runs only phase 35 the same way (row 4 timed at the partials' all-to-all
+block, row 11 at a rank's attention shape), and ``--kv-seq-procs
+--decode-32k`` with part 1 at decode_32k's 32,768 positions.
 
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after.
@@ -797,6 +828,23 @@ TP_GRID, TP_AR_REPS = {"model": TP_RANKS}, 20
 # coordinate; TRAIN_LOSS_TOL and TRAIN_GRAD_REL, its cuda-vs-torch bounds)
 TT_ARCH, TT_LAYERS, TT_RANKS, TT_SEED = "starcoder2-15b", 4, 4, 34
 TT_GRID, TT_STEPS, TT_TIMEOUT = {"data": 2, "model": 2}, 3, 900.0
+# phase 35: chatglm3-6b at its published widths and depth (src/repro/configs/chatglm3_6b.py:
+# 28 layers, d_model 4096, 32 q heads and 2 KV heads of 128, F 13,696 swiglu, vocab
+# 65,024, q/k/v biases, 2-D RoPE) served over ProcMesh({"model": 4}) under the
+# reference's make_policy for decode_32k: 2 KV heads under 4 ranks put the cache's
+# sequence on model, 4 blocks of 8,192 positions.  Prompts end just short of the block
+# boundaries (the fourth inside rank 3's block), so three rows cross one while decoding;
+# each prompt is prefilled in chunks that straddle them.  Part 2: the first 8 layers over
+# {"data": 2, "model": 2} for long_500k (kv_seq_shard: the 2 KV heads split one a rank,
+# FSDP over data, 2 rows a data coordinate), every row crossing 4,096.  TP_REL's bounds.
+# The whole smoke cuts part 1's cache to 8,192 positions (blocks of 2,048; its time
+# limit); ``--kv-seq-procs --decode-32k`` runs it at decode_32k's 32,768 (KV_32K)
+KV_ARCH, KV_RANKS, KV_SEED, KV_TIMEOUT = "chatglm3-6b", 4, 35, 600.0
+KV_MAX_SEQ, KV_PLENS, KV_CHUNK = 8192, (2036, 4084, 6130, 7600), 1500
+KV_32K = (32_768, (8180, 16380, 24570, 30000), 5000)   # (max_seq, prompts, prefill chunk)
+KV_STEPS, KV_FWD = 16, 2048     # decode steps; the cache-free forward's prefix (row 11)
+KV_GRID, KV_GRID_LAYERS, KV_GRID_SEQ = {"data": 2, "model": 2}, 8, 8192
+KV_GRID_PLENS = (4082, 4086, 4090, 4094)
 
 
 def log(msg: str) -> None:
@@ -1274,6 +1322,13 @@ def main() -> int:
         "row11_launches")
     row4["tensor_parallel_train_put"] = tt.pop("put")
     log(f"tp train procs phase numbers: {json.dumps(tt)}")
+    torch.cuda.empty_cache()
+    kv = kv_seq_phases(torch, H100.hbm_bandwidth)
+    row4["launches"] += kv.pop("row4_launches")
+    next(r for r in kernels if r["name"] == "flash_attention")["launches"] += kv.pop(
+        "row11_launches")
+    row4["kv_seq_all_to_all_put"] = kv.pop("put")
+    log(f"kv seq procs phase numbers: {json.dumps(kv)}")
     if len(kernels) != len(KERNELS):
         raise AssertionError(f"{len(kernels)} kernel rows, want {len(KERNELS)}")
     log(f"smoke wall time: {time.perf_counter() - T0:.1f} s")
@@ -8192,10 +8247,12 @@ def tp_margin(torch, logits):
 
 
 def tp_bounds(want: dict) -> dict:
-    """Each part's bound: TP_REL of the whole run's max |logit| there."""
-    return {"forward": TP_REL * max(float(b.float().abs().max()) for b in want["forward"]),
-            **{part: TP_REL * float(want[part].float().abs().max())
-               for part in ("prefill", "steps")}}
+    """Each part's bound: TP_REL of the whole run's max |logit| there (no
+    bound for a run with no forward)."""
+    out = {part: TP_REL * float(want[part].float().abs().max()) for part in ("prefill", "steps")}
+    if want["forward"]:
+        out["forward"] = TP_REL * max(float(b.float().abs().max()) for b in want["forward"])
+    return out
 
 
 def tp_check(torch, got: dict, want: dict) -> dict:
@@ -8207,6 +8264,8 @@ def tp_check(torch, got: dict, want: dict) -> dict:
              "steps": list(zip(got["steps"], want["steps"]))}
     out, flips = {}, 0
     for part, ab in pairs.items():
+        if part not in bound:
+            continue
         errs = [float((a.float() - b.float()).abs().max()) for a, b in ab]
         out[part] = max(errs)
         for a, b in ab:
@@ -8912,13 +8971,420 @@ def tt_procs_only() -> int:
     return 0
 
 
+# ------------ phase 35: a KV cache split on its sequence over the model axis
+def kv_config(get_config, layers=None):
+    import dataclasses
+
+    cfg = get_config(KV_ARCH)
+    return cfg if layers is None else dataclasses.replace(cfg, n_layers=layers)
+
+
+def kv_rows(policy, n: int) -> slice:
+    """The rows of a global batch of `n` that this rank serves: its data
+    coordinate's block (all of them without a data axis)."""
+    if policy is None or "data" not in policy.mesh.shape:
+        return slice(0, n)
+    d, k = policy.mesh.coords[0], n // policy.mesh.shape["data"]
+    return slice(d * k, (d + 1) * k)
+
+
+def kv_serve(torch, model, params, prompts: list, max_seq: int, chunk: int, policy,
+             tokens=None, fwd: bool = True) -> dict:
+    """Phase 35's main path under `policy` (None: whole) for the rows it
+    serves: make_prefill_step on each prompt's first KV_FWD tokens (the
+    flash kernel; `fwd`), a cache of every prompt made under the policy,
+    each prompt prefilled alone into its row in `chunk`-token chunks
+    (the first from an empty row, the rest over the cache), then KV_STEPS
+    make_serve_step steps over the rows, greedy or teacher-forced on
+    `tokens` [KV_STEPS, rows].  Logits, tokens fed, host ms and fenced
+    rounds (host barriers) a step."""
+    from repro_torch.parallel.sharding import use_policy
+    from repro_torch.train.train_step import make_prefill_step, make_serve_step
+
+    mesh = None if policy is None else policy.mesh
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    rows = kv_rows(policy, len(prompts))
+    mine = prompts[rows]
+    pre, serve = make_prefill_step(model, policy), make_serve_step(model, policy)
+    fwd_out, fwd_ms = [], []
+    for p in (mine if fwd else []):
+        lg, ms = timed(lambda: pre(params, {"tokens": p[None, :KV_FWD]}))
+        fwd_out.append(lg[0])
+        fwd_ms.append(ms)
+    with use_policy(policy):
+        cache = model.init_cache(len(prompts), max_seq, device="cuda")
+    last, pre_ms = [], []
+    for b, p in enumerate(mine):
+        row = {**cache, "kv": {k: v[:, b:b + 1] for k, v in cache["kv"].items()},
+               "len": torch.zeros((), dtype=torch.int32, device="cuda")}
+
+        def chunks():
+            for at in range(0, len(p), chunk):
+                lg, new = model.prefill(params, p[None, at:at + chunk], row)
+                row["len"] = new["len"]
+            return lg
+
+        with torch.no_grad(), use_policy(policy):
+            lg, ms = timed(chunks)
+        last.append(lg[0])
+        pre_ms.append(ms)
+    cache["len"] = torch.tensor([len(p) for p in mine], dtype=torch.int32, device="cuda")
+    tok = torch.stack(last).argmax(-1)
+    fed, steps, step_ms, rounds = [], [], [], []
+    for s in range(KV_STEPS):
+        if tokens is not None:
+            tok = tokens[s, rows]
+        fed.append(tok)
+        b0 = 0 if mesh is None else mesh.barriers
+        (lg, cache), ms = timed(lambda: serve(params, tok, cache))
+        rounds.append(0 if mesh is None else mesh.barriers - b0)
+        steps.append(lg)
+        step_ms.append(ms)
+        tok = lg.argmax(-1)
+    return {"forward": fwd_out, "prefill": torch.stack(last), "steps": torch.stack(steps),
+            "tokens": torch.stack(fed), "forward_ms": fwd_ms, "prefill_ms": pre_ms,
+            "step_ms": step_ms, "rounds": rounds, "cache": cache}
+
+
+def kv_schedule(cfg, tp: int, dp: int, fsdp: bool, kv_split: bool) -> dict:
+    """A rank's (puts, all-to-alls) of each call of the path: a ring
+    all-reduce over tp is tp - 1 + 2 ceil((tp - 1) / 2) puts, an
+    all-gather 2 ceil((tp - 1) / 2), an FSDP gather over two data ranks
+    one (one direction), an all-to-all one collective.  The forward: the
+    embedding's all-reduce, 2 a layer, the vocabulary's all-gather (and
+    under FSDP 7 leaves a layer and the 2 of ``tok``).  A prefill chunk
+    from an empty row adds the K/V rows' gather a layer where ``wk`` is
+    split; a chunk over the cache and a decode step add q's gather and
+    the partials' all-to-all a layer."""
+    ag = 2 * -(-(tp - 1) // 2)
+    ar = tp - 1 + ag
+    fg = int(fsdp and dp > 1)
+    forward = 2 * fg + ar + cfg.n_layers * (7 * fg + 2 * ar) + ag
+    first = forward + cfg.n_layers * ag * kv_split
+    return {"forward": (forward, 0), "first": (first, 0),
+            "over": (first + cfg.n_layers * ag, cfg.n_layers)}
+
+
+def kv_rank(mesh, ref: dict, part: int, hbm: float) -> dict:
+    """Phase 35 in one rank's process: its blocks of the keyed weights
+    under the reference's `make_policy` (part 1: chatglm3-6b whole over
+    {"model": 4} for decode_32k; part 2: its first KV_GRID_LAYERS layers
+    over KV_GRID for long_500k), the main path teacher-forced on the whole
+    run's tokens with its launch counts zeroed before and read after, the
+    logits held to the whole run's, the cache's bytes and layer 0's block;
+    part 1 then row 4's peer put at the partials' all-to-all block."""
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core.rma import OpCounter
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rma import ops as rma_ops
+    from repro_torch.kernels.rma import ref as rma_ref
+    from repro_torch.launch.dryrun import make_policy
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+
+    t0 = time.perf_counter()
+    cfg = kv_config(get_config, None if part == 1 else KV_GRID_LAYERS)
+    model = build_model(cfg)
+    policy = make_policy(mesh, cfg, SHAPES["decode_32k" if part == 1 else "long_500k"])
+    torch.cuda.reset_peak_memory_stats()
+    params = keyed_params(torch, cfg, KV_SEED, policy)
+    torch.cuda.synchronize()
+    rows = kv_rows(policy, len(ref["prompts"]))
+    out = {"rank": mesh.rank, "model_rank": policy.model_rank, "rows": [rows.start, rows.stop],
+           "init_s": time.perf_counter() - t0, "kv_seq_shard": policy.kv_seq_shard,
+           "fsdp": policy.gathers_data,
+           "bytes": sum(v.nbytes for v in flat_leaves(params).values()),
+           "want_bytes": tp_bytes(torch, cfg, policy)}
+    L.set_attention_backend("cuda")
+    fops.launches = 0
+    fops.launches_by_variant = {k: 0 for k in fops.launches_by_variant}
+    zero_rma_launches(rma_ops)
+    b0 = mesh.barriers
+    try:
+        with OpCounter() as c:
+            run = kv_serve(torch, model, params, ref["prompts"], ref["max_seq"], ref["chunk"],
+                           policy, ref["tokens"], fwd=part == 1)
+        torch.cuda.synchronize()
+    finally:
+        L.set_attention_backend("torch")
+    out["launches"] = {"flash": fops.launches, "wgmma": fops.launches_by_variant["wgmma"],
+                       **rma_ops.launches}
+    out["puts"], out["colls"], out["barriers"] = c.puts, c.colls, mesh.barriers - b0
+    out["err"] = tp_check(torch, run, {"forward": ref["forward"][rows],
+                                       "prefill": ref["prefill"][rows],
+                                       "steps": ref["steps"][:, rows]})
+    out["tokens_equal"] = bool(torch.equal(run["tokens"], ref["tokens"][:, rows]))
+    for k in ("forward_ms", "prefill_ms", "step_ms", "rounds"):
+        out[k] = run[k]
+    cache = run.pop("cache")
+    out["blocks"] = cache.get("kv_seq_blocks", 1)
+    out["cache_bytes"] = sum(v.nbytes for v in cache["kv"].values())
+    out["cache_shape"] = list(cache["kv"]["k"].shape)
+    # layer 0's block against the whole run's same rows and positions
+    n = cache["kv"]["k"].shape[2]
+    lo = policy.model_rank * n if out["blocks"] > 1 else 0
+    out["layer0_diff"] = sum(int((cache["kv"][k][0] != ref["layer0"][k][rows, lo:lo + n])
+                                 .sum()) for k in ("k", "v"))
+    del run, cache
+    out["peak_allocated"] = torch.cuda.max_memory_allocated()
+    if part == 1:
+        # row 4 at the partials' all-to-all block of a decode step
+        block = len(ref["prompts"]) * (cfg.n_heads // KV_RANKS) * (cfg.hd + 2)
+        out["put"] = pp_put_row(torch, mesh, rma_ops, rma_ref, block, hbm, axis="model",
+                                phase=35)
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def kv_whole(torch, cfg, prompts: list, max_seq: int, chunk: int, fwd: bool) -> tuple:
+    """The whole run in this process (backend "cuda"): keyed weights, the
+    path, then the weights freed.  What the ranks are held to (its
+    logits, greedy tokens and layer 0's K/V rows, on the card for them)
+    and its numbers."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params = keyed_params(torch, cfg, KV_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    whole_bytes = sum(v.nbytes for v in flat_leaves(params).values())
+    L.set_attention_backend("cuda")
+    before = fops.launches
+    try:
+        want = kv_serve(torch, model, params, prompts, max_seq, chunk, None, fwd=fwd)
+    finally:
+        L.set_attention_backend("torch")
+    flash = fops.launches - before
+    fops.launches = before          # the comparison run's launches are not the path's
+    torch.cuda.synchronize()
+    cache = want.pop("cache")
+    nums = {"init_s": init_s, "weights_gb": whole_bytes / 1e9, "flash": flash,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "cache_bytes": sum(v.nbytes for v in cache["kv"].values()),
+            "forward_ms": want["forward_ms"], "prefill_ms": want["prefill_ms"],
+            "step_ms": want["step_ms"], "margin": float(tp_margin(torch, want["steps"]).min())}
+    ref = {"prompts": prompts, "max_seq": max_seq, "chunk": chunk, "tokens": want["tokens"],
+           "forward": want["forward"], "prefill": want["prefill"], "steps": want["steps"],
+           "layer0": {k: v[0].clone() for k, v in cache["kv"].items()}}
+    del params, cache, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref, nums
+
+
+def kv_part(torch, part: int, hbm: float, card: str, full: bool = False) -> dict:
+    """One part of phase 35: the whole run here, then KV_RANKS processes
+    on the card; every check; returns the part's numbers.  Part 1 at
+    KV_32K's decode_32k length where `full`, else at KV_MAX_SEQ."""
+    from repro_torch import procmesh
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    layers = None if part == 1 else KV_GRID_LAYERS
+    cfg = kv_config(get_config, layers)
+    max_seq, plens, chunk = (KV_32K if full else (KV_MAX_SEQ, KV_PLENS, KV_CHUNK)) \
+        if part == 1 else (KV_GRID_SEQ, KV_GRID_PLENS, KV_CHUNK)
+    grid = {"model": KV_RANKS} if part == 1 else KV_GRID
+    g = torch.Generator(device="cuda").manual_seed(KV_SEED + part)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g, device="cuda")
+               for n in plens]
+    ref, whole = kv_whole(torch, cfg, prompts, max_seq, chunk, fwd=part == 1)
+    t1 = time.perf_counter()
+    ranks = procmesh.run(kv_rank, KV_RANKS, device="cuda", args=(ref, part, hbm), axes=grid,
+                         timeout=KV_TIMEOUT)
+    run_s = time.perf_counter() - t1
+    bounds = tp_bounds(ref)
+    del ref
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+
+    tp, dp = grid["model"], grid.get("data", 1)
+    sched = kv_schedule(cfg, tp, dp, True, cfg.n_kv_heads % tp == 0)
+    n_rows = len(plens) // dp
+    n_chunks = sum(-(-n // chunk) for n in plens[:n_rows])   # the same on every rank
+    n_fwd = n_rows if part == 1 else 0
+    want_puts = (n_fwd * sched["forward"][0] + n_rows * sched["first"][0]
+                 + (n_chunks - n_rows + KV_STEPS) * sched["over"][0])
+    want_colls = (n_chunks - n_rows + KV_STEPS) * sched["over"][1]
+    want_flash = n_fwd * cfg.n_layers
+    for res in ranks:
+        r, e, lc, wb = res["rank"], res["err"], res["launches"], res["want_bytes"]
+        if res["bytes"] != wb["rank"]:
+            raise AssertionError(f"35.{part} rank {r}: {res['bytes']} weight bytes, its "
+                                 f"blocks' {wb}")
+        over = [k for k in bounds if e[k] > bounds[k]]
+        if over or e["argmax_flips_beyond_bound"] or not res["tokens_equal"]:
+            raise AssertionError(f"35.{part} rank {r}: logits {e} vs the whole run (bounds "
+                                 f"{bounds}), tokens fed equal {res['tokens_equal']}")
+        if (not res["kv_seq_shard"] or res["blocks"] != tp
+                or res["cache_bytes"] * tp * dp != whole["cache_bytes"]):
+            raise AssertionError(f"35.{part} rank {r}: kv_seq_shard {res['kv_seq_shard']}, "
+                                 f"{res['blocks']} sequence blocks, cache {res['cache_bytes']} "
+                                 f"B of the whole {whole['cache_bytes']}")
+        if part == 1 and res["layer0_diff"]:
+            raise AssertionError(f"35.1 rank {r}: layer 0's cache block differs from the "
+                                 f"whole run's in {res['layer0_diff']} entries")
+        if (lc["flash"], lc["wgmma"]) != (want_flash, want_flash):
+            raise AssertionError(f"35.{part} rank {r}: flash launches {lc['flash']} (wgmma "
+                                 f"{lc['wgmma']}), want {want_flash}, all wgmma")
+        if (res["puts"], res["colls"]) != (want_puts, want_colls) or lc["put_shift"] != \
+                want_puts + tp * want_colls or any(
+                    lc[k] for k in lc if k not in ("flash", "wgmma", "put_shift")):
+            raise AssertionError(f"35.{part} rank {r}: rma launches {lc}, puts {res['puts']}, "
+                                 f"all-to-alls {res['colls']}, want {want_puts} puts and "
+                                 f"{want_colls} all-to-alls of {tp} row 4 peer puts")
+    if sorted((x["rows"][0], x["model_rank"]) for x in ranks) != sorted(
+            (d * n_rows, m) for d in range(dp) for m in range(tp)):
+        raise AssertionError(f"35.{part}: ranks' rows and model ranks "
+                             f"{[(x['rows'], x['model_rank']) for x in ranks]}")
+    steps = [t for x in ranks for t in x["step_ms"][1:]]
+    pre = [t for x in ranks for t in x["prefill_ms"]]
+    rounds = sorted({n for x in ranks for n in x["rounds"][1:]})
+    errs = {k: max(x["err"][k] for x in ranks) for k in bounds}
+    wb = ranks[0]["want_bytes"]
+    name = f"{cfg.name} ({cfg.n_layers} layers)"
+    log(f"35.{part} whole run in this process ({card}): {name}, {whole['weights_gb']:.3f} GB "
+        f"of weights (keyed init {whole['init_s']:.1f} s), cache {whole['cache_bytes']} B "
+        f"({len(plens)} rows x {max_seq}), peak {whole['peak_gib']:.2f} GiB, "
+        f"{whole['flash']} flash launches; ms: forward {[round(t, 1) for t in whole['forward_ms']]}"
+        f", prefill {[round(t, 1) for t in whole['prefill_ms']]} (prompts {list(plens)}, "
+        f"chunks of {chunk}), decode step {spread(whole['step_ms'][1:])}; smallest top-2 "
+        f"margin of a step {whole['margin']:.4f}")
+    log(f"35.{part} split over {KV_RANKS} processes as {grid} ({card}): each rank "
+        f"{wb['rank'] / 1e9:.3f} GB of weights, cache {ranks[0]['cache_bytes']} B = 1/{tp * dp} "
+        f"of the whole ({ranks[0]['cache_shape']} a leaf, {ranks[0]['blocks']} sequence blocks"
+        f"), layer 0's block vs the whole run's: {[x['layer0_diff'] for x in ranks]} entries "
+        f"differ; torch peak a rank {[round(x['peak_allocated'] / 2**30, 2) for x in ranks]} GiB")
+    log(f"35.{part} logits vs the whole run, max abs over ranks {errs}, bounds (TP_REL = "
+        f"{TP_REL:g} of the whole run's max |logit|) {bounds}; argmax equal wherever the "
+        f"top-2 margin exceeds twice the bound")
+    log(f"35.{part} launches a rank: row 11 {want_flash} (all wgmma), row 4 peer "
+        f"{want_puts + tp * want_colls} (= {want_puts} ring puts + {want_colls} all-to-alls x "
+        f"{tp}); fenced rounds (host barriers) a decode step {rounds}, a rank in all "
+        f"{ranks[0]['barriers']}")
+    log(f"35.{part} host ms ({card}), all ranks' samples: prefill of a prompt {spread(pre)} "
+        f"(whole {[round(t, 1) for t in whole['prefill_ms']]}), decode step after each one's "
+        f"first {spread(steps)} (whole {spread(whole['step_ms'][1:])})")
+    wall = time.perf_counter() - t0
+    log(f"35.{part}: ranks' run {run_s:.1f} s (init {max(x['init_s'] for x in ranks):.1f} s), "
+        f"part {wall:.1f} s")
+    return {"row4_launches": sum(x["launches"]["put_shift"] for x in ranks),
+            "row11_launches": sum(x["launches"]["flash"] for x in ranks),
+            "put": ranks[0].get("put"), "layers": cfg.n_layers, "max_seq": max_seq,
+            "prompts": list(plens), "err": errs, "bounds": bounds,
+            "cache_bytes_rank": ranks[0]["cache_bytes"], "cache_bytes_whole": whole["cache_bytes"],
+            "layer0_diff": [x["layer0_diff"] for x in ranks],
+            "weights_gb_rank": wb["rank"] / 1e9, "weights_gb_whole": whole["weights_gb"],
+            "peak_gib": [x["peak_allocated"] / 2**30 for x in ranks],
+            "whole_peak_gib": whole["peak_gib"], "prefill_ms": pre, "step_ms": steps,
+            "whole_prefill_ms": whole["prefill_ms"], "whole_step_ms": whole["step_ms"],
+            "whole_forward_ms": whole["forward_ms"],
+            "forward_ms": [t for x in ranks for t in x["forward_ms"]],
+            "rounds_per_step": rounds, "puts_per_rank": want_puts,
+            "all_to_alls_per_rank": want_colls, "run_s": run_s, "wall_s": wall}
+
+
+def kv_seq_phases(torch, hbm: float, full: bool = False) -> dict:
+    """Phase 35: chatglm3-6b at its published widths and depth served over
+    ProcMesh({"model": 4}) with its KV cache split on the sequence (part
+    1; at decode_32k's length where `full`), then its first KV_GRID_LAYERS
+    layers over KV_GRID (part 2), each against one process running the
+    same keyed weights whole.  Returns both parts' numbers and the kernel
+    rows' launches."""
+    t0 = time.perf_counter()
+    card = card_line()
+    log(f"phase 35: {KV_ARCH} at full width, part 1 all 28 layers over ProcMesh({{'model': "
+        f"{KV_RANKS}}}) under make_policy(decode_32k) (2 KV heads < 4: the cache's sequence "
+        f"over model), max_seq {KV_32K[0] if full else KV_MAX_SEQ}"
+        f"{'' if full else ' (reduced from 32,768)'}; part 2 {KV_GRID_LAYERS} of 28 layers "
+        f"(reduced: depth) over {KV_GRID} under make_policy(long_500k), max_seq "
+        f"{KV_GRID_SEQ}; {KV_RANKS} processes sharing one card ({card})")
+    one = kv_part(torch, 1, hbm, card, full)
+    two = kv_part(torch, 2, hbm, card)
+    wall = time.perf_counter() - t0
+    log(f"35: phase {wall:.1f} s")
+    return {"card": card, "row4_launches": one.pop("row4_launches") + two.pop("row4_launches"),
+            "row11_launches": one.pop("row11_launches") + two.pop("row11_launches"),
+            "put": one.pop("put"), "part1": one, "part2": {k: v for k, v in two.items()
+                                                          if k != "put"},
+            "wall_s": wall}
+
+
+def kv_seq_only() -> int:
+    """``python3 chip_smoke.py --kv-seq-procs [--decode-32k]``: phase 35
+    alone, on the package beside this file (the kernels build first); with
+    ``--decode-32k`` part 1 at decode_32k's 32,768 positions (KV_32K).
+    Prints the kernels line of rows 4 (peer) and 11 with this phase's
+    launches and times (row 4 at the partials' all-to-all block, row 11 at
+    a rank's attention shape in part 1), then the result line."""
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.configs import get_config
+    from repro_torch.core.perfmodel import H100
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products, as in main()
+    log(card_line())
+    build_all(common)
+    kv = kv_seq_phases(torch, H100.hbm_bandwidth, full="--decode-32k" in sys.argv[2:])
+    # row 11 at a rank's attention shape in part 1: 8 q heads, each with its
+    # K/V head selected from the 2 whole ones, the forward's KV_FWD tokens
+    cfg = kv_config(get_config)
+    g = torch.Generator(device="cuda").manual_seed(KV_SEED)
+    q, k, v = (torch.randn(1, cfg.n_heads // KV_RANKS, KV_FWD, cfg.hd, generator=g,
+                           device="cuda").to(torch.bfloat16) for _ in range(3))
+    err = float((fops.flash_attention(q, k, v).float() - fref.attention_ref(q, k, v).float())
+                .abs().max())
+    if err > BF16_TOL:
+        raise AssertionError(f"flash_attention at a rank's shape: {err:.3g} from plain")
+    flash = time_flash(torch, F, fops, fref, q, k, v, H100.hbm_bandwidth)
+    put = kv.pop("put")
+    rows = [{"name": "put_shift_peer", "route": KERNELS["put_shift_peer"][0],
+             "source": KERNELS["put_shift_peer"][1], "replaces": KERNELS["put_shift_peer"][2],
+             "launches": kv.pop("row4_launches"), "max_abs_err": 0.0, "ms": put["ms"],
+             "plain_ms": put["plain_ms"], "bound_ms": put["bound_ms"], "bound_by": "bytes",
+             "library_ms": put["plain_ms"]},
+            {"name": "flash_attention", "route": KERNELS["flash_attention"][0],
+             "source": KERNELS["flash_attention"][1], "replaces": KERNELS["flash_attention"][2],
+             "launches": kv.pop("row11_launches"), "max_abs_err": err,
+             **{key: flash[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms")}}]
+    log(f"kv seq procs phase numbers: {json.dumps(kv)}")
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 MODES = {"--gather-shift": gather_shift_only, "--queue-push": queue_push_only,
          "--pool": pool_only, "--apps": apps_only, "--zoo": zoo_only,
          "--parallel": parallel_only, "--conformance": conformance_only,
          "--tools": tools_only, "--procs": procs_only,
          "--disagg-procs": disagg_procs_only, "--apps-procs": apps_procs_only,
          "--parallel-procs": parallel_procs_only, "--drift": drift_only,
-         "--tp-procs": tp_procs_only, "--tp-train-procs": tt_procs_only}
+         "--tp-procs": tp_procs_only, "--tp-train-procs": tt_procs_only,
+         "--kv-seq-procs": kv_seq_only}
 
 if __name__ == "__main__":
     sys.exit(MODES[sys.argv[1]]() if sys.argv[1:] else main())

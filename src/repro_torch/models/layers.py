@@ -30,15 +30,23 @@ heads, a split F or a split vocabulary passes through the policy's
 column-parallel entry (`ShardingPolicy.enter`), and so does a K/V leaf
 that is whole on every rank while the q heads are split (each rank's use
 of it, and so its gradient, is partial); the norm scales' use is
-replicated, and their gradient whole on every rank.  `grad_cast_bf16`
-rounds the cotangent entering `unembed` to bf16, as the reference's custom
-VJP does; remat is `transformer.set_remat`.
+replicated, and their gradient whole on every rank.  Where the cache holds
+every KV head over this rank's block of the positions (``seq_blocks``,
+`transformer.init_cache` under a policy that splits the cache's
+sequence), the new rows' K/V (gathered over ``model`` where ``wk`` is
+split) go to the ranks that own their positions, and every chunk but a
+prefill of empty rows (``rows_empty``, decided by the caller) attends by
+`_attend_seq_split`: each rank's partial
+online softmax of every q head over its block (`blockwise_partial`),
+exchanged by one all-to-all and merged by log-sum-exp (`merge_partials`).
+`grad_cast_bf16` rounds the cotangent entering `unembed` to bf16, as the
+reference's custom VJP does; remat is `transformer.set_remat`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -184,6 +192,47 @@ def blockwise_attention(
     over KV blocks with an online softmax.  Scores are f32; probabilities
     go to the p@v product in v's dtype (standard flash practice, as the
     reference); accumulation stays f32.  GQA: H a multiple of Hkv."""
+    def normalised(acc, m, l):
+        return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+    return _blockwise(q, k, v, causal, q_offset, block_size, kv_valid_len, block_q, 0,
+                      normalised)
+
+
+def blockwise_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset=0,
+                      kv_offset: int = 0, block_size: int = DEFAULT_BLOCK,
+                      kv_valid_len=None) -> torch.Tensor:
+    """`blockwise_attention`'s causal online softmax over keys at absolute
+    positions ``kv_offset + [0, Sk)``, stopped before the divide: [B, Sq,
+    H, hd + 2] f32, each head's unnormalised sum of p v, then its running
+    max m and its sum l.  A row with no valid key here has (0, -inf, 0)."""
+    def packed(acc, m, l):
+        return torch.cat([acc, m[..., None], l[..., None]], dim=-1)
+
+    return _blockwise(q, k, v, True, q_offset, block_size, kv_valid_len, None, kv_offset,
+                      packed)
+
+
+def merge_partials(parts: torch.Tensor) -> torch.Tensor:
+    """[n, ..., hd + 2] partial results (`blockwise_partial`) of the same
+    queries over n disjoint key sets -> [..., hd] f32, their softmax over
+    the union: each set's sum rescaled to the largest max (log-sum-exp).
+    A set with no valid key (m = -inf) adds nothing; where no set has one
+    the result is 0, as `blockwise_attention`'s."""
+    acc, m, l = parts[..., :-2], parts[..., -2], parts[..., -1]
+    top = m.amax(0)
+    top = torch.where(torch.isneginf(top), 0.0, top)
+    w = torch.where(torch.isneginf(m), 0.0, torch.exp(m - top))
+    num = (w[..., None] * acc).sum(0)
+    den = (w * l).sum(0)
+    return num / den.clamp_min(1e-30)[..., None]
+
+
+def _blockwise(q, k, v, causal, q_offset, block_size, kv_valid_len, block_q, kv_offset,
+               finish) -> torch.Tensor:
+    """The online softmax of `blockwise_attention`; `finish(acc, m, l)`
+    turns a Q block's state ([B, Hkv, g, bq, hd] and [B, Hkv, g, bq]) into
+    its [B, Hkv, g, bq, X] output, laid out as [B, Sq, H, X]."""
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     g = H // Hkv
@@ -205,9 +254,10 @@ def blockwise_attention(
     kv_len = None if kv_valid_len is None else _per_row(kv_valid_len, B, dev)
 
     def kv_block(qblk, q_pos, ik, m, l, acc):
-        kv_pos = ik * bk + torch.arange(bk, device=dev)      # [bk]
+        kv_idx = ik * bk + torch.arange(bk, device=dev)      # [bk], in k
+        kv_pos = kv_idx + kv_offset                          # absolute
         sc = torch.einsum("bhgqd,bhkd->bhgqk", qblk, kb[ik].float()) * scale
-        mask = (kv_pos < Sk)[None, None, :].expand(B, bq, bk)
+        mask = (kv_idx < Sk)[None, None, :].expand(B, bq, bk)
         if causal:
             mask = mask & (q_pos[:, :, None] >= kv_pos[None, None, :])
         if kv_len is not None:
@@ -240,14 +290,14 @@ def blockwise_attention(
                 m, l, acc = kv_block(qblk, q_pos, ik, m, l, acc)
             if fold and not torch.is_grad_enabled():
                 rep.carried(m, l, acc)           # the next trip replaces them
-        return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+        return finish(acc, m, l)
 
     with cost.repeat(nq if fold else 1):
         outs = [q_block(iq) for iq in range(1 if fold else nq)]
     if fold:
         outs *= nq
-    # [nq, B, Hkv, g, bq, hd] -> [B, Sq, H, hd]
-    out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(B, nq * bq, H, hd)
+    # [nq, B, Hkv, g, bq, X] -> [B, Sq, H, X]
+    out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(B, nq * bq, H, -1)
     return out[:, :Sq]
 
 
@@ -266,20 +316,25 @@ def attention(
     Cross-attention projects q only, applies no RoPE, always runs blockwise
     and non-causal (the reference never sends it to the kernel) and returns
     the cache untouched.  Under a model split over processes `heads` is
-    required and params, cache and `cross_kv` hold this rank's heads."""
+    required, params, cache and `cross_kv` hold this rank's heads, or, for
+    a cache whose ``seq_blocks`` is tp, every KV head over this rank's
+    block of the positions (`_attend_seq_split`; ``rows_empty``, where the
+    caller knows every row starts at 0, attends locally instead), and the
+    cache holds as many rows as x."""
     B, S, D = x.shape
     tp = tensor_parallel()
-    group, reduce, kv_whole = _local_heads(tp, params, heads, D)
+    hs = _local_heads(tp, params, heads, D)
+    reduce = hs is not None and hs.reduce
     if reduce:
         x = tp.enter(x)
-        if kv_whole:
+        if hs.kv_whole:
             params = {k: tp.enter(v) if k in _KV_LEAVES else v for k, v in params.items()}
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     if "bq" in params:
         q = q + params["bq"]
     q = shard(q, "act_bthd")
     if cross_kv is not None:
-        k, v = (_take_heads(t, group) for t in cross_kv)
+        k, v = (_take_heads(t, _group(hs, t.shape[2], t.device)) for t in cross_kv)
         with cost.scope("attention"):
             out = blockwise_attention(q, k, v, causal=False, block_size=block_size)
         y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
@@ -291,6 +346,7 @@ def attention(
     q = apply_rope(q, positions, rope_style)
     k = apply_rope(k, positions, rope_style)
     if cache is None:
+        group = _group(hs, k.shape[2], k.device)
         k, v = _take_heads(k, group), _take_heads(v, group)
         with cost.scope("attention"):
             if _ATTN_BACKEND[0] == "cuda":
@@ -306,22 +362,84 @@ def attention(
         # then attend over it
         ck, cv = cache["k"], cache["v"]
         start = cache["len"]
+        blocks = _seq_blocks(tp, hs, cache)
+        if hs is not None and ck.shape[0] != B:
+            raise ValueError(f"a cache of {ck.shape[0]} rows for a batch of {B}: under a "
+                             "policy init_cache takes the global batch, a step the rank's rows")
+        if hs is not None and ck.shape[2] != k.shape[2]:
+            # the cache holds every KV head, this rank computed its own
+            k, v = tp.all_gather(torch.stack([k, v]), dim=3).unbind(0)
+        n = ck.shape[1]
+        lo = tp.model_rank * n if blocks > 1 else 0
         rows = _per_row(start, B, x.device)
         # the reference's dynamic_update_slice clamps the start so the
-        # update fits; a row's write does the same
-        at = rows.clamp(0, ck.shape[1] - S) + torch.arange(S, device=x.device)
-        b_idx = torch.arange(B, device=x.device)[:, None]
-        ck[b_idx, at] = k.to(ck.dtype)
-        cv[b_idx, at] = v.to(cv.dtype)
-        new_cache = {"k": ck, "v": cv, "len": start + S}
+        # update fits; a row's write does the same, on global positions
+        at = rows.clamp(0, blocks * n - S) + torch.arange(S, device=x.device)
+        b_idx = torch.arange(B, device=x.device)[:, None].expand(B, S)
+        if blocks > 1:                       # only the positions this rank owns
+            mine = (at >= lo) & (at < lo + n)
+            b_idx, at, kw, vw = b_idx[mine], at[mine] - lo, k[mine], v[mine]
+        else:
+            kw, vw = k, v
+        ck[b_idx, at] = kw.to(ck.dtype)
+        cv[b_idx, at] = vw.to(cv.dtype)
+        new_cache = {**cache, "len": start + S}
         with cost.scope("attention"):
-            out = blockwise_attention(
-                q, _take_heads(ck, group), _take_heads(cv, group), causal=True,
-                q_offset=start, block_size=block_size, kv_valid_len=start + S,
-            )
+            if blocks == 1:
+                group = _group(hs, ck.shape[2], ck.device)
+                out = blockwise_attention(
+                    q, _take_heads(ck, group), _take_heads(cv, group), causal=True,
+                    q_offset=start, block_size=block_size, kv_valid_len=start + S,
+                )
+            elif cache.get("rows_empty", False):
+                # every row empty (the caller's word): the prompt's K/V are all here
+                group = _group(hs, k.shape[2], k.device)
+                out = blockwise_attention(
+                    q, _take_heads(k.to(ck.dtype), group), _take_heads(v.to(cv.dtype), group),
+                    causal=True, q_offset=start, block_size=block_size,
+                    kv_valid_len=start + S)
+            else:
+                out = _attend_seq_split(tp, hs, q, ck, cv, start, S, lo, block_size)
 
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
     return shard(tp.all_reduce(y) if reduce else y, "act_btd"), new_cache
+
+
+def _seq_blocks(tp: Optional[ShardingPolicy], hs, cache: dict) -> int:
+    """The blocks a cache's sequence is cut into over ``model`` (1: whole).
+    A block and a whole cache of the same length look alike, so under a
+    policy whose cache spec puts the sequence on ``model`` the cache must
+    say which it is (``seq_blocks``, `transformer.init_cache`'s
+    ``kv_seq_blocks``): one that does not is refused."""
+    blocks = cache.get("seq_blocks")
+    seq = tp is not None and tp.kv_seq_split(hs.n_kv)
+    if blocks is None:
+        if seq:
+            raise ValueError("a K/V cache under a policy that splits its sequence carries "
+                             "kv_seq_blocks: make it with init_cache under the policy")
+        return 1
+    if blocks != 1 and not (seq and blocks == tp.tp):
+        raise ValueError(f"a cache in {blocks} sequence blocks under this policy")
+    return blocks
+
+
+def _attend_seq_split(tp: ShardingPolicy, hs, q, ck, cv, start, S: int, lo: int,
+                      block_size: int) -> torch.Tensor:
+    """Attention of this rank's q heads over a cache split on its sequence:
+    every head's q gathered over ``model``; each rank's partial online
+    softmax of every head over its own block of positions (causal and
+    ``len`` masks on global positions); the all-to-all sends each rank the
+    tp partials of its own heads (all of them to every rank where the q
+    heads are whole), which it merges."""
+    split_q = hs.hq < hs.H
+    q_all = tp.all_gather(q, dim=2) if split_q else q
+    part = blockwise_partial(q_all, ck, cv, q_offset=start, kv_offset=lo,
+                             block_size=block_size, kv_valid_len=start + S)
+    if split_q:                          # [tp(dst), B, Sq, hq, hd + 2] -> by source
+        parts = tp.all_to_all(part.unflatten(2, (tp.tp, hs.hq)).movedim(2, 0))
+    else:
+        parts = tp.all_gather(part[None], dim=0)
+    return merge_partials(parts).to(q.dtype)
 
 
 def _is_split(tp: ShardingPolicy, path: str, local: torch.Tensor, shape: tuple,
@@ -341,14 +459,25 @@ def _is_split(tp: ShardingPolicy, path: str, local: torch.Tensor, shape: tuple,
 _KV_LEAVES = ("wk", "wv", "bk", "bv")
 
 
+class _Heads(NamedTuple):
+    """A rank's heads under a model split: its first q head and count, the
+    model's q and KV heads, its first KV head (0 where ``wk`` is whole),
+    whether ``wo``'s heads are split (its sum then reduced), and whether
+    the K/V leaves are whole on this rank."""
+    q0: int
+    hq: int
+    H: int
+    n_kv: int
+    kv0: int
+    reduce: bool
+    kv_whole: bool
+
+
 def _local_heads(tp: Optional[ShardingPolicy], params: dict, heads: Optional[tuple],
-                 D: int) -> tuple[Optional[torch.Tensor], bool, bool]:
-    """Under a model split: (the local K/V head each local q head attends
-    with, or None where the local heads already form GQA groups in order;
-    whether ``wo``'s heads are split, so that its sum is reduced; whether
-    the K/V heads are whole on this rank)."""
+                 D: int) -> Optional[_Heads]:
+    """This rank's heads under a model split (None without one)."""
     if tp is None:
-        return None, False, False
+        return None
     if heads is None:
         raise ValueError("attention under a model split over processes needs heads="
                          "(n_heads, n_kv_heads)")
@@ -357,18 +486,27 @@ def _local_heads(tp: Optional[ShardingPolicy], params: dict, heads: Optional[tup
     hq, hkv = params["wq"].shape[-2], params["wk"].shape[-2]
     q0 = tp.model_rank * hq if _is_split(tp, "wq", params["wq"], (D, H, hd), 1) else 0
     kv_split = _is_split(tp, "wk", params["wk"], (D, Hkv, hd), 1)
-    kv0 = tp.model_rank * hkv if kv_split else 0
-    reduce = _is_split(tp, "wo", params["wo"], (H, hd, D), 0)
-    g = H // Hkv
-    kv_of = [(q0 + i) // g - kv0 for i in range(hq)]
-    if hq % hkv == 0 and kv_of == [i // (hq // hkv) for i in range(hq)]:
-        return None, reduce, not kv_split
-    return torch.tensor(kv_of, device=params["wq"].device), reduce, not kv_split
+    return _Heads(q0, hq, H, Hkv, tp.model_rank * hkv if kv_split else 0,
+                  _is_split(tp, "wo", params["wo"], (H, hd, D), 0), not kv_split)
+
+
+def _group(hs: Optional[_Heads], n: int, device) -> Optional[torch.Tensor]:
+    """The K/V head, among `n` held (every KV head, or this rank's own
+    from ``kv0``), that each local q head attends with; None where the
+    local q heads already form GQA groups of them in order."""
+    if hs is None:
+        return None
+    kv0 = 0 if n == hs.n_kv else hs.kv0
+    g = hs.H // hs.n_kv
+    kv_of = [(hs.q0 + i) // g - kv0 for i in range(hs.hq)]
+    if hs.hq % n == 0 and kv_of == [i // (hs.hq // n) for i in range(hs.hq)]:
+        return None
+    return torch.tensor(kv_of, device=device)
 
 
 def _take_heads(t: torch.Tensor, group: Optional[torch.Tensor]) -> torch.Tensor:
     """t [B, S, Hkv, hd] with one K/V head a local q head where `group`
-    says so (`_local_heads`), else t itself."""
+    says so (`_group`), else t itself."""
     return t if group is None else t.index_select(2, group)
 
 

@@ -53,8 +53,16 @@ Under a policy that splits the model over processes
 (`parallel.sharding.tensor_parallel`; the dense family only, the rest
 refused by `ShardingPolicy.check_model_split`) `forward` takes this rank's
 blocks of the params and hands the layers the config's whole sizes, and
-`init_cache` sizes the K/V cache at this rank's KV heads (``n_kv_heads /
-tp`` where ``wk`` is split, all of them where it is whole).  Where the
+`init_cache` gives the K/V cache this rank's block by the reference's
+cache spec (`ShardingPolicy.kv_cache_sharding`): its rows over the data
+axes, and over ``model`` its KV heads (``n_kv_heads / tp`` where ``wk`` is
+split, all of them where it is whole) or, where the spec splits the
+sequence, every KV head over its block of the positions.  Under a policy
+whose spec puts the sequence on ``model`` the cache carries
+``kv_seq_blocks`` (tp, or 1 where ``model`` does not divide max_seq and
+the cache stays whole), which `forward` hands each layer's attention with
+the layer's K/V views, and with them whether every row is empty (decided
+once a call).  Where the
 policy also splits leaves over ``data`` (FSDP, `ShardingPolicy.
 gathers_data`) each layer's blocks are gathered over ``data`` inside its
 remat body (`_block`), so the backward's recomputation gathers them again
@@ -215,13 +223,14 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None) -> dict:
     bf16; for ssm the mLSTM state ``C, n, m`` [n_p, period-1, B, nh, ...]
     f32 and the sLSTM state ``c, n, h, m`` [n_p, B, D] (h bf16, m -1e30);
     for audio ``enc_out`` [B, encoder_seq, D] bf16 (a prefill replaces
-    it)."""
+    it).  Under a policy that splits the model over processes `batch` and
+    `max_seq` are the whole cache's and the K/V leaves this rank's block;
+    where the policy's spec puts the sequence on ``model`` the cache says
+    in how many blocks (``kv_seq_blocks``: tp, or 1 for a whole one)."""
     check_family(cfg)
     tp = tensor_parallel()
-    n_kv_heads = cfg.n_kv_heads
     if tp is not None:
         tp.check_model_split(cfg)
-        n_kv_heads = tp.local_size("wk", (cfg.d_model, cfg.n_kv_heads, cfg.hd), 1)
     cache: dict = {}
     if cfg.family == "ssm":
         n_p = cfg.n_layers // cfg.slstm_period
@@ -232,7 +241,15 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None) -> dict:
         n_kv = cfg.n_layers
         if cfg.family == "hybrid":
             n_kv, n_m, _, _ = _hybrid_counts(cfg)
-        shape = (n_kv, batch, max_seq, n_kv_heads, cfg.hd)
+        shape = (n_kv, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+        if tp is not None:
+            # this rank's block (`_cache_specs`): rows over the data axes,
+            # the KV heads or the sequence over ``model``
+            ns = tp.kv_cache_sharding(cfg.n_kv_heads, shape)
+            if tp.kv_seq_split(cfg.n_kv_heads):
+                cache["kv_seq_blocks"] = tp.kv_seq_blocks(cfg.n_kv_heads, shape)
+            shape = tuple(len(range(*s.indices(n))) for s, n in
+                          zip(ns.index(tp.mesh.coords, shape), shape))
         cache["kv"] = {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
                        "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
     if cfg.family == "hybrid":
@@ -261,9 +278,7 @@ def _unstack(tree: dict, n: int) -> list[dict]:
 def _attn_block(cfg, blk, h, positions, cache_kv, cache_len, cross_kv=None):
     """One attention residual branch, and the cross-attention one when
     `cross_kv` is given; the cache rows are written in place."""
-    cache = None
-    if cache_kv is not None:
-        cache = {"k": cache_kv["k"], "v": cache_kv["v"], "len": cache_len}
+    cache = None if cache_kv is None else {**cache_kv, "len": cache_len}
     heads = (cfg.n_heads, cfg.n_kv_heads)
     y, _ = L.attention(blk["attn"], L.rmsnorm(h, blk["ln1"]["scale"], cfg.norm_eps),
                        positions, cfg.rope_style, causal=True, cache=cache, heads=heads)
@@ -419,9 +434,15 @@ def forward(
     else:
         body = _maybe_remat(_block, cache)
         layer = None if gather is None else functools.partial(gather, prefix="blocks", lead=1)
+        seq_blocks = None if cache is None else cache.get("kv_seq_blocks")
+        # a chunk into empty rows of a sequence-split cache attends locally
+        # (a decode step never looks: the merged path is right for any rows)
+        rows_empty = bool((seq_blocks or 1) > 1 and S > 1
+                          and not torch.as_tensor(start).any())
         for i, blk in enumerate(_unstack(params["blocks"], cfg.n_layers)):
             kv = None if cache is None else {"k": cache["kv"]["k"][i],
-                                             "v": cache["kv"]["v"][i]}
+                                             "v": cache["kv"]["v"][i],
+                                             "seq_blocks": seq_blocks, "rows_empty": rows_empty}
             h, a, z = body(cfg, blk, h, positions, kv, start, layer)
             if a is not None:
                 aux, zl = aux + a, zl + z

@@ -52,8 +52,17 @@ over ``data``, so a rank's gradient block is already summed over the
 ``data`` ranks; `sum_over` sums the rest (`train.train_step`), and
 `norm_sq` counts every block once in the clip's global norm.  What such a
 split does not carry yet is refused by `check_model_split` (ROADMAP items
-12c.3-12c.5).  A policy on a stacked `Mesh`, or over processes without a
+12c.3b-12c.6).  A policy on a stacked `Mesh`, or over processes without a
 ``model`` axis of more than one, changes no value.
+
+**A KV cache split on its sequence.**  Where `kv_cache_spec` puts the
+cache's sequence on ``model`` (``kv_seq_shard``, or fewer KV heads than
+ranks) and ``model`` divides max_seq, rank r holds positions [r S / tp,
+(r + 1) S / tp) of every KV head (`kv_cache_sharding`, `kv_seq_blocks`).
+Each rank attends every q head over its block and `all_to_all` hands each
+rank the partial softmax results of its own heads, which it merges
+(`models.layers.attention`): the reference's GSPMD partition of the same
+attention over a sequence-split cache.
 """
 
 from __future__ import annotations
@@ -238,14 +247,9 @@ class ShardingPolicy:
             return
         if self.seq_parallel:
             raise NotImplementedError(
-                "sequence-parallel activations over processes are ROADMAP item 12c.3")
+                "sequence-parallel activations over processes are ROADMAP item 12c.3b")
         if cfg is None:
             return
-        if self.kv_seq_shard or cfg.n_kv_heads < self.tp:
-            raise NotImplementedError(
-                f"{cfg.name}: a KV cache split on its sequence ({cfg.n_kv_heads} KV heads "
-                f"over model = {self.tp}, kv_seq_shard={self.kv_seq_shard}) is ROADMAP item "
-                "12c.3")
         if cfg.family != "dense":
             item = {"moe": "12c.4 (experts over `model`)",
                     "hybrid": "12c.4 and 12c.5 (experts and Mamba channels over `model`)",
@@ -253,6 +257,26 @@ class ShardingPolicy:
             raise NotImplementedError(
                 f"{cfg.name}: only the dense family splits over processes; the "
                 f"{cfg.family} family's split is ROADMAP item {item}")
+
+    def kv_cache_sharding(self, n_kv_heads: int, shape) -> "NamedSharding":
+        """The placement of a K/V cache leaf of whole `shape` [L, B,
+        max_seq, Hkv, hd]: `kv_cache_spec` behind the stacked layers' dim,
+        fitted to `shape` (the reference's `_cache_specs`), so that a
+        max_seq that ``model`` does not divide keeps the sequence whole."""
+        spec = fit_spec(P(None, *self.kv_cache_spec(n_kv_heads)), tuple(shape), self.mesh)
+        return NamedSharding(self.mesh, spec)
+
+    def kv_seq_split(self, n_kv_heads: int) -> bool:
+        """Whether `kv_cache_spec` puts a cache's sequence on ``model``
+        (before it is fitted to a length)."""
+        return "model" in _axes_of(self.kv_cache_spec(n_kv_heads)[1])
+
+    def kv_seq_blocks(self, n_kv_heads: int, shape) -> int:
+        """How many blocks over ``model`` that leaf's sequence is cut into:
+        tp where its fitted spec splits the sequence, else 1.  Rank r of
+        the axis then holds positions [r S / tp, (r + 1) S / tp)."""
+        spec = self.kv_cache_sharding(n_kv_heads, shape).spec
+        return self.tp if "model" in _axes_of(spec[2]) else 1
 
     def local_params(self, tree: Any) -> Any:
         """This rank's block of every leaf of `tree`: ``tree_shardings(tree)``,
@@ -320,6 +344,13 @@ class ShardingPolicy:
         scatters the cotangent over ``data`` (summed in f32, returned in
         y's dtype where that is wider)."""
         return _FsdpGather.apply(y, self.mesh.along("data"), dim % y.ndim)
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """x [tp, ...], block d for the ``model`` axis's rank d -> [tp, ...],
+        block s from its rank s: `core.collectives.all_to_all`, one-sided
+        puts (row 4's peer form on the card for blocks of whole words).  No
+        backward: the split decode's partial softmax results move by it."""
+        return collectives.all_to_all(x.contiguous()[None], self.mesh.along("model"))[0]
 
     def sum_over(self, axis: str, tensors: list) -> list:
         """Each tensor summed over `axis`: one ring all-reduce of their f32
@@ -432,14 +463,17 @@ def fit_spec(spec: P, shape: tuple, mesh: Mesh) -> P:
     A placement must tile its tensor exactly: 5 KV heads over a 4-way
     `model` axis, or batch 1 over `data`, fall back to replication on that
     dim.  Tuple entries are trimmed from the right, so ('pod', 'data') on a
-    dim of 16 keeps 'pod' alone when 32 does not divide it."""
+    dim of 16 keeps 'pod' alone when 32 does not divide it.  An axis the
+    mesh lacks is dropped too (the reference keeps it, an axis of one rank:
+    the same blocks), so that the FSDP rules fit a mesh with no ``data``."""
     entries = list(spec) + [None] * (len(shape) - len(spec))
     out = []
     for dim, entry in zip(shape, entries):
         if entry is None:
             out.append(None)
             continue
-        axes = list(entry) if isinstance(entry, tuple) else [entry]
+        # an axis the mesh lacks is one rank: the dim stays whole on it
+        axes = [a for a in _axes_of(entry) if a in mesh.shape]
         while axes:
             prod = 1
             for a in axes:

@@ -29,11 +29,13 @@ can differ); every rank's leaves are the blocks the reference's specs
 give its coordinate, bit for bit; the forward's collectives are the
 one-sided ring's puts (an `OpCounter` ledger of exactly the expected
 count), with every `torch.distributed` collective made to raise while it
-runs.  The refusals of what the split does not carry yet, the train
-step's guard of them and `params_from_jax`'s blocks run in this process;
-the backward of each of the split step's collectives runs on two more
-CPU processes, against the same function computed whole.  The train step
-over the grid is `tests/test_torch_tensor_parallel_train.py`'s.
+runs.  The refusals of what the split does not carry yet (and the cases
+it now accepts), the train step's guard of them and `params_from_jax`'s
+blocks run in this process; the backward of each of the split step's
+collectives runs on two more CPU processes, against the same function
+computed whole.  The train step over the grid is
+`tests/test_torch_tensor_parallel_train.py`'s; a KV cache split on its
+sequence, `tests/test_torch_kv_seq_split.py`'s.
 """
 
 import dataclasses
@@ -122,11 +124,13 @@ def _f32_cache(cache):
 # ================================================================ the ranks
 def _serve(model, params, ins: dict, policy) -> dict:
     """make_prefill_step's logits, Model.prefill's last ones and STEPS
-    teacher-forced make_serve_step logits, under `policy`."""
+    teacher-forced make_serve_step logits, under `policy`, on the rank's
+    rows `ins` (the cache made for the global batch B, as `init_cache`
+    takes it, holds them)."""
     toks = torch.from_numpy(ins["tokens"])
     full = make_prefill_step(model, policy)(params, {"tokens": toks})
     with use_policy(policy):
-        cache = _f32_cache(model.init_cache(toks.shape[0], MAX_SEQ, device="cpu"))
+        cache = _f32_cache(model.init_cache(B, MAX_SEQ, device="cpu"))
     with torch.no_grad(), use_policy(policy):
         last, cache = model.prefill(params, toks, cache)
     serve = make_serve_step(model, policy)
@@ -370,12 +374,14 @@ def _split_policy(tp=2, **kw):
     return ShardingPolicy(procmesh.ProcMesh({"model": tp}, 0, device="cpu"), **kw)
 
 
+# case -> (arch, tp, policy options, the ROADMAP item that refuses it, or
+# None where the split carries it now)
 REFUSALS = {
-    "kv_seq_shard": (ARCH, 2, {"kv_seq_shard": True}, "12c.3"),
-    "fewer_kv_heads_than_tp": (ARCH, 4, {}, "12c.3"),
-    "seq_parallel": (ARCH, 2, {"seq_parallel": True}, "12c.3"),
-    # FSDP (12c.2) is carried now; it lifts no refusal of a later item
-    "fsdp": (ARCH, 4, {"fsdp": True}, "12c.3"),
+    # a KV cache split on its sequence (12c.3) is carried: accepted
+    "kv_seq_shard": (ARCH, 2, {"kv_seq_shard": True}, None),
+    "fewer_kv_heads_than_tp": (ARCH, 4, {}, None),
+    "seq_parallel": (ARCH, 2, {"seq_parallel": True}, "12c.3b"),
+    "fsdp": (ARCH, 4, {"fsdp": True}, None),
     "moe": ("qwen3-moe-30b-a3b", 2, {}, "12c.4"),
     "hybrid": ("jamba-v0.1-52b", 2, {}, "12c.5"),
     "ssm": ("xlstm-1.3b", 2, {}, "12c.5"),
@@ -384,10 +390,22 @@ REFUSALS = {
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_what_the_split_does_not_carry_is_refused(case):
+    """What the split does not carry raises, naming its ROADMAP item; what
+    it carries now (a KV cache split on its sequence, with or without
+    FSDP) is accepted, and its cache is this rank's block of the
+    sequence."""
     arch, tp, kw, item = REFUSALS[case]
     cfg = get_config(arch, smoke=True)
     model = build_model(cfg)
     pol = _split_policy(tp, **kw)
+    if item is None:
+        pol.check_model_split(cfg)
+        with use_policy(pol):
+            cache = model.init_cache(1, 8, device="cpu")
+        assert cache["kv_seq_blocks"] == tp
+        assert tuple(cache["kv"]["k"].shape) == (cfg.n_layers, 1, 8 // tp, cfg.n_kv_heads,
+                                                 cfg.hd)
+        return
     toks = torch.zeros(1, 4, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
         make_prefill_step(model, pol)({}, {"tokens": toks})
@@ -397,18 +415,23 @@ def test_what_the_split_does_not_carry_is_refused(case):
 
 
 def test_train_step_under_a_model_split_raises():
-    """The train step under a model split raises for what items 12c.3-12c.5
+    """The train step under a model split raises for what items 12c.3b-12c.5
     name, at construction; the dense split, with or without FSDP over
-    ``data`` (the reference's `make_policy`), and a policy that splits
-    nothing over processes build a step."""
-    for case in ("fewer_kv_heads_than_tp", "seq_parallel", "moe", "hybrid", "ssm"):
+    ``data`` (the reference's `make_policy`), with fewer KV heads than
+    ranks or ``kv_seq_shard`` (a train step has no cache), and a policy
+    that splits nothing over processes build a step."""
+    for case in ("seq_parallel", "moe", "hybrid", "ssm"):
         arch, tp, kw, item = REFUSALS[case]
         with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
             make_train_step(build_model(get_config(arch, smoke=True)), AdamWConfig(),
                             policy=_split_policy(tp, **kw))
     model = build_model(get_config(ARCH, smoke=True))
     grid = procmesh.ProcMesh({"data": 2, "model": 2}, 0, device="cpu")
+    four = procmesh.ProcMesh({"model": 4}, 0, device="cpu")
+    accepted = [_split_policy(tp, **kw) for case, (_, tp, kw, item) in sorted(REFUSALS.items())
+                if item is None]
     for pol in (_split_policy(), make_policy(grid, model.cfg, SHAPES["train_4k"]),
+                make_policy(four, model.cfg, SHAPES["train_4k"]), *accepted,
                 ShardingPolicy(procmesh.ProcMesh({"model": 1}, 0, device="cpu"))):
         assert callable(make_train_step(model, AdamWConfig(), policy=pol))
 

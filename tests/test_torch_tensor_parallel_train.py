@@ -8,19 +8,26 @@ same seeded numpy params and AdamW moments (`params_from_jax` /
 `opt_state_from_jax` with ``policy=``), built by the port's `make_policy`
 (the reference's rule: ``fsdp=True``), and the global batch, of which
 `make_train_step` takes the rank's rows; it runs `step_grads` and one
-train step.  The cases, on qwen1.5-110b SMOKE in f32:
+train step.  The cases, in f32, on qwen1.5-110b SMOKE over the grid:
 
   * ``fsdp``: 2-D blocks, FSDP over ``data`` x TP over ``model``;
   * ``tp_only``: the same policy with ``fsdp=False`` (ROADMAP 12c.1 alone);
   * ``mixed_tied``: 6 q heads and 3 KV heads with tied embeddings and
     FSDP: ``wk`` / ``wv`` split over ``data`` only, ``bk`` / ``bv`` whole;
-  * ``micro``: ``fsdp`` with two microbatches.
+  * ``micro``: ``fsdp`` with two microbatches;
+
+and on chatglm3-6b SMOKE over the four ranks as ``{"model": 4}``:
+
+  * ``glm_tp4``: 2 KV heads under 4 ranks, so `make_policy` sets
+    ``kv_seq_shard`` (a train step has no cache): one q head a rank,
+    ``wk`` / ``wv`` / ``bk`` / ``bv`` whole on every rank.
 
 One JAX child on 4 forced host devices (this file's ``__main__`` branch)
 runs ``jax.jit(make_train_step(model, AdamWConfig(...), StepConfig(n),
 policy))`` and ``jax.value_and_grad`` of the reference's remat loss under
 the reference's `make_policy` over ``Mesh(devices.reshape(2, 2), ("data",
-"model"))`` (Auto axes), every input placed by its fitted spec, with the
+"model"))`` (Auto axes; ``(1, 4)`` for ``glm_tp4``, whose FSDP specs name a
+``data`` axis of one), every input placed by its fitted spec, with the
 dtype-keeping `grad_cast_bf16` of `tests/test_torch_training.py` swapped
 in; it writes its results, its fitted specs, and `make_policy`'s answers
 for every arch x shape on a few mesh shapes.  Held, at the train-step
@@ -61,13 +68,15 @@ from repro_torch.train.train_step import (StepConfig, loss_and_grads,  # noqa: E
 
 SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
 NP, GRID = 4, {"data": 2, "model": 2}
-ARCH = "qwen1.5-110b"
-# name -> (overrides of the SMOKE config, fsdp, microbatches)
+ARCH, GLM = "qwen1.5-110b", "chatglm3-6b"
+# name -> (overrides of the SMOKE config, fsdp, microbatches, arch, the ranks' grid)
 CASES = {
-    "fsdp": ({}, True, 1),
-    "tp_only": ({}, False, 1),
-    "mixed_tied": ({"n_heads": 6, "n_kv_heads": 3, "tie_embeddings": True}, True, 1),
-    "micro": ({}, True, 2),
+    "fsdp": ({}, True, 1, ARCH, GRID),
+    "tp_only": ({}, False, 1, ARCH, GRID),
+    "mixed_tied": ({"n_heads": 6, "n_kv_heads": 3, "tie_embeddings": True}, True, 1, ARCH,
+                   GRID),
+    "micro": ({}, True, 2, ARCH, GRID),
+    "glm_tp4": ({}, True, 1, GLM, {"model": 4}),
 }
 B, S, STEP0 = 4, 8, 3                   # the global batch; the moments' step count
 STEP_CFG = dict(lr=1e-3, warmup_steps=2, total_steps=20)
@@ -81,7 +90,14 @@ DIST_COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor", "reduc
 
 
 def _cfg(name: str, get=get_config):
-    return dataclasses.replace(get(ARCH, smoke=True), **CASES[name][0])
+    return dataclasses.replace(get(CASES[name][3], smoke=True), **CASES[name][0])
+
+
+def _grid(name: str) -> dict:
+    """The case's mesh axes as the reference sees them: a ``data`` axis of
+    one where the ranks' grid has none."""
+    axes = CASES[name][4]
+    return axes if "data" in axes else {"data": 1, **axes}
 
 
 def _policy(mesh, name: str) -> ShardingPolicy:
@@ -143,9 +159,10 @@ def _rank_main(mesh, cases: dict) -> dict:
     torch.set_num_threads(1)
     out = {"coords": mesh.coords}
     for name, ins in cases.items():
-        n = CASES[name][2]
+        n, axes = CASES[name][2], CASES[name][4]
         model = build_model(_cfg(name))
-        pol = _policy(mesh, name)
+        m = mesh if axes == GRID else mesh.regrid(axes)
+        pol = _policy(m, name)
         params = params_from_jax(_tree(ins["params"]), "cpu", torch.float32, policy=pol)
         state = opt_state_from_jax(STEP0, _tree(ins["mu"]), _tree(ins["nu"]), "cpu",
                                    policy=pol)
@@ -161,7 +178,8 @@ def _rank_main(mesh, cases: dict) -> dict:
                      "grad_norm": float(met["grad_norm"]), "lr": float(met["lr"]),
                      "step": int(st2.step), "grads": flat(grads), "params": flat(p2),
                      "mu": flat(st2.mu), "nu": flat(st2.nu), "start": flat(params),
-                     "puts_grads": c_grads.puts, "puts_step": c_step.puts}
+                     "puts_grads": c_grads.puts, "puts_step": c_step.puts,
+                     "at": {a: dict(zip(axes, m.coords)).get(a, 0) for a in _grid(name)}}
     return out
 
 
@@ -193,10 +211,11 @@ def _child(d: pathlib.Path) -> None:
         lambda x: (x, None), lambda _, g: (g.astype(jnp.bfloat16).astype(g.dtype),))
     JL.grad_cast_bf16 = grad_cast_keep_dtype
 
-    mesh = jax.sharding.Mesh(np.asarray(devices).reshape(2, 2), ("data", "model"))
     is_spec = lambda s: isinstance(s, PartitionSpec)  # noqa: E731
     out, specs = {}, {}
-    for name, (_, fsdp, n) in CASES.items():
+    for name, (_, fsdp, n, _, _) in CASES.items():
+        grid = _grid(name)
+        mesh = jax.sharding.Mesh(np.asarray(devices).reshape(tuple(grid.values())), tuple(grid))
         cfg = _cfg(name, jget)
         model = jbuild(cfg)
         pol = dataclasses.replace(jdry.make_policy(mesh, cfg, JSHAPES["train_4k"]), fsdp=fsdp)
@@ -278,22 +297,25 @@ def runs(tmp_path_factory):
     return dict(np.load(d / "out.npz")), meta, ranks, cases
 
 
-def _block(leaf: np.ndarray, spec: list, at: dict) -> np.ndarray:
-    """The block of `leaf` that the grid coordinate `at` holds under the
-    reference's `spec` (one entry a dim: None, an axis or a list of axes)."""
+def _block(leaf: np.ndarray, spec: list, at: dict, grid: dict) -> np.ndarray:
+    """The block of `leaf` that the coordinate `at` of `grid` holds under
+    the reference's `spec` (one entry a dim: None, an axis or a list of
+    axes)."""
     idx = []
     for d, n in enumerate(leaf.shape):
         entry = spec[d] if d < len(spec) else None
         axes = [] if entry is None else ([entry] if isinstance(entry, str) else entry)
         k, i = 1, 0
         for a in axes:
-            i, k = i * GRID[a] + at[a], k * GRID[a]
+            i, k = i * grid[a] + at[a], k * grid[a]
         idx.append(slice(i * (n // k), (i + 1) * (n // k)))
     return leaf[tuple(idx)]
 
 
-def _at(rank: dict) -> dict:
-    return dict(zip(GRID, rank["coords"]))
+def _cut(leaf: np.ndarray, name: str, path: str, rank: dict, meta: dict) -> np.ndarray:
+    """The block of the reference's `leaf` at `path` that `rank` holds in
+    case `name`."""
+    return _block(leaf, meta["specs"][name][path], rank[name]["at"], _grid(name))
 
 
 def _held(name: str, what: str, runs) -> list:
@@ -306,7 +328,7 @@ def _held(name: str, what: str, runs) -> list:
         assert set(got) == set(meta["specs"][name])
         for path, v in got.items():
             whole = ref[f"{name}/{what}/{path}"]
-            want = _block(whole, meta["specs"][name][path], _at(rank))
+            want = _cut(whole, name, path, rank, meta)
             assert v.shape == want.shape, (name, what, path, v.shape, want.shape)
             out.append((v, want, whole, path))
     return out
@@ -346,14 +368,13 @@ def test_updated_param_blocks_match_the_reference(name, runs):
     grads = {}
     for rank in ranks:
         for path in rank[name]["params"]:
-            g = np.abs(_block(ref[f"{name}/grads/{path}"], meta["specs"][name][path],
-                              _at(rank)))
+            g = np.abs(_cut(ref[f"{name}/grads/{path}"], name, path, rank, meta))
             gmax = np.abs(ref[f"{name}/grads/{path}"]).max()
             grads[(rank["coords"], path)] = g > GRAD_REL * gmax
     for rank in ranks:
         for path, got in rank[name]["params"].items():
             whole = ref[f"{name}/params/{path}"]
-            err = np.abs(got - _block(whole, meta["specs"][name][path], _at(rank)))
+            err = np.abs(got - _cut(whole, name, path, rank, meta))
             big = grads[(rank["coords"], path)]
             assert err[big].max(initial=0.0) <= PARAM_TOL, f"{name} {path}: {err[big].max()}"
             assert err[~big].max(initial=0.0) <= 2 * lr, f"{name} {path}: {err[~big].max()}"
@@ -364,25 +385,26 @@ def test_each_rank_holds_only_its_blocks(name, runs):
     """Params and both moments, before and after the step: the blocks the
     reference's fitted specs give the rank's coordinate (the starting ones
     bit for bit), their bytes the whole model's split leaves' 1/4, 1/2 or
-    all of them; under fsdp=True no leaf but the norm scales and the
-    biases is whole on a rank."""
+    all of them; under fsdp=True over a ``data`` axis no leaf but the norm
+    scales and the biases is whole on a rank."""
     _, meta, ranks, cases = runs
     whole = cases[name]["params"]
+    fsdp = CASES[name][1] and _grid(name)["data"] > 1
     for rank in ranks:
         res = rank[name]
         want_bytes = 0
         for path, leaf in whole.items():
-            want = _block(leaf, meta["specs"][name][path], _at(rank))
+            want = _cut(leaf, name, path, rank, meta)
             np.testing.assert_array_equal(res["start"][path], want, err_msg=path)
             for what in ("params", "mu", "nu"):
                 assert res[what][path].shape == want.shape, (what, path)
             want_bytes += want.nbytes
         for what in ("start", "params", "mu", "nu"):
             assert sum(v.nbytes for v in res[what].values()) == want_bytes
-        if CASES[name][1]:
+        if fsdp:
             assert all(res["start"][p].shape != whole[p].shape for p in whole
                        if not p.endswith(("scale", "bq", "bk", "bv")))
-    share = 0.3 if CASES[name][1] else 0.55          # ~1/4 with FSDP, ~1/2 without
+    share = 0.3 if fsdp else 0.55          # ~1/4 with FSDP, ~1/2 (or 1/4 and whole K/V) without
     assert want_bytes < share * sum(v.nbytes for v in whole.values())
 
 
@@ -398,7 +420,7 @@ def test_ranks_holding_one_block_hold_it_bit_for_bit(name, runs):
             held: dict = {}
             for rank in ranks:
                 split = {a for e in spec if e for a in ([e] if isinstance(e, str) else e)}
-                key = tuple(c for a, c in _at(rank).items() if a in split)
+                key = tuple(c for a, c in rank[name]["at"].items() if a in split)
                 held.setdefault(key, []).append(rank[name][what][path])
             for blocks in held.values():
                 for b in blocks[1:]:
@@ -407,32 +429,43 @@ def test_ranks_holding_one_block_hold_it_bit_for_bit(name, runs):
     assert shared
 
 
+def _ring(p: int) -> tuple:
+    """(all-reduce, all-gather) puts of the ring over p ranks: p - 1
+    reduce-scatter puts, then 2 x ceil((p - 1) / 2) all-gather puts (both
+    directions a step); none over one rank."""
+    ag = 2 * -(-(p - 1) // 2)
+    return (p - 1 + ag if p > 1 else 0), ag
+
+
 def _puts(name: str) -> dict:
     """The puts of `step_grads` and of the train step a rank, from the
-    schedule at tp = dp = 2: a ring all-reduce over two ranks is 1
-    reduce-scatter put and 2 all-gather puts (both directions of its one
-    step), the vocabulary all-gather 2, an FSDP gather 1 (one direction)
-    and its reduce-scatter 1.  Forward: the embedding's gather and
-    all-reduce, 2 all-reduces and the FSDP leaves' gathers a layer, the LM
-    head's gather and its vocabulary gather.  The remat recomputation
-    stops at the layer's last saved tensor, so it gathers again and runs
-    the attention's all-reduce, not the MLP's.  Backward: 2 entry
-    all-reduces a layer (plus 4 for the mixed fit's whole K/V leaves), the
+    schedule (`_ring`; at tp = dp = 2 a ring all-reduce is 1 reduce-scatter
+    put and 2 all-gather puts, the vocabulary all-gather 2), an FSDP gather
+    over two ``data`` ranks 1 (one direction) and its reduce-scatter 1.
+    Forward: the embedding's gather and all-reduce, 2 all-reduces and the
+    FSDP leaves' gathers a layer, the LM head's gather and its vocabulary
+    gather.  The remat recomputation stops at the layer's last saved
+    tensor, so it gathers again and runs the attention's all-reduce, not
+    the MLP's.  Backward: 2 entry
+    all-reduces a layer (plus one a whole K/V leaf of the mixed fit), the
     LM head's entry, a reduce-scatter a gathered leaf.  Then one all-reduce
-    over ``data`` a step; the train step adds the global norm's all-reduce
-    over the 4 ranks (3 + 2 x 2 puts)."""
+    over ``data`` a step (none without a ``data`` axis); the train step
+    adds the global norm's all-reduce over the 4 ranks."""
     cfg = _cfg(name)
-    _, fsdp, n = CASES[name]
-    ar, vocab, fg, rs = 3, 2, int(fsdp), int(fsdp)
+    _, fsdp, n, _, axes = CASES[name]
+    dp = axes.get("data", 1)
+    ar, vocab = _ring(axes["model"])
+    fg = rs = int(fsdp and dp > 1)
     names = ["wq", "wk", "wv", "wo", "w_in", "w_out"] + (["w_gate"]
                                                          if cfg.mlp_type == "swiglu" else [])
-    kv_whole = cfg.n_kv_heads % GRID["model"] != 0
+    kv_whole = cfg.n_kv_heads % axes["model"] != 0
+    kv_leaves = 4 if cfg.qkv_bias else 2
     heads = len(names)                   # every one of them split over data (D % 2 == 0)
-    layer = (heads * fg + 2 * ar) + (heads * fg + ar) + (2 * ar + 4 * ar * kv_whole
+    layer = (heads * fg + 2 * ar) + (heads * fg + ar) + (2 * ar + kv_leaves * ar * kv_whole
                                                         + heads * rs)
     tok = 2 * fg + ar + vocab + ar + 2 * rs          # embedding, LM head (tied: one leaf)
-    grads = n * (tok + cfg.n_layers * layer) + ar
-    return {"grads": grads, "step": grads + 3 + 2 * 2}
+    grads = n * (tok + cfg.n_layers * layer) + _ring(dp)[0]
+    return {"grads": grads, "step": grads + _ring(NP)[0]}
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
