@@ -508,6 +508,32 @@ no result line):
     step beside the whole run's, fenced rounds (host barriers) a decode
     step, each rank's torch peak, and row 4's peer put at the partials'
     all-to-all block.
+36. the MoE layer split over a `ProcMesh`'s ``model`` axis (tensor-parallel
+    experts: every rank holds every expert's block of F, the router whole,
+    as the reference's fitted specs place them).  Part 1: qwen3-moe-30b-a3b
+    at its published widths cut to 8 of 48 layers over ``ProcMesh({"model":
+    4})`` under `make_policy` for decode_32k (one KV head a rank), 4
+    prompts of 256-2,048 tokens, each forwarded (`make_prefill_step`, the
+    flash kernel) and prefilled alone, then 16 greedy `make_serve_step`
+    steps.  Part 2: moonshot-v1-16b-a3b (a shared expert) cut to 4 of 48
+    layers over ``{"data": 2, "model": 2}`` under `make_policy` (FSDP over
+    ``data``): one [4, 1,024] forward, one [4, 512] prefill and 16 steps,
+    2 rows a data coordinate, one dispatch group a rank (the reference's
+    G = 2 over the global batch).  The ranks run first, their routing
+    tapped; then one process runs the same keyed weights whole (part 2
+    under a policy on a stacked `Mesh` of the same shape: the same groups),
+    dispatched to the split's experts and teacher-forced on its tokens.
+    Checked: every rank's choices, slots and overflow flags bit-equal to
+    its row block's model rank 0's in every layer of every call, and its
+    logits and tokens too; the forced whole run's slots and drops equal
+    to the split's, every choice its own routers would make otherwise a
+    near-tie (`route_check`); logits within TP_REL of the whole run's max
+    |logit|, argmax held beyond twice that; each rank's weight bytes its
+    blocks' by the fitted specs; 32 (part 2: 4) "wgmma" flash launches a
+    rank and exactly `ms_schedule`'s row 4 peer puts (one ring all-reduce
+    an MoE layer), nothing else.  Host ms of every call beside the whole
+    run's, fenced rounds a decode step, drop fractions by call, each
+    rank's torch peak, and row 4's peer put at the MoE all-reduce's block.
 
 ``python3 chip_smoke.py --gather-shift`` times only `rmem.pages.gather_shift`
 and `paged_gather` at the rendezvous pull's shape on the package beside the
@@ -533,7 +559,9 @@ kernels line (row 4's peer form and row 11 with this phase's launches, row
 ``--tp-train-procs`` runs only phase 34 the same way; ``--kv-seq-procs``
 runs only phase 35 the same way (row 4 timed at the partials' all-to-all
 block, row 11 at a rank's attention shape), and ``--kv-seq-procs
---decode-32k`` with part 1 at decode_32k's 32,768 positions.
+--decode-32k`` with part 1 at decode_32k's 32,768 positions; ``--moe-procs``
+runs only phase 36 the same way (row 4 timed at the MoE all-reduce's
+block, row 11 at a part 1 rank's attention shape [1, 8, 2048, 128]).
 
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after.
@@ -845,6 +873,28 @@ KV_32K = (32_768, (8180, 16380, 24570, 30000), 5000)   # (max_seq, prompts, pref
 KV_STEPS, KV_FWD = 16, 2048     # decode steps; the cache-free forward's prefix (row 11)
 KV_GRID, KV_GRID_LAYERS, KV_GRID_SEQ = {"data": 2, "model": 2}, 8, 8192
 KV_GRID_PLENS = (4082, 4086, 4090, 4094)
+# phase 36: the MoE layer split over model: tensor-parallel experts, as the
+# reference's fitted specs place them (each expert's F over model, the
+# router whole).  Part 1: qwen3-moe-30b-a3b at its published widths
+# (src/repro/configs/qwen3_moe_30b_a3b.py: d_model 2048, 32 q heads and 4 KV
+# heads of 128, 128 experts of F 768 top-8, vocab 151,936) cut to 8 of 48
+# layers over ProcMesh({"model": 4}) under make_policy for decode_32k (one
+# KV head a rank); each prompt forwarded and prefilled alone, 16 greedy
+# steps over the 4 rows (at 2,048 tokens a row's capacity is 160 slots
+# against 128 items an expert on average).  Part 2: moonshot-v1-16b-a3b
+# (src/repro/configs/moonshot_v1_16b_a3b.py: 16 heads and 16 KV heads of
+# 128, 64 experts of F 1,408 top-6, a shared expert of 1,408, vocab
+# 163,840) cut to 4 of 48 layers over {"data": 2, "model": 2} under
+# make_policy (fsdp=True): 4 rows, 2 a data coordinate, one forward of
+# MS_GRID_FWD tokens a row, one prefill of MS_GRID_PROMPT, 16 greedy steps;
+# the reference's G = 2 dispatch groups over the global batch are one a
+# data coordinate.  The whole run in this process (part 2 under a policy
+# on a stacked Mesh of the same shape: the same groups) is dispatched to
+# the split's experts and teacher-forced on its tokens; TP_REL's bounds
+MS_ARCHS, MS_LAYERS = ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b"), (8, 4)
+MS_RANKS, MS_SEED, MS_TIMEOUT, MS_STEPS = 4, 36, 600.0, 16
+MS_PLENS, MS_GRID = (256, 512, 1024, 2048), {"data": 2, "model": 2}
+MS_GRID_ROWS, MS_GRID_FWD, MS_GRID_PROMPT = 4, 1024, 512
 
 
 def log(msg: str) -> None:
@@ -1329,6 +1379,13 @@ def main() -> int:
         "row11_launches")
     row4["kv_seq_all_to_all_put"] = kv.pop("put")
     log(f"kv seq procs phase numbers: {json.dumps(kv)}")
+    torch.cuda.empty_cache()
+    ms = moe_split_phases(torch, H100.hbm_bandwidth)
+    row4["launches"] += ms.pop("row4_launches")
+    next(r for r in kernels if r["name"] == "flash_attention")["launches"] += ms.pop(
+        "row11_launches")
+    row4["moe_all_reduce_put"] = ms.pop("put")
+    log(f"moe procs phase numbers: {json.dumps(ms)}")
     if len(kernels) != len(KERNELS):
         raise AssertionError(f"{len(kernels)} kernel rows, want {len(KERNELS)}")
     log(f"smoke wall time: {time.perf_counter() - T0:.1f} s")
@@ -3992,8 +4049,8 @@ def policy_phase(torch, model, params, tokens, L, layer0_dir: str, layer0_tree) 
                                  device="cuda")
             real, calls = moe_mod.moe_ffn, []
 
-            def tap(p, x, top_k, capacity_factor=1.25, mlp_type="swiglu"):
-                y, met = real(p, x, top_k, capacity_factor, mlp_type)
+            def tap(p, x, top_k, capacity_factor=1.25, mlp_type="swiglu", **sizes):
+                y, met = real(p, x, top_k, capacity_factor, mlp_type, **sizes)
                 if current_policy() is not None:
                     calls.append((p, x, top_k, capacity_factor, mlp_type, y,
                                   moe_mod._n_groups(x.shape[0])))
@@ -8117,27 +8174,34 @@ def tp_config(get_config):
 
 
 def tp_std(cfg, path: str):
-    """The std of a dense leaf's draw (None: the norm scales, ones): the
-    port's init scales, and 0.02 for the q/k/v biases (the port's init
-    makes them 0), so that their split is exercised too."""
+    """The std of a leaf's draw (None: the norm scales, ones): the port's
+    init scales (an expert's or the shared expert's ``w_out`` at its own F,
+    the router at d_model^-0.5), and 0.02 for the q/k/v biases (the port's
+    init makes them 0), so that their split is exercised too."""
     leaf = path.rsplit("/", 1)[-1]
     if leaf == "scale":
         return None
     if leaf in ("embed", "lm_head", "bq", "bk", "bv"):
         return 0.02
-    return (cfg.d_ff if leaf == "w_out" else cfg.d_model) ** -0.5
+    if leaf != "w_out":
+        return cfg.d_model ** -0.5
+    f = (cfg.moe_d_ff if "/experts/" in path else cfg.moe_shared_ff if "/shared/" in path
+         else cfg.d_ff)
+    return f ** -0.5
 
 
 def keyed_params(torch, cfg, seed: int, policy=None) -> dict:
-    """Random bf16 weights of a dense `cfg` on the card, each leaf drawn one
-    layer slice at a time from a `torch.Generator` keyed by (seed, leaf,
-    layer).  Under a policy that splits the model over processes each slice
-    is drawn whole and only this rank's block of it is kept, so the ranks
-    hold the blocks of the very values a whole run makes, and no process
-    holds more than one slice of a leaf beyond its blocks."""
+    """Random bf16 weights (the MoE router f32) of a dense or moe `cfg` on
+    the card, each leaf drawn one layer slice at a time from a
+    `torch.Generator` keyed by (seed, leaf, layer).  Under a policy that
+    splits the model over processes each slice is drawn whole and only this
+    rank's block of it is kept, so the ranks hold the blocks of the very
+    values a whole run makes, and no process holds more than one slice of
+    a leaf beyond its blocks."""
     from repro_torch.ckpt.checkpoint import _unflatten_like, flatten
     from repro_torch.models import build_model
     from repro_torch.models import layers as L
+    from repro_torch.models.registry import F32_LEAVES
 
     shapes = build_model(cfg).init_shapes()
     cut = dict(flatten(policy.tree_shardings(shapes))) if policy is not None else {}
@@ -8149,12 +8213,13 @@ def keyed_params(torch, cfg, seed: int, policy=None) -> dict:
         at = (cut[path].index(policy.mesh.coords, shape)[1 if stacked else 0:]
               if path in cut else None)
         dst = None
+        dtype = torch.float32 if path.rsplit("/", 1)[-1] in F32_LEAVES else torch.bfloat16
         for j in range(shape[0] if stacked else 1):
             if std is None:
-                full = torch.ones(one, dtype=torch.bfloat16, device="cuda")
+                full = torch.ones(one, dtype=dtype, device="cuda")
             else:
                 g = torch.Generator(device="cuda").manual_seed(seed * 1_000_003 + i * 1_009 + j)
-                full = L._normal(g, one, std, torch.bfloat16, "cuda")
+                full = L._normal(g, one, std, dtype, "cuda")
             blk = full if at is None else full[at]
             if not stacked:
                 dst = blk.clone()
@@ -9377,6 +9442,468 @@ def kv_seq_only() -> int:
     return 0
 
 
+# ------------------------ phase 36: the MoE layer split over the model axis
+def ms_config(get_config, part: int):
+    import dataclasses
+
+    return dataclasses.replace(get_config(MS_ARCHS[part - 1]), n_layers=MS_LAYERS[part - 1])
+
+
+class SlotTap(RouteTap):
+    """A RouteTap that also keeps each dispatch as the MoE layer used it
+    (`models.moe.Routing`: the choices, forced or the router's own, their
+    slots and overflow flags), in the order the layers route."""
+
+    used = None
+
+    def _route(self, params, xt, top_k, capacity_factor=1.25):
+        r = super()._route(params, xt, top_k, capacity_factor)
+        if self.used is not None:
+            self.used.append(r)
+        return r
+
+    def record(self, fn, force=None):
+        """(fn()'s result, the router's choices as a `Chosen`, the
+        dispatches used)."""
+        self.used = []
+        try:
+            out, chosen = super().record(fn, force)
+        finally:
+            used, self.used = self.used, None
+        return out, chosen, used
+
+
+def ms_serve(torch, model, params, ins: dict, part: int, policy, tap, rows: slice,
+             tokens=None, forces=None) -> dict:
+    """Phase 36's main path under `policy` for the batch's `rows`: part 1
+    make_prefill_step on each prompt alone, each prefilled alone into its
+    row of one cache made under the policy; part 2 make_prefill_step on the
+    rows' MS_GRID_FWD tokens (given the global row count) and one
+    Model.prefill of their first MS_GRID_PROMPT into the cache; then
+    MS_STEPS make_serve_step steps, greedy or teacher-forced on `tokens`
+    [MS_STEPS, batch].  Every call goes through `tap` (`forces[i]`: the
+    i-th call's choices); its logits, host ms and fenced rounds (host
+    barriers) a call."""
+    from repro_torch.parallel.sharding import use_policy
+    from repro_torch.train.train_step import make_prefill_step, make_serve_step
+
+    mesh = policy.mesh if policy is not None and policy.splits_model else None
+    n = ins["n_rows"]
+    pre, serve = make_prefill_step(model, policy), make_serve_step(model, policy)
+    calls = []
+
+    def call(kind: str, fn):
+        force = None if forces is None else forces[len(calls)]
+        torch.cuda.synchronize()
+        b0 = 0 if mesh is None else mesh.barriers
+        t = time.perf_counter()
+        out, chosen, used = tap.record(fn, force)
+        torch.cuda.synchronize()
+        calls.append({"kind": kind, "ms": (time.perf_counter() - t) * 1e3, "chosen": chosen,
+                      "used": used, "rounds": 0 if mesh is None else mesh.barriers - b0})
+        return out
+
+    if part == 1:
+        prompts = [p.to("cuda") for p in ins["prompts"]]
+        fwd = [call("forward", lambda: pre(params, {"tokens": p[None]}))[0] for p in prompts]
+        with use_policy(policy):
+            cache = model.init_cache(n, max(MS_PLENS) + MS_STEPS, device="cuda")
+        last = []
+        for b, p in enumerate(prompts):
+            row = {"kv": {k: v[:, b:b + 1] for k, v in cache["kv"].items()},
+                   "len": torch.zeros((), dtype=torch.int32, device="cuda")}
+            with torch.no_grad(), use_policy(policy):
+                last.append(call("prefill", lambda: model.prefill(params, p[None], row))[0][0])
+        last = torch.stack(last)
+        cache["len"] = torch.tensor(MS_PLENS, dtype=torch.int32, device="cuda")
+    else:
+        toks = ins["batch"][rows].to("cuda")
+        fwd = [call("forward", lambda: pre(params, {"tokens": toks}, rows=n))]
+        with use_policy(policy):
+            cache = model.init_cache(n, MS_GRID_PROMPT + MS_STEPS, device="cuda")
+        with torch.no_grad(), use_policy(policy):
+            last, cache = call("prefill", lambda: model.prefill(
+                params, toks[:, :MS_GRID_PROMPT], cache))
+    tok = last.argmax(-1)
+    fed, steps = [], []
+    for s in range(MS_STEPS):
+        if tokens is not None:
+            tok = tokens[s, rows]
+        fed.append(tok)
+        lg, cache = call("step", lambda: serve(params, tok, cache))
+        steps.append(lg)
+        tok = lg.argmax(-1)
+    return {"forward": fwd, "prefill": last, "steps": torch.stack(steps),
+            "tokens": torch.stack(fed), "calls": calls}
+
+
+def ms_schedule(cfg, tp: int, dp: int, fsdp: bool) -> int:
+    """A rank's row 4 peer puts a call of the path (forward, prefill or
+    decode step alike: the caches split by heads): the embedding's ring
+    all-reduce, the attention's and the MoE layer's ONE (the experts' and
+    the shared expert's partials summed together) a layer, the
+    vocabulary's all-gather; a ring all-reduce over tp is tp - 1 +
+    2 ceil((tp - 1) / 2) puts, an all-gather 2 ceil((tp - 1) / 2); under
+    FSDP over two data ranks one put a gathered leaf (one direction): the
+    2 of ``tok`` and a layer's wq / wk / wv / wo, router, the experts' 3
+    and the shared expert's 3."""
+    ag = 2 * -(-(tp - 1) // 2)
+    ar = tp - 1 + ag
+    leaves = 8 + 3 * bool(cfg.moe_shared_ff)
+    fg = int(fsdp and dp > 1)
+    return 2 * fg + ar + cfg.n_layers * (fg * leaves + 2 * ar) + ag
+
+
+def ms_rank(mesh, ins: dict, part: int, hbm: float) -> dict:
+    """Phase 36 in one rank's process: its blocks of the keyed weights under
+    the reference's `make_policy`, the main path (greedy) through a
+    SlotTap with its launch counts zeroed before and read after; digests
+    of every dispatch (choices, slots, overflow flags) and of the logits,
+    each call's drops; a model rank 0 writes its logits into the shared
+    buffers and returns its routing (the whole run is forced to it); part
+    1's rank 0 then times row 4's peer put at the MoE all-reduce's block."""
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core.rma import OpCounter
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rma import ops as rma_ops
+    from repro_torch.kernels.rma import ref as rma_ref
+    from repro_torch.launch.dryrun import make_policy
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as moe_mod
+
+    t0 = time.perf_counter()
+    cfg = ms_config(get_config, part)
+    model = build_model(cfg)
+    policy = make_policy(mesh, cfg, SHAPES["decode_32k"])
+    torch.cuda.reset_peak_memory_stats()
+    params = keyed_params(torch, cfg, MS_SEED + part, policy)
+    torch.cuda.synchronize()
+    rows = kv_rows(policy, ins["n_rows"])
+    out = {"rank": mesh.rank, "model_rank": policy.model_rank, "rows": [rows.start, rows.stop],
+           "init_s": time.perf_counter() - t0, "fsdp": policy.gathers_data,
+           "bytes": sum(v.nbytes for v in flat_leaves(params).values()),
+           "want_bytes": tp_bytes(torch, cfg, policy)}
+    L.set_attention_backend("cuda")
+    fops.launches = 0
+    fops.launches_by_variant = {k: 0 for k in fops.launches_by_variant}
+    zero_rma_launches(rma_ops)
+    b0 = mesh.barriers
+    try:
+        with OpCounter() as c, SlotTap(moe_mod) as tap:
+            run = ms_serve(torch, model, params, ins, part, policy, tap, rows)
+        torch.cuda.synchronize()
+    finally:
+        L.set_attention_backend("torch")
+    out["launches"] = {"flash": fops.launches, "wgmma": fops.launches_by_variant["wgmma"],
+                       **rma_ops.launches}
+    out["puts"], out["colls"], out["barriers"] = c.puts, c.colls, mesh.barriers - b0
+    calls = run.pop("calls")
+    out["routes"] = [[(digest(torch, r.expert_idx), digest(torch, r.slot), digest(torch, r.ok))
+                      for r in x["used"]] for x in calls]
+    out["drops"] = [[(r.ok.numel(), int((~r.ok).sum())) for r in x["used"]] for x in calls]
+    out["logits"] = [digest(torch, t) for t in (*run["forward"], run["prefill"], run["steps"])]
+    out["tokens"] = run["tokens"].cpu()
+    out["capacity"] = sorted({r.capacity for x in calls for r in x["used"]})
+    for kind in ("forward", "prefill", "step"):
+        out[f"{kind}_ms"] = [x["ms"] for x in calls if x["kind"] == kind]
+    out["rounds"] = [x["rounds"] for x in calls if x["kind"] == "step"]
+    if policy.model_rank == 0:
+        bufs = ins["bufs"]
+        for buf, lg in zip(bufs["forward"], run["forward"]):
+            buf[rows if part == 2 else slice(None)].copy_(lg)
+        bufs["prefill"][rows].copy_(run["prefill"])
+        bufs["steps"][:, rows].copy_(run["steps"])
+        out["choices"] = [[r.expert_idx.cpu() for r in x["used"]] for x in calls]
+        out["chosen"] = [None if x["chosen"] is None else tuple(t.cpu() for t in x["chosen"])
+                         for x in calls]
+    del run, calls
+    out["peak_allocated"] = torch.cuda.max_memory_allocated()
+    if part == 1:
+        # row 4 at the MoE all-reduce's reduce-scatter block of a decode step
+        # (the f32 partial [4 rows, 1, d_model] over 4 ranks)
+        out["put"] = pp_put_row(torch, mesh, rma_ops, rma_ref,
+                                ins["n_rows"] * cfg.d_model // MS_RANKS, hbm, axis="model",
+                                phase=36)
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def ms_part(torch, part: int, hbm: float, card: str) -> dict:
+    """One part of phase 36: the ranks first (their logits into host shared
+    memory, their routing returned), then the whole run here dispatched
+    to their experts and teacher-forced on their tokens; every check;
+    returns the part's numbers."""
+    from repro_torch import procmesh
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch.dryrun import make_policy
+    from repro_torch.mesh import Mesh
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as moe_mod
+
+    t0 = time.perf_counter()
+    cfg = ms_config(get_config, part)
+    grid = {"model": MS_RANKS} if part == 1 else MS_GRID
+    tp, dp = grid["model"], grid.get("data", 1)
+    V = cfg.vocab_size
+    g = torch.Generator().manual_seed(MS_SEED + part)
+
+    def shared(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16).share_memory_()
+
+    if part == 1:
+        ins = {"n_rows": len(MS_PLENS),
+               "prompts": [torch.randint(0, V, (n,), generator=g) for n in MS_PLENS]}
+        fwd_bufs = [shared(n, V) for n in MS_PLENS]
+    else:
+        ins = {"n_rows": MS_GRID_ROWS,
+               "batch": torch.randint(0, V, (MS_GRID_ROWS, MS_GRID_FWD), generator=g)}
+        fwd_bufs = [shared(MS_GRID_ROWS, MS_GRID_FWD, V)]
+    n = ins["n_rows"]
+    ins["bufs"] = {"forward": fwd_bufs, "prefill": shared(n, V),
+                   "steps": shared(MS_STEPS, n, V)}
+    ranks = procmesh.run(ms_rank, MS_RANKS, device="cuda", args=(ins, part, hbm), axes=grid,
+                         timeout=MS_TIMEOUT)
+    run_s = time.perf_counter() - t0
+    bad = []                    # every check's failure, raised after the logs
+    lead = {x["rows"][0]: x for x in ranks if x["model_rank"] == 0}   # by first row
+    if sorted((x["rows"][0], x["model_rank"]) for x in ranks) != sorted(
+            (d * (n // dp), m) for d in range(dp) for m in range(tp)):
+        bad.append(f"ranks' rows and model ranks {[(x['rows'], x['model_rank']) for x in ranks]}")
+    # routing, logits and tokens bit-equal across the model ranks of a row block
+    for x in ranks:
+        ref = lead[x["rows"][0]]
+        if x["routes"] != ref["routes"]:
+            diff = sum(a != b for ca, cb in zip(x["routes"], ref["routes"]) for a, b in zip(ca, cb))
+            bad.append(f"rank {x['rank']}: {diff} dispatches differ from its row block's model "
+                       "rank 0's")
+        if x["logits"] != ref["logits"] or not torch.equal(x["tokens"], ref["tokens"]):
+            bad.append(f"rank {x['rank']}: logits or tokens differ from model rank 0's")
+    blocks = [lead[k] for k in sorted(lead)]
+    n_calls = len(blocks[0]["routes"])
+    tokens = torch.cat([x["tokens"] for x in blocks], dim=1)
+
+    # the whole run: the same keyed weights, forced to the split's experts
+    # (route calls ordered layer by layer, a data block's group after another's)
+    def whole_order(per_block: list) -> list:
+        per = len(per_block[0]) // cfg.n_layers
+        return [t for layer in range(cfg.n_layers) for x in per_block
+                for t in x[layer * per:(layer + 1) * per]]
+
+    forces = [[t.to("cuda") for t in whole_order([x["choices"][i] for x in blocks])]
+              for i in range(n_calls)]
+    split_routes = [whole_order([x["routes"][i] for x in blocks]) for i in range(n_calls)]
+    split_drops = [sum(k for _, k in whole_order([x["drops"][i] for x in blocks]))
+                   for i in range(n_calls)]
+    items = [sum(m for m, _ in whole_order([x["drops"][i] for x in blocks]))
+             for i in range(n_calls)]
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params = keyed_params(torch, cfg, MS_SEED + part)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t1
+    whole_bytes = sum(v.nbytes for v in flat_leaves(params).values())
+    stacked = None if part == 1 else make_policy(Mesh(MS_GRID, device="cuda"), cfg,
+                                                 SHAPES["decode_32k"])
+    L.set_attention_backend("cuda")
+    before = fops.launches
+    try:
+        with SlotTap(moe_mod) as tap:
+            want = ms_serve(torch, model, params, ins, part, stacked, tap, slice(0, n),
+                            tokens=tokens.to("cuda"), forces=forces)
+    finally:
+        L.set_attention_backend("torch")
+    whole_flash = fops.launches - before
+    fops.launches = before          # the comparison run's launches are not the path's
+    torch.cuda.synchronize()
+    whole_peak = torch.cuda.max_memory_allocated()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    calls = want.pop("calls")
+    flips, err_router, gap = 0, 0.0, 0.0
+    for i, x in enumerate(calls):
+        used = [(digest(torch, r.expert_idx), digest(torch, r.slot), digest(torch, r.ok))
+                for r in x["used"]]
+        if used != split_routes[i]:
+            bad.append(f"call {i}: the forced whole run's dispatch (choices, slots, overflow "
+                       "flags) differs from the split's")
+        dropped = sum(int((~r.ok).sum()) for r in x["used"])
+        if dropped != split_drops[i]:
+            bad.append(f"call {i}: whole run drops {dropped} items, the split {split_drops[i]}")
+        parts = whole_order([[Chosen(*(t[j:j + 1] for t in b["chosen"][i]))
+                              for j in range(b["chosen"][i][0].shape[0])] for b in blocks])
+        ref = Chosen(*(torch.cat(ts).to("cuda") for ts in zip(*parts)))
+        own = Chosen(x["chosen"].idx, x["chosen"].logits, x["chosen"].probs)
+        try:
+            rc = route_check(torch, f"36.{part} call {i}", ref, own)
+        except AssertionError as e:
+            bad.append(str(e))
+            continue
+        flips, gap = flips + rc["flips"], max(gap, rc["gap"])
+        err_router = max(err_router, rc["err"])
+    got = {"forward": [b.to("cuda") for b in ins["bufs"]["forward"]],
+           "prefill": ins["bufs"]["prefill"].to("cuda"),
+           "steps": ins["bufs"]["steps"].to("cuda")}
+    e = tp_check(torch, got, want)
+    bounds = tp_bounds(want)
+    scale = {k: v / TP_REL for k, v in bounds.items()}
+    margin = float(tp_margin(torch, want["steps"]).min())
+    whole_ms = {kind: [x["ms"] for x in calls if x["kind"] == kind]
+                for kind in ("forward", "prefill", "step")}
+    del got, want, calls, forces
+    gc.collect()
+    torch.cuda.empty_cache()
+    over = [k for k in bounds if e[k] > bounds[k]]
+    if over or e["argmax_flips_beyond_bound"]:
+        bad.append(f"logits {e} vs the whole run (bounds {bounds})")
+
+    n_fwd = len(MS_PLENS) if part == 1 else 1      # forwards, and prefills
+    want_puts = (2 * n_fwd + MS_STEPS) * ms_schedule(cfg, tp, dp, True)
+    want_flash = n_fwd * cfg.n_layers
+    for x in ranks:
+        r, lc, wb = x["rank"], x["launches"], x["want_bytes"]
+        if x["bytes"] != wb["rank"]:
+            bad.append(f"rank {r}: {x['bytes']} weight bytes, its blocks' {wb}")
+        if wb["whole"] != whole_bytes:
+            bad.append(f"the whole model is {whole_bytes} bytes, the specs say {wb['whole']}")
+        if (lc["flash"], lc["wgmma"]) != (want_flash, want_flash):
+            bad.append(f"rank {r}: flash launches {lc['flash']} (wgmma {lc['wgmma']}), want "
+                       f"{want_flash}, all wgmma")
+        if (x["puts"], x["colls"]) != (want_puts, 0) or lc["put_shift"] != want_puts or any(
+                lc[k] for k in lc if k not in ("flash", "wgmma", "put_shift")):
+            bad.append(f"rank {r}: rma launches {lc}, puts {x['puts']}, all-to-alls "
+                       f"{x['colls']}, want {want_puts} row 4 peer puts and nothing else")
+    x0 = ranks[0]
+    wb = x0["want_bytes"]
+    steps = [t for x in ranks for t in x["step_ms"][1:]]
+    pre = [t for x in ranks for t in x["prefill_ms"]]
+    fwd = [t for x in ranks for t in x["forward_ms"]]
+    rounds = sorted({k for x in ranks for k in x["rounds"][1:]})
+    drop_frac = [d / m for d, m in zip(split_drops, items)]
+    name = f"{cfg.name} ({cfg.n_layers} of 48 layers)"
+    log(f"36.{part} split over {MS_RANKS} processes as {grid} ({card}): {name}, each rank "
+        f"{wb['rank'] / 1e9:.3f} GB of weights = the split leaves' 1/{tp * (dp if x0['fsdp'] else 1)}"
+        f" ({wb['split_whole'] / 1e9:.3f} GB whole) + the whole ones "
+        f"({(wb['whole'] - wb['split_whole']) / 1e9:.6f} GB); init {max(x['init_s'] for x in ranks):.1f} s, "
+        f"torch peak a rank {[round(x['peak_allocated'] / 2**30, 2) for x in ranks]} GiB; "
+        f"capacity a group {x0['capacity']}")
+    log(f"36.{part} whole run in this process ({card}): {whole_bytes / 1e9:.3f} GB of weights "
+        f"(keyed init {init_s:.1f} s), peak {whole_peak / 2**30:.2f} GiB, {whole_flash} flash "
+        f"launches, dispatched to the split's experts: its own routers would pick otherwise "
+        f"in {flips} of its choices, each a near-tie (largest probability gap {gap:.3g}); "
+        f"router logits differ by at most {err_router:.3g}")
+    log(f"36.{part} routing: every rank's choices, slots and overflow flags bit-equal to its "
+        f"row block's model rank 0's in all {n_calls} calls; drop fraction by call (split = "
+        f"forced whole) {[round(f, 5) for f in drop_frac]}")
+    log(f"36.{part} logits vs the whole run, max abs over the split {e}, bounds (TP_REL = "
+        f"{TP_REL:g} of the whole run's max |logit| {scale}) {bounds}; smallest top-2 margin "
+        f"of a step {margin:.4f}")
+    log(f"36.{part} launches a rank: row 11 {want_flash} (all wgmma), row 4 peer {want_puts} "
+        f"(= {2 * n_fwd + MS_STEPS} calls x {ms_schedule(cfg, tp, dp, True)}); fenced "
+        f"rounds (host barriers) a decode step {rounds}, a rank in all {x0['barriers']}")
+    log(f"36.{part} host ms ({card}), all ranks' samples: forward {spread(fwd)}, prefill "
+        f"{spread(pre)}, decode step after each one's first {spread(steps)}; whole: forward "
+        f"{[round(t, 1) for t in whole_ms['forward']]}, prefill "
+        f"{[round(t, 1) for t in whole_ms['prefill']]}, decode step "
+        f"{spread(whole_ms['step'][1:])}")
+    wall = time.perf_counter() - t0
+    log(f"36.{part}: ranks' run {run_s:.1f} s, part {wall:.1f} s")
+    if bad:
+        raise AssertionError(f"36.{part}: " + "; ".join(bad))
+    return {"row4_launches": sum(x["launches"]["put_shift"] for x in ranks),
+            "row11_launches": sum(x["launches"]["flash"] for x in ranks),
+            "put": x0.get("put"), "layers": cfg.n_layers, "grid": grid,
+            "err": {k: e[k] for k in bounds}, "bounds": bounds, "max_logit": scale,
+            "route_flips": flips, "route_gap": gap, "drop_fraction": drop_frac,
+            "capacity": x0["capacity"], "weights_gb_rank": wb["rank"] / 1e9,
+            "weights_gb_whole": whole_bytes / 1e9,
+            "peak_gib": [x["peak_allocated"] / 2**30 for x in ranks],
+            "whole_peak_gib": whole_peak / 2**30, "forward_ms": fwd, "prefill_ms": pre,
+            "step_ms": steps, "whole_ms": whole_ms, "rounds_per_step": rounds,
+            "puts_per_rank": want_puts, "run_s": run_s, "wall_s": wall}
+
+
+def moe_split_phases(torch, hbm: float) -> dict:
+    """Phase 36: qwen3-moe-30b-a3b at full width, 8 of 48 layers, over
+    ProcMesh({"model": 4}) (part 1), then moonshot-v1-16b-a3b, 4 of 48
+    layers, over {"data": 2, "model": 2} (part 2), each against one process
+    running the same keyed weights whole.  Returns both parts' numbers and
+    the kernel rows' launches."""
+    t0 = time.perf_counter()
+    card = card_line()
+    log(f"phase 36: the MoE layer split over model (tensor-parallel experts); part 1 "
+        f"{MS_ARCHS[0]} at full width, {MS_LAYERS[0]} of 48 layers (reduced: depth only) over "
+        f"ProcMesh({{'model': {MS_RANKS}}}); part 2 {MS_ARCHS[1]} at full width, {MS_LAYERS[1]} "
+        f"of 48 layers (reduced: depth only) over {MS_GRID}, both under make_policy "
+        f"(decode_32k); {MS_RANKS} processes sharing one card ({card})")
+    one = ms_part(torch, 1, hbm, card)
+    two = ms_part(torch, 2, hbm, card)
+    wall = time.perf_counter() - t0
+    log(f"36: phase {wall:.1f} s")
+    return {"card": card, "row4_launches": one.pop("row4_launches") + two.pop("row4_launches"),
+            "row11_launches": one.pop("row11_launches") + two.pop("row11_launches"),
+            "put": one.pop("put"), "part1": one,
+            "part2": {k: v for k, v in two.items() if k != "put"}, "wall_s": wall}
+
+
+def moe_split_only() -> int:
+    """``python3 chip_smoke.py --moe-procs``: phase 36 alone, on the package
+    beside this file (the kernels build first).  Prints the kernels line
+    of rows 4 (peer, at the MoE all-reduce's block) and 11 (at a part 1
+    rank's attention shape [1, 8, 2048, 128]) with this phase's launches
+    and times, then the result line."""
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.configs import get_config
+    from repro_torch.core.perfmodel import H100
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products, as in main()
+    log(card_line())
+    build_all(common)
+    ms = moe_split_phases(torch, H100.hbm_bandwidth)
+    # row 11 at a part 1 rank's attention shape: 8 q heads, its one KV head
+    # selected for each, the longest prompt
+    cfg = ms_config(get_config, 1)
+    g = torch.Generator(device="cuda").manual_seed(MS_SEED)
+    q, k, v = (torch.randn(1, cfg.n_heads // MS_RANKS, max(MS_PLENS), cfg.hd, generator=g,
+                           device="cuda").to(torch.bfloat16) for _ in range(3))
+    err = float((fops.flash_attention(q, k, v).float() - fref.attention_ref(q, k, v).float())
+                .abs().max())
+    if err > BF16_TOL:
+        raise AssertionError(f"flash_attention at a rank's shape: {err:.3g} from plain")
+    flash = time_flash(torch, F, fops, fref, q, k, v, H100.hbm_bandwidth)
+    put = ms.pop("put")
+    rows = [{"name": "put_shift_peer", "route": KERNELS["put_shift_peer"][0],
+             "source": KERNELS["put_shift_peer"][1], "replaces": KERNELS["put_shift_peer"][2],
+             "launches": ms.pop("row4_launches"), "max_abs_err": 0.0, "ms": put["ms"],
+             "plain_ms": put["plain_ms"], "bound_ms": put["bound_ms"], "bound_by": "bytes",
+             "library_ms": put["plain_ms"]},
+            {"name": "flash_attention", "route": KERNELS["flash_attention"][0],
+             "source": KERNELS["flash_attention"][1], "replaces": KERNELS["flash_attention"][2],
+             "launches": ms.pop("row11_launches"), "max_abs_err": err,
+             **{key: flash[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms")}}]
+    log(f"moe procs phase numbers: {json.dumps(ms)}")
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 MODES = {"--gather-shift": gather_shift_only, "--queue-push": queue_push_only,
          "--pool": pool_only, "--apps": apps_only, "--zoo": zoo_only,
          "--parallel": parallel_only, "--conformance": conformance_only,
@@ -9384,7 +9911,7 @@ MODES = {"--gather-shift": gather_shift_only, "--queue-push": queue_push_only,
          "--disagg-procs": disagg_procs_only, "--apps-procs": apps_procs_only,
          "--parallel-procs": parallel_procs_only, "--drift": drift_only,
          "--tp-procs": tp_procs_only, "--tp-train-procs": tt_procs_only,
-         "--kv-seq-procs": kv_seq_only}
+         "--kv-seq-procs": kv_seq_only, "--moe-procs": moe_split_only}
 
 if __name__ == "__main__":
     sys.exit(MODES[sys.argv[1]]() if sys.argv[1:] else main())

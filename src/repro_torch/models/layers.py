@@ -534,9 +534,11 @@ def init_mlp(gen, d_model: int, d_ff: int, mlp_type: str = "swiglu",
 
 
 def mlp(params: dict, x: torch.Tensor, mlp_type: str = "swiglu",
-        d_ff: Optional[int] = None) -> torch.Tensor:
+        d_ff: Optional[int] = None, reduce: bool = True) -> torch.Tensor:
     """Under a model split over processes `d_ff` (the model's F) is required
-    and the params are this rank's slice of F."""
+    and the params are this rank's slice of F; with ``reduce=False`` the
+    rank's partial sum is returned unreduced (the MoE layer reduces it
+    with its experts')."""
     tp = tensor_parallel()
     split = False
     if tp is not None:
@@ -552,7 +554,7 @@ def mlp(params: dict, x: torch.Tensor, mlp_type: str = "swiglu",
         h = F.gelu(h, approximate="tanh")      # jax.nn.gelu's default form
     h = shard(h, "act_btf")
     y = h @ params["w_out"]
-    if split:
+    if split and reduce:
         y = tp.all_reduce(y)
     return shard(y, "act_btd")
 

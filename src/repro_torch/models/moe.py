@@ -14,9 +14,24 @@ are split into G dispatch groups, one a data shard (`_n_groups`: the pod x
 data size, halved until it divides B), and each group is routed, capped
 and dropped on its own, as the reference does; capacity is per group, so
 a policy changes which tokens drop.  With no policy G = 1.  The
-reference's placement constraints change no value on one card.  Routing
-follows the reference exactly, since a different tie-break moves a token
-to another expert:
+reference's placement constraints change no value on one card.
+
+Under a policy that splits the model over processes
+(`parallel.sharding.tensor_parallel`) the experts are tensor-parallel, as
+the reference's fitted specs place them: every rank holds every expert's
+block of F (``w_in`` / ``w_gate`` [E, D, F / tp], ``w_out`` [E, F / tp,
+D]) and the whole router.  Each rank routes every one of its tokens with
+the whole router (its input is a ring all-reduce's output, the same bits
+on every rank, so every rank routes alike), dispatches every slot
+locally, runs its slice of F (SwiGLU acts column by column, so a slice is
+exact), combines its partial output in f32, adds the shared expert's
+partial, and one ring all-reduce over ``model`` sums them.  The dispatch
+groups are the reference's over the GLOBAL batch (`dispatch_groups`):
+where a rank's rows are its data shard they are G / (data blocks) of
+them, so the caller gives the global row count (``rows``).  The losses
+and the drop fraction are then those of the rank's rows, a share of the
+batch's, and are returned as None.  Routing follows the reference
+exactly, since a different tie-break moves a token to another expert:
 
   * top-k by a stable descending sort: ties go to the lower expert index,
     as `lax.top_k` breaks them;
@@ -34,19 +49,20 @@ activations' dtype.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
-from ..parallel.sharding import current_policy
+from ..parallel.sharding import ShardingPolicy, current_policy, tensor_parallel
 from . import layers as L
 
 
 class MoEMetrics(NamedTuple):
-    aux_loss: torch.Tensor        # load-balance loss (Switch-style)
-    router_z_loss: torch.Tensor
-    drop_fraction: torch.Tensor
+    """Each None where a split's rank routes a share of the batch."""
+    aux_loss: Optional[torch.Tensor]        # load-balance loss (Switch-style)
+    router_z_loss: Optional[torch.Tensor]
+    drop_fraction: Optional[torch.Tensor]
 
 
 class Routing(NamedTuple):
@@ -128,9 +144,10 @@ def sort_dispatch(logits: torch.Tensor, probs: torch.Tensor, expert_idx: torch.T
                    ok, cap, order)
 
 
-def _n_groups(B: int) -> int:
-    """Dispatch groups: the data shards when a policy is active (else 1)."""
-    pol = current_policy()
+def _n_groups(B: int, pol: Optional[ShardingPolicy] = None) -> int:
+    """Dispatch groups: the data shards when a policy (`pol`, else the
+    active one) is given (else 1)."""
+    pol = pol or current_policy()
     if pol is None:
         return 1
     g = 1
@@ -139,6 +156,42 @@ def _n_groups(B: int) -> int:
     while g > 1 and B % g:
         g //= 2
     return max(g, 1)
+
+
+def dispatch_groups(tp: ShardingPolicy, b: int, rows: Optional[int]) -> tuple[int, bool]:
+    """(the dispatch groups among this rank's `b` rows, whether they are a
+    share of the batch) under a model split over processes: the
+    reference's G over the global batch of `rows` (`_n_groups`), of which
+    a rank's data block holds G / blocks.  Without data axes of more than
+    one rank a rank holds the global batch and `rows` is not needed; with
+    them it is (a rank's row count cannot tell a split batch from a whole
+    one).  A group that would span ranks is refused."""
+    if not tp.data_axes:
+        return _n_groups(b, tp), False
+    if rows is None:
+        raise ValueError("an MoE layer under a split with data axes needs the global row "
+                         "count (rows=; a cache made by init_cache under the policy keeps it)")
+    blocks = tp.row_blocks(rows)
+    if b * blocks != rows:
+        raise ValueError(f"{b} rows on this rank for a global batch of {rows} in {blocks} "
+                         "data blocks")
+    g = _n_groups(rows, tp)
+    if g % blocks:
+        raise NotImplementedError(f"a dispatch group of {rows // g} rows spans {blocks} data "
+                                  "blocks of a rank's rows")
+    return g // blocks, blocks > 1
+
+
+def _experts_split(tp: ShardingPolicy, params: dict, d_ff: Optional[int], D: int) -> bool:
+    """Whether this rank's experts are its block of F (else whole); whole
+    weights where blocks are due are refused (`layers._is_split`)."""
+    if d_ff is None:
+        raise ValueError("moe_ffn under a model split over processes needs d_ff=")
+    E, ex = params["router"].shape[-1], params["experts"]
+    for k in ("w_in", "w_gate"):
+        if k in ex:
+            L._is_split(tp, f"experts/{k}", ex[k], (E, D, d_ff), 2)
+    return L._is_split(tp, "experts/w_out", ex["w_out"], (E, d_ff, D), 1)
 
 
 def _group_ffn(params: dict, xt: torch.Tensor, r: Routing, mlp_type: str) -> torch.Tensor:
@@ -173,32 +226,64 @@ def _group_ffn(params: dict, xt: torch.Tensor, r: Routing, mlp_type: str) -> tor
 
 
 def moe_ffn(params: dict, x: torch.Tensor, top_k: int, capacity_factor: float = 1.25,
-            mlp_type: str = "swiglu") -> tuple[torch.Tensor, MoEMetrics]:
+            mlp_type: str = "swiglu", d_ff: Optional[int] = None,
+            shared_ff: Optional[int] = None,
+            rows: Optional[int] = None) -> tuple[torch.Tensor, MoEMetrics]:
     """x [B, S, D] -> (y [B, S, D], metrics), in G dispatch groups of
     B * S / G tokens (`_n_groups`); the losses and the drop fraction are
-    over every token."""
+    over every token.  Under a model split over processes the experts' F
+    (`d_ff`) and the shared expert's (`shared_ff`) are the model's whole
+    sizes, `rows` the global batch (`dispatch_groups`), and y is summed
+    over ``model`` by one all-reduce."""
     B, S, D = x.shape
     E = params["router"].shape[1]
-    G = _n_groups(B)
+    tp = tensor_parallel()
+    share = split = False
+    if tp is None:
+        G = _n_groups(B)
+    else:
+        G, share = dispatch_groups(tp, B, rows)
+        split = _experts_split(tp, params, d_ff, D)
     xt = x.reshape(G, B * S // G, D)
     rs = [route(params, xt[g], top_k, capacity_factor) for g in range(G)]
-    ys = [_group_ffn(params, xt[g], r, mlp_type) for g, r in enumerate(rs)]
+    # the experts' input enters their split F (the router's use is whole)
+    xe = tp.enter(xt) if split else xt
+    ys = [_group_ffn(params, xe[g], r, mlp_type) for g, r in enumerate(rs)]
 
     def cat(ts):
         return ts[0] if G == 1 else torch.cat(ts)
 
-    # aux losses, over all groups
-    probs, logits = cat([r.probs for r in rs]), cat([r.logits for r in rs])
-    idx, ok = cat([r.expert_idx for r in rs]), cat([r.ok for r in rs])
-    n = idx.numel()
-    me = probs.mean(0)
-    ce = torch.zeros(E, device=x.device).index_add_(
-        0, idx.reshape(-1), torch.ones(n, device=x.device)) / n
-    aux = E * torch.sum(me * ce)
-    zloss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
-    drop = 1.0 - ok.float().mean()
+    if share:
+        met = MoEMetrics(None, None, None)
+    else:
+        # aux losses, over all groups
+        probs, logits = cat([r.probs for r in rs]), cat([r.logits for r in rs])
+        idx, ok = cat([r.expert_idx for r in rs]), cat([r.ok for r in rs])
+        n = idx.numel()
+        me = probs.mean(0)
+        ce = torch.zeros(E, device=x.device).index_add_(
+            0, idx.reshape(-1), torch.ones(n, device=x.device)) / n
+        met = MoEMetrics(E * torch.sum(me * ce),
+                         torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
+                         1.0 - ok.float().mean())
 
-    y = cat(ys).to(x.dtype).reshape(B, S, D)
+    if tp is None:
+        y = cat(ys).to(x.dtype).reshape(B, S, D)
+        if "shared" in params:
+            y = y + L.mlp(params["shared"], x, mlp_type)
+        return y, met
+
+    # this rank's partial sum (F split) in f32, the shared expert's partial
+    # added, then one all-reduce
+    y = cat(ys).reshape(B, S, D)
     if "shared" in params:
-        y = y + L.mlp(params["shared"], x, mlp_type)
-    return y, MoEMetrics(aux, zloss, drop)
+        if shared_ff is None:
+            raise ValueError("a shared expert under a model split over processes needs "
+                             "shared_ff=")
+        if tp.splits("shared/w_out", (shared_ff, D), 0) != split:
+            raise NotImplementedError("the shared expert's F and the experts' split unlike "
+                                      "over `model`")
+        y = y + L.mlp(params["shared"], x, mlp_type, shared_ff, reduce=False).float()
+    if split:
+        y = tp.all_reduce(y)
+    return y.to(x.dtype), met

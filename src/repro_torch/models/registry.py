@@ -49,11 +49,14 @@ class Model:
         return sum(leaf.numel() for leaf in _leaves(self.init_shapes()))
 
     # ------------------------------------------------------------ train
-    def forward_logits(self, params: dict, batch: dict) -> T.ForwardOut:
+    def forward_logits(self, params: dict, batch: dict,
+                       rows: Optional[int] = None) -> T.ForwardOut:
         """The cache-free forward: logits for a train or prefill batch.  Its
         attention runs on the backend `layers.set_attention_backend` names.
         The audio family encodes ``batch["frames"]`` and runs its decoder
-        over a fresh zero K/V cache of S rows, as the reference does."""
+        over a fresh zero K/V cache of S rows, as the reference does.
+        Under a model split `rows` is the global batch's row count
+        (`transformer.forward`)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         prefix = batch.get("patches")
@@ -65,7 +68,7 @@ class Model:
                      "len": torch.zeros((), dtype=torch.int32, device=tokens.device)}
             out = T.forward(params, cfg, tokens, cache=cache)
         else:
-            out = T.forward(params, cfg, tokens, prefix_embeds=prefix)
+            out = T.forward(params, cfg, tokens, prefix_embeds=prefix, rows=rows)
         logits = out.logits
         if cfg.family == "vlm" and prefix is not None:
             logits = logits[:, prefix.shape[1]:]

@@ -50,9 +50,11 @@ sLSTM stabiliser ``m`` (`xlstm.SLSTM_INIT`); the serving engine's lane
 reset copies a batch-1 `init_cache` into the lane.
 
 Under a policy that splits the model over processes
-(`parallel.sharding.tensor_parallel`; the dense family only, the rest
+(`parallel.sharding.tensor_parallel`; the dense and moe families, the rest
 refused by `ShardingPolicy.check_model_split`) `forward` takes this rank's
-blocks of the params and hands the layers the config's whole sizes, and
+blocks of the params and hands the layers the config's whole sizes (an
+MoE layer also the global batch's row count, ``rows``, for its dispatch
+groups: `models.moe.dispatch_groups`; an moe cache keeps it), and
 `init_cache` gives the K/V cache this rank's block by the reference's
 cache spec (`ShardingPolicy.kv_cache_sharding`): its rows over the data
 axes, and over ``model`` its KV heads (``n_kv_heads / tp`` where ``wk`` is
@@ -226,7 +228,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None) -> dict:
     it).  Under a policy that splits the model over processes `batch` and
     `max_seq` are the whole cache's and the K/V leaves this rank's block;
     where the policy's spec puts the sequence on ``model`` the cache says
-    in how many blocks (``kv_seq_blocks``: tp, or 1 for a whole one)."""
+    in how many blocks (``kv_seq_blocks``: tp, or 1 for a whole one), and
+    an moe cache keeps `batch` (``rows``) for the dispatch groups."""
     check_family(cfg)
     tp = tensor_parallel()
     if tp is not None:
@@ -252,6 +255,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None) -> dict:
                           zip(ns.index(tp.mesh.coords, shape), shape))
         cache["kv"] = {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
                        "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+        if tp is not None and cfg.family == "moe":
+            cache["rows"] = batch           # the MoE dispatch groups' global batch
     if cfg.family == "hybrid":
         cache["mamba"] = M.init_mamba_state(batch, cfg.d_model, cfg.ssm_expand,
                                             cfg.ssm_state_dim, cfg.ssm_conv_width,
@@ -290,22 +295,25 @@ def _attn_block(cfg, blk, h, positions, cache_kv, cache_len, cross_kv=None):
     return h
 
 
-def _ffn_block(cfg, blk, h):
-    """Channel mixer -> (h, aux, z); aux and z are None for a dense MLP."""
+def _ffn_block(cfg, blk, h, rows=None):
+    """Channel mixer -> (h, aux, z); aux and z are None for a dense MLP, and
+    for an MoE layer whose rank routes a share of the batch (`rows`, the
+    global batch, gives its dispatch groups under a split)."""
     xn = L.rmsnorm(h, blk["ln2"]["scale"], cfg.norm_eps)
     if "moe" in blk:
-        y, met = X.moe_ffn(blk["moe"], xn, cfg.moe_top_k, mlp_type=cfg.mlp_type)
+        y, met = X.moe_ffn(blk["moe"], xn, cfg.moe_top_k, mlp_type=cfg.mlp_type,
+                           d_ff=cfg.moe_d_ff, shared_ff=cfg.moe_shared_ff or None, rows=rows)
         return h + y, met.aux_loss, met.router_z_loss
     return h + L.mlp(blk["mlp"], xn, cfg.mlp_type, cfg.d_ff), None, None
 
 
-def _block(cfg, blk, h, positions, kv, start, gather=None):
+def _block(cfg, blk, h, positions, kv, start, gather=None, rows=None):
     """One dense / vlm / moe layer -> (h, aux, z), as `_ffn_block`; `gather`
     (FSDP) joins the layer's blocks over ``data`` first."""
     if gather is not None:
         blk = gather(blk)
     h = _attn_block(cfg, blk, h, positions, kv, start)
-    return _ffn_block(cfg, blk, h)
+    return _ffn_block(cfg, blk, h, rows)
 
 
 def _dec_block(cfg, blk, h, positions, kv, start, enc_out):
@@ -393,7 +401,13 @@ def forward(
     tokens: torch.Tensor,                       # [B, S]
     cache: Optional[dict] = None,
     prefix_embeds: Optional[torch.Tensor] = None,   # vlm patches [B, P, D]
+    rows: Optional[int] = None,                 # the global batch under a split
 ) -> ForwardOut:
+    """Under a model split over processes `tokens` are this rank's rows and
+    `rows` the global batch's count (a cache made under the policy keeps
+    it), which the MoE layers' dispatch groups need where the batch is
+    split over data axes; their aux and z losses are None where a rank's
+    rows are a share of the batch."""
     check_family(cfg)
     tp = tensor_parallel()
     if tp is not None:
@@ -439,13 +453,17 @@ def forward(
         # (a decode step never looks: the merged path is right for any rows)
         rows_empty = bool((seq_blocks or 1) > 1 and S > 1
                           and not torch.as_tensor(start).any())
+        if rows is None and cache is not None:
+            rows = cache.get("rows")
         for i, blk in enumerate(_unstack(params["blocks"], cfg.n_layers)):
             kv = None if cache is None else {"k": cache["kv"]["k"][i],
                                              "v": cache["kv"]["v"][i],
                                              "seq_blocks": seq_blocks, "rows_empty": rows_empty}
-            h, a, z = body(cfg, blk, h, positions, kv, start, layer)
+            h, a, z = body(cfg, blk, h, positions, kv, start, layer, rows)
             if a is not None:
                 aux, zl = aux + a, zl + z
+            elif cfg.family == "moe":
+                aux = zl = None         # this rank's rows are a share of the batch
     new_cache = None if cache is None else {**cache, "len": start + S}
 
     h = L.rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps)

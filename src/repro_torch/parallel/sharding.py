@@ -25,8 +25,9 @@ process keeps of a leaf on either mesh.  A policy builds on either mesh.
 rank holds only its blocks of the weights (`local_params`, or
 `models.registry.params_from_jax(..., policy=)`) and the dense model step
 computes with them: attention over its own heads, the MLP over its own
-slice of F, the embedding and the LM head over its own block of the
-vocabulary.  `splits` says, from a leaf's fitted spec, whether a dim is
+slice of F, an MoE layer over its own slice of every expert's F (the
+moe family serves split; `models.moe`), the embedding and the LM head
+over its own block of the vocabulary.  `splits` says, from a leaf's fitted spec, whether a dim is
 split over ``model``: a projection whose contraction dim is split leaves
 a partial sum that `all_reduce` completes, and the LM head's block of the
 vocabulary is joined by `all_gather`.  Both run over the axis's view
@@ -52,8 +53,8 @@ over ``data``, so a rank's gradient block is already summed over the
 ``data`` ranks; `sum_over` sums the rest (`train.train_step`), and
 `norm_sq` counts every block once in the clip's global norm.  What such a
 split does not carry yet is refused by `check_model_split` (ROADMAP items
-12c.3b-12c.6).  A policy on a stacked `Mesh`, or over processes without a
-``model`` axis of more than one, changes no value.
+12c.3b, 12c.4b-12c.6).  A policy on a stacked `Mesh`, or over processes
+without a ``model`` axis of more than one, changes no value.
 
 **A KV cache split on its sequence.**  Where `kv_cache_spec` puts the
 cache's sequence on ``model`` (``kv_seq_shard``, or fewer KV heads than
@@ -70,6 +71,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import itertools
+import math
 import re
 from typing import Any, Optional
 
@@ -239,10 +241,12 @@ class ShardingPolicy:
         """The size of dim `dim` of this rank's block of that leaf."""
         return shape[dim] // self.tp if self.splits(path, shape, dim) else shape[dim]
 
-    def check_model_split(self, cfg=None) -> None:
+    def check_model_split(self, cfg=None, train: bool = False) -> None:
         """Raise for what a model step split over processes does not carry
         yet, naming its ROADMAP item; a no-op unless `splits_model`.
-        Without `cfg` only the policy's own options are checked."""
+        Without `cfg` only the policy's own options are checked; `train`
+        asks for a train step (the moe family serves split, but does not
+        train split yet)."""
         if not self.splits_model:
             return
         if self.seq_parallel:
@@ -250,13 +254,24 @@ class ShardingPolicy:
                 "sequence-parallel activations over processes are ROADMAP item 12c.3b")
         if cfg is None:
             return
-        if cfg.family != "dense":
-            item = {"moe": "12c.4 (experts over `model`)",
-                    "hybrid": "12c.4 and 12c.5 (experts and Mamba channels over `model`)",
+        if cfg.family == "moe" and train:
+            raise NotImplementedError(
+                f"{cfg.name}: the MoE train step over a split (the aux and z losses and the "
+                "drop fraction summed over `data`, the backward through the dispatch) is "
+                "ROADMAP item 12c.4b")
+        if cfg.family not in ("dense", "moe"):
+            item = {"hybrid": "12c.5 (Mamba channels over `model`)",
                     "ssm": "12c.5 (xLSTM channels over `model`)"}.get(cfg.family, "12c")
             raise NotImplementedError(
-                f"{cfg.name}: only the dense family splits over processes; the "
+                f"{cfg.name}: only the dense and moe families split over processes; the "
                 f"{cfg.family} family's split is ROADMAP item {item}")
+
+    def row_blocks(self, rows: int) -> int:
+        """Into how many blocks the reference's batch spec (``P(("pod",
+        "data"))``, fitted as `local_batch` fits it) cuts a global batch of
+        `rows`: each rank then holds rows / row_blocks of them."""
+        entry = fit_spec(P(_dp(self.mesh)), (rows,), self.mesh)[0]
+        return math.prod(self.mesh.shape[a] for a in _axes_of(entry))
 
     def kv_cache_sharding(self, n_kv_heads: int, shape) -> "NamedSharding":
         """The placement of a K/V cache leaf of whole `shape` [L, B,

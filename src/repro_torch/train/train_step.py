@@ -133,7 +133,7 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     `ShardingPolicy.check_model_split` refuses is refused here)."""
     specs = None
     if policy is not None and policy.splits_model:
-        policy.check_model_split(model.cfg)
+        policy.check_model_split(model.cfg, train=True)
         specs = policy.tree_specs(model.init_shapes())
 
     def train_step(params: dict, opt_state: OptState, batch: dict):
@@ -146,9 +146,13 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
 
 
 def make_prefill_step(model: Model, policy: Optional[ShardingPolicy] = None) -> Callable:
-    def prefill_step(params: dict, batch: dict) -> torch.Tensor:
+    """prefill_step(params, batch, rows=None) -> logits; under a model split
+    `batch` holds this rank's rows and `rows` is the global batch's count
+    (an MoE model's dispatch groups need it where data axes split it)."""
+
+    def prefill_step(params: dict, batch: dict, rows: Optional[int] = None) -> torch.Tensor:
         with torch.no_grad(), use_policy(policy):
-            return model.forward_logits(params, batch).logits
+            return model.forward_logits(params, batch, rows).logits
 
     return prefill_step
 

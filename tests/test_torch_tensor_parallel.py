@@ -382,22 +382,45 @@ REFUSALS = {
     "fewer_kv_heads_than_tp": (ARCH, 4, {}, None),
     "seq_parallel": (ARCH, 2, {"seq_parallel": True}, "12c.3b"),
     "fsdp": (ARCH, 4, {"fsdp": True}, None),
-    "moe": ("qwen3-moe-30b-a3b", 2, {}, "12c.4"),
+    # the moe family's experts over `model` (12c.4) are carried when serving
+    "moe": ("qwen3-moe-30b-a3b", 2, {}, None),
     "hybrid": ("jamba-v0.1-52b", 2, {}, "12c.5"),
     "ssm": ("xlstm-1.3b", 2, {}, "12c.5"),
 }
 
 
+# what a train step over a split refuses beyond REFUSALS
+TRAIN_REFUSALS = {"moe": "12c.4b"}
+
+
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_what_the_split_does_not_carry_is_refused(case):
     """What the split does not carry raises, naming its ROADMAP item; what
-    it carries now (a KV cache split on its sequence, with or without
-    FSDP) is accepted, and its cache is this rank's block of the
-    sequence."""
+    it carries now is accepted: a KV cache split on its sequence, with or
+    without FSDP (its cache is this rank's block of the sequence), and the
+    moe family (each expert's F is this rank's block, the router whole,
+    and its cache keeps the global batch for the dispatch groups)."""
     arch, tp, kw, item = REFUSALS[case]
     cfg = get_config(arch, smoke=True)
     model = build_model(cfg)
     pol = _split_policy(tp, **kw)
+    if item is None and cfg.family == "moe":
+        pol.check_model_split(cfg)
+        rng = np.random.default_rng(5)
+        flat = {path: rng.standard_normal(tuple(leaf.shape)).astype(np.float32)
+                for path, leaf in flatten(model.init_shapes())}
+        got = dict(flatten(params_from_jax(_tree(flat), "cpu", torch.float32, policy=pol)))
+        f = cfg.moe_d_ff // tp
+        for leaf, idx in (("w_in", np.s_[..., :f]), ("w_gate", np.s_[..., :f]),
+                          ("w_out", np.s_[:, :, :f])):
+            want = flat[f"blocks/moe/experts/{leaf}"][idx]
+            assert want.shape[-1 if leaf != "w_out" else 2] == f
+            np.testing.assert_array_equal(got[f"blocks/moe/experts/{leaf}"].numpy(), want)
+        np.testing.assert_array_equal(got["blocks/moe/router"].numpy(), flat["blocks/moe/router"])
+        with use_policy(pol):
+            cache = model.init_cache(2, 8, device="cpu")
+        assert cache["rows"] == 2 and "kv_seq_blocks" not in cache
+        return
     if item is None:
         pol.check_model_split(cfg)
         with use_policy(pol):
@@ -415,13 +438,15 @@ def test_what_the_split_does_not_carry_is_refused(case):
 
 
 def test_train_step_under_a_model_split_raises():
-    """The train step under a model split raises for what items 12c.3b-12c.5
-    name, at construction; the dense split, with or without FSDP over
-    ``data`` (the reference's `make_policy`), with fewer KV heads than
-    ranks or ``kv_seq_shard`` (a train step has no cache), and a policy
-    that splits nothing over processes build a step."""
+    """The train step under a model split raises for what items 12c.3b,
+    12c.4b (the moe family, which serves split) and 12c.5 name, at
+    construction; the dense split, with or without FSDP over ``data``
+    (the reference's `make_policy`), with fewer KV heads than ranks or
+    ``kv_seq_shard`` (a train step has no cache), and a policy that splits
+    nothing over processes build a step."""
     for case in ("seq_parallel", "moe", "hybrid", "ssm"):
         arch, tp, kw, item = REFUSALS[case]
+        item = TRAIN_REFUSALS.get(case, item)
         with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
             make_train_step(build_model(get_config(arch, smoke=True)), AdamWConfig(),
                             policy=_split_policy(tp, **kw))
@@ -429,7 +454,7 @@ def test_train_step_under_a_model_split_raises():
     grid = procmesh.ProcMesh({"data": 2, "model": 2}, 0, device="cpu")
     four = procmesh.ProcMesh({"model": 4}, 0, device="cpu")
     accepted = [_split_policy(tp, **kw) for case, (_, tp, kw, item) in sorted(REFUSALS.items())
-                if item is None]
+                if item is None and case not in TRAIN_REFUSALS]
     for pol in (_split_policy(), make_policy(grid, model.cfg, SHAPES["train_4k"]),
                 make_policy(four, model.cfg, SHAPES["train_4k"]), *accepted,
                 ShardingPolicy(procmesh.ProcMesh({"model": 1}, 0, device="cpu"))):
