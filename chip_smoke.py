@@ -895,6 +895,16 @@ MS_ARCHS, MS_LAYERS = ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b"), (8, 4)
 MS_RANKS, MS_SEED, MS_TIMEOUT, MS_STEPS = 4, 36, 600.0, 16
 MS_PLENS, MS_GRID = (256, 512, 1024, 2048), {"data": 2, "model": 2}
 MS_GRID_ROWS, MS_GRID_FWD, MS_GRID_PROMPT = 4, 1024, 512
+# phase 37: the MoE train step split over {"data": 2, "model": 2}: qwen3-moe-30b-a3b
+# at its published widths (phase 36's) cut to 2 of 48 layers, trained 3 steps
+# (TT_STEPS) under make_policy(train_4k) (fsdp=True: the experts and the router
+# gathered over data, each expert's F over model), T1's optimizer and batch [4,
+# 2048] (two dispatch groups, one a data coordinate), one microbatch, remat;
+# against one process running the same steps whole under make_policy on a stacked
+# Mesh of the grid's shape (the same groups), its routers forced to the split's
+# choices in the forward and in the recomputation; phase 34's bounds
+MT_ARCH, MT_LAYERS, MT_RANKS, MT_SEED = "qwen3-moe-30b-a3b", 2, 4, 37
+MT_GRID, MT_TIMEOUT = {"data": 2, "model": 2}, 900.0
 
 
 def log(msg: str) -> None:
@@ -1386,6 +1396,14 @@ def main() -> int:
         "row11_launches")
     row4["moe_all_reduce_put"] = ms.pop("put")
     log(f"moe procs phase numbers: {json.dumps(ms)}")
+    torch.cuda.empty_cache()
+    mt = moe_train_phases(torch, H100.hbm_bandwidth)
+    row4["launches"] += mt.pop("row4_launches")
+    next(r for r in kernels if r["name"] == "flash_attention")["launches"] += mt.pop(
+        "row11_launches")
+    row4["moe_train_all_reduce_put"] = mt.pop("put")
+    row4["moe_train_fsdp_expert_put"] = mt.pop("fsdp_put")
+    log(f"moe train procs phase numbers: {json.dumps(mt)}")
     if len(kernels) != len(KERNELS):
         raise AssertionError(f"{len(kernels)} kernel rows, want {len(KERNELS)}")
     log(f"smoke wall time: {time.perf_counter() - T0:.1f} s")
@@ -8609,14 +8627,14 @@ def tt_config(get_config):
     return dataclasses.replace(get_config(TT_ARCH), n_layers=TT_LAYERS)
 
 
-def tt_batches(torch, cfg) -> list:
+def tt_batches(torch, cfg, seed: int = None) -> list:
     """The TT_STEPS global batches of the synthetic pipeline (the same on
-    every process: it draws on the host)."""
+    every process: it draws on the host), from `seed` (TT_SEED)."""
     from repro_torch.data.pipeline import DataConfig, SyntheticTokenPipeline
 
     B, S = TRAIN_BATCH
-    pipe = SyntheticTokenPipeline(DataConfig(cfg.vocab_size, S, B, seed=TT_SEED),
-                                  device="cuda")
+    seed = TT_SEED if seed is None else seed
+    pipe = SyntheticTokenPipeline(DataConfig(cfg.vocab_size, S, B, seed=seed), device="cuda")
     return [pipe.batch_at(i) for i in range(TT_STEPS)]
 
 
@@ -8641,12 +8659,19 @@ def tt_puts(cfg) -> int:
     gathers again and the attention's all-reduce.  Backward: 2 entry
     all-reduces and 6 reduce-scatters a layer, the LM head's entry and two
     reduce-scatters.  Then the data sum (one all-reduce) and the global
-    norm (one all-reduce over the 4 ranks: 3 + 2 x 2 puts)."""
+    norm (one all-reduce over the 4 ranks: 3 + 2 x 2 puts).  An MoE layer
+    (phase 37) gathers 8 leaves (wq, wk, wv, wo, the router, the experts'
+    w_in, w_gate, w_out); its one all-reduce in the forward is not
+    recomputed (nothing after it is saved), and its one entry all-reduce in
+    the backward carries the experts' input and the gates' cotangents in
+    one f32 concatenation; the forward adds one all-reduce over ``data``
+    of the layers' expert counts (the batch's aux loss)."""
     ar, vocab, fg, rs = 3, 2, 1, 1
-    leaves = 6 if cfg.mlp_type == "gelu" else 7
+    moe = cfg.family == "moe"
+    leaves = 8 if moe else 6 if cfg.mlp_type == "gelu" else 7
     layer = (leaves * fg + 2 * ar) + (leaves * fg + ar) + (2 * ar + leaves * rs)
     tok = 2 * fg + ar + vocab + ar + 2 * rs
-    return tok + cfg.n_layers * layer + ar + 3 + 2 * 2
+    return tok + cfg.n_layers * layer + ar * moe + ar + 3 + 2 * 2
 
 
 def tt_ulp(torch, w):
@@ -9904,6 +9929,541 @@ def moe_split_only() -> int:
     return 0
 
 
+# ------------------ phase 37: the MoE train step split over {"data": 2, "model": 2}
+def mt_config(get_config):
+    import dataclasses
+
+    return dataclasses.replace(get_config(MT_ARCH), n_layers=MT_LAYERS)
+
+
+class StepTap:
+    """`models.moe.route` wrapped around train steps: each call's place
+    (layer, group, pass: 0 the forward, 1 remat's recomputation, which
+    runs the layers in reverse) from its order, checked against
+    `layer_of(params)` where given; the router's own choices, logits and
+    probabilities and the dispatch the layer used.  With `force`
+    {(layer, group): choices [T, k]} the layer dispatches to those experts
+    (`models.moe.sort_dispatch`), the same entry in both passes."""
+
+    def __init__(self, moe_mod, layers: int, groups: int, layer_of=None):
+        self.mod, self.real = moe_mod, moe_mod.route
+        self.layers, self.groups, self.layer_of = layers, groups, layer_of
+        self.force, self.calls = None, []
+
+    def __enter__(self):
+        self.mod.route = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.real
+
+    def _route(self, params, xt, top_k, capacity_factor=1.25):
+        pas, j = divmod(len(self.calls), self.layers * self.groups)
+        layer, group = divmod(j, self.groups)
+        if pas % 2:
+            layer = self.layers - 1 - layer
+        if self.layer_of is not None and self.layer_of(params) != layer:
+            raise AssertionError(f"37: route call {len(self.calls)} is layer "
+                                 f"{self.layer_of(params)}, its order says {layer}")
+        r = self.real(params, xt, top_k, capacity_factor)
+        own = tuple(t.detach() for t in (r.expert_idx, r.logits, r.probs))
+        if self.force is not None:
+            r = self.mod.sort_dispatch(r.logits, r.probs, self.force[(layer, group)],
+                                       capacity_factor)
+        self.calls.append(((layer, group, pas % 2), own, r))
+        return r
+
+    def take(self, torch) -> dict:
+        """The calls since the last take: {(layer, group, pass): (digests of
+        the choices, slots and overflow flags, items, dropped)} and the
+        forward's {(layer, group): (choices, logits, probs)} on the host."""
+        calls, self.calls = self.calls, []
+        used = {key: ((digest(torch, r.expert_idx), digest(torch, r.slot), digest(torch, r.ok)),
+                      r.ok.numel(), int((~r.ok).sum())) for key, _, r in calls}
+        own = {key[:2]: tuple(t.cpu() for t in o) for key, o, _ in calls if key[2] == 0}
+        return {"used": used, "own": own}
+
+
+def mt_rank(mesh, ins: dict, hbm: float) -> dict:
+    """Phase 37 in one rank's process of ProcMesh({"data": 2, "model": 2}):
+    its 2-D blocks of the keyed weights, ZeRO-1 moments, TT_STEPS calls of
+    `make_train_step` under `make_policy` through a StepTap (the launch
+    counts zeroed before the steps and read after each); every dispatch's
+    digests; a model rank 0 returns its router's choices, logits and
+    probabilities (the whole run is forced to them); step 1's gradient
+    (from the first moment) and params written into the parent's shared
+    whole buffers at this rank's blocks; every replicated block's digest
+    after every step; then row 4's peer put at the MoE all-reduce's block
+    and at an FSDP expert block."""
+    import torch
+
+    from repro_torch.ckpt.checkpoint import flatten
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core.rma import OpCounter
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rma import ops as rma_ops
+    from repro_torch.kernels.rma import ref as rma_ref
+    from repro_torch.launch.dryrun import make_policy
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.parallel.sharding import NamedSharding
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import StepConfig, make_train_step
+
+    t0 = time.perf_counter()
+    cfg = mt_config(get_config)
+    model = build_model(cfg)
+    policy = make_policy(mesh, cfg, SHAPES["train_4k"])
+    torch.cuda.reset_peak_memory_stats()
+    params = keyed_params(torch, cfg, MT_SEED, policy)
+    opt = init_opt_state(params)
+    specs = policy.flat_specs(model.init_shapes())
+    batches = tt_batches(torch, cfg, MT_SEED)
+    step = make_train_step(model, AdamWConfig(**TRAIN_OPT), StepConfig(remat=True), policy)
+    torch.cuda.synchronize()
+    lead = policy.model_rank == 0
+    out = {"rank": mesh.rank, "coords": mesh.coords, "data": dict(zip(mesh.axis_names,
+                                                                      mesh.coords))["data"],
+           "model_rank": policy.model_rank, "init_s": time.perf_counter() - t0,
+           "want_bytes": tp_bytes(torch, cfg, policy), "ms": [], "rounds": [], "flash": [],
+           "wgmma": [], "puts": [], "digests": [], "used": [], "own": [],
+           **{k: [] for k in ("loss", "nll", "aux", "z", "grad_norm", "lr")}}
+    blocks = {p: NamedSharding(mesh, sp).index(mesh.coords, tuple(ins["grads"][p].shape))
+              for p, sp in specs.items()}
+    # the leaves whose block another rank holds too: a spec that leaves a grid axis out
+    shared = {p for p, sp in specs.items()
+              if not set(mesh.axis_names) <= {a for e in sp if e for a in
+                                               (e if isinstance(e, tuple) else (e,))}}
+    L.set_attention_backend("cuda")
+    fops.launches = 0
+    fops.launches_by_variant = {k: 0 for k in fops.launches_by_variant}
+    zero_rma_launches(rma_ops)
+    try:
+        with OpCounter() as c, StepTap(moe_mod, cfg.n_layers, 1) as tap:
+            for i, batch in enumerate(batches):
+                f0, w0, p0 = fops.launches, fops.launches_by_variant["wgmma"], c.puts
+                torch.cuda.synchronize()
+                mesh.barrier()
+                b0, t = mesh.barriers, time.perf_counter()
+                params, opt, met = step(params, opt, batch)
+                torch.cuda.synchronize()
+                out["ms"].append((time.perf_counter() - t) * 1e3)
+                out["rounds"].append(mesh.barriers - b0)
+                out["flash"].append(fops.launches - f0)
+                out["wgmma"].append(fops.launches_by_variant["wgmma"] - w0)
+                out["puts"].append(c.puts - p0)
+                for k in ("loss", "nll", "aux", "z", "grad_norm", "lr"):
+                    out[k].append(float(met[k]))
+                got = tap.take(torch)
+                out["used"].append(got["used"])
+                if lead:
+                    out["own"].append(got["own"])
+                trees = {"params": params, "mu": opt.mu, "nu": opt.nu}
+                out["digests"].append({f"{k}/{p}": digest(torch, v) for k, t in trees.items()
+                                       for p, v in flatten(t) if p in shared})
+                if i == 0:
+                    cm = tt_mu_per_grad(out["grad_norm"][0])
+                    for path, m in flatten(opt.mu):
+                        ins["grads"][path][blocks[path]].copy_((m / cm).to(
+                            ins["grads"][path].dtype).cpu())
+                    for path, v in flatten(params):
+                        ins["params"][path][blocks[path]].copy_(v.cpu())
+        out["launches"] = {"flash": fops.launches, "wgmma": fops.launches_by_variant["wgmma"],
+                           **rma_ops.launches}
+        out["bytes"] = {k: sum(v.nbytes for v in flat_leaves(t).values())
+                        for k, t in (("params", params), ("mu", opt.mu), ("nu", opt.nu))}
+        out["peak_allocated"] = torch.cuda.max_memory_allocated()
+        out["peak_reserved"] = torch.cuda.max_memory_reserved()
+    finally:
+        L.set_attention_backend("torch")
+    out["blocks"] = {p: [(sl.start, sl.stop) for sl in v] for p, v in blocks.items()}
+    # the moments are f32 blocks of every leaf (the router's params are f32 too)
+    out["moment_bytes"] = 4 * sum(math.prod(b - a for a, b in v) for v in out["blocks"].values())
+    del params, opt, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    B, S = TRAIN_BATCH
+    D, E, F = cfg.d_model, cfg.moe_experts, cfg.moe_d_ff
+    # the MoE all-reduce's reduce-scatter block: the f32 partial [2 rows, S, D] over 2
+    out["put"] = pp_put_row(torch, mesh, rma_ops, rma_ref, B // 2 * S * D // 2, hbm,
+                            axis="model", phase=37)
+    # an FSDP gather's block of the experts' w_in: [E, D / 2, F / 2] bf16 as words
+    out["fsdp_put"] = pp_put_row(torch, mesh, rma_ops, rma_ref, E * (D // 2) * (F // 2) // 2,
+                                 hbm, axis="data", phase=37)
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def mt_whole(torch, cfg, model, batches: list, forces: list) -> dict:
+    """The TT_STEPS steps whole in this process (backend "cuda") under
+    `make_policy` on a stacked Mesh of MT_GRID (the split's two dispatch
+    groups), every MoE layer dispatched to `forces[step]` by layer and
+    group, in the forward and in remat's recomputation (its gates its own
+    probabilities): losses and metrics, host ms, flash launches, the
+    dispatches it used and its routers' own choices, step 1's gradient
+    (from the first moment, each leaf in its dtype) and params, the peak."""
+    from repro_torch.ckpt.checkpoint import flatten
+    from repro_torch.configs import SHAPES
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch.dryrun import make_policy
+    from repro_torch.mesh import Mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import StepConfig, make_train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = keyed_params(torch, cfg, MT_SEED)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0, "ms": [], "flash": [], "wgmma": [], "used": [],
+           "own": [], "bytes": sum(v.nbytes for v in flat_leaves(params).values()),
+           **{k: [] for k in ("loss", "nll", "aux", "z", "grad_norm", "lr")}}
+    opt = init_opt_state(params)
+    policy = make_policy(Mesh(MT_GRID, device="cuda"), cfg, SHAPES["train_4k"])
+    step = make_train_step(model, AdamWConfig(**TRAIN_OPT), StepConfig(remat=True), policy)
+
+    def layer_of(p):            # a stacked leaf's layer view: its offset in layer slices
+        return p["router"].storage_offset() // p["router"].numel()
+
+    before = fops.launches, fops.launches_by_variant["wgmma"]
+    L.set_attention_backend("cuda")
+    try:
+        with StepTap(moe_mod, cfg.n_layers, MT_GRID["data"], layer_of) as tap:
+            for i, batch in enumerate(batches):
+                tap.force = forces[i]
+                f0, w0 = fops.launches, fops.launches_by_variant["wgmma"]
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                params, opt, met = step(params, opt, batch)
+                torch.cuda.synchronize()
+                out["ms"].append((time.perf_counter() - t) * 1e3)
+                out["flash"].append(fops.launches - f0)
+                out["wgmma"].append(fops.launches_by_variant["wgmma"] - w0)
+                for k in ("loss", "nll", "aux", "z", "grad_norm", "lr"):
+                    out[k].append(float(met[k]))
+                got = tap.take(torch)
+                out["used"].append(got["used"])
+                out["own"].append(got["own"])
+                if i == 0:
+                    cm = tt_mu_per_grad(out["grad_norm"][0])
+                    dt = dict(flatten(params))
+                    out["grads"] = {k: (v / cm).to(dt[k].dtype) for k, v in flatten(opt.mu)}
+                    out["params"] = {k: v.clone() for k, v in flatten(params)}
+    finally:
+        L.set_attention_backend("torch")
+    # the comparison run's launches are not the path's
+    fops.launches, fops.launches_by_variant["wgmma"] = before
+    torch.cuda.synchronize()
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["finite"] = all(bool(torch.isfinite(v).all()) for v in flat_leaves(params).values())
+    return out
+
+
+def moe_train_phases(torch, hbm: float) -> dict:
+    """Phase 37: qwen3-moe-30b-a3b at full width, 2 of 48 layers, trained
+    over ProcMesh({"data": 2, "model": 2}) in 4 processes on the card under
+    `make_policy` (run first: their step 1 gradient and params go to host
+    shared memory, their routing comes back), against one process running
+    the same steps whole, dispatched to the split's experts.  Returns the
+    phase's numbers and the kernel rows' launches."""
+    import statistics
+
+    from repro_torch import procmesh
+    from repro_torch.ckpt.checkpoint import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.registry import F32_LEAVES
+
+    t0 = time.perf_counter()
+    card = card_line()
+    cfg = mt_config(get_config)
+    model = build_model(cfg)
+    log(f"phase 37: {MT_ARCH} at full width, {MT_LAYERS} of 48 layers (reduced: depth only), "
+        f"trained over ProcMesh({MT_GRID}) under make_policy (train_4k, fsdp=True) in "
+        f"{MT_RANKS} processes sharing one card ({card}), [{TRAIN_BATCH[0]}, "
+        f"{TRAIN_BATCH[1]}], {TT_STEPS} steps; no link is crossed")
+    shapes = {p: (tuple(v.shape), torch.float32 if p.rsplit("/", 1)[-1] in F32_LEAVES
+                  else torch.bfloat16) for p, v in flatten(model.init_shapes())}
+    ins = {k: {p: torch.empty(shp, dtype=dt).share_memory_() for p, (shp, dt) in shapes.items()}
+           for k in ("grads", "params")}
+    # four ranks' ~14 GiB each fill the card only if their caching allocators
+    # grow segments in place (the vocabulary's f32 logits are 2.3 GiB a rank);
+    # the spawned ranks read the setting when they start
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = procmesh.run(mt_rank, MT_RANKS, device="cuda", args=(ins, hbm), axes=MT_GRID,
+                             timeout=MT_TIMEOUT)
+    finally:
+        if conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    run_s = time.perf_counter() - t0
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    bad = []                    # every check's failure, raised after the logs
+    dp, L = MT_GRID["data"], cfg.n_layers
+    lead = {x["data"]: x for x in ranks if x["model_rank"] == 0}
+    if sorted((x["data"], x["model_rank"]) for x in ranks) != [(0, 0), (0, 1), (1, 0), (1, 1)]:
+        bad.append(f"ranks' coordinates {[(x['data'], x['model_rank']) for x in ranks]}")
+    # routing: every rank's dispatches bit-equal to its data block's model rank 0's, in
+    # the forward and the recomputation; the recomputation routes as the forward did
+    for x in ranks:
+        for s in range(TT_STEPS):
+            used, ref = x["used"][s], lead[x["data"]]["used"][s]
+            if {k: v[0] for k, v in used.items()} != {k: v[0] for k, v in ref.items()}:
+                bad.append(f"rank {x['rank']} step {s + 1}: dispatches differ from its data "
+                           "block's model rank 0's")
+            if sorted(used) != [(lay, 0, p) for lay in range(L) for p in (0, 1)] or any(
+                    used[(lay, 0, 0)][0] != used[(lay, 0, 1)][0] for lay in range(L)):
+                bad.append(f"rank {x['rank']} step {s + 1}: the recomputation's dispatches "
+                           f"{sorted(used)} differ from the forward's")
+
+    # the whole run, forced to the split's choices (group g = data block g's rows)
+    forces = [{(lay, g): lead[g]["own"][s][(lay, 0)][0].to("cuda")
+               for lay in range(L) for g in range(dp)} for s in range(TT_STEPS)]
+    batches = tt_batches(torch, cfg, MT_SEED)
+    t1 = time.perf_counter()
+    want = mt_whole(torch, cfg, model, batches, forces)
+    whole_s = time.perf_counter() - t1
+    del forces, batches
+    flips, err_router, gap, drops = 0, 0.0, 0.0, []
+    for s in range(TT_STEPS):
+        used = want["used"][s]
+        if sorted(used) != [(lay, g, p) for lay in range(L) for g in range(dp) for p in (0, 1)]:
+            bad.append(f"whole run step {s + 1}: route calls {sorted(used)}")
+            continue
+        for (lay, g, p), (dig, _, _) in used.items():
+            if dig != lead[g]["used"][s][(lay, 0, p)][0]:
+                bad.append(f"whole run step {s + 1} layer {lay} group {g} pass {p}: the forced "
+                           "dispatch differs from the split's")
+        split_drop = [sum(lead[g]["used"][s][(lay, 0, 0)][2] for g in range(dp))
+                      for lay in range(L)]
+        whole_drop = [sum(used[(lay, g, 0)][2] for g in range(dp)) for lay in range(L)]
+        items = [sum(used[(lay, g, 0)][1] for g in range(dp)) for lay in range(L)]
+        if split_drop != whole_drop:
+            bad.append(f"step {s + 1}: whole run drops {whole_drop}, the split {split_drop}")
+        drops.append([d / n for d, n in zip(split_drop, items)])
+        keys = [(lay, g) for lay in range(L) for g in range(dp)]
+        ref = Chosen(*(torch.stack([lead[g]["own"][s][(lay, 0)][j] for lay, g in keys])
+                       .to("cuda") for j in range(3)))
+        own = Chosen(*(torch.stack([want["own"][s][k][j] for k in keys]).to("cuda")
+                       for j in range(3)))
+        try:
+            rc = route_check(torch, f"37 step {s + 1}",
+                             ref._replace(idx=ref.idx.sort(dim=-1).values),
+                             own._replace(idx=own.idx.sort(dim=-1).values))
+        except AssertionError as e:
+            bad.append(str(e))
+            continue
+        flips, gap = flips + rc["flips"], max(gap, rc["gap"])
+        err_router = max(err_router, rc["err"])
+        n_choices = rc["choices"]
+
+    # losses and metrics a step, relative to the whole run's
+    rel = {k: max(abs(a - b) / max(abs(b), 1e-30) for x in ranks for a, b in
+                  zip(x[k], want[k])) for k in ("loss", "nll", "aux", "z")}
+    for k, v in rel.items():
+        if not v <= TRAIN_LOSS_TOL:
+            bad.append(f"{k} a step {[x[k] for x in ranks]} vs the whole run's {want[k]}: "
+                       f"{v:.3g} relative")
+    if not all(v > 0 and math.isfinite(v) for x in (*ranks, want) for k in ("aux", "z")
+               for v in x[k]):
+        bad.append(f"aux {want['aux']} / z {want['z']}: not real positive numbers")
+    # step 1's gradient and params, each rank's blocks against the whole run's
+    lr = want["lr"][0]
+    grad_rel, over, worst = {}, 0, 0.0
+    for x in ranks:
+        if x["lr"][0] != lr:
+            bad.append(f"rank {x['rank']}: lr {x['lr'][0]} vs {lr}")
+        for path, blk in x["blocks"].items():
+            at = tuple(slice(*b) for b in blk)
+            g = ins["grads"][path][at].to("cuda")
+            grad_rel[path] = max(grad_rel.get(path, 0.0),
+                                 tt_rel(torch, g, want["grads"][path][at]))
+            p, w = ins["params"][path][at].to("cuda"), want["params"][path][at]
+            err = (p.float() - w.float()).abs() / (
+                2 * lr + tt_ulp(torch, torch.maximum(p.abs(), w.abs())))
+            over += int((err > 1).sum())
+            worst = max(worst, float(err.max()))
+            del g, p, w, err
+    gn = max(abs(x["grad_norm"][0] - want["grad_norm"][0]) / want["grad_norm"][0]
+             for x in ranks)
+    past = {k: v for k, v in grad_rel.items() if not v <= TRAIN_GRAD_REL}
+    if past or gn > TRAIN_GRAD_REL:
+        bad.append(f"step 1 gradient blocks past {TRAIN_GRAD_REL:g} relative L2: {past}; "
+                   f"grad norm {[x['grad_norm'][0] for x in ranks]} vs {want['grad_norm'][0]}")
+    if over:
+        bad.append(f"{over} param elements past 2 lr + 1 ulp after step 1 (worst {worst:.3g})")
+    # an expert that no item reached in a layer: its gradient exactly zero in both runs
+    idle = {}
+    for path in ("blocks/moe/experts/w_in", "blocks/moe/experts/w_gate",
+                 "blocks/moe/experts/w_out"):
+        zs = ins["grads"][path].reshape(L, cfg.moe_experts, -1).to("cuda")
+        zw = want["grads"][path].reshape(L, cfg.moe_experts, -1)
+        a, b = (zs == 0).all(-1), (zw == 0).all(-1)
+        if not torch.equal(a, b):
+            bad.append(f"{path}: experts with a zero gradient, split {int(a.sum())} vs whole "
+                       f"{int(b.sum())}, not the same")
+        idle[path] = int(b.sum())
+        del zs, zw
+    if not want["finite"]:
+        bad.append("whole run: params not finite")
+    want_flash, want_puts = 2 * L, tt_puts(cfg)
+    if want["flash"] != [want_flash] * TT_STEPS or want["wgmma"] != want["flash"]:
+        bad.append(f"whole run: flash {want['flash']} (wgmma {want['wgmma']}), want "
+                   f"{want_flash} a step")
+    for x in ranks:
+        r, wb, lc = x["rank"], x["want_bytes"], x["launches"]
+        if wb["whole"] != want["bytes"]:
+            bad.append(f"the whole model is {want['bytes']} bytes, the specs say {wb['whole']}")
+        mb = x["moment_bytes"]
+        if x["bytes"] != {"params": wb["rank"], "mu": mb, "nu": mb}:
+            bad.append(f"rank {r}: bytes {x['bytes']}, its blocks' {wb}, moments {mb}")
+        if x["flash"] != [want_flash] * TT_STEPS or x["wgmma"] != x["flash"]:
+            bad.append(f"rank {r}: flash launches a step {x['flash']} (wgmma {x['wgmma']}), "
+                       f"want {want_flash}, all wgmma")
+        if x["puts"] != [want_puts] * TT_STEPS or lc["put_shift"] != want_puts * TT_STEPS \
+                or any(lc[k] for k in lc if k not in ("flash", "wgmma", "put_shift")):
+            bad.append(f"rank {r}: puts a step {x['puts']}, rma launches {lc}, want "
+                       f"{want_puts} row 4 peer puts a step and nothing else")
+    # ranks holding one block hold the same bits after every step (the router among them)
+    for s in range(TT_STEPS):
+        held: dict = {}
+        for x in ranks:
+            for key, d in x["digests"][s].items():
+                block = tuple(map(tuple, x["blocks"][key.split("/", 1)[1]]))
+                held.setdefault((key, block), set()).add(d)
+        split = [k for k, v in held.items() if len(v) > 1]
+        if split:
+            bad.append(f"step {s + 1}: ranks holding one block differ: {split[:6]}")
+    router = [k for k in ranks[0]["digests"][0] if k.endswith("moe/router")]
+    if len(router) != 3:
+        bad.append(f"the router's replicated blocks {router}: want params, mu and nu")
+    shared = len(ranks[0]["digests"][0])
+    del ins, want["grads"], want["params"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    wb = ranks[0]["want_bytes"]
+    mid = lambda xs: statistics.median(xs[1:])          # noqa: E731  steps 2-3
+    split_ms = [mid(x["ms"]) for x in ranks]
+    rounds = [x["rounds"] for x in ranks]
+    moe_leaves = {k: round(v, 4) for k, v in grad_rel.items() if "/moe/" in k}
+    log(f"37 split over {MT_RANKS} processes ({card}): each rank {wb['rank'] / 1e9:.3f} GB of "
+        f"weights + {ranks[0]['moment_bytes'] / 1e9:.3f} GB a moment (f32) = its 2-D blocks by "
+        f"the fitted specs ({wb['whole'] / 1e9:.3f} GB whole); torch peak a rank "
+        f"{[round(x['peak_allocated'] / 2**30, 2) for x in ranks]} GiB (reserved "
+        f"{[round(x['peak_reserved'] / 2**30, 2) for x in ranks]}); init "
+        f"{max(x['init_s'] for x in ranks):.1f} s")
+    log(f"37 whole run in this process ({card}): {want['bytes'] / 1e9:.3f} GB of weights "
+        f"(keyed init {want['init_s']:.1f} s), peak {want['peak'] / 2**30:.2f} GiB, "
+        f"dispatched to the split's experts in the forward and the recomputation: its own "
+        f"routers would pick otherwise in {flips} of its choices, each a near-tie (largest "
+        f"probability gap {gap:.3g}); router logits differ by at most {err_router:.3g}")
+    log(f"37 routing: every rank's choices, slots and overflow flags bit-equal to its data "
+        f"block's model rank 0's in every step's forward and recomputation; drop fraction "
+        f"by step and layer (split = forced whole) {[[round(f, 5) for f in d] for d in drops]}")
+    log(f"37 vs the whole run, worst relative difference over ranks and steps: "
+        f"{ {k: float(f'{v:.3g}') for k, v in rel.items()} } (bound {TRAIN_LOSS_TOL:g}); "
+        f"losses {ranks[0]['loss']} vs {want['loss']}; aux {ranks[0]['aux']} vs "
+        f"{want['aux']}; z {ranks[0]['z']} vs {want['z']}; step 1 grad norm "
+        f"{[x['grad_norm'][0] for x in ranks]} vs {want['grad_norm'][0]}; worst leaf's "
+        f"gradient relative L2 {max(grad_rel.values()):.4g} (bound {TRAIN_GRAD_REL:g}), the "
+        f"MoE leaves {moe_leaves}; experts no item reached a layer (zero gradient in both) "
+        f"{idle}; params after step 1 at most {worst:.3g} of 2 lr + 1 ulp; {shared} leaves "
+        f"held by several ranks (the router's params and moments among them), the same bits "
+        f"after every step")
+    log(f"37 launches a rank a step: row 11 {want_flash} (all wgmma: "
+        f"{cfg.n_heads // 2} q / {cfg.n_kv_heads // 2} KV heads of {cfg.hd}, 2 rows), row 4 "
+        f"peer {want_puts} (tt_puts: the gates' all-reduce in the experts' entry, the counts' "
+        f"sum one all-reduce over data); nothing else")
+    log(f"37 host ms a step ({card}): split median of steps 2-3 by rank "
+        f"{[round(t, 1) for t in split_ms]} (all {[[round(t, 1) for t in x['ms']] for x in ranks]}"
+        f"); whole {round(mid(want['ms']), 1)} (all {[round(t, 1) for t in want['ms']]}); "
+        f"fenced rounds (host barriers) a step by rank {rounds}")
+    if bad:
+        raise AssertionError("37: " + "; ".join(bad))
+    put, fput = ranks[0]["put"], ranks[0]["fsdp_put"]
+    for what, pr in (("the MoE all-reduce's block", put), ("an FSDP expert block", fput)):
+        log(f"37 row 4 peer put at {what} ({pr['bytes'] // 2} B, rank 0 alone): kernel "
+            f"{pr['ms'] * 1e3:.1f} us, plain copy_ {pr['plain_ms'] * 1e3:.1f} us, bound "
+            f"{pr['bound_ms'] * 1e3:.2f} us (bytes)")
+    wall = time.perf_counter() - t0
+    log(f"37: ranks' run {run_s:.1f} s, whole run {whole_s:.1f} s, phase {wall:.1f} s")
+    return {"card": card, "row4_launches": sum(x["launches"]["put_shift"] for x in ranks),
+            "row11_launches": sum(x["launches"]["flash"] for x in ranks), "put": put,
+            "fsdp_put": fput, "reduced": {"n_layers": [48, MT_LAYERS]},
+            "puts_per_step": want_puts, "loss": [x["loss"] for x in ranks],
+            "whole_loss": want["loss"], "aux": [x["aux"] for x in ranks],
+            "whole_aux": want["aux"], "z": [x["z"] for x in ranks], "whole_z": want["z"],
+            "rel": rel, "grad_rel": max(grad_rel.values()), "moe_grad_rel": moe_leaves,
+            "idle_experts": idle, "param_worst": worst, "drops": drops,
+            "route_flips": flips, "route_choices": n_choices, "route_gap": gap,
+            "weights_gb_rank": wb["rank"] / 1e9, "weights_gb_whole": want["bytes"] / 1e9,
+            "moment_gb_rank": ranks[0]["moment_bytes"] / 1e9,
+            "peak_gib": [x["peak_allocated"] / 2**30 for x in ranks],
+            "whole_peak_gib": want["peak"] / 2**30, "ms": [x["ms"] for x in ranks],
+            "split_ms": split_ms, "whole_ms": want["ms"], "rounds": rounds,
+            "run_s": run_s, "whole_s": whole_s, "wall_s": wall}
+
+
+def moe_train_only() -> int:
+    """``python3 chip_smoke.py --moe-train-procs``: phase 37 alone, on the
+    package beside this file (the kernels build first).  Prints the kernels
+    line of rows 4 (peer, at the MoE all-reduce's block; at an FSDP expert
+    block under "fsdp_expert_put") and 11 (at a rank's attention shape [2,
+    16, 2048, 128], 2 KV heads) with this phase's launches and times, then
+    the result line."""
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.configs import get_config
+    from repro_torch.core.perfmodel import H100
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products, as in main()
+    log(card_line())
+    build_all(common)
+    mt = moe_train_phases(torch, H100.hbm_bandwidth)
+    # row 11 at a rank's attention shape: 16 q / 2 KV heads, its 2 rows
+    cfg = mt_config(get_config)
+    g = torch.Generator(device="cuda").manual_seed(MT_SEED)
+    rows, S = TRAIN_BATCH[0] // MT_GRID["data"], TRAIN_BATCH[1]
+    q, k, v = (torch.randn(rows, h // MT_GRID["model"], S, cfg.hd, generator=g, device="cuda")
+               .to(torch.bfloat16) for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    err = float((fops.flash_attention(q, k, v).float() - fref.attention_ref(q, k, v).float())
+                .abs().max())
+    if err > BF16_TOL:
+        raise AssertionError(f"flash_attention at a rank's shape: {err:.3g} from plain")
+    flash = time_flash(torch, F, fops, fref, q, k, v, H100.hbm_bandwidth)
+    put, fput = mt.pop("put"), mt.pop("fsdp_put")
+    rows = [{"name": "put_shift_peer", "route": KERNELS["put_shift_peer"][0],
+             "source": KERNELS["put_shift_peer"][1], "replaces": KERNELS["put_shift_peer"][2],
+             "launches": mt.pop("row4_launches"), "max_abs_err": 0.0, "ms": put["ms"],
+             "plain_ms": put["plain_ms"], "bound_ms": put["bound_ms"], "bound_by": "bytes",
+             "library_ms": put["plain_ms"], "fsdp_expert_put": fput},
+            {"name": "flash_attention", "route": KERNELS["flash_attention"][0],
+             "source": KERNELS["flash_attention"][1], "replaces": KERNELS["flash_attention"][2],
+             "launches": mt.pop("row11_launches"), "max_abs_err": err,
+             **{key: flash[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms")}}]
+    log(f"moe train procs phase numbers: {json.dumps(mt)}")
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 MODES = {"--gather-shift": gather_shift_only, "--queue-push": queue_push_only,
          "--pool": pool_only, "--apps": apps_only, "--zoo": zoo_only,
          "--parallel": parallel_only, "--conformance": conformance_only,
@@ -9911,7 +10471,8 @@ MODES = {"--gather-shift": gather_shift_only, "--queue-push": queue_push_only,
          "--disagg-procs": disagg_procs_only, "--apps-procs": apps_procs_only,
          "--parallel-procs": parallel_procs_only, "--drift": drift_only,
          "--tp-procs": tp_procs_only, "--tp-train-procs": tt_procs_only,
-         "--kv-seq-procs": kv_seq_only, "--moe-procs": moe_split_only}
+         "--kv-seq-procs": kv_seq_only, "--moe-procs": moe_split_only,
+         "--moe-train-procs": moe_train_only}
 
 if __name__ == "__main__":
     sys.exit(MODES[sys.argv[1]]() if sys.argv[1:] else main())

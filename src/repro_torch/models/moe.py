@@ -25,13 +25,22 @@ the whole router (its input is a ring all-reduce's output, the same bits
 on every rank, so every rank routes alike), dispatches every slot
 locally, runs its slice of F (SwiGLU acts column by column, so a slice is
 exact), combines its partial output in f32, adds the shared expert's
-partial, and one ring all-reduce over ``model`` sums them.  The dispatch
-groups are the reference's over the GLOBAL batch (`dispatch_groups`):
-where a rank's rows are its data shard they are G / (data blocks) of
-them, so the caller gives the global row count (``rows``).  The losses
-and the drop fraction are then those of the rank's rows, a share of the
-batch's, and are returned as None.  Routing follows the reference
-exactly, since a different tie-break moves a token to another expert:
+partial, and one ring all-reduce over ``model`` sums them.  In the
+backward the experts' input and the gates enter the split F together
+(`ShardingPolicy.enter`): each rank's partial output gives them partial
+cotangents, which one ring all-reduce over ``model`` sums; the router's
+own use of the input and its losses stay outside it, whole on every rank.
+The dispatch groups are the reference's over the GLOBAL batch
+(`dispatch_groups`): where a rank's rows are its data shard they are G /
+(data blocks) of them, so the caller gives the global row count
+(``rows``).  The aux loss is then not the rank's to compute: it is the
+product of two means over the batch, so the layer returns the rank's
+mean probabilities and its expert counts (``MoEMetrics.load``), and the
+forward sums the counts over the data axes once for all its layers
+(`global_aux`); the z loss is the rank's mean (equal rows a rank: the
+ranks' mean is the batch's) and the drop fraction None.  Routing follows
+the reference exactly, since a different tie-break moves a token to
+another expert:
 
   * top-k by a stable descending sort: ties go to the lower expert index,
     as `lax.top_k` breaks them;
@@ -59,10 +68,14 @@ from . import layers as L
 
 
 class MoEMetrics(NamedTuple):
-    """Each None where a split's rank routes a share of the batch."""
+    """Where a split's rank routes a share of the batch the aux loss and the
+    drop fraction are None, the z loss is the rank's mean, and ``load``
+    holds what `global_aux` makes the batch's aux loss of."""
     aux_loss: Optional[torch.Tensor]        # load-balance loss (Switch-style)
     router_z_loss: Optional[torch.Tensor]
     drop_fraction: Optional[torch.Tensor]
+    # (the rank's mean probabilities [E] f32, its items an expert [E] f32)
+    load: Optional[tuple] = None
 
 
 class Routing(NamedTuple):
@@ -225,6 +238,24 @@ def _group_ffn(params: dict, xt: torch.Tensor, r: Routing, mlp_type: str) -> tor
     return per.reshape(T, -1, D).sum(1)
 
 
+def global_aux(tp: ShardingPolicy, loads: list) -> torch.Tensor:
+    """The aux loss summed over an MoE forward's layers, from each layer's
+    `MoEMetrics.load` on a rank whose rows are a data share: the layers'
+    expert counts summed over the data axes in one ring all-reduce an axis
+    (the batch's counts: integers, exact in f32), then E * sum(me * ce)
+    with the rank's own mean probabilities.  Every rank holds as many
+    tokens, so the ranks' mean of it is the batch's aux loss, in value and
+    in gradient (the counts carry none)."""
+    counts = torch.stack([c for _, c in loads])
+    for axis in tp.data_axes:
+        (counts,) = tp.sum_over(axis, [counts])
+    ce = counts / counts.sum(-1, keepdim=True)
+    aux = torch.zeros((), device=counts.device)
+    for (me, _), c in zip(loads, ce):
+        aux = aux + me.shape[0] * torch.sum(me * c)
+    return aux
+
+
 def moe_ffn(params: dict, x: torch.Tensor, top_k: int, capacity_factor: float = 1.25,
             mlp_type: str = "swiglu", d_ff: Optional[int] = None,
             shared_ff: Optional[int] = None,
@@ -234,7 +265,8 @@ def moe_ffn(params: dict, x: torch.Tensor, top_k: int, capacity_factor: float = 
     over every token.  Under a model split over processes the experts' F
     (`d_ff`) and the shared expert's (`shared_ff`) are the model's whole
     sizes, `rows` the global batch (`dispatch_groups`), and y is summed
-    over ``model`` by one all-reduce."""
+    over ``model`` by one all-reduce; where the rank's rows are a data
+    share the metrics are the rank's (`MoEMetrics`)."""
     B, S, D = x.shape
     E = params["router"].shape[1]
     tp = tensor_parallel()
@@ -246,26 +278,29 @@ def moe_ffn(params: dict, x: torch.Tensor, top_k: int, capacity_factor: float = 
         split = _experts_split(tp, params, d_ff, D)
     xt = x.reshape(G, B * S // G, D)
     rs = [route(params, xt[g], top_k, capacity_factor) for g in range(G)]
-    # the experts' input enters their split F (the router's use is whole)
-    xe = tp.enter(xt) if split else xt
+    xe = xt
+    if split:
+        # the experts' input and the gates enter their split F (the router's
+        # use and the losses are whole): one all-reduce of both cotangents
+        xe, gates = tp.enter(xt, torch.stack([r.s_gate for r in rs]))
+        rs = [r._replace(s_gate=gates[g]) for g, r in enumerate(rs)]
     ys = [_group_ffn(params, xe[g], r, mlp_type) for g, r in enumerate(rs)]
 
     def cat(ts):
         return ts[0] if G == 1 else torch.cat(ts)
 
+    # aux losses, over all groups
+    probs, logits = cat([r.probs for r in rs]), cat([r.logits for r in rs])
+    idx, ok = cat([r.expert_idx for r in rs]), cat([r.ok for r in rs])
+    n = idx.numel()
+    counts = torch.zeros(E, device=x.device).index_add_(
+        0, idx.reshape(-1), torch.ones(n, device=x.device))
+    me = probs.mean(0)
+    zl = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     if share:
-        met = MoEMetrics(None, None, None)
+        met = MoEMetrics(None, zl, None, (me, counts))
     else:
-        # aux losses, over all groups
-        probs, logits = cat([r.probs for r in rs]), cat([r.logits for r in rs])
-        idx, ok = cat([r.expert_idx for r in rs]), cat([r.ok for r in rs])
-        n = idx.numel()
-        me = probs.mean(0)
-        ce = torch.zeros(E, device=x.device).index_add_(
-            0, idx.reshape(-1), torch.ones(n, device=x.device)) / n
-        met = MoEMetrics(E * torch.sum(me * ce),
-                         torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
-                         1.0 - ok.float().mean())
+        met = MoEMetrics(E * torch.sum(me * (counts / n)), zl, 1.0 - ok.float().mean())
 
     if tp is None:
         y = cat(ys).to(x.dtype).reshape(B, S, D)

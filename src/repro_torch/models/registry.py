@@ -49,14 +49,15 @@ class Model:
         return sum(leaf.numel() for leaf in _leaves(self.init_shapes()))
 
     # ------------------------------------------------------------ train
-    def forward_logits(self, params: dict, batch: dict,
-                       rows: Optional[int] = None) -> T.ForwardOut:
+    def forward_logits(self, params: dict, batch: dict, rows: Optional[int] = None,
+                       losses: bool = False) -> T.ForwardOut:
         """The cache-free forward: logits for a train or prefill batch.  Its
         attention runs on the backend `layers.set_attention_backend` names.
         The audio family encodes ``batch["frames"]`` and runs its decoder
         over a fresh zero K/V cache of S rows, as the reference does.
-        Under a model split `rows` is the global batch's row count
-        (`transformer.forward`)."""
+        Under a model split `rows` is the global batch's row count, and
+        `losses` asks for the MoE losses of a rank whose rows are a data
+        share (`transformer.forward`)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         prefix = batch.get("patches")
@@ -68,15 +69,20 @@ class Model:
                      "len": torch.zeros((), dtype=torch.int32, device=tokens.device)}
             out = T.forward(params, cfg, tokens, cache=cache)
         else:
-            out = T.forward(params, cfg, tokens, prefix_embeds=prefix, rows=rows)
+            out = T.forward(params, cfg, tokens, prefix_embeds=prefix, rows=rows,
+                            losses=losses)
         logits = out.logits
         if cfg.family == "vlm" and prefix is not None:
             logits = logits[:, prefix.shape[1]:]
         return out._replace(logits=logits)
 
-    def loss(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
+    def loss(self, params: dict, batch: dict,
+             rows: Optional[int] = None) -> tuple[torch.Tensor, dict]:
+        """(nll + 0.01 aux + 0.001 z, {nll, aux, z}); under a model split
+        `batch` holds this rank's rows of a batch of `rows` and the terms
+        are this rank's, whose mean over the data ranks is the batch's."""
         labels = batch["labels"]
-        out = self.forward_logits(params, batch)
+        out = self.forward_logits(params, batch, rows, losses=True)
         logp = torch.log_softmax(out.logits.float(), dim=-1)
         nll = -logp.gather(-1, labels.long()[..., None])[..., 0]
         loss = nll.mean()

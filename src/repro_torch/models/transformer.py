@@ -296,14 +296,15 @@ def _attn_block(cfg, blk, h, positions, cache_kv, cache_len, cross_kv=None):
 
 
 def _ffn_block(cfg, blk, h, rows=None):
-    """Channel mixer -> (h, aux, z); aux and z are None for a dense MLP, and
-    for an MoE layer whose rank routes a share of the batch (`rows`, the
-    global batch, gives its dispatch groups under a split)."""
+    """Channel mixer -> (h, aux, z); aux and z are None for a dense MLP.  For
+    an MoE layer whose rank routes a share of the batch (`rows`, the global
+    batch, gives its dispatch groups under a split) aux is the layer's
+    `MoEMetrics.load`, of which `forward` makes the batch's aux loss."""
     xn = L.rmsnorm(h, blk["ln2"]["scale"], cfg.norm_eps)
     if "moe" in blk:
         y, met = X.moe_ffn(blk["moe"], xn, cfg.moe_top_k, mlp_type=cfg.mlp_type,
                            d_ff=cfg.moe_d_ff, shared_ff=cfg.moe_shared_ff or None, rows=rows)
-        return h + y, met.aux_loss, met.router_z_loss
+        return h + y, (met.aux_loss if met.load is None else met.load), met.router_z_loss
     return h + L.mlp(blk["mlp"], xn, cfg.mlp_type, cfg.d_ff), None, None
 
 
@@ -402,12 +403,16 @@ def forward(
     cache: Optional[dict] = None,
     prefix_embeds: Optional[torch.Tensor] = None,   # vlm patches [B, P, D]
     rows: Optional[int] = None,                 # the global batch under a split
+    losses: bool = False,
 ) -> ForwardOut:
     """Under a model split over processes `tokens` are this rank's rows and
     `rows` the global batch's count (a cache made under the policy keeps
     it), which the MoE layers' dispatch groups need where the batch is
-    split over data axes; their aux and z losses are None where a rank's
-    rows are a share of the batch."""
+    split over data axes.  Where a rank's rows are a share of the batch
+    the aux and z losses are None unless `losses` asks for them; then
+    they are this rank's terms of the batch's (`models.moe.global_aux`:
+    one sum of the layers' expert counts over the data axes), whose mean
+    over the data ranks is the batch's loss and its gradient."""
     check_family(cfg)
     tp = tensor_parallel()
     if tp is not None:
@@ -455,15 +460,19 @@ def forward(
                           and not torch.as_tensor(start).any())
         if rows is None and cache is not None:
             rows = cache.get("rows")
+        loads = []                      # MoE layers routing a data share
         for i, blk in enumerate(_unstack(params["blocks"], cfg.n_layers)):
             kv = None if cache is None else {"k": cache["kv"]["k"][i],
                                              "v": cache["kv"]["v"][i],
                                              "seq_blocks": seq_blocks, "rows_empty": rows_empty}
             h, a, z = body(cfg, blk, h, positions, kv, start, layer, rows)
-            if a is not None:
+            if isinstance(a, tuple):
+                loads.append(a)
+                zl = zl + z
+            elif a is not None:
                 aux, zl = aux + a, zl + z
-            elif cfg.family == "moe":
-                aux = zl = None         # this rank's rows are a share of the batch
+        if loads:
+            aux, zl = (X.global_aux(tp, loads), zl) if losses else (None, None)
     new_cache = None if cache is None else {**cache, "len": start + S}
 
     h = L.rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps)

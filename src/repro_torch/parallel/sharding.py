@@ -26,11 +26,12 @@ rank holds only its blocks of the weights (`local_params`, or
 `models.registry.params_from_jax(..., policy=)`) and the dense model step
 computes with them: attention over its own heads, the MLP over its own
 slice of F, an MoE layer over its own slice of every expert's F (the
-moe family serves split; `models.moe`), the embedding and the LM head
-over its own block of the vocabulary.  `splits` says, from a leaf's fitted spec, whether a dim is
-split over ``model``: a projection whose contraction dim is split leaves
-a partial sum that `all_reduce` completes, and the LM head's block of the
-vocabulary is joined by `all_gather`.  Both run over the axis's view
+moe family serves and trains split; `models.moe`), the embedding and the
+LM head over its own block of the vocabulary.  `splits` says, from a
+leaf's fitted spec, whether a dim is split over ``model``: a projection
+whose contraction dim is split leaves a partial sum that `all_reduce`
+completes, and the LM head's block of the vocabulary is joined by
+`all_gather`.  Both run over the axis's view
 (`ProcMesh.along`) through the one-sided ring collectives
 (`core.collectives`), whose puts are the peer kernels' on the card: the
 collectives XLA's partitioner inserts into the reference's split
@@ -43,17 +44,19 @@ train step differentiates the split forward (Megatron's pairs): the
 row-parallel sum (`all_reduce`) passes its cotangent to every rank's
 partial unchanged; the column-parallel entry (`enter`), the identity
 forward, all-reduces over ``model`` the cotangent of a replicated
-activation entering split heads or a split F, and of a leaf whole on
-every rank but used there in part (the mixed fit's ``wk`` / ``wv`` /
-``bk`` / ``bv``); the vocabulary gather hands each rank its slice of the
-cotangent.  With ``fsdp=True`` a leaf's fitted spec may also split a dim
-over ``data``: `gather_data` all-gathers it over that axis at its use
+activation entering split heads or a split F, of a leaf whole on every
+rank but used there in part (the mixed fit's ``wk`` / ``wv`` / ``bk`` /
+``bv``), and of the MoE gates that weigh each rank's partial expert
+output (entered with the experts' input: one all-reduce for both); the
+vocabulary gather hands each rank its slice of the cotangent.  With
+``fsdp=True`` a leaf's fitted spec may also split a dim over ``data``:
+`gather_data` all-gathers it over that axis at its use
 (FSDP), and its backward reduce-scatters the gathered leaf's cotangent
 over ``data``, so a rank's gradient block is already summed over the
 ``data`` ranks; `sum_over` sums the rest (`train.train_step`), and
 `norm_sq` counts every block once in the clip's global norm.  What such a
 split does not carry yet is refused by `check_model_split` (ROADMAP items
-12c.3b, 12c.4b-12c.6).  A policy on a stacked `Mesh`, or over processes
+12c.3b, 12c.5, 12c.6).  A policy on a stacked `Mesh`, or over processes
 without a ``model`` axis of more than one, changes no value.
 
 **A KV cache split on its sequence.**  Where `kv_cache_spec` puts the
@@ -70,6 +73,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import itertools
 import math
 import re
@@ -245,8 +249,8 @@ class ShardingPolicy:
         """Raise for what a model step split over processes does not carry
         yet, naming its ROADMAP item; a no-op unless `splits_model`.
         Without `cfg` only the policy's own options are checked; `train`
-        asks for a train step (the moe family serves split, but does not
-        train split yet)."""
+        asks for a train step, which refuses what a serving step refuses
+        (the dense and moe families serve and train split alike)."""
         if not self.splits_model:
             return
         if self.seq_parallel:
@@ -254,11 +258,6 @@ class ShardingPolicy:
                 "sequence-parallel activations over processes are ROADMAP item 12c.3b")
         if cfg is None:
             return
-        if cfg.family == "moe" and train:
-            raise NotImplementedError(
-                f"{cfg.name}: the MoE train step over a split (the aux and z losses and the "
-                "drop fraction summed over `data`, the backward through the dispatch) is "
-                "ROADMAP item 12c.4b")
         if cfg.family not in ("dense", "moe"):
             item = {"hybrid": "12c.5 (Mamba channels over `model`)",
                     "ssm": "12c.5 (xLSTM channels over `model`)"}.get(cfg.family, "12c")
@@ -337,13 +336,16 @@ class ShardingPolicy:
         backward is the identity into each rank's partial."""
         return _RowSum.apply(y, self.mesh.along("model"))
 
-    def enter(self, x: torch.Tensor) -> torch.Tensor:
+    def enter(self, x: torch.Tensor, *more: torch.Tensor):
         """The column-parallel entry of `x` (replicated over ``model``) into
         this rank's split part: x itself; its backward all-reduces x's
-        cotangent over ``model``, each rank's part of it being partial."""
-        if not (torch.is_grad_enabled() and x.requires_grad):
-            return x
-        return _Enter.apply(x, self.mesh.along("model"))
+        cotangent over ``model``, each rank's part of it being partial.
+        Given more tensors it returns them all, and their cotangents are
+        summed by one all-reduce of their f32 concatenation."""
+        xs = (x, *more)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in xs):
+            xs = _Enter.apply(self.mesh.along("model"), *xs)
+        return xs if more else xs[0]
 
     def all_gather(self, y: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """Each rank's block y -> the ``model`` axis's blocks in its order,
@@ -426,16 +428,22 @@ class _RowSum(torch.autograd.Function):
 
 
 class _Enter(torch.autograd.Function):
-    """The column-parallel entry: the identity; backward the ring all-reduce."""
+    """The column-parallel entry of one or more tensors: the identity;
+    backward one ring all-reduce of their cotangents' concatenation, in f32
+    (or wider), each part returned in its tensor's dtype."""
 
     @staticmethod
-    def forward(ctx, x, sub):
+    def forward(ctx, sub, *xs):
         ctx.sub = sub
-        return x.view_as(x)
+        return tuple(x.view_as(x) for x in xs)
 
     @staticmethod
-    def backward(ctx, g):
-        return _ring_sum(g, ctx.sub), None
+    def backward(ctx, *gs):
+        dt = functools.reduce(torch.promote_types, [g.dtype for g in gs], torch.float32)
+        flat = torch.cat([g.to(dt).reshape(-1) for g in gs])
+        got = collectives.all_reduce(flat[None], ctx.sub)[0]
+        return (None, *(part.view(g.shape).to(g.dtype)
+                        for part, g in zip(got.split([g.numel() for g in gs]), gs)))
 
 
 class _VocabGather(torch.autograd.Function):

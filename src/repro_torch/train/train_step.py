@@ -7,9 +7,11 @@ loss and the AdamW update, where the reference activates it: its
 placements change no value on one card, its MoE dispatch groups do.
 Under a policy that splits the model over processes (`ShardingPolicy.
 splits_model`) every step runs the split forward on this rank's blocks.
-The train step there computes the reference's step on the global batch:
-the rank takes its rows by the reference's batch spec (``P(("pod",
-"data"), None)``), its backward runs through the split forward's
+The train step there computes the reference's step on the global batch
+(dense and moe families): the rank takes its rows of each microbatch by
+the reference's batch spec (``P(("pod", "data"), None)``), an MoE
+model's aux and z losses are this rank's terms of the batch's
+(`models.moe.global_aux`), its backward runs through the split forward's
 collectives (their autograd rules, `parallel.sharding`), each gradient
 block is summed over the data axes (a leaf split over ``data`` by its
 FSDP gather's backward, every other leaf and the loss in one ring
@@ -44,16 +46,16 @@ class StepConfig:
 
 
 def loss_and_grads(model: Model, params: dict, batch: dict, remat: bool = True,
-                   policy: Optional[ShardingPolicy] = None
+                   policy: Optional[ShardingPolicy] = None, rows: Optional[int] = None
                    ) -> tuple[torch.Tensor, dict, dict]:
-    """(loss, metrics, grads) of `model.loss` at `params`, under `policy`;
-    the grads have each param's dtype, zeros where a param does not reach
-    the loss."""
+    """(loss, metrics, grads) of `model.loss` at `params`, under `policy`
+    (`rows`: the global batch's row count under a model split); the grads
+    have each param's dtype, zeros where a param does not reach the loss."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
     T.set_remat(remat)
     try:
         with use_policy(policy):
-            loss, met = model.loss(leaves, batch)
+            loss, met = model.loss(leaves, batch, rows)
     finally:
         T.set_remat(False)
     flat = tree_leaves(leaves)
@@ -69,29 +71,41 @@ def step_grads(model: Model, params: dict, batch: dict, step_cfg: StepConfig = S
     """A train step's (loss, metrics, grads): one `loss_and_grads`, or with
     n microbatches (B must divide by n) their f32-accumulated grads and
     losses, averaged.  Under a policy that splits the model over processes
-    `batch` is the global batch and `params` this rank's blocks: the loss
-    and metrics are the global batch's, the grads this rank's blocks of
-    its gradient."""
+    `batch` is the global batch and `params` this rank's blocks: microbatch
+    i is global rows [i B / n, (i + 1) B / n), as the reference splits the
+    batch, of which the rank takes its rows (`ShardingPolicy.local_batch`;
+    an MoE layer's dispatch groups and capacity drops depend on which rows
+    form a microbatch); the loss and metrics are the global batch's, the
+    grads this rank's blocks of its gradient."""
+    loss, met, grads = _step_grads(model, params, batch, step_cfg, policy)
     if policy is None or not policy.splits_model:
-        return _step_grads(model, params, batch, step_cfg, policy)
-    loss, met, grads = _step_grads(model, params, policy.local_batch(batch), step_cfg, policy)
+        return loss, met, grads
     return _sum_over_data(model, policy, loss, met, grads)
 
 
 def _step_grads(model, params, batch, step_cfg, policy):
+    """`step_grads` on this process's rows, before the data sum."""
+    split = policy is not None and policy.splits_model
+
+    def part(mb):                       # (this rank's rows, the global row count)
+        if not split:
+            return mb, None
+        return policy.local_batch(mb), mb["tokens"].shape[0]
+
     n = step_cfg.n_microbatches
     if n == 1:
-        return loss_and_grads(model, params, batch, step_cfg.remat, policy)
+        mb, rows = part(batch)
+        return loss_and_grads(model, params, mb, step_cfg.remat, policy, rows)
 
-    def split(x, i):
+    def micro(x, i):
         return x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))[i]
 
     grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                            device=p.device), params)
     loss = torch.zeros((), device=tree_leaves(params)[0].device)
     for i in range(n):
-        mb = {k: split(v, i) for k, v in batch.items()}
-        l, _, g = loss_and_grads(model, params, mb, step_cfg.remat, policy)
+        mb, rows = part({k: micro(v, i) for k, v in batch.items()})
+        l, _, g = loss_and_grads(model, params, mb, step_cfg.remat, policy, rows)
         grads = tree_map(torch.add, grads, g)
         loss = loss + l
     grads = tree_map(lambda g: g / n, grads)
@@ -129,8 +143,9 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
                     policy: Optional[ShardingPolicy] = None) -> Callable:
     """Returns train_step(params, opt_state, batch) -> (params, opt_state, metrics).
     Under a policy that splits the model over processes `params` and the
-    moments are this rank's blocks and `batch` the global batch (what
-    `ShardingPolicy.check_model_split` refuses is refused here)."""
+    moments are this rank's blocks and `batch` the global batch; the dense
+    and moe families train so (what `ShardingPolicy.check_model_split`
+    refuses is refused here)."""
     specs = None
     if policy is not None and policy.splits_model:
         policy.check_model_split(model.cfg, train=True)

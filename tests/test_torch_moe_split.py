@@ -574,7 +574,8 @@ def test_dispatch_groups_are_the_references_over_the_global_batch():
 def test_an_moe_layer_refuses_what_it_cannot_tell():
     """Under a split with data axes an MoE layer given no global row count
     raises rather than guess its groups; whole experts where blocks are
-    due raise; a train step of an MoE model over a split is 12c.4b."""
+    due raise; a train step of an MoE model over a split is built (12c.4b),
+    of a hybrid one refused (12c.5)."""
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_step import make_train_step
 
@@ -592,8 +593,10 @@ def test_an_moe_layer_refuses_what_it_cannot_tell():
           for k, v in whole["blocks"]["moe"].items()}
     with use_policy(pol), pytest.raises(ValueError, match="blocks"):
         X.moe_ffn(wm, x, cfg.moe_top_k, d_ff=cfg.moe_d_ff, rows=2)
-    with pytest.raises(NotImplementedError, match=r"12c\.4b"):
-        make_train_step(model, AdamWConfig(), policy=pol)
+    assert callable(make_train_step(model, AdamWConfig(), policy=pol))
+    with pytest.raises(NotImplementedError, match=r"12c\.5"):
+        make_train_step(build_model(get_config("jamba-v0.1-52b", smoke=True)), AdamWConfig(),
+                        policy=pol)
 
 
 if __name__ == "__main__":

@@ -20,7 +20,20 @@ and on chatglm3-6b SMOKE over the four ranks as ``{"model": 4}``:
 
   * ``glm_tp4``: 2 KV heads under 4 ranks, so `make_policy` sets
     ``kv_seq_shard`` (a train step has no cache): one q head a rank,
-    ``wk`` / ``wv`` / ``bk`` / ``bv`` whole on every rank.
+    ``wk`` / ``wv`` / ``bk`` / ``bv`` whole on every rank;
+
+and the moe family (tensor-parallel experts, the router whole):
+
+  * ``moe_fsdp``: qwen3-moe SMOKE over the grid with FSDP at a global
+    batch of 4: the reference's G = 2 dispatch groups, one a rank's rows;
+  * ``moe_micro``: the same with two microbatches, each global rows [i B
+    / 2, (i + 1) B / 2) as the reference cuts them (its reference is its
+    `value_and_grad` over those microbatches, averaged as its train step
+    accumulates them: an MoE loss is not linear in the rows);
+  * ``moe_shared_tp4``: moonshot SMOKE (a shared expert) over ``{"model":
+    4}``, every rank on the whole batch;
+  * ``moe_drops``: ``moe_fsdp`` at 48 tokens a row with the router biased
+    toward expert 0, so that capacity drops items.
 
 One JAX child on 4 forced host devices (this file's ``__main__`` branch)
 runs ``jax.jit(make_train_step(model, AdamWConfig(...), StepConfig(n),
@@ -37,9 +50,14 @@ param blocks, each the reference's leaf cut by the reference's spec at the
 rank's coordinate (1e-4 of the leaf's max; params 1e-5 where |g| > 1e-4 of
 the max, else 2 lr); ranks holding one block hold it bit for bit; the
 step's collectives are the one-sided ring's puts, every
-`torch.distributed` collective made to raise while it runs.  In this
-process: a remat body recomputes under the forward's policy, and a bf16
-embedding's gradient sums an id's repeats in f32.
+`torch.distributed` collective made to raise while it runs.  The MoE
+cases also hold each step's aux and z losses to the reference's (a
+`jax.debug.callback` in a wrapped `repro.models.moe.moe_ffn` keeps its
+drop fractions), the router to the same bits on every model rank, and
+the routing (`models.moe.route` tapped in the ranks) to the same bits on
+every rank of a data coordinate, in the forward and the recomputation.
+In this process: a remat body recomputes under the forward's policy, and
+a bf16 embedding's gradient sums an id's repeats in f32.
 """
 
 import dataclasses
@@ -48,6 +66,7 @@ import os
 import pathlib
 import subprocess
 import sys
+from typing import NamedTuple
 
 import numpy as np
 import pytest
@@ -60,6 +79,7 @@ from repro_torch.configs import ARCH_IDS, SHAPES, get_config  # noqa: E402
 from repro_torch.core.rma import OpCounter  # noqa: E402
 from repro_torch.launch.dryrun import make_policy  # noqa: E402
 from repro_torch.mesh import Mesh  # noqa: E402
+from repro_torch.models import moe as X  # noqa: E402
 from repro_torch.models.registry import build_model, params_from_jax  # noqa: E402
 from repro_torch.parallel.sharding import ShardingPolicy  # noqa: E402
 from repro_torch.train.optimizer import AdamWConfig, opt_state_from_jax, tree_map  # noqa: E402
@@ -69,16 +89,35 @@ from repro_torch.train.train_step import (StepConfig, loss_and_grads,  # noqa: E
 SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
 NP, GRID = 4, {"data": 2, "model": 2}
 ARCH, GLM = "qwen1.5-110b", "chatglm3-6b"
-# name -> (overrides of the SMOKE config, fsdp, microbatches, arch, the ranks' grid)
-CASES = {
-    "fsdp": ({}, True, 1, ARCH, GRID),
-    "tp_only": ({}, False, 1, ARCH, GRID),
-    "mixed_tied": ({"n_heads": 6, "n_kv_heads": 3, "tie_embeddings": True}, True, 1, ARCH,
-                   GRID),
-    "micro": ({}, True, 2, ARCH, GRID),
-    "glm_tp4": ({}, True, 1, GLM, {"model": 4}),
-}
+QWEN, MOON = "qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b"
 B, S, STEP0 = 4, 8, 3                   # the global batch; the moments' step count
+
+
+class Case(NamedTuple):
+    over: dict              # overrides of the SMOKE config
+    fsdp: bool
+    n: int                  # microbatches
+    arch: str
+    axes: dict              # the ranks' grid
+    seed: int
+    seq: int = S
+    bias: bool = False      # the router biased toward expert 0 (capacity drops)
+
+
+CASES = {
+    "fsdp": Case({}, True, 1, ARCH, GRID, 0),
+    "tp_only": Case({}, False, 1, ARCH, GRID, 4),
+    "mixed_tied": Case({"n_heads": 6, "n_kv_heads": 3, "tie_embeddings": True}, True, 1, ARCH,
+                       GRID, 3),
+    "micro": Case({}, True, 2, ARCH, GRID, 2),
+    "glm_tp4": Case({}, True, 1, GLM, {"model": 4}, 1),
+    "moe_fsdp": Case({}, True, 1, QWEN, GRID, 5),
+    "moe_micro": Case({}, True, 2, QWEN, GRID, 6),
+    "moe_shared_tp4": Case({}, True, 1, MOON, {"model": 4}, 7),
+    "moe_drops": Case({}, True, 1, QWEN, GRID, 8, seq=48, bias=True),
+}
+MOE_CASES = sorted(n for n, c in CASES.items() if c.arch in (QWEN, MOON))
+AUX_TOL = 1e-4
 STEP_CFG = dict(lr=1e-3, warmup_steps=2, total_steps=20)
 LOSS_TOL, GRAD_REL, PARAM_TOL = 1e-4, 1e-4, 1e-5
 TIMEOUT = 120.0         # s: the pool's join; a hung rank is killed and fails the tests
@@ -90,19 +129,19 @@ DIST_COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor", "reduc
 
 
 def _cfg(name: str, get=get_config):
-    return dataclasses.replace(get(CASES[name][3], smoke=True), **CASES[name][0])
+    return dataclasses.replace(get(CASES[name].arch, smoke=True), **CASES[name].over)
 
 
 def _grid(name: str) -> dict:
     """The case's mesh axes as the reference sees them: a ``data`` axis of
     one where the ranks' grid has none."""
-    axes = CASES[name][4]
+    axes = CASES[name].axes
     return axes if "data" in axes else {"data": 1, **axes}
 
 
 def _policy(mesh, name: str) -> ShardingPolicy:
     pol = make_policy(mesh, _cfg(name), SHAPES["train_4k"])
-    return dataclasses.replace(pol, fsdp=CASES[name][1])
+    return dataclasses.replace(pol, fsdp=CASES[name].fsdp)
 
 
 def _tree(flat: dict) -> dict:
@@ -118,9 +157,13 @@ def _tree(flat: dict) -> dict:
 
 def _inputs(name: str) -> dict:
     """Seeded f32 params (norm scales near 1, the rest at 1/sqrt(D)), first
-    and second moments (nu positive) and a global batch."""
+    and second moments (nu positive) and a global batch of the case's
+    length.  With `bias` every embedding row gains the unit vector u and
+    the router's expert 0 the column 2u, so that every token's router
+    prefers it and capacity drops items."""
+    c = CASES[name]
     cfg = _cfg(name)
-    rng = np.random.default_rng(sorted(CASES).index(name))
+    rng = np.random.default_rng(c.seed)
     params, mu, nu = {}, {}, {}
     for path, leaf in flatten(build_model(cfg).init_shapes()):
         shape = tuple(leaf.shape)
@@ -130,8 +173,12 @@ def _inputs(name: str) -> dict:
             params[path] = rng.standard_normal(shape) / np.sqrt(cfg.d_model)
         mu[path] = 1e-2 * rng.standard_normal(shape)
         nu[path] = 1e-4 * rng.random(shape)
+    if c.bias:
+        u = np.full(cfg.d_model, cfg.d_model ** -0.5)
+        params["tok/embed"] = params["tok/embed"] + u
+        params["blocks/moe/router"][..., 0] = 2 * u
     f32 = lambda d: {k: v.astype(np.float32) for k, v in d.items()}  # noqa: E731
-    toks = rng.integers(0, cfg.vocab_size, (2, B, S)).astype(np.int32)
+    toks = rng.integers(0, cfg.vocab_size, (2, B, c.seq)).astype(np.int32)
     return {"params": f32(params), "mu": f32(mu), "nu": f32(nu),
             "batch": {"tokens": toks[0], "labels": toks[1]}}
 
@@ -154,12 +201,32 @@ def _refusing(fn):
             setattr(dist, n, f)
 
 
+class _RouteLog:
+    """`models.moe.route` kept while it runs: each call's choices, slots
+    and overflow flags, in the order the layers route (forward, then the
+    remat recomputation)."""
+
+    def __enter__(self):
+        self.real, self.calls = X.route, []
+
+        def route(*a, **kw):
+            r = self.real(*a, **kw)
+            self.calls.append(tuple(t.numpy().copy() for t in (r.expert_idx, r.slot, r.ok)))
+            return r
+
+        X.route = route
+        return self
+
+    def __exit__(self, *exc):
+        X.route = self.real
+
+
 # ================================================================ the ranks
 def _rank_main(mesh, cases: dict) -> dict:
     torch.set_num_threads(1)
     out = {"coords": mesh.coords}
     for name, ins in cases.items():
-        n, axes = CASES[name][2], CASES[name][4]
+        n, axes = CASES[name].n, CASES[name].axes
         model = build_model(_cfg(name))
         m = mesh if axes == GRID else mesh.regrid(axes)
         pol = _policy(m, name)
@@ -169,12 +236,15 @@ def _rank_main(mesh, cases: dict) -> dict:
         batch = {k: torch.from_numpy(v) for k, v in ins["batch"].items()}
         step_cfg = StepConfig(n_microbatches=n)
         step = make_train_step(model, AdamWConfig(**STEP_CFG), step_cfg, pol)
-        with OpCounter() as c_grads:
-            loss, _, grads = _refusing(lambda: step_grads(model, params, batch, step_cfg, pol))
+        with OpCounter() as c_grads, _RouteLog() as routes:
+            loss, gmet, grads = _refusing(lambda: step_grads(model, params, batch, step_cfg,
+                                                             pol))
         with OpCounter() as c_step:
             p2, st2, met = _refusing(lambda: step(params, state, batch))
         flat = lambda t: {k: v.numpy() for k, v in flatten(t)}  # noqa: E731
         out[name] = {"loss": float(loss), "step_loss": float(met["loss"]),
+                     "aux": [float(gmet["aux"]), float(met["aux"])],
+                     "z": [float(gmet["z"]), float(met["z"])], "routes": routes.calls,
                      "grad_norm": float(met["grad_norm"]), "lr": float(met["lr"]),
                      "step": int(st2.step), "grads": flat(grads), "params": flat(p2),
                      "mu": flat(st2.mu), "nu": flat(st2.nu), "start": flat(params),
@@ -196,6 +266,7 @@ def _child(d: pathlib.Path) -> None:
     from repro.configs import get_config as jget  # its own XLA_FLAGS on import
     from repro.launch import dryrun as jdry
     from repro.models import layers as JL
+    from repro.models import moe as jmoe
     from repro.models import transformer as JT
     from repro.models.registry import build_model as jbuild
     from repro.parallel import sharding as jsh
@@ -211,9 +282,26 @@ def _child(d: pathlib.Path) -> None:
         lambda x: (x, None), lambda _, g: (g.astype(jnp.bfloat16).astype(g.dtype),))
     JL.grad_cast_bf16 = grad_cast_keep_dtype
 
+    # each MoE layer's drop fraction, in the order the layers run
+    drops: list = []
+    real_moe = jmoe.moe_ffn
+
+    def tapped(*a, **kw):
+        y, met = real_moe(*a, **kw)
+        jax.debug.callback(lambda v: drops.append(float(v)), met.drop_fraction)
+        return y, met
+
+    jmoe.moe_ffn = tapped
+
+    def taken() -> list:
+        jax.effects_barrier()
+        got = list(drops)
+        drops.clear()
+        return got
+
     is_spec = lambda s: isinstance(s, PartitionSpec)  # noqa: E731
-    out, specs = {}, {}
-    for name, (_, fsdp, n, _, _) in CASES.items():
+    out, specs, dropped = {}, {}, {}
+    for name, (_, fsdp, n, *_) in CASES.items():
         grid = _grid(name)
         mesh = jax.sharding.Mesh(np.asarray(devices).reshape(tuple(grid.values())), tuple(grid))
         cfg = _cfg(name, jget)
@@ -241,12 +329,30 @@ def _child(d: pathlib.Path) -> None:
             return res
 
         with mesh:
-            (loss, _), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params, jb)
+            vg = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+            if n == 1:
+                (loss, lmet), grads = vg(params, jb)
+            else:
+                # the train step's accumulation (an MoE loss is not linear in
+                # the rows): global microbatches, f32 sums, averaged
+                grads = jax.tree.map(lambda p: jnp.zeros(p.shape, jnp.float32), params)
+                loss = jnp.zeros(())
+                for i in range(n):
+                    mb = {k: jax.device_put(jnp.asarray(v.reshape((n, -1) + v.shape[1:])[i]),
+                                            rows) for k, v in batch.items()}
+                    (l, _), g = vg(params, mb)
+                    grads, loss = jax.tree.map(jnp.add, grads, g), loss + l
+                grads, loss = jax.tree.map(lambda g: g / n, grads), loss / n
+                lmet = {"aux": jnp.zeros(()), "z": jnp.zeros(())}
+            dropped[name] = taken()
             step = jax.jit(jmake(model, jopt.AdamWConfig(**STEP_CFG), JStep(n_microbatches=n),
                                  pol))
             p2, st2, met = step(params, state, jb)
+            taken()
         out[f"{name}/loss"] = np.asarray(loss)
-        for k in ("loss", "grad_norm", "lr"):
+        for k in ("aux", "z"):
+            out[f"{name}/{k}"] = np.asarray(lmet[k])
+        for k in ("loss", "grad_norm", "lr", "aux", "z"):
             out[f"{name}/step/{k}"] = np.asarray(met[k])
         for tname, t in (("grads", grads), ("params", p2), ("mu", st2.mu), ("nu", st2.nu)):
             flat, _ = jax.tree_util.tree_flatten_with_path(t)
@@ -265,7 +371,8 @@ def _child(d: pathlib.Path) -> None:
                 policies[f"{arch}/{shape}/{json.dumps(m)}"] = [pol.seq_parallel,
                                                                pol.kv_seq_shard, pol.fsdp]
     np.savez(d / "out.npz", **out)
-    (d / "specs.json").write_text(json.dumps({"specs": specs, "policies": policies}))
+    (d / "specs.json").write_text(json.dumps({"specs": specs, "policies": policies,
+                                              "drops": dropped}))
 
 
 # ================================================================ fixtures
@@ -352,8 +459,9 @@ def test_loss_and_grad_norm_match_the_reference(name, runs):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_gradient_and_moment_blocks_match_the_reference(name, what, runs):
     """Each rank's block of every leaf: `step_grads`' gradient (the
-    reference's `value_and_grad` under its policy; with microbatches their
-    average, the same function) and the step's moments, within 1e-4 of the
+    reference's `value_and_grad` under its policy; with microbatches the
+    average of its gradients over the global microbatches, as its train
+    step accumulates them) and the step's moments, within 1e-4 of the
     whole leaf's max."""
     for got, want, whole, path in _held(name, what, runs):
         tol = GRAD_REL * max(float(np.abs(whole).max()), 1e-30)
@@ -389,7 +497,7 @@ def test_each_rank_holds_only_its_blocks(name, runs):
     scales and the biases is whole on a rank."""
     _, meta, ranks, cases = runs
     whole = cases[name]["params"]
-    fsdp = CASES[name][1] and _grid(name)["data"] > 1
+    fsdp = CASES[name].fsdp and _grid(name)["data"] > 1
     for rank in ranks:
         res = rank[name]
         want_bytes = 0
@@ -446,25 +554,35 @@ def _puts(name: str) -> dict:
     FSDP leaves' gathers a layer, the LM head's gather and its vocabulary
     gather.  The remat recomputation stops at the layer's last saved
     tensor, so it gathers again and runs the attention's all-reduce, not
-    the MLP's.  Backward: 2 entry
-    all-reduces a layer (plus one a whole K/V leaf of the mixed fit), the
-    LM head's entry, a reduce-scatter a gathered leaf.  Then one all-reduce
-    over ``data`` a step (none without a ``data`` axis); the train step
-    adds the global norm's all-reduce over the 4 ranks."""
+    the MLP's (an MoE layer's all-reduce likewise).  Backward: 2 entry
+    all-reduces a layer (plus one a whole K/V leaf of the mixed fit; an
+    MoE layer's entry carries its experts' input and its gates together,
+    a shared expert enters its input once more), the LM head's entry, a
+    reduce-scatter a gathered leaf.  An MoE layer gathers its router and
+    its experts' (and shared expert's) three leaves; where a rank's rows
+    are a data share the forward sums the layers' expert counts in one
+    all-reduce over ``data`` a microbatch.  Then one all-reduce over
+    ``data`` a step (none without a ``data`` axis); the train step adds
+    the global norm's all-reduce over the 4 ranks."""
     cfg = _cfg(name)
-    _, fsdp, n, _, axes = CASES[name]
-    dp = axes.get("data", 1)
-    ar, vocab = _ring(axes["model"])
-    fg = rs = int(fsdp and dp > 1)
-    names = ["wq", "wk", "wv", "wo", "w_in", "w_out"] + (["w_gate"]
-                                                         if cfg.mlp_type == "swiglu" else [])
-    kv_whole = cfg.n_kv_heads % axes["model"] != 0
+    c = CASES[name]
+    dp = c.axes.get("data", 1)
+    ar, vocab = _ring(c.axes["model"])
+    fg = rs = int(c.fsdp and dp > 1)
+    mlp = ["w_in", "w_out"] + (["w_gate"] if cfg.mlp_type == "swiglu" else [])
+    names = ["wq", "wk", "wv", "wo"] + mlp
+    entries, counts = 2, 0
+    if cfg.family == "moe":
+        names += ["router"] + mlp * bool(cfg.moe_shared_ff)
+        entries += bool(cfg.moe_shared_ff)
+        counts = _ring(dp)[0]
+    kv_whole = cfg.n_kv_heads % c.axes["model"] != 0
     kv_leaves = 4 if cfg.qkv_bias else 2
     heads = len(names)                   # every one of them split over data (D % 2 == 0)
-    layer = (heads * fg + 2 * ar) + (heads * fg + ar) + (2 * ar + kv_leaves * ar * kv_whole
-                                                        + heads * rs)
+    layer = (heads * fg + 2 * ar) + (heads * fg + ar) + (entries * ar + kv_leaves * ar *
+                                                        kv_whole + heads * rs)
     tok = 2 * fg + ar + vocab + ar + 2 * rs          # embedding, LM head (tied: one leaf)
-    grads = n * (tok + cfg.n_layers * layer) + _ring(dp)[0]
+    grads = c.n * (tok + cfg.n_layers * layer + counts) + _ring(dp)[0]
     return {"grads": grads, "step": grads + _ring(NP)[0]}
 
 
@@ -477,6 +595,89 @@ def test_collectives_are_the_one_sided_ring(name, runs):
     for rank in ranks:
         assert rank[name]["puts_grads"] == want["grads"], (rank[name]["puts_grads"], want)
         assert rank[name]["puts_step"] == want["step"], (rank[name]["puts_step"], want)
+
+
+@pytest.mark.parametrize("name", MOE_CASES)
+def test_moe_aux_and_z_match_the_reference(name, runs):
+    """`step_grads`' and the train step's aux and z losses on every rank:
+    the global batch's (each rank's terms use the batch's expert counts,
+    `models.moe.global_aux`; their mean over ``data`` is the batch's),
+    within AUX_TOL of the reference's; real numbers, not zeros, with one
+    microbatch, zeros with two, as the reference reports them."""
+    ref, _, ranks, _ = runs
+    want = {k: [float(ref[f"{name}/{k}"]), float(ref[f"{name}/step/{k}"])]
+            for k in ("aux", "z")}
+    for rank in ranks:
+        for k in ("aux", "z"):
+            got = rank[name][k]
+            assert all(abs(a - b) <= AUX_TOL for a, b in zip(got, want[k])), (k, got, want[k])
+            if CASES[name].n == 1:
+                assert all(v > 0.1 for v in got), (k, got)
+            else:
+                assert got[1] == 0.0 and want[k][1] == 0.0, (k, got, want[k])
+
+
+@pytest.mark.parametrize("name", MOE_CASES)
+def test_moe_router_is_bit_equal_on_every_model_rank(name, runs):
+    """The router is whole over ``model``: after the update its block (over
+    ``data`` under FSDP), its gradient and both moments are the same bits
+    on every model rank of a data coordinate, so that the next step routes
+    alike on them."""
+    _, _, ranks, _ = runs
+    key = "blocks/moe/router"
+    by_data: dict = {}
+    for rank in ranks:
+        by_data.setdefault(rank[name]["at"]["data"], []).append(rank[name])
+    for group in by_data.values():
+        assert len(group) == CASES[name].axes["model"]
+        for what in ("params", "grads", "mu", "nu"):
+            for res in group[1:]:
+                np.testing.assert_array_equal(res[what][key], group[0][what][key],
+                                              err_msg=what)
+        assert not np.array_equal(group[0]["params"][key], group[0]["start"][key])
+
+
+@pytest.mark.parametrize("name", MOE_CASES)
+def test_moe_routing_is_equal_on_every_rank_of_a_data_coordinate(name, runs):
+    """Every model rank of a data coordinate routes its tokens alike, in the
+    forward and in the remat recomputation: the choices, slots and
+    overflow flags of every dispatch are the same bits (F-slices of two
+    experts would otherwise be summed silently); the recomputation routes
+    as the forward did."""
+    _, _, ranks, _ = runs
+    cfg = _cfg(name)
+    by_data: dict = {}
+    for rank in ranks:
+        by_data.setdefault(rank[name]["at"]["data"], []).append(rank[name]["routes"])
+    for group in by_data.values():
+        assert len(group[0]) == 2 * CASES[name].n * cfg.n_layers
+        for routes in group[1:]:
+            assert len(routes) == len(group[0])
+            for a, b in zip(routes, group[0]):
+                for x, y in zip(a, b):
+                    np.testing.assert_array_equal(x, y)
+        calls = group[0]
+        for m in range(CASES[name].n):              # layer l's recomputation mirrors it
+            mb = calls[2 * m * cfg.n_layers:2 * (m + 1) * cfg.n_layers]
+            for fwd, again in zip(mb[:cfg.n_layers], mb[cfg.n_layers:][::-1]):
+                for x, y in zip(fwd, again):
+                    np.testing.assert_array_equal(x, y)
+
+
+def test_moe_drops_case_drops_as_the_reference_does(runs):
+    """The biased router overfills expert 0: the reference's drop fraction
+    is > 0 in every layer, and the port's, from its ranks' overflow flags
+    over the global batch (a data coordinate's model rank 0 each), equals
+    it layer by layer."""
+    _, meta, ranks, _ = runs
+    name, cfg = "moe_drops", _cfg("moe_drops")
+    want = meta["drops"][name][:cfg.n_layers]
+    assert len(want) == cfg.n_layers and min(want) > 0, meta["drops"][name]
+    lead = [r[name] for r in ranks if r[name]["at"]["model"] == 0]
+    for layer, w in enumerate(want):
+        oks = [res["routes"][layer][2] for res in lead]
+        got = 1.0 - sum(int(o.sum()) for o in oks) / sum(o.size for o in oks)
+        assert abs(got - w) <= 1e-6, (layer, got, w)
 
 
 @pytest.mark.parametrize("shape", sorted(SHAPES))
