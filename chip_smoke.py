@@ -534,6 +534,37 @@ no result line):
     an MoE layer), nothing else.  Host ms of every call beside the whole
     run's, fenced rounds a decode step, drop fractions by call, each
     rank's torch peak, and row 4's peer put at the MoE all-reduce's block.
+37. the MoE train step split over ``{"data": 2, "model": 2}``:
+    qwen3-moe-30b-a3b cut to 2 of 48 layers, 3 steps under `make_policy`
+    (train_4k) against the same steps whole, dispatched to the split's
+    experts (`moe_train_phases`).
+38. the Mamba and xLSTM channel splits over a `ProcMesh`'s ``model`` axis
+    (served): part 1 jamba-v0.1-52b at its published widths cut to one
+    period, 8 of 32 layers (1 attention, 7 Mamba, 4 MoE, 4 MLP), bf16,
+    over ``ProcMesh({"model": 4})``; parts 2-3 xlstm-1.3b at its
+    published widths and all 48 layers in f32 over ``{"model": 4}`` and
+    ``{"data": 2, "model": 2}`` (FSDP over ``data``), all under
+    `make_policy` for decode_32k.  Each: 4 rows, the cache-free forward of
+    the prompt (512 / 128 tokens), the prompt prefilled in two chunks (256
+    + 256; 96 + 32, the first crossing the mLSTM's 64-token chunk), 16
+    decode steps teacher-forced on seeded tokens.  The ranks run first
+    (logits and their recurrent state blocks into host shared memory,
+    Jamba's routing returned); then one process runs the same keyed
+    weights whole (Jamba's MoE layers dispatched to the split's experts).
+    Checked: every rank's dispatches and logits bit-equal to its row
+    block's model rank 0's; the forced whole run's dispatches equal, every
+    choice its routers would make otherwise a near-tie; logits within
+    TP_REL of the whole run's max |logit|, argmax held beyond twice that;
+    each rank's state blocks (Mamba h / conv; mLSTM C / n / m; sLSTM c / n
+    / h / m) within TP_REL of the whole run's same block's max; each
+    rank's weight bytes its blocks' by the fitted specs; launches a rank:
+    row 11 1 and row 12 21 (7 Mamba layers x the forward and two chunks)
+    in part 1, none in parts 2-3, and exactly `ss_schedule`'s row 4 peer
+    puts (the ring collectives' puts, and tp a Mamba layer's all-to-all),
+    nothing else.  Host ms of every call beside the whole run's, fenced
+    rounds a decode step, each rank's torch peak, row 4's peer put at the
+    Mamba all-to-all's block, and row 12 at a rank's scan shape [4, 256,
+    2048, 16] against its plain version and timed.
 
 ``python3 chip_smoke.py --gather-shift`` times only `rmem.pages.gather_shift`
 and `paged_gather` at the rendezvous pull's shape on the package beside the
@@ -561,7 +592,11 @@ runs only phase 35 the same way (row 4 timed at the partials' all-to-all
 block, row 11 at a rank's attention shape), and ``--kv-seq-procs
 --decode-32k`` with part 1 at decode_32k's 32,768 positions; ``--moe-procs``
 runs only phase 36 the same way (row 4 timed at the MoE all-reduce's
-block, row 11 at a part 1 rank's attention shape [1, 8, 2048, 128]).
+block, row 11 at a part 1 rank's attention shape [1, 8, 2048, 128]);
+``--moe-train-procs`` runs only phase 37; ``--ssm-procs`` runs only
+phase 38 the same way (rows 4, 11 and 12: row 4 timed at the Mamba
+all-to-all's block, row 11 at a part 1 rank's attention shape [4, 8, 512,
+128], row 12 at its scan shape).
 
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after.
@@ -905,6 +940,26 @@ MS_GRID_ROWS, MS_GRID_FWD, MS_GRID_PROMPT = 4, 1024, 512
 # choices in the forward and in the recomputation; phase 34's bounds
 MT_ARCH, MT_LAYERS, MT_RANKS, MT_SEED = "qwen3-moe-30b-a3b", 2, 4, 37
 MT_GRID, MT_TIMEOUT = {"data": 2, "model": 2}, 900.0
+# phase 38: the Mamba and xLSTM channel splits over model (ROADMAP 12c.5), served.
+# Part 1: jamba-v0.1-52b at its published widths (src/repro/configs/jamba_v0_1_52b.py:
+# d_model 4096, Mamba d_inner 8192, state 16, conv 4, dt rank 256, 32 q / 8 KV heads
+# of 128, 16 experts top-2 of d_ff 14,336, vocab 65,536) cut to one period, 8 of 32
+# layers (1 attention, 7 Mamba, 4 MoE and 4 MLP layers), bf16 (A_log, D_skip and the
+# router f32), over ProcMesh({"model": 4}) under make_policy for decode_32k.  Parts
+# 2-3: xlstm-1.3b at its published widths (src/repro/configs/xlstm_1_3b.py: d_model
+# 2048, 4 heads, vocab 50,304) and all 48 layers, in f32 (random-weight xLSTM carries
+# bf16 rounding to O(1) logits through depth: PERF.md §2), over {"model": 4} and over
+# {"data": 2, "model": 2} (FSDP over data).  Each: 4 rows, a cache-free forward of the
+# prompt (the flash kernel in Jamba's attention layer, the scan in its Mamba layers),
+# the prompt prefilled in two chunks (the second seeded by each rank's state blocks;
+# xLSTM's first chunk crosses the mLSTM's 64-token chunk), 16 teacher-forced decode
+# steps.  The ranks run first; then one process runs the same keyed weights whole
+# (Jamba's dispatched to the split's experts); TP_REL's bounds
+SS_ARCHS = ("jamba-v0.1-52b", "xlstm-1.3b", "xlstm-1.3b")
+SS_GRIDS = ({"model": 4}, {"model": 4}, {"data": 2, "model": 2})
+SS_LAYERS = (8, 48, 48)
+SS_CHUNKS = ((256, 256), (96, 32), (96, 32))      # the prompt's two prefill chunks
+SS_RANKS, SS_SEED, SS_TIMEOUT, SS_STEPS, SS_ROWS = 4, 38, 600.0, 16, 4
 
 
 def log(msg: str) -> None:
@@ -1404,6 +1459,16 @@ def main() -> int:
     row4["moe_train_all_reduce_put"] = mt.pop("put")
     row4["moe_train_fsdp_expert_put"] = mt.pop("fsdp_put")
     log(f"moe train procs phase numbers: {json.dumps(mt)}")
+    torch.cuda.empty_cache()
+    ss = ssm_split_phases(torch, H100.hbm_bandwidth)
+    row4["launches"] += ss.pop("row4_launches")
+    next(r for r in kernels if r["name"] == "flash_attention")["launches"] += ss.pop(
+        "row11_launches")
+    row12 = next(r for r in kernels if r["name"] == "ssm_scan")
+    row12["launches"] += ss.pop("row12_launches")
+    row12["split_rank"] = ss.pop("scan")
+    row4["ssm_all_to_all_put"] = ss.pop("put")
+    log(f"ssm procs phase numbers: {json.dumps(ss)}")
     if len(kernels) != len(KERNELS):
         raise AssertionError(f"{len(kernels)} kernel rows, want {len(KERNELS)}")
     log(f"smoke wall time: {time.perf_counter() - T0:.1f} s")
@@ -8208,14 +8273,28 @@ def tp_std(cfg, path: str):
     return f ** -0.5
 
 
-def keyed_params(torch, cfg, seed: int, policy=None) -> dict:
-    """Random bf16 weights (the MoE router f32) of a dense or moe `cfg` on
-    the card, each leaf drawn one layer slice at a time from a
-    `torch.Generator` keyed by (seed, leaf, layer).  Under a policy that
-    splits the model over processes each slice is drawn whole and only this
-    rank's block of it is kept, so the ranks hold the blocks of the very
-    values a whole run makes, and no process holds more than one slice of
-    a leaf beyond its blocks."""
+def keyed_lead(path: str) -> int:
+    """The stacked layer dims in front of a leaf at `path`: ``blocks/``
+    leaves [L, ...]; the periods' [n_p, ...] (attention, sLSTM) or [n_p,
+    n, ...] (Mamba, mLSTM, MoE, MLP); none elsewhere."""
+    if path.startswith("blocks/"):
+        return 1
+    if path.startswith("periods/"):
+        return 1 if path.split("/")[1] in ("attn", "slstm") else 2
+    return 0
+
+
+def keyed_params(torch, cfg, seed: int, policy=None, dtype=None) -> dict:
+    """Random bf16 weights (the MoE router, A_log and D_skip f32; all f32
+    where `dtype` says so) of `cfg` on the card, each leaf drawn one layer
+    slice at a time from a `torch.Generator` keyed by (seed, leaf, layer);
+    the recurrent layers' constant leaves at the port's init values
+    (`ss_fill`).  Under a policy that splits the model over processes each
+    slice is drawn whole and only this rank's block of it is kept, so the
+    ranks hold the blocks of the very values a whole run makes, and no
+    process holds more than one slice of a leaf beyond its blocks."""
+    import itertools
+
     from repro_torch.ckpt.checkpoint import _unflatten_like, flatten
     from repro_torch.models import build_model
     from repro_torch.models import layers as L
@@ -8225,45 +8304,83 @@ def keyed_params(torch, cfg, seed: int, policy=None) -> dict:
     cut = dict(flatten(policy.tree_shardings(shapes))) if policy is not None else {}
     out = {}
     for i, (path, leaf) in enumerate(flatten(shapes)):
-        shape, std = tuple(leaf.shape), tp_std(cfg, path)
-        stacked = path.startswith("blocks/")
-        one = shape[1:] if stacked else shape
-        at = (cut[path].index(policy.mesh.coords, shape)[1 if stacked else 0:]
-              if path in cut else None)
+        shape, std = tuple(leaf.shape), ss_std(cfg, path)
+        lead = keyed_lead(path)
+        one = shape[lead:]
+        at = cut[path].index(policy.mesh.coords, shape)[lead:] if path in cut else None
         dst = None
-        dtype = torch.float32 if path.rsplit("/", 1)[-1] in F32_LEAVES else torch.bfloat16
-        for j in range(shape[0] if stacked else 1):
-            if std is None:
-                full = torch.ones(one, dtype=dtype, device="cuda")
-            else:
+        dt = dtype or (torch.float32 if path.rsplit("/", 1)[-1] in F32_LEAVES
+                       else torch.bfloat16)
+        for j, js in enumerate(itertools.product(*(range(n) for n in shape[:lead]))):
+            full = ss_fill(torch, cfg, path, one, dt)
+            if full is None and std is None:
+                full = torch.ones(one, dtype=dt, device="cuda")
+            elif full is None:
                 g = torch.Generator(device="cuda").manual_seed(seed * 1_000_003 + i * 1_009 + j)
-                full = L._normal(g, one, std, dtype, "cuda")
+                full = L._normal(g, one, std, dt, "cuda")
             blk = full if at is None else full[at]
-            if not stacked:
+            if not lead:
                 dst = blk.clone()
                 break
             if dst is None:
-                dst = torch.empty((shape[0],) + tuple(blk.shape), dtype=blk.dtype, device="cuda")
-            dst[j] = blk
+                dst = torch.empty(shape[:lead] + tuple(blk.shape), dtype=blk.dtype,
+                                  device="cuda")
+            dst[js] = blk
             del full, blk
         out[path] = dst
     return _unflatten_like(shapes, out)
 
 
-def tp_bytes(torch, cfg, policy) -> dict:
+def ss_std(cfg, path: str):
+    """`tp_std`, and for the Mamba and xLSTM leaves the port's init scales
+    (`models.mamba.init_mamba`, `models.xlstm.init_mlstm` / `init_slstm`)."""
+    leaf = path.rsplit("/", 1)[-1]
+    D = cfg.d_model
+    if "/mamba/mix/" in path:
+        di = cfg.ssm_expand * D
+        return {"in_proj": D ** -0.5, "dt_proj": max(D // 16, 1) ** -0.5}.get(leaf, di ** -0.5)
+    if "/mlstm/mix/" in path:
+        dh = 2 * D // cfg.n_heads
+        return {"up_proj": D ** -0.5, "w_i": 0.1 * D ** -0.5, "w_f": 0.1 * D ** -0.5}.get(
+            leaf, dh ** -0.5)
+    if "/slstm/mix/" in path:
+        return int(D * 4.0 / 3.0) ** -0.5 if leaf == "w_out" else D ** -0.5
+    return tp_std(cfg, path)
+
+
+def ss_fill(torch, cfg, path: str, shape: tuple, dtype):
+    """The port's init value of a recurrent layer's constant leaf (one layer
+    slice of `shape`), or None for a drawn one: ``A_log`` log(1..N) a
+    channel, ``D_skip`` and the mLSTM's ``ln`` ones, ``conv_b`` zeros,
+    ``dt_bias`` softplus^-1(0.01), the forget gates' biases 3 and the
+    other gate biases 0."""
+    leaf = path.rsplit("/", 1)[-1]
+    if "/mamba/mix/" in path and leaf == "A_log":
+        A = torch.arange(1, shape[-1] + 1, dtype=torch.float32, device="cuda")
+        return torch.log(A).expand(shape).to(dtype).contiguous()
+    value = {"D_skip": 1.0, "conv_b": 0.0, "dt_bias": math.log(math.expm1(0.01)),
+             "ln": 1.0, "b_f": 3.0, "b_i": 0.0, "b_o": 0.0, "b_z": 0.0}.get(leaf)
+    if value is None or "/mix/" not in path:
+        return None
+    return torch.full(shape, value, dtype=dtype, device="cuda")
+
+
+def tp_bytes(torch, cfg, policy, dtype=None) -> dict:
     """The weight bytes a rank holds by the fitted specs: each leaf's block
-    at this rank's coordinate; and the whole model's, split and whole."""
+    at this rank's coordinate; and the whole model's, split and whole (every
+    leaf in `dtype` where given, else in its own)."""
     from repro_torch.ckpt.checkpoint import flatten
     from repro_torch.models import build_model
 
     shapes = build_model(cfg).init_shapes()
     out = {"rank": 0, "whole": 0, "split_whole": 0}
     for (path, leaf), (_, ns) in zip(flatten(shapes), flatten(policy.tree_shardings(shapes))):
-        n = leaf.numel() * leaf.element_size()
+        size = leaf.element_size() if dtype is None else dtype.itemsize
+        n = leaf.numel() * size
         block = math.prod(len(range(*s.indices(d))) for s, d in
                           zip(ns.index(policy.mesh.coords, leaf.shape), leaf.shape))
         out["whole"] += n
-        out["rank"] += block * leaf.element_size()
+        out["rank"] += block * size
         if block != leaf.numel():
             out["split_whole"] += n
     return out
@@ -10463,6 +10580,517 @@ def moe_train_only() -> int:
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
+# ------------- phase 38: the Mamba and xLSTM channel splits over the model axis
+def ss_config(get_config, part: int):
+    """(part's config, its weights' dtype: None = bf16 with the f32 leaves)."""
+    import dataclasses
+
+    import torch
+
+    cfg = dataclasses.replace(get_config(SS_ARCHS[part - 1]), n_layers=SS_LAYERS[part - 1])
+    return cfg, (torch.float32 if cfg.family == "ssm" else None)
+
+
+def ss_states(cfg) -> tuple:
+    """The cache's recurrent state groups of `cfg`'s family."""
+    return ("mamba",) if cfg.family == "hybrid" else ("mlstm", "slstm")
+
+
+def ss_cache(torch, model, cfg, policy, dtype, max_seq: int) -> dict:
+    """The cache of the global batch under `policy` (None: whole); an f32
+    run's floating leaves in f32 (the sLSTM's h too: a bf16 h rounds
+    otherwise on each side of the comparison)."""
+    from repro_torch.parallel.sharding import use_policy
+
+    with use_policy(policy):
+        cache = model.init_cache(SS_ROWS, max_seq, device="cuda")
+    if dtype is None:
+        return cache
+    return {k: ({kk: vv.to(dtype) for kk, vv in v.items()} if k in ss_states(cfg) else v)
+            for k, v in cache.items()}
+
+
+def ss_serve(torch, model, params, ins: dict, part: int, policy, tap, rows: slice,
+             forces=None) -> dict:
+    """Phase 38's main path under `policy` (None: whole) for the batch's
+    `rows`: make_prefill_step on the rows' prompt (given the global row
+    count), Model.prefill of it in its two chunks into one cache made under
+    the policy, then SS_STEPS make_serve_step steps teacher-forced on
+    ins["steps"].  Every call goes through `tap` (`forces[i]`: the i-th
+    call's choices); its logits, host ms and fenced rounds (host barriers)
+    a call, and the cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.parallel.sharding import use_policy
+    from repro_torch.train.train_step import make_prefill_step, make_serve_step
+
+    cfg, dtype = ss_config(get_config, part)
+    mesh = policy.mesh if policy is not None and policy.splits_model else None
+    pre, serve = make_prefill_step(model, policy), make_serve_step(model, policy)
+    chunks = SS_CHUNKS[part - 1]
+    calls = []
+
+    def call(kind: str, fn):
+        force = None if forces is None else forces[len(calls)]
+        torch.cuda.synchronize()
+        b0 = 0 if mesh is None else mesh.barriers
+        t = time.perf_counter()
+        out, chosen, used = tap.record(fn, force)
+        torch.cuda.synchronize()
+        calls.append({"kind": kind, "ms": (time.perf_counter() - t) * 1e3, "chosen": chosen,
+                      "used": used, "rounds": 0 if mesh is None else mesh.barriers - b0})
+        return out
+
+    toks = ins["batch"][rows].to("cuda")
+    fwd = call("forward", lambda: pre(params, {"tokens": toks}, rows=ins["n_rows"]))
+    cache = ss_cache(torch, model, cfg, policy, dtype, sum(chunks) + SS_STEPS)
+    last, lo = [], 0
+    for n in chunks:
+        with torch.no_grad(), use_policy(policy):
+            lg, cache = call("prefill", lambda: model.prefill(params, toks[:, lo:lo + n], cache))
+        last.append(lg)
+        lo += n
+    steps = []
+    for s_ in range(SS_STEPS):
+        tok = ins["steps"][s_, rows].to("cuda")
+        lg, cache = call("step", lambda: serve(params, tok, cache))
+        steps.append(lg)
+    return {"forward": [fwd], "prefill": torch.stack(last), "steps": torch.stack(steps),
+            "calls": calls, "cache": cache}
+
+
+def ss_schedule(cfg, tp: int, dp: int, fsdp: bool) -> tuple:
+    """A rank's (ring puts, all-to-alls) a call of the path (the forward, a
+    prefill chunk and a decode step alike): a ring all-reduce over tp is
+    tp - 1 + 2 ceil((tp - 1) / 2) puts, an all-gather 2 ceil((tp - 1) / 2),
+    an FSDP gather over two data ranks one put (one direction), an
+    all-to-all one collective (tp peer puts on the card).  The embedding's
+    all-reduce and the vocabulary's all-gather, under FSDP ``tok``'s 2
+    gathers, and a period: Jamba's attention all-reduce, each Mamba
+    layer's in-projection all-gather, ``x_proj``'s and ``out_proj``'s
+    all-reduces and one all-to-all (the dt partials and the A_log blocks),
+    each MoE and MLP layer's all-reduce, under FSDP 15 gathered leaves;
+    xLSTM's each mLSTM's all-gather and all-reduce, the sLSTM's two
+    all-gathers and, where ``model`` divides dff, its all-reduce, under
+    FSDP 10 gathered leaves."""
+    ag = 2 * -(-(tp - 1) // 2)
+    ar = tp - 1 + ag
+    fg = int(fsdp and dp > 1)
+    if cfg.family == "hybrid":
+        n_p, period = cfg.n_layers // cfg.attn_period, cfg.attn_period
+        per = 15 * fg + ar + (period - 1) * (ag + 2 * ar) + period * ar
+        colls = n_p * (period - 1)
+    else:
+        n_p, period = cfg.n_layers // cfg.slstm_period, cfg.slstm_period
+        w_out_split = int(cfg.d_model * 4.0 / 3.0) % tp == 0
+        per = 10 * fg + (period - 1) * (ag + ar) + 2 * ag + ar * w_out_split
+        colls = 0
+    return 2 * fg + ar + ag + n_p * per, colls
+
+
+def ss_rank(mesh, ins: dict, part: int, hbm: float) -> dict:
+    """Phase 38 in one rank's process: its blocks of the keyed weights under
+    the reference's `make_policy`, the main path through a SlotTap with its
+    launch counts zeroed before and read after; digests of every dispatch
+    and of the logits; a model rank 0 writes its logits into the shared
+    buffers and returns its routing (the whole run is forced to it); every
+    rank writes its state blocks into the shared whole-state buffers at its
+    block.  Part 1's rank 0 then times row 4's peer put at the Mamba
+    all-to-all's block and row 12 at the rank's scan shape."""
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core.rma import OpCounter
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rma import ops as rma_ops
+    from repro_torch.kernels.rma import ref as rma_ref
+    from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.kernels.ssm_scan import ref as sref
+    from repro_torch.launch.dryrun import make_policy
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as moe_mod
+
+    t0 = time.perf_counter()
+    cfg, dtype = ss_config(get_config, part)
+    model = build_model(cfg)
+    policy = make_policy(mesh, cfg, SHAPES["decode_32k"])
+    torch.cuda.reset_peak_memory_stats()
+    params = keyed_params(torch, cfg, SS_SEED + part, policy, dtype)
+    torch.cuda.synchronize()
+    rows = kv_rows(policy, ins["n_rows"])
+    out = {"rank": mesh.rank, "model_rank": policy.model_rank, "rows": [rows.start, rows.stop],
+           "coords": mesh.coords, "init_s": time.perf_counter() - t0,
+           "fsdp": policy.gathers_data,
+           "bytes": sum(v.nbytes for v in flat_leaves(params).values()),
+           "want_bytes": tp_bytes(torch, cfg, policy, dtype)}
+    first = {"n": 0}
+    real = sops.selective_scan
+    n_mamba = cfg.n_layers // cfg.attn_period * (cfg.attn_period - 1) \
+        if cfg.family == "hybrid" else 0
+
+    def scan_tap(decay, drive, c, h0=None):     # the second chunk's first Mamba layer
+        if first["n"] == len(SS_CHUNKS[part - 1]) * n_mamba:
+            first["args"] = tuple(t.clone() for t in (decay, drive, c, h0))
+        first["n"] += 1
+        return real(decay, drive, c, h0)
+
+    L.set_attention_backend("cuda")
+    fops.launches = 0
+    fops.launches_by_variant = {k: 0 for k in fops.launches_by_variant}
+    sops.launches = 0
+    zero_rma_launches(rma_ops)
+    b0 = mesh.barriers
+    sops.selective_scan = scan_tap
+    try:
+        with OpCounter() as c, SlotTap(moe_mod) as tap:
+            run = ss_serve(torch, model, params, ins, part, policy, tap, rows)
+        torch.cuda.synchronize()
+    finally:
+        L.set_attention_backend("torch")
+        sops.selective_scan = real
+    out["launches"] = {"flash": fops.launches, "wgmma": fops.launches_by_variant["wgmma"],
+                       "scan": sops.launches, **rma_ops.launches}
+    out["puts"], out["colls"], out["barriers"] = c.puts, c.colls, mesh.barriers - b0
+    calls = run.pop("calls")
+    out["routes"] = [[(digest(torch, r.expert_idx), digest(torch, r.slot), digest(torch, r.ok))
+                      for r in x["used"]] for x in calls]
+    out["logits"] = [digest(torch, t) for t in (*run["forward"], run["prefill"], run["steps"])]
+    for kind in ("forward", "prefill", "step"):
+        out[f"{kind}_ms"] = [x["ms"] for x in calls if x["kind"] == kind]
+    out["rounds"] = [x["rounds"] for x in calls if x["kind"] == "step"]
+    bufs = ins["bufs"]
+    if policy.model_rank == 0:
+        bufs["forward"][0][rows].copy_(run["forward"][0])
+        bufs["prefill"][:, rows].copy_(run["prefill"])
+        bufs["steps"][:, rows].copy_(run["steps"])
+        out["choices"] = [[r.expert_idx.cpu() for r in x["used"]] for x in calls]
+        out["chosen"] = [None if x["chosen"] is None else tuple(t.cpu() for t in x["chosen"])
+                         for x in calls]
+    cache = run.pop("cache")
+    out["state_bytes"] = 0
+    for kind in ss_states(cfg):
+        for k, v in cache[kind].items():
+            whole = bufs["state"][f"{kind}/{k}"]
+            ns = policy.state_sharding(kind, k, tuple(whole.shape))
+            whole[ns.index(mesh.coords, tuple(whole.shape))].copy_(v)
+            out["state_bytes"] += v.nbytes
+    del run, calls, cache
+    out["peak_allocated"] = torch.cuda.max_memory_allocated()
+    if part == 1:
+        # row 4 at a decode step's Mamba all-to-all block (the dt partials
+        # [4 rows, 2,048 channels] and the A_log block [2,048, 4], f32)
+        dc = cfg.ssm_expand * cfg.d_model // SS_RANKS
+        out["put"] = pp_put_row(torch, mesh, rma_ops, rma_ref,
+                                ins["n_rows"] * dc + dc * cfg.ssm_state_dim // SS_RANKS, hbm,
+                                axis="model", phase=38)
+        # row 12 at this rank's shape: the kernel against its plain version,
+        # then timed by rank 0 alone
+        args = first.pop("args")
+        y, h = sops.selective_scan(*args)
+        want_y, want_h = sref.ssm_scan_ref(*args)
+        out["scan_err"] = float((y - want_y).abs().max())
+        out["scan_rel"] = out["scan_err"] / max(float(want_y.abs().max()), 1e-30)
+        out["scan_h_rel"] = float((h - want_h).abs().max()) / max(float(want_h.abs().max()),
+                                                                   1e-30)
+        out["scan_shape"] = list(args[0].shape)
+        del y, h, want_y, want_h
+        mesh.barrier()
+        if mesh.rank == 0:
+            out["scan"] = time_ssm(torch, sops, sref, args, hbm)
+        torch.cuda.synchronize()
+        mesh.fence()
+        del args
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def ss_part(torch, part: int, hbm: float, card: str) -> dict:
+    """One part of phase 38: the ranks first (their logits and state blocks
+    into host shared memory, their routing returned), then the whole run
+    here (Jamba's dispatched to their experts); every check; returns the
+    part's numbers."""
+    from repro_torch import procmesh
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssm_scan import ops as sops
+    from repro_torch.launch.dryrun import make_policy
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    cfg, dtype = ss_config(get_config, part)
+    grid = SS_GRIDS[part - 1]
+    tp, dp = grid["model"], grid.get("data", 1)
+    V, n = cfg.vocab_size, SS_ROWS
+    chunks = SS_CHUNKS[part - 1]
+    g = torch.Generator().manual_seed(SS_SEED + part)
+    run_dtype = dtype or torch.bfloat16
+
+    def shared(shape, dt=run_dtype):
+        return torch.zeros(shape, dtype=dt).share_memory_()
+
+    ins = {"n_rows": n, "batch": torch.randint(0, V, (n, sum(chunks)), generator=g),
+           "steps": torch.randint(0, V, (SS_STEPS, n), generator=g)}
+    meta = T.init_cache(cfg, n, sum(chunks) + SS_STEPS, "meta")
+    ins["bufs"] = {"forward": [shared((n, sum(chunks), V))], "prefill": shared((2, n, V)),
+                   "steps": shared((SS_STEPS, n, V)),
+                   "state": {f"{kind}/{k}": shared(tuple(v.shape), dtype or v.dtype)
+                             for kind in ss_states(cfg) for k, v in meta[kind].items()}}
+    ranks = procmesh.run(ss_rank, SS_RANKS, device="cuda", args=(ins, part, hbm), axes=grid,
+                         timeout=SS_TIMEOUT)
+    run_s = time.perf_counter() - t0
+    bad = []                    # every check's failure, raised after the logs
+    lead = {x["rows"][0]: x for x in ranks if x["model_rank"] == 0}   # by first row
+    if sorted((x["rows"][0], x["model_rank"]) for x in ranks) != sorted(
+            (d * (n // dp), m) for d in range(dp) for m in range(tp)):
+        bad.append(f"ranks' rows and model ranks {[(x['rows'], x['model_rank']) for x in ranks]}")
+    for x in ranks:
+        ref = lead[x["rows"][0]]
+        if x["routes"] != ref["routes"]:
+            bad.append(f"rank {x['rank']}: its dispatches differ from its row block's model "
+                       "rank 0's")
+        if x["logits"] != ref["logits"]:
+            bad.append(f"rank {x['rank']}: logits differ from model rank 0's")
+    blocks = [lead[k] for k in sorted(lead)]
+    n_calls = len(blocks[0]["routes"])
+    forces = None
+    if cfg.family == "hybrid":
+        # the whole run dispatched to the split's experts (one block of rows)
+        forces = [[t.to("cuda") for t in blocks[0]["choices"][i]] for i in range(n_calls)]
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params = keyed_params(torch, cfg, SS_SEED + part, None, dtype)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t1
+    whole_bytes = sum(v.nbytes for v in flat_leaves(params).values())
+    L.set_attention_backend("cuda")
+    before = fops.launches, fops.launches_by_variant["wgmma"], sops.launches
+    try:
+        with SlotTap(moe_mod) as tap:
+            want = ss_serve(torch, model, params, ins, part, None, tap, slice(0, n),
+                            forces=forces)
+    finally:
+        L.set_attention_backend("torch")
+    # the comparison run's launches are not the path's
+    fops.launches, fops.launches_by_variant["wgmma"], sops.launches = before
+    torch.cuda.synchronize()
+    whole_peak = torch.cuda.max_memory_allocated()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    calls = want.pop("calls")
+    flips, gap = 0, 0.0
+    for i, x in enumerate(calls):
+        if forces is None:
+            continue
+        used = [(digest(torch, r.expert_idx), digest(torch, r.slot), digest(torch, r.ok))
+                for r in x["used"]]
+        if used != blocks[0]["routes"][i]:
+            bad.append(f"call {i}: the forced whole run's dispatch differs from the split's")
+        ref = Chosen(*(t.to("cuda") for t in blocks[0]["chosen"][i]))
+        try:
+            rc = route_check(torch, f"38.{part} call {i}", ref, x["chosen"])
+        except AssertionError as e:
+            bad.append(str(e))
+            continue
+        flips, gap = flips + rc["flips"], max(gap, rc["gap"])
+    got = {"forward": [b.to("cuda") for b in ins["bufs"]["forward"]],
+           "prefill": ins["bufs"]["prefill"].to("cuda"), "steps": ins["bufs"]["steps"].to("cuda")}
+    e = tp_check(torch, got, want)
+    bounds = tp_bounds(want)
+    scale = {k: v / TP_REL for k, v in bounds.items()}
+    over = [k for k in bounds if e[k] > bounds[k]]
+    if over or e["argmax_flips_beyond_bound"]:
+        bad.append(f"logits {e} vs the whole run (bounds {bounds})")
+    # each rank's state blocks against the whole run's same block
+    pol = make_policy(procmesh.ProcMesh(grid, 0, device="cpu"), cfg, SHAPES["decode_32k"])
+    state_err, state_max = {}, {}
+    for key, buf in ins["bufs"]["state"].items():
+        kind, k = key.split("/")
+        mine = want["cache"][kind][k].cpu()
+        for x in ranks:
+            idx = pol.state_sharding(kind, k, tuple(buf.shape)).index(x["coords"],
+                                                                     tuple(buf.shape))
+            blk_want, blk_got = mine[idx].float(), buf[idx].float()
+            err = float((blk_got - blk_want).abs().max())
+            top = float(blk_want.abs().max())
+            state_err[key] = max(state_err.get(key, 0.0), err)
+            state_max[key] = max(state_max.get(key, 0.0), top)
+            if not bool(torch.isfinite(blk_got).all()) or err > TP_REL * top:
+                bad.append(f"rank {x['rank']} {key}: its block {err:.3g} from the whole "
+                           f"run's (bound {TP_REL:g} x {top:.3g})")
+    whole_ms = {kind: [x["ms"] for x in calls if x["kind"] == kind]
+                for kind in ("forward", "prefill", "step")}
+    del got, want, calls, forces
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    puts, colls = ss_schedule(cfg, tp, dp, True)
+    n_calls_path = 1 + len(chunks) + SS_STEPS
+    want_puts, want_colls = n_calls_path * puts, n_calls_path * colls
+    want_row4 = want_puts + tp * want_colls
+    hybrid = cfg.family == "hybrid"
+    want_flash = 1 if hybrid else 0          # Jamba's one attention layer in the forward
+    n_mamba = cfg.n_layers // cfg.attn_period * (cfg.attn_period - 1) if hybrid else 0
+    want_scan = n_mamba * (1 + len(chunks))
+    for x in ranks:
+        r, lc, wb = x["rank"], x["launches"], x["want_bytes"]
+        if x["bytes"] != wb["rank"]:
+            bad.append(f"rank {r}: {x['bytes']} weight bytes, its blocks' {wb}")
+        if wb["whole"] != whole_bytes:
+            bad.append(f"the whole model is {whole_bytes} bytes, the specs say {wb['whole']}")
+        if (lc["flash"], lc["wgmma"], lc["scan"]) != (want_flash, want_flash, want_scan):
+            bad.append(f"rank {r}: flash launches {lc['flash']} (wgmma {lc['wgmma']}), scan "
+                       f"{lc['scan']}, want {want_flash} all wgmma and {want_scan}")
+        if (x["puts"], x["colls"]) != (want_puts, want_colls) or \
+                lc["put_shift"] != want_row4 or any(
+                    lc[k] for k in lc if k not in ("flash", "wgmma", "scan", "put_shift")):
+            bad.append(f"rank {r}: rma launches {lc}, puts {x['puts']}, all-to-alls "
+                       f"{x['colls']}, want {want_puts} ring puts and {want_colls} all-to-alls"
+                       f" ({want_row4} row 4 peer puts) and nothing else")
+    x0 = ranks[0]
+    wb = x0["want_bytes"]
+    steps = [t for x in ranks for t in x["step_ms"][1:]]
+    pre = [t for x in ranks for t in x["prefill_ms"]]
+    fwd = [t for x in ranks for t in x["forward_ms"]]
+    rounds = sorted({k for x in ranks for k in x["rounds"][1:]})
+    kind = "f32" if dtype is not None else "bf16"
+    name = f"{cfg.name} ({cfg.n_layers} of {get_config(cfg.name).n_layers} layers, {kind})"
+    log(f"38.{part} split over {SS_RANKS} processes as {grid} ({card}): {name}, each rank "
+        f"{wb['rank'] / 1e9:.3f} GB of weights = the split leaves' 1/"
+        f"{tp * (dp if x0['fsdp'] else 1)} ({wb['split_whole'] / 1e9:.3f} GB whole) + the "
+        f"whole ones ({(wb['whole'] - wb['split_whole']) / 1e9:.6f} GB); a rank's state "
+        f"{x0['state_bytes'] / 1e6:.3f} MB; init {max(x['init_s'] for x in ranks):.1f} s, "
+        f"torch peak a rank {[round(x['peak_allocated'] / 2**30, 2) for x in ranks]} GiB")
+    log(f"38.{part} whole run in this process ({card}): {whole_bytes / 1e9:.3f} GB of "
+        f"weights (keyed init {init_s:.1f} s), peak {whole_peak / 2**30:.2f} GiB"
+        + (f"; dispatched to the split's experts: its own routers would pick otherwise in "
+           f"{flips} choices, each a near-tie (largest probability gap {gap:.3g})"
+           if hybrid else ""))
+    log(f"38.{part} logits vs the whole run, max abs over the split {e}, bounds (TP_REL = "
+        f"{TP_REL:g} of the whole run's max |logit| {scale}) {bounds}; state blocks, max abs "
+        f"err {state_err} (max |value| {state_max})")
+    log(f"38.{part} launches a rank: row 11 {want_flash}, row 12 {want_scan} (= {n_mamba} "
+        f"Mamba layers x {1 + len(chunks)} calls), row 4 peer {want_row4} (= {n_calls_path} "
+        f"calls x ({puts} ring puts + {tp} x {colls} all-to-alls)); fenced rounds (host "
+        f"barriers) a decode step {rounds}, a rank in all {x0['barriers']}")
+    log(f"38.{part} host ms ({card}), all ranks' samples: forward {spread(fwd)}, prefill "
+        f"chunk {spread(pre)}, decode step after each one's first {spread(steps)}; whole: "
+        f"forward {[round(t, 1) for t in whole_ms['forward']]}, prefill "
+        f"{[round(t, 1) for t in whole_ms['prefill']]}, decode step "
+        f"{spread(whole_ms['step'][1:])}")
+    if part == 1:
+        log(f"38.1 row 12 at a rank's scan shape {x0['scan_shape']} ({card}): vs plain "
+            f"{max(x['scan_rel'] for x in ranks):.3g} x max |y| (h_last "
+            f"{max(x['scan_h_rel'] for x in ranks):.3g}), tol {SSM_F32_REL}")
+        if max(max(x["scan_rel"], x["scan_h_rel"]) for x in ranks) > SSM_F32_REL:
+            bad.append("row 12 at a rank's shape: beyond SSM_F32_REL of plain")
+    wall = time.perf_counter() - t0
+    log(f"38.{part}: ranks' run {run_s:.1f} s, part {wall:.1f} s")
+    if bad:
+        raise AssertionError(f"38.{part}: " + "; ".join(bad))
+    return {"row4_launches": sum(x["launches"]["put_shift"] for x in ranks),
+            "row11_launches": sum(x["launches"]["flash"] for x in ranks),
+            "row12_launches": sum(x["launches"]["scan"] for x in ranks),
+            "put": x0.get("put"), "scan": x0.get("scan"),
+            "scan_err": max(x.get("scan_err", 0.0) for x in ranks),
+            "layers": cfg.n_layers, "grid": grid, "dtype": kind,
+            "err": {k: e[k] for k in bounds}, "bounds": bounds, "max_logit": scale,
+            "state_err": state_err, "state_max": state_max, "route_flips": flips,
+            "route_gap": gap, "weights_gb_rank": wb["rank"] / 1e9,
+            "weights_gb_whole": whole_bytes / 1e9,
+            "peak_gib": [x["peak_allocated"] / 2**30 for x in ranks],
+            "whole_peak_gib": whole_peak / 2**30, "forward_ms": fwd, "prefill_ms": pre,
+            "step_ms": steps, "whole_ms": whole_ms, "rounds_per_step": rounds,
+            "puts_per_rank": want_puts, "all_to_alls_per_rank": want_colls,
+            "run_s": run_s, "wall_s": wall}
+
+
+def ssm_split_phases(torch, hbm: float) -> dict:
+    """Phase 38: jamba-v0.1-52b at full width, one period of 8 of 32 layers,
+    over ProcMesh({"model": 4}) (part 1); xlstm-1.3b at full width and
+    depth in f32 over {"model": 4} (part 2) and {"data": 2, "model": 2}
+    (part 3); each against one process running the same keyed weights
+    whole.  Returns the parts' numbers and the kernel rows' launches."""
+    t0 = time.perf_counter()
+    card = card_line()
+    log(f"phase 38: the Mamba and xLSTM channel splits over model; part 1 {SS_ARCHS[0]} at "
+        f"full width, {SS_LAYERS[0]} of 32 layers (reduced: depth only) over "
+        f"{SS_GRIDS[0]}; parts 2-3 {SS_ARCHS[1]} at full width and depth, f32, over "
+        f"{SS_GRIDS[1]} and {SS_GRIDS[2]}; all under make_policy (decode_32k); {SS_RANKS} "
+        f"processes sharing one card ({card})")
+    parts = [ss_part(torch, part, hbm, card) for part in (1, 2, 3)]
+    wall = time.perf_counter() - t0
+    log(f"38: phase {wall:.1f} s")
+    out = {"card": card, "put": parts[0].pop("put"), "scan": parts[0].pop("scan"),
+           "wall_s": wall}
+    for k in ("row4_launches", "row11_launches", "row12_launches"):
+        out[k] = sum(p.pop(k) for p in parts)
+    for i, p in enumerate(parts, 1):
+        p.pop("put", None), p.pop("scan", None)
+        out[f"part{i}"] = p
+    return out
+
+
+def ssm_split_only() -> int:
+    """``python3 chip_smoke.py --ssm-procs``: phase 38 alone, on the package
+    beside this file (the kernels build first).  Prints the kernels line of
+    rows 4 (peer, at the Mamba all-to-all's block), 11 (at a part 1 rank's
+    attention shape [4, 8, 512, 128], 2 KV heads) and 12 (at a part 1
+    rank's scan shape) with this phase's launches and times, then the
+    result line."""
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.configs import get_config
+    from repro_torch.core.perfmodel import H100
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products, as in main()
+    log(card_line())
+    build_all(common)
+    ss = ssm_split_phases(torch, H100.hbm_bandwidth)
+    cfg, _ = ss_config(get_config, 1)
+    g = torch.Generator(device="cuda").manual_seed(SS_SEED)
+    S = sum(SS_CHUNKS[0])
+    q, k, v = (torch.randn(SS_ROWS, h // SS_RANKS, S, cfg.hd, generator=g, device="cuda")
+               .to(torch.bfloat16) for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    err = float((fops.flash_attention(q, k, v).float() - fref.attention_ref(q, k, v).float())
+                .abs().max())
+    if err > BF16_TOL:
+        raise AssertionError(f"flash_attention at a rank's shape: {err:.3g} from plain")
+    flash = time_flash(torch, F, fops, fref, q, k, v, H100.hbm_bandwidth)
+    put, scan = ss.pop("put"), ss.pop("scan")
+    rows = [{"name": "put_shift_peer", "route": KERNELS["put_shift_peer"][0],
+             "source": KERNELS["put_shift_peer"][1], "replaces": KERNELS["put_shift_peer"][2],
+             "launches": ss.pop("row4_launches"), "max_abs_err": 0.0, "ms": put["ms"],
+             "plain_ms": put["plain_ms"], "bound_ms": put["bound_ms"], "bound_by": "bytes",
+             "library_ms": put["plain_ms"]},
+            {"name": "flash_attention", "route": KERNELS["flash_attention"][0],
+             "source": KERNELS["flash_attention"][1], "replaces": KERNELS["flash_attention"][2],
+             "launches": ss.pop("row11_launches"), "max_abs_err": err,
+             **{key: flash[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms")}},
+            {"name": "ssm_scan", "route": KERNELS["ssm_scan"][0],
+             "source": KERNELS["ssm_scan"][1], "replaces": KERNELS["ssm_scan"][2],
+             "launches": ss.pop("row12_launches"),
+             "max_abs_err": max(p["scan_err"] for k_, p in ss.items() if k_.startswith("part")),
+             **scan}]
+    log(f"ssm procs phase numbers: {json.dumps(ss)}")
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
 
 MODES = {"--gather-shift": gather_shift_only, "--queue-push": queue_push_only,
          "--pool": pool_only, "--apps": apps_only, "--zoo": zoo_only,
@@ -10472,7 +11100,7 @@ MODES = {"--gather-shift": gather_shift_only, "--queue-push": queue_push_only,
          "--parallel-procs": parallel_procs_only, "--drift": drift_only,
          "--tp-procs": tp_procs_only, "--tp-train-procs": tt_procs_only,
          "--kv-seq-procs": kv_seq_only, "--moe-procs": moe_split_only,
-         "--moe-train-procs": moe_train_only}
+         "--moe-train-procs": moe_train_only, "--ssm-procs": ssm_split_only}
 
 if __name__ == "__main__":
     sys.exit(MODES[sys.argv[1]]() if sys.argv[1:] else main())

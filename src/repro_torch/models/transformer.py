@@ -50,16 +50,20 @@ sLSTM stabiliser ``m`` (`xlstm.SLSTM_INIT`); the serving engine's lane
 reset copies a batch-1 `init_cache` into the lane.
 
 Under a policy that splits the model over processes
-(`parallel.sharding.tensor_parallel`; the dense and moe families, the rest
-refused by `ShardingPolicy.check_model_split`) `forward` takes this rank's
-blocks of the params and hands the layers the config's whole sizes (an
-MoE layer also the global batch's row count, ``rows``, for its dispatch
-groups: `models.moe.dispatch_groups`; an moe cache keeps it), and
+(`parallel.sharding.tensor_parallel`; the dense, moe, hybrid and ssm
+families when serving, the rest refused by `ShardingPolicy.
+check_model_split`) `forward` takes this rank's blocks of the params and
+hands the layers the config's whole sizes (the Mamba layers d_inner and
+the state size, the xLSTM blocks the head count; an MoE layer also the
+global batch's row count, ``rows``, for its dispatch groups:
+`models.moe.dispatch_groups`; an moe or hybrid cache keeps it), and
 `init_cache` gives the K/V cache this rank's block by the reference's
 cache spec (`ShardingPolicy.kv_cache_sharding`): its rows over the data
 axes, and over ``model`` its KV heads (``n_kv_heads / tp`` where ``wk`` is
 split, all of them where it is whole) or, where the spec splits the
-sequence, every KV head over its block of the positions.  Under a policy
+sequence, every KV head over its block of the positions; the recurrent
+states are this rank's block too (`ShardingPolicy.state_sharding`).
+Under a policy
 whose spec puts the sequence on ``model`` the cache carries
 ``kv_seq_blocks`` (tp, or 1 where ``model`` does not divide max_seq and
 the cache stays whole), which `forward` hands each layer's attention with
@@ -67,8 +71,9 @@ the layer's K/V views, and with them whether every row is empty (decided
 once a call).  Where the
 policy also splits leaves over ``data`` (FSDP, `ShardingPolicy.
 gathers_data`) each layer's blocks are gathered over ``data`` inside its
-remat body (`_block`), so the backward's recomputation gathers them again
-and no gathered layer is kept for it, and ``tok``'s leaves are gathered at
+remat body (`_block`; a hybrid or xLSTM period's in `_period` /
+`_xlstm_period`), so the backward's recomputation gathers them again and
+no gathered layer is kept for it, and ``tok``'s leaves are gathered at
 each use (the embedding, the LM head); the layers then see the blocks of a
 split over ``model`` alone.
 """
@@ -226,10 +231,14 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None) -> dict:
     f32 and the sLSTM state ``c, n, h, m`` [n_p, B, D] (h bf16, m -1e30);
     for audio ``enc_out`` [B, encoder_seq, D] bf16 (a prefill replaces
     it).  Under a policy that splits the model over processes `batch` and
-    `max_seq` are the whole cache's and the K/V leaves this rank's block;
-    where the policy's spec puts the sequence on ``model`` the cache says
-    in how many blocks (``kv_seq_blocks``: tp, or 1 for a whole one), and
-    an moe cache keeps `batch` (``rows``) for the dispatch groups."""
+    `max_seq` are the whole cache's and every leaf this rank's block (the
+    reference's `_cache_specs`): the K/V leaves' by
+    `ShardingPolicy.kv_cache_sharding`, the recurrent states' by
+    `ShardingPolicy.state_sharding` (the Mamba channels, the mLSTM heads,
+    the sLSTM heads' channels; the rows over the data axes); where the
+    policy's spec puts the sequence on ``model`` the cache says in how many
+    blocks (``kv_seq_blocks``: tp, or 1 for a whole one), and an moe or
+    hybrid cache keeps `batch` (``rows``) for the dispatch groups."""
     check_family(cfg)
     tp = tensor_parallel()
     if tp is not None:
@@ -237,9 +246,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None) -> dict:
     cache: dict = {}
     if cfg.family == "ssm":
         n_p = cfg.n_layers // cfg.slstm_period
-        cache["mlstm"] = XL.init_mlstm_state(batch, cfg.d_model, cfg.n_heads, device,
-                                             (n_p, cfg.slstm_period - 1))
-        cache["slstm"] = XL.init_slstm_state(batch, cfg.d_model, device=device, lead=(n_p,))
+        cache["mlstm"] = _state_blocks(tp, "mlstm", XL.init_mlstm_state(
+            batch, cfg.d_model, cfg.n_heads, "meta", (n_p, cfg.slstm_period - 1)), device)
+        cache["slstm"] = _state_blocks(tp, "slstm", XL.init_slstm_state(
+            batch, cfg.d_model, device="meta", lead=(n_p,)), device)
     else:
         n_kv = cfg.n_layers
         if cfg.family == "hybrid":
@@ -251,21 +261,42 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None) -> dict:
             ns = tp.kv_cache_sharding(cfg.n_kv_heads, shape)
             if tp.kv_seq_split(cfg.n_kv_heads):
                 cache["kv_seq_blocks"] = tp.kv_seq_blocks(cfg.n_kv_heads, shape)
-            shape = tuple(len(range(*s.indices(n))) for s, n in
-                          zip(ns.index(tp.mesh.coords, shape), shape))
+            shape = _block_shape(tp, ns, shape)
         cache["kv"] = {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
                        "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
-        if tp is not None and cfg.family == "moe":
+        if tp is not None and cfg.family in ("moe", "hybrid"):
             cache["rows"] = batch           # the MoE dispatch groups' global batch
     if cfg.family == "hybrid":
-        cache["mamba"] = M.init_mamba_state(batch, cfg.d_model, cfg.ssm_expand,
-                                            cfg.ssm_state_dim, cfg.ssm_conv_width,
-                                            device=device, lead=(n_kv, n_m))
+        cache["mamba"] = _state_blocks(tp, "mamba", M.init_mamba_state(
+            batch, cfg.d_model, cfg.ssm_expand, cfg.ssm_state_dim, cfg.ssm_conv_width,
+            device="meta", lead=(n_kv, n_m)), device)
     if cfg.family == "audio":
         cache["enc_out"] = torch.zeros(batch, cfg.encoder_seq, cfg.d_model,
                                        dtype=torch.bfloat16, device=device)
     cache["len"] = torch.zeros((), dtype=torch.int32, device=device)
     return cache
+
+
+def _block_shape(tp, ns, shape: tuple) -> tuple:
+    """The shape of this rank's block of a leaf of whole `shape` placed by
+    the `NamedSharding` `ns`."""
+    return tuple(len(range(*s.indices(n))) for s, n in zip(ns.index(tp.mesh.coords, shape),
+                                                             shape))
+
+
+def _state_blocks(tp, kind: str, whole: dict, device) -> dict:
+    """A recurrent state from its whole leaves' shapes and dtypes (meta
+    tensors): each leaf at its initial value (0; the sLSTM's by
+    `xlstm.SLSTM_INIT`), whole, or this rank's block under a split
+    (`ShardingPolicy.state_sharding`)."""
+    out = {}
+    for k, v in whole.items():
+        shape = tuple(v.shape)
+        if tp is not None:
+            shape = _block_shape(tp, tp.state_sharding(kind, k, shape), shape)
+        fill = XL.SLSTM_INIT[k] if kind == "slstm" else 0.0
+        out[k] = torch.full(shape, fill, dtype=v.dtype, device=device)
+    return out
 
 
 # ============================================================ forward
@@ -338,49 +369,66 @@ def _write(state: dict, new: dict) -> None:
         v.copy_(new[k])
 
 
-def _xlstm_period(cfg, per, h, cache, pi, decode):
+def _xlstm_period(cfg, per, h, cache, pi, decode, gather=None):
     """One xLSTM period: period - 1 mLSTM blocks, then one sLSTM block.  With
-    a cache, each block's state (views of its leaves) is written in place."""
+    a cache, each block's state (views of its leaves) is written in place.
+    `gather` (FSDP) joins the period's blocks over ``data`` first; the
+    blocks take the model's head count (their leaves may hold a share)."""
+    if gather is not None:
+        per = gather(per)
+    nh = cfg.n_heads
     for j, mp in enumerate(_unstack(per["mlstm"], cfg.slstm_period - 1)):
         xn = L.rmsnorm(h, mp["ln1"]["scale"], cfg.norm_eps)
         if cache is None:
-            y = XL.mlstm_forward(mp["mix"], xn)
+            y = XL.mlstm_forward(mp["mix"], xn, n_heads=nh)
         else:
             st = {k: v[pi, j] for k, v in cache["mlstm"].items()}
-            y, new = (XL.mlstm_decode if decode else XL.mlstm_prefill)(mp["mix"], xn, st)
+            y, new = (XL.mlstm_decode if decode else XL.mlstm_prefill)(mp["mix"], xn, st,
+                                                                      n_heads=nh)
             _write(st, new)
         h = h + y
     sp = per["slstm"]
     xn = L.rmsnorm(h, sp["ln1"]["scale"], cfg.norm_eps)
     if cache is None:
-        y = XL.slstm_forward(sp["mix"], xn, cfg.n_heads)
+        y = XL.slstm_forward(sp["mix"], xn, nh)
     else:
         st = {k: v[pi] for k, v in cache["slstm"].items()}
-        y, new = (XL.slstm_decode if decode else XL.slstm_prefill)(sp["mix"], xn, st,
-                                                                  cfg.n_heads)
+        y, new = (XL.slstm_decode if decode else XL.slstm_prefill)(sp["mix"], xn, st, nh)
         _write(st, new)
     return h + y
 
 
 def _mamba_block(cfg, mp, h, state: Optional[dict], decode: bool):
     """One Mamba residual branch.  With a cache state (views of its leaves)
-    the new state is written into them in place."""
+    the new state is written into them in place.  The layer takes the
+    model's d_inner and state size (its leaves may hold a share)."""
     xn = L.rmsnorm(h, mp["ln1"]["scale"], cfg.norm_eps)
+    dims = (cfg.ssm_expand * cfg.d_model, cfg.ssm_state_dim)
     if state is None:
-        return h + M.mamba_forward(mp["mix"], xn)
+        return h + M.mamba_forward(mp["mix"], xn, *dims)
     step = M.mamba_decode if decode else M.mamba_prefill
-    y, new = step(mp["mix"], xn, state)
+    y, new = step(mp["mix"], xn, state, *dims)
     _write(state, new)
     return h + y
 
 
-def _period(cfg, per, h, aux, zl, positions, cache, pi, start, decode):
-    """One hybrid period -> (h, aux, z): attention at ``period // 2``, Mamba
-    elsewhere, each followed by its channel mixer; the losses are carried
-    through it, in the reference's order of sums."""
+def _period(cfg, per, h, aux, zl, positions, cache, pi, start, decode, gather=None,
+            rows=None, seq=None):
+    """One hybrid period -> (h, aux, z, loads): attention at ``period // 2``,
+    Mamba elsewhere, each followed by its channel mixer; the losses are
+    carried through it, in the reference's order of sums, and the MoE
+    layers that route a data share give their `MoEMetrics.load` (as
+    `_ffn_block`).  `gather` (FSDP) joins the period's blocks over
+    ``data`` first; `rows` is the global batch for the dispatch groups
+    and `seq` the K/V views' sequence split (``seq_blocks``,
+    ``rows_empty``), as `forward` hands a dense layer."""
+    if gather is not None:
+        per = gather(per)
     period, attn_pos = cfg.attn_period, cfg.attn_period // 2
-    kv = None if cache is None else {"k": cache["kv"]["k"][pi], "v": cache["kv"]["v"][pi]}
+    kv = None if cache is None else {"k": cache["kv"]["k"][pi], "v": cache["kv"]["v"][pi],
+                                     **(seq or {})}
     m_i, ffn_i = 0, {"moe": 0, "mlp": 0}
+    loads = []
     for j in range(period):
         if j == attn_pos:
             h = _attn_block(cfg, per["attn"], h, positions, kv, start)
@@ -389,11 +437,14 @@ def _period(cfg, per, h, aux, zl, positions, cache, pi, start, decode):
             h = _mamba_block(cfg, _layer(per["mamba"], m_i), h, st, decode)
             m_i += 1
         key = "moe" if j % cfg.moe_every == cfg.moe_every - 1 else "mlp"
-        h, a, z = _ffn_block(cfg, _layer(per[key], ffn_i[key]), h)
-        if a is not None:
+        h, a, z = _ffn_block(cfg, _layer(per[key], ffn_i[key]), h, rows)
+        if isinstance(a, tuple):
+            loads.append(a)
+            zl = zl + z
+        elif a is not None:
             aux, zl = aux + a, zl + z
         ffn_i[key] += 1
-    return h, aux, zl
+    return h, aux, zl, loads
 
 
 def forward(
@@ -433,14 +484,26 @@ def forward(
 
     aux = zl = torch.zeros((), device=dev)      # summed over the MoE layers
     decode = cache is not None and S == 1
+    seq_blocks = None if cache is None else cache.get("kv_seq_blocks")
+    # a chunk into empty rows of a sequence-split cache attends locally
+    # (a decode step never looks: the merged path is right for any rows)
+    rows_empty = bool((seq_blocks or 1) > 1 and S > 1 and not torch.as_tensor(start).any())
+    seq = {"seq_blocks": seq_blocks, "rows_empty": rows_empty}
+    if rows is None and cache is not None:
+        rows = cache.get("rows")
+    loads = []                          # MoE layers routing a data share
+    # a period's blocks joined over ``data`` (FSDP), its stacked dim cut away
+    per_gather = None if gather is None else functools.partial(gather, prefix="periods", lead=1)
     if cfg.family == "hybrid":
         body = _maybe_remat(_period, cache)
         for pi, per in enumerate(_unstack(params["periods"], cfg.n_layers // cfg.attn_period)):
-            h, aux, zl = body(cfg, per, h, aux, zl, positions, cache, pi, start, decode)
+            h, aux, zl, got = body(cfg, per, h, aux, zl, positions, cache, pi, start, decode,
+                                   per_gather, rows, seq)
+            loads += got
     elif cfg.family == "ssm":
         for pi, per in enumerate(_unstack(params["periods"],
                                           cfg.n_layers // cfg.slstm_period)):
-            h = _xlstm_period(cfg, per, h, cache, pi, decode)
+            h = _xlstm_period(cfg, per, h, cache, pi, decode, per_gather)
     elif cfg.family == "audio":
         if cache is None:
             raise ValueError("whisper forward requires a cache carrying enc_out; use "
@@ -453,26 +516,17 @@ def forward(
     else:
         body = _maybe_remat(_block, cache)
         layer = None if gather is None else functools.partial(gather, prefix="blocks", lead=1)
-        seq_blocks = None if cache is None else cache.get("kv_seq_blocks")
-        # a chunk into empty rows of a sequence-split cache attends locally
-        # (a decode step never looks: the merged path is right for any rows)
-        rows_empty = bool((seq_blocks or 1) > 1 and S > 1
-                          and not torch.as_tensor(start).any())
-        if rows is None and cache is not None:
-            rows = cache.get("rows")
-        loads = []                      # MoE layers routing a data share
         for i, blk in enumerate(_unstack(params["blocks"], cfg.n_layers)):
             kv = None if cache is None else {"k": cache["kv"]["k"][i],
-                                             "v": cache["kv"]["v"][i],
-                                             "seq_blocks": seq_blocks, "rows_empty": rows_empty}
+                                             "v": cache["kv"]["v"][i], **seq}
             h, a, z = body(cfg, blk, h, positions, kv, start, layer, rows)
             if isinstance(a, tuple):
                 loads.append(a)
                 zl = zl + z
             elif a is not None:
                 aux, zl = aux + a, zl + z
-        if loads:
-            aux, zl = (X.global_aux(tp, loads), zl) if losses else (None, None)
+    if loads:
+        aux, zl = (X.global_aux(tp, loads), zl) if losses else (None, None)
     new_cache = None if cache is None else {**cache, "len": start + S}
 
     h = L.rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps)

@@ -27,20 +27,39 @@ The recurrent product takes the promoted dtype of h and the weights (an
 f32 model with a bf16 cache promotes, as JAX does), and h is cast back to
 its own dtype.  The sLSTM state starts with the stabiliser ``m`` at -1e30
 (`SLSTM_INIT`), not 0.
+
+**Split over a `ProcMesh`'s ``model`` axis** (serving; `parallel.sharding.
+tensor_parallel`; ``model`` must divide the heads).  An mLSTM rank runs
+its block of the heads (``wq_blk`` / ``wk_blk`` / ``wv_blk`` and ``C`` /
+``n`` / ``m``); ``up_proj`` [D, 2di] is split on its columns, which hold
+x ‖ z, and the gates ``w_i`` / ``w_f`` [di, nh] give the rank its heads'
+columns but contract over every channel of x: the up-projection's
+product is all-gathered over ``model`` (every rank then holds x whole and
+its heads' z), ``ln`` (whole) is sliced to the rank's channels, and
+``down_proj``'s rows are its heads' channels: one all-reduce.  An sLSTM
+rank runs the recurrence of its heads (``w_i..w_z``' columns and
+``r_i..r_z``' heads; ``c`` / ``n`` / ``h`` / ``m`` its channels): a head
+needs only its own h, so no collective runs in the time loop.  Its gated
+FFN contracts over every head: h is all-gathered once after the loop;
+``w_in`` [D, 2 dff] is split on its columns across gate ‖ up, so its
+product is all-gathered too; ``w_out`` [dff, D] takes its rows' part and
+one all-reduce (where ``model`` divides dff; xlstm-1.3b's dff = 2730 at
+tp = 2), or stays whole and every rank computes it all (at tp = 4).
+Training the split is ROADMAP item 12c.5b.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ..obs import cost
-from ..parallel.sharding import shard
+from ..parallel.sharding import ShardingPolicy, shard, tensor_parallel
 from . import layers as L
 
 CHUNK = 64
@@ -72,22 +91,82 @@ def init_mlstm(gen, d_model: int, n_heads: int, dtype=torch.bfloat16, device=Non
     }
 
 
-def _mlstm_qkvif(params: dict, xin: torch.Tensor):
+class _Block(NamedTuple):
+    """A rank's heads under a model split over processes: the policy, its
+    first head and count, the model's heads and their width, and its
+    channels [lo, hi) of the heads' concatenation."""
+    tp: ShardingPolicy
+    h0: int
+    hn: int
+    nh: int
+    dh: int
+
+    @property
+    def lo(self) -> int:
+        return self.h0 * self.dh
+
+    @property
+    def hi(self) -> int:
+        return (self.h0 + self.hn) * self.dh
+
+
+def _split_heads(path: str, leaf: torch.Tensor, n_heads: Optional[int]) -> Optional[_Block]:
+    """This rank's heads under a model split (None without one), from the
+    leaf at `path` [nh, dh, dh] split on its heads."""
+    tp = tensor_parallel()
+    if tp is None:
+        return None
+    if n_heads is None:
+        raise ValueError("an xLSTM block under a model split over processes needs n_heads=")
+    hn, dh, _ = leaf.shape
+    if not L._is_split(tp, path, leaf, (n_heads, dh, dh), 0):
+        raise NotImplementedError(f"{n_heads} xLSTM heads over {tp.tp} model ranks do not "
+                                  "split evenly")
+    return _Block(tp, tp.model_rank * hn, hn, n_heads, dh)
+
+
+def _mlstm_qkvif(params: dict, xin: torch.Tensor, blk: Optional[_Block] = None):
     """q, k / sqrt(dh), v in the input's dtype; the gate logits in f32 (f64
-    in an f64 run)."""
-    B, S, _ = xin.shape
+    in an f64 run); z.  Under a split (`blk`) all of this rank's heads'.
+    ``up_proj``'s block is a block of the concatenated x ‖ z columns, and
+    the gates ``w_i`` / ``w_f`` [di, nh] give the rank its heads' columns
+    but contract over every channel of x: the product is all-gathered
+    over ``model``, so that every rank holds x whole and its heads' z."""
+    B, S, D = xin.shape
     nh, dh, _ = params["wq_blk"].shape
     up = shard(torch.einsum("bsd,de->bse", xin, params["up_proj"]), "act_btf")
-    di = up.shape[-1] // 2
-    x, z = up[..., :di], up[..., di:]
-    xh = x.reshape(B, S, nh, dh)
+    b_i, b_f, w_i, w_f = params["b_i"], params["b_f"], params["w_i"], params["w_f"]
+    if blk is None:
+        di = up.shape[-1] // 2
+        x, z = up[..., :di], up[..., di:]
+        xh = x
+    else:
+        tp, di = blk.tp, blk.nh * dh
+        if L._is_split(tp, "up_proj", params["up_proj"], (D, 2 * di), 1):
+            up = tp.all_gather(up, dim=-1)
+        x, z, xh = up[..., :di], up[..., di + blk.lo:di + blk.hi], up[..., blk.lo:blk.hi]
+        heads = slice(blk.h0, blk.h0 + blk.hn)
+        b_i, b_f = b_i[heads], b_f[heads]
+        if not L._is_split(tp, "w_i", w_i, (di, blk.nh), 1):
+            w_i, w_f = w_i[:, heads], w_f[:, heads]
+    xh = xh.reshape(B, S, nh, dh)
     q = torch.einsum("bshd,hde->bshe", xh, params["wq_blk"])
     k = torch.einsum("bshd,hde->bshe", xh, params["wk_blk"]) / math.sqrt(dh)
     v = torch.einsum("bshd,hde->bshe", xh, params["wv_blk"])
-    logi = L.at_least_f32(torch.einsum("bse,eh->bsh", x, params["w_i"]) + params["b_i"])
-    logf = F.logsigmoid(
-        L.at_least_f32(torch.einsum("bse,eh->bsh", x, params["w_f"]) + params["b_f"]))
-    return q, k, v, logi, logf, x, z
+    logi = L.at_least_f32(torch.einsum("bse,eh->bsh", x, w_i) + b_i)
+    logf = F.logsigmoid(L.at_least_f32(torch.einsum("bse,eh->bsh", x, w_f) + b_f))
+    return q, k, v, logi, logf, z
+
+
+def _mlstm_out(params: dict, h: torch.Tensor, z: torch.Tensor,
+               blk: Optional[_Block]) -> torch.Tensor:
+    """The gated output of the heads h [B, S, heads' channels] through
+    ``down_proj``, whose rows are this rank's heads' channels under a
+    split: a partial sum that one all-reduce over ``model`` completes."""
+    ln = params["ln"] if blk is None else params["ln"][blk.lo:blk.hi]
+    h = h * ln * F.silu(z)
+    out = torch.einsum("bse,ed->bsd", h, params["down_proj"])
+    return out if blk is None else blk.tp.all_reduce(out)
 
 
 def _mlstm_chunk(C, n, m, qb, kb, vb, ib, a, fs):
@@ -124,13 +203,15 @@ def _mlstm_chunk(C, n, m, qb, kb, vb, ib, a, fs):
 
 
 def mlstm_prefill(params: dict, xin: torch.Tensor, state: Optional[dict],
-                  chunk: int = CHUNK):
+                  chunk: int = CHUNK, n_heads: Optional[int] = None):
     """Chunkwise-parallel mLSTM: [B,S,D] -> ([B,S,D], final state or None).
     Padding past S has log input gate -1e30 and log forget gate 0, so it
-    neither writes the state nor decays it."""
+    neither writes the state nor decays it.  Under a model split over
+    processes `n_heads` is the model's and the state this rank's heads'."""
     B, S, D = xin.shape
     nh, dh, _ = params["wq_blk"].shape
-    q, k, v, logi, logf, x, z = _mlstm_qkvif(params, xin)
+    blk = _split_heads("wq_blk", params["wq_blk"], n_heads)
+    q, k, v, logi, logf, z = _mlstm_qkvif(params, xin, blk)
 
     c = min(chunk, S)
     pad = (-S) % c
@@ -175,14 +256,14 @@ def mlstm_prefill(params: dict, xin: torch.Tensor, state: Optional[dict],
     # [nc, B, nh, c, dh] -> [B, nh, nc*c, dh], chunks in order
     h = torch.stack(hs).permute(1, 2, 0, 3, 4).reshape(B, nh, nc * c, dh)[:, :, :S]
     h = h.transpose(1, 2).reshape(B, S, nh * dh).to(xin.dtype)
-    h = h * params["ln"] * F.silu(z)
-    out = shard(torch.einsum("bse,ed->bsd", h, params["down_proj"]), "act_btd")
+    out = shard(_mlstm_out(params, h, z, blk), "act_btd")
     return out, ({"C": C, "n": n, "m": m} if state is not None else None)
 
 
-def mlstm_forward(params: dict, xin: torch.Tensor, chunk: int = CHUNK) -> torch.Tensor:
+def mlstm_forward(params: dict, xin: torch.Tensor, chunk: int = CHUNK,
+                  n_heads: Optional[int] = None) -> torch.Tensor:
     """Training: stateless chunkwise mLSTM."""
-    return mlstm_prefill(params, xin, None, chunk)[0]
+    return mlstm_prefill(params, xin, None, chunk, n_heads)[0]
 
 
 def init_mlstm_state(batch: int, d_model: int, n_heads: int, device=None,
@@ -197,11 +278,14 @@ def init_mlstm_state(batch: int, d_model: int, n_heads: int, device=None,
     }
 
 
-def mlstm_decode(params: dict, xin: torch.Tensor, state: dict) -> tuple[torch.Tensor, dict]:
-    """One-token recurrent step: xin [B,1,D]."""
+def mlstm_decode(params: dict, xin: torch.Tensor, state: dict,
+                 n_heads: Optional[int] = None) -> tuple[torch.Tensor, dict]:
+    """One-token recurrent step: xin [B,1,D]; under a split as
+    `mlstm_prefill`."""
     B = xin.shape[0]
     nh, dh, _ = params["wq_blk"].shape
-    q, k, v, logi, logf, x, z = _mlstm_qkvif(params, xin)
+    blk = _split_heads("wq_blk", params["wq_blk"], n_heads)
+    q, k, v, logi, logf, z = _mlstm_qkvif(params, xin, blk)
     q, k, v = (L.at_least_f32(t[:, 0]) for t in (q, k, v))   # [B,nh,dh]
     logi, logf = logi[:, 0], logf[:, 0]                       # [B,nh]
 
@@ -214,9 +298,7 @@ def mlstm_decode(params: dict, xin: torch.Tensor, state: dict) -> tuple[torch.Te
     nq = torch.einsum("bhd,bhd->bh", n, q)
     denom = torch.maximum(nq.abs(), torch.exp(-m2))
     h = (hq / denom[..., None]).reshape(B, 1, nh * dh).to(xin.dtype)
-    h = h * params["ln"] * F.silu(z)
-    out = torch.einsum("bse,ed->bsd", h, params["down_proj"])
-    return out, {"C": C, "n": n, "m": m2}
+    return _mlstm_out(params, h, z, blk), {"C": C, "n": n, "m": m2}
 
 
 # ---------------------------------------------------------------- sLSTM
@@ -233,17 +315,26 @@ def init_slstm(gen, d_model: int, n_heads: int, dtype=torch.bfloat16, device=Non
         p[f"r_{g}"] = n(gen, lead + (n_heads, dh, dh), s, dtype, device)
         p[f"b_{g}"] = torch.full((*lead, d), 3.0 if g == "f" else 0.0, dtype=dtype,
                                  device=device)
-    dff = int(d * 4.0 / 3.0)
+    dff = slstm_ff(d)
     p["w_in"] = n(gen, lead + (d, 2 * dff), s, dtype, device)
     p["w_out"] = n(gen, lead + (dff, d), 1.0 / math.sqrt(dff), dtype, device)
     return p
 
 
-def _gate_inputs(params: dict, x: torch.Tensor, eq: str) -> torch.Tensor:
+def slstm_ff(d_model: int) -> int:
+    """The sLSTM's gated FFN width (pf = 4/3)."""
+    return int(d_model * 4.0 / 3.0)
+
+
+def _gate_inputs(params: dict, x: torch.Tensor, eq: str,
+                 blk: Optional[_Block] = None) -> torch.Tensor:
     """The four gates' input projections plus biases, stacked on a leading
-    axis of 4 (i, f, o, z)."""
+    axis of 4 (i, f, o, z); under a split this rank's heads' channels
+    (``w_i..w_z``' column blocks, the biases' slice of them)."""
     w = torch.stack([params[f"w_{g}"] for g in GATES])
     b = torch.stack([params[f"b_{g}"] for g in GATES])
+    if blk is not None:
+        b = b[:, blk.lo:blk.hi]
     out = torch.einsum(eq, x, w)
     return out + b.reshape((4,) + (1,) * (out.ndim - 2) + (b.shape[-1],))
 
@@ -268,23 +359,55 @@ def _slstm_step(r: torch.Tensor, nh: int, carry: tuple, xt: torch.Tensor):
     return c2, n2, h2, m2
 
 
-def _slstm_ffn(params: dict, h: torch.Tensor) -> torch.Tensor:
-    """The post-projection gated FFN (pf = 4/3) over [..., D]."""
+def _slstm_split(params: dict, n_heads: int, D: int) -> Optional[_Block]:
+    """This rank's heads of an sLSTM under a model split (None without
+    one): ``r_i..r_z`` split on their heads, ``w_i..w_z`` on their
+    columns, the same channels."""
+    blk = _split_heads("r_i", params["r_i"], n_heads)
+    if blk is not None and not L._is_split(blk.tp, "w_i", params["w_i"], (D, D), 1):
+        raise NotImplementedError(f"an sLSTM of {D} channels over {blk.tp.tp} model ranks")
+    return blk
+
+
+def _slstm_ffn(params: dict, h: torch.Tensor, blk: Optional[_Block] = None) -> torch.Tensor:
+    """The post-projection gated FFN (pf = 4/3) over [..., D].  Under a
+    split h is this rank's heads' channels; ``w_in`` [D, 2 dff] contracts
+    over every head, so h is all-gathered over ``model`` first; its column
+    block is a block of the concatenated gate ‖ up, not this rank's part
+    of each, so its product is all-gathered too; ``w_out`` [dff, D] then
+    takes its rows' part (one all-reduce completes the sum), or, whole
+    where ``model`` does not divide dff, every rank computes it all."""
+    tp = None if blk is None else blk.tp
+    if tp is not None:
+        h = tp.all_gather(h, dim=-1)
+    D = h.shape[-1]
+    dff = slstm_ff(D)
     u = L.einsum_promoted("...d,de->...e", h, params["w_in"])
-    dff = u.shape[-1] // 2
-    u = F.silu(u[..., :dff]) * u[..., dff:]
-    return shard(torch.einsum("...e,ed->...d", u, params["w_out"]), "act_btd")
+    if tp is not None and L._is_split(tp, "w_in", params["w_in"], (D, 2 * dff), 1):
+        u = tp.all_gather(u, dim=-1)
+    gate, up = u[..., :dff], u[..., dff:]
+    split = tp is not None and L._is_split(tp, "w_out", params["w_out"], (dff, D), 0)
+    if split:
+        n = dff // tp.tp
+        gate, up = (t[..., tp.model_rank * n:(tp.model_rank + 1) * n] for t in (gate, up))
+    y = torch.einsum("...e,ed->...d", F.silu(gate) * up, params["w_out"])
+    return shard(tp.all_reduce(y) if split else y, "act_btd")
 
 
 def slstm_prefill(params: dict, xin: torch.Tensor, state: Optional[dict], n_heads: int):
-    """Sequential sLSTM over [B,S,D] + gated FFN; threads the state if given."""
+    """Sequential sLSTM over [B,S,D] + gated FFN; threads the state if
+    given.  Under a model split over processes the recurrence runs over
+    this rank's heads (the state its channels): a head's recurrence needs
+    only its own h, so no collective runs inside the time loop."""
     B, S, D = xin.shape
-    zs = _gate_inputs(params, xin, "bsd,gde->gbse")            # [4,B,S,D]
+    blk = _slstm_split(params, n_heads, D)
+    nh = n_heads if blk is None else blk.hn
+    zs = _gate_inputs(params, xin, "bsd,gde->gbse", blk)       # [4,B,S,D]
     r = torch.stack([params[f"r_{g}"] for g in GATES])
     if state is not None:
         carry = (state["c"], state["n"], state["h"], state["m"])
     else:
-        init = init_slstm_state(B, D, xin.dtype, xin.device)
+        init = init_slstm_state(B, zs.shape[-1], xin.dtype, xin.device)
         carry = (init["c"], init["n"], init["h"], init["m"])
     # on meta tensors (the dry-run) every step has the same shapes: one runs
     # and is counted S times; each step's h stays in `hs`, and without
@@ -293,13 +416,13 @@ def slstm_prefill(params: dict, xin: torch.Tensor, state: Optional[dict], n_head
     hs = []
     with cost.repeat(S if fold else 1) as rep:
         for t in range(1 if fold else S):
-            carry = _slstm_step(r, n_heads, carry, zs[:, :, t])
+            carry = _slstm_step(r, nh, carry, zs[:, :, t])
             hs.append(carry[2])
         if fold and not torch.is_grad_enabled():
             rep.carried(carry[0], carry[1], carry[3])
     if fold:
         hs *= S
-    out = _slstm_ffn(params, torch.stack(hs, dim=1))
+    out = _slstm_ffn(params, torch.stack(hs, dim=1), blk)
     new_state = dict(zip(("c", "n", "h", "m"), carry)) if state is not None else None
     return out, new_state
 
@@ -318,8 +441,10 @@ def init_slstm_state(batch: int, d_model: int, dtype=torch.bfloat16, device=None
 
 def slstm_decode(params: dict, xin: torch.Tensor, state: dict,
                  n_heads: int) -> tuple[torch.Tensor, dict]:
-    zs = _gate_inputs(params, xin[:, 0], "bd,gde->gbe")        # [4,B,D]
+    blk = _slstm_split(params, n_heads, xin.shape[-1])
+    zs = _gate_inputs(params, xin[:, 0], "bd,gde->gbe", blk)   # [4,B,D]
     r = torch.stack([params[f"r_{g}"] for g in GATES])
-    carry = _slstm_step(r, n_heads, (state["c"], state["n"], state["h"], state["m"]), zs)
-    out = _slstm_ffn(params, carry[2])[:, None]
+    carry = _slstm_step(r, n_heads if blk is None else blk.hn,
+                        (state["c"], state["n"], state["h"], state["m"]), zs)
+    out = _slstm_ffn(params, carry[2], blk)[:, None]
     return out, dict(zip(("c", "n", "h", "m"), carry))

@@ -56,8 +56,19 @@ over ``data``, so a rank's gradient block is already summed over the
 ``data`` ranks; `sum_over` sums the rest (`train.train_step`), and
 `norm_sq` counts every block once in the clip's global norm.  What such a
 split does not carry yet is refused by `check_model_split` (ROADMAP items
-12c.3b, 12c.5, 12c.6).  A policy on a stacked `Mesh`, or over processes
+12c.3b, 12c.5b, 12c.6).  A policy on a stacked `Mesh`, or over processes
 without a ``model`` axis of more than one, changes no value.
+
+**The recurrent families.**  The hybrid (Jamba) and ssm (xLSTM) families
+serve split (not train: item 12c.5b).  A Mamba layer computes its block of
+the channels, an mLSTM its block of the heads and an sLSTM its block of
+the heads' channels, and the recurrent state is that block
+(`state_sharding`, the reference's `_cache_specs`).  Where a fitted block
+does not line up with them (``in_proj`` / ``up_proj`` split across the
+concatenated ``x ‖ z``, ``dt_proj`` on its rank R, ``A_log`` on N, the
+sLSTM FFN's ``w_in`` across gate ‖ up) the rank moves activations by
+`all_gather` and `all_to_all`, never a whole weight (`models.mamba`,
+`models.xlstm` say which).
 
 **A KV cache split on its sequence.**  Where `kv_cache_spec` puts the
 cache's sequence on ``model`` (``kv_seq_shard``, or fewer KV heads than
@@ -249,8 +260,11 @@ class ShardingPolicy:
         """Raise for what a model step split over processes does not carry
         yet, naming its ROADMAP item; a no-op unless `splits_model`.
         Without `cfg` only the policy's own options are checked; `train`
-        asks for a train step, which refuses what a serving step refuses
-        (the dense and moe families serve and train split alike)."""
+        asks for a train step: the dense and moe families serve and train
+        split, the hybrid and ssm families only serve (12c.5b).  A hybrid
+        whose Mamba channels, or an ssm model whose heads, ``model`` does
+        not divide is refused: its fitted leaves and state would not split
+        by whole channels or heads."""
         if not self.splits_model:
             return
         if self.seq_parallel:
@@ -258,12 +272,40 @@ class ShardingPolicy:
                 "sequence-parallel activations over processes are ROADMAP item 12c.3b")
         if cfg is None:
             return
-        if cfg.family not in ("dense", "moe"):
-            item = {"hybrid": "12c.5 (Mamba channels over `model`)",
-                    "ssm": "12c.5 (xLSTM channels over `model`)"}.get(cfg.family, "12c")
+        if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
             raise NotImplementedError(
-                f"{cfg.name}: only the dense and moe families split over processes; the "
-                f"{cfg.family} family's split is ROADMAP item {item}")
+                f"{cfg.name}: only the dense, moe, hybrid and ssm families split over "
+                f"processes; the {cfg.family} family's split is ROADMAP item 12c")
+        if train and cfg.family in ("hybrid", "ssm"):
+            raise NotImplementedError(
+                f"{cfg.name}: the {cfg.family} family serves split over processes; its "
+                "train step's split is ROADMAP item 12c.5b")
+        what = {"hybrid": ("Mamba channels", cfg.ssm_expand * cfg.d_model),
+                "ssm": ("xLSTM heads", cfg.n_heads)}.get(cfg.family)
+        if what is not None and what[1] % self.tp:
+            raise NotImplementedError(
+                f"{cfg.name}: {what[1]} {what[0]} over {self.tp} model ranks do not split "
+                "evenly (ROADMAP item 12c.5 splits whole blocks)")
+
+    def state_sharding(self, kind: str, leaf: str, shape) -> "NamedSharding":
+        """The placement of a recurrent state leaf of whole `shape` (the
+        reference's `_cache_specs`, fitted): ``kind`` "mamba" (``h`` [n_p,
+        n_m, B, di, N], ``conv`` [n_p, n_m, B, W-1, di]: the channels over
+        ``model``), "mlstm" (``C`` / ``n`` / ``m`` [n_p, P-1, B, nh, ...]:
+        the heads) or "slstm" (``c`` / ``n`` / ``h`` / ``m`` [n_p, B, D]:
+        D, whole heads' channels); the rows over the data axes."""
+        dp = _dp(self.mesh)
+        nd = len(shape)
+        if kind == "mamba":
+            spec = (P(None, None, dp, "model", None) if leaf == "h"
+                    else P(None, None, dp, None, "model"))
+        elif kind == "mlstm":
+            spec = P(None, None, dp, "model", *((None,) * (nd - 4)))
+        elif kind == "slstm":
+            spec = P(*((None,) * (nd - 2)), dp, "model")
+        else:
+            raise KeyError(f"unknown recurrent state {kind!r}")
+        return NamedSharding(self.mesh, fit_spec(spec, tuple(shape), self.mesh))
 
     def row_blocks(self, rows: int) -> int:
         """Into how many blocks the reference's batch spec (``P(("pod",

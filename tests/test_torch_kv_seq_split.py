@@ -374,15 +374,23 @@ def runs(tmp_path_factory):
 @pytest.fixture(scope="module")
 def whole(runs):
     """The port's whole run of the glm cases' inputs and params (no
-    policy): the reference serve and the port-only scenarios."""
+    policy): the reference serve and the port-only scenarios.  It runs on
+    one thread, as the ranks do (`_rank_main`): at another thread count
+    the CPU's matmuls sum in another order, and layer 0's block would not
+    be bit-equal."""
     _, _, _, by_arch = runs
     params_np, ins = by_arch[GLM]
     model = build_model(_cfg(GLM))
     params = params_from_jax(_tree(params_np), "cpu", torch.float32)
     toks = torch.from_numpy(ins["tokens"])
     steps = torch.from_numpy(ins["steps"])
-    out = _port_only(model, params, toks, steps, None)
-    out["serve"] = _serve(model, params, toks[:, :PROMPT], steps, 16, None)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = _port_only(model, params, toks, steps, None)
+        out["serve"] = _serve(model, params, toks[:, :PROMPT], steps, 16, None)
+    finally:
+        torch.set_num_threads(threads)
     return out
 
 

@@ -575,7 +575,7 @@ def test_an_moe_layer_refuses_what_it_cannot_tell():
     """Under a split with data axes an MoE layer given no global row count
     raises rather than guess its groups; whole experts where blocks are
     due raise; a train step of an MoE model over a split is built (12c.4b),
-    of a hybrid one refused (12c.5)."""
+    of a hybrid one refused (12c.5b)."""
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_step import make_train_step
 

@@ -385,23 +385,27 @@ REFUSALS = {
     "fsdp": (ARCH, 4, {"fsdp": True}, None),
     # the moe family's experts over `model` (12c.4) are carried when serving
     "moe": ("qwen3-moe-30b-a3b", 2, {}, None),
-    "hybrid": ("jamba-v0.1-52b", 2, {}, "12c.5"),
-    "ssm": ("xlstm-1.3b", 2, {}, "12c.5"),
+    # the Mamba and xLSTM channel splits (12c.5) are carried when serving
+    "hybrid": ("jamba-v0.1-52b", 2, {}, None),
+    "ssm": ("xlstm-1.3b", 2, {}, None),
 }
 
 
 # what a train step over a split refuses beyond REFUSALS (the moe family
-# trains split since 12c.4b)
-TRAIN_REFUSALS: dict = {}
+# trains split since 12c.4b; the hybrid and ssm families' train step is
+# 12c.5b)
+TRAIN_REFUSALS: dict = {"hybrid": "12c.5b", "ssm": "12c.5b"}
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_what_the_split_does_not_carry_is_refused(case):
     """What the split does not carry raises, naming its ROADMAP item; what
     it carries now is accepted: a KV cache split on its sequence, with or
-    without FSDP (its cache is this rank's block of the sequence), and the
+    without FSDP (its cache is this rank's block of the sequence), the
     moe family (each expert's F is this rank's block, the router whole,
-    and its cache keeps the global batch for the dispatch groups)."""
+    and its cache keeps the global batch for the dispatch groups), and the
+    hybrid and ssm families (their recurrent state is this rank's block
+    of the channels or heads)."""
     arch, tp, kw, item = REFUSALS[case]
     cfg = get_config(arch, smoke=True)
     model = build_model(cfg)
@@ -423,6 +427,23 @@ def test_what_the_split_does_not_carry_is_refused(case):
             cache = model.init_cache(2, 8, device="cpu")
         assert cache["rows"] == 2 and "kv_seq_blocks" not in cache
         return
+    if item is None and cfg.family in ("hybrid", "ssm"):
+        # the recurrent state is this rank's block: the Mamba channels, the
+        # mLSTM heads, the sLSTM heads' channels
+        pol.check_model_split(cfg)
+        with use_policy(pol):
+            cache = model.init_cache(2, 8, device="cpu")
+        whole = model.init_cache(2, 8, device="cpu")
+        for kind, dim in (("mamba", {"h": 3, "conv": 4}), ("mlstm", {"C": 3, "n": 3, "m": 3}),
+                          ("slstm", {"c": 2, "n": 2, "h": 2, "m": 2})):
+            for k, d in dim.items() if kind in whole else ():
+                want = list(whole[kind][k].shape)
+                want[d] //= tp
+                assert list(cache[kind][k].shape) == want, (kind, k)
+                assert torch.equal(cache[kind][k], whole[kind][k][(slice(None),) * d
+                                                                  + (slice(0, want[d]),)])
+        assert cache.get("rows") == (2 if cfg.family == "hybrid" else None)
+        return
     if item is None:
         pol.check_model_split(cfg)
         with use_policy(pol):
@@ -441,7 +462,7 @@ def test_what_the_split_does_not_carry_is_refused(case):
 
 def test_train_step_under_a_model_split_raises():
     """The train step under a model split raises for what items 12c.3b and
-    12c.5 name, at construction; the moe family's split (12c.4b) builds a
+    12c.5b name, at construction; the moe family's split (12c.4b) builds a
     step; the dense split, with or without FSDP over ``data`` (the
     reference's `make_policy`), with fewer KV heads than ranks or
     ``kv_seq_shard`` (a train step has no cache), and a policy that splits
